@@ -3,26 +3,48 @@
 
   python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``src/repro_torch`` and drives its
-main path: packed-CIM lock-step serving of full-width minicpm-2b.  Each
-phase prints one JSON line; the script exits non-zero at the first
-failure.  Phases:
+Builds the port's CUDA kernels from ``src/repro_torch`` (all three
+sources compiled together) and drives its main paths at minicpm-2b's
+full width and depth (40 layers, packed and fused, prototype macro):
+lock-step serving, and continuous batching with a contiguous and a paged
+KV cache.  Each phase prints one JSON line; the script exits non-zero at
+the first failure.  Phases:
 
   1. device: the card's name and power limit, and the kernel build time;
-  2. kernels vs their plain PyTorch version at minicpm-2b's full-width
-     (K, N) shapes, int32 outputs compared with torch.equal;
+  2. macro-GEMM kernels vs their plain PyTorch version at minicpm-2b's
+     full-width (K, N) shapes, int32 outputs compared with torch.equal;
   3. the same over every design point (n_dcim 0-6 x ADC 7/8/9 b x
      acc_len 8/16/32/64) on a ragged shape, plus analog-subset serving of
      a hybrid pack;
-  4. full-width serve (40 layers) through the kernels, with the launch
-     counts that show every macro GEMM went through them;
+  4. lock-step serve (batch 4, prompt 32, 16 tokens) through the kernels,
+     with the launch counts that show every macro GEMM went through them;
   5. the same serve through the plain version on the same weights:
      tokens and last logits must be identical;
-  6. a torch.profiler trace of three full-width decode steps: step wall
+  6. a torch.profiler trace of three lock-step decode steps: step wall
      time, device busy time and the kernels that take it;
-  7. per-kernel CUDA-event times at the full-width shapes beside the
-     plain version, torch._int_mm (a labelled yardstick that computes a
-     different function) and the bound from bytes and operations.
+  7. per-kernel CUDA-event times of the macro GEMMs at the full-width
+     shapes beside the plain version, torch._int_mm (a labelled yardstick
+     that computes a different function) and the bound from bytes and
+     operations;
+  8. the paged-attention kernel vs its plain version at the minicpm-2b
+     decode shape and over a sweep of group size, head dim, block size,
+     softcap and sliding window;
+  9. continuous batching, contiguous KV: 16 mixed-length requests over 8
+     slots; pool tokens must equal the lock-step wave baseline's, and no
+     paged-attention kernel may launch;
+ 10. the same requests with a paged KV cache (block 16, prefill chunks of
+     32): 40 paged-attention launches per decode step; the share of
+     tokens equal to phase 9 is reported, not gated (the kernel's float32
+     P.V can move a bf16 activation by one ulp, and in CIM mode an ADC
+     code with it);
+ 11. paged serving of 16 requests, half behind one shared 32-token
+     prefix: refcounts must drain, the prefix plan must share blocks, and
+     pool tokens must equal solo runs of 3 of the requests;
+ 12. phase 11 with the plain version of the paged read on the card: token
+     agreement with phase 11 and the first decode step's logits;
+ 13. CUDA-event times of the paged-attention kernel at the minicpm-2b
+     decode shape for several lengths, beside the plain version, a
+     gather + scaled_dot_product_attention yardstick and the byte bound.
 
 The line before the last is the kernels table; the last line is the
 device record.  Needs a CUDA device: without one it exits non-zero.
@@ -43,6 +65,7 @@ SRC = os.path.join(HERE, "src")
 # H100 SXM data-sheet peaks (dense): HBM bytes/s and int8 operations/s
 HBM_BYTES_S = 3.35e12
 INT8_OPS_S = 1979e12
+BF16_OPS_S = 989e12
 
 # minicpm-2b full-width macro GEMMs of one layer, (K, N), heads padded to 48
 FULL_SHAPES = {"qkv": (2304, 9216), "wo": (3072, 2304),
@@ -81,6 +104,301 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+# minicpm-2b's decode shape of the paged read: 48 padded heads, G 1, Dh 64
+PA_BATCH, PA_HEADS, PA_DH, PA_BS = 8, 48, 64, 16
+PA_LENGTHS = (32, 64, 96, 160)          # phase 13; 96 fills phases 10-11
+PA_REPORT_L = 96
+
+
+def paged_attn_shapes(torch, dev) -> float:
+    """Phase 8: the paged-attention kernel against its plain version.
+    Returns the largest |kernel - plain| seen."""
+    import itertools
+    from repro_torch.kernels.paged_attn import kernel as PK
+    from repro_torch.kernels.paged_attn import ref as PR
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    worst = {"max_abs_err": 0.0, "max_err_over_tol": 0.0}
+
+    def case(B, Hkv, G, Dh, bs, n_tbl, nb, max_len, softcap, window,
+             is_local, trash_rows):
+        bf = lambda *sh: torch.randn(sh, generator=gen, device=dev).to(
+            torch.bfloat16)
+        q, kp, vp = (bf(B, Hkv * G, Dh) * 2, bf(nb, bs, Hkv, Dh),
+                     bf(nb, bs, Hkv, Dh))
+        table = torch.randint(1, nb, (B, n_tbl), generator=gen, device=dev,
+                              dtype=torch.int32)
+        table[B - trash_rows:] = 0                  # harvested slots
+        lengths = torch.randint(1, max_len + 1, (B,), generator=gen,
+                                device=dev, dtype=torch.int32)
+        y = PK.paged_attention_cuda(q, kp, vp, table, lengths, is_local,
+                                    softcap=softcap, window=window)
+        r = PR.paged_attention_ref(q, kp, vp, table, lengths,
+                                   softcap=softcap, window=window,
+                                   is_local=is_local)
+        torch.cuda.synchronize()
+        # the plain version rounds the normalized p to bf16 before P.V:
+        # up to 2^-9 of sum(p |v|) <= 2^-9 max|v| per output, and both
+        # outputs are rounded to bf16 once: rtol 2^-7, atol 2^-7 max|v|
+        tol = 2 ** -7 * r.float().abs() + 2 ** -7 * vp.float().abs().max()
+        d = (y.float() - r.float()).abs()
+        worst["max_abs_err"] = max(worst["max_abs_err"], float(d.max()))
+        worst["max_err_over_tol"] = max(worst["max_err_over_tol"],
+                                        float((d / tol).max()))
+        check(bool(torch.isfinite(y.float()).all()) and bool((d <= tol).all()),
+              f"paged attention kernel != plain at B={B} Hkv={Hkv} G={G} "
+              f"Dh={Dh} bs={bs} softcap={softcap} window={window} "
+              f"is_local={is_local}: max |diff| {float(d.max())}")
+
+    case(PA_BATCH, PA_HEADS, 1, PA_DH, PA_BS, 10, 81, 160, None, None,
+         False, trash_rows=2)
+    n = 1
+    for G, Dh, bs, softcap, window, is_local in itertools.product(
+            (1, 4, 8), (64, 128), (8, 16, 32), (None, 50.0), (None, 7),
+            (False, True)):
+        case(5, 3, G, Dh, bs, 7, 40, 7 * bs, softcap, window, is_local,
+             trash_rows=1)
+        n += 1
+    emit({"phase": "paged_attn_shapes", "ok": True, "cases": n,
+          "minicpm_shape": {"B": PA_BATCH, "Hq": PA_HEADS, "Hkv": PA_HEADS,
+                            "Dh": PA_DH, "bs": PA_BS, "lengths": "1-160",
+                            "trash_rows": 2},
+          "tolerance": "rtol 2^-7, atol 2^-7 max|v|", **worst})
+    return worst["max_abs_err"]
+
+
+def _serve_record(stats) -> dict:
+    keep = ("continuous", "n_iter", "iter_ms", "host_syncs",
+            "host_syncs_per_iter", "branch_counts", "branch_ms_per_iter",
+            "pack_s", "paged", "lockstep", "speedup_vs_lockstep")
+    return {k: stats[k] for k in keep if k in stats}
+
+
+def continuous_phases(torch, dev, params, cfg_full) -> dict:
+    """Phases 9-12: continuous batching at full width, contiguous and
+    paged, through ``serve_continuous`` and the scheduler.  Returns the
+    paged-attention launch counts of each path."""
+    from repro_torch.kernels.ccim_matmul import kernel as K
+    from repro_torch.kernels.paged_attn import kernel as PK
+    from repro_torch.launch.paging import PagedLayout, cdiv
+    from repro_torch.launch.scheduler import (ContinuousBatchingScheduler,
+                                              shared_prefix_requests)
+    from repro_torch.launch.serve import serve_continuous
+    from repro_torch.models import lm
+
+    slots, plen, stops, n_req = 8, 64, (8, 24, 16, 32), 16
+    layout = PagedLayout(block_size=PA_BS,
+                         n_tbl=cdiv(plen + max(stops) - 1, PA_BS),
+                         n_blocks=64)
+    chunk = 32
+    counts = {}
+
+    def reset():
+        K.reset_launch_counts()
+        PK.reset_launch_counts()
+
+    def launches():
+        return {"skinny": K.ccim_matmul_prepacked_skinny_cuda.launches,
+                "general": K.ccim_matmul_prepacked_general_cuda.launches,
+                "paged_attn": PK.paged_attention_cuda.launches}
+
+    common = dict(smoke=False, slots=slots, prompt_len=plen,
+                  n_requests=n_req, stop_lengths=stops, cim=True,
+                  params=params, device=dev)
+    # -- 9. contiguous: pool tokens == lock-step wave baseline ------------
+    reset()
+    toks_c, st_c = serve_continuous("minicpm-2b", compare_lockstep=True,
+                                    **common)
+    n_c = launches()
+    check(st_c.get("tokens_match_lockstep") is True,
+          "contiguous pool tokens != lock-step tokens")
+    check(n_c["paged_attn"] == 0, "the contiguous serve launched the "
+          f"paged-attention kernel {n_c['paged_attn']} times")
+    counts["serve_contiguous"] = n_c["paged_attn"]
+    emit({"phase": "serve_contiguous", "ok": True, "requests": n_req,
+          "prompt_len": plen, "stop_lengths": list(stops),
+          "tokens_equal_lockstep": True, "launches": n_c,
+          **_serve_record(st_c)})
+
+    # -- 10. paged: 40 paged-attention launches per decode step ------------
+    reset()
+    toks_p, st_p = serve_continuous("minicpm-2b", compare_lockstep=False,
+                                    paged=layout, prefill_chunk=chunk,
+                                    **common)
+    n_p = launches()
+    n_steps = st_p["continuous"]["n_steps"]
+    check(n_p["paged_attn"] == cfg_full.n_layers * n_steps,
+          f"paged serve launched the paged-attention kernel "
+          f"{n_p['paged_attn']} times, expected {cfg_full.n_layers} x "
+          f"{n_steps} decode steps")
+    check(st_p["paged"]["refcounts_drained"], "phase 10 refcounts leaked")
+    same = [bool((toks_p[r] == toks_c[r]).all()) if len(toks_p[r]) ==
+            len(toks_c[r]) else False for r in toks_c]
+    counts["serve_paged"] = n_p["paged_attn"]
+    emit({"phase": "serve_paged", "ok": True, "launches": n_p,
+          "decode_steps": n_steps,
+          "requests_equal_contiguous_share": sum(same) / len(same),
+          "not_gated_because": "the kernel's float32 P.V can move a bf16 "
+                               "activation by one ulp, and in CIM mode an "
+                               "ADC code with it",
+          **_serve_record(st_p)})
+
+    # -- 11. shared prefix: drain, sharing, pool == solo -------------------
+    cfg = dataclasses.replace(cfg_full, cim_mode=True)
+    reqs = shared_prefix_requests(n_req, 2 * PA_BS, 24, plen, cfg.vocab_size,
+                                  stop_lengths=stops, seed=11)
+    with torch.inference_mode():
+        packed = lm.pack_cim_params(params, cfg, dev)
+    kw = dict(slots=slots, prompt_len=plen, max_new_cap=max(stops),
+              paged=layout, prefill_chunk=chunk)
+    sched = ContinuousBatchingScheduler(packed, cfg, **kw)
+    reset()
+    rep = sched.run(reqs)
+    n_s = launches()
+    drained = [1] + [0] * (layout.n_blocks - 1)
+    plan = sched.last_prefix_plan.stats()
+    check(rep.ref_final.tolist() == drained,
+          f"phase 11 refcounts did not drain: {rep.ref_final.tolist()}")
+    check(plan["shared_blocks"] > 0, f"no shared blocks: {plan}")
+    check(n_s["paged_attn"] == cfg.n_layers * rep.n_steps,
+          "phase 11 paged-attention launches != 40 per decode step")
+    counts["serve_paged_shared"] = n_s["paged_attn"]
+    pool = rep.tokens_by_rid()
+    solo_rids = (0, 1, 2)
+    for rid in solo_rids:
+        solo = sched.run([reqs[rid]])
+        check(solo.ref_final.tolist() == drained, "solo run leaked blocks")
+        check(bool((solo.tokens_by_rid()[rid] == pool[rid]).all())
+              and len(solo.tokens_by_rid()[rid]) == len(pool[rid]),
+              f"request {rid}: pool tokens != solo tokens")
+    emit({"phase": "serve_paged_shared", "ok": True, "launches": n_s,
+          "prompt_lengths": [len(r.prompt) for r in reqs],
+          "prefix_plan": plan, "refcounts_drained": True,
+          "pool_equals_solo": list(solo_rids),
+          "peak_blocks": rep.peak_blocks,
+          "kv_bytes_peak": sched.kv_bytes_paged(rep.peak_blocks),
+          "kv_bytes_contiguous": sched.kv_bytes_contiguous(),
+          "summary": rep.summary(), "n_iter": rep.n_iter,
+          "iter_ms": 1e3 * rep.wall_s / rep.n_iter,
+          "host_syncs_per_iter": rep.host_syncs / rep.n_iter,
+          "branch_counts": rep.branch_counts})
+
+    # -- 12. the plain paged read on the card ------------------------------
+    cfg_plain = dataclasses.replace(cfg, paged_attn_use_kernel=False)
+    reset()
+    rep_p = ContinuousBatchingScheduler(packed, cfg_plain, **kw).run(reqs)
+    n_pl = launches()
+    check(n_pl["paged_attn"] == 0, "the plain run launched the kernel")
+    check(rep_p.ref_final.tolist() == drained,
+          "phase 12 refcounts did not drain")
+    plain = rep_p.tokens_by_rid()
+    agree = [len(plain[r]) == len(pool[r]) and bool((plain[r] == pool[r]).all())
+             for r in pool]
+    lg_diff, arg_equal = first_step_logits(torch, dev, packed, cfg, cfg_plain,
+                                           reqs[:slots], layout, chunk)
+    # the same step with float weights: how far the read itself moves the
+    # logits before the macro's quantization and ADC codes amplify it
+    cfg_fp = dataclasses.replace(cfg_full, cim_mode=False)
+    fp_diff, fp_equal = first_step_logits(
+        torch, dev, params, cfg_fp,
+        dataclasses.replace(cfg_fp, paged_attn_use_kernel=False),
+        reqs[:slots], layout, chunk)
+    emit({"phase": "serve_paged_plain", "ok": True, "launches": n_pl,
+          "requests_equal_kernel_share": sum(agree) / len(agree),
+          "first_decode_logits_max_abs_diff": lg_diff,
+          "first_decode_argmax_equal_share": arg_equal,
+          "first_decode_fp_logits_max_abs_diff": fp_diff,
+          "first_decode_fp_argmax_equal_share": fp_equal,
+          "summary": rep_p.summary(),
+          "iter_ms": 1e3 * rep_p.wall_s / rep_p.n_iter})
+    del packed, sched
+    return {"paged_launches": counts["serve_paged"],
+            "paged_launches_by_path": counts}
+
+
+def first_step_logits(torch, dev, packed, cfg, cfg_plain, reqs, layout,
+                      chunk):
+    """Prefill ``reqs`` into a paged pool (one per slot), then one pooled
+    decode step with the kernel and one with the plain version from the
+    same cache: max |logit difference| and the share of equal argmaxes."""
+    from repro_torch.models import lm
+    B, nt = len(reqs), layout.n_tbl
+    with torch.inference_mode():
+        cache = lm.init_paged_cache(cfg, B, layout.n_blocks,
+                                    layout.block_size, nt, device=dev)
+        cache["table"].copy_(1 + torch.arange(B * nt, device=dev,
+                                              dtype=torch.int32).view(B, nt))
+        last = []
+        for slot, r in enumerate(reqs):
+            plen = len(r.prompt)
+            toks = torch.zeros((1, -(-plen // chunk) * chunk),
+                               dtype=torch.int64)
+            toks[0, :plen] = torch.from_numpy(r.prompt.astype("int64"))
+            toks = toks.to(dev)
+            for s0 in range(0, toks.shape[1], chunk):
+                lg, cache = lm.prefill_chunk_into_slot(
+                    packed, cfg, toks[:, s0:s0 + chunk], cache, slot)
+            cache["pos"][slot] = plen
+            last.append(torch.argmax(lg[0, (plen - 1) % chunk]))
+        tok = torch.stack(last)[:, None]
+        live = torch.ones((B,), dtype=torch.bool, device=dev)
+        lk, _ = lm.decode_step(packed, cfg, tok, cache, live=live)
+        lp, _ = lm.decode_step(packed, cfg_plain, tok, cache, live=live)
+    diff = float((lk - lp).abs().max())
+    eq = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
+    return diff, eq
+
+
+def times_paged_attn(torch, dev) -> dict:
+    """Phase 13: CUDA-event medians of the paged-attention kernel at the
+    minicpm-2b decode shape for several lengths; returns the row of the
+    kernels table at PA_REPORT_L."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attn import kernel as PK
+    from repro_torch.kernels.paged_attn import ref as PR
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    B, H, Dh, bs = PA_BATCH, PA_HEADS, PA_DH, PA_BS
+    rows = {}
+    for L in PA_LENGTHS:
+        nt = -(-L // bs)
+        nb = B * nt + 1
+        bf = lambda *sh: torch.randn(sh, generator=gen, device=dev).to(
+            torch.bfloat16)
+        q, kp, vp = bf(B, H, Dh), bf(nb, bs, H, Dh), bf(nb, bs, H, Dh)
+        table = (1 + torch.randperm(nb - 1, generator=gen, device=dev)[
+            :B * nt]).to(torch.int32).view(B, nt)
+        lengths = torch.full((B,), L, dtype=torch.int32, device=dev)
+        ms = cuda_ms(lambda: PK.paged_attention_cuda(q, kp, vp, table,
+                                                     lengths), reps=50)
+        plain = cuda_ms(lambda: PR.paged_attention_ref(q, kp, vp, table,
+                                                       lengths), reps=20)
+
+        def sdpa():
+            k = PR.paged_gather_kv(kp, table).transpose(1, 2)
+            v = PR.paged_gather_kv(vp, table).transpose(1, 2)
+            return F.scaled_dot_product_attention(q[:, :, None], k, v)
+        lib = cuda_ms(sdpa, reps=50)
+        # K and V rows read up to lengths, q read and out written once
+        nbytes = 2 * B * L * H * Dh * 2 + 2 * B * H * Dh * 2
+        nops = 4 * B * H * L * Dh
+        bound = 1e3 * max(nbytes / HBM_BYTES_S, nops / BF16_OPS_S)
+        rows[L] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                       bound_ms=bound, bytes=nbytes,
+                       bound_by=("bytes" if nbytes / HBM_BYTES_S
+                                 >= nops / BF16_OPS_S else "operations"))
+    emit({"phase": "times_paged_attn", "B": B, "Hq": H, "Hkv": H, "Dh": Dh,
+          "bs": bs, "library": "paged_gather_kv + "
+          "torch.nn.functional.scaled_dot_product_attention (yardstick, "
+          "never called by the port)", "by_length": rows})
+    r = rows[PA_REPORT_L]
+    return {"ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "at_length": PA_REPORT_L}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -95,6 +413,7 @@ def main() -> int:
     from repro_torch.core import engine
     from repro_torch.core.ccim import CCIMConfig, DEFAULT_CONFIG, quantize_smf
     from repro_torch.core.ccim import smf_scale
+    from repro_torch.kernels import build
     from repro_torch.kernels.ccim_matmul import kernel as K
     from repro_torch.launch.serve import serve
     from repro_torch.configs import get_config
@@ -110,13 +429,13 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     t0 = time.time()
-    K.load_kernels()
+    build.load_all()
     build_s = time.time() - t0
     ptxas = {n: [ln.strip() for ln in log.splitlines()
                  if "registers" in ln or "spill" in ln][:8]
-             for n, log in K.build_info.get("ptxas", {}).items()}
+             for n, log in build.build_info.get("ptxas", {}).items()}
     emit({"phase": "build", "seconds": build_s,
-          "built": K.build_info.get("built"), "ptxas": ptxas,
+          "built": build.build_info.get("built"), "ptxas": ptxas,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0)})
 
@@ -235,7 +554,6 @@ def main() -> int:
     cfg_cim = dataclasses.replace(cfg_full, cim_mode=True)
     with torch.inference_mode():
         packed = lm.pack_cim_params(params, cfg_cim, dev)
-        del params
         cache = lm.init_cache(cfg_cim, batch, prompt_len + gen_len,
                               device=dev)
         tok = torch.zeros((batch, prompt_len), dtype=torch.int64, device=dev)
@@ -309,6 +627,11 @@ def main() -> int:
         emit({"phase": f"times_{name}", "m": m, "shapes": per_shape,
               "layer_total": tot})
         rows[name] = tot
+    # -- 8.-13. paged attention and continuous batching ----------------------
+    pa_err = paged_attn_shapes(torch, dev)
+    serve_phases = continuous_phases(torch, dev, params, cfg_full)
+    pa_time = times_paged_attn(torch, dev)
+
     src = "src/repro_torch/kernels/ccim_matmul/csrc/"
     table = []
     for name, entry, replaces in (
@@ -326,6 +649,14 @@ def main() -> int:
             "bound_by": ("bytes" if t["bytes"] / HBM_BYTES_S
                          >= t["ops"] / INT8_OPS_S else "operations"),
             "library_ms": t["library_ms"]})
+    table.append({
+        "name": "paged_attention_decode", "route": "cuda",
+        "source": "src/repro_torch/kernels/paged_attn/csrc/"
+                  "paged_attn_decode.cu",
+        "replaces": "src/repro/kernels/paged_attn/kernel.py:81",
+        "launches": serve_phases["paged_launches"],
+        "launches_by_path": serve_phases["paged_launches_by_path"],
+        "max_abs_err": pa_err, **pa_time})
     emit({"phase": "done", "seconds": time.time() - t_start})
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,102 +15,43 @@ and return (M, N) int32 at product scale.  ``ccim_matmul_prepacked_plain``
 computes the same function with float32 batched chunk dots (exact below
 2^24); the CPU path and the tests use it.
 
-The sources are compiled with nvcc for sm_90a at first use, one shared
-library per source, all started together, into ``build/repro_torch_kernels``
-at the repository root, and bound through ctypes (plain C entry points,
-no PyTorch headers).  Each wrapper counts its launches in ``.launches``.
+The sources are built and loaded by ``kernels/build.py`` (nvcc for
+sm_90a at first use, a plain C interface bound through ctypes).  Each
+wrapper counts its launches in ``.launches``.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 from typing import Dict, Optional, Sequence
 
 import torch
 
 from ...core import ccim
+from .. import build
 
 SKINNY_M = 32          # the skinny kernel's register tile holds <= 32 rows
 MAX_PLANES = 3         # distinct activation bits of the widest split (top-6)
 
-_CSRC = Path(__file__).resolve().parent / "csrc"
-_BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch_kernels"
-_SOURCES = {"skinny": "ccim_prepacked_skinny.cu",
-            "general": "ccim_prepacked_general.cu"}
 _ENTRY = {"skinny": "ccim_prepacked_skinny",
           "general": "ccim_prepacked_general"}
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-_libs: Dict[str, ctypes.CDLL] = {}
-build_info: Dict[str, object] = {}
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    return os.path.join(home, "bin", "nvcc")
+_fns: Dict[str, object] = {}
 
 
-def _lib_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in sorted(_CSRC.iterdir()):
-        h.update(f.name.encode())
-        h.update(f.read_bytes())
-    stem = Path(_SOURCES[name]).stem
-    return _BUILD_DIR / f"{stem}-{h.hexdigest()[:16]}.so"
-
-
-def load_kernels() -> Dict[str, ctypes.CDLL]:
-    """Build (if needed) and load every kernel library; returns them by
-    name.  Sources missing from the build directory are compiled in
-    parallel, one nvcc per source; a failed build raises with nvcc's
-    output.  ``build_info`` records the seconds spent and ptxas's
-    register/shared-memory report."""
-    if len(_libs) == len(_SOURCES):
-        return _libs
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    t0 = time.time()
-    procs = {}
-    for name, src in _SOURCES.items():
-        out = _lib_path(name)
-        if out.exists():
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / src)]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
-    logs = {}
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        logs[name] = log
-        if proc.returncode != 0:
-            for _, t, _ in procs.values():
-                t.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed on {_SOURCES[name]} "
-                               f"(exit {proc.returncode}):\n{log}")
-        os.replace(tmp, out)
-        out.with_suffix(".log").write_text(log)
-    build_info.update(seconds=time.time() - t0, built=sorted(procs),
-                      ptxas={n: _lib_path(n).with_suffix(".log").read_text()
-                             for n in _SOURCES
-                             if _lib_path(n).with_suffix(".log").exists()})
-    for name in _SOURCES:
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        fn = getattr(lib, _ENTRY[name])
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _libs[name] = lib
-    return _libs
+def load_kernels() -> Dict[str, object]:
+    """Build (if needed) and load the kernel libraries (every kernel of
+    the port is built together, ``build.load_all``); returns this
+    module's two entry points, bound, by name."""
+    if not _fns:
+        libs = build.load_all()
+        for name, entry in _ENTRY.items():
+            fn = getattr(libs[name], entry)
+            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+                           + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+            _fns[name] = fn
+    return _fns
 
 
 def _pack_x_bits(x_bits: Sequence[int]) -> int:
@@ -151,7 +92,7 @@ def _check(x: torch.Tensor, w: torch.Tensor, planes: torch.Tensor,
 def _launch(name: str, x, w, planes, *, acc_len: int, x_bits, dcim_lsb: int,
             adc_half: int) -> torch.Tensor:
     _check(x, w, planes, x_bits, dcim_lsb, acc_len)
-    fn = getattr(load_kernels()[name], _ENTRY[name])
+    fn = load_kernels()[name]
     M, Kp = x.shape
     N = w.shape[0]
     if M == 0 or N == 0:

@@ -1,0 +1,626 @@
+"""Continuous-batching serving scheduler over a fixed pool of decode slots.
+
+Counterpart of ``repro/launch/scheduler.py`` (greedy, non-speculative,
+without telemetry).  The paper's macro is weight-stationary: weights are
+written once and activations stream.  The serving analogue is a fixed
+pool of decode slots over prepacked weights; every pooled step advances
+only live slots, and a freed slot is refilled from the request queue.
+Each iteration runs one branch, in this priority:
+
+  harvest : some slot finished (stop token or max-new-tokens, parked in
+            the ``pending`` mask) -> copy its output row into the
+            per-request results and free the slot (paged mode: one ref
+            off each block of its grant, its table back to the trash
+            block).
+  admit   : a slot is free and the queue head is admissible -> contiguous
+            mode prefills the whole prompt (``lm.prefill_into_slot``) and
+            samples the first token; paged mode only ALLOCATES (blocks off
+            the refcount free list, the shared-prefix chain copied from the
+            donor's recorded table, pin refcounts placed) and marks the
+            slot ``filling``.
+  prefill : (paged only; when no slot is live, or the last branch was not
+            a prefill) advance the first filling slot by one
+            ``prefill_chunk`` (``lm.prefill_chunk_into_slot``); the final
+            chunk samples the request's first token.
+  step    : one pooled decode step (``lm.decode_step`` with ``live``).
+
+The reference runs this loop on the device in one compiled
+``while_loop``.  Here the HOST runs it: the pool state (tokens, masks,
+KV cache, block refcounts) lives on the device, and each iteration reads
+one small int32 vector back -- the pending and live masks and the free
+block count -- to pick its branch.  That is ONE host synchronization per
+iteration; everything else the branch choice needs (queue head, filling
+slots, prefill progress, grants) the host already knows.  Slots are
+Python ints and per-slot scalars are written with fills, so the loop
+makes no host-to-device copy (a pageable one would synchronize the
+stream).
+
+PAGED mode (``paged=PagedLayout(...)``) replaces the per-slot contiguous
+``max_seq`` regions with global per-layer block pools and per-slot block
+tables.  A ``(n_blocks,)`` refcount vector on the device doubles as the
+free list (free <=> ref == 0; block 0 is the trash block, pinned at 1);
+admission grants ``max_blk`` blocks as ``argsort(free-first, by id)``, so
+block ids and ``peak_blocks`` come out as the reference's; harvest
+decrements.  Shared prompt prefixes are planned on the host
+(paging.plan_prefix_sharing), and the refcounts return to ``[1, 0, ...]``
+when the queue drains.
+
+Determinism contract: a request's tokens depend only on (params, prompt,
+rid) -- not on its slot, its poolmates or when it was admitted.  Greedy
+decoding only; temperature sampling, speculative rounds and telemetry are
+not ported yet and raise.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..models import lm
+from ..models.config import ModelConfig
+from .paging import PagedLayout, cdiv, contiguous_kv_bytes, plan_prefix_sharing
+
+BRANCHES = ("harvest", "admit", "prefill", "step")
+
+
+@dataclasses.dataclass(frozen=True)
+class Request:
+    """One generation request.  ``rid`` must be unique within a run.
+    ``stop_token < 0`` disables stop detection (the request runs to
+    ``max_new_tokens``)."""
+    rid: int
+    prompt: np.ndarray            # (prompt_len,) int32
+    max_new_tokens: int
+    stop_token: int = -1
+
+
+@dataclasses.dataclass
+class FinishedRequest:
+    rid: int
+    tokens: np.ndarray            # (n,) generated tokens, stop token incl.
+    latency_s: float              # run start -> end of its harvest iteration
+    finish_iter: int              # loop iteration the request finished at
+    first_iter: int = 0           # loop iteration its first token appeared
+
+
+@dataclasses.dataclass
+class ServeReport:
+    finished: List[FinishedRequest]
+    wall_s: float
+    n_steps: int                  # pooled decode steps
+    n_admits: int
+    slots: int
+    n_pf: int = 0                 # chunked-prefill iterations (paged mode)
+    peak_blocks: int = 0          # peak live pool blocks (paged mode)
+    n_iter: int = 0               # loop iterations
+    host_syncs: int = 0           # device-to-host reads in the loop
+                                  # (one per iteration + the last)
+    branch_counts: Dict[str, int] = dataclasses.field(default_factory=dict)
+    branch_s: Dict[str, float] = dataclasses.field(default_factory=dict)
+    ref_final: Optional[np.ndarray] = None   # block refcounts after drain
+
+    @property
+    def total_tokens(self) -> int:
+        return sum(len(f.tokens) for f in self.finished)
+
+    @property
+    def tok_s(self) -> float:
+        return (self.total_tokens / self.wall_s if self.wall_s > 0
+                else float("nan"))
+
+    @property
+    def occupancy(self) -> float:
+        """Useful-token fraction of the slot-steps spent (admits each
+        yield one token; every pooled step spends ``slots`` slot-steps)."""
+        slot_steps = self.slots * self.n_steps + self.n_admits + self.n_pf
+        return self.total_tokens / slot_steps if slot_steps else float("nan")
+
+    def latency_percentiles(self) -> Dict[str, float]:
+        lats = sorted(f.latency_s for f in self.finished)
+        if not lats:
+            return {"p50_s": float("nan"), "p95_s": float("nan")}
+        pick = lambda q: lats[min(len(lats) - 1,
+                                  int(q * (len(lats) - 1) + 0.5))]
+        return {"p50_s": pick(0.50), "p95_s": pick(0.95)}
+
+    def summary(self) -> Dict:
+        out = dict(total_tokens=self.total_tokens,
+                   wall_s=round(self.wall_s, 4),
+                   tok_s=round(self.tok_s, 2),
+                   occupancy=round(self.occupancy, 4),
+                   n_steps=self.n_steps, n_admits=self.n_admits,
+                   slots=self.slots,
+                   **{k: round(v, 4) for k, v in
+                      self.latency_percentiles().items()})
+        if self.n_pf or self.peak_blocks:
+            out.update(n_pf=self.n_pf, peak_blocks=self.peak_blocks)
+        return out
+
+    def tokens_by_rid(self) -> Dict[int, np.ndarray]:
+        return {f.rid: f.tokens for f in self.finished}
+
+
+class ContinuousBatchingScheduler:
+    """Fixed-slot continuous batching, greedy.
+
+    ``params`` may hold prepacked CIM weights (lm.pack_cim_params); the
+    scheduler never touches weights.  ``max_new_cap`` bounds every
+    request's max_new_tokens and sizes the output buffers;
+    ``prompt_len`` is the MAXIMUM prompt length (contiguous mode: the
+    exact length; paged mode: shorter prompts are fine).
+
+    ``paged=PagedLayout(...)`` switches the KV cache to the global block
+    pool with on-device refcounts, host-planned shared-prefix reuse
+    (``prefix_sharing``) and chunked prefill (``prefill_chunk`` tokens
+    per iteration, default: the whole prompt in one chunk).  The device
+    is the params' device."""
+
+    def __init__(self, params, cfg: ModelConfig, slots: int, prompt_len: int,
+                 max_new_cap: int, temperature: float = 0.0,
+                 pad_token: int = 0, draft_k: int = 0,
+                 paged: Optional[PagedLayout] = None,
+                 prefill_chunk: Optional[int] = None,
+                 prefix_sharing: bool = True, obs=None):
+        if temperature > 0:
+            raise NotImplementedError(
+                "sampling at temperature > 0 waits on jax.random parity; "
+                "the torch scheduler is greedy only")
+        if draft_k:
+            raise NotImplementedError(
+                "speculative rounds (draft_k) are not ported yet")
+        if obs is not None:
+            raise NotImplementedError("telemetry (obs) is not ported yet")
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"family {cfg.family!r} is not ported yet (dense only)")
+        self.cfg, self.slots = cfg, slots
+        self.prompt_len, self.cap = prompt_len, max_new_cap
+        self.pad_token = pad_token
+        self.max_seq = prompt_len + max_new_cap
+        self._params = params
+        self.device = _params_device(params)
+        self.paged = paged
+        self.prefix_sharing = prefix_sharing
+        if paged is not None:
+            C = prefill_chunk if prefill_chunk is not None else prompt_len
+            if not (1 <= C <= prompt_len):
+                raise ValueError(f"prefill_chunk {C} outside [1, {prompt_len}]")
+            if paged.n_tbl >= paged.n_blocks:
+                raise ValueError(
+                    f"table width {paged.n_tbl} >= pool size {paged.n_blocks}"
+                    " (one slot could hold more blocks than exist)")
+            self.prefill_chunk = C
+            self._p_pad = cdiv(prompt_len, C) * C
+            need = max(self._p_pad, prompt_len + max_new_cap - 1)
+            if paged.tokens_per_slot < need:
+                raise ValueError(
+                    f"paged layout addresses {paged.tokens_per_slot} tokens "
+                    f"per slot < worst-case need {need} (prompt span + "
+                    "decode budget)")
+        else:
+            self.prefill_chunk = prompt_len
+            self._p_pad = prompt_len
+        self.last_prefix_plan = None
+
+    # -- KV footprint accounting ---------------------------------------
+
+    def kv_bytes_contiguous(self, dtype_bytes: int = 2) -> int:
+        """KV bytes the contiguous layout holds for this pool (slots *
+        max_seq regions): the baseline of the paged peak."""
+        return contiguous_kv_bytes(self.cfg, self.slots, self.max_seq,
+                                   dtype_bytes=dtype_bytes)
+
+    def kv_bytes_paged(self, n_blocks: Optional[int] = None,
+                       dtype_bytes: int = 2) -> int:
+        """KV bytes of ``n_blocks`` pool blocks (default: the pool)."""
+        if self.paged is None:
+            raise ValueError("kv_bytes_paged on a contiguous scheduler")
+        return self.paged.kv_bytes(self.cfg, n_blocks=n_blocks,
+                                   dtype_bytes=dtype_bytes)
+
+    # -- pool state ----------------------------------------------------
+
+    def _init_state(self) -> Dict:
+        B, cap, dev = self.slots, self.cap, self.device
+        i32 = dict(dtype=torch.int32, device=dev)
+        st = dict(
+            last_tok=torch.full((B, 1), self.pad_token, dtype=torch.int64,
+                                device=dev),
+            live=torch.zeros((B,), dtype=torch.bool, device=dev),
+            pending=torch.zeros((B,), dtype=torch.bool, device=dev),
+            n_gen=torch.zeros((B,), **i32),
+            max_new=torch.zeros((B,), **i32),
+            stop=torch.full((B,), -1, **i32),
+            out=torch.full((B, cap), self.pad_token, **i32),
+        )
+        if self.paged is not None:
+            lay = self.paged
+            st["cache"] = lm.init_paged_cache(
+                self.cfg, B, lay.n_blocks, lay.block_size, lay.n_tbl,
+                device=dev)
+            st["ref"] = torch.zeros((lay.n_blocks,), **i32)
+            st["ref"][0] = 1                    # the trash block's pin
+        else:
+            st["cache"] = lm.init_cache(self.cfg, B, self.max_seq,
+                                        device=dev)
+        return st
+
+    def _arm_slot(self, st: Dict, slot: int, prompt: torch.Tensor,
+                  max_new: int, stop: int) -> None:
+        """Reset + prefill ``slot`` with one request and take its first
+        token.  A request can finish ON that token; the event is parked
+        in the pending mask like any step finish."""
+        logits, st["cache"] = lm.prefill_into_slot(
+            self._params, self.cfg, prompt, st["cache"], slot)
+        tok = torch.argmax(logits[:, -1], dim=-1)            # (1,)
+        fin0 = (tok == stop) | (max_new <= 1)
+        st["last_tok"][slot] = tok
+        st["out"][slot] = self.pad_token
+        st["out"][slot, 0] = tok[0]
+        st["n_gen"][slot] = 1
+        st["max_new"][slot] = max_new
+        st["stop"][slot] = stop
+        st["live"][slot] = ~fin0[0]
+        st["pending"][slot] = fin0[0]
+
+    def _step(self, st: Dict) -> None:
+        """One pooled decode step; finishes land in pending."""
+        live = st["live"]
+        logits, st["cache"] = lm.decode_step(
+            self._params, self.cfg, st["last_tok"], st["cache"], live=live)
+        tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        tok = torch.where(live, tok, self.pad_token)
+        ar = torch.arange(self.slots, device=self.device)
+        idx = torch.clamp(st["n_gen"], max=self.cap - 1).long()
+        row = st["out"][ar, idx]
+        st["out"][ar, idx] = torch.where(live, tok, row)
+        n_gen = st["n_gen"] + live.to(torch.int32)
+        finished = live & ((tok == st["stop"]) | (n_gen >= st["max_new"]))
+        st["last_tok"] = tok[:, None].long()
+        st["n_gen"] = n_gen
+        st["live"] = live & ~finished
+        st["pending"] = st["pending"] | finished
+
+    # -- host-side staging ---------------------------------------------
+
+    def _check(self, requests: Sequence[Request]) -> None:
+        for r in requests:
+            if r.max_new_tokens > self.cap:
+                raise ValueError(
+                    f"request {r.rid}: max_new_tokens {r.max_new_tokens} "
+                    f"> cap {self.cap}")
+            if self.paged is not None:
+                plen = len(r.prompt)
+                if not (1 <= plen <= self.prompt_len):
+                    raise ValueError(
+                        f"request {r.rid}: prompt len {plen} outside "
+                        f"[1, {self.prompt_len}]")
+                need = max(cdiv(plen, self.prefill_chunk)
+                           * self.prefill_chunk,
+                           plen + r.max_new_tokens - 1)
+                if need > self.paged.tokens_per_slot:
+                    raise ValueError(
+                        f"request {r.rid}: needs {need} addressable tokens"
+                        f" > table capacity {self.paged.tokens_per_slot}")
+            elif len(r.prompt) != self.prompt_len:
+                raise ValueError(
+                    f"request {r.rid}: prompt len {len(r.prompt)} != "
+                    f"scheduler prompt_len {self.prompt_len}")
+        if len({r.rid for r in requests}) != len(requests):
+            raise ValueError("request rids must be unique within a run")
+
+    def _stage(self, requests: Sequence[Request]) -> Dict:
+        """The workload's host plan and its device buffers: prompts padded
+        to the prefill span, and (paged) the prefix plan, per-request
+        block grants and pin counts."""
+        n = len(requests)
+        toks = np.full((n, self._p_pad), self.pad_token, np.int64)
+        for i, r in enumerate(requests):
+            toks[i, :len(r.prompt)] = np.asarray(r.prompt)
+        plan = dict(q_toks=torch.from_numpy(toks).to(self.device))
+        if self.paged is None:
+            return plan
+        lay, C = self.paged, self.prefill_chunk
+        pp = plan_prefix_sharing([np.asarray(r.prompt) for r in requests],
+                                 lay.block_size, lay.n_tbl,
+                                 enable=self.prefix_sharing)
+        self.last_prefix_plan = pp
+        max_blk = np.array([lay.blocks_for(max(
+            cdiv(len(r.prompt), C) * C, len(r.prompt) + r.max_new_tokens - 1))
+            for r in requests], np.int64)
+        # static no-deadlock guarantee: even with every pinned shared
+        # block held live by a not-yet-admitted sharer, the pool can
+        # satisfy the largest single fresh grant
+        n_pinned = int(np.sum(pp.pin_counts > 0))
+        worst = int(np.max(max_blk - pp.n_shared_blocks, initial=0))
+        if worst + n_pinned > lay.n_blocks - 1:
+            raise ValueError(
+                f"paged pool too small: worst-case fresh grant {worst}"
+                f" + {n_pinned} pinned shared blocks > "
+                f"{lay.n_blocks - 1} allocatable blocks")
+        plan.update(prefix=pp, max_blk=max_blk,
+                    q_pins=torch.from_numpy(
+                        pp.pin_counts.astype(np.int32)).to(self.device))
+        return plan
+
+    # -- the serve loop ------------------------------------------------
+
+    def run(self, requests: Sequence[Request]) -> ServeReport:
+        """Serve ``requests`` to completion, admitting them in queue
+        order."""
+        self._check(requests)
+        with torch.inference_mode():
+            return self._run(requests)
+
+    def _run(self, requests: Sequence[Request]) -> ServeReport:
+        n, B, paged = len(requests), self.slots, self.paged
+        plan = self._stage(requests)
+        st = self._init_state()
+        dev = self.device
+        if paged is not None:
+            NB, n_tbl, bs = paged.n_blocks, paged.n_tbl, paged.block_size
+            ar_nb = torch.arange(NB, dtype=torch.int32, device=dev)
+            j_tbl = torch.arange(n_tbl, device=dev)
+            req_tables = torch.zeros((n, n_tbl), dtype=torch.int32,
+                                     device=dev)
+            peak = torch.zeros((), dtype=torch.int32, device=dev)
+            pp = plan["prefix"]
+        res_out = torch.full((n, self.cap), self.pad_token,
+                             dtype=torch.int32, device=dev)
+        res_n = torch.zeros((n,), dtype=torch.int32, device=dev)
+        # host mirrors of what the host decides
+        occupant = [-1] * B
+        filling = [False] * B
+        fill_pos = [0] * B                 # next chunk start of a filling slot
+        pf_done = [False] * n
+        res_iter, res_first = [0] * n, [0] * n
+        iter_end: List[float] = []         # run clock at each flags read
+        branches: List[str] = []
+        q_head, n_iter, syncs, last_pf = 0, 0, 0, False
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        while True:
+            parts = [st["pending"], st["live"]]
+            if paged is not None:
+                parts.append((st["ref"] == 0).sum()[None])
+            flags = torch.cat([p.to(torch.int32) for p in parts]).cpu()
+            syncs += 1
+            iter_end.append(time.perf_counter() - t0)
+            pending = flags[:B].tolist()
+            live = flags[B:2 * B].tolist()
+            occupied = [p or lv or f for p, lv, f in
+                        zip(pending, live, filling)]
+            if not any(occupied) and q_head >= n:
+                break
+            qh = min(q_head, n - 1)
+            can_admit = q_head < n and not all(occupied)
+            if paged is not None:
+                n_sh = int(pp.n_shared_blocks[qh])
+                src = int(pp.share_src[qh])
+                can_admit = (can_admit and (n_sh == 0 or pf_done[src])
+                             and int(flags[2 * B]) >= plan["max_blk"][qh] - n_sh)
+                want_pf = any(filling) and (not any(live) or not last_pf)
+            else:
+                want_pf = False
+            if any(pending):
+                branch = "harvest"
+                slot = pending.index(1)
+                qidx = occupant[slot]
+                res_out[qidx] = st["out"][slot]
+                res_n[qidx] = st["n_gen"][slot]
+                res_iter[qidx] = n_iter
+                st["pending"][slot] = False
+                occupant[slot] = -1
+                if paged is not None:
+                    # one ref off each block of the grant (shared entries
+                    # included: the donor pinned one ref per chain through
+                    # them), then park the table on the trash block
+                    grant = st["cache"]["table"][slot, :plan["max_blk"][qidx]]
+                    st["ref"].index_add_(0, grant.long(),
+                                         torch.full_like(grant, -1))
+                    st["cache"]["table"][slot] = 0
+            elif can_admit:
+                branch = "admit"
+                slot = occupied.index(False)
+                qidx, r = q_head, requests[q_head]
+                occupant[slot] = qidx
+                if paged is None:
+                    self._arm_slot(st, slot, plan["q_toks"][qidx:qidx + 1],
+                                   r.max_new_tokens, r.stop_token)
+                    res_first[qidx] = n_iter
+                else:
+                    n_blk = int(plan["max_blk"][qidx])
+                    # the free list is the refcount vector: argsort(free
+                    # first, by id) makes the grant deterministic, and the
+                    # admission gate guaranteed enough free blocks
+                    order = torch.argsort(torch.where(
+                        st["ref"] == 0, ar_nb, NB + ar_nb))
+                    fresh = order[torch.clamp(j_tbl - n_sh, 0, NB - 1)]
+                    shared = req_tables[max(src, 0)]
+                    row = torch.where(
+                        j_tbl < n_sh, shared,
+                        torch.where(j_tbl < n_blk, fresh.to(torch.int32), 0))
+                    # fresh blocks come up at ref 1 (+ pins for later
+                    # chains through them); shared blocks were pinned by
+                    # their materializer
+                    st["ref"].index_add_(
+                        0, row[n_sh:n_blk].long(),
+                        1 + plan["q_pins"][qidx, n_sh:n_blk])
+                    peak = torch.maximum(peak, (st["ref"] > 0).sum() - 1)
+                    cache = lm.reset_slot(st["cache"], slot)
+                    # a sharer starts its chunk walk at the last chunk
+                    # boundary inside the shared region: the few
+                    # recomputed rows equal what the donor wrote
+                    s0 = (n_sh * bs) // self.prefill_chunk * self.prefill_chunk
+                    cache["table"][slot] = row
+                    cache["pos"][slot] = s0
+                    req_tables[qidx] = row
+                    filling[slot], fill_pos[slot] = True, s0
+                    st["live"][slot] = False
+                    st["pending"][slot] = False
+                    st["n_gen"][slot] = 0
+                    st["max_new"][slot] = r.max_new_tokens
+                    st["stop"][slot] = r.stop_token
+                    st["out"][slot] = self.pad_token
+                q_head += 1
+            elif want_pf:
+                branch = "prefill"
+                slot = filling.index(True)
+                qidx, r = occupant[slot], requests[occupant[slot]]
+                C, plen, start = self.prefill_chunk, len(r.prompt), fill_pos[slot]
+                logits, st["cache"] = lm.prefill_chunk_into_slot(
+                    self._params, self.cfg,
+                    plan["q_toks"][qidx:qidx + 1, start:start + C],
+                    st["cache"], slot)
+                done = start + C >= plen
+                if done:
+                    # the final chunk ran to the padded span; commit pos =
+                    # plen so decode writes land right after the prompt
+                    tok = torch.argmax(logits[0, min(plen - 1 - start, C - 1)])
+                    fin0 = (tok == r.stop_token) | (r.max_new_tokens <= 1)
+                    st["cache"]["pos"][slot] = plen
+                    st["last_tok"][slot, 0] = tok
+                    st["out"][slot, 0] = tok
+                    st["n_gen"][slot] = 1
+                    st["live"][slot] = ~fin0
+                    st["pending"][slot] = fin0
+                    filling[slot] = False
+                    pf_done[qidx] = True
+                    res_first[qidx] = n_iter
+                else:
+                    fill_pos[slot] = start + C
+                last_pf = True
+            else:
+                branch = "step"
+                self._step(st)
+                last_pf = False
+            branches.append(branch)
+            n_iter += 1
+        wall = time.perf_counter() - t0
+        # iteration k runs from flags read k to flags read k + 1
+        counts = dict.fromkeys(BRANCHES, 0)
+        times = dict.fromkeys(BRANCHES, 0.0)
+        for k, b in enumerate(branches):
+            counts[b] += 1
+            times[b] += iter_end[k + 1] - iter_end[k]
+        res_out_h = res_out.cpu().numpy()
+        res_n_h = res_n.cpu().numpy()
+        done = [FinishedRequest(
+            rid=r.rid, tokens=res_out_h[i, :res_n_h[i]].copy(),
+            latency_s=iter_end[res_iter[i] + 1],
+            finish_iter=res_iter[i], first_iter=res_first[i])
+            for i, r in enumerate(requests)]
+        report = ServeReport(
+            finished=done, wall_s=wall, n_steps=counts["step"],
+            n_admits=counts["admit"], slots=B, n_pf=counts["prefill"],
+            n_iter=n_iter, host_syncs=syncs, branch_counts=counts,
+            branch_s=times)
+        if paged is not None:
+            report.peak_blocks = int(peak)
+            report.ref_final = st["ref"].cpu().numpy()
+        return report
+
+    def run_lockstep(self, requests: Sequence[Request]) -> ServeReport:
+        """Lock-step baseline through the SAME per-slot machinery: waves
+        of ``slots`` requests all decode to the wave's longest budget, and
+        per-request stop handling is applied afterwards by truncation, so
+        the difference to ``run`` is scheduling alone (same kernels, admit
+        path and step math).  One host read per wave."""
+        if self.paged is not None:
+            raise ValueError("run_lockstep is the contiguous baseline; "
+                             "build the scheduler without paged=")
+        self._check(requests)
+        plan = self._stage(requests)
+        done: List[FinishedRequest] = []
+        n_steps = n_admits = syncs = 0
+        with torch.inference_mode():
+            st = self._init_state()
+            t0 = time.perf_counter()
+            for w0 in range(0, len(requests), self.slots):
+                wave = list(requests[w0:w0 + self.slots])
+                wave_max = max(r.max_new_tokens for r in wave)
+                for slot, r in enumerate(wave):
+                    # stop -1, budget wave_max: every slot decodes the wave
+                    i = w0 + slot
+                    self._arm_slot(st, slot, plan["q_toks"][i:i + 1],
+                                   wave_max, -1)
+                    n_admits += 1
+                for _ in range(wave_max - 1):
+                    self._step(st)
+                n_steps += wave_max - 1
+                out_h = st["out"].cpu().numpy()
+                syncs += 1
+                t_wave = time.perf_counter() - t0
+                for slot, r in enumerate(wave):
+                    toks = out_h[slot, :wave_max]
+                    n = r.max_new_tokens
+                    if r.stop_token >= 0:
+                        hits = np.nonzero(toks == r.stop_token)[0]
+                        if hits.size:
+                            n = min(n, int(hits[0]) + 1)
+                    done.append(FinishedRequest(
+                        rid=r.rid, tokens=toks[:n].copy(), latency_s=t_wave,
+                        finish_iter=n_steps + n_admits))
+            wall = time.perf_counter() - t0
+        return ServeReport(finished=done, wall_s=wall, n_steps=n_steps,
+                           n_admits=n_admits, slots=self.slots,
+                           n_iter=n_steps + n_admits, host_syncs=syncs)
+
+
+def _params_device(params) -> torch.device:
+    """The device of the first tensor in a params tree."""
+    stack = [params]
+    while stack:
+        v = stack.pop()
+        if isinstance(v, torch.Tensor):
+            return v.device
+        if isinstance(v, dict):
+            stack.extend(v.values())
+        elif dataclasses.is_dataclass(v):
+            stack.extend(getattr(v, f.name) for f in dataclasses.fields(v))
+    raise ValueError("params hold no tensor")
+
+
+def mixed_length_requests(n: int, prompt_len: int, vocab_size: int,
+                          stop_lengths: Sequence[int] = (4, 16, 8, 12),
+                          seed: int = 0) -> List[Request]:
+    """Synthetic mixed-length workload: request i stops after
+    ``stop_lengths[i % len]`` tokens.  The interleaving is deliberately
+    adversarial for lock-step waves (short and long requests share one)."""
+    rng = np.random.default_rng(seed)
+    return [Request(rid=i,
+                    prompt=rng.integers(0, vocab_size, prompt_len,
+                                        dtype=np.int32),
+                    max_new_tokens=int(stop_lengths[i % len(stop_lengths)]))
+            for i in range(n)]
+
+
+def shared_prefix_requests(n: int, prefix_len: int, min_len: int,
+                           max_len: int, vocab_size: int,
+                           stop_lengths: Sequence[int] = (4, 16, 8, 12),
+                           seed: int = 0) -> List[Request]:
+    """Mixed-length workload in which every other request (the even rids)
+    starts with one shared ``prefix_len``-token prefix, as tenants behind
+    one system prompt do; prompt lengths are drawn from [min_len,
+    max_len], and the sharers' from [prefix_len + 1, max_len]."""
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, vocab_size, prefix_len, dtype=np.int32)
+    reqs = []
+    for i in range(n):
+        if i % 2 == 0:
+            tail = int(rng.integers(max(min_len, prefix_len + 1) - prefix_len,
+                                    max_len - prefix_len + 1))
+            prompt = np.concatenate(
+                [prefix, rng.integers(0, vocab_size, tail, dtype=np.int32)])
+        else:
+            prompt = rng.integers(0, vocab_size,
+                                  int(rng.integers(min_len, max_len + 1)),
+                                  dtype=np.int32)
+        reqs.append(Request(rid=i, prompt=prompt,
+                            max_new_tokens=int(
+                                stop_lengths[i % len(stop_lengths)])))
+    return reqs

@@ -1,7 +1,8 @@
 """Architecture configuration: one dataclass drives every model family.
 
 Counterpart of ``repro/models/config.py``, field for field, except that
-``cim_use_pallas`` is ``cim_use_kernel`` (the CUDA kernels' routing).
+``cim_use_pallas`` is ``cim_use_kernel`` (the CUDA kernels' routing) and
+``paged_attn_use_kernel`` routes the paged-attention kernel.
 Only the dense family serves in this port so far.
 """
 from __future__ import annotations
@@ -70,6 +71,9 @@ class ModelConfig:
     # None: CUDA kernels on CUDA tensors, plain version on CPU tensors;
     # False: plain version everywhere (the kernels' comparison run)
     cim_use_kernel: Optional[bool] = None
+    # the paged-attention decode read, routed the same way (a port-only
+    # field, like cim_use_kernel)
+    paged_attn_use_kernel: Optional[bool] = None
     cim_plan: Optional[Any] = None     # deployment plans: a later slice
     cim_fuse: bool = True              # fuse QKV and gate/up into one GEMM
     cim_noise_seed: Optional[int] = None   # analog noise: a later slice

@@ -19,6 +19,8 @@ import torch.nn.functional as F
 
 from ..core.ccim import DEFAULT_CONFIG
 from ..core.engine import CimEngine, FusedPackedCimWeights, PackedCimWeights
+from ..kernels.paged_attn import ops as paged_attn_ops
+from ..kernels.paged_attn import ref as paged_attn_ref
 from .config import ModelConfig
 
 Params = Dict[str, Any]
@@ -132,10 +134,47 @@ def _init_dense(gen: torch.Generator, shape, dtype, scale=None):
     return w.to(dtype)
 
 
+_WINDOW = 32     # the reference's CPU tree-reduction window
+
+
+def _window_sum(t: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in the reference's compiled CPU order: XLA
+    rewrites a reduction longer than 32 into 32-wide windows, each summed
+    in order, with the axis zero-padded evenly at both ends to whole
+    windows; the window sums are reduced the same way until at most 32
+    remain, which are summed in order."""
+    while t.shape[-1] > _WINDOW:
+        pad = -t.shape[-1] % _WINDOW
+        t = F.pad(t, (pad // 2, pad - pad // 2))
+        t = t.reshape(*t.shape[:-1], -1, _WINDOW)
+        acc = t[..., 0]
+        for i in range(1, _WINDOW):
+            acc = acc + t[..., i]
+        t = acc
+    acc = t[..., 0]
+    for i in range(1, t.shape[-1]):
+        acc = acc + t[..., i]
+    return acc
+
+
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    """x * rsqrt(mean(x^2) + eps) * (1 + w) in float32, rounded to x's dtype.
+
+    On the CPU the mean reproduces the reference bit for bit: the sum of
+    squares in its window order (``_window_sum``), times the float32
+    reciprocal of the width as XLA folds the division, and a correctly
+    rounded rsqrt (XLA's is within one ulp of it; torch's ``rsqrt``
+    differs more often).  On CUDA one fused mean stands in: the card's
+    bf16 GEMMs sum in another order than the reference anyway."""
     dt = x.dtype
     x = x.to(torch.float32)
-    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    if x.is_cuda:
+        r = torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    else:
+        inv_d = float(np.float32(1.0) / np.float32(x.shape[-1]))
+        ms = _window_sum(x * x)[..., None] * inv_d
+        r = torch.rsqrt((ms + eps).to(torch.float64)).to(torch.float32)
+    x = x * r
     return (x * (1.0 + w.to(torch.float32))).to(dt)
 
 
@@ -369,18 +408,63 @@ def attention_apply(
     kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     cache_pos: Optional[torch.Tensor] = None,    # (B,) per-row write index
     path: str = "attn",
+    block_table: Optional[torch.Tensor] = None,  # (B, n_tbl) int32: paged
+    write_mask: Optional[torch.Tensor] = None,   # (B,) bool: rows that write
 ):
     """Returns (out (B, S, D), new_kv or None).
 
     With a contiguous ``kv_cache`` ((B, Smax, Hkv, Dh) each) row b writes
     its S new entries at ``cache_pos[b]`` IN PLACE (the reference returns
     updated copies; writing in place saves a cache copy per layer) and
-    attends over its first ``cache_pos[b] + S`` entries."""
+    attends over its first ``cache_pos[b] + S`` entries.
+
+    With ``block_table`` the cache is PAGED: ``kv_cache`` holds global
+    ``(n_blocks, block_size, Hkv, Dh)`` pools shared by every row, and row
+    b's logical position p lives at pool[table[b, p // bs], p % bs].  The
+    new entries are written in place through the table (rows masked out
+    by ``write_mask`` go to the trash block 0: the pools are shared, so a
+    frozen slot must not write into blocks another request reads).  S == 1
+    reads go to the paged-attention kernel (``kernels/paged_attn``) with
+    ``lengths = cache_pos + 1``; S > 1 (prefill chunks) gathers the table
+    into a dense view and runs the same masked attention as the
+    contiguous path."""
     B, S, _ = x.shape
-    n_pos = kv_cache[0].shape[1] if kv_cache is not None else S
+    if kv_cache is None:
+        n_pos = S
+    elif block_table is not None:
+        n_pos = block_table.shape[1] * kv_cache[0].shape[1]
+    else:
+        n_pos = kv_cache[0].shape[1]
     q, k, v = _qkv(p, x, cfg, positions, n_pos, path)
     new_kv = None
-    if kv_cache is not None:
+    if kv_cache is not None and block_table is not None:
+        ck, cv = kv_cache
+        nb, bs, hkv, dh = ck.shape
+        n_tbl = block_table.shape[1]
+        pos_w = cache_pos[:, None] + torch.arange(S, device=x.device)[None, :]
+        blk = torch.gather(block_table, 1,
+                           torch.clamp(pos_w // bs, max=n_tbl - 1).long())
+        if write_mask is not None:
+            blk = torch.where(write_mask[:, None], blk, 0)   # trash block
+        flat = (blk.long() * bs + pos_w % bs).reshape(-1)
+        ck.view(nb * bs, hkv, dh).index_copy_(
+            0, flat, k.to(ck.dtype).reshape(B * S, hkv, dh))
+        cv.view(nb * bs, hkv, dh).index_copy_(
+            0, flat, v.to(cv.dtype).reshape(B * S, hkv, dh))
+        new_kv = (ck, cv)
+        if S == 1:
+            out = paged_attn_ops.paged_attention_decode(
+                q[:, 0], ck, cv, block_table, cache_pos + 1, is_local,
+                softcap=cfg.attn_softcap, window=cfg.sliding_window,
+                use_kernel=cfg.paged_attn_use_kernel)[:, None]
+            return _attn_out(p, out, cfg, B, S, path), new_kv
+        k_full = paged_attn_ref.paged_gather_kv(ck, block_table)
+        v_full = paged_attn_ref.paged_gather_kv(cv, block_table)
+        L = k_full.shape[1]
+        k_pos = torch.arange(L, device=x.device)[None, :].expand(B, L)
+        valid = k_pos < (cache_pos[:, None] + S)
+        k_pos = torch.where(valid, k_pos, _FAR)
+    elif kv_cache is not None:
         ck, cv = kv_cache
         rows = torch.arange(B, device=x.device)[:, None]
         idx = cache_pos[:, None] + torch.arange(S, device=x.device)[None, :]

@@ -1,16 +1,21 @@
-"""Decoder LM assembly, dense family: init, packing, prefill, decode.
+"""Decoder LM assembly, dense family: init, packing, prefill, decode,
+and the slot-level cache ops of continuous batching.
 
 Counterpart of ``repro/models/lm.py`` (dense serve subset):
 
   init(key, cfg, device=None)             -> params
   pack_cim_params(params, cfg, device=None) -> packed params
+  init_cache / init_paged_cache           -> contiguous / paged KV cache
   prefill(params, cfg, tokens, cache)     -> logits, cache
-  decode_step(params, cfg, token, cache)  -> logits, cache
+  decode_step(params, cfg, token, cache, live=None) -> logits, cache
+  prefill_into_slot / prefill_chunk_into_slot / reset_slot
 
 The params tree has the reference's layout: ``params["layers"]`` holds
 stacked leaves with a leading layer axis, and the forward walks the
-layers in a Python loop (the reference scans them).  The KV cache is
-updated in place.
+layers in a Python loop (the reference scans them).  KV entries are
+written into the cache's tensors in place (the reference returns
+updated copies); ``pos`` comes back as a new tensor from prefill and
+decode, and the slot ops write their slot of every entry in place.
 """
 from __future__ import annotations
 
@@ -173,10 +178,12 @@ def _logits(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return L.softcap(logits.to(torch.float32), cfg.logit_softcap)
 
 
-def _attn_block(blk, x, cfg, positions, is_local, kv, cache_pos):
+def _attn_block(blk, x, cfg, positions, is_local, kv, cache_pos,
+                block_table=None, write_mask=None):
     h, new_kv = L.attention_apply(
         blk["attn"], L.rms_norm(x, blk["ln1"], cfg.norm_eps), cfg, positions,
-        is_local, kv_cache=kv, cache_pos=cache_pos)
+        is_local, kv_cache=kv, cache_pos=cache_pos, block_table=block_table,
+        write_mask=write_mask)
     # the reference's compiled step normalizes the UNROUNDED float32 sum
     # x + h (XLA fuses the add into the norm's convert), while the
     # residual stream itself carries the rounded sum; the port does both
@@ -205,12 +212,101 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
 
-def _stack(params, cfg, x, positions, cache, cache_pos):
+def init_paged_cache(cfg: ModelConfig, batch: int, n_blocks: int,
+                     block_size: int, n_tbl: int, dtype=torch.bfloat16,
+                     device=None) -> Dict[str, torch.Tensor]:
+    """The PAGED decode cache: per-layer global KV block pools
+    ``(n_layers, n_blocks, block_size, hkv, dh)`` shared by every slot,
+    plus a per-slot block table; slot b's logical row p resolves through
+    ``table[b, p // block_size]``.  The ``"table"`` key is what flips
+    prefill/decode_step and the slot helpers into paged mode.  Block 0 is
+    the trash block (launch/scheduler.py): an all-zero table row, the
+    reset state, points every position at rows no live slot reads."""
+    _dense_only(cfg)
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, n_blocks, block_size, cfg.padded_kv_heads,
+             cfg.head_dim)
+    return {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
+            "table": torch.zeros((batch, n_tbl), dtype=torch.int32,
+                                 device=dev),
+            "k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+# ---------------------------------------------------------------------------
+# slot-level cache ops (continuous batching, launch/scheduler.py)
+# ---------------------------------------------------------------------------
+# Every cache entry carries the pool (batch) dimension at axis 1 (stacked
+# per layer) except "pos" and "table", which carry it at axis 0.  In PAGED
+# caches the KV entries are global block pools with no batch axis: the
+# slot helpers pass them through whole, and per-slot state is "pos" and
+# "table".  ``slot`` is a Python int (the scheduler picks slots on the
+# host).
+
+
+_POOL_KEYS = frozenset({"k", "v"})
+
+
+def is_paged(cache: Dict) -> bool:
+    return "table" in cache
+
+
+def _slot_axis(key: str) -> int:
+    return 0 if key in ("pos", "table") else 1
+
+
+def slot_slice(cache: Dict, slot: int) -> Dict:
+    """A batch-1 view of one pool slot (same structure, batch=1).  The
+    entries are views: writes into them land in the pool.  Paged KV pools
+    are returned whole -- they are shared, and the slot's table row is
+    what scopes them."""
+    paged = is_paged(cache)
+    return {k: (v if paged and k in _POOL_KEYS else
+                v.narrow(_slot_axis(k), slot, 1))
+            for k, v in cache.items()}
+
+
+def slot_update(cache: Dict, sub: Dict, slot: int) -> Dict:
+    """Write a batch-1 sub-cache into pool slot ``slot`` in place; returns
+    ``cache``.  Paged pools are shared and already hold the sub-cache's
+    writes."""
+    paged = is_paged(cache)
+    for k, v in cache.items():
+        if paged and k in _POOL_KEYS:
+            continue
+        dst = v.narrow(_slot_axis(k), slot, 1)
+        if sub[k].data_ptr() != dst.data_ptr():
+            dst.copy_(sub[k])
+    return cache
+
+
+def _zeroed_slot(cache: Dict, slot: int) -> Dict:
+    """A zeroed batch-1 sub-cache for ``slot`` -- the reset state.  KV
+    rows do not strictly need zeroing (the attention validity mask hides
+    everything at or beyond ``pos``), but one op clears every entry.
+    Paged caches keep the pools (shared) AND the slot's table row: the
+    scheduler's allocator arms the table before prefilling and clears it
+    at harvest, and a reset between the two must not sever the mapping."""
+    paged = is_paged(cache)
+    sub = slot_slice(cache, slot)
+    return {k: (v if paged and k in _POOL_KEYS | {"table"}
+                else torch.zeros_like(v))
+            for k, v in sub.items()}
+
+
+def reset_slot(cache: Dict, slot: int) -> Dict:
+    """Zero one slot's state (KV rows and position) in place."""
+    return slot_update(cache, _zeroed_slot(cache, slot), slot)
+
+
+def _stack(params, cfg, x, positions, cache, cache_pos, write_mask=None):
+    tbl = cache.get("table")
     for i in range(cfg.n_layers):
         x, _ = _attn_block(_layer(params["layers"], i), x, cfg, positions,
                            cfg.layer_is_local(i),
                            kv=(cache["k"][i], cache["v"][i]),
-                           cache_pos=cache_pos)
+                           cache_pos=cache_pos, block_table=tbl,
+                           write_mask=write_mask)
     return x
 
 
@@ -229,17 +325,55 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, cache: Dict
     return _logits(params, cfg, x[:, -1:, :]), cache
 
 
+def prefill_into_slot(params, cfg: ModelConfig, tokens: torch.Tensor,
+                      cache: Dict, slot: int) -> Tuple[torch.Tensor, Dict]:
+    """Prefill ONE request (tokens (1, P)) into pool slot ``slot``: the
+    slot is reset, the prompt runs a batch-1 prefill against the slot's
+    views, and its position is written back; other slots are untouched."""
+    reset_slot(cache, slot)
+    logits, sub = prefill(params, cfg, tokens, slot_slice(cache, slot))
+    return logits, slot_update(cache, sub, slot)
+
+
+def prefill_chunk_into_slot(params, cfg: ModelConfig, tokens: torch.Tensor,
+                            cache: Dict, slot: int
+                            ) -> Tuple[torch.Tensor, Dict]:
+    """Advance ONE slot's prefill by one chunk (tokens (1, C)).
+
+    The chunk starts at the slot's current ``cache["pos"]``, runs a
+    batch-1 forward at absolute positions [pos, pos+C), and leaves pos at
+    pos+C.  The slot is NOT reset: earlier chunks' KV rows (or a shared
+    prefix's refcounted blocks) are the context this chunk attends to.
+    Returns logits for ALL C chunk positions (1, C, V); every row equals
+    the same row of a single-shot prefill (row-local GEMMs and a per-row
+    softmax over an identical masked key stream)."""
+    _dense_only(cfg)
+    sub = dict(slot_slice(cache, slot))
+    x = _embed(params, cfg, tokens)
+    B, S, _ = x.shape
+    pos = sub["pos"]
+    positions = pos[:, None] + torch.arange(S, device=x.device)[None, :]
+    x = _stack(params, cfg, x, positions, sub, pos)
+    sub["pos"] = pos + S
+    return _logits(params, cfg, x), slot_update(cache, sub, slot)
+
+
 def decode_step(params, cfg: ModelConfig, token: torch.Tensor, cache: Dict,
                 live: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Dict]:
-    """token (B, 1) -> logits (B, 1, V); cache advanced by one position."""
+    """token (B, 1) -> logits (B, 1, V); cache advanced by one position.
+
+    Each slot decodes at its own ``cache["pos"]`` entry.  ``live`` ((B,)
+    bool) freezes finished slots: their position does not advance (their
+    logits are computed and discarded), and in PAGED caches their KV
+    write goes to the trash block -- their table may alias blocks a live
+    request reads (shared prefixes, or their own half-prefilled
+    chunks)."""
     _dense_only(cfg)
-    if live is not None:
-        raise NotImplementedError("per-slot liveness (continuous batching) "
-                                  "is not ported yet")
     x = _embed(params, cfg, token)
     pos = cache["pos"]
     cache = dict(cache)
-    x = _stack(params, cfg, x, pos[:, None], cache, pos)
-    cache["pos"] = pos + 1
+    wmask = live if (live is not None and is_paged(cache)) else None
+    x = _stack(params, cfg, x, pos[:, None], cache, pos, write_mask=wmask)
+    cache["pos"] = pos + (1 if live is None else live.to(torch.int32))
     return _logits(params, cfg, x), cache

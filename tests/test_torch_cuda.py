@@ -8,7 +8,9 @@ the port's dependencies:
       tests/test_torch_cuda.py
 
 Integer outputs are compared with torch.equal: the kernels and the plain
-version compute the same integers, so there is no tolerance.
+version compute the same integers, so there is no tolerance.  The
+paged-attention kernel computes P.V in float32 where the plain version
+rounds p to bf16 first; it is held to the tolerance written beside it.
 """
 import pytest
 import torch
@@ -16,6 +18,8 @@ import torch
 from repro_torch.core import engine
 from repro_torch.core.ccim import CCIMConfig
 from repro_torch.kernels.ccim_matmul import kernel as K
+from repro_torch.kernels.paged_attn import kernel as PK
+from repro_torch.kernels.paged_attn import ref as PR
 
 pytestmark = pytest.mark.cuda
 
@@ -74,3 +78,42 @@ def test_analog_subset_of_hybrid_pack(dev):
         assert torch.equal(
             engine.packed_cim_matmul_int(x, p, cfg=subset),
             engine.packed_cim_matmul_int(x, p, cfg=subset, use_kernel=False))
+
+
+# (B, Hkv, G, Dh, bs, n_tbl, n_blocks, max length): a small GQA shape and
+# minicpm-2b's full-width decode shape (48 padded heads, G 1, Dh 64)
+PAGED_SHAPES = {"small": (3, 2, 4, 128, 8, 5, 12, 40),
+                "minicpm": (8, 48, 1, 64, 16, 10, 64, 160)}
+
+
+@pytest.mark.parametrize("shape", sorted(PAGED_SHAPES))
+@pytest.mark.parametrize("softcap,window,is_local",
+                         [(None, None, False), (50.0, 7, True),
+                          (50.0, 7, False)])
+def test_paged_attention_kernel_matches_plain(dev, shape, softcap, window,
+                                              is_local):
+    """Tolerance: the plain version's bf16 p costs up to 2^-9 of
+    sum(p |v|) <= 2^-9 max|v| per output, and both outputs are rounded to
+    bf16 once: rtol 2^-7, atol 2^-7 max|v|.  The last row's table is all
+    trash block."""
+    B, Hkv, G, Dh, bs, n_tbl, nb, max_len = PAGED_SHAPES[shape]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(G * 1000 + Dh)
+    bf = lambda *s: torch.randn(s, generator=gen, device=dev).to(
+        torch.bfloat16)
+    q, kp, vp = bf(B, Hkv * G, Dh) * 2, bf(nb, bs, Hkv, Dh), bf(nb, bs, Hkv, Dh)
+    table = torch.randint(1, nb, (B, n_tbl), generator=gen, device=dev,
+                          dtype=torch.int32)
+    table[-1] = 0
+    lengths = torch.randint(1, max_len + 1, (B,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    n0 = PK.paged_attention_cuda.launches
+    y = PK.paged_attention_cuda(q, kp, vp, table, lengths, is_local,
+                                softcap=softcap, window=window)
+    r = PR.paged_attention_ref(q, kp, vp, table, lengths, softcap=softcap,
+                               window=window, is_local=is_local)
+    torch.cuda.synchronize()
+    assert PK.paged_attention_cuda.launches == n0 + 1
+    assert y.shape == r.shape and y.dtype == torch.bfloat16
+    torch.testing.assert_close(y.float(), r.float(), rtol=2 ** -7,
+                               atol=2 ** -7 * float(vp.float().abs().max()))
