@@ -3,12 +3,14 @@
 
   python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``src/repro_torch`` (all three
-sources compiled together) and drives its main paths at minicpm-2b's
-full width and depth (40 layers, packed and fused, prototype macro):
-lock-step serving, and continuous batching with a contiguous and a paged
-KV cache.  Each phase prints one JSON line; the script exits non-zero at
-the first failure.  Phases:
+Builds the port's CUDA kernels from ``src/repro_torch`` (all seven
+sources compiled together) and drives its main paths: minicpm-2b at its
+full width and depth (40 layers, packed and fused, prototype macro),
+served lock-step and with continuous batching over a contiguous and a
+paged KV cache; the unpacked macro GEMM behind ``cim_matmul`` on raw
+weights; and the complex-MAC lane behind MUSIC direction-of-arrival
+estimation on 64- and 32-element arrays.  Each phase prints one JSON
+line; the script exits non-zero at the first failure.  Phases:
 
   1. device: the card's name and power limit, and the kernel build time;
   2. macro-GEMM kernels vs their plain PyTorch version at minicpm-2b's
@@ -44,7 +46,24 @@ the first failure.  Phases:
      agreement with phase 11 and the first decode step's logits;
  13. CUDA-event times of the paged-attention kernel at the minicpm-2b
      decode shape for several lengths, beside the plain version, a
-     gather + scaled_dot_product_attention yardstick and the byte bound.
+     gather + scaled_dot_product_attention yardstick and the byte bound;
+ 14. the fused complex kernels (prepacked skinny and general, unpacked)
+     vs their plain versions with torch.equal at the full-width shapes,
+     on ragged shapes and at the DoA shapes; off the prototype design
+     point the complex path launches the real prepacked kernels four
+     times per call and no complex kernel;
+ 15. the unpacked real kernel vs its plain version at the full-width
+     shapes, and ``cim_matmul`` on raw weights (one launch each) equal
+     to ``cim_matmul`` on their pack;
+ 16. MUSIC DoA, 32 seeded frames each on a 64-element ULA (4 sources,
+     4,096 snapshots) and a 32-element ULA (2 sources, 1,024 snapshots),
+     0.05 degree grid: one unpacked and one prepacked complex launch per
+     frame and no real-kernel launch; the plain versions on the card give
+     the same covariance ints and estimates; RMSE under 4 % of the field
+     of view; frames/s and the kernels' share of a frame;
+ 17. CUDA-event times of the four new kernels at the full-width shapes
+     (M 4 and 128) beside their plain versions, the four-pass route
+     through the port's real kernels, a library yardstick and the bound.
 
 The line before the last is the kernels table; the last line is the
 device record.  Needs a CUDA device: without one it exits non-zero.
@@ -85,6 +104,28 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
+
+
+def device_breakdown(prof, steps: int, wall_ms: float) -> dict:
+    """Per-step device busy time, idle share, aten calls and the top
+    device and host self times from a torch.profiler trace of ``steps``
+    steps of ``wall_ms`` each."""
+    dev_us, host_us, aten_calls = {}, {}, 0
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", 0) or 0
+        if t > 0:
+            dev_us[e.key] = dev_us.get(e.key, 0) + t
+        if e.key.startswith("aten::"):
+            host_us[e.key] = e.self_cpu_time_total
+            aten_calls += e.count
+    busy_ms = sum(dev_us.values()) / 1e3 / steps
+    per_step = lambda d: {k[:60]: v / 1e3 / steps for k, v in
+                          sorted(d.items(), key=lambda kv: -kv[1])[:8]}
+    return {"device_busy_ms": busy_ms,
+            "device_idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
+            "aten_calls_per_step": aten_calls / steps,
+            "top_device_ms_per_step": per_step(dev_us),
+            "top_host_self_ms_per_step": per_step(host_us)}
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -399,6 +440,387 @@ def times_paged_attn(torch, dev) -> dict:
             "library_ms": r["library_ms"], "at_length": PA_REPORT_L}
 
 
+# complex lane: (M, K, N) of the DoA frames -- covariance of the 64- and
+# 32-element arrays, and the spectrum against a 2,401-point grid
+DOA_SHAPES = ((64, 4096, 64), (32, 1024, 32), (60, 64, 2401), (30, 32, 2401))
+RAGGED_SHAPES = ((1, 37, 11), (2, 1001, 333), (3, 130, 2401), (45, 999, 257))
+DOA_FRAMES = 32
+# array -> the prepacked complex kernel its spectrum takes (M = n - n_src)
+DOA_ARRAYS = (("ula64", "complex_general"), ("ula32", "complex_skinny"))
+
+
+def _equal_pair(got, want) -> int:
+    """Largest |got - want| over a (re, im) pair (0 when equal)."""
+    return max(int((a.long() - b.long()).abs().max()) for a, b in
+               zip(got, want))
+
+
+def complex_pack(torch, wr, wi):
+    """A prototype pack of raw (K, N) int weights, Re and Im."""
+    from repro_torch.core import engine
+    one = torch.ones((1, wr.shape[1]), device=wr.device)
+    return engine.PackedComplexCimWeights(
+        engine.pack_quantized_cim_weights(wr, one),
+        engine.pack_quantized_cim_weights(wi, one))
+
+
+def complex_kernels(torch, dev, gen) -> dict:
+    """Phase 14: kernels 4, 5 and 7 against their plain versions, and the
+    four-pass route off the prototype.  Returns max |kernel - plain| by
+    kernel."""
+    from repro_torch.core import complex_mac, engine
+    from repro_torch.core.ccim import CCIMConfig
+    from repro_torch.kernels.ccim_complex import kernel as CK
+    from repro_torch.kernels.ccim_complex import ops as CO
+    from repro_torch.kernels.ccim_matmul import kernel as K
+
+    err = {"complex_skinny": 0, "complex_general": 0, "complex_unpacked": 0}
+
+    def ints(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    def case(xr, xi, wr, wi, pack, tag):
+        m, k = xr.shape
+        n = wr.shape[1]
+        for name, fn in (
+                ("complex_unpacked", lambda uk: CO.ccim_complex_matmul_int(
+                    xr, xi, wr, wi, use_kernel=uk)),
+                ("complex_skinny" if m <= K.SKINNY_M else "complex_general",
+                 lambda uk: CO.ccim_complex_matmul_int_prepacked(
+                     xr, xi, pack.re.kernel_w, pack.im.kernel_w,
+                     pack.re.kernel_planes, pack.im.kernel_planes, k_dim=k,
+                     n_dim=n, use_kernel=uk))):
+            got, want = fn(True), fn(False)
+            torch.cuda.synchronize()
+            e = _equal_pair(got, want)
+            err[name] = max(err[name], e)
+            check(got[0].dtype == torch.int32 and e == 0,
+                  f"{name} kernel != plain at {tag}: max |diff| {e}")
+
+    n_cases = 0
+    for sname, (k, n) in FULL_SHAPES.items():
+        wr, wi = ints(k, n), ints(k, n)
+        pack = complex_pack(torch, wr, wi)
+        for m in SKINNY_MS + GENERAL_MS:
+            case(ints(m, k), ints(m, k), wr, wi, pack, f"{sname} M={m}")
+            n_cases += 1
+    for m, k, n in RAGGED_SHAPES + DOA_SHAPES:
+        wr, wi = ints(k, n), ints(k, n)
+        case(ints(m, k), ints(m, k), wr, wi, complex_pack(torch, wr, wi),
+             f"(M, K, N) = {(m, k, n)}")
+        n_cases += 1
+
+    # off the prototype: four real prepacked launches per call, no
+    # complex kernel, raw or packed, equal to the plain run
+    cfg = CCIMConfig(n_dcim_products=2, adc_bits=8)
+    w = torch.randn((300, 77), generator=gen, device=dev,
+                    dtype=torch.complex64)
+    packed = engine.pack_complex_cim_weights(w.real, w.imag, cfg)
+    four_pass = {}
+    for m, real in ((4, "skinny"), (40, "general")):
+        xr, xi = ints(m, 300), ints(m, 300)
+        for label, wts in (("packed", (packed, None)),
+                           ("raw", (packed.re.wq(), packed.im.wq()))):
+            K.reset_launch_counts()
+            CK.reset_launch_counts()
+            got = complex_mac.complex_cim_matmul_int(xr, xi, *wts, cfg)
+            n_real = {"skinny": K.ccim_matmul_prepacked_skinny_cuda.launches,
+                      "general": K.ccim_matmul_prepacked_general_cuda.launches,
+                      "unpacked": K.ccim_matmul_unpacked_cuda.launches}
+            n_cplx = (CK.ccim_complex_unpacked_cuda.launches
+                      + CK.ccim_complex_prepacked_skinny_cuda.launches
+                      + CK.ccim_complex_prepacked_general_cuda.launches)
+            want = complex_mac.complex_cim_matmul_int(xr, xi, *wts, cfg,
+                                                      use_kernel=False)
+            check(n_real[real] == 4 and sum(n_real.values()) == 4
+                  and n_cplx == 0,
+                  f"four-pass route at M={m} ({label}): real launches "
+                  f"{n_real}, complex launches {n_cplx}")
+            check(_equal_pair(got, want) == 0,
+                  f"four-pass route at M={m} ({label}) != plain")
+            four_pass[f"M={m} {label}"] = n_real
+    emit({"phase": "complex_kernels", "ok": True, "cases": n_cases,
+          "full_width_shapes": {s: list(v) for s, v in FULL_SHAPES.items()},
+          "m": list(SKINNY_MS + GENERAL_MS),
+          "ragged_shapes": [list(v) for v in RAGGED_SHAPES],
+          "doa_shapes": [list(v) for v in DOA_SHAPES],
+          "max_abs_err": err,
+          "four_pass_off_prototype": {"config": "n_dcim 2, ADC 8 b",
+                                      "real_launches": four_pass}})
+    return err
+
+
+def unpacked_real(torch, dev, gen) -> dict:
+    """Phase 15: kernel 6 against its plain version at the full-width
+    shapes, then ``cim_matmul`` on raw float weights (the main path of
+    the unpacked kernel) against ``cim_matmul`` on their pack."""
+    from repro_torch.core import ccim, engine
+    from repro_torch.kernels.ccim_matmul import kernel as K
+    from repro_torch.kernels.ccim_matmul import ops as KO
+
+    err = 0
+    for sname, (k, n) in FULL_SHAPES.items():
+        w = torch.randint(-127, 128, (k, n), generator=gen, device=dev,
+                          dtype=torch.int32)
+        for m in SKINNY_MS + GENERAL_MS:
+            x = torch.randint(-127, 128, (m, k), generator=gen, device=dev,
+                              dtype=torch.int32)
+            got = KO.ccim_matmul_int(x, w, use_kernel=True)
+            want = KO.ccim_matmul_int(x, w, use_kernel=False)
+            torch.cuda.synchronize()
+            e = int((got.long() - want.long()).abs().max())
+            err = max(err, e)
+            check(e == 0, f"unpacked kernel != plain at {sname} M={m}: "
+                  f"max |diff| {e}")
+    xs = {s: torch.randn((128, k), generator=gen, device=dev)
+          for s, (k, n) in FULL_SHAPES.items()}
+    ws = {s: torch.randn((k, n), generator=gen, device=dev)
+          for s, (k, n) in FULL_SHAPES.items()}
+    K.reset_launch_counts()
+    raw = {s: ccim.cim_matmul(xs[s], ws[s]) for s in FULL_SHAPES}
+    torch.cuda.synchronize()
+    launches = K.ccim_matmul_unpacked_cuda.launches
+    check(launches == len(FULL_SHAPES),
+          f"cim_matmul on raw weights launched the unpacked kernel "
+          f"{launches} times, expected {len(FULL_SHAPES)}")
+    for s in FULL_SHAPES:
+        packed = ccim.cim_matmul(xs[s], engine.pack_cim_weights(ws[s]))
+        check(torch.equal(raw[s], packed) and bool(torch.isfinite(
+            raw[s]).all()), f"cim_matmul raw != packed at {s}")
+    emit({"phase": "unpacked_real", "ok": True, "max_abs_err": err,
+          "m": list(SKINNY_MS + GENERAL_MS),
+          "cim_matmul_raw_launches": launches, "raw_equals_packed": True})
+    return {"launches": launches, "max_abs_err": err}
+
+
+def doa_phase(torch, dev) -> dict:
+    """Phase 16: MUSIC DoA through the complex lane on both arrays.
+    Returns the kernels' launches on the path and the per-array record."""
+    import numpy as np
+    from repro_torch.core.complex_mac import quantize_complex
+    from repro_torch.core.engine import pack_complex_cim_weights
+    from repro_torch.kernels.ccim_complex import kernel as CK
+    from repro_torch.kernels.ccim_matmul import kernel as K
+    from repro_torch.kernels.ccim_matmul.ops import pad_k_int8
+    from repro_torch.launch import doa
+
+    def counts():
+        return {"complex_unpacked": CK.ccim_complex_unpacked_cuda.launches,
+                "complex_skinny":
+                    CK.ccim_complex_prepacked_skinny_cuda.launches,
+                "complex_general":
+                    CK.ccim_complex_prepacked_general_cuda.launches,
+                "skinny": K.ccim_matmul_prepacked_skinny_cuda.launches,
+                "general": K.ccim_matmul_prepacked_general_cuda.launches,
+                "unpacked": K.ccim_matmul_unpacked_cuda.launches}
+
+    def reset():
+        K.reset_launch_counts()
+        CK.reset_launch_counts()
+
+    launches = {"complex_unpacked": 0, "complex_skinny": 0,
+                "complex_general": 0}
+    records = {}
+    for name, spec_kernel in DOA_ARRAYS:
+        arr = doa.ARRAYS[name]
+        n, ns = arr.n_sensors, arr.n_sources
+        grid = doa.angle_grid(arr.grid_step)
+        t0 = time.perf_counter()
+        A = doa.steering(n, grid, dev)
+        pack = pack_complex_cim_weights(A.real, A.imag)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        rng = np.random.default_rng(16)
+        data = [doa.draw_frame(rng, arr) for _ in range(DOA_FRAMES)]
+        Xs = [torch.from_numpy(x).to(dev) for _, x in data]
+        doa.music_frame(Xs[0], pack, grid, ns)          # warm
+        torch.cuda.synchronize()
+        reset()
+        t0 = time.perf_counter()
+        frames = [doa.music_frame(X, pack, grid, ns) for X in Xs]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = counts()
+        want = {k: 0 for k in got}
+        want.update({"complex_unpacked": DOA_FRAMES, spec_kernel: DOA_FRAMES})
+        check(got == want, f"DoA {name}: launches {got}, expected {want}")
+        for k in launches:
+            launches[k] += got[k]
+        reset()
+        plain = [doa.music_frame(X, pack, grid, ns, use_kernel=False)
+                 for X in Xs]
+        check(all(v == 0 for v in counts().values()),
+              f"DoA {name}: the plain run launched kernels {counts()}")
+        for i, (fk, fp) in enumerate(zip(frames, plain)):
+            check(_equal_pair(fk.r_int, fp.r_int) == 0,
+                  f"DoA {name} frame {i}: covariance ints differ")
+            check(fk.est == fp.est, f"DoA {name} frame {i}: estimates "
+                  f"{fk.est} (kernels) != {fp.est} (plain)")
+            check(bool(torch.isfinite(fk.p).all()) and fk.p.shape ==
+                  (len(grid),), f"DoA {name} frame {i}: bad spectrum")
+        est_sw = [doa.estimate(doa.software_spectrum(X, A, ns), grid, ns)
+                  for X in Xs]
+        err_cim = [doa.rmse(f.est, t) for f, (t, _) in zip(frames, data)]
+        err_sw = [doa.rmse(e, t) for e, (t, _) in zip(est_sw, data)]
+        rmse_pct = 100 * float(np.mean(err_cim)) / doa.FIELD_OF_VIEW
+        check(rmse_pct < doa.RMSE_LIMIT_PCT,
+              f"DoA {name}: RMSE {rmse_pct:.3f} % of the field of view")
+        # the kernels' share of a frame: their CUDA-event times at the
+        # frame's shapes (first frame's operands) over the frame's wall
+        q_re, q_im, _ = quantize_complex(Xs[0], -1)
+        kp = -(-n // 16) * 16
+        T = arr.n_snapshots
+        cov = [pad_k_int8(v, T, 1) for v in (q_re, q_im)] + [
+            pad_k_int8(v, T, 0) for v in (q_re.t(), -q_im.t())]
+        R, _ = doa.covariance(Xs[0])
+        e_re, e_im, _ = quantize_complex(
+            doa.noise_subspace(R, ns).conj().t(), -1)
+        spec = ([pad_k_int8(v, kp, 1) for v in (e_re, e_im)]
+                + [pack.re.kernel_w, pack.re.kernel_planes,
+                   pack.im.kernel_w, pack.im.kernel_planes])
+        spec_fn = (CK.ccim_complex_prepacked_general_cuda
+                   if spec_kernel == "complex_general"
+                   else CK.ccim_complex_prepacked_skinny_cuda)
+        cov_ms = cuda_ms(lambda: CK.ccim_complex_unpacked_cuda(*cov), reps=50)
+        spec_ms = cuda_ms(lambda: spec_fn(*spec), reps=50)
+        frame_ms = 1e3 * wall / DOA_FRAMES
+        # where a frame's time goes: a profiler trace of a few frames
+        n_prof = 4
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for X in Xs[:n_prof]:
+                doa.music_frame(X, pack, grid, ns)
+            torch.cuda.synchronize()
+            prof_ms = 1e3 * (time.perf_counter() - t0) / n_prof
+        records[name] = {
+            "n_sensors": n, "n_snapshots": T, "n_sources": ns,
+            "grid_points": len(grid), "frames": DOA_FRAMES,
+            "setup_s": setup_s, "frames_per_s": DOA_FRAMES / wall,
+            "frame_ms": frame_ms, "covariance_kernel_ms": cov_ms,
+            "spectrum_kernel": spec_kernel, "spectrum_kernel_ms": spec_ms,
+            "kernel_share_of_frame": (cov_ms + spec_ms) / frame_ms,
+            "profile": {"frames": n_prof, "frame_wall_ms": prof_ms,
+                        **device_breakdown(prof, n_prof, prof_ms)},
+            "launches": got, "plain_equal": True,
+            "rmse_cim_deg": float(np.mean(err_cim)),
+            "rmse_pct_fov": rmse_pct,
+            "rmse_software_deg": float(np.mean(err_sw)),
+            "rmse_cim_vs_software_deg": float(np.mean(
+                [doa.rmse(f.est, e) for f, e in zip(frames, est_sw)])),
+            "first_frame": {"true": [float(v) for v in data[0][0]],
+                            "cim": frames[0].est, "software": est_sw[0]}}
+    emit({"phase": "doa", "ok": True, "arrays": records})
+    return {"launches": launches, "arrays": records}
+
+
+def _bound(nbytes: float, nops: float) -> dict:
+    b, o = nbytes / HBM_BYTES_S, nops / INT8_OPS_S
+    return {"bound_ms": 1e3 * max(b, o),
+            "bound_by": "bytes" if b >= o else "operations",
+            "bytes": nbytes, "ops": nops}
+
+
+def _timing_case(torch, dev, name: str, m: int, k: int, n: int, gen):
+    """Callables and counts for one phase-17 timing: the kernel, its plain
+    version, the four-pass route through the port's real kernels (for
+    kernel 6 the route it replaced: pack per call, then the prepacked
+    kernel), a library yardstick, and the bytes and operations of the
+    bound (each input read once, each output written once)."""
+    from repro_torch.core.engine import pack_quantized_cim_weights
+    from repro_torch.kernels.ccim_complex import kernel as CK
+    from repro_torch.kernels.ccim_matmul import kernel as K
+
+    def ints8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+    xr, xi, wr, wi = ints8(m, k), ints8(m, k), ints8(k, n), ints8(k, n)
+    one = torch.ones((1, n), device=dev)
+    real = (K.ccim_matmul_prepacked_skinny_cuda if m <= K.SKINNY_M
+            else K.ccim_matmul_prepacked_general_cuda)
+    if name == "unpacked":
+        def packed_route():
+            p = pack_quantized_cim_weights(wr, one)
+            return real(xr, p.kernel_w, p.kernel_planes)
+        xl = torch.zeros((max(m, 32), k), dtype=torch.int8, device=dev)
+        wl = wr.t().contiguous().t()           # column-major, as _int_mm takes
+        return dict(kern=lambda: K.ccim_matmul_unpacked_cuda(xr, wr),
+                    plain=lambda: K.ccim_matmul_unpacked_plain(xr, wr),
+                    four=packed_route, lib=lambda: torch._int_mm(xl, wl),
+                    nbytes=m * k + k * n + 4 * m * n, nops=6 * m * n * k)
+    xc = torch.complex(xr.float(), xi.float())
+    wc = torch.complex(wr.float(), wi.float())
+    case = dict(lib=lambda: torch.matmul(xc, wc), nops=24 * m * n * k)
+    if name == "complex_unpacked":
+        pairs = ((xr, wr), (xi, wi), (xr, wi), (xi, wr))
+        case.update(
+            kern=lambda: CK.ccim_complex_unpacked_cuda(xr, xi, wr, wi),
+            plain=lambda: CK.ccim_complex_unpacked_plain(xr, xi, wr, wi),
+            four=lambda: [K.ccim_matmul_unpacked_cuda(a, b) for a, b in pairs],
+            nbytes=2 * m * k + 2 * k * n + 8 * m * n)
+        return case
+    pr = pack_quantized_cim_weights(wr, one)
+    pi = pack_quantized_cim_weights(wi, one)
+    args = (xr, xi, pr.kernel_w, pr.kernel_planes, pi.kernel_w,
+            pi.kernel_planes)
+    fn = (CK.ccim_complex_prepacked_skinny_cuda if name == "complex_skinny"
+          else CK.ccim_complex_prepacked_general_cuda)
+    pairs = ((xr, pr), (xi, pi), (xr, pi), (xi, pr))
+    case.update(
+        kern=lambda: fn(*args),
+        plain=lambda: CK.ccim_complex_prepacked_plain(*args),
+        four=lambda: [real(a, p.kernel_w, p.kernel_planes) for a, p in pairs],
+        nbytes=2 * m * k + 6 * k * n + 8 * m * n)
+    return case
+
+
+# phase 17: kernel -> the M values it is timed at (the last one is the
+# kernels table's row)
+TIMED_M = {"complex_skinny": (4,), "complex_general": (128,),
+           "complex_unpacked": (4, 128), "unpacked": (4, 128)}
+
+
+def times_complex(torch, dev, gen) -> dict:
+    """Phase 17: CUDA-event medians of kernels 4-7 at the full-width
+    shapes, summed over one layer's four GEMMs, beside the plain version,
+    the four-pass route, a library yardstick (a different function) and
+    the bound.  Returns the kernels table's rows by kernel."""
+    rows, by_kernel = {}, {}
+    keys = ("ms", "plain_ms", "four_pass_ms", "library_ms", "bytes", "ops")
+    for name, ms_ in TIMED_M.items():
+        for m in ms_:
+            tot = dict.fromkeys(keys, 0.0)
+            shapes = {}
+            for sname, (k, n) in FULL_SHAPES.items():
+                c = _timing_case(torch, dev, name, m, k, n, gen)
+                t = dict(ms=cuda_ms(c["kern"], reps=20),
+                         plain_ms=cuda_ms(c["plain"], reps=3, warmup=1),
+                         four_pass_ms=cuda_ms(c["four"], reps=10),
+                         library_ms=cuda_ms(c["lib"], reps=20),
+                         bytes=c["nbytes"], ops=c["nops"])
+                shapes[sname] = dict(t, **_bound(c["nbytes"], c["nops"]))
+                for key in keys:
+                    tot[key] += t[key]
+            tot.update(_bound(tot["bytes"], tot["ops"]))
+            by_kernel[f"{name} M={m}"] = {"layer_total": tot,
+                                          "shapes": shapes}
+            rows[name] = dict(tot, m=m)
+    emit({"phase": "times_complex", "by_kernel": by_kernel,
+          "library": {
+              "complex": "torch.matmul on complex64 (no macro arithmetic; a "
+                         "yardstick the port never calls)",
+              "unpacked": "torch._int_mm at M >= 32 (int8 GEMM without the "
+                          "per-chunk clip; a yardstick)"},
+          "four_pass": {
+              "complex": "four launches of the port's real kernel on the "
+                         "same operands (prepacked skinny/general, or "
+                         "unpacked)",
+              "unpacked": "the route the unpacked kernel replaced: pack the "
+                          "raw weights per call, then the prepacked kernel"}})
+    return rows
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -571,23 +993,8 @@ def main() -> int:
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0) / steps
     del packed, cache
-    dev_us, host_us, aten_calls = {}, {}, 0
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total", 0) or 0
-        if t > 0:
-            dev_us[e.key] = dev_us.get(e.key, 0) + t
-        if e.key.startswith("aten::"):
-            host_us[e.key] = e.self_cpu_time_total
-            aten_calls += e.count
-    busy_ms = sum(dev_us.values()) / 1e3 / steps
-    per_step = lambda d: {k[:60]: v / 1e3 / steps for k, v in
-                          sorted(d.items(), key=lambda kv: -kv[1])[:8]}
     emit({"phase": "decode_profile", "steps": steps,
-          "step_wall_ms": wall_ms, "device_busy_ms": busy_ms,
-          "device_idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
-          "aten_calls_per_step": aten_calls / steps,
-          "top_device_ms_per_step": per_step(dev_us),
-          "top_host_self_ms_per_step": per_step(host_us)})
+          "step_wall_ms": wall_ms, **device_breakdown(prof, steps, wall_ms)})
 
     # -- 7. per-kernel times --------------------------------------------------
     x_bits = (6, 5)                          # the prototype's top-3 split
@@ -631,6 +1038,12 @@ def main() -> int:
     pa_err = paged_attn_shapes(torch, dev)
     serve_phases = continuous_phases(torch, dev, params, cfg_full)
     pa_time = times_paged_attn(torch, dev)
+    del params
+    # -- 14.-17. the complex-MAC lane and the unpacked real GEMM ------------
+    cx_err = complex_kernels(torch, dev, gen)
+    unpacked = unpacked_real(torch, dev, gen)
+    doa_run = doa_phase(torch, dev)
+    cx_rows = times_complex(torch, dev, gen)
 
     src = "src/repro_torch/kernels/ccim_matmul/csrc/"
     table = []
@@ -657,6 +1070,31 @@ def main() -> int:
         "launches": serve_phases["paged_launches"],
         "launches_by_path": serve_phases["paged_launches_by_path"],
         "max_abs_err": pa_err, **pa_time})
+    csrc = "src/repro_torch/kernels/ccim_complex/csrc/"
+    ref = "src/repro/kernels/ccim_complex/kernel.py:"
+    for name, label, source, replaces, launches, err in (
+            ("complex_skinny", "ccim_complex_prepacked_skinny",
+             csrc + "ccim_complex_skinny.cu", ref + "209",
+             doa_run["launches"]["complex_skinny"], cx_err["complex_skinny"]),
+            ("complex_general", "ccim_complex_prepacked_general",
+             csrc + "ccim_complex_general.cu", ref + "255",
+             doa_run["launches"]["complex_general"],
+             cx_err["complex_general"]),
+            ("unpacked", "ccim_matmul_unpacked", src + "ccim_unpacked.cu",
+             "src/repro/kernels/ccim_matmul/kernel.py:327",
+             unpacked["launches"], unpacked["max_abs_err"]),
+            ("complex_unpacked", "ccim_complex_unpacked",
+             csrc + "ccim_complex_unpacked.cu", ref + "301",
+             doa_run["launches"]["complex_unpacked"],
+             cx_err["complex_unpacked"])):
+        t = cx_rows[name]
+        table.append({
+            "name": label, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "four_pass_ms": t["four_pass_ms"],
+            "at_m": t["m"]})
     emit({"phase": "done", "seconds": time.time() - t_start})
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,8 @@ The f32 -> bf16 round trip of a bf16 value is exact.
 ``packed_from_jax`` maps a reference ``PackedCimWeights`` or
 ``FusedPackedCimWeights`` (numpy leaves, any object with the reference
 field names) onto the port's structure, so tests can compare pack
-contents field for field.  Neither function imports the reference.
+contents field for field; ``packed_complex_from_jax`` does the same for
+a ``PackedComplexCimWeights``.  No function here imports the reference.
 """
 from __future__ import annotations
 
@@ -21,7 +22,8 @@ import torch
 
 from . import resolve_device
 from .core.ccim import CCIMConfig
-from .core.engine import FusedPackedCimWeights, PackedCimWeights
+from .core.engine import (FusedPackedCimWeights, PackedCimWeights,
+                          PackedComplexCimWeights)
 from .kernels.ccim_matmul.ops import weight_layout
 from .models.config import ModelConfig
 from .models.lm import torch_dtype
@@ -68,3 +70,10 @@ def packed_from_jax(p, device=None):
     return PackedCimWeights(
         scale=torch.from_numpy(np.array(p.scale, np.float32)).to(dev),
         kernel_w=lay(w), kernel_planes=lay(pl), k_dim=K, n_dim=N, cfg=cfg)
+
+
+def packed_complex_from_jax(p, device=None) -> PackedComplexCimWeights:
+    """Reference complex pack (numpy leaves) -> the port's: each half
+    through ``packed_from_jax``."""
+    return PackedComplexCimWeights(re=packed_from_jax(p.re, device),
+                                   im=packed_from_jax(p.im, device))

@@ -232,6 +232,16 @@ def _pad_to_chunks(k: int, acc_len: int) -> int:
     return (k + acc_len - 1) // acc_len
 
 
+def _kernel_numerics_match(cfg: CCIMConfig) -> bool:
+    """True when ``cfg`` matches the constants the unpacked and the fused
+    complex kernels hardcode (prototype accumulate length, SMF width,
+    top-3 DCIM split, 7-bit ADC)."""
+    d = DEFAULT_CONFIG
+    return (cfg.acc_len == d.acc_len and cfg.n_mag_bits == d.n_mag_bits
+            and cfg.dcim_products == d.dcim_products
+            and cfg.adc_bits == d.adc_bits)
+
+
 def cim_matmul_int(x_q: torch.Tensor, w_q,
                    cfg: CCIMConfig = DEFAULT_CONFIG, noise_key=None,
                    fidelity: str = "fast", *,
@@ -240,14 +250,46 @@ def cim_matmul_int(x_q: torch.Tensor, w_q,
     product scale (already times ``dcim_lsb``).  'fast' fidelity only.
 
     ``w_q`` may be raw integer weights or an ``engine.PackedCimWeights``.
-    Raw weights are packed for the call, so both operand kinds run the
-    same prepacked kernel on a CUDA device (and its plain version on the
-    CPU) -- bit-identical, since packing is a caching transform."""
+    Raw weights at the prototype's numerics run the unpacked GEMM
+    (``kernels/ccim_matmul/ops.py::ccim_matmul_int``: its CUDA kernel on
+    a CUDA device, its plain version on the CPU), which decomposes the
+    weights itself.  At any other design point raw weights are packed for
+    the call and served by the prepacked kernels, which take every design
+    point -- bit-identical, since packing is a caching transform."""
     from .engine import (PackedCimWeights, pack_quantized_cim_weights,
                          packed_cim_matmul_int)
     if not isinstance(w_q, PackedCimWeights):
+        _no_noise(noise_key)
+        if fidelity == "fast" and _kernel_numerics_match(cfg):
+            from ..kernels.ccim_matmul import ops as kops
+            return kops.ccim_matmul_int(x_q, w_q, use_kernel=use_kernel)
         one = torch.ones((1, w_q.shape[-1]), dtype=torch.float32,
                          device=w_q.device)
         w_q = pack_quantized_cim_weights(w_q, one, cfg)
     return packed_cim_matmul_int(x_q, w_q, cfg, noise_key, fidelity,
                                  use_kernel=use_kernel)
+
+
+# ---------------------------------------------------------------------------
+# Float-in/float-out CIM matmul (quantize -> macro GEMM -> dequantize)
+# ---------------------------------------------------------------------------
+
+
+def cim_matmul(x: torch.Tensor, w, cfg: CCIMConfig = DEFAULT_CONFIG,
+               noise_key=None, fidelity: str = "fast",
+               per_channel: bool = True,
+               use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """float (M, K) @ (K, N) through the emulated macro, dequantized to
+    float32.  ``w`` may be an ``engine.PackedCimWeights``; activation
+    quantization then runs per call while the weight conditioning is
+    served prepacked."""
+    from .engine import PackedCimWeights, packed_cim_matmul
+    if isinstance(w, PackedCimWeights):
+        return packed_cim_matmul(x, w, cfg, noise_key, fidelity,
+                                 use_kernel=use_kernel)
+    sx = smf_scale(x, dim=-1, keepdim=True, cfg=cfg)            # per row
+    sw = (smf_scale(w, dim=0, keepdim=True, cfg=cfg) if per_channel
+          else smf_scale(w, cfg=cfg))
+    y = cim_matmul_int(quantize_smf(x, sx, cfg), quantize_smf(w, sw, cfg),
+                       cfg, noise_key, fidelity, use_kernel=use_kernel)
+    return y.to(torch.float32) * sx * sw.reshape(1, -1)

@@ -18,6 +18,10 @@ copies (``gemm_w``/``gemm_planes``).  Here they are derived from
 ``kernel_w`` on demand: at full model width the float32 copies alone
 would be 12 bytes per weight.  A leading layer axis is allowed (stacked
 layer weights); ``layer(i)`` selects one layer's pack.
+
+``PackedComplexCimWeights`` is a co-located (Re, Im) pair of such packs
+sharing one scale (``pack_complex_cim_weights``); the fused complex
+kernels read both packs as stored.
 """
 from __future__ import annotations
 
@@ -92,6 +96,19 @@ class FusedPackedCimWeights:
         return dataclasses.replace(self, packed=self.packed.layer(i))
 
 
+@dataclasses.dataclass(frozen=True)
+class PackedComplexCimWeights:
+    """Co-located (Re, Im) weight pair packed once, with one shared
+    full scale: two real packs in the kernels' layout.
+
+    Mirrors the complex bit-cell: both components live in the same array
+    and share the bitline full scale, so one pack serves all four real
+    sub-MACs of (a + bi)(c + di)."""
+
+    re: PackedCimWeights
+    im: PackedCimWeights
+
+
 # ---------------------------------------------------------------------------
 # Packing (the write-the-array step; run once per weight matrix)
 # ---------------------------------------------------------------------------
@@ -135,6 +152,20 @@ def pack_cim_weights(w: torch.Tensor, cfg: CCIMConfig = DEFAULT_CONFIG,
     sw = (smf_scale(w, dim=0, keepdim=True, cfg=cfg) if per_channel
           else smf_scale(w, cfg=cfg))
     return pack_quantized_cim_weights(quantize_smf(w, sw, cfg), sw, cfg)
+
+
+def pack_complex_cim_weights(w_re: torch.Tensor, w_im: torch.Tensor,
+                             cfg: CCIMConfig = DEFAULT_CONFIG
+                             ) -> PackedComplexCimWeights:
+    """Pack a co-located complex (K, N) weight pair with one shared full
+    scale per column, max(|w_re|, |w_im|) (Re and Im share the array's
+    bitlines in silicon).  Same scale and rounding as the reference."""
+    w_re, w_im = w_re.to(torch.float32), w_im.to(torch.float32)
+    sw = smf_scale(torch.maximum(w_re.abs(), w_im.abs()), dim=0,
+                   keepdim=True, cfg=cfg)
+    return PackedComplexCimWeights(
+        re=pack_quantized_cim_weights(quantize_smf(w_re, sw, cfg), sw, cfg),
+        im=pack_quantized_cim_weights(quantize_smf(w_im, sw, cfg), sw, cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -245,6 +276,10 @@ class CimEngine:
     def pack(self, w: torch.Tensor, per_channel: bool = True
              ) -> PackedCimWeights:
         return pack_cim_weights(w, self.cfg, per_channel)
+
+    def pack_complex(self, w_re: torch.Tensor, w_im: torch.Tensor
+                     ) -> PackedComplexCimWeights:
+        return pack_complex_cim_weights(w_re, w_im, self.cfg)
 
     def matmul(self, x: torch.Tensor, w, noise_key=None) -> torch.Tensor:
         """(..., K) @ w -> (..., N); w packed or a fused packed group."""

@@ -4,9 +4,10 @@ Every kernel source is compiled with nvcc for sm_90a into a shared
 library with a plain C interface (no PyTorch headers), one library per
 source, all sources started together, into ``build/repro_torch_kernels``
 at the repository root.  A library's file name carries a hash of the
-nvcc flags and of every file in its source's ``csrc`` directory, so an
-edited source is rebuilt and an unchanged one is loaded as it is.  The
-kernel modules bind their entry points with ctypes.
+nvcc flags and of every file in the ``csrc`` directories (sources
+include the shared headers of ``ccim_matmul/csrc``), so an edited
+source or header is rebuilt and an unchanged one is loaded as it is.
+The kernel modules bind their entry points with ctypes.
 """
 from __future__ import annotations
 
@@ -26,6 +27,10 @@ BUILD_DIR = _KERNELS.parents[2] / "build" / "repro_torch_kernels"
 SOURCES = {
     "skinny": "ccim_matmul/csrc/ccim_prepacked_skinny.cu",
     "general": "ccim_matmul/csrc/ccim_prepacked_general.cu",
+    "unpacked": "ccim_matmul/csrc/ccim_unpacked.cu",
+    "complex_skinny": "ccim_complex/csrc/ccim_complex_skinny.cu",
+    "complex_general": "ccim_complex/csrc/ccim_complex_general.cu",
+    "complex_unpacked": "ccim_complex/csrc/ccim_complex_unpacked.cu",
     "paged_attn": "paged_attn/csrc/paged_attn_decode.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -46,8 +51,8 @@ def _nvcc() -> str:
 def lib_path(name: str) -> Path:
     src = _KERNELS / SOURCES[name]
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in sorted(src.parent.iterdir()):
-        h.update(f.name.encode())
+    for f in sorted(_KERNELS.glob("*/csrc/*")):
+        h.update(str(f.relative_to(_KERNELS)).encode())
         h.update(f.read_bytes())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
@@ -97,3 +102,17 @@ def load_all() -> Dict[str, ctypes.CDLL]:
 def library(name: str) -> ctypes.CDLL:
     """The loaded library ``name`` (building every kernel at first use)."""
     return load_all()[name]
+
+
+def bind(entries: Dict[str, tuple]) -> Dict[str, object]:
+    """Entry points by library name, from ``{name: (symbol, argtypes)}``,
+    each returning a CUDA error code (int); builds every kernel at first
+    use."""
+    libs = load_all()
+    fns = {}
+    for name, (symbol, argtypes) in entries.items():
+        fn = getattr(libs[name], symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    return fns

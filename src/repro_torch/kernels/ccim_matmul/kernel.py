@@ -1,19 +1,24 @@
-"""Hopper CUDA kernels of the prepacked hybrid-CIM GEMM, and their plain
-PyTorch version.
+"""Hopper CUDA kernels of the hybrid-CIM GEMM, and their plain PyTorch
+versions.
 
-Two hand-written kernels (``csrc/``), each the port of one Pallas kernel
-of ``repro/kernels/ccim_matmul/kernel.py``:
+Three hand-written kernels (``csrc/``), each the port of one Pallas
+kernel of ``repro/kernels/ccim_matmul/kernel.py``:
 
   ccim_matmul_prepacked_skinny_cuda   M <= 32 (decode); replaces
                                       ccim_matmul_prepacked_skinny_pallas
   ccim_matmul_prepacked_general_cuda  any M (prefill); replaces
                                       ccim_matmul_prepacked_pallas
+  ccim_matmul_unpacked_cuda           raw weights, prototype numerics;
+                                      replaces ccim_matmul_pallas
 
-Both take the port's weight layout -- w (N, Kp) and planes (n_j, N, Kp),
-int8, K contiguous per output column -- and int8 activations (M, Kp),
-and return (M, N) int32 at product scale.  ``ccim_matmul_prepacked_plain``
-computes the same function with float32 batched chunk dots (exact below
-2^24); the CPU path and the tests use it.
+The prepacked two take the port's weight layout -- w (N, Kp) and planes
+(n_j, N, Kp), int8, K contiguous per output column -- and int8
+activations (M, Kp), and return (M, N) int32 at product scale.
+``ccim_matmul_prepacked_plain`` computes the same function with float32
+batched chunk dots (exact below 2^24); the CPU path and the tests use
+it.  The unpacked kernel takes the raw weights as the caller holds them,
+(Kp, N) int8, and decomposes them itself; ``ccim_matmul_unpacked_plain``
+is its plain version.
 
 The sources are built and loaded by ``kernels/build.py`` (nvcc for
 sm_90a at first use, a plain C interface bound through ctypes).  Each
@@ -28,12 +33,18 @@ import torch
 
 from ...core import ccim
 from .. import build
+from .ref import ACC_LEN, DCIM_LSB
 
 SKINNY_M = 32          # the skinny kernel's register tile holds <= 32 rows
 MAX_PLANES = 3         # distinct activation bits of the widest split (top-6)
 
-_ENTRY = {"skinny": "ccim_prepacked_skinny",
-          "general": "ccim_prepacked_general"}
+_PREPACKED_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+                   + [ctypes.c_void_p])
+# library name -> (entry point, argtypes)
+_ENTRY = {"skinny": ("ccim_prepacked_skinny", _PREPACKED_ARGS),
+          "general": ("ccim_prepacked_general", _PREPACKED_ARGS),
+          "unpacked": ("ccim_unpacked", [ctypes.c_void_p] * 3
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])}
 
 
 _fns: Dict[str, object] = {}
@@ -42,15 +53,9 @@ _fns: Dict[str, object] = {}
 def load_kernels() -> Dict[str, object]:
     """Build (if needed) and load the kernel libraries (every kernel of
     the port is built together, ``build.load_all``); returns this
-    module's two entry points, bound, by name."""
+    module's entry points, bound, by name."""
     if not _fns:
-        libs = build.load_all()
-        for name, entry in _ENTRY.items():
-            fn = getattr(libs[name], entry)
-            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-                           + [ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-            _fns[name] = fn
+        _fns.update(build.bind(_ENTRY))
     return _fns
 
 
@@ -61,11 +66,10 @@ def _pack_x_bits(x_bits: Sequence[int]) -> int:
     return packed
 
 
-def _check(x: torch.Tensor, w: torch.Tensor, planes: torch.Tensor,
-           x_bits: Sequence[int], dcim_lsb: int, acc_len: int) -> None:
-    M, Kp = x.shape
-    N = w.shape[0]
-    for name, t in (("x", x), ("w", w), ("planes", planes)):
+def check_int8_operands(**tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is a contiguous, 16-byte aligned int8
+    CUDA tensor (the kernels load 16 bytes at a time)."""
+    for name, t in tensors.items():
         if not t.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor")
         if t.dtype != torch.int8:
@@ -74,6 +78,13 @@ def _check(x: torch.Tensor, w: torch.Tensor, planes: torch.Tensor,
             raise ValueError(f"{name} must be contiguous")
         if t.numel() and t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def _check(x: torch.Tensor, w: torch.Tensor, planes: torch.Tensor,
+           x_bits: Sequence[int], dcim_lsb: int, acc_len: int) -> None:
+    M, Kp = x.shape
+    N = w.shape[0]
+    check_int8_operands(x=x, w=w, planes=planes)
     if w.shape != (N, Kp):
         raise ValueError(f"w shape {tuple(w.shape)} != ({N}, {Kp})")
     if planes.shape != (len(x_bits), N, Kp):
@@ -103,7 +114,8 @@ def _launch(name: str, x, w, planes, *, acc_len: int, x_bits, dcim_lsb: int,
              out.data_ptr(), M, N, Kp, len(x_bits), _pack_x_bits(x_bits),
              dcim_lsb.bit_length() - 1, adc_half, acc_len, stream)
     if err:
-        raise RuntimeError(f"{_ENTRY[name]} launch failed: CUDA error {err}")
+        raise RuntimeError(f"{_ENTRY[name][0]} launch failed: CUDA error "
+                           f"{err}")
     return out
 
 
@@ -134,13 +146,35 @@ def ccim_matmul_prepacked_general_cuda(
     return out
 
 
+def ccim_matmul_unpacked_cuda(x: torch.Tensor, w: torch.Tensor
+                              ) -> torch.Tensor:
+    """Unpacked hybrid-CIM GEMM at the prototype's numerics: x (M, Kp)
+    and raw w (Kp, N) int8 -> (M, N) int32 at product scale."""
+    check_int8_operands(x=x, w=w)
+    M, Kp = x.shape
+    N = w.shape[1]
+    if w.shape[0] != Kp or Kp % ACC_LEN or M == 0 or N == 0:
+        raise ValueError(f"x {tuple(x.shape)}, w {tuple(w.shape)}: need "
+                         f"(M, Kp) x (Kp, N), Kp a multiple of {ACC_LEN}")
+    out = torch.empty((M, N), dtype=torch.int32, device=x.device)
+    err = load_kernels()["unpacked"](
+        x.data_ptr(), w.data_ptr(), out.data_ptr(), M, N, Kp,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"ccim_unpacked launch failed: CUDA error {err}")
+    ccim_matmul_unpacked_cuda.launches += 1
+    return out
+
+
 ccim_matmul_prepacked_skinny_cuda.launches = 0
 ccim_matmul_prepacked_general_cuda.launches = 0
+ccim_matmul_unpacked_cuda.launches = 0
 
 
 def reset_launch_counts() -> None:
     ccim_matmul_prepacked_skinny_cuda.launches = 0
     ccim_matmul_prepacked_general_cuda.launches = 0
+    ccim_matmul_unpacked_cuda.launches = 0
 
 
 def chunked_operands(w: torch.Tensor, planes: torch.Tensor, acc_len: int,
@@ -174,3 +208,16 @@ def ccim_matmul_prepacked_plain(
     xq = x.to(torch.int32).reshape(M, C, acc_len)
     return ccim.fast_gemm_int(xq, wf, w_pl, tuple(x_bits), dcim_lsb,
                               adc_half) * dcim_lsb
+
+
+def ccim_matmul_unpacked_plain(x: torch.Tensor, w: torch.Tensor
+                               ) -> torch.Tensor:
+    """The unpacked kernel's function in plain PyTorch: x (M, Kp) and raw
+    w (Kp, N) ints -> (M, N) int32, bit-identical to the kernel and to
+    the integer oracle ``ref.ccim_matmul_ref`` (the fast GEMM's float32
+    chunk dots are exact)."""
+    M, Kp = x.shape
+    C = Kp // ACC_LEN
+    xq = x.to(torch.int32).reshape(M, C, ACC_LEN)
+    wq = w.to(torch.int32).reshape(C, ACC_LEN, w.shape[1])
+    return ccim.hybrid_mac_fast_gemm(xq, wq) * DCIM_LSB

@@ -1,5 +1,6 @@
-"""Public wrapper of the hybrid-CIM GEMM kernels: the port's weight
-layout, activation padding and the M-based dispatch.
+"""Public wrappers of the hybrid-CIM GEMM kernels: the port's weight
+layout, activation padding and the M-based dispatch of the prepacked
+kernels, and the unpacked GEMM on raw weights.
 
 Weight layout (the port's own; replaces the TPU's ``pick_weight_blocks``
 block padding): w and the folded planes are stored K-contiguous per
@@ -17,7 +18,8 @@ import torch.nn.functional as F
 
 from .kernel import (SKINNY_M, ccim_matmul_prepacked_general_cuda,
                      ccim_matmul_prepacked_plain,
-                     ccim_matmul_prepacked_skinny_cuda)
+                     ccim_matmul_prepacked_skinny_cuda,
+                     ccim_matmul_unpacked_cuda, ccim_matmul_unpacked_plain)
 from .ref import ACC_LEN, DCIM_LSB
 
 
@@ -29,6 +31,25 @@ def weight_layout(K: int, N: int, acc_len: int = ACC_LEN) -> Tuple[int, int]:
     """(Kp, Np): padded K and N of the ``(Np, Kp)`` kernel weight layout.
     Independent of M, so a weight matrix is laid out once at pack time."""
     return _pad_to(K, max(acc_len, 16)), N
+
+
+def resolve_use_kernel(use_kernel: Optional[bool], x: torch.Tensor) -> bool:
+    """None: the CUDA kernel for a CUDA tensor, the plain version for a
+    CPU tensor.  True on a CPU tensor raises."""
+    if use_kernel is None:
+        return x.is_cuda
+    if use_kernel and not x.is_cuda:
+        raise ValueError("the CUDA kernels take CUDA tensors; CPU tensors "
+                         "run the plain version (use_kernel=None)")
+    return use_kernel
+
+
+def pad_k_int8(v: torch.Tensor, kp: int, dim: int) -> torch.Tensor:
+    """``v`` cast to int8 with axis ``dim`` (0 or 1) zero-padded to
+    ``kp``, contiguous: the one copy a raw operand gets per call."""
+    pad = kp - v.shape[dim]
+    v = v.to(torch.int8)
+    return F.pad(v, (0, pad) if dim == 1 else (0, 0, 0, pad)).contiguous()
 
 
 def ccim_matmul_int_prepacked(
@@ -60,16 +81,28 @@ def ccim_matmul_int_prepacked(
     if tuple(planes.shape) != (len(x_bits), Np, Kp):
         raise ValueError(f"planes {tuple(planes.shape)} != "
                          f"{(len(x_bits), Np, Kp)}")
-    if use_kernel is None:
-        use_kernel = x_q.is_cuda
-    if use_kernel and not x_q.is_cuda:
-        raise ValueError("the CUDA kernels take CUDA tensors; CPU tensors "
-                         "run the plain version (use_kernel=None)")
+    use_kernel = resolve_use_kernel(use_kernel, x_q)
     meta = dict(acc_len=acc_len, x_bits=tuple(x_bits), dcim_lsb=dcim_lsb,
                 adc_half=1 << (adc_bits - 1))
-    xp = F.pad(x_q.to(torch.int8), (0, Kp - K)).contiguous()
+    xp = pad_k_int8(x_q, Kp, 1)
     if not use_kernel:
         return ccim_matmul_prepacked_plain(xp, w, planes, **meta)
     if M <= SKINNY_M:
         return ccim_matmul_prepacked_skinny_cuda(xp, w, planes, **meta)
     return ccim_matmul_prepacked_general_cuda(xp, w, planes, **meta)
+
+
+def ccim_matmul_int(x_q: torch.Tensor, w_q: torch.Tensor, *,
+                    use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """(M, K) x (K, N) ints in [-127, 127] -> (M, N) int32 macro GEMM at
+    the prototype's numerics (scale 2^11), on raw weights: K is padded to
+    whole chunks and both operands cast to int8 once; the kernel
+    decomposes the weights itself.  ``use_kernel`` as in
+    ``ccim_matmul_int_prepacked``."""
+    Kp = _pad_to(x_q.shape[1], ACC_LEN)
+    if w_q.shape[0] != x_q.shape[1]:
+        raise ValueError(f"x {tuple(x_q.shape)} @ w {tuple(w_q.shape)}")
+    xp, wp = pad_k_int8(x_q, Kp, 1), pad_k_int8(w_q, Kp, 0)
+    if resolve_use_kernel(use_kernel, x_q):
+        return ccim_matmul_unpacked_cuda(xp, wp)
+    return ccim_matmul_unpacked_plain(xp, wp)

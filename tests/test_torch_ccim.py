@@ -98,6 +98,29 @@ def test_cim_matmul_int_raw_weights_bit_identical(nd, adc, acc):
     np.testing.assert_array_equal(np.asarray(yj), yt.numpy())
 
 
+@pytest.mark.parametrize("nd,adc,acc,per_channel", [
+    (3, 7, 16, True), (3, 7, 16, False), (2, 8, 32, True)])
+def test_cim_matmul_float_raw_weights_bit_identical(nd, adc, acc,
+                                                    per_channel):
+    """Float cim_matmul on raw weights: the prototype split runs the
+    unpacked GEMM, other design points pack for the call; both equal the
+    reference, and the port's pack of the same weights."""
+    jc, tc = _cfgs(nd, adc, acc)
+    rng = np.random.default_rng(nd + adc + acc)
+    x = rng.standard_normal((5, 70)).astype(np.float32)
+    w = rng.standard_normal((70, 9)).astype(np.float32)
+    yj = J.cim_matmul(jnp.asarray(x), jnp.asarray(w), jc,
+                      per_channel=per_channel, use_pallas=False)
+    yt = T.cim_matmul(torch.from_numpy(x), torch.from_numpy(w), tc,
+                      per_channel=per_channel)
+    np.testing.assert_array_equal(np.asarray(yj), yt.numpy())
+    if per_channel:
+        from repro_torch.core.engine import pack_cim_weights
+        assert torch.equal(yt, T.cim_matmul(
+            torch.from_numpy(x), pack_cim_weights(torch.from_numpy(w), tc),
+            tc))
+
+
 def test_chunk_blocking_is_invisible():
     rng = np.random.default_rng(3)
     xq = torch.from_numpy(rng.integers(-127, 128, (9, 11, 16)).astype(np.int32))

@@ -7,8 +7,9 @@ the port's dependencies:
   PYTHONPATH=src python -m pytest -q --noconftest -p no:cacheprovider \\
       tests/test_torch_cuda.py
 
-Integer outputs are compared with torch.equal: the kernels and the plain
-version compute the same integers, so there is no tolerance.  The
+Integer outputs are compared with torch.equal: the kernels (the real
+and complex macro GEMMs, prepacked and unpacked) and their plain
+versions compute the same integers, so there is no tolerance.  The
 paged-attention kernel computes P.V in float32 where the plain version
 rounds p to bf16 first; it is held to the tolerance written beside it.
 """
@@ -17,7 +18,10 @@ import torch
 
 from repro_torch.core import engine
 from repro_torch.core.ccim import CCIMConfig
+from repro_torch.kernels.ccim_complex import kernel as CK
+from repro_torch.kernels.ccim_complex import ops as CO
 from repro_torch.kernels.ccim_matmul import kernel as K
+from repro_torch.kernels.ccim_matmul import ops as KO
 from repro_torch.kernels.paged_attn import kernel as PK
 from repro_torch.kernels.paged_attn import ref as PR
 
@@ -78,6 +82,50 @@ def test_analog_subset_of_hybrid_pack(dev):
         assert torch.equal(
             engine.packed_cim_matmul_int(x, p, cfg=subset),
             engine.packed_cim_matmul_int(x, p, cfg=subset, use_kernel=False))
+
+
+# minicpm-2b's fused QKV projection at full width, (K, N)
+FULL_K, FULL_N = 2304, 9216
+
+
+@pytest.mark.parametrize("kernel,m", [("complex_skinny", 4),
+                                      ("complex_general", 128),
+                                      ("complex_unpacked", 128),
+                                      ("unpacked", 128)])
+def test_complex_and_unpacked_kernels_equal_plain(dev, kernel, m):
+    """Kernels 4-7 at a full-width shape against their plain versions;
+    ints compared with torch.equal, one launch counted per call."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(m)
+    xr, xi = _ints(gen, (m, FULL_K), dev), _ints(gen, (m, FULL_K), dev)
+    wr, wi = (_ints(gen, (FULL_K, FULL_N), dev),
+              _ints(gen, (FULL_K, FULL_N), dev))
+    K.reset_launch_counts()
+    CK.reset_launch_counts()
+    if kernel == "unpacked":
+        got = (KO.ccim_matmul_int(xr, wr),)
+        want = (KO.ccim_matmul_int(xr, wr, use_kernel=False),)
+        launched = K.ccim_matmul_unpacked_cuda.launches
+    elif kernel == "complex_unpacked":
+        got = CO.ccim_complex_matmul_int(xr, xi, wr, wi)
+        want = CO.ccim_complex_matmul_int(xr, xi, wr, wi, use_kernel=False)
+        launched = CK.ccim_complex_unpacked_cuda.launches
+    else:
+        one = torch.ones((1, FULL_N), device=dev)
+        pr = engine.pack_quantized_cim_weights(wr, one)
+        pi = engine.pack_quantized_cim_weights(wi, one)
+        args = (xr, xi, pr.kernel_w, pi.kernel_w, pr.kernel_planes,
+                pi.kernel_planes)
+        kw = dict(k_dim=FULL_K, n_dim=FULL_N)
+        got = CO.ccim_complex_matmul_int_prepacked(*args, **kw)
+        want = CO.ccim_complex_matmul_int_prepacked(*args, **kw,
+                                                    use_kernel=False)
+        launched = (CK.ccim_complex_prepacked_skinny_cuda.launches if m <= 32
+                    else CK.ccim_complex_prepacked_general_cuda.launches)
+    torch.cuda.synchronize()
+    assert launched == 1
+    for a, b in zip(got, want):
+        assert a.dtype == torch.int32 and torch.equal(a, b)
 
 
 # (B, Hkv, G, Dh, bs, n_tbl, n_blocks, max length): a small GQA shape and

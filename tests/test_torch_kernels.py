@@ -1,6 +1,6 @@
-"""Port parity: the plain version of the port's prepacked macro GEMM
-kernels (kernels/ccim_matmul) against the reference's Pallas kernels run
-in interpret mode, and against the integer oracles.
+"""Port parity: the plain versions of the port's macro GEMM kernels
+(kernels/ccim_matmul: prepacked and unpacked) against the reference's
+Pallas kernels run in interpret mode, and against the integer oracles.
 
 All outputs are int32 and compared with ``==``.  The CUDA kernels
 themselves run only on a GPU (tests/test_torch_cuda.py and
@@ -17,6 +17,7 @@ import torch
 from repro.core import ccim as Jc
 from repro.core import engine as Je
 from repro.kernels.ccim_matmul import ccim_matmul_ref as jax_ref
+from repro.kernels.ccim_matmul import kernel as jkernel
 from repro.kernels.ccim_matmul import ops as jops
 from repro_torch.core import ccim as Tc
 from repro_torch.core import engine as Te
@@ -71,6 +72,31 @@ def test_plain_equals_oracles_at_prototype_split(m, k, n):
     assert torch.equal(y, ref_t)
 
 
+@pytest.mark.parametrize("m,k,n", [(5, 37, 11), (40, 64, 9)])
+def test_unpacked_plain_equals_pallas_interpret(m, k, n):
+    """Kernel 6's plain version against ccim_matmul_pallas in interpret
+    mode (the reference's unpacked kernel, on its padded blocks), and the
+    raw-weight wrapper against the reference's."""
+    rng = np.random.default_rng(m + k + n)
+    x = rng.integers(-127, 128, (m, k)).astype(np.int32)
+    w = rng.integers(-127, 128, (k, n)).astype(np.int32)
+    kp = -(-k // 16) * 16
+    bm, bn, bk = jops.pick_gemm_blocks(m, n, kp)
+    mp, np_, kpp = (-(-m // bm) * bm, -(-n // bn) * bn, -(-kp // bk) * bk)
+    xj = np.pad(x, ((0, mp - m), (0, kpp - k))).astype(np.int8)
+    wj = np.pad(w, ((0, kpp - k), (0, np_ - n))).astype(np.int8)
+    yj = jkernel.ccim_matmul_pallas(jnp.asarray(xj), jnp.asarray(wj), bm=bm,
+                                    bn=bn, bk=bk, interpret=True)
+    xt = torch.from_numpy(np.pad(x, ((0, 0), (0, kp - k)))).to(torch.int8)
+    wt = torch.from_numpy(np.pad(w, ((0, kp - k), (0, 0)))).to(torch.int8)
+    yt = K.ccim_matmul_unpacked_plain(xt, wt)
+    assert yt.dtype == torch.int32
+    np.testing.assert_array_equal(np.asarray(yj)[:m, :n], yt.numpy())
+    np.testing.assert_array_equal(
+        np.asarray(yj)[:m, :n],
+        tops.ccim_matmul_int(torch.from_numpy(x), torch.from_numpy(w)).numpy())
+
+
 def test_weight_layout_pads_only_whole_chunks():
     for k in (2304, 3072, 5760):                  # minicpm-2b: no padding
         for acc in (8, 16, 32, 64):
@@ -94,6 +120,11 @@ def test_cpu_tensors_take_the_plain_version():
                     K.ccim_matmul_prepacked_general_cuda):
         with pytest.raises(ValueError, match="CUDA tensor"):
             wrapper(x.to(torch.int8), p.kernel_w, p.kernel_planes)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        K.ccim_matmul_unpacked_cuda(x.to(torch.int8), p.wq().to(torch.int8))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tops.ccim_matmul_int(x, p.wq(), use_kernel=True)
+    assert K.ccim_matmul_unpacked_cuda.launches == 0
 
 
 def test_kernel_sources_name_what_they_replace():
@@ -101,7 +132,8 @@ def test_kernel_sources_name_what_they_replace():
     for src, fn in (("ccim_prepacked_skinny.cu",
                      "ccim_matmul_prepacked_skinny_pallas"),
                     ("ccim_prepacked_general.cu",
-                     "ccim_matmul_prepacked_pallas")):
+                     "ccim_matmul_prepacked_pallas"),
+                    ("ccim_unpacked.cu", "ccim_matmul_pallas")):
         text = (csrc / src).read_text()
         assert "Replaces:" in text and fn in text
         assert "What bounds it" in text and "Design:" in text
