@@ -3,14 +3,16 @@
 
   python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``src/repro_torch`` (all seven
+Builds the port's CUDA kernels from ``src/repro_torch`` (all eight
 sources compiled together) and drives its main paths: minicpm-2b at its
 full width and depth (40 layers, packed and fused, prototype macro),
 served lock-step and with continuous batching over a contiguous and a
 paged KV cache; the unpacked macro GEMM behind ``cim_matmul`` on raw
-weights; and the complex-MAC lane behind MUSIC direction-of-arrival
-estimation on 64- and 32-element arrays.  Each phase prints one JSON
-line; the script exits non-zero at the first failure.  Phases:
+weights; the complex-MAC lane behind MUSIC direction-of-arrival
+estimation on 64- and 32-element arrays; and the kernel bench and Fig. 6
+twins with the W8A8 all-digital baseline and the bit-true macro model.
+Each phase prints one JSON line; the script exits non-zero at the first
+failure.  Phases:
 
   1. device: the card's name and power limit, and the kernel build time;
   2. macro-GEMM kernels vs their plain PyTorch version at minicpm-2b's
@@ -63,7 +65,24 @@ line; the script exits non-zero at the first failure.  Phases:
      of view; frames/s and the kernels' share of a frame;
  17. CUDA-event times of the four new kernels at the full-width shapes
      (M 4 and 128) beside their plain versions, the four-pass route
-     through the port's real kernels, a library yardstick and the bound.
+     through the port's real kernels, a library yardstick and the bound;
+ 18. the W8A8 kernel vs its plain version, float32 outputs with
+     torch.equal, bf16 and f32 inputs, at the full-width shapes (M 1, 4,
+     32, 128) and ragged M, K, N: exactly one launch per ``int8_matmul``
+     call and none from the plain run;
+ 19. the kernel bench twin (``launch/kernel_bench.py --scale card``):
+     every row's parity assert and the 1.05x decode floor, with the
+     launches of every kernel it drives;
+ 20. the Fig. 6 twin at 1,048,576 conversions on the card (peak memory
+     under 8 GB), and the same seed and dies on the CPU: the floor's,
+     all-analog's and this die's y8 codes compared, the count of
+     differing codes printed (0 expected: the bit-true sum runs in one
+     order on both);
+ 21. times of the W8A8 kernel per layer (the four full-width GEMMs) at M
+     4 and 128: CUDA-event time per call (``ms``, host wrapper included,
+     as rows 1-7 are timed) and device time from CUDA-graph replays
+     (``device_ms``), beside its plain version, torch._int_mm with the
+     two dequant multiplies (a yardstick, at M >= 32) and the bound.
 
 The line before the last is the kernels table; the last line is the
 device record.  Needs a CUDA device: without one it exits non-zero.
@@ -821,6 +840,222 @@ def times_complex(torch, dev, gen) -> dict:
                           "raw weights per call, then the prepacked kernel"}})
     return rows
 
+def int8_kernel(torch, dev, gen) -> float:
+    """Phase 18: the W8A8 kernel against its plain version.  Returns the
+    largest |kernel - plain| (0 when equal)."""
+    import itertools
+    from repro_torch.kernels.int8_matmul import kernel as IK
+    from repro_torch.kernels.int8_matmul import ops as IO
+
+    shapes = [(m, k, n) for (k, n) in FULL_SHAPES.values()
+              for m in (1, 4, 32, 128)]
+    shapes += list(itertools.product((5, 33), (100, 2304), (17, 2304)))
+    err = 0.0
+    for (m, k, n), dt in itertools.product(shapes, (torch.float32,
+                                                    torch.bfloat16)):
+        x = torch.randn((m, k), generator=gen, device=dev).to(dt)
+        w = torch.randn((k, n), generator=gen, device=dev).to(dt)
+        IK.reset_launch_counts()
+        y_k = IO.int8_matmul(x, w)
+        n_k = IK.int8_w8a8_cuda.launches
+        y_p = IO.int8_matmul(x, w, use_kernel=False)
+        torch.cuda.synchronize()
+        check(n_k == 1 and IK.int8_w8a8_cuda.launches == 1,
+              f"W8A8 at {(m, k, n)} {dt}: {n_k} kernel launches, then "
+              f"{IK.int8_w8a8_cuda.launches - n_k} from the plain run")
+        e = float((y_k - y_p).abs().max())
+        err = max(err, e)
+        check(y_k.dtype == torch.float32 and torch.equal(y_k, y_p)
+              and bool(torch.isfinite(y_k).all()),
+              f"W8A8 kernel != plain at {(m, k, n)} {dt}: max |diff| {e}")
+    emit({"phase": "int8_kernel", "ok": True, "cases": 2 * len(shapes),
+          "shapes": [list(v) for v in shapes], "dtypes": ["float32",
+                                                          "bfloat16"],
+          "compare": "torch.equal on float32 outputs",
+          "launches_per_call": 1, "max_abs_err": err})
+    return err
+
+
+def _all_launches():
+    from repro_torch.kernels.ccim_complex import kernel as CK
+    from repro_torch.kernels.ccim_matmul import kernel as K
+    from repro_torch.kernels.int8_matmul import kernel as IK
+    from repro_torch.kernels.paged_attn import kernel as PK
+    return {"skinny": K.ccim_matmul_prepacked_skinny_cuda.launches,
+            "general": K.ccim_matmul_prepacked_general_cuda.launches,
+            "unpacked": K.ccim_matmul_unpacked_cuda.launches,
+            "complex_skinny": CK.ccim_complex_prepacked_skinny_cuda.launches,
+            "complex_general": CK.ccim_complex_prepacked_general_cuda.launches,
+            "complex_unpacked": CK.ccim_complex_unpacked_cuda.launches,
+            "paged_attn": PK.paged_attention_cuda.launches,
+            "int8": IK.int8_w8a8_cuda.launches}
+
+
+def _reset_all_launches():
+    from repro_torch.kernels.ccim_complex import kernel as CK
+    from repro_torch.kernels.ccim_matmul import kernel as K
+    from repro_torch.kernels.int8_matmul import kernel as IK
+    from repro_torch.kernels.paged_attn import kernel as PK
+    for mod in (K, CK, IK, PK):
+        mod.reset_launch_counts()
+
+
+def kernel_bench_phase(torch, dev) -> dict:
+    """Phase 19: the kernel bench twin at card scale.  Its rows raise on
+    a parity failure and below the decode floor.  Returns the launches
+    of every kernel in the run."""
+    from repro_torch.launch import kernel_bench
+    rows = []
+    _reset_all_launches()
+    t0 = time.time()
+    kernel_bench.run(seed=0, device=dev, scale="card", emit=rows.append)
+    torch.cuda.synchronize()
+    launches = _all_launches()
+    # the rows that reach each kernel on the card
+    for name in ("int8", "skinny", "unpacked", "complex_unpacked",
+                 "complex_skinny"):
+        check(launches[name] > 0, f"kernel bench: the {name} kernel was "
+              f"launched no time ({launches})")
+    by_op = {}
+    for r in rows:
+        by_op.setdefault(r["op"], []).append(r)
+    floor = by_op["decode_gemm_prepacked"][0]["speedup_vs_prev"]
+    check(floor >= kernel_bench.DECODE_SPEEDUP_FLOOR,
+          f"decode floor {floor} < {kernel_bench.DECODE_SPEEDUP_FLOOR}")
+    emit({"phase": "kernel_bench", "ok": True, "scale": "card",
+          "seconds": time.time() - t0, "launches": launches,
+          "decode_speedup": floor,
+          "decode_floor": kernel_bench.DECODE_SPEEDUP_FLOOR,
+          "rows": [{k: r[k] for k in ("op", "shape", "us",
+                                      "speedup_vs_prev")} for r in rows],
+          "notes": {r["op"]: r["note"] for r in rows}})
+    return {"launches": launches}
+
+
+def fig6_phase(torch, dev) -> dict:
+    """Phase 20: the Fig. 6 twin on the card at 1,048,576 conversions,
+    and the same seed and dies on the CPU."""
+    from repro_torch.core.ccim import DEFAULT_CONFIG
+    from repro_torch.launch import fig6_rms
+    rows = []
+    seed = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = fig6_rms.run(seed=seed, device=dev, emit=rows.append)
+    n = out["n"]
+    check(n == fig6_rms.CARD_N, f"fig6 ran {n} conversions on the card")
+    peak = torch.cuda.max_memory_allocated()
+    check(peak < 8 * 2 ** 30, f"fig6 peak device memory {peak} >= 8 GB")
+    t0 = time.time()
+    xq, wq, macro, macro_a = fig6_rms.conversions(seed, n, DEFAULT_CONFIG)
+    ys_cpu = fig6_rms.evaluate(xq, wq, macro, macro_a, DEFAULT_CONFIG)
+    cpu_s = time.time() - t0
+    differ = {k: int((out["ys"][k].cpu() != ys_cpu[k]).sum())
+              for k in ("floor", "all_analog", "this_die", "exact")}
+    check(differ["floor"] == 0 and differ["all_analog"] == 0
+          and differ["exact"] == 0,
+          f"fig6: card and CPU ints differ {differ}")
+    check(differ["this_die"] == 0,
+          f"fig6: {differ['this_die']} of {n} bit-true codes of the "
+          "fabricated die differ between the card and the CPU")
+    rms_cpu = fig6_rms.rows(ys_cpu, DEFAULT_CONFIG)
+    check(rms_cpu == out["rms"], f"fig6 RMS card {out['rms']} != CPU "
+          f"{rms_cpu}")
+    for v in out["rms"].values():
+        check(0 < v < 2, f"fig6 RMS out of range: {out['rms']}")
+    emit({"phase": "fig6", "ok": True, "n": n, "seed": seed,
+          "rms_pct": out["rms"], "card_us": out["us"],
+          "cpu_seconds": cpu_s, "peak_device_bytes": peak,
+          "codes_differing_card_vs_cpu": differ,
+          "rows": {r["name"]: r.get("value") for r in rows},
+          "not_ported": "the noisy 'this work' row (ROADMAP Queue 1 item 5)"})
+    return out
+
+
+def graph_ms(torch, fn, reps: int = 20) -> float:
+    """Device milliseconds per call: ``reps`` calls captured in one CUDA
+    graph, replayed (host dispatch is out of the timed span)."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(7):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        g.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    del g
+    return statistics.median(times)
+
+
+def times_int8(torch, dev, gen) -> dict:
+    """Phase 21: kernel 8 per layer at M 4 and 128.  Returns the kernels
+    table's row (at M 128) with both M in ``by_m``."""
+    from repro_torch.kernels.int8_matmul import kernel as IK
+    by_m = {}
+    for m in (4, 128):
+        tot = dict.fromkeys(("ms", "device_ms", "plain_ms", "library_ms",
+                             "library_device_ms", "bytes", "ops"), 0.0)
+        shapes = {}
+        for sname, (k, n) in FULL_SHAPES.items():
+            xq = torch.randint(-127, 128, (m, k), generator=gen, device=dev,
+                               dtype=torch.int8)
+            wt = torch.randint(-127, 128, (n, k), generator=gen, device=dev,
+                               dtype=torch.int8)
+            sx = torch.rand(m, generator=gen, device=dev) + 0.5
+            sw = torch.rand(n, generator=gen, device=dev) + 0.5
+            ml = max(m, 32)                  # torch._int_mm needs M > 16
+            xl = torch.randint(-127, 128, (ml, k), generator=gen, device=dev,
+                               dtype=torch.int8)
+            sxl = torch.rand(ml, generator=gen, device=dev) + 0.5
+            wcol = wt.t()                    # (K, N) column-major
+
+            def lib():
+                acc = torch._int_mm(xl, wcol).to(torch.float32)
+                return acc * sxl[:, None] * sw[None, :]
+            kern = lambda: IK.int8_w8a8_cuda(xq, wt, sx, sw)
+            t = dict(ms=cuda_ms(kern, reps=30),
+                     device_ms=graph_ms(torch, kern),
+                     plain_ms=cuda_ms(lambda: IK.int8_w8a8_plain(
+                         xq, wt, sx, sw), reps=5, warmup=1),
+                     library_ms=cuda_ms(lib, reps=30),
+                     library_device_ms=graph_ms(torch, lib),
+                     bytes=m * k + k * n + 4 * (m + n) + 4 * m * n,
+                     ops=2 * m * k * n)
+            shapes[sname] = dict(t, **_bound(t["bytes"], t["ops"]))
+            for key in tot:
+                tot[key] += t[key]
+        tot.update(_bound(tot["bytes"], tot["ops"]))
+        by_m[m] = {"layer_total": tot, "shapes": shapes}
+    emit({"phase": "times_int8", "by_m": by_m,
+          "timing": "ms, plain_ms and library_ms: CUDA events around one "
+                    "call, host wrapper included (as phases 7 and 17 time "
+                    "rows 1-7); *device_ms: device time per call from "
+                    "CUDA-graph replays of 20 calls",
+          "library": "torch._int_mm + float32 convert + the two dequant "
+                     "multiplies, at M >= 32 (a yardstick the port never "
+                     "calls)"})
+    row = dict(by_m[128]["layer_total"], m=128)
+    row["by_m"] = {m: {k: v["layer_total"][k] for k in
+                       ("ms", "device_ms", "plain_ms", "library_ms",
+                        "library_device_ms", "bound_ms")}
+                   for m, v in by_m.items()}
+    return row
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1044,6 +1279,11 @@ def main() -> int:
     unpacked = unpacked_real(torch, dev, gen)
     doa_run = doa_phase(torch, dev)
     cx_rows = times_complex(torch, dev, gen)
+    # -- 18.-21. the W8A8 kernel, the kernel bench and Fig. 6 twins --------
+    i8_err = int8_kernel(torch, dev, gen)
+    bench = kernel_bench_phase(torch, dev)
+    fig6_phase(torch, dev)
+    i8_row = times_int8(torch, dev, gen)
 
     src = "src/repro_torch/kernels/ccim_matmul/csrc/"
     table = []
@@ -1095,6 +1335,17 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "four_pass_ms": t["four_pass_ms"],
             "at_m": t["m"]})
+    table.append({
+        "name": "int8_w8a8", "route": "cuda",
+        "source": "src/repro_torch/kernels/int8_matmul/csrc/int8_w8a8.cu",
+        "replaces": "src/repro/kernels/int8_matmul/kernel.py:36",
+        "launches": bench["launches"]["int8"], "max_abs_err": i8_err,
+        "ms": i8_row["ms"], "plain_ms": i8_row["plain_ms"],
+        "bound_ms": i8_row["bound_ms"], "bound_by": i8_row["bound_by"],
+        "library_ms": i8_row["library_ms"],
+        "device_ms": i8_row["device_ms"],
+        "library_device_ms": i8_row["library_device_ms"],
+        "at_m": i8_row["m"], "by_m": i8_row["by_m"]})
     emit({"phase": "done", "seconds": time.time() - t_start})
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {

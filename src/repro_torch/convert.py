@@ -10,7 +10,10 @@ The f32 -> bf16 round trip of a bf16 value is exact.
 ``FusedPackedCimWeights`` (numpy leaves, any object with the reference
 field names) onto the port's structure, so tests can compare pack
 contents field for field; ``packed_complex_from_jax`` does the same for
-a ``PackedComplexCimWeights``.  No function here imports the reference.
+a ``PackedComplexCimWeights``.  ``macro_from_jax`` carries a fabricated
+die (``MacroInstance``) across: the two packages draw their mismatch
+from different generators, so a die is the state two runs must share.
+No function here imports the reference.
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ import numpy as np
 import torch
 
 from . import resolve_device
-from .core.ccim import CCIMConfig
+from .core.ccim import CCIMConfig, MacroInstance
 from .core.engine import (FusedPackedCimWeights, PackedCimWeights,
                           PackedComplexCimWeights)
 from .kernels.ccim_matmul.ops import weight_layout
@@ -77,3 +80,11 @@ def packed_complex_from_jax(p, device=None) -> PackedComplexCimWeights:
     through ``packed_from_jax``."""
     return PackedComplexCimWeights(re=packed_from_jax(p.re, device),
                                    im=packed_from_jax(p.im, device))
+
+
+def macro_from_jax(m, device=None) -> MacroInstance:
+    """Reference ``MacroInstance`` (numpy leaves) -> the port's, float32."""
+    dev = resolve_device(device)
+    conv = lambda v: torch.from_numpy(np.array(v, np.float32)).to(dev)
+    return MacroInstance(conv(m.eps_array), conv(m.adc_cap_eps),
+                         conv(m.vref_pol_eps))

@@ -1,17 +1,23 @@
 """Noise-free numerics of the hybrid digital/analog C-CIM macro, in torch.
 
-Counterpart of ``repro/core/ccim.py``, noise-free subset:
+Counterpart of ``repro/core/ccim.py``, noise-free:
 
   * 8-bit signed-magnitude (SMF) operands:  v = (-1)^s * m,  m in [0,127].
   * Per ``acc_len``-element accumulate (one ADC conversion):
       - DCIM: the top-k bit-products computed exactly (folded weight
         planes, one per distinct activation bit j);
-      - ACIM: the remaining bit-products, ideal analog sum;
-      - ADC:  code = clip(floor(acim / lsb + 1/2), -half, half - 1);
+      - ACIM: the remaining bit-products, summed on the 2-D capacitor
+        array -- ideal in the 'fast' fidelities, with a fabricated die's
+        frozen cap mismatch in 'bit_true' (``MacroInstance``);
+      - ADC:  code = clip(floor(acim / lsb + 1/2), -half, half - 1), or
+        the SAR search against the die's mismatched CDAC weights;
       - y8 = DCIM + code, accumulated digitally at weight ``dcim_lsb``.
 
-Analog noise, mismatch draws and the bit-true fidelities are later
-slices: every function here refuses a noise key.
+Fidelities of ``cim_matmul_int``: 'fast' (chunked GEMMs; the CUDA
+kernels on the card), 'fast_broadcast' (the elementwise model),
+'bit_true' (every bit-product with the die's mismatch) and 'exact' (the
+integer dot).  Dynamic analog noise is not ported: every function here
+refuses a noise key.
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,6 +73,21 @@ class CCIMConfig:
     def adc_half_range(self) -> int:
         return 1 << (self.adc_bits - 1)
 
+    def dcim_weight_table(self) -> np.ndarray:
+        """(7, 7) integer table: 2^(j+k)/dcim_lsb on DCIM cells, 0 elsewhere."""
+        t = np.zeros((self.n_mag_bits, self.n_mag_bits), np.int32)
+        for j, k in self.dcim_products:
+            t[j, k] = (1 << (j + k)) // self.dcim_lsb
+        return t
+
+    def acim_weight_table(self) -> np.ndarray:
+        """(7, 7) integer table: 2^(j+k) on ACIM cells, 0 on DCIM cells."""
+        t = np.array([[1 << (j + k) for k in range(self.n_mag_bits)]
+                      for j in range(self.n_mag_bits)], np.int64)
+        for j, k in self.dcim_products:
+            t[j, k] = 0
+        return t
+
     @property
     def dcim_max(self) -> int:
         """Max |DCIM| for a full accumulate."""
@@ -82,6 +104,75 @@ def _no_noise(noise_key) -> None:
         raise NotImplementedError(
             "analog-noise emulation is not ported yet; the torch macro "
             "path is noise-free (pass noise_key=None)")
+
+
+# ---------------------------------------------------------------------------
+# Fabrication: the static analog error pattern of one die
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MacroInstance:
+    """Frozen mismatch draws for one fabricated macro (float32 tensors).
+
+    eps_array : relative cap error of each 2-D array cell, (acc_len, 7, 7)
+        for 'per_unit', (7, 7) for 'per_macro'.
+    adc_cap_eps : relative error of each binary CDAC capacitor, (adc_bits,).
+    vref_pol_eps : 0-d, the +/- reference path gain asymmetry.
+    """
+
+    eps_array: torch.Tensor
+    adc_cap_eps: torch.Tensor
+    vref_pol_eps: torch.Tensor
+
+    def to(self, device) -> "MacroInstance":
+        return MacroInstance(*(t.to(device) for t in (
+            self.eps_array, self.adc_cap_eps, self.vref_pol_eps)))
+
+
+def _eps_shape(cfg: CCIMConfig) -> Tuple[int, ...]:
+    nb = cfg.n_mag_bits
+    return ((cfg.acc_len, nb, nb) if cfg.mismatch_granularity == "per_unit"
+            else (nb, nb))
+
+
+def fabricate(generator: torch.Generator, cfg: CCIMConfig = DEFAULT_CONFIG,
+              device=None) -> MacroInstance:
+    """Monte-Carlo 'tape-out': draw the static mismatch of one macro from
+    ``generator`` (on the generator's device), then move it to ``device``
+    (default: stay there).  The sigmas are the reference's; the draws are
+    torch's, so a die is carried across from the reference with
+    ``convert.macro_from_jax`` where two runs must agree."""
+    gdev = generator.device
+    nb = cfg.n_mag_bits
+    jk = torch.arange(nb, dtype=torch.float32, device=gdev)
+    cells = (2.0 ** jk)[:, None] * (2.0 ** jk)[None, :]
+    if cfg.use_split_dac:
+        # the LSB section sits behind an attenuation cap: the effective
+        # unit count of low-significance cells stops growing
+        cells = torch.minimum(cells, 2.0 ** torch.ceil(
+            (jk[:, None] + jk[None, :]) / 2.0))
+    sig2d = cfg.sigma_unit / torch.sqrt(cells)
+    eps_array = torch.randn(_eps_shape(cfg), generator=generator,
+                            device=gdev) * sig2d
+    bits = torch.arange(cfg.adc_bits, dtype=torch.float32, device=gdev)
+    if cfg.adc_mismatch_model == "conservative":
+        sig_bit = cfg.sigma_unit / torch.sqrt(2.0 ** bits)
+    else:
+        sig_bit = cfg.sigma_unit / torch.sqrt(cfg.adc_lsb_units * 2.0 ** bits)
+    adc_cap_eps = torch.randn((cfg.adc_bits,), generator=generator,
+                              device=gdev) * sig_bit
+    vref_pol_eps = torch.randn((), generator=generator,
+                               device=gdev) * cfg.sigma_vref_pol
+    macro = MacroInstance(eps_array, adc_cap_eps, vref_pol_eps)
+    return macro if device is None else macro.to(device)
+
+
+def ideal_macro(cfg: CCIMConfig = DEFAULT_CONFIG, device="cpu"
+                ) -> MacroInstance:
+    """A die without mismatch: bit-true then equals ADC rounding alone."""
+    z = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=device)
+    return MacroInstance(z(*_eps_shape(cfg)), z(cfg.adc_bits), z())
 
 
 # ---------------------------------------------------------------------------
@@ -116,6 +207,158 @@ def split_sign_mag(q: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """SMF decomposition: sign in {-1,+1} (sign(0) = +1), magnitude."""
     one = torch.ones((), dtype=torch.int32, device=q.device)
     return torch.where(q < 0, -one, one), q.abs().to(torch.int32)
+
+
+def bit_planes(mag: torch.Tensor, n_bits: int) -> torch.Tensor:
+    """(...,) int magnitudes -> (..., n_bits) {0, 1} int32 planes, LSB
+    first."""
+    shifts = torch.arange(n_bits, dtype=torch.int32, device=mag.device)
+    return (mag[..., None].to(torch.int32) >> shifts) & 1
+
+
+def _signed_bits(q: torch.Tensor, cfg: CCIMConfig) -> torch.Tensor:
+    """(..., L) ints -> (..., L, n_bits) sign-carrying bit planes in
+    {-1, 0, 1}, int8."""
+    s, m = split_sign_mag(q)
+    return (s[..., None] * bit_planes(m, cfg.n_mag_bits)).to(torch.int8)
+
+
+# ---------------------------------------------------------------------------
+# 7-bit SAR ADC with CDAC mismatch (bipolar, samples mid-scale 0x40)
+# ---------------------------------------------------------------------------
+
+
+def sar_adc(v_lsb: torch.Tensor, adc_cap_eps: torch.Tensor,
+            cfg: CCIMConfig = DEFAULT_CONFIG, noise_key=None) -> torch.Tensor:
+    """Convert ``v_lsb`` (float32, in ideal-LSB units, signed) to a code in
+    [-half, half - 1], int32: successive approximation, MSB first, against
+    the die's float32 trial weights 2^b (1 + eps_b), a bit kept where the
+    sample is >= the trial level.  The code is the ideal-binary reading of
+    the decided bits, which is how CDAC mismatch becomes DNL/INL.  The
+    comparator noise of the reference is not ported."""
+    _no_noise(noise_key)
+    half = cfg.adc_half_range
+    x = torch.clamp(v_lsb, -half, half - 1) + half + 0.5   # two roundings
+    real_w = (2.0 ** torch.arange(cfg.adc_bits, dtype=torch.float32,
+                                  device=v_lsb.device)
+              ) * (1.0 + adc_cap_eps.to(v_lsb.device))
+    acc = torch.zeros_like(x)
+    code = torch.zeros(x.shape, dtype=torch.int32, device=x.device)
+    for b in range(cfg.adc_bits - 1, -1, -1):
+        bit = x >= acc + real_w[b]
+        acc = acc + bit.to(torch.float32) * real_w[b]
+        code = code + bit.to(torch.int32) * (1 << b)
+    return code - half
+
+
+# ---------------------------------------------------------------------------
+# Elementwise macro models: bit-true (the oracle), ideal, fast
+# ---------------------------------------------------------------------------
+
+
+def _isum(t: torch.Tensor) -> torch.Tensor:
+    """int32 sum over the trailing axis (torch would widen it to int64;
+    the reference's sums stay int32, and no conversion overflows it)."""
+    return t.sum(-1, dtype=torch.int32)
+
+
+def _dcim_terms(x_q: torch.Tensor, w_q: torch.Tensor, cfg: CCIMConfig
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-element signed DCIM value, signed ideal ACIM value and signed
+    product x * w (no bit planes); broadcasting x_q against w_q.  The
+    DCIM value is sum_j (sign(x) bit_j(|x|)) * Plane_j(w), each factor
+    built on its own operand, so only the products broadcast."""
+    sx, mx = split_sign_mag(x_q)
+    prod = x_q * w_q
+    d_elem = torch.zeros_like(prod)
+    for j, plane in zip(_dcim_by_j(cfg), fold_dcim_planes(w_q, cfg)):
+        d_elem = d_elem + (sx * ((mx >> j) & 1)) * plane
+    return d_elem, prod - d_elem * cfg.dcim_lsb, prod
+
+
+def _a_real(xb: torch.Tensor, wb: torch.Tensor, real_w: torch.Tensor
+            ) -> torch.Tensor:
+    """sum over (L, 7, 7) of the signed bit-products times the die's cap
+    weights, float32, summed one term at a time in (l, j, k) order: the
+    order the reference's compiled CPU reduction takes.  A mismatched
+    weight makes the sum's last bit order-dependent, and the SAR's
+    mismatched thresholds can turn that bit into a code.  Every product
+    is exact (the bit-products are -1, 0 or 1)."""
+    L, nb = xb.shape[-2], xb.shape[-1]
+    acc = None
+    for l in range(L):
+        t = (xb[..., l, :, None] * wb[..., l, None, :]).to(torch.float32)
+        t = t * real_w[l]                                # (..., nb, nb)
+        for j in range(nb):
+            for k in range(nb):
+                acc = t[..., j, k] if acc is None else acc + t[..., j, k]
+    return acc
+
+
+def hybrid_mac_bit_true(x_q: torch.Tensor, w_q: torch.Tensor,
+                        macro: MacroInstance,
+                        cfg: CCIMConfig = DEFAULT_CONFIG,
+                        noise_key=None) -> dict:
+    """One macro conversion per trailing ``acc_len`` axis of ``x_q`` and
+    ``w_q`` (ints in [-127, 127], leading axes broadcast), on the die
+    ``macro``.  Returns dict(y8, dcim, adc_code, a_real, a_ideal, exact):
+    ``exact`` the integer dot, ``y8`` the macro's 8-bit output (y8 * 2^11
+    approximates ``exact``).  The reference's dynamic noise is not
+    ported."""
+    _no_noise(noise_key)
+    dev = x_q.device
+    d_elem, a_elem, prod = _dcim_terms(x_q.to(torch.int32),
+                                       w_q.to(torch.int32), cfg)
+    dcim, a_ideal = _isum(d_elem), _isum(a_elem)
+    acim_w = torch.from_numpy(cfg.acim_weight_table().astype(np.float32))
+    eps = macro.eps_array.to(dev)
+    real_w = (acim_w.to(dev) * (1.0 + eps)).expand(
+        cfg.acc_len, cfg.n_mag_bits, cfg.n_mag_bits)
+    a_real = _a_real(_signed_bits(x_q, cfg), _signed_bits(w_q, cfg), real_w)
+    # VREFCLK polarity-path asymmetry: +/- conversions see slightly
+    # different reference gains
+    a_real = a_real * (1.0 + macro.vref_pol_eps.to(dev) * torch.sign(a_real))
+    adc_code = sar_adc(a_real / cfg.dcim_lsb, macro.adc_cap_eps, cfg)
+    return dict(y8=dcim + adc_code, dcim=dcim, adc_code=adc_code,
+                a_real=a_real, a_ideal=a_ideal, exact=_isum(prod))
+
+
+def _adc_round(a: torch.Tensor, cfg: CCIMConfig) -> torch.Tensor:
+    """The ideal ADC: clip(floor(a / lsb + 1/2)) of a float32 analog sum
+    (exact: a is an integer below 2^24 and lsb a power of two)."""
+    half = cfg.adc_half_range
+    return torch.clamp(torch.floor(a / cfg.dcim_lsb + 0.5), -half,
+                       half - 1).to(torch.int32)
+
+
+def hybrid_mac_ideal(x_q: torch.Tensor, w_q: torch.Tensor,
+                     cfg: CCIMConfig = DEFAULT_CONFIG) -> torch.Tensor:
+    """Mismatch-free macro output y8 (only ADC rounding and clipping)."""
+    d_elem, a_elem, _ = _dcim_terms(x_q.to(torch.int32), w_q.to(torch.int32),
+                                    cfg)
+    return _isum(d_elem) + _adc_round(_isum(a_elem).to(torch.float32), cfg)
+
+
+def hybrid_mac_fast(x_q: torch.Tensor, w_q: torch.Tensor, noise_key=None,
+                    cfg: CCIMConfig = DEFAULT_CONFIG) -> dict:
+    """The moment-matched model without its Gaussian: exact ints + the
+    ideal ADC.  Same dict keys as ``hybrid_mac_bit_true``."""
+    _no_noise(noise_key)
+    x_q, w_q = x_q.to(torch.int32), w_q.to(torch.int32)
+    d_elem, a_elem, prod = _dcim_terms(x_q, w_q, cfg)
+    dcim, a_ideal = _isum(d_elem), _isum(a_elem)
+    a_real = a_ideal.to(torch.float32)
+    code = _adc_round(a_real, cfg)
+    return dict(y8=dcim + code, dcim=dcim, adc_code=code, a_real=a_real,
+                a_ideal=a_ideal, exact=_isum(prod))
+
+
+def contribution_table(cfg: CCIMConfig = DEFAULT_CONFIG) -> np.ndarray:
+    """Fig. 2 analysis: fractional contribution of each (j, k) bit
+    product (float64)."""
+    nb = cfg.n_mag_bits
+    w = np.array([[2.0 ** (j + k) for k in range(nb)] for j in range(nb)])
+    return w / w.sum()
 
 
 # ---------------------------------------------------------------------------
@@ -242,32 +485,97 @@ def _kernel_numerics_match(cfg: CCIMConfig) -> bool:
             and cfg.adc_bits == d.adc_bits)
 
 
+def int_matmul_exact(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """The full-precision integer dot (M, K) @ (K, N) -> (M, N) int32.
+    On the CPU it accumulates in int64; torch has no integer GEMM on
+    CUDA, so there it accumulates in float64, exact below 2^53 (never
+    float32: K * 127^2 passes 2^24 from K = 1,041)."""
+    if x_q.is_cuda:
+        acc = x_q.to(torch.float64) @ w_q.to(torch.float64)
+    else:
+        acc = x_q.to(torch.int64) @ w_q.to(torch.int64)
+    return acc.to(torch.int32)
+
+
+# elements of one broadcast (rows, N, C, L) block of the elementwise
+# fidelities: bounds their working set (output rows are independent)
+_BROADCAST_ELEMS = 1 << 22
+
+
+def _elementwise_gemm(x_q: torch.Tensor, w_q: torch.Tensor, cfg: CCIMConfig,
+                      fidelity: str, macro: Optional[MacroInstance]
+                      ) -> torch.Tensor:
+    """sum_c y8_c (unscaled, int32) of the elementwise models on the
+    (M, 1, C, L) x (1, N, C, L) broadcast of the chunked operands, a
+    block of rows at a time."""
+    M, K = x_q.shape
+    N = w_q.shape[1]
+    L = cfg.acc_len
+    C = _pad_to_chunks(K, L)
+    pad = C * L - K
+    xq = F.pad(x_q.to(torch.int32), (0, pad)).reshape(M, C, L)
+    wc = F.pad(w_q.to(torch.int32), (0, 0, 0, pad)).reshape(
+        C, L, N).permute(2, 0, 1).contiguous()[None]            # (1, N, C, L)
+    rows = max(1, _BROADCAST_ELEMS // max(N * C * L, 1))
+    out = []
+    for m0 in range(0, M, rows):
+        xc = xq[m0:m0 + rows, None]                             # (r, 1, C, L)
+        if fidelity == "fast_broadcast":
+            y8 = hybrid_mac_fast(xc, wc, None, cfg)["y8"]
+        else:
+            y8 = hybrid_mac_bit_true(xc, wc, macro, cfg)["y8"]
+        out.append(y8.sum(-1, dtype=torch.int32))
+    return torch.cat(out)
+
+
 def cim_matmul_int(x_q: torch.Tensor, w_q,
                    cfg: CCIMConfig = DEFAULT_CONFIG, noise_key=None,
                    fidelity: str = "fast", *,
-                   use_kernel: Optional[bool] = None) -> torch.Tensor:
+                   use_kernel: Optional[bool] = None,
+                   macro: Optional[MacroInstance] = None) -> torch.Tensor:
     """Integer GEMM through the macro: (M, K) @ (K, N) -> (M, N) int32 at
-    product scale (already times ``dcim_lsb``).  'fast' fidelity only.
+    product scale (already times ``dcim_lsb``).  K is tiled into
+    ``acc_len`` chunks, one ADC conversion each.
+
+    fidelity:
+      'fast'            chunked GEMMs with the ideal ADC (the hot path)
+      'fast_broadcast'  the same numbers from the elementwise model
+      'bit_true'        every bit-product on the die ``macro`` (required)
+      'exact'           the full-precision integer dot (no macro)
 
     ``w_q`` may be raw integer weights or an ``engine.PackedCimWeights``.
-    Raw weights at the prototype's numerics run the unpacked GEMM
-    (``kernels/ccim_matmul/ops.py::ccim_matmul_int``: its CUDA kernel on
-    a CUDA device, its plain version on the CPU), which decomposes the
-    weights itself.  At any other design point raw weights are packed for
-    the call and served by the prepacked kernels, which take every design
-    point -- bit-identical, since packing is a caching transform."""
+    At 'fast', raw weights at the prototype's numerics run the unpacked
+    GEMM (``kernels/ccim_matmul/ops.py::ccim_matmul_int``: its CUDA
+    kernel on a CUDA device, its plain version on the CPU), which
+    decomposes the weights itself; at any other design point raw weights
+    are packed for the call and served by the prepacked kernels, which
+    take every design point -- bit-identical, since packing is a caching
+    transform.  The other fidelities are plain torch on any device."""
     from .engine import (PackedCimWeights, pack_quantized_cim_weights,
                          packed_cim_matmul_int)
-    if not isinstance(w_q, PackedCimWeights):
-        _no_noise(noise_key)
-        if fidelity == "fast" and _kernel_numerics_match(cfg):
+    _no_noise(noise_key)
+    if isinstance(w_q, PackedCimWeights):
+        return packed_cim_matmul_int(x_q, w_q, cfg, None, fidelity,
+                                     use_kernel=use_kernel, macro=macro)
+    if x_q.shape[1] != w_q.shape[0]:
+        raise ValueError(f"x {tuple(x_q.shape)} @ w {tuple(w_q.shape)}")
+    if fidelity == "fast":
+        if _kernel_numerics_match(cfg):
             from ..kernels.ccim_matmul import ops as kops
             return kops.ccim_matmul_int(x_q, w_q, use_kernel=use_kernel)
         one = torch.ones((1, w_q.shape[-1]), dtype=torch.float32,
                          device=w_q.device)
-        w_q = pack_quantized_cim_weights(w_q, one, cfg)
-    return packed_cim_matmul_int(x_q, w_q, cfg, noise_key, fidelity,
-                                 use_kernel=use_kernel)
+        return packed_cim_matmul_int(
+            x_q, pack_quantized_cim_weights(w_q, one, cfg), cfg,
+            use_kernel=use_kernel)
+    if fidelity == "exact":
+        return int_matmul_exact(x_q, w_q)
+    if fidelity not in ("fast_broadcast", "bit_true"):
+        raise ValueError(f"unknown fidelity {fidelity!r}")
+    if fidelity == "bit_true" and macro is None:
+        raise ValueError("the 'bit_true' fidelity needs a MacroInstance "
+                         "(fabricate or ideal_macro)")
+    return _elementwise_gemm(x_q, w_q, cfg, fidelity, macro) * cfg.dcim_lsb
 
 
 # ---------------------------------------------------------------------------
@@ -278,18 +586,20 @@ def cim_matmul_int(x_q: torch.Tensor, w_q,
 def cim_matmul(x: torch.Tensor, w, cfg: CCIMConfig = DEFAULT_CONFIG,
                noise_key=None, fidelity: str = "fast",
                per_channel: bool = True,
-               use_kernel: Optional[bool] = None) -> torch.Tensor:
+               use_kernel: Optional[bool] = None,
+               macro: Optional[MacroInstance] = None) -> torch.Tensor:
     """float (M, K) @ (K, N) through the emulated macro, dequantized to
     float32.  ``w`` may be an ``engine.PackedCimWeights``; activation
     quantization then runs per call while the weight conditioning is
-    served prepacked."""
+    served prepacked.  ``macro`` is the die of the 'bit_true' fidelity."""
     from .engine import PackedCimWeights, packed_cim_matmul
     if isinstance(w, PackedCimWeights):
         return packed_cim_matmul(x, w, cfg, noise_key, fidelity,
-                                 use_kernel=use_kernel)
+                                 use_kernel=use_kernel, macro=macro)
     sx = smf_scale(x, dim=-1, keepdim=True, cfg=cfg)            # per row
     sw = (smf_scale(w, dim=0, keepdim=True, cfg=cfg) if per_channel
           else smf_scale(w, cfg=cfg))
     y = cim_matmul_int(quantize_smf(x, sx, cfg), quantize_smf(w, sw, cfg),
-                       cfg, noise_key, fidelity, use_kernel=use_kernel)
+                       cfg, noise_key, fidelity, use_kernel=use_kernel,
+                       macro=macro)
     return y.to(torch.float32) * sx * sw.reshape(1, -1)

@@ -7,10 +7,12 @@ residency serves all four real sub-MACs of
     (a + bi)(c + di) = (ac - bd) + (ad + bc)i
 
 and the Re and Im outputs come out of one array pass.  At the
-prototype's numerics, noise-free, the fused kernels of
+prototype's numerics, noise-free 'fast', the fused kernels of
 ``kernels/ccim_complex`` do exactly that (on the CPU their plain
-versions); every other design point takes four real macro GEMMs through
-``ccim.cim_matmul_int``.  Analog noise is not ported: a noise key raises.
+versions); every other design point and fidelity takes four real macro
+GEMMs through ``ccim.cim_matmul_int`` ('bit_true' on one die: the
+sequenced sub-MACs share its mismatch).  Analog noise is not ported: a
+noise key raises.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import ccim
-from .ccim import CCIMConfig, DEFAULT_CONFIG
+from .ccim import CCIMConfig, DEFAULT_CONFIG, MacroInstance
 from .engine import PackedComplexCimWeights, pack_compatible
 
 
@@ -43,13 +45,15 @@ def complex_cim_matmul_int(
     fidelity: str = "fast",
     *,
     use_kernel: Optional[bool] = None,
+    macro: Optional[MacroInstance] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Integer complex GEMM -> (y_re, y_im) int32 at scale ``dcim_lsb``.
 
     Noise-free 'fast' GEMMs at the prototype's numerics go to the fused
     complex kernels: one weight residency serves the four real sub-MACs
     and emits Re and Im together, as in the silicon.  Other design points
-    run four real macro GEMMs sharing the same weights.
+    and fidelities run four real macro GEMMs sharing the same weights
+    (and, at 'bit_true', the die ``macro``).
 
     ``w_re`` may be a ``PackedComplexCimWeights`` (``w_im`` then omitted):
     the co-located pair is packed once and served from storage --
@@ -80,7 +84,7 @@ def complex_cim_matmul_int(
 
     def mm(a, b):
         return ccim.cim_matmul_int(a, b, cfg, None, fidelity,
-                                   use_kernel=use_kernel)
+                                   use_kernel=use_kernel, macro=macro)
     # four real sub-MACs sharing the same weight arrays (no duplication)
     return mm(x_re, w_re) - mm(x_im, w_im), mm(x_re, w_im) + mm(x_im, w_re)
 
@@ -92,6 +96,7 @@ def complex_cim_matmul(
     noise_key=None,
     fidelity: str = "fast",
     use_kernel: Optional[bool] = None,
+    macro: Optional[MacroInstance] = None,
 ) -> torch.Tensor:
     """Float complex (M, K) @ (K, N) through the macro, complex64.
 
@@ -104,12 +109,14 @@ def complex_cim_matmul(
     xr, xi, sx = quantize_complex(x, -1, cfg)
     if isinstance(w, PackedComplexCimWeights):
         yr, yi = complex_cim_matmul_int(xr, xi, w, None, cfg, noise_key,
-                                        fidelity, use_kernel=use_kernel)
+                                        fidelity, use_kernel=use_kernel,
+                                        macro=macro)
         sw = w.re.scale
     else:
         wr, wi, sw = quantize_complex(w, 0, cfg)
         yr, yi = complex_cim_matmul_int(xr, xi, wr, wi, cfg, noise_key,
-                                        fidelity, use_kernel=use_kernel)
+                                        fidelity, use_kernel=use_kernel,
+                                        macro=macro)
     scale = sx * sw.reshape(1, -1)
     return torch.complex(yr * scale, yi * scale)
 

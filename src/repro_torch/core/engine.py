@@ -31,9 +31,9 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .ccim import (CCIMConfig, DEFAULT_CONFIG, _dcim_by_j, _no_noise,
-                   _pad_to_chunks, fold_dcim_planes, quantize_smf, smf_scale,
-                   split_sign_mag)
+from .ccim import (CCIMConfig, DEFAULT_CONFIG, MacroInstance, _dcim_by_j,
+                   _no_noise, _pad_to_chunks, fold_dcim_planes, quantize_smf,
+                   smf_scale, split_sign_mag)
 from ..kernels.ccim_matmul import ops as kops
 from ..kernels.ccim_matmul.kernel import chunked_operands
 
@@ -204,18 +204,18 @@ def packed_cim_matmul_int(
     fidelity: str = "fast",
     *,
     use_kernel: Optional[bool] = None,
+    macro: Optional[MacroInstance] = None,
 ) -> torch.Tensor:
     """Integer GEMM against prepacked weights -> (M, N) int32 at product
-    scale; bit-identical to the reference's noise-free 'fast' path.
+    scale; bit-identical to the reference's noise-free path at every
+    fidelity.
 
-    ``use_kernel`` None launches the CUDA kernels on CUDA tensors and
-    runs their plain version on CPU tensors; False forces the plain
-    version."""
+    'fast' runs the prepacked kernels: ``use_kernel`` None launches the
+    CUDA kernels on CUDA tensors and runs their plain version on CPU
+    tensors; False forces the plain version.  The other fidelities
+    rebuild the raw ints (one O(K*N) copy, dwarfed by their own work)
+    and take ``ccim.cim_matmul_int``."""
     _no_noise(noise_key)
-    if fidelity != "fast":
-        raise NotImplementedError(
-            f"fidelity {fidelity!r} is not ported yet; packed serving runs "
-            "the 'fast' fidelity")
     if packed.kernel_w.dim() != 2:
         raise ValueError("stacked pack: select a layer with .layer(i)")
     M, K = x_q.shape
@@ -227,6 +227,10 @@ def packed_cim_matmul_int(
             f"they are being served with: packed for {packed.cfg}, serving "
             f"{cfg}. Re-pack for the serving config, or serve an all-analog "
             "subset (n_dcim_products=0, same n_mag_bits and acc_len).")
+    if fidelity != "fast":
+        from .ccim import cim_matmul_int
+        return cim_matmul_int(x_q, packed.wq(), cfg, None, fidelity,
+                              use_kernel=use_kernel, macro=macro)
     if not _prepacked_kernel_supported(cfg):
         raise NotImplementedError(
             f"the prepacked kernels do not serve {cfg} (need n_mag_bits=7, "
@@ -247,13 +251,14 @@ def packed_cim_matmul(
     noise_key=None,
     fidelity: str = "fast",
     use_kernel: Optional[bool] = None,
+    macro: Optional[MacroInstance] = None,
 ) -> torch.Tensor:
     """float (M, K) @ packed -> (M, N) float32: per-row activation
     quantization is the only conditioning left on the hot path."""
     sx = smf_scale(x, dim=-1, keepdim=True, cfg=cfg)
     xq = quantize_smf(x, sx, cfg)
     y_int = packed_cim_matmul_int(xq, packed, cfg, noise_key, fidelity,
-                                  use_kernel=use_kernel)
+                                  use_kernel=use_kernel, macro=macro)
     return y_int.to(torch.float32) * sx * packed.scale.reshape(1, -1)
 
 

@@ -9,19 +9,23 @@ the port's dependencies:
 
 Integer outputs are compared with torch.equal: the kernels (the real
 and complex macro GEMMs, prepacked and unpacked) and their plain
-versions compute the same integers, so there is no tolerance.  The
+versions compute the same integers, so there is no tolerance.  So are
+the W8A8 kernel's float32 outputs: its integer dot is exact and its
+epilogue the plain version's two float32 roundings.  The
 paged-attention kernel computes P.V in float32 where the plain version
 rounds p to bf16 first; it is held to the tolerance written beside it.
 """
 import pytest
 import torch
 
-from repro_torch.core import engine
+from repro_torch.core import ccim, engine
 from repro_torch.core.ccim import CCIMConfig
 from repro_torch.kernels.ccim_complex import kernel as CK
 from repro_torch.kernels.ccim_complex import ops as CO
 from repro_torch.kernels.ccim_matmul import kernel as K
 from repro_torch.kernels.ccim_matmul import ops as KO
+from repro_torch.kernels.int8_matmul import kernel as IK
+from repro_torch.kernels.int8_matmul import ops as IO
 from repro_torch.kernels.paged_attn import kernel as PK
 from repro_torch.kernels.paged_attn import ref as PR
 
@@ -165,3 +169,49 @@ def test_paged_attention_kernel_matches_plain(dev, shape, softcap, window,
     assert y.shape == r.shape and y.dtype == torch.bfloat16
     torch.testing.assert_close(y.float(), r.float(), rtol=2 ** -7,
                                atol=2 ** -7 * float(vp.float().abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(1, 2304, 9216), (4, 3072, 2304),
+                                   (5, 100, 17), (16, 64, 8), (17, 130, 2304),
+                                   (33, 1000, 333), (128, 5760, 2304)])
+def test_int8_kernel_equals_plain(dev, dtype, m, k, n):
+    """W8A8: one launch per call, float32 outputs equal bit for bit, at
+    minicpm-2b's widths and ragged M, K and N."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(m * 10 + k + n)
+    x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+    w = torch.randn((k, n), generator=gen, device=dev).to(dtype)
+    IK.reset_launch_counts()
+    y_k = IO.int8_matmul(x, w)
+    assert IK.int8_w8a8_cuda.launches == 1
+    y_p = IO.int8_matmul(x, w, use_kernel=False)
+    torch.cuda.synchronize()
+    assert IK.int8_w8a8_cuda.launches == 1
+    assert y_k.dtype == torch.float32 and torch.equal(y_k, y_p)
+
+
+def test_int8_kernel_refuses_bad_operands(dev):
+    xq = torch.zeros((4, 100), dtype=torch.int8, device=dev)
+    wt = torch.zeros((8, 100), dtype=torch.int8, device=dev)
+    sx, sw = torch.ones(4, device=dev), torch.ones(8, device=dev)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        IK.int8_w8a8_cuda(xq, wt, sx, sw)
+    with pytest.raises(ValueError, match="sw"):
+        IK.int8_w8a8_cuda(xq[:, :64].contiguous(), wt[:, :64].contiguous(),
+                          sx, sw.double())
+
+
+@pytest.mark.parametrize("fidelity", ["exact", "fast_broadcast", "bit_true"])
+def test_plain_fidelities_on_the_card_equal_cpu(dev, fidelity):
+    """The elementwise and exact fidelities are plain torch: on the card
+    they give the CPU's ints (bit-true on a fabricated die included; its
+    float32 sums run in the same order)."""
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randint(-127, 128, (9, 200), generator=gen, dtype=torch.int32)
+    w = torch.randint(-127, 128, (200, 13), generator=gen, dtype=torch.int32)
+    macro = ccim.fabricate(gen)
+    want = ccim.cim_matmul_int(x, w, fidelity=fidelity, macro=macro)
+    got = ccim.cim_matmul_int(x.to(dev), w.to(dev), fidelity=fidelity,
+                              macro=macro.to(dev))
+    assert torch.equal(got.cpu(), want)

@@ -95,7 +95,8 @@ def test_pack_config_mismatch_rejected():
     p = T.pack_cim_weights(torch.randn(32, 8), Tc.CCIMConfig(acc_len=16))
     with pytest.raises(ValueError, match="different CCIMConfig"):
         T.packed_cim_matmul(torch.randn(2, 32), p, Tc.CCIMConfig(acc_len=32))
-    with pytest.raises(NotImplementedError):
+    # 'bit_true' is served now, and needs its die
+    with pytest.raises(ValueError, match="MacroInstance"):
         T.packed_cim_matmul(torch.randn(2, 32), p, Tc.DEFAULT_CONFIG,
                             fidelity="bit_true")
 
