@@ -26,10 +26,18 @@ failure.  Phases:
      tokens and last logits must be identical;
   6. a torch.profiler trace of three lock-step decode steps: step wall
      time, device busy time and the kernels that take it;
-  7. per-kernel CUDA-event times of the macro GEMMs at the full-width
-     shapes beside the plain version, torch._int_mm (a labelled yardstick
-     that computes a different function) and the bound from bytes and
-     operations;
+  7. per-kernel times of the macro GEMMs at the full-width shapes:
+     CUDA events around one call (``ms``) and device time from CUDA-graph
+     replays (``device_ms``), beside the plain version, torch._int_mm (a
+     labelled yardstick that computes a different function, also timed
+     both ways) and the bound from bytes and operations; for the general
+     kernel its K splits per shape, a data-sheet estimate of the
+     integer-op floor of its per-chunk conversions (4 int32 ops each, and
+     the activation bit-planes, on 64 int32 lanes per SM at the max SM
+     clock; not a measurement, and not the kernels line's bound), and a
+     sweep of its device time per layer over acc_len and the number of
+     DCIM planes, which changes the integer work and the MMA count but
+     not the shapes;
   8. the paged-attention kernel vs its plain version at the minicpm-2b
      decode shape and over a sweep of group size, head dim, block size,
      softcap and sliding window;
@@ -46,9 +54,10 @@ failure.  Phases:
      pool tokens must equal solo runs of 3 of the requests;
  12. phase 11 with the plain version of the paged read on the card: token
      agreement with phase 11 and the first decode step's logits;
- 13. CUDA-event times of the paged-attention kernel at the minicpm-2b
-     decode shape for several lengths, beside the plain version, a
-     gather + scaled_dot_product_attention yardstick and the byte bound;
+ 13. times of the paged-attention kernel at the minicpm-2b decode shape
+     for several lengths (per call and device time, as phase 7), beside
+     the plain version, a gather + scaled_dot_product_attention yardstick
+     and the byte bound;
  14. the fused complex kernels (prepacked skinny and general, unpacked)
      vs their plain versions with torch.equal at the full-width shapes,
      on ragged shapes and at the DoA shapes; off the prototype design
@@ -63,9 +72,10 @@ failure.  Phases:
      frame and no real-kernel launch; the plain versions on the card give
      the same covariance ints and estimates; RMSE under 4 % of the field
      of view; frames/s and the kernels' share of a frame;
- 17. CUDA-event times of the four new kernels at the full-width shapes
-     (M 4 and 128) beside their plain versions, the four-pass route
-     through the port's real kernels, a library yardstick and the bound;
+ 17. times of kernels 4-7 at the full-width shapes (M 4 and 128; per
+     call and device time, as phase 7) beside their plain versions, the
+     four-pass route through the port's real kernels, a library yardstick
+     and the bound;
  18. the W8A8 kernel vs its plain version, float32 outputs with
      torch.equal, bf16 and f32 inputs, at the full-width shapes (M 1, 4,
      32, 128) and ragged M, K, N: exactly one launch per ``int8_matmul``
@@ -80,9 +90,14 @@ failure.  Phases:
      order on both);
  21. times of the W8A8 kernel per layer (the four full-width GEMMs) at M
      4 and 128: CUDA-event time per call (``ms``, host wrapper included,
-     as rows 1-7 are timed) and device time from CUDA-graph replays
+     as every row is timed) and device time from CUDA-graph replays
      (``device_ms``), beside its plain version, torch._int_mm with the
      two dequant multiplies (a yardstick, at M >= 32) and the bound.
+
+Every row of the kernels table carries ``ms`` (CUDA events around one
+call, host wrapper included), ``device_ms`` (CUDA-graph replays, the
+kernel alone) and the yardstick's ``library_ms`` and
+``library_device_ms``.
 
 The line before the last is the kernels table; the last line is the
 device record.  Needs a CUDA device: without one it exits non-zero.
@@ -104,6 +119,13 @@ SRC = os.path.join(HERE, "src")
 HBM_BYTES_S = 3.35e12
 INT8_OPS_S = 1979e12
 BF16_OPS_S = 989e12
+# int32 lanes per SM (Hopper white paper): the general macro GEMM's
+# per-chunk conversions run there, at the card's max SM clock
+INT32_LANES_PER_SM = 64
+FLOOR_NOTE = ("epilogue_floor_ms: int_ops / (SMs x 64 int32 lanes x the max "
+              "SM clock that nvidia-smi reports) -- a data-sheet estimate, "
+              "not measured; int_ops counts 4 per conversion and 4 + 4 "
+              "n_planes per 4 activation bytes per 128-column block")
 
 # minicpm-2b full-width macro GEMMs of one layer, (K, N), heads padded to 48
 FULL_SHAPES = {"qkv": (2304, 9216), "wo": (3072, 2304),
@@ -145,6 +167,11 @@ def device_breakdown(prof, steps: int, wall_ms: float) -> dict:
             "aten_calls_per_step": aten_calls / steps,
             "top_device_ms_per_step": per_step(dev_us),
             "top_host_self_ms_per_step": per_step(host_us)}
+
+
+TIMING = ("ms, plain_ms, four_pass_ms and library_ms: CUDA events around "
+          "one call, host wrapper included; device_ms and library_device_ms:"
+          " device time per call from CUDA-graph replays of 20 calls")
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -431,8 +458,8 @@ def times_paged_attn(torch, dev) -> dict:
         table = (1 + torch.randperm(nb - 1, generator=gen, device=dev)[
             :B * nt]).to(torch.int32).view(B, nt)
         lengths = torch.full((B,), L, dtype=torch.int32, device=dev)
-        ms = cuda_ms(lambda: PK.paged_attention_cuda(q, kp, vp, table,
-                                                     lengths), reps=50)
+        kern = lambda: PK.paged_attention_cuda(q, kp, vp, table, lengths)
+        ms = cuda_ms(kern, reps=50)
         plain = cuda_ms(lambda: PR.paged_attention_ref(q, kp, vp, table,
                                                        lengths), reps=20)
 
@@ -441,11 +468,13 @@ def times_paged_attn(torch, dev) -> dict:
             v = PR.paged_gather_kv(vp, table).transpose(1, 2)
             return F.scaled_dot_product_attention(q[:, :, None], k, v)
         lib = cuda_ms(sdpa, reps=50)
+        dev_ms, lib_dev = graph_ms(torch, kern), graph_ms(torch, sdpa)
         # K and V rows read up to lengths, q read and out written once
         nbytes = 2 * B * L * H * Dh * 2 + 2 * B * H * Dh * 2
         nops = 4 * B * H * L * Dh
         bound = 1e3 * max(nbytes / HBM_BYTES_S, nops / BF16_OPS_S)
-        rows[L] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+        rows[L] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain,
+                       library_ms=lib, library_device_ms=lib_dev,
                        bound_ms=bound, bytes=nbytes,
                        bound_by=("bytes" if nbytes / HBM_BYTES_S
                                  >= nops / BF16_OPS_S else "operations"))
@@ -454,9 +483,9 @@ def times_paged_attn(torch, dev) -> dict:
           "torch.nn.functional.scaled_dot_product_attention (yardstick, "
           "never called by the port)", "by_length": rows})
     r = rows[PA_REPORT_L]
-    return {"ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "at_length": PA_REPORT_L}
+    return {k: r[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                              "bound_by", "library_ms", "library_device_ms")
+            } | {"at_length": PA_REPORT_L}
 
 
 # complex lane: (M, K, N) of the DoA frames -- covariance of the 64- and
@@ -807,7 +836,8 @@ def times_complex(torch, dev, gen) -> dict:
     the four-pass route, a library yardstick (a different function) and
     the bound.  Returns the kernels table's rows by kernel."""
     rows, by_kernel = {}, {}
-    keys = ("ms", "plain_ms", "four_pass_ms", "library_ms", "bytes", "ops")
+    keys = ("ms", "device_ms", "plain_ms", "four_pass_ms", "library_ms",
+            "library_device_ms", "bytes", "ops")
     for name, ms_ in TIMED_M.items():
         for m in ms_:
             tot = dict.fromkeys(keys, 0.0)
@@ -815,9 +845,11 @@ def times_complex(torch, dev, gen) -> dict:
             for sname, (k, n) in FULL_SHAPES.items():
                 c = _timing_case(torch, dev, name, m, k, n, gen)
                 t = dict(ms=cuda_ms(c["kern"], reps=20),
+                         device_ms=graph_ms(torch, c["kern"]),
                          plain_ms=cuda_ms(c["plain"], reps=3, warmup=1),
                          four_pass_ms=cuda_ms(c["four"], reps=10),
                          library_ms=cuda_ms(c["lib"], reps=20),
+                         library_device_ms=graph_ms(torch, c["lib"]),
                          bytes=c["nbytes"], ops=c["nops"])
                 shapes[sname] = dict(t, **_bound(c["nbytes"], c["nops"]))
                 for key in keys:
@@ -827,6 +859,7 @@ def times_complex(torch, dev, gen) -> dict:
                                           "shapes": shapes}
             rows[name] = dict(tot, m=m)
     emit({"phase": "times_complex", "by_kernel": by_kernel,
+          "timing": TIMING,
           "library": {
               "complex": "torch.matmul on complex64 (no macro arithmetic; a "
                          "yardstick the port never calls)",
@@ -1001,6 +1034,52 @@ def graph_ms(torch, fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
+def general_int_ops(m: int, n: int, kp: int, acc_len: int,
+                    n_planes: int) -> int:
+    """Integer ops of the general macro GEMM besides its MMAs: 4 per
+    conversion (shift, max, add-min, add) and 4 + 4 n_planes per 4
+    activation bytes for the bit-planes, once per 128-column block."""
+    return (4 * m * n * kp // acc_len
+            + (4 + 4 * n_planes) * m * kp // 4 * -(-n // 128))
+
+
+# (acc_len, n_planes) of the general kernel's design sweep: the prototype
+# (16, 2) first
+SWEEP = ((16, 2), (16, 0), (16, 1), (16, 3), (8, 2), (32, 2), (64, 2))
+
+
+def general_design_sweep(torch, dev, m: int) -> dict:
+    """Device ms per full-width layer of the general kernel at M ``m`` for
+    each (acc_len, n_planes) of SWEEP, on random SMF ints, w and planes
+    (the time does not depend on the values): same shapes and bytes of x
+    and w, while the conversions scale with 1 / acc_len and the plane
+    MMAs, plane bytes and bit-plane ops with n_planes."""
+    from repro_torch.kernels.ccim_matmul import kernel as K
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    i8 = lambda lo, hi, *shape: torch.randint(
+        lo, hi, shape, generator=gen, device=dev, dtype=torch.int8)
+    data = {s: (i8(-127, 128, m, k), i8(-127, 128, n, k), i8(-7, 8, 3, n, k))
+            for s, (k, n) in FULL_SHAPES.items()}
+    out = {}
+    for acc, n_planes in SWEEP:
+        meta = dict(acc_len=acc, x_bits=(6, 5, 4)[:n_planes],
+                    dcim_lsb=2048, adc_half=64)
+        by_shape, iops = {}, 0
+        for sname, (k, n) in FULL_SHAPES.items():
+            x, w, planes = data[sname]
+            planes = planes[:n_planes].contiguous()
+            by_shape[sname] = graph_ms(torch, lambda: (
+                K.ccim_matmul_prepacked_general_cuda(x, w, planes, **meta)))
+            iops += general_int_ops(m, n, k, acc, n_planes)
+        out[f"acc{acc}_planes{n_planes}"] = dict(
+            acc_len=acc, n_planes=n_planes,
+            device_ms=sum(by_shape.values()), by_shape=by_shape,
+            int_ops=iops, conversions=sum(m * n * k // acc for k, n
+                                          in FULL_SHAPES.values()))
+    return out
+
+
 def times_int8(torch, dev, gen) -> dict:
     """Phase 21: kernel 8 per layer at M 4 and 128.  Returns the kernels
     table's row (at M 128) with both M in ``by_m``."""
@@ -1040,11 +1119,7 @@ def times_int8(torch, dev, gen) -> dict:
                 tot[key] += t[key]
         tot.update(_bound(tot["bytes"], tot["ops"]))
         by_m[m] = {"layer_total": tot, "shapes": shapes}
-    emit({"phase": "times_int8", "by_m": by_m,
-          "timing": "ms, plain_ms and library_ms: CUDA events around one "
-                    "call, host wrapper included (as phases 7 and 17 time "
-                    "rows 1-7); *device_ms: device time per call from "
-                    "CUDA-graph replays of 20 calls",
+    emit({"phase": "times_int8", "by_m": by_m, "timing": TIMING,
           "library": "torch._int_mm + float32 convert + the two dequant "
                      "multiplies, at M >= 32 (a yardstick the port never "
                      "calls)"})
@@ -1239,35 +1314,60 @@ def main() -> int:
                 adc_half=DEFAULT_CONFIG.adc_half_range)
     wrapper = {"skinny": K.ccim_matmul_prepacked_skinny_cuda,
                "general": K.ccim_matmul_prepacked_general_cuda}
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    sm_clock_hz = 1e6 * float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    int_ops_s = n_sm * INT32_LANES_PER_SM * sm_clock_hz
     rows = {}
     for name, m in (("skinny", 4), ("general", 128)):
-        tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
-                   bytes=0, ops=0)
+        tot = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                   library_ms=0.0, library_device_ms=0.0, bytes=0, ops=0)
         per_shape = {}
         for sname, (k, n) in FULL_SHAPES.items():
             p = packs[sname]
             kp = p.kernel_w.shape[1]
             x = smf_ints((m, kp)).to(torch.int8)
             w, planes = p.kernel_w, p.kernel_planes
-            ms = cuda_ms(lambda: wrapper[name](x, w, planes, **meta),
-                         reps=30)
+            kern = lambda: wrapper[name](x, w, planes, **meta)
+            ms = cuda_ms(kern, reps=30)
+            dev_ms = graph_ms(torch, kern)
             plain = cuda_ms(
                 lambda: K.ccim_matmul_prepacked_plain(x, w, planes, **meta),
                 reps=5)
             # torch._int_mm: int8 GEMM without the per-chunk clip, M >= 17
             xi = torch.zeros((max(m, 32), kp), dtype=torch.int8, device=dev)
-            lib = cuda_ms(lambda: torch._int_mm(xi, p.kernel_w.t()), reps=30)
+            lib_fn = lambda: torch._int_mm(xi, p.kernel_w.t())
+            lib = cuda_ms(lib_fn, reps=30)
+            lib_dev = graph_ms(torch, lib_fn)
             nbytes = m * kp + (1 + n_j) * n * kp + 4 * m * n
             nops = 2 * m * n * kp * (1 + n_j)
             bound = 1e3 * max(nbytes / HBM_BYTES_S, nops / INT8_OPS_S)
-            per_shape[sname] = dict(m=m, k=k, n=n, ms=ms, plain_ms=plain,
-                                    library_ms=lib, bound_ms=bound)
-            for key, v in (("ms", ms), ("plain_ms", plain),
-                           ("bound_ms", bound), ("library_ms", lib),
+            per_shape[sname] = dict(m=m, k=k, n=n, ms=ms, device_ms=dev_ms,
+                                    plain_ms=plain, library_ms=lib,
+                                    library_device_ms=lib_dev, bound_ms=bound)
+            if name == "general":
+                ks = K.general_k_split(m, n, kp, meta["acc_len"])
+                iops = general_int_ops(m, n, kp, meta["acc_len"], n_j)
+                per_shape[sname].update(
+                    k_splits=-(-kp // ks), int_ops=iops,
+                    epilogue_floor_ms=1e3 * iops / int_ops_s)
+                tot["int_ops"] = tot.get("int_ops", 0) + iops
+            for key, v in (("ms", ms), ("device_ms", dev_ms),
+                           ("plain_ms", plain), ("bound_ms", bound),
+                           ("library_ms", lib), ("library_device_ms", lib_dev),
                            ("bytes", nbytes), ("ops", nops)):
                 tot[key] += v
+        extra = {}
+        if name == "general":
+            tot["epilogue_floor_ms"] = 1e3 * tot["int_ops"] / int_ops_s
+            extra = {"epilogue_floor": FLOOR_NOTE,
+                     "int32_ops_per_s": int_ops_s,
+                     "max_sm_clock_hz": sm_clock_hz,
+                     "design_sweep": general_design_sweep(torch, dev, m)}
         emit({"phase": f"times_{name}", "m": m, "shapes": per_shape,
-              "layer_total": tot})
+              "layer_total": tot, "timing": TIMING, **extra})
         rows[name] = tot
     # -- 8.-13. paged attention and continuous batching ----------------------
     pa_err = paged_attn_shapes(torch, dev)
@@ -1301,7 +1401,8 @@ def main() -> int:
             "bound_ms": t["bound_ms"],
             "bound_by": ("bytes" if t["bytes"] / HBM_BYTES_S
                          >= t["ops"] / INT8_OPS_S else "operations"),
-            "library_ms": t["library_ms"]})
+            "library_ms": t["library_ms"], "device_ms": t["device_ms"],
+            "library_device_ms": t["library_device_ms"]})
     table.append({
         "name": "paged_attention_decode", "route": "cuda",
         "source": "src/repro_torch/kernels/paged_attn/csrc/"
@@ -1333,8 +1434,9 @@ def main() -> int:
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"], "four_pass_ms": t["four_pass_ms"],
-            "at_m": t["m"]})
+            "library_ms": t["library_ms"], "device_ms": t["device_ms"],
+            "library_device_ms": t["library_device_ms"],
+            "four_pass_ms": t["four_pass_ms"], "at_m": t["m"]})
     table.append({
         "name": "int8_w8a8", "route": "cuda",
         "source": "src/repro_torch/kernels/int8_matmul/csrc/int8_w8a8.cu",

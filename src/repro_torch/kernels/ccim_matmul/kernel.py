@@ -6,8 +6,9 @@ kernel of ``repro/kernels/ccim_matmul/kernel.py``:
 
   ccim_matmul_prepacked_skinny_cuda   M <= 32 (decode); replaces
                                       ccim_matmul_prepacked_skinny_pallas
-  ccim_matmul_prepacked_general_cuda  any M (prefill); replaces
-                                      ccim_matmul_prepacked_pallas
+  ccim_matmul_prepacked_general_cuda  any M (prefill), int8 tensor
+                                      cores, K split over the card;
+                                      replaces ccim_matmul_prepacked_pallas
   ccim_matmul_unpacked_cuda           raw weights, prototype numerics;
                                       replaces ccim_matmul_pallas
 
@@ -57,6 +58,13 @@ def load_kernels() -> Dict[str, object]:
     if not _fns:
         _fns.update(build.bind(_ENTRY))
     return _fns
+
+
+def general_k_split(M: int, N: int, Kp: int, acc_len: int) -> int:
+    """Bytes of K per split (a multiple of 64) that the general kernel
+    takes for this shape on the current card; it picks the split itself."""
+    return build.library("general").ccim_prepacked_general_k_split(
+        M, N, Kp, acc_len)
 
 
 def _pack_x_bits(x_bits: Sequence[int]) -> int:
@@ -139,7 +147,8 @@ def ccim_matmul_prepacked_general_cuda(
     acc_len: int = 16, x_bits: Sequence[int] = (6, 5), dcim_lsb: int = 2048,
     adc_half: int = 64,
 ) -> torch.Tensor:
-    """General-M hybrid-CIM GEMM -> (M, N) int32."""
+    """General-M hybrid-CIM GEMM -> (M, N) int32, on the int8 tensor
+    cores."""
     out = _launch("general", x, w, planes, acc_len=acc_len, x_bits=x_bits,
                   dcim_lsb=dcim_lsb, adc_half=adc_half)
     ccim_matmul_prepacked_general_cuda.launches += 1

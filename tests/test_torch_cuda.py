@@ -59,6 +59,47 @@ def test_kernel_equals_plain(dev, acc_len, n_dcim, m):
     assert torch.equal(y_k, y_p)
 
 
+def _ragged_split_k(m: int, n: int, acc_len: int) -> int:
+    """The least K from 990 whose padded K the general kernel cuts, on this
+    card, into several splits with a shorter last one."""
+    for k in range(990, 20000, 16):
+        kp = KO.weight_layout(k, n, acc_len)[0]
+        ks = K.general_k_split(m, n, kp, acc_len)
+        assert ks > 0 and ks % 64 == 0
+        if ks < kp and kp % ks:
+            return k
+    raise AssertionError(f"no ragged split for M {m}, N {n}, acc {acc_len}")
+
+
+@pytest.mark.parametrize("acc_len", [8, 16, 32, 64])
+@pytest.mark.parametrize("n_planes", [0, 1, 2, 3])
+@pytest.mark.parametrize("m", [33, 77, 128, 129, 512])
+def test_general_kernel_equals_plain(dev, acc_len, n_planes, m):
+    """The general (tensor-core) kernel against its plain version at
+    ragged N (70, 300), at K 1000 and at a K that the kernel's own split
+    of K leaves a shorter last split (the chunk count is then not a
+    multiple of the split count); one launch per call."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(acc_len * 1000 + n_planes * 100 + m)
+    x_bits = (6, 5, 4)[:n_planes]
+    meta = dict(acc_len=acc_len, x_bits=x_bits, dcim_lsb=64 * acc_len,
+                adc_half=64)
+    i8 = lambda lo, hi, *shape: torch.randint(
+        lo, hi, shape, generator=gen, device=dev, dtype=torch.int8)
+    for n in (70, 300):
+        for k in (1000, _ragged_split_k(m, n, acc_len)):
+            kp = KO.weight_layout(k, n, acc_len)[0]
+            x, w = i8(-127, 128, m, kp), i8(-127, 128, n, kp)
+            planes = i8(-7, 8, n_planes, n, kp)
+            want = K.ccim_matmul_prepacked_plain(x, w, planes, **meta)
+            K.reset_launch_counts()
+            got = K.ccim_matmul_prepacked_general_cuda(x, w, planes, **meta)
+            torch.cuda.synchronize()
+            assert K.ccim_matmul_prepacked_general_cuda.launches == 1
+            assert got.dtype == torch.int32 and torch.equal(got, want), (
+                n, k, K.general_k_split(m, n, kp, acc_len))
+
+
 def test_dispatch_counts_launches(dev):
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)

@@ -137,3 +137,64 @@ def test_kernel_sources_name_what_they_replace():
         text = (csrc / src).read_text()
         assert "Replaces:" in text and fn in text
         assert "What bounds it" in text and "Design:" in text
+
+
+def _x_plane(x: torch.Tensor, j: int) -> torch.Tensor:
+    return torch.sign(x) * ((x.abs() >> j) & 1)
+
+
+def _folded_convert(exact, dcim, lsb_shift: int, adc_half: int):
+    """The general kernel's conversion, ints in, ints out: dcim + code of
+    a chunk from its exact and DCIM sums, as the kernel computes it --
+    the MMA chains seeded with lsb/2 and -adc_half, then
+    clamp((exact + lsb/2) >> s, dcim - h, dcim + h - 1), which equals
+    dcim + clamp(floor((exact - lsb dcim + lsb/2) / lsb), -h, h - 1)."""
+    ex = exact + ((1 << lsb_shift) >> 1)
+    dc = dcim - adc_half
+    return torch.minimum(torch.maximum(ex >> lsb_shift, dc),
+                         dc + 2 * adc_half - 1)
+
+
+@pytest.mark.parametrize("k_split", [64, 192])
+@pytest.mark.parametrize("acc", [8, 16, 32, 64])
+def test_general_kernel_arithmetic_equals_fast_gemm_int(acc, k_split):
+    """The general kernel's arithmetic in integers -- per split of K
+    (``k_split`` bytes, whole 64-byte stages, as the kernel cuts them),
+    per chunk, the folded conversion of the exact and DCIM sums, the
+    splits added -- against the plain version (ccim.fast_gemm_int's float
+    convert) at every design point (n_dcim 0-6 x ADC 7/8/9 b at this
+    acc_len), with a last split shorter than the others (but where each
+    split is one 64-byte chunk)."""
+    rng = np.random.default_rng(acc + k_split)
+    m, k, n = 5, 200, 24
+    w = torch.from_numpy(rng.integers(-127, 128, (k, n)))
+    for nd in range(7):
+        for adc in (7, 8, 9):
+            cfg = Tc.CCIMConfig(n_dcim_products=nd, adc_bits=adc, acc_len=acc)
+            p = Te.pack_quantized_cim_weights(w, torch.ones((1, n)), cfg)
+            x_bits = tuple(Tc._dcim_by_j(cfg))
+            planes = p.kernel_planes[:len(x_bits)]
+            kp = p.kernel_w.shape[1]
+            x = torch.from_numpy(rng.integers(-127, 128, (m, kp))).to(
+                torch.int8)
+            meta = dict(acc_len=acc, x_bits=x_bits, dcim_lsb=cfg.dcim_lsb,
+                        adc_half=cfg.adc_half_range)
+            want = K.ccim_matmul_prepacked_plain(x, p.kernel_w, planes,
+                                                 **meta)
+            shift = cfg.dcim_lsb.bit_length() - 1
+            ranges = [(k0, min(k0 + k_split, kp))
+                      for k0 in range(0, kp, k_split)]
+            assert len(ranges) > 1 and (kp % k_split or k_split == acc)
+            got = torch.zeros((m, n), dtype=torch.int64)
+            for k0, k1 in ranges:
+                part = torch.zeros((m, n), dtype=torch.int64)
+                for c0 in range(k0, k1, acc):
+                    xs = x[:, c0:c0 + acc].long()
+                    exact = xs @ p.kernel_w[:, c0:c0 + acc].long().t()
+                    dcim = torch.zeros_like(exact)
+                    for j, pl in zip(x_bits, planes):
+                        dcim += _x_plane(xs, j) @ pl[:, c0:c0 + acc].long().t()
+                    part += _folded_convert(exact, dcim, shift,
+                                            cfg.adc_half_range)
+                got += part << shift
+            assert torch.equal(got.to(torch.int32), want), (nd, adc)

@@ -1,0 +1,95 @@
+"""Kernel row 2 (the prepacked general macro GEMM) of two checkouts of
+this repo, timed in one process each, in turns A B B A, on one CUDA card.
+
+    python3 tools/ab_general_gemm.py --a DIR_A --b DIR_B
+
+Each DIR is the root of a checkout: its ``src/repro_torch`` is imported
+and its kernels are built into its own ``build/``.  Each turn times
+``ccim_matmul_prepacked_general_cuda`` at minicpm-2b's four full-width
+layer GEMMs at M 128 and the prototype design point (acc_len 16, x_bits
+(6, 5), dcim_lsb 2048, adc_half 64), on SMF int8 x, int8 w and planes in
+[-7, 7] made from seed 0 on the card: ``ms`` is CUDA events around one
+call (host wrapper included), ``device_ms`` CUDA-graph replays (the
+kernel alone), both as ``chip_smoke.py`` phase 7 times them.  Every turn
+prints one JSON line with a hash of each output; the hashes of A and B
+must agree (both compute the macro's integers), or the script exits 1.
+The last line holds both checkouts' times side by side.
+"""
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+M = 128
+META = dict(acc_len=16, x_bits=(6, 5), dcim_lsb=2048, adc_half=64)
+
+
+def turn(root: str) -> dict:
+    """Times and output hashes of ``root``'s general kernel."""
+    sys.path.insert(0, os.path.join(root, "src"))
+    sys.path.insert(1, ROOT)
+    import torch
+    from chip_smoke import FULL_SHAPES, cuda_ms, graph_ms
+    from repro_torch.kernels.ccim_matmul import kernel as K
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    i8 = lambda lo, hi, *shape: torch.randint(
+        lo, hi, shape, generator=gen, device=dev, dtype=torch.int8)
+    shapes, tot = {}, dict(ms=0.0, device_ms=0.0)
+    for sname, (k, n) in FULL_SHAPES.items():
+        x, w, planes = i8(-127, 128, M, k), i8(-127, 128, n, k), i8(
+            -7, 8, 2, n, k)
+        fn = lambda: K.ccim_matmul_prepacked_general_cuda(x, w, planes,
+                                                          **META)
+        digest = hashlib.sha256(fn().cpu().numpy().tobytes()).hexdigest()
+        t = dict(ms=cuda_ms(fn, reps=30), device_ms=graph_ms(torch, fn))
+        shapes[sname] = dict(t, k=k, n=n, sha256=digest[:16])
+        for key in tot:
+            tot[key] += t[key]
+    return {"root": root, "module": K.__file__, "layer_total": tot,
+            "shapes": shapes}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--a", required=True, help="root of checkout A")
+    ap.add_argument("--b", required=True, help="root of checkout B")
+    ap.add_argument("--turn", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.turn:
+        print(json.dumps(turn(os.path.abspath(args.turn))), flush=True)
+        return 0
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    runs = []
+    for label, root in (("A", args.a), ("B", args.b), ("B", args.b),
+                        ("A", args.a)):
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--a", args.a,
+             "--b", args.b, "--turn", root], capture_output=True, text=True)
+        if proc.returncode:
+            print(proc.stdout + proc.stderr, file=sys.stderr)
+            return 1
+        rec = json.loads(proc.stdout.strip().splitlines()[-1])
+        rec["label"] = label
+        print(json.dumps(rec), flush=True)
+        runs.append(rec)
+    hashes = {json.dumps({s: v["sha256"] for s, v in r["shapes"].items()})
+              for r in runs}
+    summary = {label: [r["layer_total"] for r in runs if r["label"] == label]
+               for label in ("A", "B")}
+    print(json.dumps({"m": M, "per_layer": summary,
+                      "outputs_equal": len(hashes) == 1}))
+    return 0 if len(hashes) == 1 else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
