@@ -63,9 +63,10 @@ failure.  Phases:
      on ragged shapes and at the DoA shapes; off the prototype design
      point the complex path launches the real prepacked kernels four
      times per call and no complex kernel;
- 15. the unpacked real kernel vs its plain version at the full-width
-     shapes, and ``cim_matmul`` on raw weights (one launch each) equal
-     to ``cim_matmul`` on their pack;
+ 15. the unpacked real kernel vs its plain version with torch.equal at
+     the full-width shapes (M 1-512, 129 included) and on ragged shapes,
+     one launch per ``ccim_matmul_int`` call, and ``cim_matmul`` on raw
+     weights (one launch each) equal to ``cim_matmul`` on their pack;
  16. MUSIC DoA, 32 seeded frames each on a 64-element ULA (4 sources,
      4,096 snapshots) and a 32-element ULA (2 sources, 1,024 snapshots),
      0.05 degree grid: one unpacked and one prepacked complex launch per
@@ -131,6 +132,7 @@ FLOOR_NOTE = ("epilogue_floor_ms: int_ops / (SMs x 64 int32 lanes x the max "
 FULL_SHAPES = {"qkv": (2304, 9216), "wo": (3072, 2304),
                "gate_up": (2304, 11520), "w2": (5760, 2304)}
 SKINNY_MS, GENERAL_MS = (1, 4, 32), (33, 128, 512)
+UNPACKED_MS = (1, 4, 32, 33, 128, 129, 512)     # phase 15, kernel 6
 
 
 def emit(obj) -> None:
@@ -601,26 +603,41 @@ def complex_kernels(torch, dev, gen) -> dict:
 
 def unpacked_real(torch, dev, gen) -> dict:
     """Phase 15: kernel 6 against its plain version at the full-width
-    shapes, then ``cim_matmul`` on raw float weights (the main path of
-    the unpacked kernel) against ``cim_matmul`` on their pack."""
+    shapes (M of UNPACKED_MS) and at RAGGED_SHAPES, one launch per
+    ``ccim_matmul_int`` call, then ``cim_matmul`` on raw float weights
+    (the main path of the unpacked kernel) against ``cim_matmul`` on
+    their pack."""
     from repro_torch.core import ccim, engine
     from repro_torch.kernels.ccim_matmul import kernel as K
     from repro_torch.kernels.ccim_matmul import ops as KO
 
+    def ints(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+
     err = 0
+
+    def case(x, w, tag):
+        nonlocal err
+        K.reset_launch_counts()
+        got = KO.ccim_matmul_int(x, w, use_kernel=True)
+        torch.cuda.synchronize()
+        n_launch = K.ccim_matmul_unpacked_cuda.launches
+        want = KO.ccim_matmul_int(x, w, use_kernel=False)
+        torch.cuda.synchronize()
+        e = int((got.long() - want.long()).abs().max())
+        err = max(err, e)
+        check(got.dtype == torch.int32 and torch.equal(got, want),
+              f"unpacked kernel != plain at {tag}: max |diff| {e}")
+        check(n_launch == 1, f"ccim_matmul_int at {tag} launched the "
+              f"unpacked kernel {n_launch} times, expected 1")
+
     for sname, (k, n) in FULL_SHAPES.items():
-        w = torch.randint(-127, 128, (k, n), generator=gen, device=dev,
-                          dtype=torch.int32)
-        for m in SKINNY_MS + GENERAL_MS:
-            x = torch.randint(-127, 128, (m, k), generator=gen, device=dev,
-                              dtype=torch.int32)
-            got = KO.ccim_matmul_int(x, w, use_kernel=True)
-            want = KO.ccim_matmul_int(x, w, use_kernel=False)
-            torch.cuda.synchronize()
-            e = int((got.long() - want.long()).abs().max())
-            err = max(err, e)
-            check(e == 0, f"unpacked kernel != plain at {sname} M={m}: "
-                  f"max |diff| {e}")
+        w = ints(k, n)
+        for m in UNPACKED_MS:
+            case(ints(m, k), w, f"{sname} M={m}")
+    for m, k, n in RAGGED_SHAPES:
+        case(ints(m, k), ints(k, n), f"(M, K, N) = {(m, k, n)}")
     xs = {s: torch.randn((128, k), generator=gen, device=dev)
           for s, (k, n) in FULL_SHAPES.items()}
     ws = {s: torch.randn((k, n), generator=gen, device=dev)
@@ -637,7 +654,8 @@ def unpacked_real(torch, dev, gen) -> dict:
         check(torch.equal(raw[s], packed) and bool(torch.isfinite(
             raw[s]).all()), f"cim_matmul raw != packed at {s}")
     emit({"phase": "unpacked_real", "ok": True, "max_abs_err": err,
-          "m": list(SKINNY_MS + GENERAL_MS),
+          "m": list(UNPACKED_MS),
+          "ragged_shapes": [list(v) for v in RAGGED_SHAPES],
           "cim_matmul_raw_launches": launches, "raw_equals_packed": True})
     return {"launches": launches, "max_abs_err": err}
 

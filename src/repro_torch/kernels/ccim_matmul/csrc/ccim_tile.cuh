@@ -1,12 +1,12 @@
 // Tiled hybrid-CIM GEMM at the 28nm prototype's numerics (acc_len 16,
-// top-3 DCIM split, 7-bit ADC), shared by three kernels:
+// top-3 DCIM split, 7-bit ADC), on dp4a, shared by two kernels:
 //
-//   ccim_unpacked.cu          real, raw (Kp, N) weights       (1 side)
 //   ccim_complex_general.cu   complex, prepacked (N, Kp) pack (2 sides)
 //   ccim_complex_unpacked.cu  complex, raw (Kp, N) weights    (2 sides)
 //
-// A "side" is one real operand pair: Re alone for the real GEMM, Re and
-// Im for the complex one.  The complex kernels run the four real sub-MACs
+// (The real unpacked GEMM, the one-side raw instance, runs on the int8
+// tensor cores of ccim_mma.cuh.)  A "side" is one real operand pair: Re
+// alone for a real GEMM, Re and Im for the complex one.  The complex kernels run the four real sub-MACs
 // of (a + bi)(c + di) as four chunk streams over ONE residency of the
 // co-located (Re, Im) weight tile:
 //

@@ -9,8 +9,10 @@ kernel of ``repro/kernels/ccim_matmul/kernel.py``:
   ccim_matmul_prepacked_general_cuda  any M (prefill), int8 tensor
                                       cores, K split over the card;
                                       replaces ccim_matmul_prepacked_pallas
-  ccim_matmul_unpacked_cuda           raw weights, prototype numerics;
-                                      replaces ccim_matmul_pallas
+  ccim_matmul_unpacked_cuda           raw weights, prototype numerics,
+                                      the general kernel's tensor-core
+                                      template over a raw-weight tile
+                                      fill; replaces ccim_matmul_pallas
 
 The prepacked two take the port's weight layout -- w (N, Kp) and planes
 (n_j, N, Kp), int8, K contiguous per output column -- and int8
@@ -65,6 +67,13 @@ def general_k_split(M: int, N: int, Kp: int, acc_len: int) -> int:
     takes for this shape on the current card; it picks the split itself."""
     return build.library("general").ccim_prepacked_general_k_split(
         M, N, Kp, acc_len)
+
+
+def unpacked_k_split(M: int, N: int, Kp: int) -> int:
+    """Bytes of K per split (a multiple of 64) that the unpacked kernel
+    takes for this shape on the current card (the general kernel's
+    picker at acc_len 16)."""
+    return build.library("unpacked").ccim_unpacked_k_split(M, N, Kp)
 
 
 def _pack_x_bits(x_bits: Sequence[int]) -> int:

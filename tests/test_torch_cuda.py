@@ -173,6 +173,44 @@ def test_complex_and_unpacked_kernels_equal_plain(dev, kernel, m):
         assert a.dtype == torch.int32 and torch.equal(a, b)
 
 
+
+def _ragged_unpacked_split_k(m: int, n: int) -> int:
+    """The least K from 990 whose padded K (a multiple of 16) the
+    unpacked kernel cuts, on this card, into several splits with a
+    shorter last one."""
+    for k in range(990, 20000, 16):
+        kp = -(-k // 16) * 16
+        ks = K.unpacked_k_split(m, n, kp)
+        assert ks > 0 and ks % 64 == 0
+        if ks < kp and kp % ks:
+            return k
+    raise AssertionError(f"no ragged split for M {m}, N {n}")
+
+
+@pytest.mark.parametrize("m,k,n", [(m, FULL_K, FULL_N) for m in
+                                   (1, 4, 32, 33, 128, 129, 512)]
+                         + [(2, 1001, 333), (3, 130, 2401), (45, 999, 257),
+                            (1, 37, 11), (4, None, 2304), (128, None, 2304)])
+def test_unpacked_kernel_equals_plain(dev, m, k, n):
+    """Kernel 6 (the tensor-core template over a raw-weight fill) through
+    ``ccim_matmul_int`` against its plain version: full width (fused QKV)
+    at M 1-512, ragged N (rows not 16-byte aligned) and ragged K (Kp a
+    multiple of 16, not of the 64-byte stage), and K None: a K that the
+    kernel's own split leaves a shorter last split.  ints compared with
+    torch.equal; one launch per call."""
+    if k is None:
+        k = _ragged_unpacked_split_k(m, n)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(m * 7 + k + n)
+    x, w = _ints(gen, (m, k), dev), _ints(gen, (k, n), dev)
+    K.reset_launch_counts()
+    got = KO.ccim_matmul_int(x, w)
+    torch.cuda.synchronize()
+    assert K.ccim_matmul_unpacked_cuda.launches == 1
+    want = KO.ccim_matmul_int(x, w, use_kernel=False)
+    assert got.dtype == torch.int32 and torch.equal(got, want), (
+        K.unpacked_k_split(m, n, -(-k // 16) * 16))
+
 # (B, Hkv, G, Dh, bs, n_tbl, n_blocks, max length): a small GQA shape and
 # minicpm-2b's full-width decode shape (48 padded heads, G 1, Dh 64)
 PAGED_SHAPES = {"small": (3, 2, 4, 128, 8, 5, 12, 40),

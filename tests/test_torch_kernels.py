@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro.core import ccim as Jc
 from repro.core import engine as Je
@@ -198,3 +199,91 @@ def test_general_kernel_arithmetic_equals_fast_gemm_int(acc, k_split):
                                             cfg.adc_half_range)
                 got += part << shift
             assert torch.equal(got.to(torch.int32), want), (nd, adc)
+
+
+def _byte_perm(x, y, sel: int):
+    """CUDA's __byte_perm on uint32 arrays: result byte i is byte
+    (sel >> 4 i) & 7 of the 8 bytes y:x."""
+    v = x.astype(np.uint64) | (y.astype(np.uint64) << np.uint64(32))
+    out = np.zeros(x.shape, np.uint64)
+    for i in range(4):
+        b = (v >> np.uint64(8 * ((sel >> (4 * i)) & 7))) & np.uint64(0xFF)
+        out |= b << np.uint64(8 * i)
+    return out.astype(np.uint32)
+
+
+def _raw_fill_operands(w_raw: np.ndarray):
+    """The unpacked kernel's raw fill, word for word (ccim_mma.cuh,
+    RawFill): raw (Kp, N) int8 weights, N zero-padded to whole 4-byte
+    words -> w, P6 and P5 as (N, Kp) int8.  Each 4 x 4 byte block is
+    transposed with transpose4's byte permutes, then mag4 (sign-replicate
+    mask), fold4 and plane4(., 6) run on the K-contiguous words."""
+    kp, n = w_raw.shape
+    w4 = np.pad(w_raw, ((0, 0), (0, -n % 4))).view(np.uint32)  # (Kp, N/4)
+    r = [w4[i::4] for i in range(4)]            # r[i]: row 4 kq + i
+    t0, t1 = _byte_perm(r[0], r[1], 0x5140), _byte_perm(r[2], r[3], 0x5140)
+    t2, t3 = _byte_perm(r[0], r[1], 0x7362), _byte_perm(r[2], r[3], 0x7362)
+    cols = [_byte_perm(t0, t1, 0x5410), _byte_perm(t0, t1, 0x7632),
+            _byte_perm(t2, t3, 0x5410), _byte_perm(t2, t3, 0x7632)]
+    m32 = np.uint64(0xFFFFFFFF)
+    u = lambda v: np.uint64(v)
+    out = {"w": [], "p6": [], "p5": []}
+    for x in cols:                              # (Kp/4, N/4): column c
+        x = x.astype(np.uint64)
+        s = sum(((x >> u(8 * i + 7)) & u(1)) * u(0xFF << (8 * i))
+                for i in range(4))              # prmt sign-replicate
+        mag = ((x ^ s) + (s & u(0x01010101))) & m32
+        keep = s | u(0x01010101)
+        m = (mag >> u(5)) & u(0x03030303)
+        neg = ((u(0x80808080) - m) ^ u(0x80808080)) & m32
+        p6 = (m ^ ((m ^ neg) & keep)) & m32
+        p5 = (((mag >> u(6)) & u(0x01010101)) * u(0xFF)) & keep & m32
+        for key, v in (("w", x), ("p6", p6), ("p5", p5)):
+            out[key].append(v.astype(np.uint32))
+    # words (kq, nq) of column c hold k = 4 kq..4 kq + 3 of n = 4 nq + c
+    lay = lambda ws: np.stack(ws, 2).view(np.int8).reshape(
+        kp // 4, -1, 4, 4).transpose(1, 2, 0, 3).reshape(-1, kp)[:n]
+    return tuple(torch.from_numpy(np.ascontiguousarray(lay(out[key])))
+                 for key in ("w", "p6", "p5"))
+
+
+@pytest.mark.parametrize("k_split", [64, 192])
+@pytest.mark.parametrize("k", [200, 256])
+def test_unpacked_kernel_arithmetic_equals_plain(k, k_split):
+    """The unpacked kernel's arithmetic in integers: the raw fill's
+    transposed w and its P6, P5 folded per byte from raw (K, N) weights
+    equal the pack's ``kernel_w`` and ``kernel_planes``; then per split
+    of K (``k_split`` bytes), per 64-byte stage (zero past the split's
+    end, as the last stage is filled), per chunk, the folded conversion
+    of the exact and DCIM sums, the splits added, equals
+    ``ccim_matmul_unpacked_plain``.  K 200 pads to Kp 208, not a multiple
+    of the stage."""
+    rng = np.random.default_rng(k + k_split)
+    m, n, acc, shift, half = 5, 22, 16, 11, 64
+    kp = -(-k // acc) * acc
+    w = rng.integers(-127, 128, (k, n))
+    w_raw = np.pad(w, ((0, kp - k), (0, 0))).astype(np.int8)
+    fw, p6, p5 = _raw_fill_operands(w_raw)
+    p = Te.pack_quantized_cim_weights(torch.from_numpy(w), torch.ones((1, n)))
+    assert torch.equal(fw, p.kernel_w)
+    assert torch.equal(torch.stack([p6, p5]), p.kernel_planes)
+
+    x = torch.from_numpy(rng.integers(-127, 128, (m, kp))).to(torch.int8)
+    want = K.ccim_matmul_unpacked_plain(x, torch.from_numpy(w_raw))
+    ranges = [(k0, min(k0 + k_split, kp)) for k0 in range(0, kp, k_split)]
+    assert len(ranges) > 1
+    got = torch.zeros((m, n), dtype=torch.int64)
+    for k0, k1 in ranges:
+        span = -(-(k1 - k0) // 64) * 64      # whole stages, zero past k1
+        xs = F.pad(x[:, k0:k1].long(), (0, span - (k1 - k0)))
+        ops = [F.pad(v[:, k0:k1].long(), (0, span - (k1 - k0)))
+               for v in (fw, p6, p5)]
+        part = torch.zeros((m, n), dtype=torch.int64)
+        for c0 in range(0, span, acc):
+            xc = xs[:, c0:c0 + acc]
+            exact = xc @ ops[0][:, c0:c0 + acc].t()
+            dcim = (_x_plane(xc, 6) @ ops[1][:, c0:c0 + acc].t()
+                    + _x_plane(xc, 5) @ ops[2][:, c0:c0 + acc].t())
+            part += _folded_convert(exact, dcim, shift, half)
+        got += part << shift
+    assert torch.equal(got.to(torch.int32), want)

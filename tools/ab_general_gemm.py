@@ -1,15 +1,20 @@
-"""Kernel row 2 (the prepacked general macro GEMM) of two checkouts of
-this repo, timed in one process each, in turns A B B A, on one CUDA card.
+"""Kernel row 2 (the prepacked general macro GEMM) or row 6 (the
+unpacked macro GEMM on raw weights) of two checkouts of this repo, timed
+in one process each, in turns A B B A, on one CUDA card.
 
-    python3 tools/ab_general_gemm.py --a DIR_A --b DIR_B
+    python3 tools/ab_general_gemm.py --a DIR_A --b DIR_B \
+        [--kernel general|unpacked] [--m 128]
 
 Each DIR is the root of a checkout: its ``src/repro_torch`` is imported
-and its kernels are built into its own ``build/``.  Each turn times
-``ccim_matmul_prepacked_general_cuda`` at minicpm-2b's four full-width
-layer GEMMs at M 128 and the prototype design point (acc_len 16, x_bits
-(6, 5), dcim_lsb 2048, adc_half 64), on SMF int8 x, int8 w and planes in
-[-7, 7] made from seed 0 on the card: ``ms`` is CUDA events around one
-call (host wrapper included), ``device_ms`` CUDA-graph replays (the
+and its kernels are built into its own ``build/``.  Each turn times the
+kernel at minicpm-2b's four full-width layer GEMMs at M ``--m`` (default
+128) on SMF int8 x made from seed 0 on the card: ``general`` calls
+``ccim_matmul_prepacked_general_cuda`` at the prototype design point
+(acc_len 16, x_bits (6, 5), dcim_lsb 2048, adc_half 64) on int8 w
+(N, K) and planes in [-7, 7]; ``unpacked`` calls
+``ccim_matmul_unpacked_cuda`` on raw int8 w (K, N), which has the same
+signature in every checkout that has it.  ``ms`` is CUDA events around
+one call (host wrapper included), ``device_ms`` CUDA-graph replays (the
 kernel alone), both as ``chip_smoke.py`` phase 7 times them.  Every turn
 prints one JSON line with a hash of each output; the hashes of A and B
 must agree (both compute the macro's integers), or the script exits 1.
@@ -25,12 +30,11 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-M = 128
 META = dict(acc_len=16, x_bits=(6, 5), dcim_lsb=2048, adc_half=64)
 
 
-def turn(root: str) -> dict:
-    """Times and output hashes of ``root``'s general kernel."""
+def turn(root: str, kernel: str, m: int) -> dict:
+    """Times and output hashes of ``root``'s kernel ``kernel``."""
     sys.path.insert(0, os.path.join(root, "src"))
     sys.path.insert(1, ROOT)
     import torch
@@ -44,27 +48,35 @@ def turn(root: str) -> dict:
         lo, hi, shape, generator=gen, device=dev, dtype=torch.int8)
     shapes, tot = {}, dict(ms=0.0, device_ms=0.0)
     for sname, (k, n) in FULL_SHAPES.items():
-        x, w, planes = i8(-127, 128, M, k), i8(-127, 128, n, k), i8(
-            -7, 8, 2, n, k)
-        fn = lambda: K.ccim_matmul_prepacked_general_cuda(x, w, planes,
-                                                          **META)
+        if kernel == "unpacked":
+            x, w = i8(-127, 128, m, k), i8(-127, 128, k, n)
+            fn = lambda: K.ccim_matmul_unpacked_cuda(x, w)
+        else:
+            x, w, planes = i8(-127, 128, m, k), i8(-127, 128, n, k), i8(
+                -7, 8, 2, n, k)
+            fn = lambda: K.ccim_matmul_prepacked_general_cuda(x, w, planes,
+                                                              **META)
         digest = hashlib.sha256(fn().cpu().numpy().tobytes()).hexdigest()
         t = dict(ms=cuda_ms(fn, reps=30), device_ms=graph_ms(torch, fn))
         shapes[sname] = dict(t, k=k, n=n, sha256=digest[:16])
         for key in tot:
             tot[key] += t[key]
-    return {"root": root, "module": K.__file__, "layer_total": tot,
-            "shapes": shapes}
+    return {"root": root, "module": K.__file__, "kernel": kernel, "m": m,
+            "layer_total": tot, "shapes": shapes}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--a", required=True, help="root of checkout A")
     ap.add_argument("--b", required=True, help="root of checkout B")
+    ap.add_argument("--kernel", choices=("general", "unpacked"),
+                    default="general", help="row 2 or row 6")
+    ap.add_argument("--m", type=int, default=128, help="rows of x")
     ap.add_argument("--turn", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.turn:
-        print(json.dumps(turn(os.path.abspath(args.turn))), flush=True)
+        print(json.dumps(turn(os.path.abspath(args.turn), args.kernel,
+                              args.m)), flush=True)
         return 0
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -74,7 +86,8 @@ def main() -> int:
                         ("A", args.a)):
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--a", args.a,
-             "--b", args.b, "--turn", root], capture_output=True, text=True)
+             "--b", args.b, "--kernel", args.kernel, "--m", str(args.m),
+             "--turn", root], capture_output=True, text=True)
         if proc.returncode:
             print(proc.stdout + proc.stderr, file=sys.stderr)
             return 1
@@ -86,7 +99,8 @@ def main() -> int:
               for r in runs}
     summary = {label: [r["layer_total"] for r in runs if r["label"] == label]
                for label in ("A", "B")}
-    print(json.dumps({"m": M, "per_layer": summary,
+    print(json.dumps({"kernel": args.kernel, "m": args.m,
+                      "per_layer": summary,
                       "outputs_equal": len(hashes) == 1}))
     return 0 if len(hashes) == 1 else 1
 
