@@ -75,8 +75,9 @@ failure.  Phases:
      of view; frames/s and the kernels' share of a frame;
  17. times of kernels 4-7 at the full-width shapes (M 4 and 128; per
      call and device time, as phase 7) beside their plain versions, the
-     four-pass route through the port's real kernels, a library yardstick
-     and the bound;
+     four-pass route through the port's real kernels (per call and, for
+     the complex kernels, device time), a library yardstick and the
+     bound;
  18. the W8A8 kernel vs its plain version, float32 outputs with
      torch.equal, bf16 and f32 inputs, at the full-width shapes (M 1, 4,
      32, 128) and ragged M, K, N: exactly one launch per ``int8_matmul``
@@ -172,8 +173,9 @@ def device_breakdown(prof, steps: int, wall_ms: float) -> dict:
 
 
 TIMING = ("ms, plain_ms, four_pass_ms and library_ms: CUDA events around "
-          "one call, host wrapper included; device_ms and library_device_ms:"
-          " device time per call from CUDA-graph replays of 20 calls")
+          "one call, host wrapper included; device_ms, four_pass_device_ms "
+          "and library_device_ms: device time per call from CUDA-graph "
+          "replays of 20 calls")
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -854,8 +856,9 @@ def times_complex(torch, dev, gen) -> dict:
     the four-pass route, a library yardstick (a different function) and
     the bound.  Returns the kernels table's rows by kernel."""
     rows, by_kernel = {}, {}
-    keys = ("ms", "device_ms", "plain_ms", "four_pass_ms", "library_ms",
-            "library_device_ms", "bytes", "ops")
+    keys = ("ms", "device_ms", "plain_ms", "four_pass_ms",
+            "four_pass_device_ms", "library_ms", "library_device_ms",
+            "bytes", "ops")
     for name, ms_ in TIMED_M.items():
         for m in ms_:
             tot = dict.fromkeys(keys, 0.0)
@@ -866,6 +869,10 @@ def times_complex(torch, dev, gen) -> dict:
                          device_ms=graph_ms(torch, c["kern"]),
                          plain_ms=cuda_ms(c["plain"], reps=3, warmup=1),
                          four_pass_ms=cuda_ms(c["four"], reps=10),
+                         # the pack-per-call route is not graph-captured
+                         four_pass_device_ms=(
+                             graph_ms(torch, c["four"])
+                             if name != "unpacked" else 0.0),
                          library_ms=cuda_ms(c["lib"], reps=20),
                          library_device_ms=graph_ms(torch, c["lib"]),
                          bytes=c["nbytes"], ops=c["nops"])
@@ -873,6 +880,8 @@ def times_complex(torch, dev, gen) -> dict:
                 for key in keys:
                     tot[key] += t[key]
             tot.update(_bound(tot["bytes"], tot["ops"]))
+            if name == "unpacked":
+                tot["four_pass_device_ms"] = None
             by_kernel[f"{name} M={m}"] = {"layer_total": tot,
                                           "shapes": shapes}
             rows[name] = dict(tot, m=m)
@@ -1454,7 +1463,9 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "device_ms": t["device_ms"],
             "library_device_ms": t["library_device_ms"],
-            "four_pass_ms": t["four_pass_ms"], "at_m": t["m"]})
+            "four_pass_ms": t["four_pass_ms"],
+            "four_pass_device_ms": t["four_pass_device_ms"],
+            "at_m": t["m"]})
     table.append({
         "name": "int8_w8a8", "route": "cuda",
         "source": "src/repro_torch/kernels/int8_matmul/csrc/int8_w8a8.cu",

@@ -36,5 +36,5 @@ extern "C" int ccim_complex_unpacked(const void* x_re, const void* x_im,
   op.w[1] = static_cast<const int8_t*>(w_im);
   op.out[0] = static_cast<int32_t*>(y_re);
   op.out[1] = static_cast<int32_t*>(y_im);
-  return ccim::tile::launch<2, true>(op, M, N, Kp, stream);
+  return ccim::tile::launch<2>(op, M, N, Kp, stream);
 }

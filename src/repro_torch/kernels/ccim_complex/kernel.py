@@ -6,8 +6,8 @@ kernel of ``repro/kernels/ccim_complex/kernel.py``:
 
   ccim_complex_prepacked_skinny_cuda   M <= 32; replaces
       ccim_complex_matmul_prepacked_skinny_pallas
-  ccim_complex_prepacked_general_cuda  any M; replaces
-      ccim_complex_matmul_prepacked_pallas
+  ccim_complex_prepacked_general_cuda  any M, int8 tensor cores, K
+      split over the card; replaces ccim_complex_matmul_prepacked_pallas
   ccim_complex_unpacked_cuda           raw weights; replaces
       ccim_complex_matmul_pallas
 
@@ -55,6 +55,13 @@ def load_kernels() -> Dict[str, object]:
     if not _fns:
         _fns.update(build.bind(_ENTRY))
     return _fns
+
+
+def complex_general_k_split(M: int, N: int, Kp: int) -> int:
+    """Bytes of K per split (a multiple of 64) that the general kernel
+    takes for this shape on the current card; it picks the split itself."""
+    return build.library("complex_general").ccim_complex_general_k_split(
+        M, N, Kp)
 
 
 def _run(name: str, ptrs, M: int, N: int, Kp: int,

@@ -1,20 +1,26 @@
-// The hybrid-CIM GEMM on Hopper's int8 tensor cores, shared by two
-// kernels that differ only in how a stage of K reaches shared memory:
+// The hybrid-CIM GEMM on Hopper's int8 tensor cores, shared by three
+// kernels that differ in how a stage of K reaches shared memory and in
+// how many weight sides one residency holds:
 //
-//   ccim_prepacked_general.cu  PackedFill: prepacked w (N, Kp) and folded
-//                              planes (n_planes, N, Kp), K contiguous
-//   ccim_unpacked.cu           RawFill: raw (Kp, N) weights, N contiguous,
-//                              transposed and folded into P6, P5 here
+//   ccim_prepacked_general.cu  PackedFill, one side: prepacked w (N, Kp)
+//                              and folded planes (n_planes, N, Kp), K
+//                              contiguous
+//   ccim_unpacked.cu           RawFill, one side: raw (Kp, N) weights, N
+//                              contiguous, transposed and folded into P6,
+//                              P5 here
+//   ccim_complex_general.cu    PackedFill, two sides: the (Re, Im) packs
+//                              of a complex weight, one residency serving
+//                              four sub-MAC streams
 //
 // The MMAs, the folded conversion, the split of K and the epilogue are
-// one template, general_kernel<ACC, NP, Fill>.
+// one template, general_kernel<ACC, NP, Fill, S>, S the number of sides.
 //
-// Operands: x (M, Kp) int8, out (M, N) int32 at product scale.  The K
-// range [0, Kp) is cut into splits of k_split bytes (a multiple of the
-// 64-byte stage, so of every admitted acc_len), one per blockIdx.z; the
-// entry point picks the split (pick_k_split) for the shape and the card
-// and, when there is more than one, zeroes out on the stream so the
-// splits add into it.
+// Operands: x (M, Kp) int8 per side, out (M, N) int32 at product scale
+// per output.  The K range [0, Kp) is cut into splits of k_split bytes (a
+// multiple of the 64-byte stage, so of every admitted acc_len), one per
+// blockIdx.z; the entry point picks the split (pick_k_split) for the
+// shape and the card and, when there is more than one, zeroes the
+// outputs on the stream so the splits add into them.
 //
 // Per chunk, with lsb = 2^s and h = adc_half, the conversion
 //   dcim + clamp(floor((exact - lsb dcim + lsb/2) / lsb), -h, h - 1)
@@ -23,27 +29,36 @@
 // so the exact MMA chain starts from lsb/2 and the DCIM chain from -h,
 // and a conversion is four integer ops: shift, max, add-min, add.
 //
-// Tile: a 128 x 128 output tile per 256-thread block, its 8 warps stacked
-// along M, each one m16 row of 16 n8 MMA tiles (at acc_len 64, 64 x 128
-// with 4 x 2 warps of 8 tiles).  Stacked along M, no two warps derive the
-// same bit-planes.  A warp whose m16 rows all lie past M skips its MMAs
-// and conversions and only helps to fill, so a small M costs the fill and
-// one warp's MMAs per block.  K streams through a 3-stage cp.async ring of
-// 64-byte stages.  compute() reads x and each weight operand (w, then
-// each plane) as (rows, 64 bytes of K) tiles, rows swizzled (16-byte
-// segment s of row r at s ^ ((r >> 1) & 3)) so that ldmatrix reads 8 rows
-// without bank conflicts; ldmatrix yields the .row A fragments of x and
-// the .col B fragments of w and of each plane as stored: no transpose.
-// The activation bit-plane A fragments are derived from x's in
-// registers.  One mma.sync per chunk and operand pair, never across a
-// chunk boundary: acc_len 16 one m16n8k16; 32 one m16n8k32; 64 two
-// m16n8k32 chained over the stage's two halves; 8 two m16n8k16 per 16 K,
-// each with the other chunk's half of the B fragment zeroed by lane
-// (lanes with tid_in_group 0-1 hold k 0-7).  Each chunk's sums are
-// converted in the fragment and added to the tile's running int32
-// accumulator; partial sums of lsb (dcim + code) from disjoint chunk
-// ranges then add exactly in any order (mod 2^32, as the reference's
-// int32 sum), so split-K adds with red.global.add.
+// Two sides (the complex MAC, prototype numerics only: acc_len 16):
+// activations x_re, x_im and weight sides Re = (w, P6, P5)_re, Im = (w,
+// P6, P5)_im give four streams per chunk, ac = (x_re, Re), bd = (x_im,
+// Im), ad = (x_re, Im), bc = (x_im, Re), each one exact MMA and one DCIM
+// chain, each converted on its own; then y_re += cv_ac - cv_bd and y_im
+// += cv_ad + cv_bc.  Every stream is clipped before they are combined
+// (subtracting the exact dots first would give other integers).
+//
+// Tile: 8 warps of a 256-thread block stacked along M, each one m16 row
+// of NT n8 MMA tiles per side: one side 128 x 128 (NT 16), two sides 128
+// x 64 (NT 8, the same 64 accumulators a thread); at acc_len 64 (one
+// side) 64 x 128 with 4 x 2 warps of 8 tiles.  Stacked along M, no two
+// warps derive the same bit-planes.  A warp whose m16 rows all lie past
+// M skips its MMAs and conversions and only helps to fill, so a small M
+// costs the fill and one warp's MMAs per block.  K streams through a
+// 3-stage cp.async ring of 64-byte stages.  compute() reads each side's
+// x and weight operands (w, then each plane) as (rows, 64 bytes of K)
+// tiles, rows swizzled (16-byte segment s of row r at s ^ ((r >> 1) &
+// 3)) so that ldmatrix reads 8 rows without bank conflicts; ldmatrix
+// yields the .row A fragments of x and the .col B fragments of w and of
+// each plane as stored: no transpose.  The activation bit-plane A
+// fragments are derived from x's in registers.  One mma.sync per chunk
+// and operand pair, never across a chunk boundary: acc_len 16 one
+// m16n8k16; 32 one m16n8k32; 64 two m16n8k32 chained over the stage's
+// two halves; 8 two m16n8k16 per 16 K, each with the other chunk's half
+// of the B fragment zeroed by lane (lanes with tid_in_group 0-1 hold k
+// 0-7).  Each chunk's sums are converted in the fragment and added to the
+// tile's running int32 accumulator; partial sums of lsb (dcim + code)
+// from disjoint chunk ranges then add exactly in any order (mod 2^32, as
+// the reference's int32 sum), so split-K adds with red.global.add.
 //
 // wgmma is not used: its int8 form takes K = 32 per instruction, so at
 // the prototype's acc_len 16 a chunk is half an instruction (half its
@@ -53,16 +68,16 @@
 // per-chunk clip needs.
 //
 // Fills:
-//   PackedFill  cp.async of x, w and each plane into the stage, in
-//               compute's layout.
-//   RawFill     cp.async of x and of the raw (64 K x 128 N) weight tile
-//               into the stage (its rows' 16-byte segments swizzled by
-//               k / 8); once the stage lands, a transform pass writes w,
-//               P6 and P5 into one (128, 64) area in compute's layout:
-//               4 x 4 byte blocks transposed with byte permutes, the
-//               planes folded per byte, then a second __syncthreads.
-//               Rows that are not 16-byte aligned (N % 16 != 0) are
-//               copied with byte loads instead of cp.async.
+//   PackedFill  cp.async of each side's x, w and planes into the stage,
+//               in compute's layout.
+//   RawFill     (one side) cp.async of x and of the raw (64 K x 128 N)
+//               weight tile into the stage (its rows' 16-byte segments
+//               swizzled by k / 8); once the stage lands, a transform
+//               pass writes w, P6 and P5 into one (128, 64) area in
+//               compute's layout: 4 x 4 byte blocks transposed with byte
+//               permutes, the planes folded per byte, then a second
+//               __syncthreads.  Rows that are not 16-byte aligned (N % 16
+//               != 0) are copied with byte loads instead of cp.async.
 #pragma once
 
 #include "ccim_common.cuh"
@@ -71,27 +86,33 @@ namespace ccim {
 namespace mma {
 
 constexpr int kThreads = 256;                 // 8 warps
-constexpr int kBN = 128;                      // block tile columns
+constexpr int kBN = 128;                      // block tile columns x sides
 constexpr int kBK = 64;                       // K bytes per stage
 constexpr int kStages = 3;
 constexpr int kNG = 8;                        // n8 tiles of B read at a time
 
-// WM x WN warps, each one m16 row of NT n8 MMA tiles.  Below acc_len 64
-// the warps stack along M, so no two derive the same bit-planes; at 64 a
-// chunk's sums live across the stage's halves, which halves the tiles a
-// warp can hold.
-template <int ACC>
+// WM x WN warps, each one m16 row of NT n8 MMA tiles per side.  Below
+// acc_len 64 the warps stack along M, so no two derive the same
+// bit-planes; at 64 a chunk's sums live across the stage's halves, which
+// halves the tiles a warp can hold.  S sides share the accumulators a
+// thread holds, so each side gets 1 / S of the columns; two sides keep
+// the A fragments of both x sides live, so B is read NG = 2 tiles at a
+// time.
+template <int ACC, int S>
 struct Tile {
-  static constexpr int WM = ACC >= 64 ? 4 : 8, NT = ACC >= 64 ? 8 : 16;
-  static constexpr int WN = 8 / WM, BM = 16 * WM;
-  static_assert(8 * NT * WN == kBN && NT % kNG == 0, "tile");
+  static_assert(S == 1 || ACC == 16, "two sides: acc_len 16 only");
+  static constexpr int WM = ACC >= 64 ? 4 : 8, NT = (ACC >= 64 ? 8 : 16) / S;
+  static constexpr int WN = 8 / WM, BM = 16 * WM, BN = 8 * NT * WN;
+  static constexpr int NG = S == 1 ? kNG : 2;
+  static_assert(BN * S == kBN && NT % NG == 0, "tile");
 };
 
+// Side 0 is the real GEMM's only side, or Re; side 1 is Im.
 struct Args {
-  const int8_t* x;
-  const int8_t* w;
-  const int8_t* planes;
-  int32_t* out;
+  const int8_t* x[2];       // (M, Kp) per side
+  const int8_t* w[2];       // packed (N, Kp) or raw (Kp, N) per side
+  const int8_t* planes[2];  // packed: (n_planes, N, Kp) per side
+  int32_t* out[2];          // (M, N) per output
   int M, N, Kp, x_bits, lsb_shift, adc_half, k_split;
 };
 
@@ -200,58 +221,69 @@ __device__ __forceinline__ int convert_folded(int ex, int dc, int shift,
   return __viaddmin_s32(dc, span, max(ex >> shift, dc));
 }
 
-// x rows m0.. of one stage at st: 16 bytes a thread per copy, zeros past
-// M and the split's end ke
+// x rows m0.. of one side of one stage at st: 16 bytes a thread per
+// copy, zeros past M and the split's end ke
 template <int BM>
-__device__ __forceinline__ void load_x(const Args& a, int8_t* st, int k0,
-                                       int ke, int m0, int tid) {
+__device__ __forceinline__ void load_x(const Args& a, int side, int8_t* st,
+                                       int k0, int ke, int m0, int tid) {
+  const int8_t* x = a.x[side];
 #pragma unroll
   for (int i = 0; i < BM * 4 / kThreads; ++i) {
     const int p = tid + i * kThreads, r = p >> 2, s = p & 3;
     const int m = m0 + r, k = k0 + 16 * s;
     const bool ok = m < a.M && k < ke;
     cp_async16(smem_addr(st + swz(r, s)),
-               ok ? a.x + (size_t)m * a.Kp + k : a.x, ok);
+               ok ? x + (size_t)m * a.Kp + k : x, ok);
   }
 }
 
-// A stage holds x, then w and each plane, rows n0.., in compute's layout.
-template <int BM, int NP>
+// A stage holds each side's x, then each side's w and planes, rows n0..,
+// in compute's layout.
+template <class T, int NP, int S>
 struct PackedFill {
-  static constexpr int kStage = (BM + (1 + NP) * kBN) * kBK;
+  static constexpr int kStage = S * (T::BM + (1 + NP) * T::BN) * kBK;
   static constexpr int kExtra = 0;  // shared bytes beside the ring
 
   static __device__ __forceinline__ void load(const Args& a, int8_t* st,
                                               int k0, int ke, int m0, int n0,
                                               int tid) {
-    load_x<BM>(a, st, k0, ke, m0, tid);
 #pragma unroll
-    for (int op = 0; op <= NP; ++op) {
-      const int8_t* base =
-          op == 0 ? a.w : a.planes + (size_t)(op - 1) * a.N * a.Kp;
+    for (int side = 0; side < S; ++side)
+      load_x<T::BM>(a, side, st + side * T::BM * kBK, k0, ke, m0, tid);
+    int8_t* ops = st + S * T::BM * kBK;
 #pragma unroll
-      for (int i = 0; i < kBN * 4 / kThreads; ++i) {
-        const int p = tid + i * kThreads, r = p >> 2, s = p & 3;
-        const int n = n0 + r, k = k0 + 16 * s;
-        const bool ok = n < a.N && k < ke;
-        cp_async16(smem_addr(st + BM * kBK + op * kBN * kBK + swz(r, s)),
-                   ok ? base + (size_t)n * a.Kp + k : a.w, ok);
+    for (int side = 0; side < S; ++side)
+#pragma unroll
+      for (int op = 0; op <= NP; ++op) {
+        const int8_t* base =
+            op == 0 ? a.w[side]
+                    : a.planes[side] + (size_t)(op - 1) * a.N * a.Kp;
+#pragma unroll
+        for (int i = 0; i < T::BN * 4 / kThreads; ++i) {
+          const int p = tid + i * kThreads, r = p >> 2, s = p & 3;
+          const int n = n0 + r, k = k0 + 16 * s;
+          const bool ok = n < a.N && k < ke;
+          cp_async16(smem_addr(ops + (side * (1 + NP) + op) * T::BN * kBK +
+                               swz(r, s)),
+                     ok ? base + (size_t)n * a.Kp + k : base, ok);
+        }
       }
-    }
   }
 
   // the weight operands of a landed stage
   static __device__ __forceinline__ const int8_t* operands(const int8_t* st,
                                                            int8_t*, int) {
-    return st + BM * kBK;
+    return st + S * T::BM * kBK;
   }
 };
 
 // A stage holds x, then the raw (64 K, 128 N) weight tile, N contiguous;
 // operands() derives w, P6 and P5 from it into the area beside the ring.
-template <int BM, int NP>
+template <class T, int NP, int S>
 struct RawFill {
   static_assert(NP == 2, "the raw fill folds the prototype's P6 and P5");
+  static_assert(S == 1 && T::BN == kBN, "the raw fill has one side");
+  static constexpr int BM = T::BM;
   static constexpr int kRaw = kBK * kBN;
   static constexpr int kStage = BM * kBK + kRaw;
   static constexpr int kExtra = (1 + NP) * kBN * kBK;
@@ -266,8 +298,9 @@ struct RawFill {
   static __device__ __forceinline__ void load(const Args& a, int8_t* st,
                                               int k0, int ke, int m0, int n0,
                                               int tid) {
-    load_x<BM>(a, st, k0, ke, m0, tid);
+    load_x<BM>(a, 0, st, k0, ke, m0, tid);
     int8_t* raw = st + BM * kBK;
+    const int8_t* w = a.w[0];
     const bool vec = (a.N & 15) == 0;  // every row 16-byte aligned
 #pragma unroll
     for (int i = 0; i < kRaw / 16 / kThreads; ++i) {
@@ -276,14 +309,14 @@ struct RawFill {
       int8_t* dst = raw + raw_off(r, s);
       if (vec) {
         const bool ok = k < ke && n < a.N;
-        cp_async16(smem_addr(dst), ok ? a.w + (size_t)k * a.N + n : a.w, ok);
+        cp_async16(smem_addr(dst), ok ? w + (size_t)k * a.N + n : w, ok);
       } else {
         unsigned v[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
         for (int j = 0; j < 16; ++j)
           if (k < ke && n + j < a.N)
             v[j >> 2] |= static_cast<unsigned>(static_cast<uint8_t>(
-                             a.w[(size_t)k * a.N + n + j]))
+                             w[(size_t)k * a.N + n + j]))
                          << (8 * (j & 3));
         *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
       }
@@ -331,15 +364,16 @@ struct RawFill {
   }
 };
 
-template <int ACC, int NP, template <int, int> class Fill>
+template <int ACC, int NP, template <class, int, int> class Fill, int S = 1>
 __global__ void __launch_bounds__(kThreads, 1) general_kernel(const Args a) {
-  using T = Tile<ACC>;
-  constexpr int NT = T::NT, BM = T::BM, WB = kBN * kBK;
-  using F = Fill<BM, NP>;
+  using T = Tile<ACC, S>;
+  constexpr int NT = T::NT, NG = T::NG, BM = T::BM, BN = T::BN;
+  constexpr int WB = BN * kBK;
+  using F = Fill<T, NP, S>;
   extern __shared__ __align__(128) int8_t smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp / T::WN, wn = warp % T::WN;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * kBN;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int kb = blockIdx.z * a.k_split;
   const int ke = min(a.Kp, kb + a.k_split);
   const int n_tiles = (ke - kb + kBK - 1) / kBK;
@@ -354,97 +388,121 @@ __global__ void __launch_bounds__(kThreads, 1) general_kernel(const Args a) {
   // acc_len 8: the B half a lane keeps for the chunk at k 0-7 / 8-15
   const unsigned keep_lo = (lane & 2) ? 0u : ~0u, keep_hi = ~keep_lo;
 
-  int acc[NT][4];
+  int acc[S][NT][4];         // per output: the only one, or Re and Im
   int ex[NT][4], dc[NT][4];  // acc_len 64: a chunk spans 2 halves
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
+  for (int o = 0; o < S; ++o)
 #pragma unroll
-    for (int r = 0; r < 4; ++r) acc[nt][r] = 0;
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[o][nt][r] = 0;
 
   // ldmatrix lane roles: matrix q = lane / 8, its row i = lane % 8
   const int q = lane >> 3, i8 = lane & 7;
 
-  // one stage: x at st, w and each plane at wo
+  // one stage: each side's x at st, each side's w and planes at wo
   auto compute = [&](const int8_t* st, const int8_t* wo) {
+    // the stage's two 32-byte halves; with two sides a loop, not unrolled,
+    // or ptxas hoists the second half's fragments and spills
+#pragma unroll (S == 1 ? 2 : 1)
+    for (int hp = 0; hp < 2; ++hp) {
+      // A: per side, x's k32 fragment of the warp's m16 row in this half,
+      // then each plane's
+      unsigned ax[S][1 + NP][4];
 #pragma unroll
-    for (int hp = 0; hp < 2; ++hp) {  // the stage's two 32-byte halves
-      // A: x's k32 fragment of the warp's m16 row in this half, then
-      // each plane's
-      unsigned ax[1 + NP][4];
-      ldmatrix_x4(ax[0], smem_addr(st + swz(wm * 16 + (q & 1) * 8 + i8,
-                                            2 * hp + (q >> 1))));
+      for (int side = 0; side < S; ++side) {
+        ldmatrix_x4(ax[side][0],
+                    smem_addr(st + side * BM * kBK +
+                              swz(wm * 16 + (q & 1) * 8 + i8,
+                                  2 * hp + (q >> 1))));
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const Mag4 v = mag4(ax[0][r]);
+        for (int r = 0; r < 4; ++r) {
+          const Mag4 v = mag4(ax[side][0][r]);
 #pragma unroll
-        for (int pl = 0; pl < NP; ++pl) ax[1 + pl][r] = plane4(v, jbit[pl]);
+          for (int pl = 0; pl < NP; ++pl)
+            ax[side][1 + pl][r] = plane4(v, jbit[pl]);
+        }
       }
 #pragma unroll
-      for (int ng = 0; ng < NT; ng += kNG) {
-        // B: per operand and n8 tile, k32 fragment {b0, b1} of this half
-        unsigned b[1 + NP][kNG][2];
+      for (int ng = 0; ng < NT; ng += NG)
 #pragma unroll
-        for (int op = 0; op <= NP; ++op)
+        for (int ws = 0; ws < S; ++ws) {  // one weight side at a time
+          // B: per operand and n8 tile of side ws, k32 fragment {b0, b1}
+          // of this half; it serves the S streams that read side ws
+          unsigned b[1 + NP][NG][2];
 #pragma unroll
-          for (int u = 0; u < kNG / 2; ++u) {
-            unsigned r[4];
-            const int row = wn * 8 * NT + (ng + 2 * u + (q >> 1)) * 8 + i8;
-            ldmatrix_x4(r, smem_addr(wo + op * WB +
-                                     swz(row, 2 * hp + (q & 1))));
-            b[op][2 * u][0] = r[0];
-            b[op][2 * u][1] = r[1];
-            b[op][2 * u + 1][0] = r[2];
-            b[op][2 * u + 1][1] = r[3];
-          }
+          for (int op = 0; op <= NP; ++op)
 #pragma unroll
-        for (int j = 0; j < kNG; ++j) {
-          const int nt = ng + j;
-          int e[4], d[4];
-          if constexpr (ACC == 8 || ACC == 16) {
-#pragma unroll
-            for (int h = 0; h < 2; ++h)      // the half's two 16-K steps
-#pragma unroll
-              for (int c = 0; c < (ACC == 8 ? 2 : 1); ++c) {
-                const unsigned keep =
-                    ACC == 16 ? ~0u : (c == 0 ? keep_lo : keep_hi);
-                mma_k16(e, ax[0][2 * h], ax[0][2 * h + 1],
-                        b[0][j][h] & keep, seed_ex);
-                d[0] = d[1] = d[2] = d[3] = -a.adc_half;
-#pragma unroll
-                for (int pl = 0; pl < NP; ++pl)
-                  mma_k16(d, ax[1 + pl][2 * h], ax[1 + pl][2 * h + 1],
-                          b[1 + pl][j][h] & keep, d);
-#pragma unroll
-                for (int r = 0; r < 4; ++r)
-                  acc[nt][r] +=
-                      convert_folded(e[r], d[r], a.lsb_shift, span);
-              }
-          } else {
-            // acc_len 32: one k32 MMA per chunk; 64: chained over halves
-            const bool first = ACC == 32 || hp == 0;
-#pragma unroll
-            for (int r = 0; r < 4; ++r) {
-              e[r] = first ? half : ex[nt][r];
-              d[r] = first ? -a.adc_half : dc[nt][r];
+            for (int u = 0; u < NG / 2; ++u) {
+              unsigned r[4];
+              const int row = wn * 8 * NT + (ng + 2 * u + (q >> 1)) * 8 + i8;
+              ldmatrix_x4(r, smem_addr(wo + (ws * (1 + NP) + op) * WB +
+                                       swz(row, 2 * hp + (q & 1))));
+              b[op][2 * u][0] = r[0];
+              b[op][2 * u][1] = r[1];
+              b[op][2 * u + 1][0] = r[2];
+              b[op][2 * u + 1][1] = r[3];
             }
-            mma_k32(e, ax[0], b[0][j][0], b[0][j][1], e);
 #pragma unroll
-            for (int pl = 0; pl < NP; ++pl)
-              mma_k32(d, ax[1 + pl], b[1 + pl][j][0], b[1 + pl][j][1], d);
-            if (ACC == 32 || hp == 1) {
+          for (int j = 0; j < NG; ++j) {
+            const int nt = ng + j;
+            int e[4], d[4];
+            if constexpr (ACC == 8 || ACC == 16) {
 #pragma unroll
-              for (int r = 0; r < 4; ++r)
-                acc[nt][r] += convert_folded(e[r], d[r], a.lsb_shift, span);
+              for (int h = 0; h < 2; ++h)      // the half's two 16-K steps
+#pragma unroll
+                for (int c = 0; c < (ACC == 8 ? 2 : 1); ++c) {
+                  const unsigned keep =
+                      ACC == 16 ? ~0u : (c == 0 ? keep_lo : keep_hi);
+                  // stream (x side xs, weight side ws) -> output xs ^ ws,
+                  // negated when both are Im: ac (0, 0) -> Re, bc (1, 0)
+                  // -> Im, ad (0, 1) -> Im, bd (1, 1) -> -Re
+#pragma unroll
+                  for (int xs = 0; xs < S; ++xs) {
+                    mma_k16(e, ax[xs][0][2 * h], ax[xs][0][2 * h + 1],
+                            b[0][j][h] & keep, seed_ex);
+                    d[0] = d[1] = d[2] = d[3] = -a.adc_half;
+#pragma unroll
+                    for (int pl = 0; pl < NP; ++pl)
+                      mma_k16(d, ax[xs][1 + pl][2 * h],
+                              ax[xs][1 + pl][2 * h + 1],
+                              b[1 + pl][j][h] & keep, d);
+#pragma unroll
+                    for (int r = 0; r < 4; ++r) {
+                      const int cv =
+                          convert_folded(e[r], d[r], a.lsb_shift, span);
+                      acc[xs ^ ws][nt][r] += xs & ws ? -cv : cv;
+                    }
+                  }
+                }
             } else {
+              // acc_len 32: one k32 MMA per chunk; 64: chained over halves
+              const bool first = ACC == 32 || hp == 0;
 #pragma unroll
               for (int r = 0; r < 4; ++r) {
-                ex[nt][r] = e[r];
-                dc[nt][r] = d[r];
+                e[r] = first ? half : ex[nt][r];
+                d[r] = first ? -a.adc_half : dc[nt][r];
+              }
+              mma_k32(e, ax[0][0], b[0][j][0], b[0][j][1], e);
+#pragma unroll
+              for (int pl = 0; pl < NP; ++pl)
+                mma_k32(d, ax[0][1 + pl], b[1 + pl][j][0], b[1 + pl][j][1],
+                        d);
+              if (ACC == 32 || hp == 1) {
+#pragma unroll
+                for (int r = 0; r < 4; ++r)
+                  acc[0][nt][r] +=
+                      convert_folded(e[r], d[r], a.lsb_shift, span);
+              } else {
+#pragma unroll
+                for (int r = 0; r < 4; ++r) {
+                  ex[nt][r] = e[r];
+                  dc[nt][r] = d[r];
+                }
               }
             }
           }
         }
-      }
     }
   };
 
@@ -473,37 +531,41 @@ __global__ void __launch_bounds__(kThreads, 1) general_kernel(const Args a) {
   const int g = lane >> 2, t4 = lane & 3;
   const bool split = gridDim.z > 1;
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
+  for (int o = 0; o < S; ++o)
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int m = m0 + wm * 16 + g + (r >> 1) * 8;
-      const int n = n0 + wn * 8 * NT + nt * 8 + 2 * t4 + (r & 1);
-      if (m >= a.M || n >= a.N) continue;
-      const unsigned v = static_cast<unsigned>(acc[nt][r]) << a.lsb_shift;
-      unsigned* o = reinterpret_cast<unsigned*>(a.out) + (size_t)m * a.N + n;
-      if (split)
-        atomicAdd(o, v);
-      else
-        *o = v;
-    }
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int m = m0 + wm * 16 + g + (r >> 1) * 8;
+        const int n = n0 + wn * 8 * NT + nt * 8 + 2 * t4 + (r & 1);
+        if (m >= a.M || n >= a.N) continue;
+        const unsigned v = static_cast<unsigned>(acc[o][nt][r])
+                           << a.lsb_shift;
+        unsigned* dst =
+            reinterpret_cast<unsigned*>(a.out[o]) + (size_t)m * a.N + n;
+        if (split)
+          atomicAdd(dst, v);
+        else
+          *dst = v;
+      }
 }
 
-template <int ACC, int NP, template <int, int> class Fill>
+template <int ACC, int NP, template <class, int, int> class Fill, int S = 1>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  using F = Fill<Tile<ACC>::BM, NP>;
+  using T = Tile<ACC, S>;
+  using F = Fill<T, NP, S>;
   constexpr int bytes = kStages * F::kStage + F::kExtra;
   static bool sized = false;  // above 48 KB needs the opt-in, once
   if (!sized) {
     const cudaError_t e = cudaFuncSetAttribute(
-        general_kernel<ACC, NP, Fill>,
+        general_kernel<ACC, NP, Fill, S>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return e;
     sized = true;
   }
-  constexpr int BM = Tile<ACC>::BM;
-  const dim3 grid((a.N + kBN - 1) / kBN, (a.M + BM - 1) / BM,
+  const dim3 grid((a.N + T::BN - 1) / T::BN, (a.M + T::BM - 1) / T::BM,
                   (a.Kp + a.k_split - 1) / a.k_split);
-  general_kernel<ACC, NP, Fill><<<grid, kThreads, bytes, stream>>>(a);
+  general_kernel<ACC, NP, Fill, S><<<grid, kThreads, bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -513,10 +575,12 @@ inline long cdiv(long a, long b) { return (a + b - 1) / b; }
 // admitted acc_len.  Minimizes waves x (stages per split + 2), the 2 for a
 // block's fill and store, at one block per SM: few output tiles (the
 // N-2304 GEMMs at M 128) split K over the card, many tiles keep it whole.
-// Ties go to fewer splits.
-inline int pick_k_split(int M, int N, int Kp, int acc_len, int n_sm) {
-  const int bm = acc_len >= 64 ? Tile<64>::BM : Tile<16>::BM;
-  const long blocks = cdiv(M, bm) * cdiv(N, kBN), stages = cdiv(Kp, kBK);
+// Ties go to fewer splits.  ``sides`` 2 takes the complex tile.
+inline int pick_k_split(int M, int N, int Kp, int acc_len, int n_sm,
+                        int sides = 1) {
+  const int bm = acc_len >= 64 ? Tile<64, 1>::BM : Tile<16, 1>::BM;
+  const int bn = sides == 2 ? Tile<16, 2>::BN : kBN;
+  const long blocks = cdiv(M, bm) * cdiv(N, bn), stages = cdiv(Kp, kBK);
   long best = -1, best_per = stages;
   for (long per = stages; per >= 1; --per) {
     const long cost = cdiv(blocks * cdiv(stages, per), n_sm) * (per + 2);
@@ -537,17 +601,19 @@ inline int sm_count() {
   return count[dev];
 }
 
-// Picks the split for the shape, zeroes out on the stream when there is
-// more than one (the splits add into it), and launches.
-template <int ACC, int NP, template <int, int> class Fill>
+// Picks the split for the shape, zeroes the outputs on the stream when
+// there is more than one (the splits add into them), and launches.
+template <int ACC, int NP, template <class, int, int> class Fill, int S = 1>
 cudaError_t run(Args a, cudaStream_t stream) {
-  a.k_split = pick_k_split(a.M, a.N, a.Kp, ACC, sm_count());
+  a.k_split = pick_k_split(a.M, a.N, a.Kp, ACC, sm_count(), S);
   if (a.k_split < a.Kp) {
-    const cudaError_t e = cudaMemsetAsync(
-        a.out, 0, sizeof(int32_t) * (size_t)a.M * a.N, stream);
-    if (e != cudaSuccess) return e;
+    for (int o = 0; o < S; ++o) {
+      const cudaError_t e = cudaMemsetAsync(
+          a.out[o], 0, sizeof(int32_t) * (size_t)a.M * a.N, stream);
+      if (e != cudaSuccess) return e;
+    }
   }
-  return launch<ACC, NP, Fill>(a, stream);
+  return launch<ACC, NP, Fill, S>(a, stream);
 }
 
 }  // namespace mma

@@ -63,8 +63,10 @@ extern "C" int ccim_prepacked_general(const void* x, const void* w,
       (acc_len != 8 && acc_len != 16 && acc_len != 32 && acc_len != 64))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
-  const Args a{static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
-               static_cast<const int8_t*>(planes), static_cast<int32_t*>(out),
+  const Args a{{static_cast<const int8_t*>(x)},
+               {static_cast<const int8_t*>(w)},
+               {static_cast<const int8_t*>(planes)},
+               {static_cast<int32_t*>(out)},
                M, N, Kp, x_bits, lsb_shift, adc_half, 0};
   cudaError_t err = cudaErrorInvalidValue;
   switch (acc_len) {

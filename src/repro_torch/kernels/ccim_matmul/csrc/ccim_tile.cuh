@@ -1,14 +1,13 @@
 // Tiled hybrid-CIM GEMM at the 28nm prototype's numerics (acc_len 16,
-// top-3 DCIM split, 7-bit ADC), on dp4a, shared by two kernels:
+// top-3 DCIM split, 7-bit ADC), on dp4a, on raw (Kp, N) weights:
 //
-//   ccim_complex_general.cu   complex, prepacked (N, Kp) pack (2 sides)
 //   ccim_complex_unpacked.cu  complex, raw (Kp, N) weights    (2 sides)
 //
-// (The real unpacked GEMM, the one-side raw instance, runs on the int8
+// (The real unpacked GEMM and the prepacked complex one run on the int8
 // tensor cores of ccim_mma.cuh.)  A "side" is one real operand pair: Re
-// alone for a real GEMM, Re and Im for the complex one.  The complex kernels run the four real sub-MACs
-// of (a + bi)(c + di) as four chunk streams over ONE residency of the
-// co-located (Re, Im) weight tile:
+// alone for a real GEMM, Re and Im for the complex one.  The complex
+// kernel runs the four real sub-MACs of (a + bi)(c + di) as four chunk
+// streams over ONE residency of the co-located (Re, Im) weight tile:
 //
 //   y_re = 2^11 * sum_c (y8_ac - y8_bd),  y_im = 2^11 * sum_c (y8_ad + y8_bc)
 //
@@ -20,7 +19,7 @@
 // 2*x6.w6 + x6.w5 + x5.w6 of the TPU kernels:
 //   dcim = x6 . P6 + x5 . P5,  P6 = s_w (2 b6 + b5),  P5 = s_w b6.
 // Raw weights are decomposed into P6/P5 in the tile fill, once per tile,
-// and all streams of the tile share them; a pack brings them stored.
+// and all streams of the tile share them.
 //
 // int32 accumulation: |y8| <= 64 + 64 per chunk, so |y_re|, |y_im| <=
 // 2^11 * 256 * K / 16 = 2^15 K, below 2^31 for K < 65,536 (the real GEMM:
@@ -47,8 +46,7 @@ constexpr int kChunkWords = 4;           // acc_len 16
 
 struct Operands {
   const int8_t* x[2];       // (M, Kp) activations per side
-  const int8_t* w[2];       // raw: (Kp, N); packed: (N, Kp)
-  const int8_t* planes[2];  // packed only: (2, N, Kp) folded P6, P5
+  const int8_t* w[2];       // (Kp, N) raw weights per side
   int32_t* out[2];          // (M, N)
 };
 
@@ -77,7 +75,7 @@ __device__ __forceinline__ void transpose4(int r[4]) {
   r[3] = static_cast<int>(__byte_perm(t2, t3, 0x7632));
 }
 
-template <int kSides, bool kRaw>
+template <int kSides>
 __global__ void __launch_bounds__(kThreads)
 tile_kernel(Operands op, int M, int N, int Kp) {
   // [side][value | bit-6 plane | bit-5 plane][row][word]
@@ -115,55 +113,37 @@ tile_kernel(Operands op, int M, int N, int Kp) {
       d6[0] = q6.x; d6[1] = q6.y; d6[2] = q6.z; d6[3] = q6.w;
       d5[0] = q5.x; d5[1] = q5.y; d5[2] = q5.z; d5[3] = q5.w;
     }
-    if (kRaw) {
-      // raw (Kp, N) weights: each thread takes a 4 (k) x 4 (n) block,
-      // transposes it to K-contiguous words and folds its planes
-      for (int idx = threadIdx.x; idx < kSides * 128; idx += kThreads) {
-        const int side = idx / 128, b = idx % 128;
-        const int kq = b / 16, nq = b % 16;
-        const int k = k0 + 4 * kq, n = n0 + 4 * nq;
-        int r[4] = {0, 0, 0, 0};
-        if (k < Kp && n < N) {
-          const int8_t* src = op.w[side] + (size_t)k * N + n;
-          if (w_words) {
+    // raw (Kp, N) weights: each thread takes a 4 (k) x 4 (n) block,
+    // transposes it to K-contiguous words and folds its planes
+    for (int idx = threadIdx.x; idx < kSides * 128; idx += kThreads) {
+      const int side = idx / 128, b = idx % 128;
+      const int kq = b / 16, nq = b % 16;
+      const int k = k0 + 4 * kq, n = n0 + 4 * nq;
+      int r[4] = {0, 0, 0, 0};
+      if (k < Kp && n < N) {
+        const int8_t* src = op.w[side] + (size_t)k * N + n;
+        if (w_words) {
 #pragma unroll
-            for (int i = 0; i < 4; ++i)
-              r[i] = __ldg(reinterpret_cast<const int*>(src + (size_t)i * N));
-          } else {
+          for (int i = 0; i < 4; ++i)
+            r[i] = __ldg(reinterpret_cast<const int*>(src + (size_t)i * N));
+        } else {
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              unsigned word = 0;
-              for (int c = 0; c < 4 && n + c < N; ++c)
-                word |= static_cast<unsigned>(static_cast<uint8_t>(
-                            __ldg(src + (size_t)i * N + c)))
-                        << (8 * c);
-              r[i] = static_cast<int>(word);
-            }
+          for (int i = 0; i < 4; ++i) {
+            unsigned word = 0;
+            for (int c = 0; c < 4 && n + c < N; ++c)
+              word |= static_cast<unsigned>(static_cast<uint8_t>(
+                          __ldg(src + (size_t)i * N + c)))
+                      << (8 * c);
+            r[i] = static_cast<int>(word);
           }
         }
-        transpose4(r);
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          ws[side][0][4 * nq + c][kq] = r[c];
-          ws[side][1][4 * nq + c][kq] = fold_plane4(r[c]);
-          ws[side][2][4 * nq + c][kq] = bit_plane4(r[c], 6);
-        }
       }
-    } else {
-      // pack: value, P6 and P5 rows of 64 columns, two pieces each
-      for (int idx = threadIdx.x; idx < kSides * 3 * 128; idx += kThreads) {
-        const int arr = idx / 128, side = arr / 3, a = arr % 3;
-        const int r = (idx % 128) / 2, p = idx % 2;
-        const int n = n0 + r, k = k0 + 16 * p;
-        int4 v = zero;
-        if (n < N && k < Kp) {
-          const int8_t* src =
-              a == 0 ? op.w[side] + (size_t)n * Kp + k
-                     : op.planes[side] + ((size_t)(a - 1) * N + n) * Kp + k;
-          v = __ldg(reinterpret_cast<const int4*>(src));
-        }
-        int* d = &ws[side][a][r][4 * p];
-        d[0] = v.x; d[1] = v.y; d[2] = v.z; d[3] = v.w;
+      transpose4(r);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        ws[side][0][4 * nq + c][kq] = r[c];
+        ws[side][1][4 * nq + c][kq] = fold_plane4(r[c]);
+        ws[side][2][4 * nq + c][kq] = bit_plane4(r[c], 6);
       }
     }
     __syncthreads();
@@ -229,12 +209,11 @@ tile_kernel(Operands op, int M, int N, int Kp) {
     }
 }
 
-template <int kSides, bool kRaw>
+template <int kSides>
 int launch(const Operands& op, int M, int N, int Kp, void* stream) {
   const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  tile_kernel<kSides, kRaw><<<grid, kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(op, M, N,
-                                                                   Kp);
+  tile_kernel<kSides><<<grid, kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(op, M, N, Kp);
   return static_cast<int>(cudaGetLastError());
 }
 

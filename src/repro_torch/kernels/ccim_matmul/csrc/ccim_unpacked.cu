@@ -58,10 +58,11 @@ extern "C" int ccim_unpacked(const void* x, const void* w, void* out, int M,
                              int N, int Kp, void* stream) {
   if (M <= 0 || N <= 0 || Kp <= 0 || Kp % kAccLen)
     return static_cast<int>(cudaErrorInvalidValue);
-  const ccim::mma::Args a{static_cast<const int8_t*>(x),
-                          static_cast<const int8_t*>(w), nullptr,
-                          static_cast<int32_t*>(out), M, N, Kp, kXBits,
-                          kLsbShift, kAdcHalf, 0};
+  const ccim::mma::Args a{{static_cast<const int8_t*>(x)},
+                          {static_cast<const int8_t*>(w)},
+                          {},
+                          {static_cast<int32_t*>(out)},
+                          M, N, Kp, kXBits, kLsbShift, kAdcHalf, 0};
   return static_cast<int>(
       ccim::mma::run<kAccLen, 2, ccim::mma::RawFill>(
           a, static_cast<cudaStream_t>(stream)));

@@ -211,6 +211,45 @@ def test_unpacked_kernel_equals_plain(dev, m, k, n):
     assert got.dtype == torch.int32 and torch.equal(got, want), (
         K.unpacked_k_split(m, n, -(-k // 16) * 16))
 
+# minicpm-2b's four full-width layer GEMMs, (K, N)
+FULL_SHAPES = ((2304, 9216), (3072, 2304), (2304, 11520), (5760, 2304))
+
+
+@pytest.mark.parametrize("m,k,n", [(m, k, n) for m in (33, 128, 512)
+                                   for k, n in FULL_SHAPES]
+                         + [(3, 130, 2401), (45, 999, 257), (60, 64, 2401)])
+def test_complex_general_kernel_equals_plain(dev, m, k, n):
+    """Kernel row 5 (the tensor-core template with two sides) against
+    its plain version on a prototype pack: full width at M 33, 128 and
+    512 (``wo`` at M 128 is split over K, which the test checks), ragged
+    N (2,401 and 257, masked) and K (Kp 144 and 1,008, not multiples of
+    the 64-byte stage), M below the skinny bound, and the DoA spectrum
+    (M 60, K 64, N 2,401).  ints compared with torch.equal; one launch
+    per call."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(m * 7 + k + n)
+    one = torch.ones((1, n), device=dev)
+    pr, pi = (engine.pack_quantized_cim_weights(_ints(gen, (k, n), dev), one)
+              for _ in range(2))
+    kp = pr.kernel_w.shape[1]
+    xr, xi = (KO.pad_k_int8(_ints(gen, (m, k), dev), kp, 1)
+              for _ in range(2))
+    args = (xr, xi, pr.kernel_w, pr.kernel_planes, pi.kernel_w,
+            pi.kernel_planes)
+    split = CK.complex_general_k_split(m, n, kp)
+    assert split > 0 and split % 64 == 0
+    if (m, k, n) == (128, 3072, 2304):
+        assert split < kp
+    CK.reset_launch_counts()
+    got = CK.ccim_complex_prepacked_general_cuda(*args)
+    torch.cuda.synchronize()
+    assert CK.ccim_complex_prepacked_general_cuda.launches == 1
+    want = CK.ccim_complex_prepacked_plain(*args)
+    assert CK.ccim_complex_prepacked_general_cuda.launches == 1
+    for a, b in zip(got, want):
+        assert a.dtype == torch.int32 and torch.equal(a, b), split
+
+
 # (B, Hkv, G, Dh, bs, n_tbl, n_blocks, max length): a small GQA shape and
 # minicpm-2b's full-width decode shape (48 padded heads, G 1, Dh 64)
 PAGED_SHAPES = {"small": (3, 2, 4, 128, 8, 5, 12, 40),

@@ -22,6 +22,7 @@ from repro.kernels.ccim_matmul import kernel as jkernel
 from repro.kernels.ccim_matmul import ops as jops
 from repro_torch.core import ccim as Tc
 from repro_torch.core import engine as Te
+from repro_torch.kernels.ccim_complex import kernel as CK
 from repro_torch.kernels.ccim_matmul import kernel as K
 from repro_torch.kernels.ccim_matmul import ops as tops
 from repro_torch.kernels.ccim_matmul.ref import ccim_matmul_ref as torch_ref
@@ -287,3 +288,50 @@ def test_unpacked_kernel_arithmetic_equals_plain(k, k_split):
             part += _folded_convert(exact, dcim, shift, half)
         got += part << shift
     assert torch.equal(got.to(torch.int32), want)
+
+
+@pytest.mark.parametrize("k_split", [64, 192])
+@pytest.mark.parametrize("m,n", [(5, 22), (40, 37)])
+def test_complex_general_kernel_arithmetic_equals_plain(m, n, k_split):
+    """Kernel row 5's arithmetic in integers (``ccim_mma.cuh`` with two
+    sides): per split of K (``k_split`` bytes), per 64-byte stage (zero
+    past the split's end), per chunk the four sub-MAC streams ac = (x_re,
+    Re), bd = (x_im, Im), ad = (x_re, Im) and bc = (x_im, Re), each the
+    folded conversion of its own exact and DCIM sums, combined as (cv_ac
+    - cv_bd, cv_ad + cv_bc), shifted, the splits added mod 2^32, equals
+    ``ccim_complex_prepacked_plain``.  K 200 pads to Kp 208, not a
+    multiple of the stage; N is ragged."""
+    rng = np.random.default_rng(m * n + k_split)
+    k, acc, shift, half = 200, 16, 11, 64
+    packs = [Te.pack_quantized_cim_weights(
+        torch.from_numpy(rng.integers(-127, 128, (k, n))),
+        torch.ones((1, n))) for _ in range(2)]
+    kp = packs[0].kernel_w.shape[1]
+    xs = [torch.from_numpy(rng.integers(-127, 128, (m, kp))).to(torch.int8)
+          for _ in range(2)]
+    want = CK.ccim_complex_prepacked_plain(
+        xs[0], xs[1], packs[0].kernel_w, packs[0].kernel_planes,
+        packs[1].kernel_w, packs[1].kernel_planes)
+    ranges = [(k0, min(k0 + k_split, kp)) for k0 in range(0, kp, k_split)]
+    assert len(ranges) > 1 and kp % 64
+    got = [torch.zeros((m, n), dtype=torch.int64) for _ in range(2)]
+    for k0, k1 in ranges:
+        span = -(-(k1 - k0) // 64) * 64      # whole stages, zero past k1
+        fill = lambda v: F.pad(v[..., k0:k1].long(), (0, span - (k1 - k0)))
+        x = [fill(v) for v in xs]
+        ops = [(fill(p.kernel_w), fill(p.kernel_planes[0]),
+                fill(p.kernel_planes[1])) for p in packs]
+        part = [torch.zeros((m, n), dtype=torch.int64) for _ in range(2)]
+        for c0 in range(0, span, acc):
+            def cv(x_side, w_side):
+                xc = x[x_side][:, c0:c0 + acc]
+                w, p6, p5 = (v[:, c0:c0 + acc] for v in ops[w_side])
+                dcim = _x_plane(xc, 6) @ p6.t() + _x_plane(xc, 5) @ p5.t()
+                return _folded_convert(xc @ w.t(), dcim, shift, half)
+            part[0] += cv(0, 0) - cv(1, 1)
+            part[1] += cv(0, 1) + cv(1, 0)
+        for o in range(2):
+            got[o] = (got[o] + (part[o] << shift)) % 2 ** 32
+    for g, w in zip(got, want):
+        assert torch.equal(torch.where(g >= 2 ** 31, g - 2 ** 32, g).to(
+            torch.int32), w)
