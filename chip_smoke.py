@@ -72,7 +72,8 @@ failure.  Phases:
      0.05 degree grid: one unpacked and one prepacked complex launch per
      frame and no real-kernel launch; the plain versions on the card give
      the same covariance ints and estimates; RMSE under 4 % of the field
-     of view; frames/s and the kernels' share of a frame;
+     of view; frames/s, the kernels' share of a frame, and the covariance
+     kernel's device time and K split;
  17. times of kernels 4-7 at the full-width shapes (M 4 and 128; per
      call and device time, as phase 7) beside their plain versions, the
      four-pass route through the port's real kernels (per call and, for
@@ -750,7 +751,10 @@ def doa_phase(torch, dev) -> dict:
         spec_fn = (CK.ccim_complex_prepacked_general_cuda
                    if spec_kernel == "complex_general"
                    else CK.ccim_complex_prepacked_skinny_cuda)
-        cov_ms = cuda_ms(lambda: CK.ccim_complex_unpacked_cuda(*cov), reps=50)
+        cov_fn = lambda: CK.ccim_complex_unpacked_cuda(*cov)
+        cov_ms = cuda_ms(cov_fn, reps=50)
+        cov_dev_ms = graph_ms(torch, cov_fn)
+        cov_split = CK.complex_unpacked_k_split(n, n, T)
         spec_ms = cuda_ms(lambda: spec_fn(*spec), reps=50)
         frame_ms = 1e3 * wall / DOA_FRAMES
         # where a frame's time goes: a profiler trace of a few frames
@@ -768,6 +772,9 @@ def doa_phase(torch, dev) -> dict:
             "grid_points": len(grid), "frames": DOA_FRAMES,
             "setup_s": setup_s, "frames_per_s": DOA_FRAMES / wall,
             "frame_ms": frame_ms, "covariance_kernel_ms": cov_ms,
+            "covariance_kernel_device_ms": cov_dev_ms,
+            "covariance_k_split": cov_split,
+            "covariance_k_splits": -(-T // cov_split),
             "spectrum_kernel": spec_kernel, "spectrum_kernel_ms": spec_ms,
             "kernel_share_of_frame": (cov_ms + spec_ms) / frame_ms,
             "profile": {"frames": n_prof, "frame_wall_ms": prof_ms,
@@ -848,6 +855,17 @@ def _timing_case(torch, dev, name: str, m: int, k: int, n: int, gen):
 # kernels table's row)
 TIMED_M = {"complex_skinny": (4,), "complex_general": (128,),
            "complex_unpacked": (4, 128), "unpacked": (4, 128)}
+
+
+# kernels line: the instance of ccim_mma.cuh each tensor-core row runs
+TEMPLATE_DESIGN = {
+    "complex_general": "ccim_mma.cuh general_kernel<16, 2, PackedFill, 2>: "
+                       "int8 mma.sync, two sides, prepacked fill",
+    "unpacked": "ccim_mma.cuh general_kernel<16, 2, RawFill, 1>: int8 "
+                "mma.sync, one side, raw-weight fill",
+    "complex_unpacked": "ccim_mma.cuh general_kernel<16, 2, RawFill, 2>: "
+                        "int8 mma.sync, two sides, raw fill of Re and Im "
+                        "side by side, K split over the card"}
 
 
 def times_complex(torch, dev, gen) -> dict:
@@ -1458,6 +1476,7 @@ def main() -> int:
         t = cx_rows[name]
         table.append({
             "name": label, "route": "cuda", "source": source,
+            "design": TEMPLATE_DESIGN.get(name),
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

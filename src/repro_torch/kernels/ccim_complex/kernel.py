@@ -8,8 +8,8 @@ kernel of ``repro/kernels/ccim_complex/kernel.py``:
       ccim_complex_matmul_prepacked_skinny_pallas
   ccim_complex_prepacked_general_cuda  any M, int8 tensor cores, K
       split over the card; replaces ccim_complex_matmul_prepacked_pallas
-  ccim_complex_unpacked_cuda           raw weights; replaces
-      ccim_complex_matmul_pallas
+  ccim_complex_unpacked_cuda           raw weights, any M, int8 tensor
+      cores, K split over the card; replaces ccim_complex_matmul_pallas
 
 Each returns (y_re, y_im), (M, N) int32 at x 2^11, from int8 activations
 x_re, x_im (M, Kp): one residency of the co-located (Re, Im) weights
@@ -61,6 +61,13 @@ def complex_general_k_split(M: int, N: int, Kp: int) -> int:
     """Bytes of K per split (a multiple of 64) that the general kernel
     takes for this shape on the current card; it picks the split itself."""
     return build.library("complex_general").ccim_complex_general_k_split(
+        M, N, Kp)
+
+
+def complex_unpacked_k_split(M: int, N: int, Kp: int) -> int:
+    """Bytes of K per split (a multiple of 64) that the unpacked kernel
+    takes for this shape on the current card; it picks the split itself."""
+    return build.library("complex_unpacked").ccim_complex_unpacked_k_split(
         M, N, Kp)
 
 

@@ -1,4 +1,4 @@
-// The hybrid-CIM GEMM on Hopper's int8 tensor cores, shared by three
+// The hybrid-CIM GEMM on Hopper's int8 tensor cores, shared by four
 // kernels that differ in how a stage of K reaches shared memory and in
 // how many weight sides one residency holds:
 //
@@ -11,6 +11,9 @@
 //   ccim_complex_general.cu    PackedFill, two sides: the (Re, Im) packs
 //                              of a complex weight, one residency serving
 //                              four sub-MAC streams
+//   ccim_complex_unpacked.cu   RawFill, two sides: the raw (Kp, N) Re and
+//                              Im weights, each transposed and folded
+//                              here, one residency serving four streams
 //
 // The MMAs, the folded conversion, the split of K and the epilogue are
 // one template, general_kernel<ACC, NP, Fill, S>, S the number of sides.
@@ -70,14 +73,17 @@
 // Fills:
 //   PackedFill  cp.async of each side's x, w and planes into the stage,
 //               in compute's layout.
-//   RawFill     (one side) cp.async of x and of the raw (64 K x 128 N)
-//               weight tile into the stage (its rows' 16-byte segments
-//               swizzled by k / 8); once the stage lands, a transform
-//               pass writes w, P6 and P5 into one (128, 64) area in
-//               compute's layout: 4 x 4 byte blocks transposed with byte
-//               permutes, the planes folded per byte, then a second
-//               __syncthreads.  Rows that are not 16-byte aligned (N % 16
-//               != 0) are copied with byte loads instead of cp.async.
+//   RawFill     cp.async of each side's x and of the raw weight area
+//               (64 K x 128 N: one side's 128 columns, or Re's and Im's
+//               64 side by side) into the stage (its rows' 16-byte
+//               segments swizzled by k / 8); once the stage lands, a
+//               transform pass writes each side's w, P6 and P5 into one
+//               24 KB area in compute's layout: 4 x 4 byte blocks
+//               transposed with byte permutes, the planes folded per
+//               byte, then a second __syncthreads.  Each raw byte is
+//               copied once and transformed once per stage.  Rows that
+//               are not 16-byte aligned (N % 16 != 0) are copied with
+//               byte loads instead of cp.async.
 #pragma once
 
 #include "ccim_common.cuh"
@@ -190,18 +196,17 @@ __device__ __forceinline__ unsigned plane4(Mag4 v, int j) {
 }
 
 // Folded plane P6 of four packed int8 weights, per byte
-// sign(w) * (2 b6(|w|) + b5(|w|)), in [-3, 3] -- fold_plane4 of
-// ccim_tile.cuh from the same Mag4 as plane4: m = (|w| >> 5) & 3 (|w| <=
-// 127), -m per byte as (0x80 - m) ^ 0x80 (no borrow while m <= 3), its
-// bits taken where keep has them (0xFF: a negative byte; 0x01 takes bit
-// 0 only, where m and -m agree).  P5 = sign(w) b6(|w|) is plane4(v, 6).
+// sign(w) * (2 b6(|w|) + b5(|w|)), in [-3, 3], from the same Mag4 as
+// plane4: m = (|w| >> 5) & 3 (|w| <= 127), -m per byte as (0x80 - m) ^
+// 0x80 (no borrow while m <= 3), its bits taken where keep has them
+// (0xFF: a negative byte; 0x01 takes bit 0 only, where m and -m agree).  P5 = sign(w) b6(|w|) is plane4(v, 6).
 __device__ __forceinline__ unsigned fold4(Mag4 v) {
   const unsigned m = (v.mag >> 5) & 0x03030303u;
   const unsigned neg = (0x80808080u - m) ^ 0x80808080u;
   return m ^ ((m ^ neg) & v.keep);
 }
 
-// 4 x 4 byte transpose (transpose4 of ccim_tile.cuh): r[i] holds bytes
+// 4 x 4 byte transpose with byte permutes: r[i] holds bytes
 // (k = i, n = 0..3); on return r[c] holds bytes (k = 0..3, n = c).
 __device__ __forceinline__ void transpose4(unsigned (&r)[4]) {
   const unsigned t0 = __byte_perm(r[0], r[1], 0x5140);
@@ -277,15 +282,17 @@ struct PackedFill {
   }
 };
 
-// A stage holds x, then the raw (64 K, 128 N) weight tile, N contiguous;
-// operands() derives w, P6 and P5 from it into the area beside the ring.
+// A stage holds each side's x, then the raw (64 K, 128 N) weight area, N
+// contiguous: one side's 128 columns, or two sides' 64 side by side (raw
+// row k holds Re's columns in segments 0-3 and Im's in 4-7); operands()
+// derives each side's w, P6 and P5 from it into the area beside the ring.
 template <class T, int NP, int S>
 struct RawFill {
   static_assert(NP == 2, "the raw fill folds the prototype's P6 and P5");
-  static_assert(S == 1 && T::BN == kBN, "the raw fill has one side");
-  static constexpr int BM = T::BM;
+  static_assert(S == 1 || T::BN == 64, "two sides: 64 columns each");
+  static constexpr int BM = T::BM, BN = T::BN;
   static constexpr int kRaw = kBK * kBN;
-  static constexpr int kStage = BM * kBK + kRaw;
+  static constexpr int kStage = S * BM * kBK + kRaw;
   static constexpr int kExtra = (1 + NP) * kBN * kBK;
 
   // byte offset of 16-byte segment s (columns 16 s..) of raw row r (k):
@@ -298,14 +305,18 @@ struct RawFill {
   static __device__ __forceinline__ void load(const Args& a, int8_t* st,
                                               int k0, int ke, int m0, int n0,
                                               int tid) {
-    load_x<BM>(a, 0, st, k0, ke, m0, tid);
-    int8_t* raw = st + BM * kBK;
-    const int8_t* w = a.w[0];
+#pragma unroll
+    for (int side = 0; side < S; ++side)
+      load_x<BM>(a, side, st + side * BM * kBK, k0, ke, m0, tid);
+    int8_t* raw = st + S * BM * kBK;
     const bool vec = (a.N & 15) == 0;  // every row 16-byte aligned
 #pragma unroll
     for (int i = 0; i < kRaw / 16 / kThreads; ++i) {
       const int p = tid + i * kThreads, r = p >> 3, s = p & 7;
-      const int k = k0 + r, n = n0 + 16 * s;
+      // two sides: Re's columns in segments 0-3, Im's in 4-7 (constant
+      // indices into a: a dynamic one would copy it to local memory)
+      const int8_t* w = S == 2 && s >= 4 ? a.w[1] : a.w[0];
+      const int k = k0 + r, n = n0 + 16 * (S == 2 ? s & 3 : s);
       int8_t* dst = raw + raw_off(r, s);
       if (vec) {
         const bool ok = k < ke && n < a.N;
@@ -323,10 +334,11 @@ struct RawFill {
     }
   }
 
-  // The landed raw tile -> w, P6, P5 at ops, each (128 N, 64 K) in
-  // compute's layout.  A thread takes 8 k rows (8 kp..) x 4 columns
-  // (4 nq..): two 4 x 4 blocks, transposed, then per column 8 bytes of K
-  // of each operand.  Warp w takes nq 4 w..4 w + 3 at every kp: its raw
+  // The landed raw area -> each side's w, P6, P5 at ops, (BN N, 64 K)
+  // each, side by side in compute's layout.  A thread takes 8 k rows
+  // (8 kp..) x 4 raw columns (4 nq..): two 4 x 4 blocks, transposed, then
+  // per column 8 bytes of K of each operand.  Warp w takes nq 4 w..4 w + 3
+  // at every kp (with two sides, warps 0-3 take Re and 4-7 Im): its raw
   // reads hit 32 banks, and so do its 8-byte stores per half-warp, the odd
   // nq storing their columns in the order 1 0 3 2 (rows of the other
   // parity, the other 64 bytes of the banks).  Ends with __syncthreads:
@@ -334,7 +346,8 @@ struct RawFill {
   static __device__ __forceinline__ const int8_t* operands(const int8_t* st,
                                                            int8_t* ops,
                                                            int tid) {
-    const int8_t* raw = st + BM * kBK;
+    constexpr int WB = BN * kBK;  // bytes of one operand of one side
+    const int8_t* raw = st + S * BM * kBK;
     const int lane = tid & 31;
     const int kp = lane & 7, nq = 4 * (tid >> 5) + (lane >> 3);
     const int odd = nq & 1;
@@ -347,16 +360,19 @@ struct RawFill {
             raw + raw_off(8 * kp + 4 * h + i, nq >> 2) + 4 * (nq & 3));
       transpose4(r[h]);
     }
+    // two sides: raw column n >= 64 is Im's column n - 64, whose operand
+    // op lies at (3 + op) WB + swz(n - 64, .) = NP WB + op WB + swz(n, .)
+    // (swz(n, s) = WB + swz(n - 64, s) at WB = 64 rows of 64 bytes)
+    int8_t* const base = ops + (S == 2 && nq >= 16 ? NP * WB : 0);
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const unsigned lo = odd ? r[0][c ^ 1] : r[0][c];
       const unsigned hi = odd ? r[1][c ^ 1] : r[1][c];
       const Mag4 vl = mag4(lo), vh = mag4(hi);
-      int8_t* o = ops + swz(4 * nq + (c ^ odd), kp >> 1) + 8 * (kp & 1);
+      int8_t* o = base + swz(4 * nq + (c ^ odd), kp >> 1) + 8 * (kp & 1);
       *reinterpret_cast<uint2*>(o) = make_uint2(lo, hi);
-      *reinterpret_cast<uint2*>(o + kBN * kBK) =
-          make_uint2(fold4(vl), fold4(vh));
-      *reinterpret_cast<uint2*>(o + 2 * kBN * kBK) =
+      *reinterpret_cast<uint2*>(o + WB) = make_uint2(fold4(vl), fold4(vh));
+      *reinterpret_cast<uint2*>(o + 2 * WB) =
           make_uint2(plane4(vl, 6), plane4(vh, 6));
     }
     __syncthreads();

@@ -174,13 +174,14 @@ def test_complex_and_unpacked_kernels_equal_plain(dev, kernel, m):
 
 
 
-def _ragged_unpacked_split_k(m: int, n: int) -> int:
-    """The least K from 990 whose padded K (a multiple of 16) the
-    unpacked kernel cuts, on this card, into several splits with a
-    shorter last one."""
+def _ragged_unpacked_split_k(m: int, n: int,
+                             k_split=K.unpacked_k_split) -> int:
+    """The least K from 990 whose padded K (a multiple of 16) an unpacked
+    kernel (``k_split`` asks it for its split: row 6's by default) cuts,
+    on this card, into several splits with a shorter last one."""
     for k in range(990, 20000, 16):
         kp = -(-k // 16) * 16
-        ks = K.unpacked_k_split(m, n, kp)
+        ks = k_split(m, n, kp)
         assert ks > 0 and ks % 64 == 0
         if ks < kp and kp % ks:
             return k
@@ -210,6 +211,41 @@ def test_unpacked_kernel_equals_plain(dev, m, k, n):
     want = KO.ccim_matmul_int(x, w, use_kernel=False)
     assert got.dtype == torch.int32 and torch.equal(got, want), (
         K.unpacked_k_split(m, n, -(-k // 16) * 16))
+
+
+@pytest.mark.parametrize("m,k,n", [(m, FULL_K, FULL_N) for m in
+                                   (1, 4, 32, 33, 128, 512)]
+                         + [(128, 3072, 2304), (1, 37, 11), (3, 130, 2401),
+                            (45, 999, 257), (64, 4096, 64), (32, 1024, 32),
+                            (4, None, 2304), (128, None, 2304)])
+def test_complex_unpacked_kernel_equals_plain(dev, m, k, n):
+    """Kernel row 7 (the tensor-core template over the two-side raw fill)
+    through ``ccim_complex_matmul_int`` against its plain version: full
+    width (fused QKV) at M 1-512, ``wo`` at M 128 (split over K, which the
+    test checks), ragged N (rows not 16-byte aligned) and K (Kp a multiple
+    of 16, not of the 64-byte stage), the DoA covariances of the 64- and
+    32-element arrays (one output tile, K split over the card), and K
+    None: a K that the kernel's own split leaves a shorter last split.
+    ints compared with torch.equal; one launch per call."""
+    if k is None:
+        k = _ragged_unpacked_split_k(m, n, CK.complex_unpacked_k_split)
+    kp = -(-k // 16) * 16
+    split = CK.complex_unpacked_k_split(m, n, kp)
+    assert split > 0 and split % 64 == 0
+    if (m, k, n) in ((128, 3072, 2304), (64, 4096, 64), (32, 1024, 32)):
+        assert split < kp
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(m * 7 + k + n)
+    xr, xi = _ints(gen, (m, k), dev), _ints(gen, (m, k), dev)
+    wr, wi = _ints(gen, (k, n), dev), _ints(gen, (k, n), dev)
+    CK.reset_launch_counts()
+    got = CO.ccim_complex_matmul_int(xr, xi, wr, wi)
+    torch.cuda.synchronize()
+    assert CK.ccim_complex_unpacked_cuda.launches == 1
+    want = CO.ccim_complex_matmul_int(xr, xi, wr, wi, use_kernel=False)
+    assert CK.ccim_complex_unpacked_cuda.launches == 1
+    for a, b in zip(got, want):
+        assert a.dtype == torch.int32 and torch.equal(a, b), split
 
 # minicpm-2b's four full-width layer GEMMs, (K, N)
 FULL_SHAPES = ((2304, 9216), (3072, 2304), (2304, 11520), (5760, 2304))

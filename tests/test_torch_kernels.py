@@ -22,6 +22,7 @@ from repro.kernels.ccim_matmul import kernel as jkernel
 from repro.kernels.ccim_matmul import ops as jops
 from repro_torch.core import ccim as Tc
 from repro_torch.core import engine as Te
+from repro_torch.kernels import build
 from repro_torch.kernels.ccim_complex import kernel as CK
 from repro_torch.kernels.ccim_matmul import kernel as K
 from repro_torch.kernels.ccim_matmul import ops as tops
@@ -129,16 +130,30 @@ def test_cpu_tensors_take_the_plain_version():
     assert K.ccim_matmul_unpacked_cuda.launches == 0
 
 
-def test_kernel_sources_name_what_they_replace():
-    csrc = Path(K.__file__).parent / "csrc"
-    for src, fn in (("ccim_prepacked_skinny.cu",
-                     "ccim_matmul_prepacked_skinny_pallas"),
-                    ("ccim_prepacked_general.cu",
-                     "ccim_matmul_prepacked_pallas"),
-                    ("ccim_unpacked.cu", "ccim_matmul_pallas")):
-        text = (csrc / src).read_text()
-        assert "Replaces:" in text and fn in text
-        assert "What bounds it" in text and "Design:" in text
+# kernels/build.py's library name -> the Pallas function its source ports
+PALLAS = {"skinny": "ccim_matmul_prepacked_skinny_pallas",
+          "general": "ccim_matmul_prepacked_pallas",
+          "unpacked": "ccim_matmul_pallas",
+          "complex_skinny": "ccim_complex_matmul_prepacked_skinny_pallas",
+          "complex_general": "ccim_complex_matmul_prepacked_pallas",
+          "complex_unpacked": "ccim_complex_matmul_pallas",
+          "paged_attn": "paged_attention_pallas",
+          "int8": "int8_matmul_pallas"}
+
+
+@pytest.mark.parametrize("name", sorted(build.SOURCES))
+def test_kernel_sources_name_what_they_replace(name):
+    """Every kernel source's header names the reference file and the
+    Pallas function it replaces (which that file defines), what bounds
+    it and its design."""
+    src = build.SOURCES[name]
+    text = (Path(build.__file__).parent / src).read_text()
+    replaces = text[text.index("Replaces:"):]
+    ref = f"src/repro/kernels/{src.split('/')[0]}/kernel.py"
+    assert replaces.split(",")[0].endswith(ref) and PALLAS[name] in replaces
+    repo = Path(build.__file__).resolve().parents[3]
+    assert f"def {PALLAS[name]}(" in (repo / ref).read_text()
+    assert "What bounds it" in text and "Design:" in text
 
 
 def _x_plane(x: torch.Tensor, j: int) -> torch.Tensor:
@@ -290,48 +305,91 @@ def test_unpacked_kernel_arithmetic_equals_plain(k, k_split):
     assert torch.equal(got.to(torch.int32), want)
 
 
-@pytest.mark.parametrize("k_split", [64, 192])
-@pytest.mark.parametrize("m,n", [(5, 22), (40, 37)])
-def test_complex_general_kernel_arithmetic_equals_plain(m, n, k_split):
-    """Kernel row 5's arithmetic in integers (``ccim_mma.cuh`` with two
-    sides): per split of K (``k_split`` bytes), per 64-byte stage (zero
+def _complex_kernel_arithmetic(xs, ops, k_split: int):
+    """Kernel rows 5 and 7's arithmetic in integers (``ccim_mma.cuh`` with
+    two sides), from x_re, x_im (M, Kp) and each side's (w, P6, P5) as
+    (N, Kp): per split of K (``k_split`` bytes), per 64-byte stage (zero
     past the split's end), per chunk the four sub-MAC streams ac = (x_re,
     Re), bd = (x_im, Im), ad = (x_re, Im) and bc = (x_im, Re), each the
     folded conversion of its own exact and DCIM sums, combined as (cv_ac
-    - cv_bd, cv_ad + cv_bc), shifted, the splits added mod 2^32, equals
-    ``ccim_complex_prepacked_plain``.  K 200 pads to Kp 208, not a
-    multiple of the stage; N is ragged."""
-    rng = np.random.default_rng(m * n + k_split)
-    k, acc, shift, half = 200, 16, 11, 64
-    packs = [Te.pack_quantized_cim_weights(
-        torch.from_numpy(rng.integers(-127, 128, (k, n))),
-        torch.ones((1, n))) for _ in range(2)]
-    kp = packs[0].kernel_w.shape[1]
-    xs = [torch.from_numpy(rng.integers(-127, 128, (m, kp))).to(torch.int8)
-          for _ in range(2)]
-    want = CK.ccim_complex_prepacked_plain(
-        xs[0], xs[1], packs[0].kernel_w, packs[0].kernel_planes,
-        packs[1].kernel_w, packs[1].kernel_planes)
+    - cv_bd, cv_ad + cv_bc), shifted, the splits added mod 2^32.  Returns
+    (y_re, y_im) int32."""
+    acc, shift, half = 16, 11, 64
+    m, kp = xs[0].shape
+    n = ops[0][0].shape[0]
     ranges = [(k0, min(k0 + k_split, kp)) for k0 in range(0, kp, k_split)]
-    assert len(ranges) > 1 and kp % 64
+    assert len(ranges) > 1
     got = [torch.zeros((m, n), dtype=torch.int64) for _ in range(2)]
     for k0, k1 in ranges:
         span = -(-(k1 - k0) // 64) * 64      # whole stages, zero past k1
         fill = lambda v: F.pad(v[..., k0:k1].long(), (0, span - (k1 - k0)))
         x = [fill(v) for v in xs]
-        ops = [(fill(p.kernel_w), fill(p.kernel_planes[0]),
-                fill(p.kernel_planes[1])) for p in packs]
+        sides = [tuple(fill(v) for v in side) for side in ops]
         part = [torch.zeros((m, n), dtype=torch.int64) for _ in range(2)]
         for c0 in range(0, span, acc):
             def cv(x_side, w_side):
                 xc = x[x_side][:, c0:c0 + acc]
-                w, p6, p5 = (v[:, c0:c0 + acc] for v in ops[w_side])
+                w, p6, p5 = (v[:, c0:c0 + acc] for v in sides[w_side])
                 dcim = _x_plane(xc, 6) @ p6.t() + _x_plane(xc, 5) @ p5.t()
                 return _folded_convert(xc @ w.t(), dcim, shift, half)
             part[0] += cv(0, 0) - cv(1, 1)
             part[1] += cv(0, 1) + cv(1, 0)
         for o in range(2):
             got[o] = (got[o] + (part[o] << shift)) % 2 ** 32
+    return tuple(torch.where(g >= 2 ** 31, g - 2 ** 32, g).to(torch.int32)
+                 for g in got)
+
+
+@pytest.mark.parametrize("k_split", [64, 192])
+@pytest.mark.parametrize("m,n", [(5, 22), (40, 37)])
+def test_complex_general_kernel_arithmetic_equals_plain(m, n, k_split):
+    """Kernel row 5's arithmetic in integers (``_complex_kernel_arithmetic``
+    on the two packs) equals ``ccim_complex_prepacked_plain``.  K 200 pads
+    to Kp 208, not a multiple of the stage; N is ragged."""
+    rng = np.random.default_rng(m * n + k_split)
+    k = 200
+    packs = [Te.pack_quantized_cim_weights(
+        torch.from_numpy(rng.integers(-127, 128, (k, n))),
+        torch.ones((1, n))) for _ in range(2)]
+    kp = packs[0].kernel_w.shape[1]
+    assert kp % 64
+    xs = [torch.from_numpy(rng.integers(-127, 128, (m, kp))).to(torch.int8)
+          for _ in range(2)]
+    want = CK.ccim_complex_prepacked_plain(
+        xs[0], xs[1], packs[0].kernel_w, packs[0].kernel_planes,
+        packs[1].kernel_w, packs[1].kernel_planes)
+    got = _complex_kernel_arithmetic(
+        xs, [(p.kernel_w, *p.kernel_planes) for p in packs], k_split)
     for g, w in zip(got, want):
-        assert torch.equal(torch.where(g >= 2 ** 31, g - 2 ** 32, g).to(
-            torch.int32), w)
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("k_split", [64, 192])
+@pytest.mark.parametrize("k", [200, 256])
+def test_complex_unpacked_kernel_arithmetic_equals_plain(k, k_split):
+    """Kernel row 7's arithmetic in integers: the raw fill of each side
+    (``_raw_fill_operands``: the transposed w and its P6, P5 folded per
+    byte from raw (K, N) weights) equals that side's pack, and the two-side
+    arithmetic of ``_complex_kernel_arithmetic`` on those operands equals
+    ``ccim_complex_unpacked_plain``.  K 200 pads to Kp 208, not a multiple
+    of the stage; N 37 is ragged (rows not 16-byte aligned)."""
+    rng = np.random.default_rng(k + k_split)
+    m, n = 5, 37
+    kp = -(-k // 16) * 16
+    ws = [rng.integers(-127, 128, (k, n)) for _ in range(2)]
+    raw = [torch.from_numpy(np.pad(w, ((0, kp - k), (0, 0))).astype(np.int8))
+           for w in ws]
+    ops = []
+    for w, w_raw in zip(ws, raw):
+        fw, p6, p5 = _raw_fill_operands(w_raw.numpy())
+        p = Te.pack_quantized_cim_weights(torch.from_numpy(w),
+                                          torch.ones((1, n)))
+        assert torch.equal(fw, p.kernel_w)
+        assert torch.equal(torch.stack([p6, p5]), p.kernel_planes)
+        ops.append((fw, p6, p5))
+    xs = [torch.from_numpy(rng.integers(-127, 128, (m, kp))).to(torch.int8)
+          for _ in range(2)]
+    want = CK.ccim_complex_unpacked_plain(xs[0], xs[1], raw[0], raw[1])
+    got = _complex_kernel_arithmetic(xs, ops, k_split)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

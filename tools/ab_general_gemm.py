@@ -1,24 +1,30 @@
 """Kernel row 2 (the prepacked general macro GEMM), row 6 (the
-unpacked macro GEMM on raw weights) or row 5 (the prepacked complex
-general macro GEMM) of two checkouts of this repo, timed in one process
-each, in turns A B B A, on one CUDA card.
+unpacked macro GEMM on raw weights), row 5 (the prepacked complex
+general macro GEMM) or row 7 (the complex macro GEMM on raw weights) of
+two checkouts of this repo, timed in one process each, in turns A B B A,
+on one CUDA card.
 
     python3 tools/ab_general_gemm.py --a DIR_A --b DIR_B \
-        [--kernel general|unpacked|complex_general] [--m 128] [--kn K N]
+        [--kernel general|unpacked|complex_general|complex_unpacked] \
+        [--m 128] [--kn K N]
 
 Each DIR is the root of a checkout: its ``src/repro_torch`` is imported
 and its kernels are built into its own ``build/``.  Each turn times the
 kernel at minicpm-2b's four full-width layer GEMMs at M ``--m`` (default
 128), or at the one (K, N) of ``--kn`` (``--m 60 --kn 64 2401``: the
-64-element DoA spectrum), on SMF int8 x made from seed 0 on the card: ``general`` calls
+64-element DoA spectrum; ``--m 64 --kn 4096 64``: its covariance), on
+SMF int8 x made from seed 0 on the card: ``general`` calls
 ``ccim_matmul_prepacked_general_cuda`` at the prototype design point
 (acc_len 16, x_bits (6, 5), dcim_lsb 2048, adc_half 64) on int8 w
 (N, K) and planes in [-7, 7]; ``unpacked`` calls
 ``ccim_matmul_unpacked_cuda`` on raw int8 w (K, N), which has the same
 signature in every checkout that has it; ``complex_general`` calls
 ``ccim_complex_prepacked_general_cuda`` on x_re, x_im, int8 w_re, w_im
-(N, K) and planes (2, N, K) in [-7, 7] of each side (the prototype's
-numerics are built in).  ``ms`` is CUDA events around
+(N, K) and planes (2, N, K) in [-7, 7] of each side;
+``complex_unpacked`` calls ``ccim_complex_unpacked_cuda`` on x_re, x_im
+and raw int8 w_re, w_im (K, N) (the complex kernels build in the
+prototype's numerics; each signature is the same in every checkout that
+has the kernel).  ``ms`` is CUDA events around
 one call (host wrapper included), ``device_ms`` CUDA-graph replays (the
 kernel alone), both as ``chip_smoke.py`` phase 7 times them.  Every turn
 prints one JSON line with a hash of each output; the hashes of A and B
@@ -59,6 +65,10 @@ def turn(root: str, kernel: str, m: int, kn=None) -> dict:
         if kernel == "unpacked":
             x, w = i8(-127, 128, m, k), i8(-127, 128, k, n)
             fn = lambda: K.ccim_matmul_unpacked_cuda(x, w)
+        elif kernel == "complex_unpacked":
+            xr, xi = i8(-127, 128, m, k), i8(-127, 128, m, k)
+            wr, wi = i8(-127, 128, k, n), i8(-127, 128, k, n)
+            fn = lambda: CK.ccim_complex_unpacked_cuda(xr, xi, wr, wi)
         elif kernel == "complex_general":
             sides = [(i8(-127, 128, m, k), i8(-127, 128, n, k),
                       i8(-7, 8, 2, n, k)) for _ in range(2)]
@@ -78,7 +88,7 @@ def turn(root: str, kernel: str, m: int, kn=None) -> dict:
         shapes[sname] = dict(t, k=k, n=n, sha256=digest[:16])
         for key in tot:
             tot[key] += t[key]
-    module = CK if kernel == "complex_general" else K
+    module = CK if kernel.startswith("complex") else K
     return {"root": root, "module": module.__file__, "kernel": kernel,
             "m": m,
             "layer_total": tot, "shapes": shapes}
@@ -89,8 +99,9 @@ def main() -> int:
     ap.add_argument("--a", required=True, help="root of checkout A")
     ap.add_argument("--b", required=True, help="root of checkout B")
     ap.add_argument("--kernel",
-                    choices=("general", "unpacked", "complex_general"),
-                    default="general", help="row 2, row 6 or row 5")
+                    choices=("general", "unpacked", "complex_general",
+                             "complex_unpacked"),
+                    default="general", help="row 2, 6, 5 or 7")
     ap.add_argument("--m", type=int, default=128, help="rows of x")
     ap.add_argument("--kn", type=int, nargs=2, metavar=("K", "N"),
                     help="one (K, N) instead of the full-width shapes")
