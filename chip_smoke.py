@@ -30,8 +30,11 @@ failure.  Phases:
      CUDA events around one call (``ms``) and device time from CUDA-graph
      replays (``device_ms``), beside the plain version, torch._int_mm (a
      labelled yardstick that computes a different function, also timed
-     both ways) and the bound from bytes and operations; for the general
-     kernel its K splits per shape, a data-sheet estimate of the
+     both ways) and the bound from bytes and operations; for the skinny
+     kernel at M 1, 4, 8, 16 and 32, with cold device time
+     (``device_cold_ms``: replays rotating over distinct weight copies,
+     1 GB per layer, so that no call finds its weights in L2); for the
+     general kernel its K splits per shape, a data-sheet estimate of the
      integer-op floor of its per-chunk conversions (4 int32 ops each, and
      the activation bit-planes, on 64 int32 lanes per SM at the max SM
      clock; not a measurement, and not the kernels line's bound), and a
@@ -133,7 +136,7 @@ FLOOR_NOTE = ("epilogue_floor_ms: int_ops / (SMs x 64 int32 lanes x the max "
 # minicpm-2b full-width macro GEMMs of one layer, (K, N), heads padded to 48
 FULL_SHAPES = {"qkv": (2304, 9216), "wo": (3072, 2304),
                "gate_up": (2304, 11520), "w2": (5760, 2304)}
-SKINNY_MS, GENERAL_MS = (1, 4, 32), (33, 128, 512)
+SKINNY_MS, GENERAL_MS = (1, 4, 8, 16, 32), (33, 128, 512)
 UNPACKED_MS = (1, 4, 32, 33, 128, 129, 512)     # phase 15, kernel 6
 
 
@@ -1053,17 +1056,29 @@ def fig6_phase(torch, dev) -> dict:
 def graph_ms(torch, fn, reps: int = 20) -> float:
     """Device milliseconds per call: ``reps`` calls captured in one CUDA
     graph, replayed (host dispatch is out of the timed span)."""
-    fn()
+    return graph_rotation_ms(torch, [fn], reps)
+
+
+def graph_rotation_ms(torch, fns, reps: int = 20) -> float:
+    """Device milliseconds per call of a rotation over ``fns`` (each on
+    its own operands): call i goes to ``fns[i % len(fns)]``, at least
+    ``reps`` calls in whole rotations, captured in one CUDA graph and
+    replayed.  When the rotation's bytes exceed the L2, no call finds its
+    weights there (``device_cold_ms``)."""
+    calls = len(fns) * -(-reps // len(fns))
+    for fn in fns:
+        fn()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        fn()
+        for fn in fns:
+            fn()
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     g = torch.cuda.CUDAGraph()
     with torch.cuda.graph(g):
-        for _ in range(reps):
-            fn()
+        for i in range(calls):
+            fns[i % len(fns)]()
     g.replay()
     torch.cuda.synchronize()
     times = []
@@ -1074,9 +1089,105 @@ def graph_ms(torch, fn, reps: int = 20) -> float:
         g.replay()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b) / reps)
+        times.append(a.elapsed_time(b) / calls)
     del g
     return statistics.median(times)
+
+
+def cold_copy_count(torch, dev, nbytes: int) -> int:
+    """Distinct weight copies of ``nbytes`` each for a cold rotation: at
+    least 4, and at least 4 L2s of bytes."""
+    l2 = getattr(torch.cuda.get_device_properties(dev), "L2_cache_size",
+                 0) or 50 * 2 ** 20
+    return max(4, -(-4 * l2 // nbytes))
+
+
+def cold_copies(torch, dev, gen, n_planes: int = 2) -> dict:
+    """Per full-width shape, distinct random int8 (w, planes) operands for
+    cold timings: at least 4 copies and at least 4 L2s of bytes per shape
+    (1 GB over a layer's four shapes on a 50 MB L2), each (N, Kp) w with
+    planes in [-7, 7] (the time does not depend on the values)."""
+    out = {}
+    for sname, (k, n) in FULL_SHAPES.items():
+        copies = cold_copy_count(torch, dev, (1 + n_planes) * n * k)
+        out[sname] = [(torch.randint(-127, 128, (n, k), generator=gen,
+                                     device=dev, dtype=torch.int8),
+                       torch.randint(-7, 8, (n_planes, n, k), generator=gen,
+                                     device=dev, dtype=torch.int8))
+                      for _ in range(copies)]
+    return out
+
+
+COLD = ("device_cold_ms and library_cold_ms: device time per call from "
+        "CUDA-graph replays rotating over distinct copies of the weights "
+        "(at least 4 per shape and 4 L2s of bytes), so no call finds its "
+        "weights in L2, as in a decode step over 40 distinct layers")
+
+
+def times_skinny(torch, dev, packs, meta, smf_ints) -> dict:
+    """Phase 7, kernel row 1: per M of SKINNY_MS, one layer's four
+    full-width GEMMs timed per call (``ms``), on the same operands
+    (``device_ms``, the earlier timing) and cold (``device_cold_ms``),
+    beside the plain version, torch._int_mm at max(M, 32) (same-operand
+    and cold) and the bound.  Returns the kernels table's row at M 4 with
+    every M in ``by_m``."""
+    from repro_torch.kernels.ccim_matmul import kernel as K
+    n_j = len(meta["x_bits"])
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    copies = cold_copies(torch, dev, gen, n_j)
+    keys = ("ms", "device_ms", "device_cold_ms", "plain_ms", "library_ms",
+            "library_device_ms", "library_cold_ms", "bound_ms", "bytes",
+            "ops")
+    by_m = {}
+    for m in SKINNY_MS:
+        tot = dict.fromkeys(keys, 0.0)
+        shapes = {}
+        for sname, (k, n) in FULL_SHAPES.items():
+            p = packs[sname]
+            kp = p.kernel_w.shape[1]
+            x = smf_ints((m, kp)).to(torch.int8)
+            w, planes = p.kernel_w, p.kernel_planes
+            kern = lambda: K.ccim_matmul_prepacked_skinny_cuda(
+                x, w, planes, **meta)
+            cold = [lambda c=c: K.ccim_matmul_prepacked_skinny_cuda(
+                x, c[0], c[1], **meta) for c in copies[sname]]
+            # torch._int_mm: int8 GEMM without the per-chunk clip, M >= 17
+            xi = torch.zeros((max(m, 32), kp), dtype=torch.int8, device=dev)
+            lib_fn = lambda: torch._int_mm(xi, w.t())
+            lib_cold = [lambda c=c: torch._int_mm(xi, c[0].t())
+                        for c in copies[sname]]
+            nbytes = m * kp + (1 + n_j) * n * kp + 4 * m * n
+            nops = 2 * m * n * kp * (1 + n_j)
+            t = dict(ms=cuda_ms(kern, reps=30),
+                     device_ms=graph_ms(torch, kern),
+                     device_cold_ms=graph_rotation_ms(torch, cold),
+                     plain_ms=cuda_ms(lambda: K.ccim_matmul_prepacked_plain(
+                         x, w, planes, **meta), reps=5),
+                     library_ms=cuda_ms(lib_fn, reps=30),
+                     library_device_ms=graph_ms(torch, lib_fn),
+                     library_cold_ms=graph_rotation_ms(torch, lib_cold),
+                     bytes=nbytes, ops=nops)
+            t.update(_bound(nbytes, nops))
+            t.update(k=k, n=n, copies=len(copies[sname]),
+                     k_split=K.skinny_k_split(m, n, kp, meta["acc_len"]))
+            shapes[sname] = t
+            for key in keys:
+                tot[key] += t[key]
+        tot.update(_bound(tot["bytes"], tot["ops"]))
+        by_m[m] = {"layer_total": tot, "shapes": shapes}
+    emit({"phase": "times_skinny", "by_m": by_m, "timing": TIMING,
+          "cold": COLD, "library": "torch._int_mm at max(M, 32) (a "
+          "yardstick the port never calls; one weight byte where the "
+          "kernel reads three)"})
+    del copies
+    row = dict(by_m[4]["layer_total"], m=4)
+    row["by_m"] = {m: {k: v["layer_total"][k] for k in
+                       ("ms", "device_ms", "device_cold_ms", "plain_ms",
+                        "library_ms", "library_device_ms", "library_cold_ms",
+                        "bound_ms")}
+                   for m, v in by_m.items()}
+    return row
 
 
 def general_int_ops(m: int, n: int, kp: int, acc_len: int,
@@ -1208,8 +1319,12 @@ def main() -> int:
     t0 = time.time()
     build.load_all()
     build_s = time.time() - t0
+    # registers and spills: the first 8 lines per library, every line of
+    # the skinny kernel's 16 instances (acc_len x planes)
     ptxas = {n: [ln.strip() for ln in log.splitlines()
-                 if "registers" in ln or "spill" in ln][:8]
+                 if "registers" in ln or "spill" in ln
+                 or (n == "skinny" and "Compiling entry" in ln)
+                 ][:None if n == "skinny" else 8]
              for n, log in build.build_info.get("ptxas", {}).items()}
     emit({"phase": "build", "seconds": build_s,
           "built": build.build_info.get("built"), "ptxas": ptxas,
@@ -1357,16 +1472,14 @@ def main() -> int:
     meta = dict(acc_len=DEFAULT_CONFIG.acc_len, x_bits=x_bits,
                 dcim_lsb=DEFAULT_CONFIG.dcim_lsb,
                 adc_half=DEFAULT_CONFIG.adc_half_range)
-    wrapper = {"skinny": K.ccim_matmul_prepacked_skinny_cuda,
-               "general": K.ccim_matmul_prepacked_general_cuda}
+    rows = {"skinny": times_skinny(torch, dev, packs, meta, smf_ints)}
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     sm_clock_hz = 1e6 * float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
         check=True).stdout.split()[0])
     int_ops_s = n_sm * INT32_LANES_PER_SM * sm_clock_hz
-    rows = {}
-    for name, m in (("skinny", 4), ("general", 128)):
+    for name, m in (("general", 128),):
         tot = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, bound_ms=0.0,
                    library_ms=0.0, library_device_ms=0.0, bytes=0, ops=0)
         per_shape = {}
@@ -1375,7 +1488,8 @@ def main() -> int:
             kp = p.kernel_w.shape[1]
             x = smf_ints((m, kp)).to(torch.int8)
             w, planes = p.kernel_w, p.kernel_planes
-            kern = lambda: wrapper[name](x, w, planes, **meta)
+            kern = lambda: K.ccim_matmul_prepacked_general_cuda(
+                x, w, planes, **meta)
             ms = cuda_ms(kern, reps=30)
             dev_ms = graph_ms(torch, kern)
             plain = cuda_ms(
@@ -1447,7 +1561,9 @@ def main() -> int:
             "bound_by": ("bytes" if t["bytes"] / HBM_BYTES_S
                          >= t["ops"] / INT8_OPS_S else "operations"),
             "library_ms": t["library_ms"], "device_ms": t["device_ms"],
-            "library_device_ms": t["library_device_ms"]})
+            "library_device_ms": t["library_device_ms"],
+            **{k: t[k] for k in ("device_cold_ms", "library_cold_ms",
+                                 "m", "by_m") if k in t}})
     table.append({
         "name": "paged_attention_decode", "route": "cuda",
         "source": "src/repro_torch/kernels/paged_attn/csrc/"

@@ -38,7 +38,7 @@ from ...core import ccim
 from .. import build
 from .ref import ACC_LEN, DCIM_LSB
 
-SKINNY_M = 32          # the skinny kernel's register tile holds <= 32 rows
+SKINNY_M = 32          # a skinny stage holds <= 32 rows of x (4 token groups)
 MAX_PLANES = 3         # distinct activation bits of the widest split (top-6)
 
 _PREPACKED_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
@@ -60,6 +60,15 @@ def load_kernels() -> Dict[str, object]:
     if not _fns:
         _fns.update(build.bind(_ENTRY))
     return _fns
+
+
+def skinny_k_split(M: int, N: int, Kp: int, acc_len: int) -> int:
+    """Bytes of K (a multiple of 64) that the skinny kernel's largest
+    block walks for this shape on the current card: its persistent blocks
+    share the (128-column group, 64-byte K stage) sequence evenly, so
+    below Kp every column group is cut between blocks."""
+    return build.library("skinny").ccim_prepacked_skinny_k_split(
+        M, N, Kp, acc_len)
 
 
 def general_k_split(M: int, N: int, Kp: int, acc_len: int) -> int:

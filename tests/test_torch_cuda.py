@@ -100,6 +100,78 @@ def test_general_kernel_equals_plain(dev, acc_len, n_planes, m):
                 n, k, K.general_k_split(m, n, kp, acc_len))
 
 
+# minicpm-2b's four full-width layer GEMMs, (K, N)
+FULL_SHAPES = ((2304, 9216), (3072, 2304), (2304, 11520), (5760, 2304))
+
+
+def _skinny_case(dev, gen, m, k, n, acc_len, n_planes, packed):
+    """x, w, planes and meta of one skinny case: a prototype pack of
+    random ints (``packed``) or random w with planes in [-7, 7] drawn
+    independently of w, at a non-prototype split."""
+    i8 = lambda lo, hi, *shape: torch.randint(
+        lo, hi, shape, generator=gen, device=dev, dtype=torch.int8)
+    if packed:
+        p = engine.pack_quantized_cim_weights(
+            _ints(gen, (k, n), dev), torch.ones((1, n), device=dev))
+        w, planes = p.kernel_w, p.kernel_planes
+        meta = dict(acc_len=16, x_bits=(6, 5), dcim_lsb=2048, adc_half=64)
+    else:
+        kp = KO.weight_layout(k, n, acc_len)[0]
+        w, planes = i8(-127, 128, n, kp), i8(-7, 8, n_planes, n, kp)
+        meta = dict(acc_len=acc_len, x_bits=(6, 5, 4)[:n_planes],
+                    dcim_lsb=32 * acc_len, adc_half=32)
+    return i8(-127, 128, m, w.shape[1]), w, planes, meta
+
+
+@pytest.mark.parametrize(
+    "m,k,n,acc_len,n_planes",
+    [(m, k, n, 16, 2) for k, n in FULL_SHAPES
+     for m in (1, 2, 4, 8, 16, 17, 31, 32)]
+    + [(3, 1008, 37, 16, 2), (4, 64, 33792, 16, 2)]
+    + [(m, 1000, 300, acc, np_) for m in (4, 32) for acc in (8, 16, 32, 64)
+       for np_ in range(4)])
+def test_skinny_kernel_equals_plain(dev, m, k, n, acc_len, n_planes):
+    """Kernel row 1 against its plain version: the four full-width layer
+    GEMMs of a prototype pack at M 1-32 (wo and w2 cut every column group
+    between blocks: split < Kp), a ragged one (M 3, K 1008, N 37), one
+    where each block walks whole one-stage groups (K 64, N 33,792:
+    no group is cut, plain stores), and 0-3 planes in [-7, 7] x acc_len
+    8-64 at M 4 and 32 (dcim_lsb 32 acc_len, adc_half 32: codes clip).
+    ints compared with torch.equal; one launch per call."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(m * 7 + k + n + acc_len + n_planes)
+    x, w, planes, meta = _skinny_case(dev, gen, m, k, n, acc_len, n_planes,
+                                      packed=(k, n) != (1000, 300))
+    kp = w.shape[1]
+    split = K.skinny_k_split(m, n, kp, meta["acc_len"])
+    assert split > 0 and split % 64 == 0
+    if (k, n) in ((3072, 2304), (5760, 2304)):
+        assert split < kp
+    if (k, n) == (64, 33792):
+        assert split >= kp
+    K.reset_launch_counts()
+    got = K.ccim_matmul_prepacked_skinny_cuda(x, w, planes, **meta)
+    torch.cuda.synchronize()
+    assert K.ccim_matmul_prepacked_skinny_cuda.launches == 1
+    want = K.ccim_matmul_prepacked_plain(x, w, planes, **meta)
+    assert got.dtype == torch.int32 and torch.equal(got, want), split
+
+
+def test_skinny_kernel_repeats_and_alternates(dev):
+    """Kernel row 1 zeroes its output itself where its warps add partial
+    sums (a tile cut between warps): calls that alternate shapes and M,
+    each on a fresh, uninitialized output, all equal the plain version."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    cases = [_skinny_case(dev, gen, m, k, n, 16, 2, packed=True)
+             for m, k, n in ((4, 3072, 2304), (3, 1008, 37), (32, 5760, 2304),
+                             (1, 3072, 2304), (4, 64, 33792))]
+    for x, w, planes, meta in cases * 2:
+        got = K.ccim_matmul_prepacked_skinny_cuda(x, w, planes, **meta)
+        want = K.ccim_matmul_prepacked_plain(x, w, planes, **meta)
+        assert torch.equal(got, want)
+
+
 def test_dispatch_counts_launches(dev):
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -246,10 +318,6 @@ def test_complex_unpacked_kernel_equals_plain(dev, m, k, n):
     assert CK.ccim_complex_unpacked_cuda.launches == 1
     for a, b in zip(got, want):
         assert a.dtype == torch.int32 and torch.equal(a, b), split
-
-# minicpm-2b's four full-width layer GEMMs, (K, N)
-FULL_SHAPES = ((2304, 9216), (3072, 2304), (2304, 11520), (5760, 2304))
-
 
 @pytest.mark.parametrize("m,k,n", [(m, k, n) for m in (33, 128, 512)
                                    for k, n in FULL_SHAPES]

@@ -32,16 +32,25 @@ from repro_torch.kernels.ccim_matmul.ref import ccim_matmul_ref as torch_ref
 torch.set_num_threads(1)
 
 
-@pytest.mark.parametrize("nd,adc,acc,m", [(3, 7, 16, 3), (3, 7, 16, 40),
-                                          (0, 9, 8, 5), (6, 8, 64, 36)])
-def test_plain_equals_pallas_interpret(nd, adc, acc, m):
+# (n_dcim, adc_bits, acc_len, M, K); the skinny cases at M 8 and 16 take
+# a K that is not a multiple of the reference kernel's 512-wide K block
+PALLAS_CASES = [(3, 7, 16, 3, 96), (3, 7, 16, 40, 96), (0, 9, 8, 5, 96),
+                (6, 8, 64, 36, 96), (3, 7, 16, 8, 1040), (3, 7, 16, 16, 1040),
+                (6, 8, 64, 16, 1040)]
+
+
+@pytest.mark.parametrize(
+    "nd,adc,acc,m,k", PALLAS_CASES,
+    ids=["-".join(map(str, c[:4])) + ("" if c[4] == 96 else f"-k{c[4]}")
+         for c in PALLAS_CASES])
+def test_plain_equals_pallas_interpret(nd, adc, acc, m, k):
     """Reference: ccim_matmul_int_prepacked with use_pallas=True in
     interpret mode (the skinny kernel at M <= 32, the general one
     above)."""
     jc = Jc.CCIMConfig(n_dcim_products=nd, adc_bits=adc, acc_len=acc)
     tc = Tc.CCIMConfig(n_dcim_products=nd, adc_bits=adc, acc_len=acc)
-    rng = np.random.default_rng(nd + adc + acc + m)
-    K_, N = 96, 40
+    rng = np.random.default_rng(nd + adc + acc + m + (k - 96))
+    K_, N = k, 40
     w = rng.integers(-127, 128, (K_, N)).astype(np.int32)
     x = rng.integers(-127, 128, (m, K_)).astype(np.int32)
     one = np.ones((1, N), np.float32)
@@ -215,6 +224,67 @@ def test_general_kernel_arithmetic_equals_fast_gemm_int(acc, k_split):
                                             cfg.adc_half_range)
                 got += part << shift
             assert torch.equal(got.to(torch.int32), want), (nd, adc)
+
+
+@pytest.mark.parametrize("warps", [4, 7, 11])
+@pytest.mark.parametrize("acc", [8, 16, 32, 64])
+def test_skinny_kernel_arithmetic_equals_plain(acc, warps):
+    """The skinny kernel's arithmetic in integers: ``warps`` warps share
+    the (16-column tile, 128-byte K stage) sequence, tile-major, evenly
+    (warp g takes stages g T / W .. (g + 1) T / W - 1); each converts
+    every chunk of its stages with the folded conversion and, where its
+    share or a tile ends, adds its sums to out (a tile cut between warps
+    gets several partial sums) -- against the plain version at every
+    design point at this acc_len, M 5 and 17 (one and three token
+    groups), with N and Kp ragged against the tile and the stage."""
+    rng = np.random.default_rng(acc * 100 + warps)
+    k, n = 600, 40
+    w = torch.from_numpy(rng.integers(-127, 128, (k, n)))
+    for nd in range(7):
+        for adc in (7, 8, 9):
+            cfg = Tc.CCIMConfig(n_dcim_products=nd, adc_bits=adc, acc_len=acc)
+            p = Te.pack_quantized_cim_weights(w, torch.ones((1, n)), cfg)
+            x_bits = tuple(Tc._dcim_by_j(cfg))
+            planes = p.kernel_planes[:len(x_bits)]
+            kp = p.kernel_w.shape[1]
+            ks_n, tiles = -(-kp // 128), -(-n // 16)
+            T = tiles * ks_n
+            assert T % warps and T > warps      # uneven, cut shares
+            shift = cfg.dcim_lsb.bit_length() - 1
+            for m in (5, 17):
+                x = torch.from_numpy(rng.integers(-127, 128, (m, kp))).to(
+                    torch.int8)
+                meta = dict(acc_len=acc, x_bits=x_bits,
+                            dcim_lsb=cfg.dcim_lsb,
+                            adc_half=cfg.adc_half_range)
+                want = K.ccim_matmul_prepacked_plain(x, p.kernel_w, planes,
+                                                     **meta)
+                got = torch.zeros((m, n), dtype=torch.int64)
+                cuts = 0
+                for g in range(warps):
+                    part = torch.zeros((m, n), dtype=torch.int64)
+                    l0, l1 = g * T // warps, (g + 1) * T // warps
+                    for L in range(l0, l1):
+                        j, k0 = L // ks_n, (L % ks_n) * 128
+                        cols = slice(16 * j, min(16 * j + 16, n))
+                        for c0 in range(k0, min(k0 + 128, kp), acc):
+                            xs = x[:, c0:c0 + acc].long()
+                            wc = p.kernel_w[cols, c0:c0 + acc].long()
+                            dcim = sum((_x_plane(xs, jb)
+                                        @ pl[cols, c0:c0 + acc].long().t()
+                                        for jb, pl in zip(x_bits, planes)),
+                                       torch.zeros((m, wc.shape[0]),
+                                                   dtype=torch.int64))
+                            part[:, cols] += _folded_convert(
+                                xs @ wc.t(), dcim, shift,
+                                cfg.adc_half_range)
+                        if L + 1 == l1 or (L + 1) % ks_n == 0:
+                            cuts += not (l0 <= j * ks_n
+                                         and l1 >= (j + 1) * ks_n)
+                            got[:, cols] += part[:, cols] << shift
+                            part[:, cols] = 0
+                assert cuts > 0
+                assert torch.equal(got.to(torch.int32), want), (nd, adc, m)
 
 
 def _byte_perm(x, y, sel: int):
