@@ -43,24 +43,29 @@ failure.  Phases:
      not the shapes;
   8. the paged-attention kernel vs its plain version at the minicpm-2b
      decode shape and over a sweep of group size, head dim, block size,
-     softcap and sliding window;
+     softcap and sliding window, and on long walks that the kernel
+     splits (minicpm-2b's shape at 256 table entries, GQA at Dh 128,
+     lengths on split boundaries, window 7 leaving later splits idle);
   9. continuous batching, contiguous KV: 16 mixed-length requests over 8
      slots; pool tokens must equal the lock-step wave baseline's, and no
      paged-attention kernel may launch;
  10. the same requests with a paged KV cache (block 16, prefill chunks of
-     32): 40 paged-attention launches per decode step; the share of
-     tokens equal to phase 9 is reported, not gated (the kernel's float32
+     32): 40 paged-attention launches per decode step; how many
+     requests' tokens equal phase 9's is reported, not gated (the kernel's float32
      P.V can move a bf16 activation by one ulp, and in CIM mode an ADC
      code with it);
  11. paged serving of 16 requests, half behind one shared 32-token
      prefix: refcounts must drain, the prefix plan must share blocks, and
      pool tokens must equal solo runs of 3 of the requests;
  12. phase 11 with the plain version of the paged read on the card: token
-     agreement with phase 11 and the first decode step's logits;
+     agreement with phase 11 and the first decode step's logits, and a
+     torch.profiler trace of three paged decode steps (device busy, idle
+     share, the paged read's device time per step);
  13. times of the paged-attention kernel at the minicpm-2b decode shape
-     for several lengths (per call and device time, as phase 7), beside
-     the plain version, a gather + scaled_dot_product_attention yardstick
-     and the byte bound;
+     for lengths 32-4096 (per call and device time, as phase 7, and cold:
+     replays over distinct KV pools), beside the plain version, a gather +
+     scaled_dot_product_attention yardstick (same pool and cold) and the
+     byte bound, and cold device time over the split count at long walks;
  14. the fused complex kernels (prepacked skinny and general, unpacked)
      vs their plain versions with torch.equal at the full-width shapes,
      on ragged shapes and at the DoA shapes; off the prototype design
@@ -201,8 +206,15 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 
 # minicpm-2b's decode shape of the paged read: 48 padded heads, G 1, Dh 64
 PA_BATCH, PA_HEADS, PA_DH, PA_BS = 8, 48, 64, 16
-PA_LENGTHS = (32, 64, 96, 160)          # phase 13; 96 fills phases 10-11
+PA_LENGTHS = (32, 64, 96, 160, 1024, 4096)  # phase 13; 96 fills 10-11
 PA_REPORT_L = 96
+PA_LONG_TBL = 256                            # phase 8's long walks
+# phase 13's split sweep: (B, L, rows after the first cut to L 96) -> the
+# split counts timed; the ragged batch is one long request among short ones
+PA_SWEEP = {(PA_BATCH, 1024, False): (1, 2, 4, 8),
+            (PA_BATCH, 4096, False): (1, 2, 4, 8, 16),
+            (PA_BATCH, 4096, True): (1, 2, 4, 8, 16),
+            (1, 4096, False): (1, 2, 4, 6, 8, 16)}
 
 
 def paged_attn_shapes(torch, dev) -> float:
@@ -215,9 +227,10 @@ def paged_attn_shapes(torch, dev) -> float:
     gen = torch.Generator(device=dev)
     gen.manual_seed(8)
     worst = {"max_abs_err": 0.0, "max_err_over_tol": 0.0}
+    splits = set()
 
     def case(B, Hkv, G, Dh, bs, n_tbl, nb, max_len, softcap, window,
-             is_local, trash_rows):
+             is_local, trash_rows, lengths=None):
         bf = lambda *sh: torch.randn(sh, generator=gen, device=dev).to(
             torch.bfloat16)
         q, kp, vp = (bf(B, Hkv * G, Dh) * 2, bf(nb, bs, Hkv, Dh),
@@ -225,8 +238,12 @@ def paged_attn_shapes(torch, dev) -> float:
         table = torch.randint(1, nb, (B, n_tbl), generator=gen, device=dev,
                               dtype=torch.int32)
         table[B - trash_rows:] = 0                  # harvested slots
-        lengths = torch.randint(1, max_len + 1, (B,), generator=gen,
-                                device=dev, dtype=torch.int32)
+        if lengths is None:
+            lengths = torch.randint(1, max_len + 1, (B,), generator=gen,
+                                    device=dev, dtype=torch.int32)
+        else:
+            lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        splits.add(PK.paged_split(B, Hkv, G, n_tbl, PK._sm_count(dev)))
         y = PK.paged_attention_cuda(q, kp, vp, table, lengths, is_local,
                                     softcap=softcap, window=window)
         r = PR.paged_attention_ref(q, kp, vp, table, lengths,
@@ -255,10 +272,28 @@ def paged_attn_shapes(torch, dev) -> float:
         case(5, 3, G, Dh, bs, 7, 40, 7 * bs, softcap, window, is_local,
              trash_rows=1)
         n += 1
+    # long walks that the kernel splits: minicpm-2b's shape at 256 table
+    # entries, GQA at Dh 128 over 64, lengths on and off block and split
+    # boundaries; at window 7 the later splits of every row get no work
+    nt = PA_LONG_TBL
+    for softcap, window, is_local in ((None, None, False), (50.0, 7, True)):
+        case(PA_BATCH, PA_HEADS, 1, PA_DH, PA_BS, nt, PA_BATCH * nt + 1,
+             nt * PA_BS, softcap, window, is_local, trash_rows=1)
+        case(3, 2, 8, 128, 16, 64, 3 * 64 + 1, 1024, softcap, window,
+             is_local, trash_rows=1)
+        case(8, 8, 1, PA_DH, PA_BS, 48, 8 * 48 + 1, None, softcap, window,
+             is_local, trash_rows=1,
+             lengths=(768, 720, 721, 80, 81, 64, 17, 1))
+        n += 3
     emit({"phase": "paged_attn_shapes", "ok": True, "cases": n,
           "minicpm_shape": {"B": PA_BATCH, "Hq": PA_HEADS, "Hkv": PA_HEADS,
                             "Dh": PA_DH, "bs": PA_BS, "lengths": "1-160",
                             "trash_rows": 2},
+          "long_cases": {"minicpm": f"n_tbl {nt}, lengths 1-{nt * PA_BS}",
+                         "gqa": "B 3, Hkv 2, G 8, Dh 128, n_tbl 64",
+                         "boundaries": "B 8, Hkv 8, n_tbl 48",
+                         "windows": "none; 7 with softcap 50"},
+          "split_counts": sorted(splits),
           "tolerance": "rtol 2^-7, atol 2^-7 max|v|", **worst})
     return worst["max_abs_err"]
 
@@ -333,6 +368,7 @@ def continuous_phases(torch, dev, params, cfg_full) -> dict:
     counts["serve_paged"] = n_p["paged_attn"]
     emit({"phase": "serve_paged", "ok": True, "launches": n_p,
           "decode_steps": n_steps,
+          "requests_equal_contiguous": f"{sum(same)} of {len(same)}",
           "requests_equal_contiguous_share": sum(same) / len(same),
           "not_gated_because": "the kernel's float32 P.V can move a bf16 "
                                "activation by one ulp, and in CIM mode an "
@@ -390,21 +426,24 @@ def continuous_phases(torch, dev, params, cfg_full) -> dict:
     plain = rep_p.tokens_by_rid()
     agree = [len(plain[r]) == len(pool[r]) and bool((plain[r] == pool[r]).all())
              for r in pool]
-    lg_diff, arg_equal = first_step_logits(torch, dev, packed, cfg, cfg_plain,
-                                           reqs[:slots], layout, chunk)
+    lg_diff, arg_equal, step_prof = first_step_logits(
+        torch, dev, packed, cfg, cfg_plain, reqs[:slots], layout, chunk,
+        profile=True)
     # the same step with float weights: how far the read itself moves the
     # logits before the macro's quantization and ADC codes amplify it
     cfg_fp = dataclasses.replace(cfg_full, cim_mode=False)
-    fp_diff, fp_equal = first_step_logits(
+    fp_diff, fp_equal, _ = first_step_logits(
         torch, dev, params, cfg_fp,
         dataclasses.replace(cfg_fp, paged_attn_use_kernel=False),
         reqs[:slots], layout, chunk)
     emit({"phase": "serve_paged_plain", "ok": True, "launches": n_pl,
+          "requests_equal_kernel": f"{sum(agree)} of {len(agree)}",
           "requests_equal_kernel_share": sum(agree) / len(agree),
           "first_decode_logits_max_abs_diff": lg_diff,
           "first_decode_argmax_equal_share": arg_equal,
           "first_decode_fp_logits_max_abs_diff": fp_diff,
           "first_decode_fp_argmax_equal_share": fp_equal,
+          "paged_decode_profile": step_prof,
           "summary": rep_p.summary(),
           "iter_ms": 1e3 * rep_p.wall_s / rep_p.n_iter})
     del packed, sched
@@ -413,10 +452,13 @@ def continuous_phases(torch, dev, params, cfg_full) -> dict:
 
 
 def first_step_logits(torch, dev, packed, cfg, cfg_plain, reqs, layout,
-                      chunk):
+                      chunk, profile: bool = False):
     """Prefill ``reqs`` into a paged pool (one per slot), then one pooled
     decode step with the kernel and one with the plain version from the
-    same cache: max |logit difference| and the share of equal argmaxes."""
+    same cache: max |logit difference|, the share of equal argmaxes and,
+    with ``profile``, a torch.profiler breakdown of three more kernel
+    steps on that cache (as phase 6's), with the paged read's device time
+    per step (None without ``profile``)."""
     from repro_torch.models import lm
     B, nt = len(reqs), layout.n_tbl
     with torch.inference_mode():
@@ -440,15 +482,68 @@ def first_step_logits(torch, dev, packed, cfg, cfg_plain, reqs, layout,
         live = torch.ones((B,), dtype=torch.bool, device=dev)
         lk, _ = lm.decode_step(packed, cfg, tok, cache, live=live)
         lp, _ = lm.decode_step(packed, cfg_plain, tok, cache, live=live)
+        prof_rec = None
+        if profile:
+            steps = 3
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(steps):
+                    lm.decode_step(packed, cfg, tok, cache, live=live)
+                torch.cuda.synchronize()
+                wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+            paged_us = sum(getattr(e, "self_device_time_total", 0) or 0
+                           for e in prof.key_averages()
+                           if "paged_attn" in e.key)
+            prof_rec = {"steps": steps, "step_wall_ms": wall_ms,
+                        "paged_attn_device_ms_per_step":
+                            paged_us / 1e3 / steps,
+                        **device_breakdown(prof, steps, wall_ms)}
     diff = float((lk - lp).abs().max())
     eq = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
-    return diff, eq
+    return diff, eq, prof_rec
+
+
+def paged_pools(torch, dev, gen, B: int, L: int, copies: int = 1):
+    """Phase 13's operands at batch ``B`` and length ``L``: q, the table
+    of each row's distinct blocks (shuffled over the pool) and the
+    lengths, and ``copies`` distinct (k_pool, v_pool) pairs that the table
+    indexes alike."""
+    H, Dh, bs = PA_HEADS, PA_DH, PA_BS
+    nt = -(-L // bs)
+    nb = B * nt + 1
+    bf = lambda *sh: torch.randn(sh, generator=gen, device=dev).to(
+        torch.bfloat16)
+    q = bf(B, H, Dh)
+    pools = [(bf(nb, bs, H, Dh), bf(nb, bs, H, Dh)) for _ in range(copies)]
+    table = (1 + torch.randperm(nb - 1, generator=gen, device=dev)[
+        :B * nt]).to(torch.int32).view(B, nt)
+    lengths = torch.full((B,), L, dtype=torch.int32, device=dev)
+    return q, pools, table, lengths
+
+
+def paged_pool_bytes(B: int, L: int) -> int:
+    return 2 * (B * -(-L // PA_BS) + 1) * PA_BS * PA_HEADS * PA_DH * 2
+
+
+def paged_tolerance_ok(torch, y, r, vp) -> bool:
+    """Phase 8's tolerance: rtol 2^-7, atol 2^-7 max|v|, finite."""
+    tol = 2 ** -7 * r.float().abs() + 2 ** -7 * vp.float().abs().max()
+    return bool(torch.isfinite(y.float()).all()) and bool(
+        ((y.float() - r.float()).abs() <= tol).all())
 
 
 def times_paged_attn(torch, dev) -> dict:
-    """Phase 13: CUDA-event medians of the paged-attention kernel at the
-    minicpm-2b decode shape for several lengths; returns the row of the
-    kernels table at PA_REPORT_L."""
+    """Phase 13: the paged-attention kernel at the minicpm-2b decode
+    shape for several lengths: per call (``ms``), device time on one pool
+    (``device_ms``) and cold (``device_cold_ms``, a rotation over distinct
+    pools of at least 4 L2s of bytes, as a decode step's 40 layers read
+    40 distinct pools), beside the plain version, the gather + SDPA
+    yardstick (same-pool and cold) and the byte bound; and a sweep of
+    cold device time over the split count at long walks.  Returns the row
+    of the kernels table at PA_REPORT_L."""
     import torch.nn.functional as F
     from repro_torch.kernels.paged_attn import kernel as PK
     from repro_torch.kernels.paged_attn import ref as PR
@@ -456,44 +551,78 @@ def times_paged_attn(torch, dev) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(13)
     B, H, Dh, bs = PA_BATCH, PA_HEADS, PA_DH, PA_BS
+    n_sm = PK._sm_count(dev)
     rows = {}
     for L in PA_LENGTHS:
-        nt = -(-L // bs)
-        nb = B * nt + 1
-        bf = lambda *sh: torch.randn(sh, generator=gen, device=dev).to(
-            torch.bfloat16)
-        q, kp, vp = bf(B, H, Dh), bf(nb, bs, H, Dh), bf(nb, bs, H, Dh)
-        table = (1 + torch.randperm(nb - 1, generator=gen, device=dev)[
-            :B * nt]).to(torch.int32).view(B, nt)
-        lengths = torch.full((B,), L, dtype=torch.int32, device=dev)
+        copies = cold_copy_count(torch, dev, paged_pool_bytes(B, L))
+        q, pools, table, lengths = paged_pools(torch, dev, gen, B, L, copies)
+        kp, vp = pools[0]
         kern = lambda: PK.paged_attention_cuda(q, kp, vp, table, lengths)
+        plain_fn = lambda: PR.paged_attention_ref(q, kp, vp, table, lengths)
+        check(paged_tolerance_ok(torch, kern(), plain_fn(), vp),
+              f"phase 13: paged kernel != plain at L {L}")
         ms = cuda_ms(kern, reps=50)
-        plain = cuda_ms(lambda: PR.paged_attention_ref(q, kp, vp, table,
-                                                       lengths), reps=20)
+        plain = cuda_ms(plain_fn, reps=5 if L > 1000 else 20)
 
-        def sdpa():
+        def sdpa(kp=kp, vp=vp):
             k = PR.paged_gather_kv(kp, table).transpose(1, 2)
             v = PR.paged_gather_kv(vp, table).transpose(1, 2)
             return F.scaled_dot_product_attention(q[:, :, None], k, v)
         lib = cuda_ms(sdpa, reps=50)
         dev_ms, lib_dev = graph_ms(torch, kern), graph_ms(torch, sdpa)
+        cold = graph_rotation_ms(torch, [
+            lambda kp=kp, vp=vp: PK.paged_attention_cuda(q, kp, vp, table,
+                                                         lengths)
+            for kp, vp in pools])
+        lib_cold = graph_rotation_ms(torch, [
+            lambda kp=kp, vp=vp: sdpa(kp, vp) for kp, vp in pools])
         # K and V rows read up to lengths, q read and out written once
         nbytes = 2 * B * L * H * Dh * 2 + 2 * B * H * Dh * 2
         nops = 4 * B * H * L * Dh
         bound = 1e3 * max(nbytes / HBM_BYTES_S, nops / BF16_OPS_S)
-        rows[L] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain,
-                       library_ms=lib, library_device_ms=lib_dev,
-                       bound_ms=bound, bytes=nbytes,
+        rows[L] = dict(ms=ms, device_ms=dev_ms, device_cold_ms=cold,
+                       plain_ms=plain, library_ms=lib,
+                       library_device_ms=lib_dev, library_cold_ms=lib_cold,
+                       bound_ms=bound, bytes=nbytes, cold_copies=copies,
+                       n_split=PK.paged_split(B, H, 1, -(-L // bs), n_sm),
                        bound_by=("bytes" if nbytes / HBM_BYTES_S
                                  >= nops / BF16_OPS_S else "operations"))
+        del pools, kp, vp
+    sweep = {}
+    for (b, L, ragged), counts in PA_SWEEP.items():
+        copies = cold_copy_count(torch, dev, paged_pool_bytes(b, L))
+        q, pools, table, lengths = paged_pools(torch, dev, gen, b, L, copies)
+        if ragged:
+            lengths[1:] = PA_REPORT_L
+        ref = PR.paged_attention_ref(q, *pools[0], table, lengths)
+        by_split = {}
+        for n_split in counts:
+            y = PK._launch(q, *pools[0], table, lengths, False, n_split,
+                           None, None)
+            check(paged_tolerance_ok(torch, y, ref, pools[0][1]),
+                  f"phase 13: {n_split} splits != plain at B {b} L {L}")
+            by_split[n_split] = graph_rotation_ms(torch, [
+                lambda kp=kp, vp=vp, n=n_split: PK._launch(
+                    q, kp, vp, table, lengths, False, n, None, None)
+                for kp, vp in pools])
+        sweep[f"B{b}_L{L}" + ("_ragged" if ragged else "")] = dict(
+            device_cold_ms=by_split,
+            chosen=PK.paged_split(b, H, 1, -(-L // bs), n_sm))
+        del pools, ref
     emit({"phase": "times_paged_attn", "B": B, "Hq": H, "Hkv": H, "Dh": Dh,
           "bs": bs, "library": "paged_gather_kv + "
           "torch.nn.functional.scaled_dot_product_attention (yardstick, "
-          "never called by the port)", "by_length": rows})
+          "never called by the port)", "by_length": rows,
+          "split_sweep": sweep, "cold": COLD, "timing": TIMING})
     r = rows[PA_REPORT_L]
-    return {k: r[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
-                              "bound_by", "library_ms", "library_device_ms")
-            } | {"at_length": PA_REPORT_L}
+    return {k: r[k] for k in ("ms", "device_ms", "device_cold_ms",
+                              "plain_ms", "bound_ms", "bound_by",
+                              "library_ms", "library_device_ms",
+                              "library_cold_ms")} | {
+        "at_length": PA_REPORT_L,
+        "by_length": {L: {k: v[k] for k in (
+            "device_ms", "device_cold_ms", "bound_ms", "library_device_ms",
+            "library_cold_ms", "n_split")} for L, v in rows.items()}}
 
 
 # complex lane: (M, K, N) of the DoA frames -- covariance of the 64- and
@@ -1120,6 +1249,7 @@ def cold_copies(torch, dev, gen, n_planes: int = 2) -> dict:
 
 COLD = ("device_cold_ms and library_cold_ms: device time per call from "
         "CUDA-graph replays rotating over distinct copies of the weights "
+        "(of the KV pools for the paged read) "
         "(at least 4 per shape and 4 L2s of bytes), so no call finds its "
         "weights in L2, as in a decode step over 40 distinct layers")
 

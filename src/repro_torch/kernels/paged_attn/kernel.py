@@ -5,7 +5,13 @@ of ``repro/kernels/paged_attn/kernel.py::paged_attention_pallas``: one
 query per row against the KV rows its block table names, with a float32
 online softmax and float32 P.V, output rounded to q's dtype once.  The
 source is built and loaded by ``kernels/build.py``; the wrapper counts
-its launches in ``.launches``.  The plain version is ``ref.py``.
+its calls in ``.launches`` (one a call, whether the call runs the walk
+alone or the walk and the combine of its splits).  The plain version is
+``ref.py``.
+
+``paged_split`` picks how many splits the kernel cuts each row's walk
+into; ``row_walk`` and ``split_ranges`` are the kernel's arithmetic of
+which table entries a row attends and which of them each split walks.
 """
 from __future__ import annotations
 
@@ -17,9 +23,16 @@ import torch
 
 from .. import build
 
-MAX_GROUP = 16            # query heads per kv head (the kernel's register tile)
+MAX_GROUP = 16            # query heads per kv head
 HEAD_DIMS = (64, 128)
-_SMEM_LIMIT = 48 * 1024
+GROUP_TILE = 4            # query heads one block takes when G > 1
+# split rule: walks of at most SPLIT_MIN_ENTRIES table entries stay whole;
+# longer ones are cut so that the grid has FILL_BLOCKS_PER_SM blocks per
+# SM and no split walks more than about SPLIT_MAX_ENTRIES entries
+SPLIT_MIN_ENTRIES = 16
+SPLIT_MAX_ENTRIES = 64
+FILL_BLOCKS_PER_SM = 2
+H100_SMS = 132
 
 _fn = []
 
@@ -27,7 +40,7 @@ _fn = []
 def _entry():
     if not _fn:
         fn = build.library("paged_attn").paged_attn_decode
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
                        + [ctypes.c_float] * 2 + [ctypes.c_int] * 2
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -48,7 +61,7 @@ def _check(q, k_pool, v_pool, table, lengths) -> None:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     B, Hq, Dh = q.shape
-    nb, bs, Hkv, Dh2 = k_pool.shape
+    Hkv, Dh2 = k_pool.shape[2:]
     if v_pool.shape != k_pool.shape:
         raise ValueError(f"v_pool {tuple(v_pool.shape)} != k_pool "
                          f"{tuple(k_pool.shape)}")
@@ -61,10 +74,45 @@ def _check(q, k_pool, v_pool, table, lengths) -> None:
     if table.dim() != 2 or table.shape[0] != B or lengths.shape != (B,):
         raise ValueError(f"table {tuple(table.shape)} / lengths "
                          f"{tuple(lengths.shape)} do not match batch {B}")
-    G = Hq // Hkv
-    if 4 * (G * Dh + G * bs + 3 * G) > _SMEM_LIMIT:
-        raise ValueError(f"block size {bs} with {G} heads per group needs "
-                         "more than 48 KB of shared memory")
+
+
+def head_groups(G: int) -> int:
+    """Blocks per (row, kv head, split): one at G 1, else one per
+    GROUP_TILE query heads."""
+    return 1 if G == 1 else -(-G // GROUP_TILE)
+
+
+def paged_split(B: int, Hkv: int, G: int, n_entries: int,
+                n_sm: int = H100_SMS) -> int:
+    """Splits of each row's walk over at most ``n_entries`` table entries
+    (the table's width): 1 up to SPLIT_MIN_ENTRIES; above, enough for
+    FILL_BLOCKS_PER_SM blocks per SM and for at most about
+    SPLIT_MAX_ENTRIES entries a split, and never fewer than
+    SPLIT_MIN_ENTRIES // 2 entries a split."""
+    if n_entries <= SPLIT_MIN_ENTRIES:
+        return 1
+    fill = -(-FILL_BLOCKS_PER_SM * n_sm // (B * Hkv * head_groups(G)))
+    long_walk = -(-n_entries // SPLIT_MAX_ENTRIES)
+    return min(max(fill, long_walk), n_entries // (SPLIT_MIN_ENTRIES // 2))
+
+
+def row_walk(length: int, bs: int, n_tbl: int, window: Optional[int],
+             is_local: bool) -> tuple:
+    """(first table entry, entry count) a row of ``length`` attends: from
+    the window's first block (or 0) to q_pos's block, within n_tbl."""
+    q_pos = length - 1
+    local = bool(is_local) and bool(window) and window > 0
+    j_lo = max(q_pos - window + 1, 0) // bs if local else 0
+    j_hi = 0 if q_pos < 0 else min(q_pos // bs + 1, n_tbl)
+    return j_lo, max(j_hi - j_lo, 0)
+
+
+def split_ranges(j_lo: int, n: int, n_split: int) -> list:
+    """[lo, hi) table entries of each split that has work: min(n_split,
+    n) of them (at least one), split s from j_lo + s n / splits."""
+    n_sb = min(max(n, 1), n_split)
+    return [(j_lo + s * n // n_sb, j_lo + (s + 1) * n // n_sb)
+            for s in range(n_sb)]
 
 
 def paged_attention_cuda(
@@ -82,25 +130,82 @@ def paged_attention_cuda(
     outside the pool are clamped into it; table entries past
     ceil(lengths[b] / bs) are never read."""
     _check(q, k_pool, v_pool, table, lengths)
-    B, Hq, Dh = q.shape
-    nb, bs, Hkv, _ = k_pool.shape
-    out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    # the reference's Python-float scale, as the float32 it becomes
-    scale = float(np.float32(Dh ** -0.5))
-    err = _entry()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                   table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                   B, Hq, Hkv, Dh, bs, table.shape[1], nb, scale,
-                   float(softcap or 0.0), int(window or 0), int(bool(is_local)),
-                   stream)
-    if err:
-        raise RuntimeError(f"paged_attn_decode launch failed: CUDA error {err}")
+    B, Hq, _ = q.shape
+    Hkv = k_pool.shape[2]
+    n_split = paged_split(B, Hkv, Hq // Hkv, table.shape[1],
+                          _sm_count(q.device))
+    out = _launch(q, k_pool, v_pool, table, lengths, is_local, n_split,
+                  softcap, window)
     paged_attention_cuda.launches += 1
     return out
 
 
 paged_attention_cuda.launches = 0
 
+_sms = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _sms:
+        _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sms[idx]
+
+
+def _launch(q, k_pool, v_pool, table, lengths, is_local, n_split, softcap,
+            window) -> torch.Tensor:
+    """The kernel at ``n_split`` splits on checked operands (uncounted:
+    ``paged_attention_cuda`` counts its calls)."""
+    B, Hq, Dh = q.shape
+    nb, bs, Hkv, _ = k_pool.shape
+    out = torch.empty_like(q)
+    ws = (torch.empty(B * Hq * n_split * (Dh + 2), dtype=torch.float32,
+                      device=q.device) if n_split > 1 else None)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    # the reference's Python-float scale, as the float32 it becomes
+    scale = float(np.float32(Dh ** -0.5))
+    err = _entry()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                   table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                   0 if ws is None else ws.data_ptr(), B, Hq, Hkv, Dh, bs,
+                   table.shape[1], nb, n_split, scale, float(softcap or 0.0),
+                   int(window or 0), int(bool(is_local)), stream)
+    if err:
+        raise RuntimeError(f"paged_attn_decode launch failed: CUDA error {err}")
+    return out
+
 
 def reset_launch_counts() -> None:
     paged_attention_cuda.launches = 0
+
+_sms = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _sms:
+        _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sms[idx]
+
+
+def _launch(q, k_pool, v_pool, table, lengths, is_local, n_split, softcap,
+            window) -> torch.Tensor:
+    """The kernel at ``n_split`` splits on checked operands (uncounted:
+    ``paged_attention_cuda`` counts its calls)."""
+    B, Hq, Dh = q.shape
+    nb, bs, Hkv, _ = k_pool.shape
+    out = torch.empty_like(q)
+    ws = (torch.empty(B * Hq * n_split * (Dh + 2), dtype=torch.float32,
+                      device=q.device) if n_split > 1 else None)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    # the reference's Python-float scale, as the float32 it becomes
+    scale = float(np.float32(Dh ** -0.5))
+    err = _entry()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                   table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                   0 if ws is None else ws.data_ptr(), B, Hq, Hkv, Dh, bs,
+                   table.shape[1], nb, n_split, scale, float(softcap or 0.0),
+                   int(window or 0), int(bool(is_local)), stream)
+    if err:
+        raise RuntimeError(f"paged_attn_decode launch failed: CUDA error {err}")
+    return out

@@ -354,10 +354,36 @@ def test_complex_general_kernel_equals_plain(dev, m, k, n):
         assert a.dtype == torch.int32 and torch.equal(a, b), split
 
 
-# (B, Hkv, G, Dh, bs, n_tbl, n_blocks, max length): a small GQA shape and
-# minicpm-2b's full-width decode shape (48 padded heads, G 1, Dh 64)
+# (B, Hkv, G, Dh, bs, n_tbl, n_blocks, lengths): lengths an int is the
+# largest of random lengths, a tuple the lengths of the rows.  A small GQA
+# shape; minicpm-2b's full-width decode shape (48 padded heads, G 1, Dh
+# 64) at 10 and at 256 table entries (lengths up to 4096, split walks); a
+# GQA shape at Dh 128 over 64 entries (split walks, two head groups); and
+# lengths on and off block and split boundaries (5 splits of 48 entries)
 PAGED_SHAPES = {"small": (3, 2, 4, 128, 8, 5, 12, 40),
-                "minicpm": (8, 48, 1, 64, 16, 10, 64, 160)}
+                "minicpm": (8, 48, 1, 64, 16, 10, 64, 160),
+                "minicpm_long": (8, 48, 1, 64, 16, 256, 8 * 256 + 1, 4096),
+                "gqa_long": (3, 2, 8, 128, 16, 64, 3 * 64 + 1, 1024),
+                "boundaries": (8, 8, 1, 64, 16, 48, 8 * 48 + 1,
+                               (768, 720, 721, 80, 81, 64, 17, 1))}
+
+
+def _paged_case(dev, shape):
+    B, Hkv, G, Dh, bs, n_tbl, nb, lens = PAGED_SHAPES[shape]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(G * 1000 + Dh)
+    bf = lambda *s: torch.randn(s, generator=gen, device=dev).to(
+        torch.bfloat16)
+    q, kp, vp = bf(B, Hkv * G, Dh) * 2, bf(nb, bs, Hkv, Dh), bf(nb, bs, Hkv, Dh)
+    table = torch.randint(1, nb, (B, n_tbl), generator=gen, device=dev,
+                          dtype=torch.int32)
+    table[-1] = 0
+    if isinstance(lens, tuple):
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    else:
+        lengths = torch.randint(1, lens + 1, (B,), generator=gen, device=dev,
+                                dtype=torch.int32)
+    return q, kp, vp, table, lengths
 
 
 @pytest.mark.parametrize("shape", sorted(PAGED_SHAPES))
@@ -369,18 +395,12 @@ def test_paged_attention_kernel_matches_plain(dev, shape, softcap, window,
     """Tolerance: the plain version's bf16 p costs up to 2^-9 of
     sum(p |v|) <= 2^-9 max|v| per output, and both outputs are rounded to
     bf16 once: rtol 2^-7, atol 2^-7 max|v|.  The last row's table is all
-    trash block."""
-    B, Hkv, G, Dh, bs, n_tbl, nb, max_len = PAGED_SHAPES[shape]
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(G * 1000 + Dh)
-    bf = lambda *s: torch.randn(s, generator=gen, device=dev).to(
-        torch.bfloat16)
-    q, kp, vp = bf(B, Hkv * G, Dh) * 2, bf(nb, bs, Hkv, Dh), bf(nb, bs, Hkv, Dh)
-    table = torch.randint(1, nb, (B, n_tbl), generator=gen, device=dev,
-                          dtype=torch.int32)
-    table[-1] = 0
-    lengths = torch.randint(1, max_len + 1, (B,), generator=gen, device=dev,
-                            dtype=torch.int32)
+    trash block.  At window 7 the long shapes' later splits get no work."""
+    q, kp, vp, table, lengths = _paged_case(dev, shape)
+    B, Hq, _ = q.shape
+    if shape.endswith("_long") or shape == "boundaries":
+        assert PK.paged_split(B, kp.shape[2], Hq // kp.shape[2],
+                              table.shape[1], PK._sm_count(dev)) > 1
     n0 = PK.paged_attention_cuda.launches
     y = PK.paged_attention_cuda(q, kp, vp, table, lengths, is_local,
                                 softcap=softcap, window=window)
@@ -391,6 +411,29 @@ def test_paged_attention_kernel_matches_plain(dev, shape, softcap, window,
     assert y.shape == r.shape and y.dtype == torch.bfloat16
     torch.testing.assert_close(y.float(), r.float(), rtol=2 ** -7,
                                atol=2 ** -7 * float(vp.float().abs().max()))
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 3, 8, 16, 64])
+def test_paged_attention_split_counts_match_plain(dev, n_split):
+    """Every split count, not only the one ``paged_split`` picks, at
+    minicpm-2b's shape over 256 table entries (random lengths up to
+    4,096, the last row all trash block), to the same tolerance."""
+    q, kp, vp, table, lengths = _paged_case(dev, "minicpm_long")
+    y = PK._launch(q, kp, vp, table, lengths, False, n_split, None, None)
+    r = PR.paged_attention_ref(q, kp, vp, table, lengths)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y.float(), r.float(), rtol=2 ** -7,
+                               atol=2 ** -7 * float(vp.float().abs().max()))
+
+
+@pytest.mark.parametrize("shape", ["minicpm", "minicpm_long", "boundaries"])
+def test_paged_attention_kernel_repeats(dev, shape):
+    """Two calls on the same inputs give equal outputs: the warps and
+    the splits merge in a fixed order, whichever block ends first."""
+    q, kp, vp, table, lengths = _paged_case(dev, shape)
+    y1 = PK.paged_attention_cuda(q, kp, vp, table, lengths)
+    y2 = PK.paged_attention_cuda(q, kp, vp, table, lengths)
+    assert torch.equal(y1, y2)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -27,6 +27,8 @@ from repro_torch.kernels.ccim_complex import kernel as CK
 from repro_torch.kernels.ccim_matmul import kernel as K
 from repro_torch.kernels.ccim_matmul import ops as tops
 from repro_torch.kernels.ccim_matmul.ref import ccim_matmul_ref as torch_ref
+from repro_torch.kernels.paged_attn import kernel as PK
+from repro_torch.kernels.paged_attn import ref as PR
 
 # the suite runs several workers at once: one torch thread each
 torch.set_num_threads(1)
@@ -463,3 +465,155 @@ def test_complex_unpacked_kernel_arithmetic_equals_plain(k, k_split):
     got = _complex_kernel_arithmetic(xs, ops, k_split)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+# -- the paged-attention kernel's walk (kernels/paged_attn) ----------------
+
+
+def _attended_entries(length, bs, n_tbl, window, is_local):
+    """Table entries < n_tbl that hold a position the query attends,
+    from the positions themselves."""
+    q_pos = length - 1
+    return sorted({p // bs for p in range(max(q_pos + 1, 0))
+                   if not (is_local and window and q_pos - p >= window)
+                   and p // bs < n_tbl})
+
+
+@pytest.mark.parametrize("window,is_local", [(None, False), (7, True),
+                                             (7, False), (40, True)])
+@pytest.mark.parametrize("bs", [4, 5, 16])
+def test_paged_splits_cover_the_attended_entries_once(bs, window, is_local):
+    """Every split that has work walks at least one attended entry, and
+    the splits of a row cover its attended entries exactly once, at every
+    split count the kernel can be given, lengths on and off block and
+    split boundaries."""
+    n_tbl = 13
+    for length in range(0, n_tbl * bs + 3):
+        want = _attended_entries(length, bs, n_tbl, window, is_local)
+        j_lo, n = PK.row_walk(length, bs, n_tbl, window, is_local)
+        assert list(range(j_lo, j_lo + n)) == want
+        for n_split in (1, 2, 3, 4, 7, 13, 20):
+            ranges = PK.split_ranges(j_lo, n, n_split)
+            assert len(ranges) == min(max(n, 1), n_split)
+            walked = [j for lo, hi in ranges for j in range(lo, hi)]
+            assert walked == want
+            if n:
+                assert all(hi > lo for lo, hi in ranges)
+
+
+def test_paged_split_counts():
+    """The split counts at minicpm-2b's decode shape (B 8, 48 kv heads, G
+    1) for L 96, 1024 and 4096 at block size 16, as PERF.md states them,
+    and the rule's bounds elsewhere."""
+    counts = {L: PK.paged_split(8, 48, 1, -(-L // 16))
+              for L in (96, 1024, 4096)}
+    assert counts == {96: 1, 1024: 1, 4096: 4}
+    for B, Hkv, G in ((1, 48, 1), (8, 48, 1), (1, 8, 8), (2, 2, 16)):
+        for n in range(1, 600, 7):
+            s = PK.paged_split(B, Hkv, G, n)
+            assert s >= 1
+            assert s == 1 or n // s >= PK.SPLIT_MIN_ENTRIES // 2
+            if n <= PK.SPLIT_MIN_ENTRIES:
+                assert s == 1
+
+
+def _walk_model(q, kp, vp, table, lengths, is_local, softcap, window,
+                n_split):
+    """The CUDA kernel's walk in float32: per split, warp w folds chunks
+    w, w + 4, ... (4 warp loads of 32 / (Dh / 8) rows each), every row
+    group of a warp its own online softmax; row groups merge pairwise as
+    the shuffles pair them, warps in order, splits in order."""
+    B, Hq, Dh = q.shape
+    nb, bs, Hkv, _ = kp.shape
+    G = Hq // Hkv
+    rp = 32 // (Dh // 8)
+    chunk = 4 * rp
+    cpe = -(-bs // chunk)
+    qs = q.float() * float(np.float32(Dh ** -0.5))
+    kf, vf = kp.float(), vp.float()
+    neg = torch.full((Hq,), -1e30)
+
+    def merge(states):
+        m = torch.stack([s[0] for s in states]).amax(0)
+        w = [torch.exp(s[0] - m) for s in states]
+        return (m, sum(s[1] * wi for s, wi in zip(states, w)),
+                sum(s[2] * wi[:, None] for s, wi in zip(states, w)))
+
+    out = torch.zeros(B, Hq, Dh)
+    for b in range(B):
+        q_pos = int(lengths[b]) - 1
+        j_lo, n = PK.row_walk(q_pos + 1, bs, table.shape[1], window,
+                              is_local)
+        splits = []
+        for lo, hi in PK.split_ranges(j_lo, n, n_split):
+            warps = []
+            for w in range(4):
+                groups = []
+                for r in range(rp):
+                    m, l, acc = neg.clone(), torch.zeros(Hq), torch.zeros(
+                        Hq, Dh)
+                    for c in range(w, (hi - lo) * cpe, 4):
+                        j = lo + c // cpe
+                        blk = min(max(int(table[b, j]), 0), nb - 1)
+                        ts = [(c % cpe) * chunk + p * rp + r
+                              for p in range(4)]
+                        ts = [t for t in ts if t < bs and j * bs + t <= q_pos
+                              and not (is_local and window
+                                       and q_pos - j * bs - t >= window)]
+                        if not ts:
+                            continue
+                        s = torch.stack([
+                            (qs[b].view(Hkv, G, Dh)
+                             * kf[blk, t][:, None, :]).sum(-1).reshape(Hq)
+                            for t in ts])
+                        if softcap:
+                            s = softcap * torch.tanh(s / softcap)
+                        mx = torch.maximum(m, s.amax(0))
+                        corr = torch.exp(m - mx)
+                        m, l, acc = mx, l * corr, acc * corr[:, None]
+                        for i, t in enumerate(ts):
+                            p = torch.exp(s[i] - m)
+                            l = l + p
+                            acc = acc + p[:, None] * vf[blk, t].repeat_interleave(
+                                G, 0)
+                    groups.append((m, l, acc))
+                while len(groups) > 1:       # r with r ^ 1, then r ^ 2
+                    groups = [merge(groups[i:i + 2])
+                              for i in range(0, len(groups), 2)]
+                warps.append(groups[0])
+            splits.append(merge(warps))
+        m, l, acc = merge(splits)
+        out[b] = acc / torch.clamp(l, min=1e-30)[:, None]
+    return out.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("Dh,G,bs,n_split", [(64, 1, 16, 1), (64, 1, 16, 3),
+                                             (64, 4, 5, 2), (128, 2, 32, 4),
+                                             (128, 1, 8, 7)])
+@pytest.mark.parametrize("softcap,window,is_local", [(None, None, False),
+                                                     (30.0, 7, True)])
+def test_paged_kernel_walk_matches_plain(Dh, G, bs, n_split, softcap, window,
+                                         is_local):
+    """The kernel's chunking, masks, per-row-group and per-warp states and
+    split merges, modelled in float32, against the plain version to the
+    card test's tolerance (rtol 2^-7, atol 2^-7 max|v|: the plain version
+    rounds p to bf16 before P.V).  The last row's table is all trash
+    block; lengths fall on and off block boundaries."""
+    rng = np.random.default_rng(Dh + G + bs + n_split)
+    B, Hkv, n_tbl = 4, 2, 9
+    nb = B * n_tbl + 1
+    bf = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(torch.bfloat16)
+    q, kp, vp = bf(B, Hkv * G, Dh) * 2, bf(nb, bs, Hkv, Dh), bf(nb, bs, Hkv,
+                                                               Dh)
+    table = torch.from_numpy(rng.permutation(np.arange(1, nb))[:B * n_tbl]
+                             .reshape(B, n_tbl).astype(np.int32))
+    table[-1] = 0
+    lengths = torch.tensor([n_tbl * bs, 3 * bs, 2 * bs + 1, 5 * bs - 1],
+                           dtype=torch.int32)
+    got = _walk_model(q, kp, vp, table, lengths, is_local, softcap, window,
+                      n_split)
+    want = PR.paged_attention_ref(q, kp, vp, table, lengths, softcap=softcap,
+                                  window=window, is_local=is_local)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                               atol=2 ** -7 * float(vp.float().abs().max()))

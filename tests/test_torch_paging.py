@@ -198,6 +198,45 @@ def test_plain_matches_pallas_interpret(G, softcap, window, is_local):
                                atol=2 ** -7 * float(np.abs(vp).max()))
 
 
+def _long_inputs(G):
+    """B 2, Dh 64, bs 16, n_tbl 64 (up to 1,024 positions): lengths on a
+    block boundary and off it; the yardstick of the card's long cases."""
+    rng = np.random.default_rng(64 + G)
+    B, Hkv, Dh, bs, n_tbl = 2, 2, 64, 16, 64
+    nb = B * n_tbl + 1
+    bf = lambda a: np.asarray(jnp.asarray(a).astype(jnp.bfloat16)
+                              .astype(jnp.float32))
+    q = bf(rng.standard_normal((B, Hkv * G, Dh)) * 2)
+    kp = bf(rng.standard_normal((nb, bs, Hkv, Dh)))
+    vp = bf(rng.standard_normal((nb, bs, Hkv, Dh)))
+    table = rng.permutation(np.arange(1, nb))[:B * n_tbl].reshape(
+        B, n_tbl).astype(np.int32)
+    lengths = np.array([n_tbl * bs, 37 * bs + 5], np.int32)
+    return q, kp, vp, table, lengths
+
+
+@pytest.mark.parametrize("G,softcap,window", [(1, None, 7), (4, 30.0, 7),
+                                              (1, 30.0, 300)])
+def test_plain_long_local_matches_reference(G, softcap, window):
+    """At 64 table entries with a local window: the port's plain version
+    equals the reference's oracle bit for bit and the reference's Pallas
+    kernel (interpret mode) to rtol 2^-7, atol 2^-7 max|v| (the kernel's
+    float32 P.V against the oracle's bf16 p, as above)."""
+    q, kp, vp, table, lengths = _long_inputs(G)
+    args = (_J(q), _J(kp), _J(vp), jnp.asarray(table), jnp.asarray(lengths))
+    want = jax.jit(lambda a, b, c, d, e: jref.paged_attention_ref(
+        a, b, c, d, e, softcap=softcap, window=window, is_local=True))(*args)
+    got = tops.paged_attention_decode(
+        _T(q), _T(kp), _T(vp), torch.tensor(table), torch.tensor(lengths),
+        True, softcap=softcap, window=window).float().numpy()
+    np.testing.assert_array_equal(got, np.asarray(want.astype(jnp.float32)))
+    pal = paged_attention_pallas(*args, True, softcap=softcap, window=window,
+                                 interpret=True)
+    np.testing.assert_allclose(got, np.asarray(pal.astype(jnp.float32)),
+                               rtol=2 ** -7,
+                               atol=2 ** -7 * float(np.abs(vp).max()))
+
+
 def test_gather_equals_reference():
     q, kp, vp, table, lengths = _attn_inputs(1)
     want = jref.paged_gather_kv(_J(kp), jnp.asarray(table))
