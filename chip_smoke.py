@@ -89,8 +89,8 @@ failure.  Phases:
      bound;
  18. the W8A8 kernel vs its plain version, float32 outputs with
      torch.equal, bf16 and f32 inputs, at the full-width shapes (M 1, 4,
-     32, 128) and ragged M, K, N: exactly one launch per ``int8_matmul``
-     call and none from the plain run;
+     32, 128, 256, 512) and ragged M, K, N: exactly one launch per
+     ``int8_matmul`` call and none from the plain run;
  19. the kernel bench twin (``launch/kernel_bench.py --scale card``):
      every row's parity assert and the 1.05x decode floor, with the
      launches of every kernel it drives;
@@ -101,9 +101,14 @@ failure.  Phases:
      order on both);
  21. times of the W8A8 kernel per layer (the four full-width GEMMs) at M
      4 and 128: CUDA-event time per call (``ms``, host wrapper included,
-     as every row is timed) and device time from CUDA-graph replays
-     (``device_ms``), beside its plain version, torch._int_mm with the
-     two dequant multiplies (a yardstick, at M >= 32) and the bound.
+     as every row is timed), device time from CUDA-graph replays on one
+     operand set (``device_ms``) and cold (``device_cold_ms``, replays
+     over distinct weight copies), beside its plain version,
+     torch._int_mm with the two dequant multiplies (a yardstick, at M >=
+     32, same-operand and cold) and the bound; the plan of each shape
+     (token width, tiles, K splits = cluster size, ring depth) and a
+     sweep of cold device time over token width, split count and ring
+     depth.
 
 Every row of the kernels table carries ``ms`` (CUDA events around one
 call, host wrapper included), ``device_ms`` (CUDA-graph replays, the
@@ -243,7 +248,7 @@ def paged_attn_shapes(torch, dev) -> float:
                                     device=dev, dtype=torch.int32)
         else:
             lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
-        splits.add(PK.paged_split(B, Hkv, G, n_tbl, PK._sm_count(dev)))
+        splits.add(PK.paged_split(B, Hkv, G, n_tbl, PK.sm_count(dev)))
         y = PK.paged_attention_cuda(q, kp, vp, table, lengths, is_local,
                                     softcap=softcap, window=window)
         r = PR.paged_attention_ref(q, kp, vp, table, lengths,
@@ -551,7 +556,7 @@ def times_paged_attn(torch, dev) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(13)
     B, H, Dh, bs = PA_BATCH, PA_HEADS, PA_DH, PA_BS
-    n_sm = PK._sm_count(dev)
+    n_sm = PK.sm_count(dev)
     rows = {}
     for L in PA_LENGTHS:
         copies = cold_copy_count(torch, dev, paged_pool_bytes(B, L))
@@ -1058,7 +1063,7 @@ def int8_kernel(torch, dev, gen) -> float:
     from repro_torch.kernels.int8_matmul import ops as IO
 
     shapes = [(m, k, n) for (k, n) in FULL_SHAPES.values()
-              for m in (1, 4, 32, 128)]
+              for m in (1, 4, 32, 128, 256, 512)]
     shapes += list(itertools.product((5, 33), (100, 2304), (17, 2304)))
     err = 0.0
     for (m, k, n), dt in itertools.product(shapes, (torch.float32,
@@ -1178,7 +1183,7 @@ def fig6_phase(torch, dev) -> dict:
           "cpu_seconds": cpu_s, "peak_device_bytes": peak,
           "codes_differing_card_vs_cpu": differ,
           "rows": {r["name"]: r.get("value") for r in rows},
-          "not_ported": "the noisy 'this work' row (ROADMAP Queue 1 item 5)"})
+          "not_ported": "the noisy 'this work' row (ROADMAP Queue 1 item 4)"})
     return out
 
 
@@ -1366,53 +1371,115 @@ def general_design_sweep(torch, dev, m: int) -> dict:
     return out
 
 
+INT8_DESIGN = ("TMA + mbarrier ring (128-byte swizzle) feeding wgmma "
+               "m64nTOKk32 s8: weights the 64-row operand, tokens its N "
+               "(8-128, tiles of 128 over the grid above); one producer "
+               "warp, two consumer warpgroups of 64 weight rows; K split "
+               "over a thread-block cluster whose int32 partial tiles "
+               "meet in distributed shared memory; dequant epilogue with "
+               "16-byte stores")
+
+
+def _int8_plan_record(p) -> dict:
+    return {"tok": p.tok, "m_tiles": p.m_tiles, "n_tiles": p.n_tiles,
+            "k_stages": p.k_stages, "splits": p.splits, "cluster": p.splits,
+            "per_split": p.per_split, "ring": p.ring, "blocks": p.blocks}
+
+
+def int8_plan_sweep(torch, IK, xq, sx, copies, m: int, k: int,
+                    n: int) -> dict:
+    """Cold device ms of one full-width shape under other plans than
+    ``plan``'s, keyed ``t{tok}_s{splits}_r{ring}_b{blocks}``: the plan's
+    token width (and 64 above M 64), K in 1, 2, 3, 4 or 8 slices, and a
+    ring of the depth two blocks an SM allow or the deepest one block
+    allows (227 KB)."""
+    import dataclasses
+    base = IK.plan(m, n, k, IK.sm_count(xq.device))
+    out = {}
+    for tok in sorted({base.tok, IK.FEW_TILES_TOK} if m > IK.FEW_TILES_TOK
+                      else {base.tok}):
+        stage = (IK.BN + tok) * IK.K_STAGE
+        rings = {IK.plan(tok, n, k, IK.sm_count(xq.device)).ring,
+                 min(12, (232448 - 1024 - 4 * (tok + IK.BN)) // (stage + 16))}
+        for splits in (1, 2, 3, 4, 8):
+            per = -(-base.k_stages // splits)
+            for ring in sorted(rings):
+                p = dataclasses.replace(
+                    base, tok=tok, m_tiles=-(-m // tok), ring=ring,
+                    splits=-(-base.k_stages // per), per_split=per)
+                key = f"t{tok}_s{p.splits}_r{ring}_b{p.blocks}"
+                if key not in out:
+                    out[key] = graph_rotation_ms(torch, [
+                        lambda c=c: IK._launch(xq, c[0], sx, c[1], p)
+                        for c in copies])
+    return out
+
+
 def times_int8(torch, dev, gen) -> dict:
-    """Phase 21: kernel 8 per layer at M 4 and 128.  Returns the kernels
+    """Phase 21: kernel 8 per layer at M 4 and 128, same-operand and
+    cold, with its plan per shape and a plan sweep.  Returns the kernels
     table's row (at M 128) with both M in ``by_m``."""
     from repro_torch.kernels.int8_matmul import kernel as IK
+    keys = ("ms", "device_ms", "device_cold_ms", "plain_ms", "library_ms",
+            "library_device_ms", "library_cold_ms", "bytes", "ops")
+    copies = {}
+    for sname, (k, n) in FULL_SHAPES.items():
+        copies[sname] = [
+            (torch.randint(-127, 128, (n, k), generator=gen, device=dev,
+                           dtype=torch.int8),
+             torch.rand(n, generator=gen, device=dev) + 0.5)
+            for _ in range(cold_copy_count(torch, dev, n * k))]
     by_m = {}
     for m in (4, 128):
-        tot = dict.fromkeys(("ms", "device_ms", "plain_ms", "library_ms",
-                             "library_device_ms", "bytes", "ops"), 0.0)
+        tot = dict.fromkeys(keys, 0.0)
         shapes = {}
         for sname, (k, n) in FULL_SHAPES.items():
             xq = torch.randint(-127, 128, (m, k), generator=gen, device=dev,
                                dtype=torch.int8)
-            wt = torch.randint(-127, 128, (n, k), generator=gen, device=dev,
-                               dtype=torch.int8)
+            wt, sw = copies[sname][0]
             sx = torch.rand(m, generator=gen, device=dev) + 0.5
-            sw = torch.rand(n, generator=gen, device=dev) + 0.5
             ml = max(m, 32)                  # torch._int_mm needs M > 16
             xl = torch.randint(-127, 128, (ml, k), generator=gen, device=dev,
                                dtype=torch.int8)
             sxl = torch.rand(ml, generator=gen, device=dev) + 0.5
-            wcol = wt.t()                    # (K, N) column-major
 
-            def lib():
-                acc = torch._int_mm(xl, wcol).to(torch.float32)
-                return acc * sxl[:, None] * sw[None, :]
+            def lib(w=wt, s=sw):
+                acc = torch._int_mm(xl, w.t()).to(torch.float32)
+                return acc * sxl[:, None] * s[None, :]
             kern = lambda: IK.int8_w8a8_cuda(xq, wt, sx, sw)
             t = dict(ms=cuda_ms(kern, reps=30),
                      device_ms=graph_ms(torch, kern),
+                     device_cold_ms=graph_rotation_ms(torch, [
+                         lambda c=c: IK.int8_w8a8_cuda(xq, c[0], sx, c[1])
+                         for c in copies[sname]]),
                      plain_ms=cuda_ms(lambda: IK.int8_w8a8_plain(
                          xq, wt, sx, sw), reps=5, warmup=1),
                      library_ms=cuda_ms(lib, reps=30),
                      library_device_ms=graph_ms(torch, lib),
+                     library_cold_ms=graph_rotation_ms(torch, [
+                         lambda c=c: lib(*c) for c in copies[sname]]),
                      bytes=m * k + k * n + 4 * (m + n) + 4 * m * n,
                      ops=2 * m * k * n)
-            shapes[sname] = dict(t, **_bound(t["bytes"], t["ops"]))
+            shapes[sname] = dict(
+                t, **_bound(t["bytes"], t["ops"]), copies=len(copies[sname]),
+                plan=_int8_plan_record(IK.plan(m, n, k, IK.sm_count(dev))),
+                sweep=int8_plan_sweep(torch, IK, xq, sx, copies[sname], m,
+                                      k, n))
             for key in tot:
                 tot[key] += t[key]
         tot.update(_bound(tot["bytes"], tot["ops"]))
         by_m[m] = {"layer_total": tot, "shapes": shapes}
+    del copies
     emit({"phase": "times_int8", "by_m": by_m, "timing": TIMING,
+          "cold": COLD, "design": INT8_DESIGN,
           "library": "torch._int_mm + float32 convert + the two dequant "
                      "multiplies, at M >= 32 (a yardstick the port never "
                      "calls)"})
     row = dict(by_m[128]["layer_total"], m=128)
     row["by_m"] = {m: {k: v["layer_total"][k] for k in
-                       ("ms", "device_ms", "plain_ms", "library_ms",
-                        "library_device_ms", "bound_ms")}
+                       ("ms", "device_ms", "device_cold_ms", "plain_ms",
+                        "library_ms", "library_device_ms", "library_cold_ms",
+                        "bound_ms")}
                    for m, v in by_m.items()}
     return row
 
@@ -1449,12 +1516,14 @@ def main() -> int:
     t0 = time.time()
     build.load_all()
     build_s = time.time() - t0
-    # registers and spills: the first 8 lines per library, every line of
-    # the skinny kernel's 16 instances (acc_len x planes)
+    # registers, shared memory and spills: the first 8 lines per library,
+    # every line of the skinny kernel's 32 instances (acc_len x planes x
+    # token groups) and of the W8A8 kernel's 5 (token widths)
+    every = ("skinny", "int8")
     ptxas = {n: [ln.strip() for ln in log.splitlines()
                  if "registers" in ln or "spill" in ln
-                 or (n == "skinny" and "Compiling entry" in ln)
-                 ][:None if n == "skinny" else 8]
+                 or (n in every and "Compiling entry" in ln)
+                 ][:None if n in every else 8]
              for n, log in build.build_info.get("ptxas", {}).items()}
     emit({"phase": "build", "seconds": build_s,
           "built": build.build_info.get("built"), "ptxas": ptxas,
@@ -1740,8 +1809,10 @@ def main() -> int:
         "bound_ms": i8_row["bound_ms"], "bound_by": i8_row["bound_by"],
         "library_ms": i8_row["library_ms"],
         "device_ms": i8_row["device_ms"],
+        "device_cold_ms": i8_row["device_cold_ms"],
         "library_device_ms": i8_row["library_device_ms"],
-        "at_m": i8_row["m"], "by_m": i8_row["by_m"]})
+        "library_cold_ms": i8_row["library_cold_ms"],
+        "design": INT8_DESIGN, "at_m": i8_row["m"], "by_m": i8_row["by_m"]})
     emit({"phase": "done", "seconds": time.time() - t_start})
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -21,7 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .. import build
+from .. import build, sm_count
 
 MAX_GROUP = 16            # query heads per kv head
 HEAD_DIMS = (64, 128)
@@ -133,7 +133,7 @@ def paged_attention_cuda(
     B, Hq, _ = q.shape
     Hkv = k_pool.shape[2]
     n_split = paged_split(B, Hkv, Hq // Hkv, table.shape[1],
-                          _sm_count(q.device))
+                          sm_count(q.device))
     out = _launch(q, k_pool, v_pool, table, lengths, is_local, n_split,
                   softcap, window)
     paged_attention_cuda.launches += 1
@@ -141,17 +141,6 @@ def paged_attention_cuda(
 
 
 paged_attention_cuda.launches = 0
-
-_sms = {}
-
-
-def _sm_count(device: torch.device) -> int:
-    idx = device.index if device.index is not None else \
-        torch.cuda.current_device()
-    if idx not in _sms:
-        _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    return _sms[idx]
-
 
 def _launch(q, k_pool, v_pool, table, lengths, is_local, n_split, softcap,
             window) -> torch.Tensor:
@@ -177,35 +166,3 @@ def _launch(q, k_pool, v_pool, table, lengths, is_local, n_split, softcap,
 
 def reset_launch_counts() -> None:
     paged_attention_cuda.launches = 0
-
-_sms = {}
-
-
-def _sm_count(device: torch.device) -> int:
-    idx = device.index if device.index is not None else \
-        torch.cuda.current_device()
-    if idx not in _sms:
-        _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    return _sms[idx]
-
-
-def _launch(q, k_pool, v_pool, table, lengths, is_local, n_split, softcap,
-            window) -> torch.Tensor:
-    """The kernel at ``n_split`` splits on checked operands (uncounted:
-    ``paged_attention_cuda`` counts its calls)."""
-    B, Hq, Dh = q.shape
-    nb, bs, Hkv, _ = k_pool.shape
-    out = torch.empty_like(q)
-    ws = (torch.empty(B * Hq * n_split * (Dh + 2), dtype=torch.float32,
-                      device=q.device) if n_split > 1 else None)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    # the reference's Python-float scale, as the float32 it becomes
-    scale = float(np.float32(Dh ** -0.5))
-    err = _entry()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                   table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                   0 if ws is None else ws.data_ptr(), B, Hq, Hkv, Dh, bs,
-                   table.shape[1], nb, n_split, scale, float(softcap or 0.0),
-                   int(window or 0), int(bool(is_local)), stream)
-    if err:
-        raise RuntimeError(f"paged_attn_decode launch failed: CUDA error {err}")
-    return out

@@ -14,7 +14,7 @@ each row prints one JSON line:
   * the energy breakdown and TOPS/W of the cost model.
 
 The reference's "this work" row adds the comparator noise through a
-``jax.random`` key; that row is not ported (ROADMAP Queue 1 item 5) and
+``jax.random`` key; that row is not ported (ROADMAP Queue 1 item 4) and
 prints so.  Inputs and dies come from a torch generator seeded by
 ``--seed`` (on the CPU, so the card and the CPU see the same ones).
 
@@ -129,7 +129,7 @@ def run(seed: int = 0, n: Optional[int] = None, device=None,
         us = 1e6 * (time.perf_counter() - t0)
     r = rows(ys, cfg)
     emit(dict(name="fig6.rms_this_work_pct", value=None, n=n,
-              note="not ported (ROADMAP Queue 1 item 5): the reference adds "
+              note="not ported (ROADMAP Queue 1 item 4): the reference adds "
                    "comparator noise through a jax.random key (paper "
                    "measured: 0.435%)"))
     emit(dict(name="fig6.rms_this_die_noise_free_pct", value=r["this_die"],

@@ -10,7 +10,7 @@ microseconds, each call including its host-side wrapper.
 Differences from the reference:
   * the two rows the reference runs with analog noise
     (``bit_true_emulation``, ``fast_emulation``) run noise-free -- the
-    noise is not ported (ROADMAP Queue 1 item 5) -- and say so in their
+    noise is not ported (ROADMAP Queue 1 item 4) -- and say so in their
     note;
   * the kernel rows (``decode_skinny_pallas``, ``complex_fused_kernel``,
     ``decode_complex_fused_prepacked``) time the port's CUDA kernels on
@@ -65,7 +65,7 @@ DECODE_SHAPE = {"ref": (4, 1024, 256), "card": (4, 2304, 3072)}
 INT8_MS = (4, 128)
 
 NOISE_FREE = ("noise-free: the reference draws analog noise in this row; "
-              "the noise is not ported (ROADMAP Queue 1 item 5)")
+              "the noise is not ported (ROADMAP Queue 1 item 4)")
 
 
 class Bench:

@@ -15,6 +15,8 @@ epilogue the plain version's two float32 roundings.  The
 paged-attention kernel computes P.V in float32 where the plain version
 rounds p to bf16 first; it is held to the tolerance written beside it.
 """
+import dataclasses
+
 import pytest
 import torch
 
@@ -400,7 +402,7 @@ def test_paged_attention_kernel_matches_plain(dev, shape, softcap, window,
     B, Hq, _ = q.shape
     if shape.endswith("_long") or shape == "boundaries":
         assert PK.paged_split(B, kp.shape[2], Hq // kp.shape[2],
-                              table.shape[1], PK._sm_count(dev)) > 1
+                              table.shape[1], PK.sm_count(dev)) > 1
     n0 = PK.paged_attention_cuda.launches
     y = PK.paged_attention_cuda(q, kp, vp, table, lengths, is_local,
                                 softcap=softcap, window=window)
@@ -439,10 +441,14 @@ def test_paged_attention_kernel_repeats(dev, shape):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,k,n", [(1, 2304, 9216), (4, 3072, 2304),
                                    (5, 100, 17), (16, 64, 8), (17, 130, 2304),
-                                   (33, 1000, 333), (128, 5760, 2304)])
+                                   (33, 1000, 333), (128, 5760, 2304),
+                                   (256, 2304, 9216), (257, 3072, 2304),
+                                   (512, 5760, 2304), (3, 64, 2304),
+                                   (40, 64, 21), (130, 2304, 1002)])
 def test_int8_kernel_equals_plain(dev, dtype, m, k, n):
     """W8A8: one launch per call, float32 outputs equal bit for bit, at
-    minicpm-2b's widths and ragged M, K and N."""
+    minicpm-2b's widths (M up to 512: token tiles over the grid), at K 64
+    (one half stage) and ragged M, K and N (N not a multiple of 8)."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(m * 10 + k + n)
     x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
@@ -465,6 +471,37 @@ def test_int8_kernel_refuses_bad_operands(dev):
     with pytest.raises(ValueError, match="sw"):
         IK.int8_w8a8_cuda(xq[:, :64].contiguous(), wt[:, :64].contiguous(),
                           sx, sw.double())
+    # TMA reads from 16-byte aligned bases: an offset operand raises
+    buf = torch.zeros(4 * 64 + 1, dtype=torch.int8, device=dev)
+    n0 = IK.int8_w8a8_cuda.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        IK.int8_w8a8_cuda(buf[1:].view(4, 64), wt[:, :64].contiguous(),
+                          sx, sw)
+    assert IK.int8_w8a8_cuda.launches == n0
+
+
+@pytest.mark.parametrize("splits,ring", [(1, 2), (2, 3), (3, 2), (5, 3),
+                                         (8, 2), (8, 3)])
+@pytest.mark.parametrize("m", [1, 16, 32, 64, 128])
+def test_int8_kernel_plans_equal_plain(dev, m, splits, ring):
+    """Other plans than ``plan`` picks, through ``kernel._launch``: every
+    cluster size 1-8 and ring depth at each token width, at ``wo``'s K
+    (24 stages, cut unevenly by 5) on a ragged N."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(m * 100 + splits * 10 + ring)
+    k, n = 3072, 300
+    x = torch.randint(-127, 128, (m, k), generator=gen, device=dev,
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (n, k), generator=gen, device=dev,
+                      dtype=torch.int8)
+    sx = torch.rand(m, generator=gen, device=dev) + 0.5
+    sw = torch.rand(n, generator=gen, device=dev) + 0.5
+    p = IK.plan(m, n, k, IK.sm_count(dev))
+    per = -(-p.k_stages // splits)
+    p = dataclasses.replace(p, splits=-(-p.k_stages // per), per_split=per,
+                            ring=ring)
+    y = IK._launch(x, w, sx, sw, p)
+    assert torch.equal(y, IK.int8_w8a8_plain(x, w, sx, sw))
 
 
 @pytest.mark.parametrize("fidelity", ["exact", "fast_broadcast", "bit_true"])

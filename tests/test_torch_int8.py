@@ -134,3 +134,77 @@ def test_kernel_source_names_what_it_replaces():
     assert "What bounds it" in text and "Design:" in text
     assert build.SOURCES["int8"] == "int8_matmul/csrc/int8_w8a8.cu"
     assert (Path(build.__file__).parent / build.SOURCES["int8"]).exists()
+
+
+# minicpm-2b's four full-width layer GEMMs (K, N), and the card's SMs
+FULL_WIDTH = {"qkv": (2304, 9216), "wo": (3072, 2304),
+              "gate_up": (2304, 11520), "w2": (5760, 2304)}
+H100_SMS = 132
+PLAN_SHAPES = ([(m, k, n) for (k, n) in FULL_WIDTH.values()
+                for m in (1, 4, 16, 32, 128, 256, 512)]
+               + [(5, 100, 17), (33, 130, 2304), (1, 64, 1), (129, 70, 129),
+                  (600, 5000, 7)])
+
+
+def _covered_once(extent: int, tiles: int, width: int) -> bool:
+    counts = np.zeros(tiles * width, dtype=np.int64)
+    for t in range(tiles):
+        counts[t * width:(t + 1) * width] += 1
+    return (tiles - 1) * width < extent and bool((counts[:extent] == 1).all())
+
+
+@pytest.mark.parametrize("m,k,n", PLAN_SHAPES)
+def test_int8_plan_covers_every_output_once(m, k, n):
+    """The kernel's tile/split plan: token and weight tiles cover every
+    output once, the K slices cut Kp in whole 64-byte steps with no gap,
+    overlap or empty slice, a cluster has at most 8 blocks, two blocks
+    fit an SM, and each
+    full-width shape puts at least one block on every SM of the card."""
+    kp = -(-k // KK.K_STEP) * KK.K_STEP
+    p = KK.plan(m, n, kp, H100_SMS)
+    assert p.tok in KK.TOKS and (p.tok >= m or p.m_tiles > 1)
+    assert _covered_once(m, p.m_tiles, p.tok)
+    assert _covered_once(n, p.n_tiles, KK.BN)
+    ranges = p.k_ranges(kp)
+    assert len(ranges) == p.splits and 1 <= p.splits <= KK.MAX_SPLITS
+    assert ranges[0][0] == 0 and ranges[-1][1] == kp
+    assert all(hi == lo for (_, hi), (lo, _) in zip(ranges, ranges[1:]))
+    assert all(lo < hi and lo % KK.K_STEP == 0 and hi % KK.K_STEP == 0
+               for lo, hi in ranges)
+    assert p.k_stages * KK.K_STAGE >= kp > (p.k_stages - 1) * KK.K_STAGE
+    assert 2 <= p.ring <= KK.MAX_RING
+    # the block's dynamic shared memory: 1 KB alignment slack, the ring or
+    # the parked partial tile (the larger), a full and an empty barrier a
+    # stage; 1 KB more is the system's
+    ring = max(p.ring * (KK.BN + p.tok) * KK.K_STAGE,
+               p.tok * KK.STAGING_PITCH * 4)
+    smem = 1024 + ring + 16 * p.ring
+    assert KK.BLOCKS_PER_SM * (smem + 1024) <= 228 * 1024
+    if (k, n) in FULL_WIDTH.values():
+        assert p.blocks >= H100_SMS
+
+
+@pytest.mark.parametrize("sms", [8, H100_SMS])
+@pytest.mark.parametrize("m,k,n", [(5, 100, 17), (33, 130, 2304),
+                                   (4, 3072, 40), (128, 5760, 24),
+                                   (130, 64, 129), (257, 1000, 33),
+                                   (4, 3072, 2304)])
+def test_int8_kernel_arithmetic_equals_plain(m, k, n, sms):
+    """An integer model of the kernel: int32 partial sums over the plan's
+    K slices, added (in any order: int32 is exact), then the two float32
+    roundings; it equals the plain version with ``==``."""
+    rng = np.random.default_rng(m + k + n + sms)
+    xq = torch.from_numpy(rng.integers(-127, 128, (m, k)).astype(np.int8))
+    wq = torch.from_numpy(rng.integers(-127, 128, (k, n)).astype(np.int8))
+    sx = torch.from_numpy(rng.uniform(1e-3, 2, (m, 1)).astype(np.float32))
+    sw = torch.from_numpy(rng.uniform(1e-3, 2, (1, n)).astype(np.float32))
+    x, w, sxf, swf = O.kernel_operands(xq, sx, wq, sw)
+    p = KK.plan(m, n, x.shape[1], sms)
+    acc = torch.zeros((m, n), dtype=torch.int32)
+    for lo, hi in reversed(p.k_ranges(x.shape[1])):
+        part = x[:, lo:hi].long() @ w[:, lo:hi].long().t()
+        assert int(part.abs().max()) < 2 ** 31
+        acc += part.to(torch.int32)
+    got = (acc.to(torch.float32) * sxf[:, None]) * swf[None, :]
+    assert torch.equal(got, int8_matmul_ref(xq, wq, sx, sw))
+    assert torch.equal(got, KK.int8_w8a8_plain(x, w, sxf, swf))

@@ -1,13 +1,13 @@
-"""One macro-GEMM kernel row of two checkouts of this repo, timed in one
+"""One GEMM kernel row of two checkouts of this repo, timed in one
 process each, in turns A B B A, on one CUDA card: row 1 (the prepacked
 skinny macro GEMM, decode), 2 (the prepacked general one, prefill), 4
 (the prepacked complex skinny one), 5 (the prepacked complex general
-one), 6 (the unpacked one on raw weights) or 7 (the complex one on raw
-weights).
+one), 6 (the unpacked one on raw weights), 7 (the complex one on raw
+weights) or 8 (the W8A8 GEMM).
 
     python3 tools/ab_general_gemm.py --a DIR_A --b DIR_B \
         [--kernel skinny|general|complex_skinny|complex_general|unpacked|\
-complex_unpacked] [--m 128 [M ...]] [--kn K N]
+complex_unpacked|int8] [--m 128 [M ...]] [--kn K N]
 
 Each DIR is the root of a checkout: its ``src/repro_torch`` is imported
 and its kernels are built into its own ``build/``.  Each turn times the
@@ -25,14 +25,16 @@ x_im, int8 w_re, w_im (N, K) and planes (2, N, K) in [-7, 7] of each
 side; ``complex_unpacked`` calls ``ccim_complex_unpacked_cuda`` on x_re,
 x_im and raw int8 w_re, w_im (K, N) (the complex kernels build in the
 prototype's numerics; each signature is the same in every checkout that
-has the kernel).  ``ms`` is CUDA events around one call (host wrapper
+has the kernel); ``int8`` calls ``int8_w8a8_cuda(x, w, sx, sw)`` on int8
+w (N, K) and float32 scales in [0.5, 1.5) (its hash covers the float32
+output).  ``ms`` is CUDA events around one call (host wrapper
 included), ``device_ms`` CUDA-graph replays on the same operands (the
 kernel alone), both as ``chip_smoke.py`` phase 7 times them, and
 ``device_cold_ms`` replays rotating over distinct copies of the weights
 (``chip_smoke.cold_copy_count``: at least 4 per shape and 4 L2s of
 bytes), so that no call finds its weights in L2.  Every turn prints one
 JSON line with a hash of each output (on the first weight copy); the
-hashes of A and B must agree (both compute the macro's integers; a
+hashes of A and B must agree (both compute the same function; a
 complex kernel's hash covers Re and Im), or the script exits 1.  The
 last line holds both checkouts' times side by side, per M.
 """
@@ -48,13 +50,15 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 META = dict(acc_len=16, x_bits=(6, 5), dcim_lsb=2048, adc_half=64)
 KERNELS = ("skinny", "general", "complex_skinny", "complex_general",
-           "unpacked", "complex_unpacked")
+           "unpacked", "complex_unpacked", "int8")
 
 
 def weights(kernel: str, i8, k: int, n: int) -> tuple:
     """One copy of ``kernel``'s weight operands for (K, N)."""
     if kernel == "unpacked":
         return (i8(-127, 128, k, n),)
+    if kernel == "int8":
+        return i8(-127, 128, n, k), 0.5 + i8(0, 100, n).float() / 100
     if kernel == "complex_unpacked":
         return i8(-127, 128, k, n), i8(-127, 128, k, n)
     side = lambda: (i8(-127, 128, n, k), i8(-7, 8, 2, n, k))
@@ -65,6 +69,9 @@ def call(kernel: str, xs: tuple, ws: tuple):
     """``kernel`` on activations ``xs`` and weights ``ws``."""
     from repro_torch.kernels.ccim_complex import kernel as CK
     from repro_torch.kernels.ccim_matmul import kernel as K
+    from repro_torch.kernels.int8_matmul import kernel as IK
+    if kernel == "int8":
+        return IK.int8_w8a8_cuda(xs[0], ws[0], xs[1], ws[1])
     if kernel == "unpacked":
         return K.ccim_matmul_unpacked_cuda(xs[0], ws[0])
     if kernel == "complex_unpacked":
@@ -95,7 +102,7 @@ def turn(root: str, kernel: str, ms, kn=None) -> dict:
     copies = {}
     for sname, (k, n) in shapes_kn.items():
         first = weights(kernel, i8, k, n)
-        nbytes = sum(w.numel() for w in first)
+        nbytes = sum(w.numel() * w.element_size() for w in first)
         copies[sname] = [first] + [weights(kernel, i8, k, n) for _ in
                                    range(cold_copy_count(torch, dev,
                                                          nbytes) - 1)]
@@ -105,6 +112,8 @@ def turn(root: str, kernel: str, ms, kn=None) -> dict:
         for sname, (k, n) in shapes_kn.items():
             xs = tuple(i8(-127, 128, m, k) for _ in
                        range(2 if kernel.startswith("complex") else 1))
+            if kernel == "int8":
+                xs += (0.5 + i8(0, 100, m).float() / 100,)
             ws = copies[sname]
             fn = lambda: call(kernel, xs, ws[0])
             out = fn()
@@ -120,7 +129,9 @@ def turn(root: str, kernel: str, ms, kn=None) -> dict:
             for key in tot:
                 tot[key] += t[key]
         by_m[m] = {"layer_total": tot, "shapes": shapes}
-    module = CK if kernel.startswith("complex") else K
+    from repro_torch.kernels.int8_matmul import kernel as IK
+    module = (IK if kernel == "int8" else CK if kernel.startswith("complex")
+              else K)
     return {"root": root, "module": module.__file__, "kernel": kernel,
             "by_m": by_m}
 
@@ -130,7 +141,7 @@ def main() -> int:
     ap.add_argument("--a", required=True, help="root of checkout A")
     ap.add_argument("--b", required=True, help="root of checkout B")
     ap.add_argument("--kernel", choices=KERNELS, default="general",
-                    help="row 1, 2, 4, 5, 6 or 7")
+                    help="row 1, 2, 4, 5, 6, 7 or 8")
     ap.add_argument("--m", type=int, nargs="+", default=[128],
                     help="rows of x, one or more")
     ap.add_argument("--kn", type=int, nargs=2, metavar=("K", "N"),
