@@ -108,7 +108,29 @@ failure.  Phases:
      32, same-operand and cold) and the bound; the plan of each shape
      (token width, tiles, K splits = cluster size, ring depth) and a
      sweep of cold device time over token width, split count and ring
-     depth.
+     depth;
+ 22. full-width minicpm-2b under a mixed deployment plan (wq all-analog
+     with an 8-bit ADC, wk+wv, w1 and the default hybrid3 / 8 b / L32,
+     wo hybrid5 / 8 b, w2 all-digital, w3 float), lock-step batch 4,
+     prompt 32, 16 tokens, through the kernels and through their plain
+     versions: tokens and last logits equal, one general launch per
+     packed fast site a layer in prefill and one skinny one a decode step
+     (4 a layer), none from the plain run; pack bytes and peak memory
+     beside the uniform pack's (phase 4);
+ 23. plan-cascade speculative decoding at full width, drafting under the
+     prototype's all-analog shadow (8-bit ADC): batch 2, prompt 16, 24
+     tokens, k 8 (verify M 18 on kernel row 1) and batch 4, 12 tokens, k
+     8 (M 36 on row 2); kernel and plain speculative tokens equal,
+     speculative tokens equal lock-step ones (with the count of equal
+     rows, the first differing (row, position) and the logits' largest
+     difference if they do not), launches per round; acceptance, rounds
+     and decode tok/s of speculative and lock-step serving in turns, and
+     a torch.profiler trace of one round;
+ 24. continuous batching with speculative rounds (k 4, adaptive depth):
+     phase 9's 16 requests over 8 slots, contiguous, pool tokens equal
+     phase 9's and the lock-step waves'; then 8 of them paged as in phase
+     10, with the paged read launched 40 times a draft step and the token
+     agreement with phase 10 reported.
 
 Every row of the kernels table carries ``ms`` (CUDA events around one
 call, host wrapper included), ``device_ms`` (CUDA-graph replays, the
@@ -453,7 +475,8 @@ def continuous_phases(torch, dev, params, cfg_full) -> dict:
           "iter_ms": 1e3 * rep_p.wall_s / rep_p.n_iter})
     del packed, sched
     return {"paged_launches": counts["serve_paged"],
-            "paged_launches_by_path": counts}
+            "paged_launches_by_path": counts,
+            "tokens_contiguous": toks_c, "tokens_paged": toks_p}
 
 
 def first_step_logits(torch, dev, packed, cfg, cfg_plain, reqs, layout,
@@ -1484,6 +1507,322 @@ def times_int8(torch, dev, gen) -> dict:
     return row
 
 
+# -- phases 22-24: deployment plans and speculative decoding ---------------
+
+# phase 23's cases: (batch, prompt, generated tokens, draft depth k); the
+# verify forward runs batch * (k + 1) rows: 18 on kernel row 1, 36 on row 2
+SPEC_CASES = ((2, 16, 24, 8), (4, 16, 12, 8))
+
+
+def mixed_plan():
+    """Phase 22's plan: an all-analog site at an 8-bit ADC, a hybrid5
+    site, an all-digital site, a float site and a hybrid3 / 8 b / L32
+    default (the reference's mixed plan of its plan tests)."""
+    from repro_torch import plan as TP
+    from repro_torch.core.ccim import CCIMConfig
+    return TP.DeploymentPlan.from_dict({
+        "mlp/w2": TP.DIGITAL_ENTRY,
+        "attn/wq": TP.PlanEntry(cfg=CCIMConfig(n_dcim_products=0, adc_bits=8),
+                                label="analog0/adc8"),
+        "attn/wo": TP.PlanEntry(cfg=CCIMConfig(n_dcim_products=5, adc_bits=8),
+                                label="hybrid5/adc8"),
+        "mlp/w3": TP.FLOAT_ENTRY,
+    }, default=TP.PlanEntry(cfg=CCIMConfig(acc_len=32, adc_bits=8),
+                            label="hybrid3/adc8/L32"))
+
+
+def _tokens_equal(a, b) -> bool:
+    return len(a) == len(b) and bool((a == b).all())
+
+
+def _macro_launches() -> dict:
+    from repro_torch.kernels.ccim_matmul import kernel as K
+    return {"general": K.ccim_matmul_prepacked_general_cuda.launches,
+            "skinny": K.ccim_matmul_prepacked_skinny_cuda.launches}
+
+
+def plan_phase(torch, dev, params, cfg_full, uniform: dict) -> dict:
+    """Phase 22: lock-step serving under ``mixed_plan`` through the
+    kernels and their plain versions.  Returns the kernel run's launches."""
+    from repro_torch.core.engine import FusedPackedCimWeights, PackedCimWeights
+    from repro_torch.kernels.ccim_matmul import kernel as K
+    from repro_torch.launch.serve import serve, tree_bytes
+    from repro_torch.models import lm
+
+    plan = mixed_plan()
+    batch, plen, gen = 4, 32, 16
+    runs = {}
+    for label, use_kernel in (("kernel", None), ("plain", False)):
+        K.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        toks, st = serve("minicpm-2b", smoke=False, batch=batch,
+                         prompt_len=plen, gen=gen, plan=plan, params=params,
+                         use_kernel=use_kernel, return_stats=True)
+        runs[label] = dict(toks=toks, logits=st.pop("last_logits"),
+                           launches=_macro_launches(), stats=st,
+                           peak=torch.cuda.max_memory_allocated())
+        check(bool(torch.isfinite(runs[label]["logits"]).all()),
+              f"phase 22 {label}: non-finite logits")
+    kr, pr = runs["kernel"], runs["plain"]
+    n_gemm = 4 * cfg_full.n_layers           # wq, wk+wv, wo, w1
+    check(kr["launches"] == {"general": n_gemm,
+                             "skinny": n_gemm * (gen - 1)},
+          f"phase 22 launches {kr['launches']}, expected {n_gemm} general "
+          f"and {n_gemm * (gen - 1)} skinny")
+    check(pr["launches"] == {"general": 0, "skinny": 0},
+          "phase 22: the plain run launched kernels")
+    check((kr["toks"] == pr["toks"]).all(),
+          "phase 22: kernel and plain tokens differ under the plan")
+    check(torch.equal(kr["logits"], pr["logits"]),
+          "phase 22: kernel and plain logits differ under the plan")
+    # what each site of a layer holds under the plan
+    cfg = dataclasses.replace(cfg_full, cim_mode=True, cim_plan=plan)
+    with torch.inference_mode():
+        packed = lm.pack_cim_params(params, cfg, dev)
+    sites = {}
+    for block in ("attn", "mlp"):
+        for key, leaf in packed["layers"][block].items():
+            pk = (leaf.packed if isinstance(leaf, FusedPackedCimWeights)
+                  else leaf)
+            rec = {"bytes": tree_bytes(leaf)}
+            if isinstance(pk, PackedCimWeights):
+                first = key.split("+")[0]
+                rec.update(kind="packed",
+                           planes=int(pk.kernel_planes.shape[1]),
+                           n_dcim=pk.cfg.n_dcim_products,
+                           acc_len=pk.cfg.acc_len,
+                           entry=plan.resolve(f"{block}/{first}").label)
+            else:
+                rec.update(kind=str(leaf.dtype))
+            sites[f"{block}/{key}"] = rec
+    del packed
+    check(sites["mlp/w3"]["kind"] == "torch.bfloat16",
+          "phase 22: the float site w3 was packed")
+    check(sites["attn/wq"]["planes"] == 0, "phase 22: wq holds planes")
+    emit({"phase": "serve_plan", "ok": True, "plan": plan.summary(),
+          "batch": batch, "prompt_len": plen, "gen": gen,
+          "tokens_equal": True, "logits_equal": True,
+          "launches": kr["launches"], "plain_launches": pr["launches"],
+          "sites_per_layer_stack": sites,
+          "pack_bytes": kr["stats"]["pack_bytes"],
+          "uniform_pack_bytes": uniform["pack_bytes"],
+          "max_memory_allocated": kr["peak"],
+          "uniform_max_memory_allocated": uniform["max_memory_allocated"],
+          "pack_s": kr["stats"]["pack_s"],
+          "prefill_s": kr["stats"]["prefill_s"],
+          "decode_tok_s": kr["stats"]["decode_tok_s"],
+          "plain_decode_tok_s": pr["stats"]["decode_tok_s"],
+          "tokens_row0": kr["toks"][0].tolist()})
+    return kr["launches"]
+
+
+def verify_chain_diff(torch, dev, packed, cfg, prompt, toks, start: int,
+                      k: int) -> float:
+    """Largest |verify logit - decode-chain logit| over the k + 1
+    positions from ``start`` of ``toks``, after the prompt and
+    ``toks[:, :start]`` were committed by decode steps."""
+    from repro_torch.models import lm
+    B = prompt.shape[0]
+    with torch.inference_mode():
+        cache = lm.init_cache(cfg, B, prompt.shape[1] + toks.shape[1]
+                              + 2 * k + 1, device=dev)
+        _, cache = lm.prefill(packed, cfg, prompt, cache)
+        for i in range(start):
+            _, cache = lm.decode_step(packed, cfg, toks[:, i:i + 1], cache)
+        clone = {n: v.clone() for n, v in cache.items()}
+        block = toks[:, start:start + k + 1]
+        chain = []
+        for i in range(block.shape[1]):
+            lg, cache = lm.decode_step(packed, cfg, block[:, i:i + 1], cache)
+            chain.append(lg[:, -1])
+        vlg, _ = lm.verify_step(packed, cfg, block, clone)
+    return float((vlg - torch.stack(chain, 1)).abs().max())
+
+
+def speculative_phase(torch, dev, params, cfg_full) -> dict:
+    """Phase 23: plan-cascade speculative decoding at full width, kernel
+    and plain, against lock-step serving in turns.  Returns the kernel
+    runs' launches by case."""
+    import numpy as np
+    from repro_torch.data import DataConfig, batch_at
+    from repro_torch.kernels.ccim_matmul import kernel as K
+    from repro_torch.launch.serve import (serve, serve_speculative,
+                                          speculative_round)
+    from repro_torch.models import lm
+    from repro_torch.plan import draft_plan_for_model
+
+    L = cfg_full.n_layers
+    out = {}
+    for batch, plen, gen, k in SPEC_CASES:
+        m = batch * (k + 1)
+        common = dict(smoke=False, batch=batch, prompt_len=plen, gen=gen,
+                      params=params, return_stats=True)
+        tok_s = {"lockstep": [], "speculative": []}
+        for turn in ("lockstep", "speculative", "speculative", "lockstep"):
+            if turn == "lockstep":
+                base, st = serve("minicpm-2b", cim=True, **common)
+            else:
+                K.reset_launch_counts()
+                spec, sst = serve_speculative("minicpm-2b", draft_k=k,
+                                              compare_baseline=False,
+                                              **common)
+                launches = _macro_launches()
+                st = sst
+            tok_s[turn].append(st["decode_tok_s"])
+        K.reset_launch_counts()
+        plain, pst = serve_speculative("minicpm-2b", draft_k=k,
+                                       compare_baseline=False,
+                                       use_kernel=False, **common)
+        check(_macro_launches() == {"general": 0, "skinny": 0},
+              "phase 23: the plain run launched kernels")
+        check(plain.shape == spec.shape and (plain == spec).all(),
+              f"phase 23 (M {m}): kernel and plain speculative tokens differ")
+        rounds = sst["n_rounds"]
+        row = lambda rows: "skinny" if rows <= K.SKINNY_M else "general"
+        want = {"general": 0, "skinny": 4 * L * k * rounds}
+        want[row(batch * plen)] += 4 * L                    # prefill
+        want[row(m)] += 4 * L * rounds                      # verify
+        check(launches == want, f"phase 23 (M {m}): launches {launches}, "
+              f"expected {want} (a prefill at M {batch * plen}, {rounds} "
+              f"rounds of {k} drafts + a verify)")
+        same = [bool((spec[b] == base[b]).all()) for b in range(batch)]
+        diverge = np.argwhere(spec != base)
+        rec = {"batch": batch, "prompt_len": plen, "gen": gen, "draft_k": k,
+               "prefill_m": batch * plen, "verify_m": m,
+               "verify_row": 1 if m <= K.SKINNY_M else 2,
+               "draft_plan": sst["draft_plan"], "n_rounds": rounds,
+               "n_drafted": sst["n_drafted"], "n_accepted": sst["n_accepted"],
+               "acceptance_rate": sst["acceptance_rate"],
+               "tokens_per_round": sst["tokens_per_round"],
+               "launches": launches,
+               "launches_per_round": {
+                   "skinny": 4 * L * (k + (m <= K.SKINNY_M)),
+                   "general": 4 * L * (m > K.SKINNY_M)},
+               "decode_tok_s_turns": ["lockstep", "speculative",
+                                      "speculative", "lockstep"],
+               "speculative_decode_tok_s": tok_s["speculative"],
+               "lockstep_decode_tok_s": tok_s["lockstep"],
+               "plain_speculative_decode_tok_s": pst["decode_tok_s"],
+               "kernel_equals_plain": True,
+               "rows_equal_lockstep": f"{sum(same)} of {batch}"}
+        # the verify contract at full width: logits of the first round's
+        # positions, verify forward against the decode chain
+        cfg = dataclasses.replace(cfg_full, cim_mode=True)
+        dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=plen,
+                          global_batch=batch, seed=0)
+        prompt = torch.from_numpy(batch_at(dcfg, 0)["tokens"]).to(
+            dev, torch.int64)
+        with torch.inference_mode():
+            packed = lm.pack_cim_params(params, cfg, dev)
+        btoks = torch.from_numpy(base).to(dev)
+        start = int(diverge[0, 1]) if len(diverge) else 0
+        start = max(0, min(start - 1, gen - k - 1))
+        rec["verify_chain_window"] = [start, start + k + 1]
+        rec["verify_chain_max_abs_logit_diff"] = verify_chain_diff(
+            torch, dev, packed, cfg, prompt, btoks, start, k)
+        if len(diverge):
+            rec["first_differing_row_position"] = diverge[0].tolist()
+        check(not len(diverge), f"phase 23 (M {m}): speculative tokens "
+              f"differ from lock-step: {rec}")
+        if m <= K.SKINNY_M:
+            # one round under the profiler: device busy and idle share
+            draft_cfg = dataclasses.replace(
+                cfg, cim_plan=draft_plan_for_model(cfg))
+            with torch.inference_mode():
+                cache = lm.init_cache(cfg, batch, plen + gen + 2 * k + 1,
+                                      device=dev)
+                lg, cache = lm.prefill(packed, cfg, prompt, cache)
+                tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
+                live = torch.ones((batch,), dtype=torch.bool, device=dev)
+                _, _, tok, cache = speculative_round(
+                    packed, cfg, draft_cfg, k, tok, cache, live)  # warm
+                torch.cuda.synchronize()
+                with torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    speculative_round(packed, cfg, draft_cfg, k, tok, cache,
+                                      live)
+                    torch.cuda.synchronize()
+                    wall_ms = 1e3 * (time.perf_counter() - t0)
+            rec["round_profile"] = {"round_wall_ms": wall_ms,
+                                    **device_breakdown(prof, 1, wall_ms)}
+        del packed
+        out[f"serve_speculative_m{m}"] = launches
+        emit({"phase": "serve_speculative", "ok": True, **rec})
+    return out
+
+
+def continuous_speculative_phase(torch, dev, params, cfg_full,
+                                 serve_phases) -> dict:
+    """Phase 24: speculative rounds in the continuous-batching scheduler,
+    contiguous (gated against phase 9) and paged (reported against phase
+    10).  Returns the macro kernels' launches by path and the paged
+    read's."""
+    from repro_torch.kernels.paged_attn import kernel as PK
+    from repro_torch.kernels.ccim_matmul import kernel as K
+    from repro_torch.launch.paging import PagedLayout, cdiv
+    from repro_torch.launch.serve import serve_continuous
+
+    slots, plen, stops, k = 8, 64, (8, 24, 16, 32), 4      # phase 9's
+    common = dict(smoke=False, slots=slots, prompt_len=plen,
+                  stop_lengths=stops, cim=True, params=params, device=dev,
+                  draft_k=k, adaptive_draft_k=True)
+
+    def reset():
+        K.reset_launch_counts()
+        PK.reset_launch_counts()
+
+    reset()
+    toks, st = serve_continuous("minicpm-2b", n_requests=16,
+                                compare_lockstep=True, **common)
+    n_c = {**_macro_launches(), "paged_attn": PK.paged_attention_cuda.launches}
+    want = serve_phases["tokens_contiguous"]
+    same = [_tokens_equal(toks[r], want[r]) for r in want]
+    check(st.get("tokens_match_lockstep") is True,
+          "phase 24: speculative pool tokens != lock-step tokens")
+    check(all(same), f"phase 24: speculative pool tokens equal phase 9's on "
+          f"{sum(same)} of {len(same)} requests")
+    check(n_c["paged_attn"] == 0, "phase 24: the contiguous pool launched "
+          "the paged read")
+    emit({"phase": "serve_continuous_speculative", "ok": True,
+          "requests": 16, "draft_k": k, "adaptive_draft_k": True,
+          "draft_plan": st["draft_plan"], "draft_steps": st["draft_steps"],
+          "tokens_equal_phase9": True, "tokens_equal_lockstep": True,
+          "launches": n_c, **_serve_record(st)})
+
+    n_req = 8
+    layout = PagedLayout(block_size=PA_BS,
+                         n_tbl=cdiv(plen + max(stops) - 1 + k, PA_BS),
+                         n_blocks=64)
+    reset()
+    toks_p, st_p = serve_continuous("minicpm-2b", n_requests=n_req,
+                                    compare_lockstep=False, paged=layout,
+                                    prefill_chunk=32, **common)
+    n_p = {**_macro_launches(), "paged_attn": PK.paged_attention_cuda.launches}
+    check(n_p["paged_attn"] == cfg_full.n_layers * st_p["draft_steps"],
+          f"phase 24 paged: {n_p['paged_attn']} paged-read launches, "
+          f"expected {cfg_full.n_layers} x {st_p['draft_steps']} draft steps")
+    check(st_p["paged"]["refcounts_drained"], "phase 24 refcounts leaked")
+    ref = serve_phases["tokens_paged"]
+    agree = [_tokens_equal(toks_p[r], ref[r]) for r in range(n_req)]
+    agree_c = [_tokens_equal(toks_p[r], want[r]) for r in range(n_req)]
+    emit({"phase": "serve_paged_speculative", "ok": True,
+          "requests": n_req, "draft_k": k, "n_tbl": layout.n_tbl,
+          "draft_steps": st_p["draft_steps"], "launches": n_p,
+          "requests_equal_phase10": f"{sum(agree)} of {n_req}",
+          "requests_equal_phase9": f"{sum(agree_c)} of {n_req}",
+          "not_gated_because": "the draft steps read through the paged "
+                               "kernel and the verify forward gathers and "
+                               "runs the plain read (phase 10's cause)",
+          **_serve_record(st_p)})
+    return {"macro": {"serve_continuous_speculative": {
+                k_: n_c[k_] for k_ in ("general", "skinny")},
+                      "serve_paged_speculative": {
+                k_: n_p[k_] for k_ in ("general", "skinny")}},
+            "paged_attn": n_p["paged_attn"]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1612,6 +1951,10 @@ def main() -> int:
             "skinny": K.ccim_matmul_prepacked_skinny_cuda.launches}
         logits = stats.pop("last_logits")
         runs[label] = (toks, logits, launches)
+        if label == "kernel":
+            uniform = {"pack_bytes": stats["pack_bytes"],
+                       "max_memory_allocated":
+                           torch.cuda.max_memory_allocated()}
         emit({"phase": f"serve_{label}", "n_layers": stats["n_layers"],
               "d_model": cfg_full.d_model, "vocab": cfg_full.vocab_size,
               "batch": batch, "prompt_len": prompt_len, "gen": gen_len,
@@ -1742,6 +2085,18 @@ def main() -> int:
     bench = kernel_bench_phase(torch, dev)
     fig6_phase(torch, dev)
     i8_row = times_int8(torch, dev, gen)
+    # -- 22.-24. deployment plans and speculative decoding -----------------
+    params = lm.init(0, cfg_full, device=dev)       # phase 4's weights
+    by_path = {"serve": k_launch,
+               "serve_plan": plan_phase(torch, dev, params, cfg_full,
+                                        uniform)}
+    by_path.update(speculative_phase(torch, dev, params, cfg_full))
+    cont_spec = continuous_speculative_phase(torch, dev, params, cfg_full,
+                                             serve_phases)
+    by_path.update(cont_spec["macro"])
+    serve_phases["paged_launches_by_path"]["serve_paged_speculative"] = (
+        cont_spec["paged_attn"])
+    del params
 
     src = "src/repro_torch/kernels/ccim_matmul/csrc/"
     table = []
@@ -1761,6 +2116,7 @@ def main() -> int:
                          >= t["ops"] / INT8_OPS_S else "operations"),
             "library_ms": t["library_ms"], "device_ms": t["device_ms"],
             "library_device_ms": t["library_device_ms"],
+            "launches_by_path": {p: n[name] for p, n in by_path.items()},
             **{k: t[k] for k in ("device_cold_ms", "library_cold_ms",
                                  "m", "by_m") if k in t}})
     table.append({

@@ -13,7 +13,8 @@ contents field for field; ``packed_complex_from_jax`` does the same for
 a ``PackedComplexCimWeights``.  ``macro_from_jax`` carries a fabricated
 die (``MacroInstance``) across: the two packages draw their mismatch
 from different generators, so a die is the state two runs must share.
-No function here imports the reference.
+``plan_from_jax`` builds the port's ``DeploymentPlan`` from a reference
+plan, entry for entry.  No function here imports the reference.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ from .core.engine import (FusedPackedCimWeights, PackedCimWeights,
 from .kernels.ccim_matmul.ops import weight_layout
 from .models.config import ModelConfig
 from .models.lm import torch_dtype
+from .plan import DeploymentPlan, PlanEntry
 
 
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
@@ -49,6 +51,18 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
 def _config(cfg) -> CCIMConfig:
     return CCIMConfig(**{f.name: getattr(cfg, f.name)
                          for f in dataclasses.fields(CCIMConfig)})
+
+
+def plan_from_jax(plan) -> DeploymentPlan:
+    """Reference ``DeploymentPlan`` (any object with its ``entries`` and
+    ``default``, each entry with ``cfg``, ``fidelity`` and ``label``) ->
+    the port's, over the port's ``CCIMConfig``."""
+    def entry(e) -> PlanEntry:
+        return PlanEntry(cfg=_config(e.cfg), fidelity=e.fidelity,
+                         label=e.label)
+    return DeploymentPlan(entries=tuple((p, entry(e))
+                                        for p, e in plan.entries),
+                          default=entry(plan.default))
 
 
 def packed_from_jax(p, device=None):

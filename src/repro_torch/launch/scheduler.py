@@ -1,7 +1,7 @@
 """Continuous-batching serving scheduler over a fixed pool of decode slots.
 
-Counterpart of ``repro/launch/scheduler.py`` (greedy, non-speculative,
-without telemetry).  The paper's macro is weight-stationary: weights are
+Counterpart of ``repro/launch/scheduler.py`` (greedy, without
+telemetry).  The paper's macro is weight-stationary: weights are
 written once and activations stream.  The serving analogue is a fixed
 pool of decode slots over prepacked weights; every pooled step advances
 only live slots, and a freed slot is refilled from the request queue.
@@ -22,15 +22,18 @@ Each iteration runs one branch, in this priority:
             a prefill) advance the first filling slot by one
             ``prefill_chunk`` (``lm.prefill_chunk_into_slot``); the final
             chunk samples the request's first token.
-  step    : one pooled decode step (``lm.decode_step`` with ``live``).
+  step    : one pooled decode step (``lm.decode_step`` with ``live``), or
+            with ``draft_k`` one speculative round (``_spec_step``).
 
 The reference runs this loop on the device in one compiled
 ``while_loop``.  Here the HOST runs it: the pool state (tokens, masks,
 KV cache, block refcounts) lives on the device, and each iteration reads
-one small int32 vector back -- the pending and live masks and the free
-block count -- to pick its branch.  That is ONE host synchronization per
-iteration; everything else the branch choice needs (queue head, filling
-slots, prefill progress, grants) the host already knows.  Slots are
+one small int32 vector back -- the pending and live masks, the free
+block count and, in speculative mode, the draft counters and the next
+round's draft depth -- to pick its branch.  That is ONE host
+synchronization per iteration; everything else the branch choice needs
+(queue head, filling slots, prefill progress, grants) the host already
+knows.  Slots are
 Python ints and per-slot scalars are written with fills, so the loop
 makes no host-to-device copy (a pageable one would synchronize the
 stream).
@@ -45,10 +48,22 @@ decrements.  Shared prompt prefixes are planned on the host
 (paging.plan_prefix_sharing), and the refcounts return to ``[1, 0, ...]``
 when the queue drains.
 
+SPECULATIVE mode (``draft_k > 0``) turns each step branch into one
+plan-cascade round: ``draft_k`` pooled decode steps under ``draft_cfg``
+(the all-analog shadow plan, same pack), the positions rolled back, one
+``lm.verify_step`` over the k+1 positions under the deployed config,
+then the longest agreeing prefix plus a correction, clamped by each
+request's budget and cut after a stop token.  Rollback is positional:
+rows past the committed ``pos`` are masked and overwritten by the next
+round, and paged tables are not touched mid-round (admission grants
+``draft_k`` rows of headroom); non-live rows' draft and verify writes go
+to the trash block.  ``adaptive_draft_k`` picks each round's depth from
+the rung ladder {K, K/2, K/4} by an acceptance EMA kept on the device.
+
 Determinism contract: a request's tokens depend only on (params, prompt,
-rid) -- not on its slot, its poolmates or when it was admitted.  Greedy
-decoding only; temperature sampling, speculative rounds and telemetry are
-not ported yet and raise.
+rid) -- not on its slot, its poolmates or when it was admitted -- and
+greedy speculative tokens equal non-speculative ones.  Greedy decoding
+only; temperature sampling and telemetry are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -96,6 +111,9 @@ class ServeReport:
     n_pf: int = 0                 # chunked-prefill iterations (paged mode)
     peak_blocks: int = 0          # peak live pool blocks (paged mode)
     n_iter: int = 0               # loop iterations
+    n_drafted: int = 0            # draft tokens proposed (speculative mode)
+    n_accepted: int = 0           # draft tokens accepted by verify
+    draft_steps: int = 0          # pooled draft decode steps (speculative)
     host_syncs: int = 0           # device-to-host reads in the loop
                                   # (one per iteration + the last)
     branch_counts: Dict[str, int] = dataclasses.field(default_factory=dict)
@@ -105,6 +123,18 @@ class ServeReport:
     @property
     def total_tokens(self) -> int:
         return sum(len(f.tokens) for f in self.finished)
+
+    @property
+    def acceptance_rate(self) -> float:
+        """Fraction of drafted tokens the verify pass accepted."""
+        return (self.n_accepted / self.n_drafted if self.n_drafted
+                else float("nan"))
+
+    @property
+    def tokens_per_step(self) -> float:
+        """Emitted tokens per pooled step (a round, in speculative mode)."""
+        return (self.total_tokens / self.n_steps if self.n_steps
+                else float("nan"))
 
     @property
     def tok_s(self) -> float:
@@ -135,6 +165,11 @@ class ServeReport:
                    slots=self.slots,
                    **{k: round(v, 4) for k, v in
                       self.latency_percentiles().items()})
+        if self.n_drafted:
+            out.update(n_drafted=self.n_drafted,
+                       n_accepted=self.n_accepted,
+                       acceptance_rate=round(self.acceptance_rate, 4),
+                       tokens_per_step=round(self.tokens_per_step, 4))
         if self.n_pf or self.peak_blocks:
             out.update(n_pf=self.n_pf, peak_blocks=self.peak_blocks)
         return out
@@ -155,31 +190,48 @@ class ContinuousBatchingScheduler:
     ``paged=PagedLayout(...)`` switches the KV cache to the global block
     pool with on-device refcounts, host-planned shared-prefix reuse
     (``prefix_sharing``) and chunked prefill (``prefill_chunk`` tokens
-    per iteration, default: the whole prompt in one chunk).  The device
-    is the params' device."""
+    per iteration, default: the whole prompt in one chunk).
+    ``draft_k > 0`` turns the step branch into a speculative round
+    drafting under ``draft_plan`` (default: the deployed config itself);
+    ``adaptive_draft_k`` switches the round's depth over {K, K/2, K/4} by
+    the acceptance EMA.  The device is the params' device."""
 
     def __init__(self, params, cfg: ModelConfig, slots: int, prompt_len: int,
                  max_new_cap: int, temperature: float = 0.0,
-                 pad_token: int = 0, draft_k: int = 0,
+                 pad_token: int = 0, draft_k: int = 0, draft_plan=None,
                  paged: Optional[PagedLayout] = None,
                  prefill_chunk: Optional[int] = None,
-                 prefix_sharing: bool = True, obs=None):
+                 prefix_sharing: bool = True,
+                 adaptive_draft_k: bool = False, obs=None):
         if temperature > 0:
             raise NotImplementedError(
                 "sampling at temperature > 0 waits on jax.random parity; "
                 "the torch scheduler is greedy only")
-        if draft_k:
-            raise NotImplementedError(
-                "speculative rounds (draft_k) are not ported yet")
         if obs is not None:
             raise NotImplementedError("telemetry (obs) is not ported yet")
         if cfg.family != "dense":
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet (dense only)")
+        if draft_k < 0 or draft_k > 31:
+            raise ValueError(f"draft_k {draft_k} outside [0, 31] (k+1 must "
+                             "stay on the skinny-M verify path)")
+        if adaptive_draft_k and not draft_k:
+            raise ValueError("adaptive_draft_k needs draft_k > 0")
         self.cfg, self.slots = cfg, slots
         self.prompt_len, self.cap = prompt_len, max_new_cap
         self.pad_token = pad_token
-        self.max_seq = prompt_len + max_new_cap
+        self.draft_k = draft_k
+        rungs: List[int] = []
+        for k in (draft_k, draft_k // 2, draft_k // 4):
+            k = max(1, k)
+            if k not in rungs:
+                rungs.append(k)
+        self._rungs = rungs if adaptive_draft_k else [draft_k]
+        self.draft_cfg = (dataclasses.replace(cfg, cim_plan=draft_plan)
+                          if draft_plan is not None else cfg)
+        # speculative rounds write draft and verify KV rows up to
+        # pos + draft_k before rolling back: that much headroom
+        self.max_seq = prompt_len + max_new_cap + draft_k
         self._params = params
         self.device = _params_device(params)
         self.paged = paged
@@ -194,12 +246,12 @@ class ContinuousBatchingScheduler:
                     " (one slot could hold more blocks than exist)")
             self.prefill_chunk = C
             self._p_pad = cdiv(prompt_len, C) * C
-            need = max(self._p_pad, prompt_len + max_new_cap - 1)
+            need = max(self._p_pad, prompt_len + max_new_cap - 1 + draft_k)
             if paged.tokens_per_slot < need:
                 raise ValueError(
                     f"paged layout addresses {paged.tokens_per_slot} tokens "
                     f"per slot < worst-case need {need} (prompt span + "
-                    "decode budget)")
+                    "decode budget + draft headroom)")
         else:
             self.prefill_chunk = prompt_len
             self._p_pad = prompt_len
@@ -236,6 +288,11 @@ class ContinuousBatchingScheduler:
             stop=torch.full((B,), -1, **i32),
             out=torch.full((B, cap), self.pad_token, **i32),
         )
+        if self.draft_k:
+            st.update(n_drafted=torch.zeros((), **i32),
+                      n_accepted=torch.zeros((), **i32),
+                      acc_ema=torch.ones((), dtype=torch.float32, device=dev),
+                      rung=torch.zeros((), **i32))
         if self.paged is not None:
             lay = self.paged
             st["cache"] = lm.init_paged_cache(
@@ -284,6 +341,69 @@ class ContinuousBatchingScheduler:
         st["live"] = live & ~finished
         st["pending"] = st["pending"] | finished
 
+    def _spec_step(self, st: Dict, K: int) -> None:
+        """One speculative round as a pooled step: K draft steps under
+        ``draft_cfg`` (same pack), the positions rolled back, one verify
+        forward over the K+1 positions, then the longest agreeing prefix
+        plus the verify model's correction, 1..K+1 tokens a live slot,
+        clamped by its budget and cut after a stop token.  The draft
+        counters and the acceptance EMA (and from it the next round's
+        rung) are updated on the device."""
+        live, pad = st["live"], self.pad_token
+        pos0 = st["cache"]["pos"]
+        cache, last, drafts = st["cache"], st["last_tok"], []
+        for _ in range(K):
+            logits, cache = lm.decode_step(self._params, self.draft_cfg,
+                                           last, cache, live=live)
+            dtok = torch.where(live, torch.argmax(logits[:, -1], dim=-1),
+                               pad)
+            drafts.append(dtok)
+            last = dtok[:, None]
+        drafts = torch.stack(drafts, dim=1)                  # (B, K)
+        cache = dict(cache, pos=pos0)                        # rollback
+        vlogits, cache = lm.verify_step(
+            self._params, self.cfg, torch.cat([st["last_tok"], drafts], 1),
+            cache, live=live)
+        emitted, n_acc = greedy_accept(drafts, vlogits)
+        emitted = emitted.to(torch.int32)
+        cols = torch.arange(K + 1, device=self.device)[None, :]
+        allowed = torch.clamp_min(st["max_new"] - st["n_gen"], 0)
+        n_emit = torch.minimum(n_acc + 1, allowed)
+        is_stop = (emitted == st["stop"][:, None]) & (cols < n_emit[:, None])
+        has_stop = is_stop.any(dim=1)
+        n_emit = torch.where(has_stop,
+                             torch.argmax(is_stop.to(torch.int32), dim=1) + 1,
+                             n_emit)
+        n_emit = torch.where(live, n_emit, 0).to(torch.int32)
+        ar = torch.arange(self.slots, device=self.device)
+        out = st["out"]
+        for j in range(K + 1):
+            idx = torch.clamp(st["n_gen"] + j, max=self.cap - 1).long()
+            out[ar, idx] = torch.where(j < n_emit, emitted[:, j],
+                                       out[ar, idx])
+        n_gen = st["n_gen"] + n_emit
+        finished = live & (has_stop | (n_gen >= st["max_new"]))
+        new_last = torch.gather(
+            emitted, 1, torch.clamp_min(n_emit - 1, 0)[:, None].long())
+        st["last_tok"] = torch.where(n_emit[:, None] > 0, new_last.long(),
+                                     st["last_tok"])
+        st["cache"] = dict(cache, pos=pos0 + n_emit)
+        st["n_gen"] = n_gen
+        st["live"] = live & ~finished
+        st["pending"] = st["pending"] | finished
+        drafted = (live.to(torch.int32) * K).sum()
+        accepted = torch.where(live, n_acc, 0).sum()
+        st["n_drafted"] = st["n_drafted"] + drafted
+        st["n_accepted"] = st["n_accepted"] + accepted
+        rate = (accepted.to(torch.float32)
+                / torch.clamp_min(drafted, 1).to(torch.float32))
+        ema = torch.where(drafted > 0, 0.8 * st["acc_ema"] + 0.2 * rate,
+                          st["acc_ema"])
+        st["acc_ema"] = ema
+        R = len(self._rungs)
+        st["rung"] = torch.where(
+            ema > 0.8, 0, torch.where(ema > 0.4, min(1, R - 1), R - 1))
+
     # -- host-side staging ---------------------------------------------
 
     def _check(self, requests: Sequence[Request]) -> None:
@@ -300,7 +420,7 @@ class ContinuousBatchingScheduler:
                         f"[1, {self.prompt_len}]")
                 need = max(cdiv(plen, self.prefill_chunk)
                            * self.prefill_chunk,
-                           plen + r.max_new_tokens - 1)
+                           plen + r.max_new_tokens - 1 + self.draft_k)
                 if need > self.paged.tokens_per_slot:
                     raise ValueError(
                         f"request {r.rid}: needs {need} addressable tokens"
@@ -329,7 +449,8 @@ class ContinuousBatchingScheduler:
                                  enable=self.prefix_sharing)
         self.last_prefix_plan = pp
         max_blk = np.array([lay.blocks_for(max(
-            cdiv(len(r.prompt), C) * C, len(r.prompt) + r.max_new_tokens - 1))
+            cdiv(len(r.prompt), C) * C,
+            len(r.prompt) + r.max_new_tokens - 1 + self.draft_k))
             for r in requests], np.int64)
         # static no-deadlock guarantee: even with every pinned shared
         # block held live by a not-yet-admitted sharer, the pool can
@@ -379,7 +500,8 @@ class ContinuousBatchingScheduler:
         res_iter, res_first = [0] * n, [0] * n
         iter_end: List[float] = []         # run clock at each flags read
         branches: List[str] = []
-        q_head, n_iter, syncs, last_pf = 0, 0, 0, False
+        q_head, n_iter, syncs, last_pf, draft_steps = 0, 0, 0, False, 0
+        spec = self.draft_k > 0
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
@@ -387,6 +509,9 @@ class ContinuousBatchingScheduler:
             parts = [st["pending"], st["live"]]
             if paged is not None:
                 parts.append((st["ref"] == 0).sum()[None])
+            if spec:
+                parts += [st["rung"][None], st["n_drafted"][None],
+                          st["n_accepted"][None]]
             flags = torch.cat([p.to(torch.int32) for p in parts]).cpu()
             syncs += 1
             iter_end.append(time.perf_counter() - t0)
@@ -496,7 +621,13 @@ class ContinuousBatchingScheduler:
                 last_pf = True
             else:
                 branch = "step"
-                self._step(st)
+                if spec:
+                    # the rung sits after the masks and the free count
+                    K = self._rungs[int(flags[2 * B + (paged is not None)])]
+                    self._spec_step(st, K)
+                    draft_steps += K
+                else:
+                    self._step(st)
                 last_pf = False
             branches.append(branch)
             n_iter += 1
@@ -518,7 +649,11 @@ class ContinuousBatchingScheduler:
             finished=done, wall_s=wall, n_steps=counts["step"],
             n_admits=counts["admit"], slots=B, n_pf=counts["prefill"],
             n_iter=n_iter, host_syncs=syncs, branch_counts=counts,
-            branch_s=times)
+            branch_s=times, draft_steps=draft_steps)
+        if spec:
+            # the last flags read came after the last round
+            report.n_drafted, report.n_accepted = (int(flags[-2]),
+                                                   int(flags[-1]))
         if paged is not None:
             report.peak_blocks = int(peak)
             report.ref_final = st["ref"].cpu().numpy()
@@ -569,6 +704,22 @@ class ContinuousBatchingScheduler:
         return ServeReport(finished=done, wall_s=wall, n_steps=n_steps,
                            n_admits=n_admits, slots=self.slots,
                            n_iter=n_steps + n_admits, host_syncs=syncs)
+
+
+def greedy_accept(drafts: torch.Tensor, vlogits: torch.Tensor):
+    """The greedy accept rule of a speculative round: drafts (B, K) and
+    the verify logits (B, K+1, V) -> (emitted (B, K+1), n_acc (B,)).
+    Verify position i predicts the token after [last, d_1..d_i]; the
+    longest prefix of drafts equal to those predictions is accepted, and
+    column n_acc holds the verify model's own token (the correction, or
+    the bonus token after a fully accepted block)."""
+    K = drafts.shape[1]
+    v_arg = torch.argmax(vlogits, dim=-1)
+    n_acc = torch.cumprod((v_arg[:, :K] == drafts).to(torch.int32),
+                          dim=1).sum(dim=1)
+    cand = torch.cat([drafts, drafts[:, -1:]], dim=1)
+    cols = torch.arange(K + 1, device=drafts.device)[None, :]
+    return torch.where(cols == n_acc[:, None], v_arg, cand), n_acc
 
 
 def _params_device(params) -> torch.device:

@@ -1,23 +1,32 @@
-"""Serving drivers: lock-step and continuous batching.
+"""Serving drivers: lock-step, speculative and continuous batching.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm-2b \
       [--smoke] [--cim] [--no-fuse] [--batch 4] \
       [--prompt-len 32] [--gen 16] [--device cuda] \
+      [--speculative [--draft-k 8] [--draft-adc-bits B]
+       [--adaptive-draft-k]] \
       [--continuous [--requests 8] [--paged-blocks N [--block-size 16]
        [--prefill-chunk C] [--no-prefix-sharing]]]
 
 Counterpart of ``repro/launch/serve.py``.  ``serve`` prefills one fixed
 batch together and decodes greedily in lock step for exactly ``gen``
-tokens.  ``serve_continuous`` (``--continuous``) serves a mixed-length
-request queue from a fixed pool of ``--batch`` slots through
+tokens.  ``serve_speculative`` (``--speculative``) decodes the same batch
+by plan-cascade speculative rounds: the all-analog shadow of the serving
+plan drafts ``draft_k`` tokens from the same pack, one verify forward
+over all k+1 positions checks them, and the longest agreeing prefix plus
+a correction is kept -- greedy tokens equal ``serve``'s.
+``serve_continuous`` (``--continuous``) serves a mixed-length request
+queue from a fixed pool of ``--batch`` slots through
 ``launch/scheduler.py``, with a contiguous KV cache or, under
 ``--paged-blocks``, a paged one (chunked prefill, shared prefixes, and
-the paged-attention kernel for decode reads).  Under ``--cim`` every
-projection is packed once (``lm.pack_cim_params``; unpacked per-call
-conditioning is not ported) and each macro GEMM runs through the CUDA
-kernels on the card (their plain version on the CPU).  Runs on CUDA
-unless ``--device cpu`` is given; without ``--smoke`` it serves the full
-width and depth of the arch.
+the paged-attention kernel for decode reads), speculative rounds under
+``--speculative``.  Under ``--cim`` every projection is packed once
+(``lm.pack_cim_params``; unpacked per-call conditioning is not ported)
+and each macro GEMM runs through the CUDA kernels on the card (their
+plain version on the CPU); ``plan=`` (a ``repro_torch.plan``
+``DeploymentPlan``) serves each projection under its own design point
+and implies it.  Runs on CUDA unless ``--device cpu`` is given; without
+``--smoke`` it serves the full width and depth of the arch.
 """
 from __future__ import annotations
 
@@ -33,8 +42,10 @@ from .. import resolve_device
 from ..configs import ARCHS, get_config
 from ..data import DataConfig, batch_at
 from ..models import lm
+from ..plan import draft_plan_for_model
 from .paging import PagedLayout, cdiv
-from .scheduler import ContinuousBatchingScheduler, mixed_length_requests
+from .scheduler import (ContinuousBatchingScheduler, greedy_accept,
+                        mixed_length_requests)
 
 
 def _sync(device: torch.device) -> None:
@@ -42,32 +53,61 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _greedy_only(temperature: float) -> None:
+    if temperature > 0:
+        raise NotImplementedError(
+            "sampling at temperature > 0 waits on jax.random parity; the "
+            "torch driver is greedy only")
+
+
+def _model_config(arch: str, smoke: bool, cim: bool, plan, fuse: bool,
+                  use_kernel=None):
+    """(cfg, cim): the arch's config under the serving options; a plan
+    implies CIM."""
+    cfg = get_config(arch, smoke=smoke)
+    if plan is not None:
+        cim = True
+        cfg = dataclasses.replace(cfg, cim_plan=plan)
+    if not fuse:
+        cfg = dataclasses.replace(cfg, cim_fuse=False)
+    if cim:
+        cfg = dataclasses.replace(cfg, cim_mode=True,
+                                  cim_use_kernel=use_kernel)
+    return cfg, cim
+
+
+def tree_bytes(tree) -> int:
+    """Bytes of every tensor in a params tree (packed leaves included)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if dataclasses.is_dataclass(tree):
+        return sum(tree_bytes(getattr(tree, f.name))
+                   for f in dataclasses.fields(tree))
+    return 0
+
+
 def serve(arch: str, smoke: bool = True, batch: int = 4, prompt_len: int = 32,
           gen: int = 16, cim: bool = False, temperature: float = 0.0,
           seed: int = 0, return_stats: bool = False,
           fuse: bool = True, device=None, params=None,
-          use_kernel=None):
+          use_kernel=None, plan=None):
     """Returns the generated tokens (batch, gen) as int32 numpy; with
     ``return_stats=True``, (tokens, stats).
 
     ``params`` injects float params (the reference's ``lm.init`` tree,
     e.g. through ``convert.params_from_jax``) instead of a fresh random
     init from ``seed``.  ``use_kernel`` sets ``cfg.cim_use_kernel``
-    (False: the kernels' plain version, for comparison runs).  Stats
-    hold ``pack_s``, ``prefill_s``, ``decode_s`` and ``decode_tok_s``,
-    each phase timed between device synchronizations, and the last
-    step's logits."""
-    if temperature > 0:
-        raise NotImplementedError(
-            "sampling at temperature > 0 waits on jax.random parity; the "
-            "torch driver is greedy only")
+    (False: the kernels' plain version, for comparison runs).  ``plan``
+    (a ``repro_torch.plan.DeploymentPlan``) serves each projection under
+    its own macro config and fidelity (implies cim).  Stats hold
+    ``pack_s``, ``prefill_s``, ``decode_s`` and ``decode_tok_s``, each
+    phase timed between device synchronizations, ``pack_bytes``, and the
+    last step's logits."""
+    _greedy_only(temperature)
     dev = resolve_device(device)
-    cfg = get_config(arch, smoke=smoke)
-    if not fuse:
-        cfg = dataclasses.replace(cfg, cim_fuse=False)
-    if cim:
-        cfg = dataclasses.replace(cfg, cim_mode=True,
-                                  cim_use_kernel=use_kernel)
+    cfg, cim = _model_config(arch, smoke, cim, plan, fuse, use_kernel)
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=prompt_len,
                       global_batch=batch, seed=seed, d_model=cfg.d_model)
     with torch.inference_mode():
@@ -84,6 +124,7 @@ def serve(arch: str, smoke: bool = True, batch: int = 4, prompt_len: int = 32,
             params = lm.pack_cim_params(params, cfg, dev)
         _sync(dev)
         t_pack = time.perf_counter() - t0
+        pack_bytes = tree_bytes(params)
 
         cache = lm.init_cache(cfg, batch, prompt_len + gen, device=dev)
         _sync(dev)
@@ -109,15 +150,164 @@ def serve(arch: str, smoke: bool = True, batch: int = 4, prompt_len: int = 32,
     stats = dict(arch=arch, smoke=smoke, n_layers=cfg.n_layers, batch=batch,
                  prompt_len=prompt_len, gen=gen, cim=cim,
                  fused=cim and cfg.cim_fuse, device=str(dev),
-                 pack_s=t_pack, prefill_s=t_prefill, decode_s=t_decode,
+                 plan=None if plan is None else plan.summary(),
+                 pack_s=t_pack, pack_bytes=pack_bytes,
+                 prefill_s=t_prefill, decode_s=t_decode,
                  decode_tok_s=decode_tok_s,
                  prefill_tok_s=batch * prompt_len / t_prefill,
                  last_logits=logits[:, -1].float().cpu())
-    mode = "cim-packed" if cim else "fp"
+    mode = ("cim-packed" + ("-planned" if plan is not None else "")
+            if cim else "fp")
     print(f"[serve] {arch} ({mode}, {dev}): batch {batch}, prompt "
           f"{prompt_len}, gen {gen} | pack {t_pack:.3f}s, prefill "
           f"{t_prefill:.3f}s, decode {t_decode:.3f}s "
           f"({decode_tok_s:.1f} tok/s)")
+    if return_stats:
+        return gen_tokens, stats
+    return gen_tokens
+
+
+def speculative_round(params, cfg, draft_cfg, k: int, last: torch.Tensor,
+                      cache, live: torch.Tensor):
+    """One greedy draft/verify round over a lock-step batch.
+
+    ``k`` decode steps under ``draft_cfg`` (same pack), the positions
+    rolled back, one ``lm.verify_step`` over the k+1 positions under
+    ``cfg``, then the longest agreeing prefix plus the verify model's
+    token at the first disagreement (or after the last draft).  Rows
+    not ``live`` emit nothing and keep their position.  Returns
+    (emitted (B, k+1), n_emit (B,), new_last (B, 1), cache); every
+    output stays on the device."""
+    pos0 = cache["pos"]
+    tok, drafts = last, []
+    for _ in range(k):
+        logits, cache = lm.decode_step(params, draft_cfg, tok, cache,
+                                       live=live)
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        drafts.append(tok)
+    drafts = torch.cat(drafts, dim=1)                       # (B, k)
+    cache = dict(cache, pos=pos0)                           # rollback
+    vlogits, cache = lm.verify_step(params, cfg,
+                                    torch.cat([last, drafts], dim=1), cache)
+    emitted, n_acc = greedy_accept(drafts, vlogits)
+    n_emit = torch.where(live, n_acc + 1, 0)
+    new_last = torch.where(live[:, None],
+                           torch.gather(emitted, 1, n_acc[:, None]), last)
+    cache["pos"] = pos0 + n_emit.to(pos0.dtype)
+    return emitted, n_emit, new_last, cache
+
+
+def serve_speculative(arch: str, smoke: bool = True, batch: int = 2,
+                      prompt_len: int = 16, gen: int = 48, draft_k: int = 8,
+                      draft_adc_bits=None, temperature: float = 0.0,
+                      seed: int = 0, plan=None, cim: bool = True,
+                      fuse: bool = True,
+                      compare_baseline: bool = True,
+                      return_stats: bool = False, device=None, params=None,
+                      use_kernel=None):
+    """Plan-cascade speculative lock-step driver, greedy.
+
+    The draft plan (``plan.draft_plan_for_model``: the all-analog shadow
+    of the serving plan at ``draft_adc_bits``) serves from the same
+    packed weights as the deployed plan.
+    Each round (``speculative_round``) drafts ``draft_k`` tokens, verifies
+    all k+1 positions in one forward and keeps the longest agreeing
+    prefix plus a correction.  The host reads each round's emitted tokens
+    and counts once.  Greedy tokens equal ``serve``'s, which
+    ``compare_baseline`` runs on the same params and asserts.
+
+    Returns tokens (batch, gen) int64; with ``return_stats=True``,
+    (tokens, stats) with ``n_rounds``, ``n_drafted``, ``n_accepted``,
+    ``acceptance_rate``, ``tokens_per_round`` and ``decode_tok_s`` (and
+    ``decode_speedup_speculative`` when ``compare_baseline``)."""
+    _greedy_only(temperature)
+    dev = resolve_device(device)
+    cfg, cim = _model_config(arch, smoke, cim, plan, fuse, use_kernel)
+    draft_plan = draft_plan_for_model(cfg, draft_adc_bits)
+    dcfg = dataclasses.replace(cfg, cim_plan=draft_plan) if cim else cfg
+    K = draft_k
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=prompt_len,
+                    global_batch=batch, seed=seed, d_model=cfg.d_model)
+    float_params = params
+    with torch.inference_mode():
+        params = (lm.init(seed, cfg, device=dev) if params is None
+                  else lm._to_device(params, dev))
+        if float_params is None:
+            float_params = params
+        tokens = torch.from_numpy(batch_at(dc, 0)["tokens"]).to(
+            dev, torch.int64)
+        _sync(dev)
+        t0 = time.perf_counter()
+        if cim:
+            params = lm.pack_cim_params(params, cfg, dev)
+        _sync(dev)
+        t_pack = time.perf_counter() - t0
+        # live rows can overshoot the target by up to one block a round,
+        # and verify writes k rows past the frontier
+        cache = lm.init_cache(cfg, batch, prompt_len + gen + 2 * K + 1,
+                              device=dev)
+        t0 = time.perf_counter()
+        logits, cache = lm.prefill(params, cfg, tokens, cache)
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        first = tok[:, 0].cpu().numpy()
+        t_prefill = time.perf_counter() - t0
+
+        target = gen - 1                  # decode tokens after the first
+        rows = [[int(t)] for t in first]
+        counts = np.zeros(batch, np.int64)
+        counts_dev = torch.zeros((batch,), dtype=torch.int64, device=dev)
+        n_rounds = n_drafted = n_accepted = 0
+        t0 = time.perf_counter()
+        while counts.min() < target:
+            live = counts_dev < target
+            emitted, n_emit, tok, cache = speculative_round(
+                params, cfg, dcfg, K, tok, cache, live)
+            counts_dev = counts_dev + n_emit
+            got = torch.cat([emitted, n_emit[:, None]], dim=1).cpu().numpy()
+            em, ne = got[:, :K + 1], got[:, K + 1]
+            for b in range(batch):
+                rows[b].extend(em[b, :ne[b]].tolist())
+            n_drafted += K * int((counts < target).sum())
+            n_accepted += int(np.maximum(ne - 1, 0).sum())
+            counts += ne
+            n_rounds += 1
+        t_decode = time.perf_counter() - t0
+    gen_tokens = np.asarray([r[:gen] for r in rows], dtype=np.int64)
+
+    decode_tok_s = (batch * target / t_decode if t_decode > 0
+                    else float("nan"))
+    stats = dict(
+        arch=arch, smoke=smoke, n_layers=cfg.n_layers, batch=batch,
+        prompt_len=prompt_len, gen=gen, cim=cim, draft_k=K,
+        device=str(dev), draft_plan=draft_plan.summary()["<default>"],
+        pack_s=t_pack, prefill_s=t_prefill, decode_s=t_decode,
+        decode_tok_s=decode_tok_s, n_rounds=n_rounds,
+        n_drafted=n_drafted, n_accepted=n_accepted,
+        acceptance_rate=(n_accepted / n_drafted if n_drafted
+                         else float("nan")),
+        tokens_per_round=(batch * target / n_rounds if n_rounds
+                          else float("nan")))
+    print(f"[serve-spec] {arch} (k={K}, draft {stats['draft_plan']}, "
+          f"{dev}): batch {batch}, gen {gen} | decode {t_decode:.3f}s "
+          f"({decode_tok_s:.1f} tok/s), acceptance "
+          f"{stats['acceptance_rate']:.0%}")
+    if compare_baseline:
+        base_toks, base = serve(arch, smoke=smoke, batch=batch,
+                                prompt_len=prompt_len, gen=gen, cim=cim,
+                                seed=seed, return_stats=True, fuse=fuse,
+                                device=dev, params=float_params,
+                                use_kernel=use_kernel, plan=plan)
+        np.testing.assert_array_equal(
+            gen_tokens, base_toks,
+            err_msg="speculative greedy decode changed tokens vs the "
+                    "non-speculative baseline")
+        stats["tokens_match_baseline"] = True
+        stats["baseline_decode_tok_s"] = base["decode_tok_s"]
+        stats["decode_speedup_speculative"] = (
+            decode_tok_s / base["decode_tok_s"])
+        print(f"[serve-spec] speedup vs non-speculative: "
+              f"{stats['decode_speedup_speculative']:.2f}x (tokens "
+              "identical)")
     if return_stats:
         return gen_tokens, stats
     return gen_tokens
@@ -131,7 +321,8 @@ def serve_continuous(arch: str, smoke: bool = True, slots: int = 2,
                      draft_k: int = 0, paged: Optional[PagedLayout] = None,
                      prefill_chunk: Optional[int] = None,
                      prefix_sharing: bool = True, metrics: bool = False,
-                     device=None, params=None):
+                     device=None, params=None, plan=None,
+                     draft_adc_bits=None, adaptive_draft_k: bool = False):
     """Continuous-batching driver: a mixed-length request queue served
     from a fixed pool of ``slots`` decode slots (launch/scheduler.py).
 
@@ -141,22 +332,19 @@ def serve_continuous(arch: str, smoke: bool = True, slots: int = 2,
     equal -- the scheduler may only reorder work, never change it; a
     paged run is compared with the contiguous scheduler instead.
     ``params`` injects float params instead of a fresh init from
-    ``seed``.  Speculative rounds, telemetry and sampling are not ported
-    yet and raise."""
-    if temperature > 0:
-        raise NotImplementedError(
-            "sampling at temperature > 0 waits on jax.random parity; the "
-            "torch driver is greedy only")
-    if draft_k:
-        raise NotImplementedError("speculative rounds are not ported yet")
+    ``seed``; ``plan`` serves a ``DeploymentPlan`` (implies cim).
+    ``draft_k > 0`` turns on speculative rounds in the scheduler, drafting
+    under the all-analog shadow of the serving plan at
+    ``draft_adc_bits``; greedy tokens still equal the non-speculative
+    lock-step baseline's.  Telemetry and sampling are not ported yet and
+    raise."""
+    _greedy_only(temperature)
     if metrics:
         raise NotImplementedError("telemetry is not ported yet")
     dev = resolve_device(device)
-    cfg = get_config(arch, smoke=smoke)
-    if not fuse:
-        cfg = dataclasses.replace(cfg, cim_fuse=False)
-    if cim:
-        cfg = dataclasses.replace(cfg, cim_mode=True)
+    cfg, cim = _model_config(arch, smoke, cim, plan, fuse)
+    draft_plan = (draft_plan_for_model(cfg, draft_adc_bits) if draft_k
+                  else None)
     requests = mixed_length_requests(n_requests, prompt_len, cfg.vocab_size,
                                      stop_lengths=stop_lengths, seed=seed)
     cap = max(stop_lengths)
@@ -169,10 +357,12 @@ def serve_continuous(arch: str, smoke: bool = True, slots: int = 2,
             params = lm.pack_cim_params(params, cfg, dev)
         _sync(dev)
         t_pack = time.perf_counter() - t0
+    spec = dict(draft_k=draft_k, draft_plan=draft_plan,
+                adaptive_draft_k=adaptive_draft_k)
     sched = ContinuousBatchingScheduler(
         params, cfg, slots=slots, prompt_len=prompt_len, max_new_cap=cap,
         paged=paged, prefill_chunk=prefill_chunk,
-        prefix_sharing=prefix_sharing)
+        prefix_sharing=prefix_sharing, **spec)
     report = sched.run(requests)
     want = report.tokens_by_rid()
     stats = dict(arch=arch, n_layers=cfg.n_layers, slots=slots,
@@ -187,6 +377,13 @@ def serve_continuous(arch: str, smoke: bool = True, slots: int = 2,
                      b: 1e3 * t / report.branch_counts[b]
                      for b, t in report.branch_s.items()
                      if report.branch_counts[b]})
+    if plan is not None:
+        stats["plan"] = plan.summary()
+    if draft_k:
+        stats.update(draft_k=draft_k,
+                     draft_plan=draft_plan.summary()["<default>"],
+                     adaptive_draft_k=adaptive_draft_k,
+                     draft_steps=report.draft_steps)
     if paged is not None:
         drained = report.ref_final.tolist() == [1] + [0] * (paged.n_blocks - 1)
         stats["paged"] = dict(
@@ -205,7 +402,7 @@ def serve_continuous(arch: str, smoke: bool = True, slots: int = 2,
             # activation by one ulp, and in CIM mode an ADC code with it)
             ref = ContinuousBatchingScheduler(
                 params, cfg, slots=slots, prompt_len=prompt_len,
-                max_new_cap=cap).run(requests).tokens_by_rid()
+                max_new_cap=cap, **spec).run(requests).tokens_by_rid()
             same = [np.array_equal(want[rid], ref[rid]) for rid in ref]
             stats["tokens_equal_contiguous_share"] = sum(same) / len(same)
             if dev.type != "cuda":
@@ -226,6 +423,9 @@ def serve_continuous(arch: str, smoke: bool = True, slots: int = 2,
         stats["tokens_match_lockstep"] = True
         stats["speedup_vs_lockstep"] = round(report.tok_s / base.tok_s, 2)
     mode = "cim-packed" if cim else "fp"
+    if draft_k:
+        mode += f"+spec-k{draft_k}" + ("-adaptive" if adaptive_draft_k
+                                       else "")
     if paged is not None:
         mode += f"+paged-bs{paged.block_size}"
     line = (f"[serve-cb] {arch} ({mode}, {dev}): {n_requests} reqs over "
@@ -249,6 +449,18 @@ def main():
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--cim", action="store_true")
     ap.add_argument("--no-fuse", dest="fuse", action="store_false")
+    ap.add_argument("--speculative", action="store_true",
+                    help="plan-cascade speculative decoding (analog draft "
+                         "and deployed verify from one pack; implies "
+                         "--cim)")
+    ap.add_argument("--draft-k", type=int, default=8,
+                    help="(--speculative) draft block length per round")
+    ap.add_argument("--draft-adc-bits", type=int, default=None,
+                    help="(--speculative) draft SAR width (default: the "
+                         "smallest non-clipping width per entry)")
+    ap.add_argument("--adaptive-draft-k", action="store_true",
+                    help="(--speculative --continuous) feed the measured "
+                         "acceptance back into the draft depth")
     ap.add_argument("--continuous", action="store_true",
                     help="continuous batching over a mixed-length queue")
     ap.add_argument("--requests", type=int, default=8,
@@ -269,27 +481,37 @@ def main():
                     help="torch device (default: cuda; 'cpu' runs the "
                          "plain reference path)")
     args = ap.parse_args()
+    draft_k = args.draft_k if args.speculative else 0
     if args.continuous:
         paged = None
         if args.paged_blocks:
-            # the default workload's longest budget is 16 tokens
+            # the default workload's longest budget is 16 tokens, and a
+            # speculative round writes draft_k rows past it
             paged = PagedLayout(
                 block_size=args.block_size,
-                n_tbl=cdiv(args.prompt_len + 16, args.block_size),
+                n_tbl=cdiv(args.prompt_len + 16 + draft_k, args.block_size),
                 n_blocks=args.paged_blocks)
         toks, _ = serve_continuous(
             args.arch, smoke=args.smoke, slots=args.batch,
             prompt_len=args.prompt_len, n_requests=args.requests,
-            cim=args.cim, seed=args.seed, fuse=args.fuse, paged=paged,
-            prefill_chunk=args.prefill_chunk,
-            prefix_sharing=args.prefix_sharing, device=args.device)
+            cim=args.cim or args.speculative, seed=args.seed, fuse=args.fuse,
+            paged=paged, prefill_chunk=args.prefill_chunk,
+            prefix_sharing=args.prefix_sharing, device=args.device,
+            draft_k=draft_k, draft_adc_bits=args.draft_adc_bits,
+            adaptive_draft_k=args.adaptive_draft_k)
         for rid in sorted(toks):
             print(rid, toks[rid].tolist())
         return
-    toks = serve(args.arch, smoke=args.smoke, batch=args.batch,
-                 prompt_len=args.prompt_len, gen=args.gen, cim=args.cim,
-                 seed=args.seed, fuse=args.fuse,
-                 device=args.device)
+    if args.speculative:
+        toks = serve_speculative(
+            args.arch, smoke=args.smoke, batch=args.batch,
+            prompt_len=args.prompt_len, gen=args.gen, draft_k=args.draft_k,
+            draft_adc_bits=args.draft_adc_bits, seed=args.seed,
+            fuse=args.fuse, device=args.device)
+    else:
+        toks = serve(args.arch, smoke=args.smoke, batch=args.batch,
+                     prompt_len=args.prompt_len, gen=args.gen, cim=args.cim,
+                     seed=args.seed, fuse=args.fuse, device=args.device)
     print(np.array2string(toks, max_line_width=120))
 
 

@@ -74,7 +74,9 @@ class ModelConfig:
     # the paged-attention decode read, routed the same way (a port-only
     # field, like cim_use_kernel)
     paged_attn_use_kernel: Optional[bool] = None
-    cim_plan: Optional[Any] = None     # deployment plans: a later slice
+    # deployment plan (repro_torch.plan.DeploymentPlan): each projection
+    # path resolves to its own macro config and fidelity
+    cim_plan: Optional[Any] = None
     cim_fuse: bool = True              # fuse QKV and gate/up into one GEMM
     cim_noise_seed: Optional[int] = None   # analog noise: a later slice
 

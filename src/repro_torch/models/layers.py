@@ -36,11 +36,15 @@ _FAR = 10 ** 9        # k position of a padded / unwritten key
 
 def cim_engine(cfg: ModelConfig, path: Optional[str] = None) -> CimEngine:
     """The execution engine a model config resolves to (macro config,
-    fidelity and kernel routing all come from the config)."""
-    if cfg.cim_plan is not None:
-        raise NotImplementedError("deployment plans are not ported yet")
+    fidelity and kernel routing all come from the config).  With a
+    deployment plan (``cfg.cim_plan``) the projection ``path`` (e.g.
+    "attn/wq") resolves to its own entry's macro config and fidelity."""
     if cfg.cim_noise_seed is not None:
         raise NotImplementedError("analog-noise serving is not ported yet")
+    if cfg.cim_plan is not None and path is not None:
+        e = cfg.cim_plan.resolve(path)
+        return CimEngine(cfg=e.cfg, fidelity=e.fidelity,
+                         use_kernel=cfg.cim_use_kernel)
     return CimEngine(cfg=cfg.cim_cfg or DEFAULT_CONFIG,
                      fidelity=cfg.cim_fidelity,
                      use_kernel=cfg.cim_use_kernel)
@@ -48,18 +52,33 @@ def cim_engine(cfg: ModelConfig, path: Optional[str] = None) -> CimEngine:
 
 def _dense(x: torch.Tensor, w, cfg: ModelConfig,
            path: Optional[str] = None) -> torch.Tensor:
-    """x (..., K) @ w (K, N); packed weights run on the macro."""
+    """x (..., K) @ w (K, N); packed weights run on the macro.  ``path``
+    names the projection for the deployment plan; a plan's ``float``
+    fidelity bypasses the macro."""
     if isinstance(w, PackedCimWeights):
         if not cfg.cim_mode:
             raise ValueError(
                 "packed CIM weights require cim_mode=True (packed params "
                 "are macro array contents, not float matrices)")
-        return cim_engine(cfg, path).matmul(x, w)
+        eng = cim_engine(cfg, path)
+        if eng.fidelity == "float":
+            raise ValueError(
+                f"plan assigns fidelity 'float' to {path!r} but its weights "
+                "are packed macro array contents; re-pack under the plan "
+                "(lm.pack_cim_params leaves float-fidelity sites unpacked)")
+        return eng.matmul(x, w)
     if cfg.cim_mode:
+        if cim_engine(cfg, path).fidelity == "float":
+            return matmul(x, w)
         raise NotImplementedError(
             "unpacked CIM serving is not ported yet; pack the weights "
             "(lm.pack_cim_params)")
     return matmul(x, w)
+
+
+# rows of every bf16 GEMM on the card: the rows are cut into tiles of
+# this many (the last zero-padded), so each GEMM call has one shape
+_ROW_TILE = 64
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -68,19 +87,49 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     On the CPU the product runs as a float32 GEMM and is rounded once:
     that reproduces the reference's bf16 dots bit for bit, where the
     CPU's own bf16 GEMM sums in another order and flips a few bf16
-    results.  On CUDA the bf16 GEMM accumulates in float32 already."""
-    if x.is_cuda:
-        return x @ w
-    return (x.to(torch.float32) @ w.to(torch.float32)).to(x.dtype)
+    results.  On CUDA the bf16 GEMM accumulates in float32 already, and
+    the rows go through in ``_ROW_TILE``-row GEMMs of one shape: cuBLAS
+    picks its algorithm (tiles, split-K) by M, so a row's sum order
+    would otherwise depend on how many rows came with it, and a verify
+    forward over k+1 positions must give each position the decode
+    step's logits bit for bit."""
+    if not x.is_cuda:
+        return (x.to(torch.float32) @ w.to(torch.float32)).to(x.dtype)
+    lead, k = x.shape[:-1], x.shape[-1]
+    rows = x.reshape(-1, k)
+    r = rows.shape[0]
+    rows = F.pad(rows, (0, 0, 0, -r % _ROW_TILE))
+    out = torch.cat([rows[i:i + _ROW_TILE] @ w
+                     for i in range(0, rows.shape[0], _ROW_TILE)])
+    return out[:r].reshape(*lead, w.shape[-1])
+
+
+def _tree_sum(t: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in one fixed pairwise order: the axis is
+    zero-padded to a power of two and halved (first half + second half)
+    until one element is left.  Each step sums an axis of two, which is
+    a + b whatever the reduction's layout, so a row's sum does not depend
+    on how many rows there are; and trailing zeros do not change it
+    (x + 0 == x), so neither does the padded length -- a cache of another
+    length gives the same sums."""
+    n = t.shape[-1]
+    t = F.pad(t, (0, (1 << max(n - 1, 0).bit_length()) - n))
+    while t.shape[-1] > 1:
+        t = t.unflatten(-1, (2, t.shape[-1] // 2)).sum(dim=-2)
+    return t[..., 0]
 
 
 FUSED_SEP = "+"   # fused param-leaf key: member names joined, e.g. "wq+wk+wv"
 
 
 def fusion_partitions(cfg: ModelConfig, prefix: str, names) -> list:
-    """Partition fusion-candidate projections by resolved engine:
-    [(macro cfg, fidelity, members)] for groups of two or more.  Without
-    a deployment plan every member resolves to the config's one engine."""
+    """Partition fusion-candidate projections (which share one input
+    activation) by resolved plan entry: [(entry cfg, fidelity, members)]
+    for every partition of two or more.  The one definition of group
+    compatibility: pack time (``lm._pack_tree``) and run time
+    (``_dense_group``) must agree.  Only 'fast' and 'exact' fuse; a
+    'float' site bypasses the macro.  Without a deployment plan every
+    member resolves to the config's one engine."""
     part: Dict[Tuple, list] = {}
     for n in names:
         eng = cim_engine(cfg, prefix + n)
@@ -164,12 +213,15 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     squares in its window order (``_window_sum``), times the float32
     reciprocal of the width as XLA folds the division, and a correctly
     rounded rsqrt (XLA's is within one ulp of it; torch's ``rsqrt``
-    differs more often).  On CUDA one fused mean stands in: the card's
-    bf16 GEMMs sum in another order than the reference anyway."""
+    differs more often).  On CUDA the sum of squares is ``_tree_sum``'s:
+    torch's fused mean picks its reduction layout by the number of rows,
+    and on float32 inputs (the unrounded residual sum) a row's mean then
+    depends on how many rows came with it (``tools/row_probe.py``), where
+    a verify forward must give each row the decode step's norm."""
     dt = x.dtype
     x = x.to(torch.float32)
     if x.is_cuda:
-        r = torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+        r = torch.rsqrt(_tree_sum(x * x)[..., None] / x.shape[-1] + eps)
     else:
         inv_d = float(np.float32(1.0) / np.float32(x.shape[-1]))
         ms = _window_sum(x * x)[..., None] * inv_d
@@ -384,6 +436,13 @@ def _lane_scores(qg: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
 
 def plain_attention(q, k, v, q_pos, k_pos, cfg: ModelConfig, is_local,
                     n_prefix=0) -> torch.Tensor:
+    """Masked softmax attention, materialized.  On CUDA the softmax sum
+    and P.V sum over the keys in ``_tree_sum``'s order (elementwise
+    products, no GEMM): a library reduction or batched GEMM picks its
+    order by its shapes, and a query must get the same bits whether it
+    comes alone (a decode step) or with k others (a verify forward), and
+    whatever the cache's length (lock-step and speculative serving size
+    their caches differently)."""
     B, Sq, Hq, Dh = q.shape
     _, Sk, Hkv, _ = k.shape
     G = Hq // Hkv
@@ -393,6 +452,12 @@ def plain_attention(q, k, v, q_pos, k_pos, cfg: ModelConfig, is_local,
     msk = _mask(q_pos, k_pos, is_local, cfg.sliding_window, n_prefix)
     s = torch.where(msk[:, None, None, :, :], s, _NEG)
     e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    if q.is_cuda:
+        p = e / _tree_sum(e)[..., None]
+        vt = v.to(torch.float32).permute(0, 2, 3, 1)[:, :, None, None]
+        pv = p.to(v.dtype).to(torch.float32)[..., None, :] * vt
+        out = _tree_sum(pv).permute(0, 3, 1, 2, 4).to(v.dtype)
+        return out.reshape(B, Sq, Hq, Dh)
     p = e / e.sum(dim=-1, keepdim=True)          # jax.nn.softmax's form
     out = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype).to(torch.float32),
                        v.to(torch.float32)).to(v.dtype)

@@ -8,6 +8,7 @@ Counterpart of ``repro/models/lm.py`` (dense serve subset):
   init_cache / init_paged_cache           -> contiguous / paged KV cache
   prefill(params, cfg, tokens, cache)     -> logits, cache
   decode_step(params, cfg, token, cache, live=None) -> logits, cache
+  verify_step(params, cfg, tokens, cache, live=None) -> logits, cache
   prefill_into_slot / prefill_chunk_into_slot / reset_slot
 
 The params tree has the reference's layout: ``params["layers"]`` holds
@@ -19,6 +20,7 @@ decode, and the slot ops write their slot of every entry in place.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
@@ -102,10 +104,14 @@ def _pack_single(path: str, v, cfg: ModelConfig):
 
 
 def _pack_tree(tree: Params, cfg: ModelConfig, path=()) -> Params:
-    """Fusion-aware packing walk: each fusion group present at a dict
-    level packs as ONE ``FusedPackedCimWeights`` under a "wq+wk+wv"-style
-    key (column-local scales and quantization keep it bit-identical per
-    segment to separate packs); other projections pack alone."""
+    """Fusion-aware packing walk.  At every dict level each fusion group
+    splits into partitions by resolved plan entry
+    (``layers.fusion_partitions``); a partition of two or more sites
+    packs as ONE ``FusedPackedCimWeights`` under a "wq+wk+wv"-style key,
+    under its entry's config (column-local scales and quantization keep
+    it bit-identical per segment to separate packs).  Every other
+    projection packs alone under its own entry, and a site the plan
+    keeps ``float`` stays a raw matrix."""
     out = dict(tree)
     consumed = set()
     if cfg.cim_fuse:
@@ -144,8 +150,10 @@ def _to_device(tree, device):
 
 def pack_cim_params(params: Params, cfg: ModelConfig, device=None) -> Params:
     """Replace every _dense-consumed projection with packed macro array
-    contents, on ``device`` (CUDA unless ``device="cpu"``).  With
-    cfg.cim_fuse, QKV and gate/up pack as one wide fused leaf each."""
+    contents, on ``device`` (CUDA unless ``device="cpu"``).  Under a
+    deployment plan each projection packs under its own entry's config
+    and ``float`` sites stay raw.  With cfg.cim_fuse, QKV and gate/up
+    pack as one wide fused leaf per plan-compatible partition."""
     if not cfg.cim_mode:
         raise ValueError("pack_cim_params requires cfg.cim_mode=True")
     return _pack_tree(_to_device(params, resolve_device(device)), cfg)
@@ -376,4 +384,39 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, cache: Dict,
     wmask = live if (live is not None and is_paged(cache)) else None
     x = _stack(params, cfg, x, pos[:, None], cache, pos, write_mask=wmask)
     cache["pos"] = pos + (1 if live is None else live.to(torch.int32))
+    return _logits(params, cfg, x), cache
+
+
+def verify_step(params, cfg: ModelConfig, tokens: torch.Tensor, cache: Dict,
+                live: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Dict]:
+    """tokens (B, S) -> logits (B, S, V): the speculative-verify forward.
+
+    All S = k+1 positions of a draft block go through the model in ONE
+    forward (every projection sees a (B*S, K) GEMM: kernel row 1 up to
+    32 rows, row 2 above), writing KV rows at ``cache["pos"] + [0, S)``.
+    ``cache["pos"]`` is NOT advanced: the caller commits the accepted
+    prefix by setting pos, which is also the whole rollback -- rows past
+    the committed pos are masked by the attention's validity horizon and
+    overwritten by the next round.
+
+    Position i's logits equal what ``decode_step`` gives after
+    committing tokens[:, :i+1]: the attention is pinned to the plain
+    read (decode's own S == 1 route), and every other operation is
+    row-local with a per-row result that does not depend on the number
+    of rows (on the card ``layers.rms_norm``, ``layers.matmul`` and
+    ``layers.plain_attention`` see to that; ``tools/row_probe.py`` and
+    ``tools/verify_divergence.py`` measure it).  ``live``
+    matters only for paged caches: it sends non-live rows' writes to the
+    trash block."""
+    _dense_only(cfg)
+    if cfg.attn_impl != "plain":
+        cfg = dataclasses.replace(cfg, attn_impl="plain")
+    x = _embed(params, cfg, tokens)
+    B, S, _ = x.shape
+    pos = cache["pos"]
+    positions = pos[:, None] + torch.arange(S, device=x.device)[None, :]
+    cache = dict(cache)
+    wmask = live if (live is not None and is_paged(cache)) else None
+    x = _stack(params, cfg, x, positions, cache, pos, write_mask=wmask)
     return _logits(params, cfg, x), cache

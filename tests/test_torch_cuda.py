@@ -517,3 +517,133 @@ def test_plain_fidelities_on_the_card_equal_cpu(dev, fidelity):
     got = ccim.cim_matmul_int(x.to(dev), w.to(dev), fidelity=fidelity,
                               macro=macro.to(dev))
     assert torch.equal(got.cpu(), want)
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding: row-invariant forwards, the verify contract
+# ---------------------------------------------------------------------------
+
+_ROW_COUNTS = (1, 2, 4, 8, 18, 32, 36, 40, 65)
+
+
+def _smoke_cfg():
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("minicpm-2b", smoke=True),
+                               cim_mode=True)
+
+
+def _mixed_plan():
+    from repro_torch import plan as TP
+    return TP.DeploymentPlan.from_dict({
+        "mlp/w2": TP.DIGITAL_ENTRY,
+        "attn/wq": TP.PlanEntry(cfg=CCIMConfig(n_dcim_products=0, adc_bits=8),
+                                label="analog0/adc8"),
+        "attn/wo": TP.PlanEntry(cfg=CCIMConfig(n_dcim_products=5, adc_bits=8),
+                                label="hybrid5/adc8"),
+        "mlp/w3": TP.FLOAT_ENTRY,
+    }, default=TP.PlanEntry(cfg=CCIMConfig(acc_len=32, adc_bits=8),
+                            label="hybrid3/adc8/L32"))
+
+
+def test_model_ops_are_row_invariant(dev):
+    """The row-local float operations of a forward give each row the same
+    bits whatever the number of rows beside it: the bf16 GEMM (lm_head
+    at minicpm-2b's width), rms_norm and the plain attention read."""
+    from repro_torch.models import layers as L
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    n = max(_ROW_COUNTS)
+    xf = torch.randn((n, 2304), generator=gen, device=dev)
+    x = xf.to(torch.bfloat16)
+    w = (torch.randn((2304, 122753), generator=gen, device=dev)
+         * 0.02).to(torch.bfloat16)
+    g = torch.randn((2304,), generator=gen, device=dev).to(torch.bfloat16)
+    # rms_norm sees bf16 rows and the float32 residual sum
+    y, r, rf = L.matmul(x, w), L.rms_norm(x, g, 1e-6), L.rms_norm(xf, g, 1e-6)
+    cfg = dataclasses.replace(_smoke_cfg(), attn_impl="plain")
+    B, Sk, H, Dh = 3, 57, 48, 64
+    k = torch.randn((B, Sk, H, Dh), generator=gen, device=dev).to(
+        torch.bfloat16)
+    v = torch.randn((B, Sk, H, Dh), generator=gen, device=dev).to(
+        torch.bfloat16)
+    q = torch.randn((B, 9, H, Dh), generator=gen, device=dev).to(
+        torch.bfloat16)
+    kpos = torch.arange(Sk, device=dev)[None].expand(B, Sk)
+    kpos = torch.where(kpos < 40, kpos, 10 ** 9)
+    qpos = 31 + torch.arange(9, device=dev)[None].expand(B, 9)
+    a = L.plain_attention(q, k, v, qpos, kpos, cfg, False)
+    for m in _ROW_COUNTS:
+        assert torch.equal(L.matmul(x[:m], w), y[:m]), m
+        assert torch.equal(L.rms_norm(x[:m], g, 1e-6), r[:m]), m
+        assert torch.equal(L.rms_norm(xf[:m], g, 1e-6), rf[:m]), m
+    for i in range(9):
+        one = L.plain_attention(q[:, i:i + 1], k, v, qpos[:, i:i + 1], kpos,
+                                cfg, False)
+        assert torch.equal(one, a[:, i:i + 1]), i
+    # a longer cache whose extra rows are masked gives the same bits
+    pad = lambda t: torch.cat([t, t[:, :24]], dim=1)
+    kpos2 = torch.cat([kpos, torch.full_like(kpos[:, :24], 10 ** 9)], 1)
+    assert torch.equal(L.plain_attention(q, pad(k), pad(v), qpos, kpos2, cfg,
+                                         False), a)
+
+
+@pytest.mark.parametrize("width", ["smoke", "full"])
+@pytest.mark.parametrize("plan", [None, "mixed"])
+@pytest.mark.parametrize("batch", [2, 4])
+def test_verify_step_equals_decode_chain_on_card(dev, width, plan, batch):
+    """The verify forward over k+1 = 9 positions (M 18 on kernel row 1 at
+    batch 2, M 36 on row 2 at batch 4) gives each position the logits of
+    the decode step that would produce it, bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    cfg = _smoke_cfg()
+    if width == "full":
+        cfg = dataclasses.replace(get_config("minicpm-2b"), cim_mode=True)
+    if plan:
+        cfg = dataclasses.replace(cfg, cim_plan=_mixed_plan())
+    S, P = 9, 16
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(batch)
+    with torch.inference_mode():
+        params = lm.pack_cim_params(lm.init(gen, cfg), cfg)
+        prompt = torch.randint(0, cfg.vocab_size, (batch, P), generator=gen,
+                               device=dev)
+        toks = torch.randint(0, cfg.vocab_size, (batch, S), generator=gen,
+                             device=dev)
+        cache = lm.init_cache(cfg, batch, P + 2 * S + 1)
+        _, cache = lm.prefill(params, cfg, prompt, cache)
+        clone = lambda c: {k: v.clone() for k, v in c.items()}
+        c, chain = clone(cache), []
+        for i in range(S):
+            lg, c = lm.decode_step(params, cfg, toks[:, i:i + 1], c)
+            chain.append(lg[:, -1])
+        K.reset_launch_counts()
+        vlg, vc = lm.verify_step(params, cfg, toks, clone(cache))
+        torch.cuda.synchronize()
+    launched = (K.ccim_matmul_prepacked_skinny_cuda.launches
+                if batch * S <= K.SKINNY_M
+                else K.ccim_matmul_prepacked_general_cuda.launches)
+    # fused QKV, wo, gate-up, w2 a layer; under the plan wq, wk+wv, wo, w1
+    assert launched == 4 * cfg.n_layers
+    assert torch.equal(vlg, torch.stack(chain, dim=1))
+    for key in ("k", "v"):
+        assert torch.equal(vc[key], c[key])
+
+
+def test_mixed_plan_serve_kernel_equals_plain(dev):
+    """Serving under a mixed plan through the kernels and through their
+    plain versions: equal tokens and logits, and the kernels carry every
+    packed fast site (wq, wk+wv, wo, w1: 4 a layer a forward)."""
+    from repro_torch.launch.serve import serve
+    runs = []
+    for use_kernel in (None, False):
+        K.reset_launch_counts()
+        toks, stats = serve("minicpm-2b", smoke=True, batch=4, prompt_len=32,
+                            gen=8, plan=_mixed_plan(), use_kernel=use_kernel,
+                            return_stats=True)
+        runs.append((toks, stats["last_logits"],
+                     K.ccim_matmul_prepacked_general_cuda.launches,
+                     K.ccim_matmul_prepacked_skinny_cuda.launches))
+    (tk, lk, gk, sk), (tp, lp, gp, sp) = runs
+    assert (tk == tp).all() and torch.equal(lk, lp)
+    assert (gk, sk) == (4 * 2, 4 * 2 * 7) and (gp, sp) == (0, 0)

@@ -173,10 +173,14 @@ def test_serve_continuous_drivers():
         np.testing.assert_array_equal(ptoks[rid], toks[rid])
 
 
-@pytest.mark.parametrize("kw", [dict(temperature=0.7), dict(draft_k=4),
+@pytest.mark.parametrize("kw", [dict(temperature=0.7), dict(family="moe"),
                                 dict(obs=object())])
 def test_unported_options_raise(kw):
-    cfg = tget("minicpm-2b", smoke=True)
+    """Options the port does not serve yet raise (speculative rounds,
+    ``draft_k``, are served now: tests/test_torch_spec_scheduler.py)."""
+    kw = dict(kw)
+    cfg = dataclasses.replace(tget("minicpm-2b", smoke=True),
+                              family=kw.pop("family", "dense"))
     with pytest.raises(NotImplementedError):
         TS.ContinuousBatchingScheduler({"x": torch.zeros(1)}, cfg, slots=2,
                                        prompt_len=4, max_new_cap=4, **kw)
