@@ -130,7 +130,37 @@ failure.  Phases:
      phase 9's 16 requests over 8 slots, contiguous, pool tokens equal
      phase 9's and the lock-step waves'; then 8 of them paged as in phase
      10, with the paged read launched 40 times a draft step and the token
-     agreement with phase 10 reported.
+     agreement with phase 10 reported;
+ 25. phase 4's serve eager and with its decode step replayed from a CUDA
+     graph, in turns (eager, captured, captured, eager): every turn's
+     tokens, last logits and launches equal phase 4's; decode tok/s,
+     replayed-step tok/s, capture seconds, graph pool bytes and peak
+     memory; a torch.profiler trace of three eager and three replayed
+     steps of one decode body (``device_breakdown``), in which each
+     replay ran as many of each serving kernel as the graph credits;
+ 26. phase 23's two speculative cases with the round captured, against
+     captured lock-step serving in turns: speculative tokens equal
+     lock-step ones, launches as phase 23 counts them per round; two
+     replayed rounds of each case traced, kernels equal to the credit;
+ 27. the scheduler with its step branch captured (one graph for the
+     pooled step, one per rung of the speculative ladder) at phase 9's
+     queue, phase 24's speculative queue (contiguous) and phase 10's paged
+     queue, against the eager scheduler in turns: pool tokens,
+     iterations by branch and launches equal the eager run's; tok/s, ms
+     per branch and each branch's share of the wall time; one replay of
+     each graph traced, kernels equal to the credit.
+
+The serving drivers replay captured graphs by default on the card
+(``launch/graphs.py``), so phases 9, 11, 22 and 24 serve captured.  A
+replay launches its kernels without calling their wrappers, so a graph
+credits each wrapper's count at every replay with what its capture
+counted; phases 25-27 hold that credit to the profiler's trace.  Phases
+4-5 and 10, whose counts are the kernels line's ``launches``, and phase
+23, whose records measure eager dispatch, pass ``graphs=False``: their
+counts are ticks of the wrappers themselves.  Phases 6 and 12 profile
+``lm.decode_step`` called directly (eager).  Every profile's device busy
+time is the union of its device-side events' intervals
+(``device_breakdown``).
 
 Every row of the kernels table carries ``ms`` (CUDA events around one
 call, host wrapper included), ``device_ms`` (CUDA-graph replays, the
@@ -145,6 +175,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -186,10 +217,37 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
+# the serving paths' kernels: each wrapper's launch runs one kernel of
+# this symbol (row 3's split merge is a second kernel of another name)
+KERNEL_SYMBOLS = {"ccim_matmul_prepacked_skinny_cuda": "skinny_kernel",
+                  "ccim_matmul_prepacked_general_cuda": "general_kernel",
+                  "paged_attention_cuda": "paged_attn_walk"}
+# a symbol, demangled (``::skinny_kernel<``) or mangled (``13skinny_kernel``),
+# and not the tail of another (``complex_skinny_kernel``)
+SYMBOL_RE = {s: re.compile(rf"(?<![A-Za-z_]){s}")
+             for s in KERNEL_SYMBOLS.values()}
+
+
 def device_breakdown(prof, steps: int, wall_ms: float) -> dict:
-    """Per-step device busy time, idle share, aten calls and the top
-    device and host self times from a torch.profiler trace of ``steps``
-    steps of ``wall_ms`` each."""
+    """Per step of a torch.profiler trace of ``steps`` steps of
+    ``wall_ms`` each: device busy time as the union of the device-side
+    events' intervals (kernels, memsets, copies: each counted once,
+    whether a host op or a graph replay launched it), the idle share,
+    device events, the serving kernels by symbol, aten calls, and the
+    top device and host self times."""
+    from torch.autograd import DeviceType
+    spans, symbols = [], dict.fromkeys(SYMBOL_RE, 0)
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        for sym, pat in SYMBOL_RE.items():
+            symbols[sym] += bool(pat.search(e.name))
+    busy_us, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
     dev_us, host_us, aten_calls = {}, {}, 0
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total", 0) or 0
@@ -198,11 +256,16 @@ def device_breakdown(prof, steps: int, wall_ms: float) -> dict:
         if e.key.startswith("aten::"):
             host_us[e.key] = e.self_cpu_time_total
             aten_calls += e.count
-    busy_ms = sum(dev_us.values()) / 1e3 / steps
+    busy_ms = busy_us / 1e3 / steps
     per_step = lambda d: {k[:60]: v / 1e3 / steps for k, v in
                           sorted(d.items(), key=lambda kv: -kv[1])[:8]}
-    return {"device_busy_ms": busy_ms,
-            "device_idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
+    return {"device_busy_ms": busy_ms if spans else None,
+            "device_idle_share": 1 - busy_ms / wall_ms if spans else None,
+            "device_events_per_step": len(spans) / steps,
+            "gap_per_event_us": (1e3 * (wall_ms - busy_ms) * steps
+                                 / len(spans) if spans else None),
+            "kernels_by_symbol_per_step": {k: n / steps
+                                           for k, n in symbols.items()},
             "aten_calls_per_step": aten_calls / steps,
             "top_device_ms_per_step": per_step(dev_us),
             "top_host_self_ms_per_step": per_step(host_us)}
@@ -382,7 +445,7 @@ def continuous_phases(torch, dev, params, cfg_full) -> dict:
     reset()
     toks_p, st_p = serve_continuous("minicpm-2b", compare_lockstep=False,
                                     paged=layout, prefill_chunk=chunk,
-                                    **common)
+                                    graphs=False, **common)
     n_p = launches()
     n_steps = st_p["continuous"]["n_steps"]
     check(n_p["paged_attn"] == cfg_full.n_layers * n_steps,
@@ -508,7 +571,9 @@ def first_step_logits(torch, dev, packed, cfg, cfg_plain, reqs, layout,
             last.append(torch.argmax(lg[0, (plen - 1) % chunk]))
         tok = torch.stack(last)[:, None]
         live = torch.ones((B,), dtype=torch.bool, device=dev)
+        pos0 = cache["pos"].clone()
         lk, _ = lm.decode_step(packed, cfg, tok, cache, live=live)
+        cache["pos"].copy_(pos0)                # the plain step, same state
         lp, _ = lm.decode_step(packed, cfg_plain, tok, cache, live=live)
         prof_rec = None
         if profile:
@@ -1656,7 +1721,7 @@ def speculative_phase(torch, dev, params, cfg_full) -> dict:
     for batch, plen, gen, k in SPEC_CASES:
         m = batch * (k + 1)
         common = dict(smoke=False, batch=batch, prompt_len=plen, gen=gen,
-                      params=params, return_stats=True)
+                      params=params, return_stats=True, graphs=False)
         tok_s = {"lockstep": [], "speculative": []}
         for turn in ("lockstep", "speculative", "speculative", "lockstep"):
             if turn == "lockstep":
@@ -1822,6 +1887,328 @@ def continuous_speculative_phase(torch, dev, params, cfg_full,
                 k_: n_p[k_] for k_ in ("general", "skinny")}},
             "paged_attn": n_p["paged_attn"]}
 
+# -- phases 25-27: the serving bodies as CUDA graphs -----------------------
+
+GRAPH_TURNS = ("eager", "captured", "captured", "eager")
+
+
+def profile_steps(torch, step, steps: int = 3) -> dict:
+    """``device_breakdown`` of ``steps`` calls of ``step`` under the
+    profiler, after a synchronization, with the wall time per step."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+    return {"step_wall_ms": wall_ms,
+            **device_breakdown(prof, steps, wall_ms)}
+
+
+def graph_nodes(graph) -> tuple:
+    """A captured ``StepGraph``'s kernel nodes by serving-kernel symbol,
+    and its count of nodes that run on the device (kernels, copies,
+    memsets), read from the kept graph with the driver API."""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def call(fn, *args):
+        rc = getattr(cu, fn)(*args)
+        check(rc == 0, f"{fn} returned {rc}")
+
+    h = ctypes.c_void_p(graph.graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    call("cuGraphGetNodes", h, None, ctypes.byref(n))
+    nodes = (ctypes.c_void_p * n.value)()
+    call("cuGraphGetNodes", h, nodes, ctypes.byref(n))
+    symbols, on_device = dict.fromkeys(SYMBOL_RE, 0), 0
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        call("cuGraphNodeGetType", ctypes.c_void_p(node), ctypes.byref(kind))
+        on_device += kind.value in (0, 1, 2)     # kernel, memcpy, memset
+        if kind.value != 0:
+            continue
+        params = (ctypes.c_byte * 256)()  # CUDA_KERNEL_NODE_PARAMS_v2
+        call("cuGraphKernelNodeGetParams_v2", ctypes.c_void_p(node), params)
+        func = ctypes.c_void_p.from_buffer(params).value   # its first field
+        name = ctypes.c_char_p()
+        call("cuFuncGetName", ctypes.byref(name), ctypes.c_void_p(func))
+        for sym, pat in SYMBOL_RE.items():
+            symbols[sym] += bool(pat.search(name.value.decode()))
+    return symbols, on_device
+
+
+def check_replays(torch, graph, label: str) -> dict:
+    """What a replay of a captured ``graph`` (a ``StepGraph``) launches:
+    its kernel nodes by symbol must equal what the graph credits to the
+    wrappers' counts, and a profiler trace of one replay must show them
+    run.  Late in this script the profiler drops a few of a replay's
+    device events (PERF.md), so the trace must show every such kernel
+    when it lost no event, and no fewer than the nodes less the events
+    lost."""
+    check(set(graph.launches) <= set(KERNEL_SYMBOLS), f"{label}: the graph "
+          f"credits {graph.launches}, outside {sorted(KERNEL_SYMBOLS)}")
+    want = {s: graph.launches.get(w, 0) for w, s in KERNEL_SYMBOLS.items()}
+    check(any(want.values()), f"{label}: a replay runs no serving kernel")
+    nodes, on_device = graph_nodes(graph)
+    check(nodes == want, f"{label}: the graph holds kernel nodes {nodes}, "
+          f"it credits {want}")
+    rec = profile_steps(torch, graph, steps=1)
+    got, lost = rec["kernels_by_symbol_per_step"], (
+        on_device - rec["device_events_per_step"])
+    check(lost >= 0, f"{label}: a replay's trace holds more device events "
+          f"than the graph's {on_device} nodes")
+    check(all(want[s] - lost <= got[s] <= want[s] for s in want),
+          f"{label}: the trace of a replay ran {got} kernels, losing "
+          f"{lost} of {on_device} device events; the graph holds {want}")
+    return dict(rec, graph_kernel_nodes=nodes, graph_device_nodes=on_device,
+                trace_events_lost=lost)
+
+
+def captured_serve_phase(torch, dev, params, cfg_full, phase4) -> dict:
+    """Phase 25: phase 4's lock-step serve with its decode step captured,
+    against eager serving in turns, and a profile of eager and replayed
+    steps.  Returns the captured runs' launches."""
+    from repro_torch.launch.graphs import StepGraph
+    from repro_torch.launch.serve import decode_body, serve
+    from repro_torch.models import lm
+
+    batch, plen, gen = 4, 32, 16
+    want_toks, want_logits, want_launches = phase4
+    turns = []
+    for turn in GRAPH_TURNS:
+        _reset_all_launches()
+        torch.cuda.reset_peak_memory_stats()
+        toks, st = serve("minicpm-2b", smoke=False, batch=batch,
+                         prompt_len=plen, gen=gen, cim=True, params=params,
+                         graphs=turn == "captured", return_stats=True)
+        launches = _macro_launches()
+        check((toks == want_toks).all(), f"phase 25 {turn}: tokens != "
+              "phase 4's")
+        check(torch.equal(st["last_logits"], want_logits),
+              f"phase 25 {turn}: last logits != phase 4's")
+        check(launches == want_launches, f"phase 25 {turn}: launches "
+              f"{launches} != phase 4's {want_launches}")
+        rec = {"turn": turn, "decode_tok_s": st["decode_tok_s"],
+               "decode_s": st["decode_s"], "prefill_s": st["prefill_s"],
+               "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        for key in ("replay_tok_s", "capture_s", "graph_pool_bytes"):
+            if key in st:
+                rec[key] = st[key]
+        turns.append(rec)
+        captured_launches = launches
+    # eager and replayed steps of one decode body, under the profiler
+    cfg = dataclasses.replace(cfg_full, cim_mode=True)
+    with torch.inference_mode():
+        packed = lm.pack_cim_params(params, cfg, dev)
+        max_seq = plen + 32
+        cache = lm.init_cache(cfg, batch, max_seq, device=dev)
+        prompt = torch.zeros((batch, plen), dtype=torch.int64, device=dev)
+        _, cache = lm.prefill(packed, cfg, prompt, cache)
+        tok = prompt[:, :1].clone()
+        out = torch.zeros((batch, max_seq), dtype=torch.int64, device=dev)
+        col = torch.ones((1, 1), dtype=torch.int64, device=dev)
+        body = decode_body(packed, cfg, tok, cache, out, col)
+        body()                                               # warm
+        eager = profile_steps(torch, body)
+        graph = StepGraph(body, dev)
+        graph()                                              # capture
+        graph()
+        replayed = profile_steps(torch, graph)
+        replay_trace = check_replays(torch, graph, "phase 25 decode step")
+        replay_ms = cuda_ms(graph, reps=5, warmup=1)
+    del packed, cache, graph
+    emit({"phase": "serve_captured", "ok": True, "batch": batch,
+          "prompt_len": plen, "gen": gen, "turns": turns,
+          "tokens_equal_phase4": True, "logits_equal_phase4": True,
+          "launches": captured_launches,
+          "profile_eager_step": eager, "profile_replayed_step": replayed,
+          "replay_trace": replay_trace,
+          "replay_cuda_event_ms": replay_ms,
+          "replay_idle_share_vs_cuda_events": (
+              1 - replayed["device_busy_ms"] / replay_ms
+              if replayed["device_busy_ms"] else None),
+          "trace_kernels_equal_credit": True})
+    return captured_launches
+
+
+def captured_speculative_phase(torch, dev, params, cfg_full) -> dict:
+    """Phase 26: phase 23's speculative cases with the round captured,
+    against captured lock-step serving in turns, and a profile of
+    replayed rounds.  Returns the speculative runs' launches by case."""
+    from repro_torch.data import DataConfig, batch_at
+    from repro_torch.kernels.ccim_matmul import kernel as K
+    from repro_torch.launch.graphs import StepGraph
+    from repro_torch.launch.serve import round_body, serve, serve_speculative
+    from repro_torch.models import lm
+    from repro_torch.plan import draft_plan_for_model
+
+    L = cfg_full.n_layers
+    out = {}
+    for batch, plen, gen, k in SPEC_CASES:
+        m = batch * (k + 1)
+        common = dict(smoke=False, batch=batch, prompt_len=plen, gen=gen,
+                      params=params, return_stats=True, graphs=True)
+        tok_s = {"lockstep": [], "speculative": []}
+        replay_tok_s = {"lockstep": [], "speculative": []}
+        for turn in ("lockstep", "speculative", "speculative", "lockstep"):
+            if turn == "lockstep":
+                base, st = serve("minicpm-2b", cim=True, **common)
+            else:
+                K.reset_launch_counts()
+                spec, st = serve_speculative("minicpm-2b", draft_k=k,
+                                             compare_baseline=False,
+                                             **common)
+                launches, sst = _macro_launches(), st
+                check(_tokens_equal(spec.ravel(), base.ravel()),
+                      f"phase 26 (M {m}): captured speculative tokens != "
+                      "captured lock-step tokens")
+            tok_s[turn].append(st["decode_tok_s"])
+            replay_tok_s[turn].append(st.get("replay_tok_s"))
+        rounds = sst["n_rounds"]
+        row = lambda rows: "skinny" if rows <= K.SKINNY_M else "general"
+        want = {"general": 0, "skinny": 4 * L * k * rounds}
+        want[row(batch * plen)] += 4 * L
+        want[row(m)] += 4 * L * rounds
+        check(launches == want, f"phase 26 (M {m}): launches {launches}, "
+              f"expected {want}")
+        rec = {"batch": batch, "prompt_len": plen, "gen": gen, "draft_k": k,
+               "verify_m": m, "n_rounds": rounds,
+               "acceptance_rate": sst["acceptance_rate"],
+               "tokens_per_round": sst["tokens_per_round"],
+               "launches": launches,
+               "capture_s": sst.get("capture_s"),
+               "graph_pool_bytes": sst.get("graph_pool_bytes"),
+               "decode_tok_s_turns": ["lockstep", "speculative",
+                                      "speculative", "lockstep"],
+               "speculative_decode_tok_s": tok_s["speculative"],
+               "lockstep_decode_tok_s": tok_s["lockstep"],
+               "speculative_over_lockstep": (
+                   statistics.mean(tok_s["speculative"])
+                   / statistics.mean(tok_s["lockstep"])),
+               "speculative_replay_tok_s": replay_tok_s["speculative"],
+               "lockstep_replay_tok_s": replay_tok_s["lockstep"],
+               "tokens_equal_lockstep": True,
+               "timing": "decode_tok_s: the whole decode (the first step "
+                         "or round eager, then the capture, then replays); "
+                         "replay_tok_s: the replays alone"}
+        if None not in replay_tok_s["speculative"] + replay_tok_s["lockstep"]:
+            rec["speculative_over_lockstep_replayed"] = (
+                statistics.mean(replay_tok_s["speculative"])
+                / statistics.mean(replay_tok_s["lockstep"]))
+        # replayed rounds under the profiler, every row live throughout
+        cfg = dataclasses.replace(cfg_full, cim_mode=True)
+        dcfg = dataclasses.replace(cfg,
+                                   cim_plan=draft_plan_for_model(cfg))
+        prompt = torch.from_numpy(batch_at(DataConfig(
+            vocab_size=cfg.vocab_size, seq_len=plen, global_batch=batch,
+            seed=0), 0)["tokens"]).to(dev, torch.int64)
+        with torch.inference_mode():
+            packed = lm.pack_cim_params(params, cfg, dev)
+            cache = lm.init_cache(cfg, batch, plen + 8 * (k + 1) + 2 * k
+                                  + 1, device=dev)
+            lg, cache = lm.prefill(packed, cfg, prompt, cache)
+            tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
+            counts = torch.zeros((batch,), dtype=torch.int64, device=dev)
+            graph = StepGraph(round_body(packed, cfg, dcfg, k, tok, cache,
+                                         counts, 10 ** 6), dev)
+            graph()                                      # capture
+            graph()
+            rec["round_profile_replayed"] = check_replays(
+                torch, graph, f"phase 26 round (M {m})")
+        del packed, cache, graph
+        out[f"serve_speculative_captured_m{m}"] = launches
+        emit({"phase": "serve_speculative_captured", "ok": True, **rec})
+    return out
+
+
+def captured_scheduler_phase(torch, dev, params, cfg_full,
+                             serve_phases) -> dict:
+    """Phase 27: the scheduler with its step branch captured, at phase
+    9's queue (contiguous), phase 24's speculative queue and phase 10's
+    paged queue, against the eager scheduler in turns.  Returns the
+    captured runs' macro and paged-read launches by queue."""
+    from repro_torch.launch.paging import PagedLayout, cdiv
+    from repro_torch.launch.scheduler import (ContinuousBatchingScheduler,
+                                              mixed_length_requests)
+    from repro_torch.models import lm
+    from repro_torch.plan import draft_plan_for_model
+
+    slots, plen, stops, n_req = 8, 64, (8, 24, 16, 32), 16  # phase 9's
+    cfg = dataclasses.replace(cfg_full, cim_mode=True)
+    reqs = mixed_length_requests(n_req, plen, cfg.vocab_size,
+                                 stop_lengths=stops, seed=0)
+    with torch.inference_mode():
+        packed = lm.pack_cim_params(params, cfg, dev)
+    base = dict(slots=slots, prompt_len=plen, max_new_cap=max(stops))
+    queues = {
+        "contiguous": dict(base),
+        "speculative": dict(base, draft_k=4, adaptive_draft_k=True,
+                            draft_plan=draft_plan_for_model(cfg)),
+        "paged": dict(base, prefill_chunk=32, paged=PagedLayout(
+            block_size=PA_BS, n_tbl=cdiv(plen + max(stops) - 1, PA_BS),
+            n_blocks=64)),
+    }
+    earlier = {"contiguous": serve_phases["tokens_contiguous"],
+               "speculative": serve_phases["tokens_contiguous"],
+               "paged": serve_phases["tokens_paged"]}
+    out = {}
+    for name, kw in queues.items():
+        scheds = {"eager": ContinuousBatchingScheduler(packed, cfg,
+                                                       graphs=False, **kw),
+                  "captured": ContinuousBatchingScheduler(packed, cfg,
+                                                          graphs=True, **kw)}
+        turns, first = [], None
+        for turn in GRAPH_TURNS:
+            _reset_all_launches()
+            rep = scheds[turn].run(reqs)
+            launches = _all_launches()
+            toks = rep.tokens_by_rid()
+            if first is None:
+                first = (toks, rep.branch_counts, launches)
+            check(all(_tokens_equal(toks[r], first[0][r]) for r in first[0]),
+                  f"phase 27 {name} {turn}: pool tokens != the eager run's")
+            check(rep.branch_counts == first[1], f"phase 27 {name} {turn}: "
+                  f"iterations by branch {rep.branch_counts} != {first[1]}")
+            check(launches == first[2], f"phase 27 {name} {turn}: launches "
+                  f"{launches} != the eager run's {first[2]}")
+            turns.append({
+                "turn": turn, "tok_s": rep.tok_s, "wall_s": rep.wall_s,
+                "n_iter": rep.n_iter,
+                "iter_ms": 1e3 * rep.wall_s / rep.n_iter,
+                "branch_ms_per_iter": {
+                    b: 1e3 * t / rep.branch_counts[b]
+                    for b, t in rep.branch_s.items() if rep.branch_counts[b]},
+                "branch_share_of_wall": {
+                    b: t / rep.wall_s for b, t in rep.branch_s.items()}})
+        same = [_tokens_equal(first[0][r], earlier[name][r])
+                for r in earlier[name] if r in first[0]]
+        if name == "paged":
+            check(first[2]["paged_attn"] > 0,
+                  "phase 27 paged: the paged read was launched no time")
+        graphs = scheds["captured"].graph_stats()
+        # replays of each graph on the state the last run left (every slot
+        # done: the kernels run all the same, at the graph's shapes)
+        with torch.inference_mode():
+            traces = {key: check_replays(torch, g, f"phase 27 {name} "
+                                         f"graph {key}")
+                      for key, g in scheds["captured"]._graphs.items()}
+        emit({"phase": "serve_scheduler_captured", "ok": True,
+              "queue": name, "requests": n_req, "turns": turns,
+              "branch_counts": first[1], "launches": first[2],
+              "graphs": graphs, "replay_traces": traces,
+              "trace_kernels_equal_credit": True,
+              "tokens_equal_eager": True,
+              "requests_equal_earlier_phase": f"{sum(same)} of {len(same)}",
+              "earlier_phase": 10 if name == "paged" else 9})
+        out[name] = first[2]
+        del scheds
+    del packed
+    return out
+
 
 def main() -> int:
     import torch
@@ -1945,7 +2332,7 @@ def main() -> int:
         toks, stats = serve("minicpm-2b", smoke=False, batch=batch,
                             prompt_len=prompt_len, gen=gen_len, cim=True,
                             params=params, use_kernel=use_kernel,
-                            return_stats=True)
+                            return_stats=True, graphs=False)
         launches = {
             "general": K.ccim_matmul_prepacked_general_cuda.launches,
             "skinny": K.ccim_matmul_prepacked_skinny_cuda.launches}
@@ -2096,6 +2483,17 @@ def main() -> int:
     by_path.update(cont_spec["macro"])
     serve_phases["paged_launches_by_path"]["serve_paged_speculative"] = (
         cont_spec["paged_attn"])
+    # -- 25.-27. the serving bodies as CUDA graphs ---------------------------
+    by_path["serve_captured"] = captured_serve_phase(
+        torch, dev, params, cfg_full, runs["kernel"])
+    by_path.update(captured_speculative_phase(torch, dev, params, cfg_full))
+    by_queue = captured_scheduler_phase(torch, dev, params, cfg_full,
+                                        serve_phases)
+    for name, n in by_queue.items():
+        by_path[f"scheduler_captured_{name}"] = {
+            k_: n[k_] for k_ in ("general", "skinny")}
+    serve_phases["paged_launches_by_path"]["scheduler_captured_paged"] = (
+        by_queue["paged"]["paged_attn"])
     del params
 
     src = "src/repro_torch/kernels/ccim_matmul/csrc/"

@@ -38,6 +38,17 @@ Python ints and per-slot scalars are written with fills, so the loop
 makes no host-to-device copy (a pageable one would synchronize the
 stream).
 
+The step branch is what the reference's host-stepped runner compiles
+on its own (one iteration around ``_step_once``).  On a CUDA device the
+pooled step, and each rung's speculative round, is a CUDA graph
+captured at its first call and replayed after (``launch/graphs.py``;
+``graphs=False`` runs it eagerly, as the CPU does).  The step bodies
+write every entry of the state they change into the tensor that holds
+it, so the flags read sees what a replay wrote; harvest, admit and the
+paged prefill chunk pick Python-int slots and stay eager.  The pool
+state lives on the scheduler and each run resets it in place, so the
+graphs outlive a run.
+
 PAGED mode (``paged=PagedLayout(...)``) replaces the per-slot contiguous
 ``max_seq`` regions with global per-layer block pools and per-slot block
 tables.  A ``(n_blocks,)`` refcount vector on the device doubles as the
@@ -69,6 +80,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import weakref
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -76,6 +88,7 @@ import torch
 
 from ..models import lm
 from ..models.config import ModelConfig
+from .graphs import StepGraph, use_graphs
 from .paging import PagedLayout, cdiv, contiguous_kv_bytes, plan_prefix_sharing
 
 BRANCHES = ("harvest", "admit", "prefill", "step")
@@ -194,7 +207,10 @@ class ContinuousBatchingScheduler:
     ``draft_k > 0`` turns the step branch into a speculative round
     drafting under ``draft_plan`` (default: the deployed config itself);
     ``adaptive_draft_k`` switches the round's depth over {K, K/2, K/4} by
-    the acceptance EMA.  The device is the params' device."""
+    the acceptance EMA.  ``graphs`` (default: on a CUDA device) replays
+    the step branch from captured graphs, one for the pooled step and one
+    per rung; ``True`` off CUDA raises.  The device is the params'
+    device."""
 
     def __init__(self, params, cfg: ModelConfig, slots: int, prompt_len: int,
                  max_new_cap: int, temperature: float = 0.0,
@@ -202,7 +218,8 @@ class ContinuousBatchingScheduler:
                  paged: Optional[PagedLayout] = None,
                  prefill_chunk: Optional[int] = None,
                  prefix_sharing: bool = True,
-                 adaptive_draft_k: bool = False, obs=None):
+                 adaptive_draft_k: bool = False, obs=None,
+                 graphs: Optional[bool] = None):
         if temperature > 0:
             raise NotImplementedError(
                 "sampling at temperature > 0 waits on jax.random parity; "
@@ -234,6 +251,9 @@ class ContinuousBatchingScheduler:
         self.max_seq = prompt_len + max_new_cap + draft_k
         self._params = params
         self.device = _params_device(params)
+        self.graphs = use_graphs(graphs, self.device)
+        self._st: Optional[Dict] = None         # the pool state, see _state
+        self._graphs: Dict[int, StepGraph] = {}  # 0: the step; K: a round
         self.paged = paged
         self.prefix_sharing = prefix_sharing
         if paged is not None:
@@ -275,34 +295,73 @@ class ContinuousBatchingScheduler:
 
     # -- pool state ----------------------------------------------------
 
-    def _init_state(self) -> Dict:
-        B, cap, dev = self.slots, self.cap, self.device
-        i32 = dict(dtype=torch.int32, device=dev)
-        st = dict(
-            last_tok=torch.full((B, 1), self.pad_token, dtype=torch.int64,
-                                device=dev),
-            live=torch.zeros((B,), dtype=torch.bool, device=dev),
-            pending=torch.zeros((B,), dtype=torch.bool, device=dev),
-            n_gen=torch.zeros((B,), **i32),
-            max_new=torch.zeros((B,), **i32),
-            stop=torch.full((B,), -1, **i32),
-            out=torch.full((B, cap), self.pad_token, **i32),
-        )
+    def graph_stats(self) -> Dict[str, Dict]:
+        """Per captured body (``step``, or ``round_k<K>``): capture
+        seconds, pool bytes, replays and kernel launches per replay."""
+        return {("step" if k == 0 else f"round_k{k}"): dict(
+                    capture_s=g.capture_s, pool_bytes=g.pool_bytes,
+                    replays=g.replays, launches_per_replay=g.launches)
+                for k, g in self._graphs.items() if g.graph is not None}
+
+    def _advance(self, st: Dict, K: int = 0) -> None:
+        """The step branch: a pooled decode step (K == 0) or a
+        speculative round of K drafts, replayed from its graph when the
+        scheduler captures."""
+        if not self.graphs:
+            if K:
+                self._spec_step(st, K)
+            else:
+                self._step(st)
+            return
+        if K not in self._graphs:
+            # the graph holds its body, which must not hold the scheduler:
+            # a cycle would keep the packed weights, the KV cache and the
+            # graph's pool alive until the next garbage collection
+            me = weakref.ref(self)
+            body = ((lambda: me()._step(st)) if K == 0
+                    else (lambda: me()._spec_step(st, K)))
+            self._graphs[K] = StepGraph(body, self.device)
+        self._graphs[K]()
+
+    def _state(self) -> Dict:
+        """The pool state at the start of a run.  Its tensors are made by
+        the first run and reset in place by later ones: the captured step
+        graphs read and write these very tensors."""
+        B, cap, dev, pad = self.slots, self.cap, self.device, self.pad_token
+        # key: (shape, dtype, value at the start of a run)
+        init = dict(last_tok=((B, 1), torch.int64, pad),
+                    live=((B,), torch.bool, False),
+                    pending=((B,), torch.bool, False),
+                    n_gen=((B,), torch.int32, 0),
+                    max_new=((B,), torch.int32, 0),
+                    stop=((B,), torch.int32, -1),
+                    out=((B, cap), torch.int32, pad))
         if self.draft_k:
-            st.update(n_drafted=torch.zeros((), **i32),
-                      n_accepted=torch.zeros((), **i32),
-                      acc_ema=torch.ones((), dtype=torch.float32, device=dev),
-                      rung=torch.zeros((), **i32))
+            init.update(n_drafted=((), torch.int32, 0),
+                        n_accepted=((), torch.int32, 0),
+                        acc_ema=((), torch.float32, 1.0),
+                        rung=((), torch.int32, 0))
         if self.paged is not None:
-            lay = self.paged
-            st["cache"] = lm.init_paged_cache(
-                self.cfg, B, lay.n_blocks, lay.block_size, lay.n_tbl,
-                device=dev)
-            st["ref"] = torch.zeros((lay.n_blocks,), **i32)
+            init["ref"] = ((self.paged.n_blocks,), torch.int32, 0)
+        if self._st is None:
+            st = {k: torch.empty(shape, dtype=dt, device=dev)
+                  for k, (shape, dt, _) in init.items()}
+            if self.paged is not None:
+                lay = self.paged
+                st["cache"] = lm.init_paged_cache(
+                    self.cfg, B, lay.n_blocks, lay.block_size, lay.n_tbl,
+                    device=dev)
+            else:
+                st["cache"] = lm.init_cache(self.cfg, B, self.max_seq,
+                                            device=dev)
+            self._st = st
+        st = self._st
+        for k, (_, _, value) in init.items():
+            st[k].fill_(value)
+        for t in st["cache"].values():
+            t.zero_()
+        if self.paged is not None:
             st["ref"][0] = 1                    # the trash block's pin
-        else:
-            st["cache"] = lm.init_cache(self.cfg, B, self.max_seq,
-                                        device=dev)
         return st
 
     def _arm_slot(self, st: Dict, slot: int, prompt: torch.Tensor,
@@ -324,10 +383,11 @@ class ContinuousBatchingScheduler:
         st["pending"][slot] = fin0[0]
 
     def _step(self, st: Dict) -> None:
-        """One pooled decode step; finishes land in pending."""
+        """One pooled decode step; finishes land in pending.  Every
+        changed entry of ``st`` is written in place (a captured body)."""
         live = st["live"]
-        logits, st["cache"] = lm.decode_step(
-            self._params, self.cfg, st["last_tok"], st["cache"], live=live)
+        logits, _ = lm.decode_step(self._params, self.cfg, st["last_tok"],
+                                   st["cache"], live=live)
         tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         tok = torch.where(live, tok, self.pad_token)
         ar = torch.arange(self.slots, device=self.device)
@@ -336,10 +396,10 @@ class ContinuousBatchingScheduler:
         st["out"][ar, idx] = torch.where(live, tok, row)
         n_gen = st["n_gen"] + live.to(torch.int32)
         finished = live & ((tok == st["stop"]) | (n_gen >= st["max_new"]))
-        st["last_tok"] = tok[:, None].long()
-        st["n_gen"] = n_gen
-        st["live"] = live & ~finished
-        st["pending"] = st["pending"] | finished
+        st["last_tok"].copy_(tok[:, None])
+        st["n_gen"].copy_(n_gen)
+        st["pending"].logical_or_(finished)
+        st["live"].copy_(live & ~finished)          # last: ``live`` is it
 
     def _spec_step(self, st: Dict, K: int) -> None:
         """One speculative round as a pooled step: K draft steps under
@@ -348,20 +408,22 @@ class ContinuousBatchingScheduler:
         plus the verify model's correction, 1..K+1 tokens a live slot,
         clamped by its budget and cut after a stop token.  The draft
         counters and the acceptance EMA (and from it the next round's
-        rung) are updated on the device."""
+        rung) are updated on the device, and every changed entry of
+        ``st`` is written in place (a captured body)."""
         live, pad = st["live"], self.pad_token
-        pos0 = st["cache"]["pos"]
         cache, last, drafts = st["cache"], st["last_tok"], []
+        pos = cache["pos"]
+        pos0 = pos.clone()
         for _ in range(K):
-            logits, cache = lm.decode_step(self._params, self.draft_cfg,
-                                           last, cache, live=live)
+            logits, _ = lm.decode_step(self._params, self.draft_cfg, last,
+                                       cache, live=live)
             dtok = torch.where(live, torch.argmax(logits[:, -1], dim=-1),
                                pad)
             drafts.append(dtok)
             last = dtok[:, None]
         drafts = torch.stack(drafts, dim=1)                  # (B, K)
-        cache = dict(cache, pos=pos0)                        # rollback
-        vlogits, cache = lm.verify_step(
+        pos.copy_(pos0)                                      # rollback
+        vlogits, _ = lm.verify_step(
             self._params, self.cfg, torch.cat([st["last_tok"], drafts], 1),
             cache, live=live)
         emitted, n_acc = greedy_accept(drafts, vlogits)
@@ -385,24 +447,24 @@ class ContinuousBatchingScheduler:
         finished = live & (has_stop | (n_gen >= st["max_new"]))
         new_last = torch.gather(
             emitted, 1, torch.clamp_min(n_emit - 1, 0)[:, None].long())
-        st["last_tok"] = torch.where(n_emit[:, None] > 0, new_last.long(),
-                                     st["last_tok"])
-        st["cache"] = dict(cache, pos=pos0 + n_emit)
-        st["n_gen"] = n_gen
-        st["live"] = live & ~finished
-        st["pending"] = st["pending"] | finished
         drafted = (live.to(torch.int32) * K).sum()
         accepted = torch.where(live, n_acc, 0).sum()
-        st["n_drafted"] = st["n_drafted"] + drafted
-        st["n_accepted"] = st["n_accepted"] + accepted
         rate = (accepted.to(torch.float32)
                 / torch.clamp_min(drafted, 1).to(torch.float32))
         ema = torch.where(drafted > 0, 0.8 * st["acc_ema"] + 0.2 * rate,
                           st["acc_ema"])
-        st["acc_ema"] = ema
         R = len(self._rungs)
-        st["rung"] = torch.where(
-            ema > 0.8, 0, torch.where(ema > 0.4, min(1, R - 1), R - 1))
+        st["last_tok"].copy_(torch.where(n_emit[:, None] > 0,
+                                         new_last.long(), st["last_tok"]))
+        pos.copy_(pos0 + n_emit)
+        st["n_gen"].copy_(n_gen)
+        st["pending"].logical_or_(finished)
+        st["n_drafted"].add_(drafted)
+        st["n_accepted"].add_(accepted)
+        st["acc_ema"].copy_(ema)
+        st["rung"].copy_(torch.where(
+            ema > 0.8, 0, torch.where(ema > 0.4, min(1, R - 1), R - 1)))
+        st["live"].copy_(live & ~finished)          # last: ``live`` is it
 
     # -- host-side staging ---------------------------------------------
 
@@ -479,7 +541,7 @@ class ContinuousBatchingScheduler:
     def _run(self, requests: Sequence[Request]) -> ServeReport:
         n, B, paged = len(requests), self.slots, self.paged
         plan = self._stage(requests)
-        st = self._init_state()
+        st = self._state()
         dev = self.device
         if paged is not None:
             NB, n_tbl, bs = paged.n_blocks, paged.n_tbl, paged.block_size
@@ -624,10 +686,10 @@ class ContinuousBatchingScheduler:
                 if spec:
                     # the rung sits after the masks and the free count
                     K = self._rungs[int(flags[2 * B + (paged is not None)])]
-                    self._spec_step(st, K)
+                    self._advance(st, K)
                     draft_steps += K
                 else:
-                    self._step(st)
+                    self._advance(st)
                 last_pf = False
             branches.append(branch)
             n_iter += 1
@@ -673,7 +735,7 @@ class ContinuousBatchingScheduler:
         done: List[FinishedRequest] = []
         n_steps = n_admits = syncs = 0
         with torch.inference_mode():
-            st = self._init_state()
+            st = self._state()
             t0 = time.perf_counter()
             for w0 in range(0, len(requests), self.slots):
                 wave = list(requests[w0:w0 + self.slots])
@@ -685,7 +747,7 @@ class ContinuousBatchingScheduler:
                                    wave_max, -1)
                     n_admits += 1
                 for _ in range(wave_max - 1):
-                    self._step(st)
+                    self._advance(st)
                 n_steps += wave_max - 1
                 out_h = st["out"].cpu().numpy()
                 syncs += 1

@@ -2,7 +2,7 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm-2b \
       [--smoke] [--cim] [--no-fuse] [--batch 4] \
-      [--prompt-len 32] [--gen 16] [--device cuda] \
+      [--prompt-len 32] [--gen 16] [--device cuda] [--no-graphs] \
       [--speculative [--draft-k 8] [--draft-adc-bits B]
        [--adaptive-draft-k]] \
       [--continuous [--requests 8] [--paged-blocks N [--block-size 16]
@@ -25,8 +25,13 @@ the paged-attention kernel for decode reads), speculative rounds under
 and each macro GEMM runs through the CUDA kernels on the card (their
 plain version on the CPU); ``plan=`` (a ``repro_torch.plan``
 ``DeploymentPlan``) serves each projection under its own design point
-and implies it.  Runs on CUDA unless ``--device cpu`` is given; without
-``--smoke`` it serves the full width and depth of the arch.
+and implies it.  On a CUDA device the decode step, the speculative round
+and the scheduler's pooled step replay CUDA graphs captured at their
+first call (``launch/graphs.py``), the counterpart of the reference's
+compiled executables; ``--no-graphs`` (``graphs=False``) runs them
+eagerly, and the CPU always does.  Runs on CUDA unless ``--device cpu``
+is given; without ``--smoke`` it serves the full width and depth of the
+arch.
 """
 from __future__ import annotations
 
@@ -43,6 +48,7 @@ from ..configs import ARCHS, get_config
 from ..data import DataConfig, batch_at
 from ..models import lm
 from ..plan import draft_plan_for_model
+from .graphs import StepGraph, use_graphs
 from .paging import PagedLayout, cdiv
 from .scheduler import (ContinuousBatchingScheduler, greedy_accept,
                         mixed_length_requests)
@@ -92,9 +98,16 @@ def serve(arch: str, smoke: bool = True, batch: int = 4, prompt_len: int = 32,
           gen: int = 16, cim: bool = False, temperature: float = 0.0,
           seed: int = 0, return_stats: bool = False,
           fuse: bool = True, device=None, params=None,
-          use_kernel=None, plan=None):
+          use_kernel=None, plan=None, graphs: Optional[bool] = None):
     """Returns the generated tokens (batch, gen) as int32 numpy; with
     ``return_stats=True``, (tokens, stats).
+
+    Each decode step is one body that writes the next token into a
+    static tensor and its column of the output on the device.  With
+    ``graphs`` (default: on a CUDA device) the first step runs eagerly
+    and is captured (``launch/graphs.py``), and the later steps replay
+    the graph; ``graphs=False`` runs every step eagerly.  Prefill runs
+    once and stays eager.
 
     ``params`` injects float params (the reference's ``lm.init`` tree,
     e.g. through ``convert.params_from_jax``) instead of a fresh random
@@ -103,10 +116,12 @@ def serve(arch: str, smoke: bool = True, batch: int = 4, prompt_len: int = 32,
     (a ``repro_torch.plan.DeploymentPlan``) serves each projection under
     its own macro config and fidelity (implies cim).  Stats hold
     ``pack_s``, ``prefill_s``, ``decode_s`` and ``decode_tok_s``, each
-    phase timed between device synchronizations, ``pack_bytes``, and the
-    last step's logits."""
+    phase timed between device synchronizations, ``pack_bytes``, the
+    last step's logits and, when captured, ``capture_s``,
+    ``graph_pool_bytes`` and ``replay_tok_s`` (the replayed steps alone)."""
     _greedy_only(temperature)
     dev = resolve_device(device)
+    captured = use_graphs(graphs, dev)
     cfg, cim = _model_config(arch, smoke, cim, plan, fuse, use_kernel)
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=prompt_len,
                       global_batch=batch, seed=seed, d_model=cfg.d_model)
@@ -134,14 +149,22 @@ def serve(arch: str, smoke: bool = True, batch: int = 4, prompt_len: int = 32,
         _sync(dev)
         t_prefill = time.perf_counter() - t0
 
-        out = [tok]                   # on the device; one copy at the end
+        # the step's static state: the token, the output and the column
+        # the next token goes to, all on the device; one copy at the end
+        out = torch.zeros((batch, gen), dtype=torch.int64, device=dev)
+        out[:, :1] = tok
+        col = torch.ones((1, 1), dtype=torch.int64, device=dev)
+        body = decode_body(params, cfg, tok, cache, out, col)
+        step = StepGraph(body, dev) if captured else body
         t0 = time.perf_counter()
-        for _ in range(gen - 1):
-            logits, cache = lm.decode_step(params, cfg, tok, cache)
-            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
-            out.append(tok)
-        gen_tokens = torch.cat(out, dim=1).to(torch.int32).cpu().numpy()
+        for i in range(gen - 1):
+            if i == 1 and captured:
+                _sync(dev)
+                t_replay0 = time.perf_counter()
+            logits = step()
         _sync(dev)
+        t_end = time.perf_counter()
+        gen_tokens = out.to(torch.int32).cpu().numpy()
         t_decode = time.perf_counter() - t0
 
     steps = gen - 1
@@ -155,9 +178,13 @@ def serve(arch: str, smoke: bool = True, batch: int = 4, prompt_len: int = 32,
                  prefill_s=t_prefill, decode_s=t_decode,
                  decode_tok_s=decode_tok_s,
                  prefill_tok_s=batch * prompt_len / t_prefill,
-                 last_logits=logits[:, -1].float().cpu())
+                 graphs=captured, last_logits=logits[:, -1].float().cpu())
+    if captured and gen > 2:
+        stats.update(capture_s=step.capture_s,
+                     graph_pool_bytes=step.pool_bytes,
+                     replay_tok_s=batch * (gen - 2) / (t_end - t_replay0))
     mode = ("cim-packed" + ("-planned" if plan is not None else "")
-            if cim else "fp")
+            if cim else "fp") + (", captured" if captured else "")
     print(f"[serve] {arch} ({mode}, {dev}): batch {batch}, prompt "
           f"{prompt_len}, gen {gen} | pack {t_pack:.3f}s, prefill "
           f"{t_prefill:.3f}s, decode {t_decode:.3f}s "
@@ -165,6 +192,40 @@ def serve(arch: str, smoke: bool = True, batch: int = 4, prompt_len: int = 32,
     if return_stats:
         return gen_tokens, stats
     return gen_tokens
+
+
+def decode_body(params, cfg, tok: torch.Tensor, cache, out: torch.Tensor,
+                col: torch.Tensor):
+    """``serve``'s decode step as a body of no arguments over static
+    state: one ``lm.decode_step`` from ``tok`` (B, 1), the greedy token
+    written back into ``tok`` and into column ``col`` ((1, 1) int64) of
+    ``out`` (B, gen), and ``col`` advanced, all on the device.  Returns
+    the step's logits."""
+    B = tok.shape[0]
+
+    def body():
+        lg, _ = lm.decode_step(params, cfg, tok, cache)
+        tok.copy_(torch.argmax(lg[:, -1], dim=-1)[:, None])
+        out.scatter_(1, col.expand(B, 1), tok)
+        col.add_(1)
+        return lg
+    return body
+
+
+def round_body(params, cfg, draft_cfg, k: int, tok: torch.Tensor, cache,
+               counts: torch.Tensor, target: int):
+    """``serve_speculative``'s round as a body of no arguments over static
+    state: one ``speculative_round`` from ``tok`` (B, 1) for the rows whose
+    ``counts`` ((B,) int64, tokens emitted so far) are below ``target``,
+    then ``counts`` and ``tok`` advanced, all on the device.  Returns the
+    round's emitted tokens and each row's count, (B, k+2)."""
+    def body():
+        emitted, n_emit, new_last, _ = speculative_round(
+            params, cfg, draft_cfg, k, tok, cache, counts < target)
+        counts.add_(n_emit)
+        tok.copy_(new_last)
+        return torch.cat([emitted, n_emit[:, None]], dim=1)
+    return body
 
 
 def speculative_round(params, cfg, draft_cfg, k: int, last: torch.Tensor,
@@ -177,23 +238,24 @@ def speculative_round(params, cfg, draft_cfg, k: int, last: torch.Tensor,
     token at the first disagreement (or after the last draft).  Rows
     not ``live`` emit nothing and keep their position.  Returns
     (emitted (B, k+1), n_emit (B,), new_last (B, 1), cache); every
-    output stays on the device."""
-    pos0 = cache["pos"]
+    output stays on the device, and ``cache["pos"]`` is written in place
+    (the round is one captured body in ``serve_speculative``)."""
+    pos = cache["pos"]
+    pos0 = pos.clone()
     tok, drafts = last, []
     for _ in range(k):
-        logits, cache = lm.decode_step(params, draft_cfg, tok, cache,
-                                       live=live)
+        logits, _ = lm.decode_step(params, draft_cfg, tok, cache, live=live)
         tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
         drafts.append(tok)
     drafts = torch.cat(drafts, dim=1)                       # (B, k)
-    cache = dict(cache, pos=pos0)                           # rollback
-    vlogits, cache = lm.verify_step(params, cfg,
-                                    torch.cat([last, drafts], dim=1), cache)
+    pos.copy_(pos0)                                         # rollback
+    vlogits, _ = lm.verify_step(params, cfg,
+                                torch.cat([last, drafts], dim=1), cache)
     emitted, n_acc = greedy_accept(drafts, vlogits)
     n_emit = torch.where(live, n_acc + 1, 0)
     new_last = torch.where(live[:, None],
                            torch.gather(emitted, 1, n_acc[:, None]), last)
-    cache["pos"] = pos0 + n_emit.to(pos0.dtype)
+    pos.copy_(pos0 + n_emit.to(pos0.dtype))
     return emitted, n_emit, new_last, cache
 
 
@@ -204,7 +266,7 @@ def serve_speculative(arch: str, smoke: bool = True, batch: int = 2,
                       fuse: bool = True,
                       compare_baseline: bool = True,
                       return_stats: bool = False, device=None, params=None,
-                      use_kernel=None):
+                      use_kernel=None, graphs: Optional[bool] = None):
     """Plan-cascade speculative lock-step driver, greedy.
 
     The draft plan (``plan.draft_plan_for_model``: the all-analog shadow
@@ -213,15 +275,22 @@ def serve_speculative(arch: str, smoke: bool = True, batch: int = 2,
     Each round (``speculative_round``) drafts ``draft_k`` tokens, verifies
     all k+1 positions in one forward and keeps the longest agreeing
     prefix plus a correction.  The host reads each round's emitted tokens
-    and counts once.  Greedy tokens equal ``serve``'s, which
-    ``compare_baseline`` runs on the same params and asserts.
+    and counts once.  With ``graphs`` (default: on a CUDA device) the
+    round is one captured body, the counterpart of the reference's
+    compiled round: the first round runs eagerly and is captured, later
+    rounds replay it (``launch/graphs.py``).  Greedy tokens equal
+    ``serve``'s, which ``compare_baseline`` runs on the same params (and
+    the same ``graphs``) and asserts.
 
     Returns tokens (batch, gen) int64; with ``return_stats=True``,
     (tokens, stats) with ``n_rounds``, ``n_drafted``, ``n_accepted``,
     ``acceptance_rate``, ``tokens_per_round`` and ``decode_tok_s`` (and
-    ``decode_speedup_speculative`` when ``compare_baseline``)."""
+    ``decode_speedup_speculative`` when ``compare_baseline``); when
+    captured, ``capture_s``, ``graph_pool_bytes`` and ``replay_tok_s``
+    (the rounds after the first alone)."""
     _greedy_only(temperature)
     dev = resolve_device(device)
+    captured = use_graphs(graphs, dev)
     cfg, cim = _model_config(arch, smoke, cim, plan, fuse, use_kernel)
     draft_plan = draft_plan_for_model(cfg, draft_adc_bits)
     dcfg = dataclasses.replace(cfg, cim_plan=draft_plan) if cim else cfg
@@ -256,14 +325,13 @@ def serve_speculative(arch: str, smoke: bool = True, batch: int = 2,
         rows = [[int(t)] for t in first]
         counts = np.zeros(batch, np.int64)
         counts_dev = torch.zeros((batch,), dtype=torch.int64, device=dev)
+        body = round_body(params, cfg, dcfg, K, tok, cache, counts_dev,
+                          target)
+        round_ = StepGraph(body, dev) if captured else body
         n_rounds = n_drafted = n_accepted = 0
         t0 = time.perf_counter()
         while counts.min() < target:
-            live = counts_dev < target
-            emitted, n_emit, tok, cache = speculative_round(
-                params, cfg, dcfg, K, tok, cache, live)
-            counts_dev = counts_dev + n_emit
-            got = torch.cat([emitted, n_emit[:, None]], dim=1).cpu().numpy()
+            got = round_().cpu().numpy()
             em, ne = got[:, :K + 1], got[:, K + 1]
             for b in range(batch):
                 rows[b].extend(em[b, :ne[b]].tolist())
@@ -271,6 +339,9 @@ def serve_speculative(arch: str, smoke: bool = True, batch: int = 2,
             n_accepted += int(np.maximum(ne - 1, 0).sum())
             counts += ne
             n_rounds += 1
+            if n_rounds == 1:             # the replays start after round 1
+                t_replay0 = time.perf_counter()
+                done1 = int(np.minimum(counts, target).sum())
         t_decode = time.perf_counter() - t0
     gen_tokens = np.asarray([r[:gen] for r in rows], dtype=np.int64)
 
@@ -286,7 +357,12 @@ def serve_speculative(arch: str, smoke: bool = True, batch: int = 2,
         acceptance_rate=(n_accepted / n_drafted if n_drafted
                          else float("nan")),
         tokens_per_round=(batch * target / n_rounds if n_rounds
-                          else float("nan")))
+                          else float("nan")), graphs=captured)
+    if captured and n_rounds > 1:
+        stats.update(capture_s=round_.capture_s,
+                     graph_pool_bytes=round_.pool_bytes,
+                     replay_tok_s=(batch * target - done1)
+                     / (t0 + t_decode - t_replay0))
     print(f"[serve-spec] {arch} (k={K}, draft {stats['draft_plan']}, "
           f"{dev}): batch {batch}, gen {gen} | decode {t_decode:.3f}s "
           f"({decode_tok_s:.1f} tok/s), acceptance "
@@ -296,7 +372,8 @@ def serve_speculative(arch: str, smoke: bool = True, batch: int = 2,
                                 prompt_len=prompt_len, gen=gen, cim=cim,
                                 seed=seed, return_stats=True, fuse=fuse,
                                 device=dev, params=float_params,
-                                use_kernel=use_kernel, plan=plan)
+                                use_kernel=use_kernel, plan=plan,
+                                graphs=graphs)
         np.testing.assert_array_equal(
             gen_tokens, base_toks,
             err_msg="speculative greedy decode changed tokens vs the "
@@ -322,7 +399,8 @@ def serve_continuous(arch: str, smoke: bool = True, slots: int = 2,
                      prefill_chunk: Optional[int] = None,
                      prefix_sharing: bool = True, metrics: bool = False,
                      device=None, params=None, plan=None,
-                     draft_adc_bits=None, adaptive_draft_k: bool = False):
+                     draft_adc_bits=None, adaptive_draft_k: bool = False,
+                     graphs: Optional[bool] = None):
     """Continuous-batching driver: a mixed-length request queue served
     from a fixed pool of ``slots`` decode slots (launch/scheduler.py).
 
@@ -336,12 +414,15 @@ def serve_continuous(arch: str, smoke: bool = True, slots: int = 2,
     ``draft_k > 0`` turns on speculative rounds in the scheduler, drafting
     under the all-analog shadow of the serving plan at
     ``draft_adc_bits``; greedy tokens still equal the non-speculative
-    lock-step baseline's.  Telemetry and sampling are not ported yet and
-    raise."""
+    lock-step baseline's.  ``graphs`` (default: on a CUDA device) replays
+    the scheduler's pooled step and speculative rounds from captured
+    graphs, in every scheduler this driver builds.  Telemetry and
+    sampling are not ported yet and raise."""
     _greedy_only(temperature)
     if metrics:
         raise NotImplementedError("telemetry is not ported yet")
     dev = resolve_device(device)
+    use_graphs(graphs, dev)                 # raises before any work
     cfg, cim = _model_config(arch, smoke, cim, plan, fuse)
     draft_plan = (draft_plan_for_model(cfg, draft_adc_bits) if draft_k
                   else None)
@@ -358,7 +439,7 @@ def serve_continuous(arch: str, smoke: bool = True, slots: int = 2,
         _sync(dev)
         t_pack = time.perf_counter() - t0
     spec = dict(draft_k=draft_k, draft_plan=draft_plan,
-                adaptive_draft_k=adaptive_draft_k)
+                adaptive_draft_k=adaptive_draft_k, graphs=graphs)
     sched = ContinuousBatchingScheduler(
         params, cfg, slots=slots, prompt_len=prompt_len, max_new_cap=cap,
         paged=paged, prefill_chunk=prefill_chunk,
@@ -368,6 +449,7 @@ def serve_continuous(arch: str, smoke: bool = True, slots: int = 2,
     stats = dict(arch=arch, n_layers=cfg.n_layers, slots=slots,
                  prompt_len=prompt_len, n_requests=n_requests, cim=cim,
                  device=str(dev), pack_s=round(t_pack, 4),
+                 graphs=sched.graphs, capture=sched.graph_stats(),
                  continuous=report.summary(), n_iter=report.n_iter,
                  host_syncs=report.host_syncs,
                  host_syncs_per_iter=report.host_syncs / max(report.n_iter, 1),
@@ -476,6 +558,11 @@ def main():
     ap.add_argument("--no-prefix-sharing", dest="prefix_sharing",
                     action="store_false",
                     help="(--paged-blocks) disable shared-prefix reuse")
+    ap.add_argument("--no-graphs", dest="graphs", action="store_false",
+                    default=None,
+                    help="run every decode step, speculative round and "
+                         "pooled step eagerly (default: replay captured "
+                         "CUDA graphs on a CUDA device)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the "
@@ -498,7 +585,7 @@ def main():
             paged=paged, prefill_chunk=args.prefill_chunk,
             prefix_sharing=args.prefix_sharing, device=args.device,
             draft_k=draft_k, draft_adc_bits=args.draft_adc_bits,
-            adaptive_draft_k=args.adaptive_draft_k)
+            adaptive_draft_k=args.adaptive_draft_k, graphs=args.graphs)
         for rid in sorted(toks):
             print(rid, toks[rid].tolist())
         return
@@ -507,11 +594,12 @@ def main():
             args.arch, smoke=args.smoke, batch=args.batch,
             prompt_len=args.prompt_len, gen=args.gen, draft_k=args.draft_k,
             draft_adc_bits=args.draft_adc_bits, seed=args.seed,
-            fuse=args.fuse, device=args.device)
+            fuse=args.fuse, device=args.device, graphs=args.graphs)
     else:
         toks = serve(args.arch, smoke=args.smoke, batch=args.batch,
                      prompt_len=args.prompt_len, gen=args.gen, cim=args.cim,
-                     seed=args.seed, fuse=args.fuse, device=args.device)
+                     seed=args.seed, fuse=args.fuse, device=args.device,
+                     graphs=args.graphs)
     print(np.array2string(toks, max_line_width=120))
 
 

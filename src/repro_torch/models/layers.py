@@ -9,6 +9,7 @@ plain torch on tensors; ``*_init`` take an explicit ``torch.Generator``.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 from typing import Any, Dict, Optional, Tuple
@@ -264,12 +265,32 @@ def _rope_table(n_pos: int, half: int, theta: float, device: str):
             torch.from_numpy(sin.reshape(ang.shape)).to(device))
 
 
+_HOLDERS: list = []        # the dicts of the open ``hold_tables`` blocks
+
+
+@contextlib.contextmanager
+def hold_tables():
+    """Yields a dict that receives every cached table ``rope`` reads
+    inside the block.  A captured graph (``launch/graphs.py``) keeps it:
+    its replays read the tables' memory, which the bounded cache alone
+    would free on eviction."""
+    held: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+    _HOLDERS.append(held)
+    try:
+        yield held
+    finally:
+        _HOLDERS.remove(held)
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
          n_pos: int) -> torch.Tensor:
     """x (B, S, H, D), positions (B, S) in [0, n_pos) -> x with each
     (i, i + D/2) pair rotated by pos / theta^(2i/D)."""
     half = x.shape[-1] // 2
-    cos_t, sin_t = _rope_table(n_pos, half, float(theta), str(x.device))
+    key = (n_pos, half, float(theta), str(x.device))
+    cos_t, sin_t = tables = _rope_table(*key)
+    for held in _HOLDERS:
+        held[key] = tables
     cos, sin = cos_t[positions][:, :, None, :], sin_t[positions][:, :, None, :]
     x1 = x[..., :half].to(torch.float32)
     x2 = x[..., half:].to(torch.float32)

@@ -15,8 +15,9 @@ The params tree has the reference's layout: ``params["layers"]`` holds
 stacked leaves with a leading layer axis, and the forward walks the
 layers in a Python loop (the reference scans them).  KV entries are
 written into the cache's tensors in place (the reference returns
-updated copies); ``pos`` comes back as a new tensor from prefill and
-decode, and the slot ops write their slot of every entry in place.
+updated copies); ``pos`` comes back as a new tensor from prefill,
+``decode_step`` advances it in place, and the slot ops write their slot
+of every entry in place.
 """
 from __future__ import annotations
 
@@ -376,14 +377,18 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, cache: Dict,
     logits are computed and discarded), and in PAGED caches their KV
     write goes to the trash block -- their table may alias blocks a live
     request reads (shared prefixes, or their own half-prefilled
-    chunks)."""
+    chunks).
+
+    ``cache["pos"]`` is advanced in place and ``cache`` itself returned:
+    every tensor of the state keeps its storage, which a captured step
+    (``launch/graphs.py``) needs.  A caller that steps twice from one
+    state clones ``pos`` first."""
     _dense_only(cfg)
     x = _embed(params, cfg, token)
     pos = cache["pos"]
-    cache = dict(cache)
     wmask = live if (live is not None and is_paged(cache)) else None
     x = _stack(params, cfg, x, pos[:, None], cache, pos, write_mask=wmask)
-    cache["pos"] = pos + (1 if live is None else live.to(torch.int32))
+    pos.add_(1 if live is None else live.to(torch.int32))
     return _logits(params, cfg, x), cache
 
 

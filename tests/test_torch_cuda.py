@@ -14,6 +14,8 @@ the W8A8 kernel's float32 outputs: its integer dot is exact and its
 epilogue the plain version's two float32 roundings.  The
 paged-attention kernel computes P.V in float32 where the plain version
 rounds p to bf16 first; it is held to the tolerance written beside it.
+The serving drivers' captured graphs (``launch/graphs.py``) are held to
+their eager runs with ``==`` on tokens and logits, and on launch counts.
 """
 import dataclasses
 
@@ -647,3 +649,116 @@ def test_mixed_plan_serve_kernel_equals_plain(dev):
     (tk, lk, gk, sk), (tp, lp, gp, sp) = runs
     assert (tk == tp).all() and torch.equal(lk, lp)
     assert (gk, sk) == (4 * 2, 4 * 2 * 7) and (gp, sp) == (0, 0)
+
+
+# ---------------------------------------------------------------------------
+# captured serving (launch/graphs.py): replays equal the eager bodies
+# ---------------------------------------------------------------------------
+
+
+def _all_launches():
+    from repro_torch.launch.graphs import kernel_wrappers
+    return {f.__name__: f.launches for f in kernel_wrappers()}
+
+
+def _reset_launches():
+    from repro_torch.launch.graphs import kernel_wrappers
+    for f in kernel_wrappers():
+        f.launches = 0
+
+
+@pytest.mark.parametrize("width", ["smoke", "full"])
+def test_captured_serve_equals_eager(dev, width):
+    """Lock-step serve replaying its captured decode step gives the eager
+    run's tokens and last logits bit for bit, and the same kernel launch
+    counts (the replays are credited with what the device ran)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import lm
+    smoke = width == "smoke"
+    params = lm.init(0, get_config("minicpm-2b", smoke=smoke))
+    runs = {}
+    for graphs in (False, True):
+        _reset_launches()
+        toks, st = serve("minicpm-2b", smoke=smoke, batch=4, prompt_len=32,
+                         gen=16 if smoke else 8, cim=True, params=params,
+                         graphs=graphs, return_stats=True)
+        torch.cuda.synchronize()
+        runs[graphs] = (toks, st, _all_launches())
+    (te, se, le), (tc, sc, lc) = runs[False], runs[True]
+    assert not se["graphs"] and sc["graphs"] and sc["capture_s"] > 0
+    assert (te == tc).all() and torch.equal(se["last_logits"],
+                                            sc["last_logits"])
+    assert le == lc and lc["ccim_matmul_prepacked_skinny_cuda"] > 0
+
+
+@pytest.mark.parametrize("batch", [2, 4])
+def test_captured_speculative_equals_eager(dev, batch):
+    """The speculative round as one graph (verify M 18 on kernel row 1 at
+    batch 2, M 36 on row 2 at batch 4): tokens, round counts and launches
+    equal the eager rounds', and tokens equal lock-step serving's, which
+    ``compare_baseline`` asserts (captured too)."""
+    from repro_torch.launch.serve import serve_speculative
+    runs = {}
+    for graphs in (False, True):
+        _reset_launches()
+        toks, st = serve_speculative("minicpm-2b", smoke=True, batch=batch,
+                                     prompt_len=16, gen=24, draft_k=8,
+                                     graphs=graphs, compare_baseline=False,
+                                     return_stats=True)
+        torch.cuda.synchronize()
+        runs[graphs] = (toks, st, _all_launches())
+        serve_speculative("minicpm-2b", smoke=True, batch=batch,
+                          prompt_len=16, gen=24, draft_k=8, graphs=graphs)
+    (te, se, le), (tc, sc, lc) = runs[False], runs[True]
+    assert (te == tc).all() and le == lc
+    for key in ("n_rounds", "n_drafted", "n_accepted"):
+        assert se[key] == sc[key], key
+    assert sc["graphs"] and sc["n_rounds"] >= 2
+
+
+@pytest.mark.parametrize("mode", ["contiguous", "paged", "speculative"])
+def test_captured_scheduler_equals_eager(dev, mode):
+    """The scheduler's pooled step (and, speculative, each rung's round)
+    replayed from graphs: pool tokens, iterations by branch and launches
+    equal the eager scheduler's, over two runs of one scheduler (the
+    graphs outlive a run)."""
+    import dataclasses as dc
+    from repro_torch.configs import get_config
+    from repro_torch.launch import scheduler as TS
+    from repro_torch.launch.paging import PagedLayout
+    from repro_torch.models import lm
+    from repro_torch.plan import draft_plan_for_model
+    cfg = dc.replace(get_config("minicpm-2b", smoke=True), cim_mode=True)
+    if mode == "paged":                 # the paged kernel takes Dh 64, 128
+        cfg = dc.replace(cfg, d_head=64)
+    with torch.inference_mode():
+        params = lm.pack_cim_params(lm.init(0, cfg), cfg)
+    kw = dict(slots=4, prompt_len=16, max_new_cap=12)
+    if mode == "paged":
+        kw.update(paged=PagedLayout(block_size=4, n_tbl=7, n_blocks=40),
+                  prefill_chunk=8)
+    if mode == "speculative":
+        kw.update(draft_k=4, adaptive_draft_k=True,
+                  draft_plan=draft_plan_for_model(cfg, 5))
+    reqs = TS.mixed_length_requests(8, 16, cfg.vocab_size,
+                                    stop_lengths=(3, 12, 6, 9), seed=0)
+    out = {}
+    for graphs in (False, True):
+        sched = TS.ContinuousBatchingScheduler(params, cfg, graphs=graphs,
+                                               **kw)
+        for turn in range(2):
+            _reset_launches()
+            rep = sched.run(reqs)
+            torch.cuda.synchronize()
+            out[graphs, turn] = (rep.tokens_by_rid(), rep.branch_counts,
+                                 _all_launches())
+        assert sched.graphs is graphs and bool(sched.graph_stats()) is graphs
+    want = out[False, 0]
+    for key, (toks, counts, launches) in out.items():
+        assert counts == want[1] and launches == want[2], key
+        assert sorted(toks) == sorted(want[0])
+        for rid in toks:
+            assert (toks[rid] == want[0][rid]).all(), (key, rid)
+    if mode == "paged":
+        assert want[2]["paged_attention_cuda"] > 0
