@@ -148,7 +148,33 @@ failure.  Phases:
      queue, against the eager scheduler in turns: pool tokens,
      iterations by branch and launches equal the eager run's; tok/s, ms
      per branch and each branch's share of the wall time; one replay of
-     each graph traced, kernels equal to the credit.
+     each graph traced, kernels equal to the credit;
+ 28. ``core/prng.py`` (threefry2x32, ``jax.random``'s streams) on the
+     card against the CPU port at 2^24 draws: keys (single and batched
+     splits, fold_in), bits, uniforms and a per-row categorical bit for
+     bit; normals and Gumbels compared element by element (count and
+     largest difference reported) with mean and variance within five
+     standard errors; device time of one normal((4, 11520, 144)) draw (a
+     decode step's fused w1/w3 noise at batch 4) and one (128, 11520,
+     144) draw;
+ 29. phase 4's lock-step serve at temperature 0.7 (the first token
+     sampled too): kernels and plain version give equal tokens and last
+     logits, launches equal phase 4's, eager and captured in turns (equal
+     bit for bit; tok/s of each), and tokens that differ from phase 4's
+     greedy ones;
+ 30. the scheduler at temperature 0.7 on phase 9's queue, through the
+     kernels: the contiguous pool captured equals it eager and equals
+     solo runs of 3 of its requests; a speculative pool at k 4 (fixed
+     depth) equals speculative solo runs, acceptance reported; the paged
+     pool's agreement with the contiguous one reported, not gated (as
+     phase 10);
+ 31. lock-step serve with the macro's analog noise (noise seed 0, batch
+     2, prompt 16, 8 tokens), eager and captured: equal tokens and logits,
+     logits that differ from the noise-free run's, no launch of kernel
+     rows 1 and 2 (noisy GEMMs take the chunked GEMM in torch, as the
+     reference's leave its kernels); prefill and decode time, peak
+     memory, and the CUDA-event time of a decode step's noise draws
+     against the step.
 
 The serving drivers replay captured graphs by default on the card
 (``launch/graphs.py``), so phases 9, 11, 22 and 24 serve captured.  A
@@ -203,8 +229,12 @@ SKINNY_MS, GENERAL_MS = (1, 4, 8, 16, 32), (33, 128, 512)
 UNPACKED_MS = (1, 4, 32, 33, 128, 129, 512)     # phase 15, kernel 6
 
 
+T_IMPORT = time.time()
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    """One JSON record, with the seconds since the script started."""
+    print(json.dumps(dict(obj, t_s=time.time() - T_IMPORT)), flush=True)
 
 
 def fail(msg: str) -> None:
@@ -232,13 +262,17 @@ def device_breakdown(prof, steps: int, wall_ms: float) -> dict:
     """Per step of a torch.profiler trace of ``steps`` steps of
     ``wall_ms`` each: device busy time as the union of the device-side
     events' intervals (kernels, memsets, copies: each counted once,
-    whether a host op or a graph replay launched it), the idle share,
-    device events, the serving kernels by symbol, aten calls, and the
-    top device and host self times."""
+    whether a host op or a graph replay launched it; a profiler range's
+    device-side span is not an event), the idle share, device events,
+    the serving kernels by symbol, aten calls, and the top device and
+    host self times."""
     from torch.autograd import DeviceType
-    spans, symbols = [], dict.fromkeys(SYMBOL_RE, 0)
+    spans, symbols, ranges = [], dict.fromkeys(SYMBOL_RE, 0), set()
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
+            continue
+        if e.is_user_annotation:
+            ranges.add(e.name)
             continue
         spans.append((e.time_range.start, e.time_range.end))
         for sym, pat in SYMBOL_RE.items():
@@ -251,7 +285,7 @@ def device_breakdown(prof, steps: int, wall_ms: float) -> dict:
     dev_us, host_us, aten_calls = {}, {}, 0
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total", 0) or 0
-        if t > 0:
+        if t > 0 and e.key not in ranges:
             dev_us[e.key] = dev_us.get(e.key, 0) + t
         if e.key.startswith("aten::"):
             host_us[e.key] = e.self_cpu_time_total
@@ -2210,6 +2244,368 @@ def captured_scheduler_phase(torch, dev, params, cfg_full,
     return out
 
 
+# -- phases 28-31: threefry on the card, sampled and noisy serving ---------
+
+PRNG_DRAWS = 1 << 24
+TEMPERATURE = 0.7
+EULER_GAMMA = 0.5772156649015329
+
+
+def _moment_bounds(n: int, var: float, kurtosis: float) -> tuple:
+    """Five standard errors of a sample's mean and variance over ``n``
+    draws of a law of variance ``var`` and kurtosis ``kurtosis``."""
+    return (5 * (var / n) ** 0.5,
+            5 * ((kurtosis - 1) * var * var / n) ** 0.5)
+
+
+def prng_phase(torch, dev) -> dict:
+    """Phase 28: ``core/prng.py`` on the card against the CPU port, 2^24
+    draws: keys, bits, uniforms, normals, Gumbels and categorical rows
+    bit for bit (gate; the float transforms evaluate XLA's CPU
+    approximations with correctly rounded float32 operations, so the
+    card gives the CPU's values), normals' and Gumbels' mean and
+    variance held to five standard errors; the device time of the noisy
+    decode step's widest draw and of a 128-token prefill's."""
+    from repro_torch.core import prng
+    n = PRNG_DRAWS
+    kc, kd = prng.PRNGKey(0), prng.PRNGKey(0, dev)
+    rids = lambda k: torch.arange(1 << 16, device=k.device)
+    exact = {
+        "bits": lambda k: prng.bits(k, (n,)),
+        "uniform": lambda k: prng.uniform(k, (n,)),
+        "uniform_bounded": lambda k: prng.uniform(k, (n,), -3.0, 5.0),
+        "split": lambda k: prng.split(k, 4),
+        "split_batched": lambda k: prng.split(prng.split(k, 1 << 16), 3),
+        "fold_in": lambda k: prng.fold_in(prng.split(k, 1 << 16), rids(k)),
+        "categorical_rows": lambda k: prng.categorical(
+            prng.split(k, 64), prng.normal(k, (64, 122753)) * 3),
+    }
+    rec = {"draws": n}
+    for name, fn in exact.items():
+        want, got = fn(kc), fn(kd).cpu()
+        check(torch.equal(want, got), f"phase 28: prng.{name} on the card "
+              "!= the CPU port")
+        rec[name] = "equal"
+    stats = {}
+    for name, mean, var, kurt in (
+            ("normal", 0.0, 1.0, 3.0),
+            ("gumbel", EULER_GAMMA, 3.141592653589793 ** 2 / 6, 5.4)):
+        fn = getattr(prng, name)
+        want, got = fn(kc, (n,)), fn(kd, (n,)).cpu()
+        check(torch.equal(want, got), f"phase 28: prng.{name} on the card "
+              "!= the CPU port")
+        rec[name] = "equal"
+        g = got.double()
+        m_tol, v_tol = _moment_bounds(n, var, kurt)
+        m, v = float(g.mean()), float(g.var())
+        check(abs(m - mean) < m_tol and abs(v - var) < v_tol,
+              f"phase 28: {name} mean {m} / variance {v} outside "
+              f"{mean} +- {m_tol} / {var} +- {v_tol}")
+        stats[name] = {"mean": m, "variance": v, "mean_tol": m_tol,
+                       "variance_tol": v_tol}
+    times = {}
+    key = prng.fold_in(kd, 3)
+    for label, shape in (("decode_w1w3_m4", (4, 11520, 144)),
+                         ("prefill_w1w3_m128", (128, 11520, 144))):
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: prng.normal(key, shape), reps=3, warmup=1)
+        elems = shape[0] * shape[1] * shape[2]
+        times[label] = {"shape": list(shape), "ms": ms,
+                        "ns_per_draw": 1e6 * ms / elems,
+                        "max_memory_allocated":
+                            torch.cuda.max_memory_allocated(),
+                        "bound_ms": 1e3 * 4 * elems / HBM_BYTES_S}
+    emit({"phase": "prng", "ok": True, "equal_to_cpu": rec,
+          "moments": stats,
+          "normal_times": times,
+          "bound": "4 output bytes a draw over the HBM rate (the draw "
+                   "reads nothing); the torch version is ~220 elementwise "
+                   "kernels a draw"})
+    return times
+
+
+def sampled_serve_phase(torch, dev, params, cfg_full, phase4) -> dict:
+    """Phase 29: phase 4's lock-step serve at temperature 0.7 (every
+    token, the first included, sampled from the seed's stream): through
+    the kernels and through their plain version (tokens and last logits
+    equal, launches as phase 4's), eager and captured in turns (captured
+    == eager bit for bit), and tokens that differ from phase 4's greedy
+    ones.  Returns the eager run's launches."""
+    from repro_torch.launch.serve import serve
+
+    batch, plen, gen = 4, 32, 16
+    greedy_toks, _, want_launches = phase4
+    common = dict(smoke=False, batch=batch, prompt_len=plen, gen=gen,
+                  cim=True, params=params, temperature=TEMPERATURE,
+                  return_stats=True)
+    _reset_all_launches()
+    toks_p, st_p = serve("minicpm-2b", graphs=False, use_kernel=False,
+                         **common)
+    check(_macro_launches() == {"general": 0, "skinny": 0},
+          "phase 29: the plain run launched kernels")
+    turns, eager = [], None
+    for turn in GRAPH_TURNS:
+        _reset_all_launches()
+        toks, st = serve("minicpm-2b", graphs=turn == "captured", **common)
+        launches = _macro_launches()
+        check(launches == want_launches, f"phase 29 {turn}: launches "
+              f"{launches} != phase 4's {want_launches}")
+        check((toks == toks_p).all() and torch.equal(
+            st["last_logits"], st_p["last_logits"]),
+            f"phase 29 {turn}: sampled tokens or logits != the plain run's")
+        if eager is None:
+            eager = launches
+        rec = {"turn": turn, "decode_tok_s": st["decode_tok_s"],
+               "prefill_s": st["prefill_s"], "decode_s": st["decode_s"]}
+        for k in ("replay_tok_s", "capture_s", "graph_pool_bytes"):
+            if k in st:
+                rec[k] = st[k]
+        turns.append(rec)
+    differ = int((toks_p != greedy_toks).sum())
+    check(differ > 0, "phase 29: sampled tokens equal the greedy ones")
+    emit({"phase": "serve_sampled", "ok": True, "temperature": TEMPERATURE,
+          "batch": batch, "prompt_len": plen, "gen": gen,
+          "kernel_equals_plain": True, "captured_equals_eager": True,
+          "launches": eager, "tokens_differing_from_greedy":
+              f"{differ} of {toks_p.size}", "tokens_row0": toks_p[0].tolist(),
+          "turns": turns})
+    return eager
+
+
+def sampled_scheduler_phase(torch, dev, params, cfg_full) -> dict:
+    """Phase 30: the scheduler at temperature 0.7 through the kernels on
+    phase 9's queue, captured and eager, each run's counts reset before
+    it: a contiguous pool, a speculative pool at k 4 (fixed depth) under
+    a clipping draft (ADC 5, so that rejection sampling rejects and
+    draws corrections), and a paged pool.  Each queue's captured run
+    must equal its eager run (tokens, iterations by branch, launches),
+    and each graph's kernel nodes and a traced replay must equal what it
+    credits; the contiguous and speculative pools must equal solo runs
+    of 3 of their requests, the speculative acceptance must lie strictly
+    between 0 and 1, and the paged pool's agreement with the contiguous
+    one is reported.  Returns the eager runs' launches by queue."""
+    from repro_torch.launch.paging import PagedLayout, cdiv
+    from repro_torch.launch.scheduler import (ContinuousBatchingScheduler,
+                                              mixed_length_requests)
+    from repro_torch.models import lm
+    from repro_torch.plan import draft_plan_for_model
+
+    slots, plen, stops, n_req = 8, 64, (8, 24, 16, 32), 16  # phase 9's
+    cfg = dataclasses.replace(cfg_full, cim_mode=True)
+    reqs = mixed_length_requests(n_req, plen, cfg.vocab_size,
+                                 stop_lengths=stops, seed=0)
+    with torch.inference_mode():
+        packed = lm.pack_cim_params(params, cfg, dev)
+    base = dict(slots=slots, prompt_len=plen, max_new_cap=max(stops),
+                temperature=TEMPERATURE)
+    draft_adc = 5
+    solo_rids = (0, 1, 2)
+    out, pools = {}, {}
+    for name, kw in (
+            ("contiguous", dict(base)),
+            ("speculative", dict(base, draft_k=4, draft_plan=(
+                draft_plan_for_model(cfg, draft_adc)))),
+            ("paged", dict(base, prefill_chunk=32, paged=PagedLayout(
+                block_size=PA_BS, n_tbl=cdiv(plen + max(stops) - 1, PA_BS),
+                n_blocks=64)))):
+        scheds = {"captured": ContinuousBatchingScheduler(
+                      packed, cfg, graphs=True, **kw),
+                  "eager": ContinuousBatchingScheduler(
+                      packed, cfg, graphs=False, **kw)}
+        runs = {}
+        for turn, sched in scheds.items():
+            _reset_all_launches()
+            rep = sched.run(reqs)
+            runs[turn] = (rep, rep.tokens_by_rid(), _all_launches())
+        rep, pool, launches = runs["captured"]
+        erep, epool, elaunches = runs["eager"]
+        check(all(_tokens_equal(epool[r], pool[r]) for r in pool),
+              f"phase 30 {name}: the captured sampled pool != the eager one")
+        check(rep.branch_counts == erep.branch_counts, f"phase 30 {name}: "
+              f"iterations by branch {rep.branch_counts} != the eager "
+              f"run's {erep.branch_counts}")
+        check(launches == elaunches, f"phase 30 {name}: captured launches "
+              f"{launches} != the eager run's {elaunches}")
+        # replays of each graph on the state the captured run left
+        with torch.inference_mode():
+            traces = {key: check_replays(torch, g, f"phase 30 {name} "
+                                         f"graph {key}")
+                      for key, g in scheds["captured"]._graphs.items()}
+        pools[name] = pool
+        rec = {"queue": name, "tok_s": rep.tok_s, "wall_s": rep.wall_s,
+               "eager_tok_s": erep.tok_s, "eager_wall_s": erep.wall_s,
+               "n_iter": rep.n_iter, "branch_counts": rep.branch_counts,
+               "launches": elaunches, "captured_equals_eager": True,
+               "graphs": scheds["captured"].graph_stats(),
+               "replay_traces": traces, "trace_kernels_equal_credit": True,
+               "summary": rep.summary()}
+        if name != "paged":
+            for rid in solo_rids:
+                solo = scheds["captured"].run([reqs[rid]]).tokens_by_rid()
+                check(_tokens_equal(solo[rid], pool[rid]), f"phase 30 "
+                      f"{name}: request {rid}'s pool tokens != its solo "
+                      "run's")
+            rec["pool_equals_solo"] = list(solo_rids)
+        if name == "speculative":
+            acc = rep.acceptance_rate
+            check(0 < acc < 1, f"phase 30 speculative: acceptance {acc} "
+                  f"at draft ADC {draft_adc} is not strictly between 0 "
+                  "and 1, so rejection sampling went unexercised")
+            rec.update(acceptance_rate=acc, draft_adc_bits=draft_adc,
+                       requests_differing_from_contiguous=sum(
+                           not _tokens_equal(pool[r], pools["contiguous"][r])
+                           for r in pool))
+        if name == "paged":
+            same = [_tokens_equal(pool[r], pools["contiguous"][r])
+                    for r in pool]
+            rec.update(
+                requests_equal_contiguous=f"{sum(same)} of {len(same)}",
+                refcounts_drained=rep.ref_final.tolist()
+                == [1] + [0] * 63,
+                not_gated_because="the paged read's float32 P.V can move "
+                                  "a bf16 activation by one ulp, and in CIM "
+                                  "mode an ADC code with it")
+            check(elaunches["paged_attn"] > 0,
+                  "phase 30: the paged read was launched no time")
+        emit({"phase": "serve_scheduler_sampled", "ok": True,
+              "temperature": TEMPERATURE, **rec})
+        out[name] = elaunches
+        del scheds
+    del packed
+    return out
+
+
+def noise_draw_profile(torch, dev, params, cfg, batch: int, plen: int
+                       ) -> dict:
+    """A profile of one eager noisy decode step at phase 31's shape: the
+    step's wall and device busy time (``device_breakdown``) and, over
+    the noise draws' profiler range (``ccim.NOISE_RANGE``, every
+    ``_fast_gemm_noise`` call), the device time of the kernels launched
+    inside it, its host time, and the union of its device-side spans
+    (a draw's first kernel start to its last kernel end)."""
+    from torch.autograd import DeviceType
+    from repro_torch.core import ccim
+    from repro_torch.launch.serve import decode_body
+    from repro_torch.models import lm
+    with torch.inference_mode():
+        packed = lm.pack_cim_params(params, cfg, dev)
+        cache = lm.init_cache(cfg, batch, plen + 8, device=dev)
+        prompt = torch.zeros((batch, plen), dtype=torch.int64, device=dev)
+        # the cache's contents do not change the step's work: a noise-free
+        # prefill (the same pack) fills it in a fraction of a noisy one's
+        _, cache = lm.prefill(packed, dataclasses.replace(
+            cfg, cim_noise_seed=None), prompt, cache)
+        tok = prompt[:, :1].clone()
+        out = torch.zeros((batch, 8), dtype=torch.int64, device=dev)
+        col = torch.ones((1, 1), dtype=torch.int64, device=dev)
+        body = decode_body(packed, cfg, tok, cache, out, col)
+        body()                                               # warm
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            body()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+    del packed, cache
+    draws = [e for e in prof.events() if e.name == ccim.NOISE_RANGE]
+    host = [e for e in draws if e.device_type == DeviceType.CPU]
+    span_us, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end)
+                       for e in draws if e.device_type == DeviceType.CUDA):
+        if b > end:
+            span_us += b - max(a, end)
+            end = b
+    kernel_ms = sum(e.device_time_total for e in host) / 1e3
+    host_ms = sum(e.cpu_time_total for e in host) / 1e3
+    rec = device_breakdown(prof, 1, wall_ms)
+    busy = rec["device_busy_ms"]
+    check(busy is not None and host and kernel_ms > 0,
+          "phase 31: the profile of a noisy step holds no device events, "
+          "no noise-draw range or no kernel under it")
+    return {"step_wall_ms": wall_ms, "noise_draw_calls": len(host),
+            "draw_kernel_ms": kernel_ms, "draw_host_ms": host_ms,
+            "draw_device_span_ms": span_us / 1e3,
+            "draw_kernels_share_of_device_busy": kernel_ms / busy,
+            "draw_kernels_share_of_step_wall": kernel_ms / wall_ms,
+            "draw_host_share_of_step_wall": host_ms / wall_ms, **rec}
+
+
+def noisy_serve_phase(torch, dev, params, cfg_full) -> dict:
+    """Phase 31: lock-step serve with the macro's analog noise (noise seed
+    0; batch 2, prompt 16, 8 tokens), eager and captured: identical
+    tokens and logits (the draws are deterministic), logits that differ
+    from the noise-free run's, and no launch of kernel rows 1 and 2 (the
+    noisy GEMMs take the chunked GEMM in torch, as the reference's leave
+    its kernels); prefill and decode wall time, peak memory, and the
+    share of an eager decode step's device time spent in the noise
+    draws, from a profile of one step.  Then a noisy prefill of M 128
+    (batch 2, prompt 64, the chunk-blocked draws at a prefill's width)
+    beside the noise-free one: wall time and peak memory."""
+    from repro_torch.launch.serve import serve
+
+    batch, plen, gen = 2, 16, 8
+    common = dict(smoke=False, batch=batch, prompt_len=plen, gen=gen,
+                  cim=True, params=params, return_stats=True)
+    zero = {"general": 0, "skinny": 0}
+    runs = {}
+    for label, kw in (("eager", dict(graphs=False, noise_seed=0)),
+                      ("captured", dict(graphs=True, noise_seed=0)),
+                      ("noise_free", dict(graphs=False))):
+        _reset_all_launches()
+        torch.cuda.reset_peak_memory_stats()
+        toks, st = serve("minicpm-2b", **common, **kw)
+        runs[label] = (toks, st.pop("last_logits"), _macro_launches(), st,
+                       torch.cuda.max_memory_allocated())
+    (te, le, ne, se, me), (tc, lc, nc, sc, mc) = runs["eager"], runs[
+        "captured"]
+    check((te == tc).all() and torch.equal(le, lc),
+          "phase 31: two noisy runs (eager, captured) differ")
+    check(not torch.equal(le, runs["noise_free"][1]),
+          "phase 31: noisy logits equal the noise-free ones")
+    check(ne == zero and nc == zero, f"phase 31: noisy serving launched "
+          f"macro kernels {ne} / {nc}")
+    check(bool(torch.isfinite(le).all()), "phase 31: non-finite logits")
+    cfg = dataclasses.replace(cfg_full, cim_mode=True, cim_noise_seed=0)
+    profile = noise_draw_profile(torch, dev, params, cfg, batch, plen)
+    prefill = {}
+    for label, kw in (("noisy", dict(noise_seed=0)), ("noise_free", {})):
+        _reset_all_launches()
+        torch.cuda.reset_peak_memory_stats()
+        _, st = serve("minicpm-2b", **dict(common, prompt_len=64, gen=1),
+                      graphs=False, **kw)
+        launches = _macro_launches()
+        check(bool(torch.isfinite(st["last_logits"]).all()),
+              f"phase 31: non-finite logits after the {label} M-128 prefill")
+        if label == "noisy":
+            check(launches == zero, f"phase 31: the noisy M-128 prefill "
+                  f"launched macro kernels {launches}")
+        prefill[label] = {"prefill_s": st["prefill_s"],
+                          "max_memory_allocated":
+                              torch.cuda.max_memory_allocated(),
+                          "macro_launches": launches}
+    emit({"phase": "serve_noisy", "ok": True, "noise_seed": 0,
+          "batch": batch, "prompt_len": plen, "gen": gen,
+          "runs_identical": True, "logits_differ_from_noise_free": True,
+          "macro_kernel_launches": ne,
+          "eager": {k: se[k] for k in ("prefill_s", "decode_s",
+                                       "decode_tok_s")},
+          "captured": {k: sc[k] for k in ("prefill_s", "decode_s",
+                                          "decode_tok_s", "capture_s",
+                                          "graph_pool_bytes")
+                       if k in sc},
+          "noise_free": {k: runs["noise_free"][3][k] for k in (
+              "prefill_s", "decode_s", "decode_tok_s")},
+          "max_memory_allocated": {"eager": me, "captured": mc,
+                                   "noise_free": runs["noise_free"][4]},
+          "eager_decode_step_ms": 1e3 * se["decode_s"] / (gen - 1),
+          "profile_eager_noisy_step": profile,
+          "prefill_m128": dict(prefill, batch=batch, prompt_len=64),
+          "tokens_row0": te[0].tolist()})
+    return ne
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2494,6 +2890,17 @@ def main() -> int:
             k_: n[k_] for k_ in ("general", "skinny")}
     serve_phases["paged_launches_by_path"]["scheduler_captured_paged"] = (
         by_queue["paged"]["paged_attn"])
+    # -- 28.-31. threefry on the card, sampled and noisy serving -----------
+    prng_phase(torch, dev)
+    by_path["serve_sampled"] = sampled_serve_phase(
+        torch, dev, params, cfg_full, runs["kernel"])
+    sampled = sampled_scheduler_phase(torch, dev, params, cfg_full)
+    for name, n in sampled.items():
+        by_path[f"scheduler_sampled_{name}"] = {
+            k_: n[k_] for k_ in ("general", "skinny")}
+    serve_phases["paged_launches_by_path"]["scheduler_sampled_paged"] = (
+        sampled["paged"]["paged_attn"])
+    by_path["serve_noisy"] = noisy_serve_phase(torch, dev, params, cfg_full)
     del params
 
     src = "src/repro_torch/kernels/ccim_matmul/csrc/"

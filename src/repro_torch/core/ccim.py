@@ -1,6 +1,6 @@
-"""Noise-free numerics of the hybrid digital/analog C-CIM macro, in torch.
+"""Numerics of the hybrid digital/analog C-CIM macro, in torch.
 
-Counterpart of ``repro/core/ccim.py``, noise-free:
+Counterpart of ``repro/core/ccim.py``:
 
   * 8-bit signed-magnitude (SMF) operands:  v = (-1)^s * m,  m in [0,127].
   * Per ``acc_len``-element accumulate (one ADC conversion):
@@ -16,17 +16,28 @@ Counterpart of ``repro/core/ccim.py``, noise-free:
 Fidelities of ``cim_matmul_int``: 'fast' (chunked GEMMs; the CUDA
 kernels on the card), 'fast_broadcast' (the elementwise model),
 'bit_true' (every bit-product with the die's mismatch) and 'exact' (the
-integer dot).  Dynamic analog noise is not ported: every function here
-refuses a noise key.
+integer dot).
+
+Analog noise (a ``core.prng`` key): the fast model's matched Gaussian,
+drawn as the reference draws it (``_fast_gemm_noise``), in
+``hybrid_mac_fast`` and the chunked fast GEMM; 'exact' ignores the key.
+The noise-free CUDA kernels do not take it: a noisy 'fast' GEMM runs
+the chunked GEMM in torch, as the reference's noisy GEMMs leave its
+Pallas kernels for XLA.  The die draws (``fabricate``), the SAR
+comparator noise and bit-true noise are not ported: those functions
+refuse a key.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from . import prng
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,8 +45,7 @@ class CCIMConfig:
     """Static configuration of the macro (defaults = the 28nm prototype).
 
     Field for field the reference config, so configs convert both ways
-    with ``dataclasses.asdict``; the analog-noise fields are carried but
-    not read until noisy serving is ported."""
+    with ``dataclasses.asdict``."""
 
     n_mag_bits: int = 7
     acc_len: int = 16
@@ -73,6 +83,32 @@ class CCIMConfig:
     def adc_half_range(self) -> int:
         return 1 << (self.adc_bits - 1)
 
+    @property
+    def fast_noise_correction(self) -> float:
+        """Variance correction of the fast path's matched noise under the
+        split-DAC, whose LSB section floors a cell's effective unit count
+        at 2^ceil(s/2): sum(2^2s / eff) / sum(2^s) over the ACIM cells."""
+        if not self.use_split_dac:
+            return 1.0
+        num = den = 0.0
+        for j in range(self.n_mag_bits):
+            for k in range(self.n_mag_bits):
+                if (j, k) in self.dcim_products:
+                    continue
+                s = j + k
+                eff = min(2.0 ** s, 2.0 ** math.ceil(s / 2))
+                num += (2.0 ** (2 * s)) / eff
+                den += 2.0 ** s
+        return num / den
+
+    def noise_var_terms(self) -> Tuple[float, float]:
+        """(coefficient, floor) of the fast path's noise variance
+        ``coefficient * |acim| + floor``, each a float32 value: the cap
+        mismatch per unit of ACIM magnitude, and the comparator noise."""
+        coef = np.float32(self.sigma_unit ** 2 * self.fast_noise_correction)
+        floor = np.float32((self.comparator_noise_lsb * self.dcim_lsb) ** 2)
+        return float(coef), float(floor)
+
     def dcim_weight_table(self) -> np.ndarray:
         """(7, 7) integer table: 2^(j+k)/dcim_lsb on DCIM cells, 0 elsewhere."""
         t = np.zeros((self.n_mag_bits, self.n_mag_bits), np.int32)
@@ -102,8 +138,9 @@ DEFAULT_CONFIG = CCIMConfig()
 def _no_noise(noise_key) -> None:
     if noise_key is not None:
         raise NotImplementedError(
-            "analog-noise emulation is not ported yet; the torch macro "
-            "path is noise-free (pass noise_key=None)")
+            "analog noise is ported for the fast model only; this path "
+            "(die draws, SAR comparator noise, bit-true, complex) is "
+            "noise-free (pass noise_key=None)")
 
 
 # ---------------------------------------------------------------------------
@@ -339,15 +376,29 @@ def hybrid_mac_ideal(x_q: torch.Tensor, w_q: torch.Tensor,
     return _isum(d_elem) + _adc_round(_isum(a_elem).to(torch.float32), cfg)
 
 
+def _noisy(a_real: torch.Tensor, a_mag: torch.Tensor, draw: torch.Tensor,
+           cfg: CCIMConfig) -> torch.Tensor:
+    """a_real + sqrt(coef * |acim| + floor) * draw in float32, with the
+    two multiply-adds fused as the reference's compiled CPU code fuses
+    them (``prng._fma``) and a correctly rounded square root."""
+    coef, floor = cfg.noise_var_terms()
+    var = prng.fma(a_mag.to(torch.float32), coef, floor)
+    return prng.fma(prng.sqrt(var), draw, a_real)
+
+
 def hybrid_mac_fast(x_q: torch.Tensor, w_q: torch.Tensor, noise_key=None,
                     cfg: CCIMConfig = DEFAULT_CONFIG) -> dict:
-    """The moment-matched model without its Gaussian: exact ints + the
-    ideal ADC.  Same dict keys as ``hybrid_mac_bit_true``."""
-    _no_noise(noise_key)
+    """The moment-matched macro model: exact ints, one matched Gaussian
+    per conversion (a ``core.prng`` key, drawn over the broadcast output
+    shape as the reference draws it; none without a key) and the ideal
+    ADC.  Same dict keys as ``hybrid_mac_bit_true``."""
     x_q, w_q = x_q.to(torch.int32), w_q.to(torch.int32)
     d_elem, a_elem, prod = _dcim_terms(x_q, w_q, cfg)
     dcim, a_ideal = _isum(d_elem), _isum(a_elem)
     a_real = a_ideal.to(torch.float32)
+    if noise_key is not None:
+        a_real = _noisy(a_real, _isum(a_elem.abs()),
+                        prng.normal(noise_key, a_real.shape), cfg)
     code = _adc_round(a_real, cfg)
     return dict(y8=dcim + code, dcim=dcim, adc_code=code, a_real=a_real,
                 a_ideal=a_ideal, exact=_isum(prod))
@@ -390,16 +441,11 @@ def fold_dcim_planes(wq: torch.Tensor,
 
 
 def fast_gemm_weight_ops(wq: torch.Tensor, cfg: CCIMConfig = DEFAULT_CONFIG
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+                         ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """(C, L, N) integer weights -> (wf, w_planes): the float32 weight copy
-    and the folded planes concatenated along L, (C, J*L, N) float32."""
-    wf = wq.to(torch.float32)
-    planes = [p.to(torch.float32) for p in fold_dcim_planes(wq, cfg)]
-    C, _, N = wq.shape
-    w_pl = (torch.cat(planes, dim=1) if planes
-            else torch.zeros((C, 0, N), dtype=torch.float32,
-                             device=wq.device))
-    return wf, w_pl
+    and one (C, L, N) float32 folded plane per distinct j."""
+    return (wq.to(torch.float32),
+            [p.to(torch.float32) for p in fold_dcim_planes(wq, cfg)])
 
 
 # elements of one (chunk block, M, N) float32 partial: bounds the plain
@@ -407,39 +453,98 @@ def fast_gemm_weight_ops(wq: torch.Tensor, cfg: CCIMConfig = DEFAULT_CONFIG
 # the same result)
 _PARTIAL_ELEMS = 1 << 25
 
+# the profiler range of every noise draw (``_fast_gemm_noise``), by which
+# a trace attributes device time to the draws
+NOISE_RANGE = "ccim.fast_gemm_noise"
 
-def fast_gemm_int(xq: torch.Tensor, wf: torch.Tensor, w_pl: torch.Tensor,
+
+def _fast_gemm_noise(noise_key, M: int, N: int, C: int,
+                     noise_segments: Optional[Sequence[int]] = None,
+                     c0: int = 0, c1: Optional[int] = None) -> torch.Tensor:
+    """The fast path's (C, M, N) mismatch/comparator noise, chunks
+    [c0, c1) of it: float32 (c1 - c0, M, N).
+
+    The reference draws ``normal(key, (M, N, C))`` (the broadcast model's
+    layout) and transposes it; each element here is drawn at its flat
+    index in that layout (``prng.bits_at``), so a block of chunks costs
+    only its own draws.  For a fused projection group ``noise_key`` is a
+    sequence of per-segment keys and ``noise_segments`` their N sizes:
+    each segment draws its own (M, n, C) stream -- the draw of its
+    unfused projection -- and the segments concatenate along N."""
+    c1 = C if c1 is None else c1
+    if noise_segments is None:
+        keys, segs = (noise_key,), (N,)
+    else:
+        keys, segs = tuple(noise_key), tuple(noise_segments)
+        if len(keys) != len(segs) or sum(segs) != N:
+            raise ValueError(f"noise segments {segs} do not split N={N} "
+                             f"among {len(keys)} keys")
+    dev = keys[0].device
+    with torch.profiler.record_function(NOISE_RANGE):
+        ar = lambda *a: torch.arange(*a, dtype=torch.int64, device=dev)
+        c, m = ar(c0, c1)[:, None, None], ar(M)[None, :, None]
+        draws = []
+        for key, n in zip(keys, segs):
+            j = ar(n)[None, None, :]
+            draws.append(prng.normal_from_bits(
+                prng.bits_at(key, (m * n + j) * C + c)))
+        return draws[0] if len(draws) == 1 else torch.cat(draws, dim=-1)
+
+
+def fast_gemm_int(xq: torch.Tensor, wf: torch.Tensor,
+                  w_planes: Sequence[torch.Tensor],
                   x_bits: Sequence[int], dcim_lsb: int, adc_half: int,
-                  chunk_block: Optional[int] = None) -> torch.Tensor:
+                  chunk_block: Optional[int] = None, *,
+                  noise_key=None, noise_segments=None,
+                  cfg: Optional[CCIMConfig] = None) -> torch.Tensor:
     """sum_c y8_c as (M, N) int32 (unscaled), for the split described by
     ``x_bits`` (one activation bit per folded plane), ``dcim_lsb`` and
-    ``adc_half``.  xq (M, C, L) ints; wf (C, L, N) and w_pl (C, J*L, N)
-    float32.
+    ``adc_half``.  xq (M, C, L) ints; wf (C, L, N) weights and
+    ``w_planes`` one (C, L, N) folded plane per entry of ``x_bits``, in
+    any dtype holding integers (int8 views of the pack are cast one chunk
+    block at a time).
 
-    Float32 batched dots are exact here: every partial is an integer
-    below 2^24 (|chunk dot| <= 64 * 127^2).  TF32 would break that, so it
-    is switched off for both matmul back ends before the dots run.
+    With ``noise_key`` (and ``cfg``, whose noise terms it reads) each
+    conversion adds the matched Gaussian of ``_fast_gemm_noise`` to its
+    analog sum before the ADC, its variance from the |x|.|w| magnitude
+    dots.  Float32 batched dots are exact here: every partial is an
+    integer below 2^24 (|chunk dot| <= 64 * 127^2).  TF32 would break
+    that, so it is switched off for both matmul back ends first.
     """
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    f32 = torch.float32
     M, C, L = xq.shape
     N = wf.shape[-1]
     sx, mx = split_sign_mag(xq)
-    xf = xq.transpose(0, 1).to(torch.float32)                 # (C, M, L)
-    sxf, mxT = sx.transpose(0, 1).to(torch.float32), mx.transpose(0, 1)
-    x_pl = [sxf * ((mxT >> j) & 1).to(torch.float32) for j in x_bits]
+    xf = xq.transpose(0, 1).to(f32)                            # (C, M, L)
+    sxf, mxT = sx.transpose(0, 1).to(f32), mx.transpose(0, 1)
+    x_bit = [((mxT >> j) & 1).to(f32) for j in x_bits]
+    x_pl = [sxf * b for b in x_bit]
+    noisy = noise_key is not None
     lsb, half = float(dcim_lsb), adc_half
     cb = chunk_block or max(1, min(C, _PARTIAL_ELEMS // max(M * N, 1)))
     acc = torch.zeros((M, N), dtype=torch.int32, device=xq.device)
     for c0 in range(0, C, cb):
         c1 = min(C, c0 + cb)
-        a_real = torch.bmm(xf[c0:c1], wf[c0:c1])               # (cb, M, N)
+        wb = wf[c0:c1].to(f32)
+        a_real = torch.bmm(xf[c0:c1], wb)                      # (cb, M, N)
         if x_pl:
-            xcat = torch.cat([p[c0:c1] for p in x_pl], dim=-1)
-            dcim = torch.bmm(xcat, w_pl[c0:c1])
+            # the block's planes side by side along L: one dot for all
+            wpl = torch.cat([p[c0:c1] for p in w_planes], dim=1).to(f32)
+            dcim = torch.bmm(torch.cat([p[c0:c1] for p in x_pl], -1), wpl)
         else:
             dcim = torch.zeros_like(a_real)
         a_real = a_real - dcim * lsb                            # ideal ACIM
+        if noisy:
+            # |folded signed plane| is the magnitude plane (the fold
+            # weights are non-negative)
+            a_mag = torch.bmm(xf[c0:c1].abs(), wb.abs())
+            if x_pl:
+                a_mag = a_mag - lsb * torch.bmm(
+                    torch.cat([b[c0:c1] for b in x_bit], -1), wpl.abs())
+            a_real = _noisy(a_real, a_mag, _fast_gemm_noise(
+                noise_key, M, N, C, noise_segments, c0, c1), cfg)
         code = torch.clamp(torch.floor(a_real / lsb + 0.5), -half, half - 1)
         acc += (dcim + code).to(torch.int32).sum(dim=0, dtype=torch.int32)
     return acc
@@ -448,22 +553,25 @@ def fast_gemm_int(xq: torch.Tensor, wf: torch.Tensor, w_pl: torch.Tensor,
 def hybrid_mac_fast_gemm_prepacked(
     xq: torch.Tensor,                 # (M, C, L) ints in [-127, 127]
     wf: torch.Tensor,                 # (C, L, N) float32 weight copy
-    w_pl: torch.Tensor,               # (C, J*L, N) concatenated planes
+    w_planes: Sequence[torch.Tensor],  # J folded planes, (C, L, N) each
     noise_key=None,
     cfg: CCIMConfig = DEFAULT_CONFIG,
+    noise_segments: Optional[Sequence[int]] = None,
 ) -> torch.Tensor:
     """Fast-path GEMM on prepacked weight operands; (M, N) int32 sum of
-    the per-conversion y8 (unscaled).  Noise-free only."""
-    _no_noise(noise_key)
-    return fast_gemm_int(xq, wf, w_pl, tuple(_dcim_by_j(cfg)), cfg.dcim_lsb,
-                         cfg.adc_half_range)
+    the per-conversion y8 (unscaled), with the analog noise of
+    ``noise_key`` (per segment with ``noise_segments``) if given."""
+    return fast_gemm_int(xq, wf, w_planes, tuple(_dcim_by_j(cfg)),
+                         cfg.dcim_lsb, cfg.adc_half_range,
+                         noise_key=noise_key, noise_segments=noise_segments,
+                         cfg=cfg)
 
 
 def hybrid_mac_fast_gemm(xq: torch.Tensor, wq: torch.Tensor, noise_key=None,
                          cfg: CCIMConfig = DEFAULT_CONFIG) -> torch.Tensor:
     """Chunked fast-path GEMM on raw (C, L, N) integer weights."""
-    wf, w_pl = fast_gemm_weight_ops(wq, cfg)
-    return hybrid_mac_fast_gemm_prepacked(xq, wf, w_pl, noise_key, cfg)
+    wf, w_planes = fast_gemm_weight_ops(wq, cfg)
+    return hybrid_mac_fast_gemm_prepacked(xq, wf, w_planes, noise_key, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -550,13 +658,18 @@ def cim_matmul_int(x_q: torch.Tensor, w_q,
     decomposes the weights itself; at any other design point raw weights
     are packed for the call and served by the prepacked kernels, which
     take every design point -- bit-identical, since packing is a caching
-    transform.  The other fidelities are plain torch on any device."""
+    transform.  The other fidelities are plain torch on any device.
+
+    ``noise_key`` adds the fast model's analog noise at 'fast' on packed
+    weights (``engine.packed_cim_matmul_int``); 'exact' ignores it, and
+    raw weights at the other fidelities refuse it."""
     from .engine import (PackedCimWeights, pack_quantized_cim_weights,
                          packed_cim_matmul_int)
-    _no_noise(noise_key)
     if isinstance(w_q, PackedCimWeights):
-        return packed_cim_matmul_int(x_q, w_q, cfg, None, fidelity,
+        return packed_cim_matmul_int(x_q, w_q, cfg, noise_key, fidelity,
                                      use_kernel=use_kernel, macro=macro)
+    if fidelity != "exact":
+        _no_noise(noise_key)
     if x_q.shape[1] != w_q.shape[0]:
         raise ValueError(f"x {tuple(x_q.shape)} @ w {tuple(w_q.shape)}")
     if fidelity == "fast":

@@ -26,14 +26,15 @@ kernels read both packs as stored.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from .ccim import (CCIMConfig, DEFAULT_CONFIG, MacroInstance, _dcim_by_j,
-                   _no_noise, _pad_to_chunks, fold_dcim_planes, quantize_smf,
-                   smf_scale, split_sign_mag)
+                   _pad_to_chunks, fold_dcim_planes,
+                   hybrid_mac_fast_gemm_prepacked, quantize_smf, smf_scale,
+                   split_sign_mag)
 from ..kernels.ccim_matmul import ops as kops
 from ..kernels.ccim_matmul.kernel import chunked_operands
 
@@ -74,6 +75,15 @@ class PackedCimWeights:
         """The float32 chunked operands of the fast GEMM, (C, L, N) and
         (C, J*L, N) with C = ceil(K / acc_len): what the reference pack
         stores as ``gemm_w``/``gemm_planes``, derived here per call."""
+        w, planes = self.gemm_views()
+        f32 = lambda v: v.to(torch.float32)
+        return f32(w), (torch.cat([f32(p) for p in planes], dim=1) if planes
+                        else w.new_zeros((w.shape[0], 0, self.n_dim),
+                                         dtype=torch.float32))
+
+    def gemm_views(self) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+        """The fast GEMM's chunked operands as int8 views of the pack, no
+        copy: w (C, L, N) and one (C, L, N) view per folded plane."""
         return chunked_operands(self.kernel_w, self.kernel_planes,
                                 self.cfg.acc_len,
                                 _pad_to_chunks(self.k_dim, self.cfg.acc_len))
@@ -205,17 +215,19 @@ def packed_cim_matmul_int(
     *,
     use_kernel: Optional[bool] = None,
     macro: Optional[MacroInstance] = None,
+    noise_segments: Optional[Sequence[int]] = None,
 ) -> torch.Tensor:
     """Integer GEMM against prepacked weights -> (M, N) int32 at product
-    scale; bit-identical to the reference's noise-free path at every
-    fidelity.
+    scale; bit-identical to the reference at every fidelity.
 
     'fast' runs the prepacked kernels: ``use_kernel`` None launches the
     CUDA kernels on CUDA tensors and runs their plain version on CPU
-    tensors; False forces the plain version.  The other fidelities
-    rebuild the raw ints (one O(K*N) copy, dwarfed by their own work)
-    and take ``ccim.cim_matmul_int``."""
-    _no_noise(noise_key)
+    tensors; False forces the plain version.  With a ``noise_key`` (one
+    per segment of N with ``noise_segments``), 'fast' runs
+    ``ccim.hybrid_mac_fast_gemm_prepacked`` on int8 views of the pack
+    instead, as the reference routes its noisy GEMMs off its kernels.
+    The other fidelities rebuild the raw ints (one O(K*N) copy, dwarfed
+    by their own work) and take ``ccim.cim_matmul_int``."""
     if packed.kernel_w.dim() != 2:
         raise ValueError("stacked pack: select a layer with .layer(i)")
     M, K = x_q.shape
@@ -229,13 +241,21 @@ def packed_cim_matmul_int(
             "subset (n_dcim_products=0, same n_mag_bits and acc_len).")
     if fidelity != "fast":
         from .ccim import cim_matmul_int
-        return cim_matmul_int(x_q, packed.wq(), cfg, None, fidelity,
+        return cim_matmul_int(x_q, packed.wq(), cfg, noise_key, fidelity,
                               use_kernel=use_kernel, macro=macro)
+    x_bits = tuple(_dcim_by_j(cfg))
+    if noise_key is not None:
+        L = cfg.acc_len
+        w, planes = packed.gemm_views()
+        C = w.shape[0]
+        xq = F.pad(x_q.to(torch.int32), (0, C * L - K)).reshape(M, C, L)
+        return hybrid_mac_fast_gemm_prepacked(
+            xq, w, planes[:len(x_bits)], noise_key, cfg,
+            noise_segments) * cfg.dcim_lsb
     if not _prepacked_kernel_supported(cfg):
         raise NotImplementedError(
             f"the prepacked kernels do not serve {cfg} (need n_mag_bits=7, "
             "n_dcim_products <= 6, acc_len in 8/16/32/64)")
-    x_bits = tuple(_dcim_by_j(cfg))
     # analog-subset serving of a hybrid pack reads no planes
     planes = packed.kernel_planes[:len(x_bits)]
     return kops.ccim_matmul_int_prepacked(
@@ -252,13 +272,15 @@ def packed_cim_matmul(
     fidelity: str = "fast",
     use_kernel: Optional[bool] = None,
     macro: Optional[MacroInstance] = None,
+    noise_segments: Optional[Sequence[int]] = None,
 ) -> torch.Tensor:
     """float (M, K) @ packed -> (M, N) float32: per-row activation
     quantization is the only conditioning left on the hot path."""
     sx = smf_scale(x, dim=-1, keepdim=True, cfg=cfg)
     xq = quantize_smf(x, sx, cfg)
     y_int = packed_cim_matmul_int(xq, packed, cfg, noise_key, fidelity,
-                                  use_kernel=use_kernel, macro=macro)
+                                  use_kernel=use_kernel, macro=macro,
+                                  noise_segments=noise_segments)
     return y_int.to(torch.float32) * sx * packed.scale.reshape(1, -1)
 
 
@@ -287,13 +309,18 @@ class CimEngine:
         return pack_complex_cim_weights(w_re, w_im, self.cfg)
 
     def matmul(self, x: torch.Tensor, w, noise_key=None) -> torch.Tensor:
-        """(..., K) @ w -> (..., N); w packed or a fused packed group."""
+        """(..., K) @ w -> (..., N); w packed or a fused packed group (a
+        group's noise key is then a tuple of per-segment keys, drawn per
+        segment of its ``seg_dims``)."""
         from .qat import cim_linear_packed
+        segments = None
         if isinstance(w, FusedPackedCimWeights):
+            if noise_key is not None:
+                segments = w.seg_dims
             w = w.packed
         if isinstance(w, PackedCimWeights):
             return cim_linear_packed(x, w, noise_key, self.cfg, self.fidelity,
-                                     self.use_kernel)
+                                     self.use_kernel, segments)
         raise NotImplementedError(
             "unpacked (per-call) CIM execution is not ported yet; pack the "
             "weights (lm.pack_cim_params / CimEngine.pack)")

@@ -1,0 +1,302 @@
+"""Threefry2x32 counter-based random numbers, bit for bit ``jax.random``'s.
+
+Counterpart of the ``jax.random`` calls the reference makes while
+serving: ``PRNGKey``, ``fold_in``, ``split``, ``bits``, ``uniform``,
+``normal``, ``gumbel`` and ``categorical``, under jax's default
+``jax_threefry_partitionable=True`` scheme:
+
+  * a key is two uint32 words; here a ``(..., 2)`` int64 tensor holding
+    them (torch's uint32 lacks most arithmetic), on the device it is
+    made on.  Leading key axes batch every function, as ``jax.vmap``
+    over the key does;
+  * ``bits(key, shape)`` hashes the 64-bit flat index of every element
+    (high word, low word) with the key and returns the xor of the two
+    output words;
+  * ``split`` hashes the indices 0..n-1 and keeps both output words as
+    the new keys ("foldlike"); ``fold_in`` hashes the pair (0, data).
+
+Every integer step is an int64 op masked to 32 bits, so bits, keys and
+uniforms equal jax's exactly, on the CPU and on the card.  The float
+transforms are written as XLA writes them:
+
+  * ``uniform``: the top 23 bits as the mantissa of a float in [1, 2),
+    minus 1, scaled, then ``max(lo, .)``;
+  * ``normal``: ``sqrt(2) * erf_inv(u)``, u uniform in
+    (nextafter(-1, 0), 1), with XLA's float32 ``erf_inv`` (Giles: two
+    9-term polynomials in ``w = -log1p(-u^2)``, Horner with fused
+    multiply-adds, +-inf at |u| == 1);
+  * ``gumbel`` (mode "low"): ``-log(-log(u))``, u uniform in (tiny, 1);
+  * ``categorical``: the argmax of logits + gumbel.
+
+``log`` and ``log1p`` are XLA's CPU float32 approximations (Cephes'
+logf polynomial and log1p's rational function), operation for
+operation, with the multiply-adds fused where the CPU compiler fuses
+them: a fused multiply-add is evaluated in float64 from float32
+operands (the product is exact there) and rounded once to float32.
+Square roots are taken in float64 and rounded (torch's float32 CPU
+sqrt is not always correctly rounded).  Every float step is then one
+IEEE operation, so the card and the CPU give the same floats, and over
+the parity test's draws they equal jax's
+(``tests/test_torch_prng.py``).  No function reads a tensor back to
+the host, so a captured CUDA graph can replay any of them.
+"""
+from __future__ import annotations
+
+import math
+import struct
+from typing import Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+_MASK = 0xFFFFFFFF
+_PARITY = 0x1BD11BDA
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+# XLA's float32 erf_inv coefficients (highest degree first), for
+# w < 5 and for w >= 5
+_ERFINV_SMALL = tuple(float(np.float32(c)) for c in (
+    2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+    0.00021858087, -0.00125372503, -0.00417768164, 0.246640727,
+    1.50140941))
+_ERFINV_LARGE = tuple(float(np.float32(c)) for c in (
+    -0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+    0.00573950773, -0.0076224613, 0.00943887047, 1.00167406,
+    2.83297682))
+
+_F32 = torch.float32
+_TINY = float(np.finfo(np.float32).tiny)
+_SQRT2 = float(np.float32(np.sqrt(2.0)))
+_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+
+Shape = Union[int, Sequence[int]]
+
+
+def _shape(shape: Shape) -> Tuple[int, ...]:
+    return (shape,) if isinstance(shape, int) else tuple(shape)
+
+
+def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) & _MASK) | (x >> (32 - r))
+
+
+def threefry2x32(k0: torch.Tensor, k1: torch.Tensor, x0: torch.Tensor,
+                 x1: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Threefry-2x32 block cipher (20 rounds) of the counter pair
+    (x0, x1) under the key (k0, k1); int64 tensors holding uint32
+    values, broadcast together."""
+    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
+    x0 = (x0 + ks[0]) & _MASK
+    x1 = (x1 + ks[1]) & _MASK
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _MASK
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _MASK
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _MASK
+    return x0, x1
+
+
+def PRNGKey(seed: int, device=None) -> torch.Tensor:
+    """The key of an integer seed, as ``jax.random.PRNGKey`` makes it with
+    64-bit types off: the seed taken modulo 2^32 as the low word, a zero
+    high word (so -1 gives (0, 2^32 - 1))."""
+    return torch.tensor([0, int(seed) & _MASK], dtype=torch.int64,
+                        device=device)
+
+
+def _words(key: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    if key.shape[-1] != 2 or key.dtype != torch.int64:
+        raise ValueError(f"a key is a (..., 2) int64 tensor, got "
+                         f"{tuple(key.shape)} {key.dtype}")
+    return key[..., 0], key[..., 1]
+
+
+def fold_in(key: torch.Tensor, data: Union[int, torch.Tensor]
+            ) -> torch.Tensor:
+    """A new key from ``key`` and a 32-bit ``data`` word (an int in
+    [0, 2^32) or an int64 tensor of such, broadcast against the key's
+    leading axes)."""
+    if isinstance(data, int) and not 0 <= data <= _MASK:
+        raise ValueError(f"fold_in data {data} is not a uint32")
+    k0, k1 = _words(key)
+    d = (data & _MASK if isinstance(data, torch.Tensor)
+         else torch.full((), data, dtype=torch.int64, device=key.device))
+    o0, o1 = threefry2x32(k0, k1, torch.zeros_like(d), d)
+    return torch.stack(torch.broadcast_tensors(o0, o1), dim=-1)
+
+
+def _hash(key: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Both output words of the counters (hi, lo) under every key of
+    ``key`` (..., 2): shape key.shape[:-1] + hi.shape."""
+    k0, k1 = _words(key)
+    expand = (...,) + (None,) * hi.dim()
+    return threefry2x32(k0[expand], k1[expand], hi, lo)
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``num`` new keys from ``key`` (..., 2) -> (..., num, 2)."""
+    idx = torch.arange(num, dtype=torch.int64, device=key.device)
+    o0, o1 = _hash(key, torch.zeros_like(idx), idx)
+    return torch.stack([o0, o1], dim=-1)
+
+
+def bits_at(key: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """The 32 random bits (int64 in [0, 2^32)) that ``bits(key, shape)``
+    puts at the flat indices ``index`` (an int64 tensor): any slice or
+    re-layout of a draw, without drawing the rest."""
+    o0, o1 = _hash(key, index >> 32, index & _MASK)
+    return o0 ^ o1
+
+
+def bits(key: torch.Tensor, shape: Shape) -> torch.Tensor:
+    """32 random bits per element of ``shape``, int64 in [0, 2^32);
+    shape key.shape[:-1] + shape."""
+    shape = _shape(shape)
+    idx = torch.arange(math.prod(shape), dtype=torch.int64,
+                       device=key.device).reshape(shape)
+    return bits_at(key, idx)
+
+
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root (taken in float64: torch's
+    float32 CPU sqrt is not always correctly rounded)."""
+    return torch.sqrt(x.to(torch.float64)).to(_F32)
+
+
+def fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """float32 a * b + c rounded once (b and c float32 values, tensors or
+    Python floats): the product is exact in float64, the sum rounds in
+    float64, then once to float32."""
+    b = b.to(torch.float64) if isinstance(b, torch.Tensor) else b
+    c = c.to(torch.float64) if isinstance(c, torch.Tensor) else c
+    return (a.to(torch.float64) * b + c).to(_F32)
+
+
+def _unit(b: torch.Tensor) -> torch.Tensor:
+    """Bits -> float32 in [0, 1): the top 23 bits as the mantissa of a
+    float in [1, 2), minus 1 (exact)."""
+    m = ((b >> 9) | 0x3F800000).to(torch.int32)
+    return m.view(_F32) - 1.0
+
+
+def uniform_from_bits(b: torch.Tensor, lo: float = 0.0, hi: float = 1.0
+                      ) -> torch.Tensor:
+    """``uniform``'s transform of drawn bits: float32 in [lo, hi)."""
+    lo32, hi32 = np.float32(lo), np.float32(hi)
+    scale = float(np.float32(hi32 - lo32))
+    return torch.clamp_min(fma(_unit(b), scale, float(lo32)), float(lo32))
+
+
+def uniform(key: torch.Tensor, shape: Shape, lo: float = 0.0,
+            hi: float = 1.0) -> torch.Tensor:
+    """float32 uniforms in [lo, hi) of ``shape`` (after the key's leading
+    axes), ``jax.random.uniform``'s."""
+    return uniform_from_bits(bits(key, shape), lo, hi)
+
+
+def _f32(hex_double: str) -> float:
+    """A float32 constant given as the hex of its double (LLVM IR's
+    spelling of a float)."""
+    return float(np.float32(struct.unpack(">d", bytes.fromhex(hex_double))[0]))
+
+
+# XLA's CPU logf (Cephes): the polynomial in the reduced mantissa, the
+# split ln 2 and sqrt(1/2); and its log1p's rational approximation for
+# |x| < sqrt(2) - 1
+_LOG_P = tuple(_f32(h) for h in (
+    "3FB2043760000000", "BFBD7A3700000000", "3FBDE4A340000000",
+    "BFBFCBA9E0000000", "3FC23D37E0000000", "BFC555CA00000000",
+    "3FC999D580000000", "BFCFFFFF80000000", "3FD5555540000000"))
+_LOG_Q1, _LOG_Q2 = _f32("BF2BD01060000000"), _f32("3FE6300000000000")
+_SQRTHF = _f32("3FE6A09E60000000")
+_LOG1P_DEN = tuple(_f32(h) for h in (
+    "402E2035A0000000", "4054C30B60000000", "406BB865A0000000",
+    "4073519460000000", "406B0DB140000000", "404E0F3040000000"))
+_LOG1P_NUM = tuple(_f32(h) for h in (
+    "3F07BC0960000000", "3FDFE818A0000000", "401A509F40000000",
+    "403DE97380000000", "404E798EC0000000", "404C8E75A0000000",
+    "40340A2020000000"))
+_LOG1P_SMALL = _f32("3FDA8279A0000000")
+
+
+def log(v: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU float32 log, operation for operation (its multiply-adds
+    fused as the CPU compiler fuses them): v = 2^e * m, m in [sqrt(1/2),
+    sqrt(2)), a degree-8 polynomial in m - 1, e * ln 2 in two parts; -inf
+    at 0 and at subnormals, which that code reads as 0."""
+    b = torch.clamp_min(v, _TINY).view(torch.int32)
+    e = ((b >> 23) - 127).to(_F32) + 1.0
+    m = ((b & 0x7FFFFF) | 0x3F000000).view(_F32)           # [0.5, 1)
+    lt = m < _SQRTHF
+    x = (m - 1.0) + torch.where(lt, m, 0.0)
+    e = e - torch.where(lt, 1.0, 0.0)
+    x2 = x * x
+    x3 = x2 * x
+    p = _LOG_P
+    y, y1, y2 = fma(x, p[0], p[1]), fma(x, p[3], p[4]), fma(x, p[6], p[7])
+    y, y1, y2 = fma(y, x, p[2]), fma(y1, x, p[5]), fma(y2, x, p[8])
+    y = fma(fma(y, x3, y1), x3, y2)
+    y = fma(y, x3, e * _LOG_Q1)
+    r = fma(e, _LOG_Q2, (x - x2 * 0.5) + y)
+    r = torch.where(v > 0, r, float("nan"))
+    # XLA's CPU code treats subnormal inputs as zero: their log is -inf
+    r = torch.where((v >= 0) & (v < _TINY), float("-inf"), r)
+    return torch.where(v == float("inf"), float("inf"), r)
+
+
+def log1p(x: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU float32 log1p: log(1 + x), or for |x| < sqrt(2) - 1
+    x - x^2/2 + x^3 * P(x)/Q(x)."""
+    den = x + _LOG1P_DEN[0]
+    for c in _LOG1P_DEN[1:]:
+        den = fma(den, x, c)
+    num = torch.full_like(x, _LOG1P_NUM[0])
+    for c in _LOG1P_NUM[1:]:
+        num = fma(num, x, c)
+    x2 = x * x
+    small = x + fma(x2, -0.5, (x * x2) * (num / den))
+    return torch.where(x.abs() < _LOG1P_SMALL, small, log(x + 1.0))
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 inverse error function of float32 ``x``."""
+    w = -log1p(-(x * x))
+    small = w < 5.0
+    w = torch.where(small, w - 2.5, sqrt(w) - 3.0)
+    coef = lambda i: torch.where(small, _ERFINV_SMALL[i], _ERFINV_LARGE[i])
+    p = coef(0).to(_F32)
+    for i in range(1, len(_ERFINV_SMALL)):
+        p = fma(p, w, coef(i))
+    return torch.where(x.abs() == 1.0, x * float("inf"), p * x)
+
+
+def normal_from_bits(b: torch.Tensor) -> torch.Tensor:
+    """``normal``'s transform of drawn bits: float32 standard normals."""
+    return erf_inv(uniform_from_bits(b, _NORMAL_LO, 1.0)) * _SQRT2
+
+
+def normal(key: torch.Tensor, shape: Shape) -> torch.Tensor:
+    """float32 standard normals of ``shape`` (after the key's leading
+    axes), ``jax.random.normal``'s (equal over the parity tests'
+    draws)."""
+    return normal_from_bits(bits(key, shape))
+
+
+def gumbel(key: torch.Tensor, shape: Shape) -> torch.Tensor:
+    """float32 standard Gumbel draws (``jax.random.gumbel``, mode
+    "low")."""
+    return -log(-log(uniform(key, shape, _TINY, 1.0)))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor, axis: int = -1
+                ) -> torch.Tensor:
+    """Samples of the categorical distributions ``softmax(logits)`` along
+    ``axis``: argmax(logits + gumbel), int64, the logits' shape without
+    ``axis``.  A key with leading axes draws one row per key (the
+    reference's ``vmap`` over per-row keys): then those axes must be the
+    logits' own leading axes and the draw covers the rest."""
+    lead = key.dim() - 1
+    g = gumbel(key, logits.shape[lead:])
+    return torch.argmax(g + logits, dim=axis)

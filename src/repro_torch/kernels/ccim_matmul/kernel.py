@@ -206,18 +206,13 @@ def reset_launch_counts() -> None:
 
 def chunked_operands(w: torch.Tensor, planes: torch.Tensor, acc_len: int,
                      n_chunks: Optional[int] = None):
-    """float32 chunked operands of the fast GEMM, derived from the int8
-    kernel layout: wf (C, L, N) and the planes concatenated along L,
-    (C, J*L, N) -- the reference pack's ``gemm_w``/``gemm_planes``.
+    """The fast GEMM's chunked operands as views of the int8 kernel
+    layout, no copy: w (C, L, N) and one (C, L, N) view per plane.
     ``n_chunks`` keeps the first C chunks (default: all of Kp)."""
     N, Kp = w.shape
     C = n_chunks if n_chunks is not None else Kp // acc_len
-    K = C * acc_len
-    chunk = lambda v: v[:, :K].t().reshape(C, acc_len, N).to(torch.float32)
-    wf = chunk(w)
-    w_pl = (torch.cat([chunk(p) for p in planes], dim=1) if planes.shape[0]
-            else torch.zeros((C, 0, N), dtype=torch.float32, device=w.device))
-    return wf, w_pl
+    view = lambda v: v[:, :C * acc_len].t().reshape(C, acc_len, N)
+    return view(w), tuple(view(p) for p in planes)
 
 
 def ccim_matmul_prepacked_plain(
@@ -227,14 +222,16 @@ def ccim_matmul_prepacked_plain(
 ) -> torch.Tensor:
     """The kernels' function in plain PyTorch: x (M, Kp) ints, w (N, Kp)
     and planes (n_j, N, Kp) int8 -> (M, N) int32, bit-identical to the
-    kernels.  The float32 operands are derived from the int8 layout on
-    each call (nothing float32 is kept beside the pack)."""
+    kernels.  The float32 operands are cast from int8 views of the
+    layout on each call, whole (the cast of a whole view keeps its
+    strides, so it streams; nothing float32 is kept beside the pack)."""
     M, Kp = x.shape
     C = Kp // acc_len
-    wf, w_pl = chunked_operands(w, planes[:len(x_bits)], acc_len)
+    f32 = lambda v: v.to(torch.float32)
+    wv, planes_v = chunked_operands(w, planes[:len(x_bits)], acc_len)
     xq = x.to(torch.int32).reshape(M, C, acc_len)
-    return ccim.fast_gemm_int(xq, wf, w_pl, tuple(x_bits), dcim_lsb,
-                              adc_half) * dcim_lsb
+    return ccim.fast_gemm_int(xq, f32(wv), [f32(p) for p in planes_v],
+                              tuple(x_bits), dcim_lsb, adc_half) * dcim_lsb
 
 
 def ccim_matmul_unpacked_plain(x: torch.Tensor, w: torch.Tensor

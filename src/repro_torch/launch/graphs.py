@@ -14,9 +14,9 @@ does whatever a kernel does once (the kernels set their shared-memory
 attributes at first launch, which must come before capture).  The body
 is then captured into a graph with a memory pool of its own, and every
 later call replays the graph and returns the captured outputs, which the
-next replay overwrites.  The graph holds the cached rope tables its body
-read (``models.layers.hold_tables``), which their bounded cache may drop
-while the graph still replays.  A failed capture or replay raises; no
+next replay overwrites.  The graph holds the cached rope tables and
+analog-noise keys its body read (``models.layers.hold_tables``), which
+their bounded caches may drop while the graph still replays.  A failed capture or replay raises; no
 caller falls back to the eager body.
 
 Launch counts.  Each kernel wrapper adds one to its ``.launches`` when
@@ -93,7 +93,7 @@ class StepGraph:
         self.pool_bytes = 0
         self.replays = 0
         self._credit: Dict[object, int] = {}
-        self._held: Dict = {}      # cached tables the graph reads
+        self._held: Dict = {}      # cached tensors the graph reads
         self._stream = None
 
     @property

@@ -73,8 +73,17 @@ the rung ladder {K, K/2, K/4} by an acceptance EMA kept on the device.
 
 Determinism contract: a request's tokens depend only on (params, prompt,
 rid) -- not on its slot, its poolmates or when it was admitted -- and
-greedy speculative tokens equal non-speculative ones.  Greedy decoding
-only; temperature sampling and telemetry are not ported yet and raise.
+greedy speculative tokens equal non-speculative ones.  At temperature >
+0 each request samples from its own stream, ``fold_in(sampling_key(seed),
+rid)`` (``core/prng.py``, the reference's threefry bit for bit), split
+once at its first token and once per pooled step, and each slot's key
+is state the captured step updates on the device; so sampled pool
+tokens equal solo runs too, and speculative rounds (rejection sampling)
+equal speculative solo runs at the same ``draft_k``.  Analog noise
+(``cfg.cim_noise_seed``) is drawn per pool row, so noisy tokens depend
+on the slot a request ran in -- as on silicon, where each slot maps to
+a physical macro bank -- and the slot-independence contract holds only
+noise-free.  Telemetry is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -86,12 +95,72 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..core import prng
 from ..models import lm
 from ..models.config import ModelConfig
 from .graphs import StepGraph, use_graphs
 from .paging import PagedLayout, cdiv, contiguous_kv_bytes, plan_prefix_sharing
 
 BRANCHES = ("harvest", "admit", "prefill", "step")
+
+
+def sampling_key(seed: int, device=None) -> torch.Tensor:
+    """The sampling stream of ``seed``, distinct from the params-init
+    stream: ``fold_in(PRNGKey(seed), "SAMP")``, the reference's."""
+    return prng.fold_in(prng.PRNGKey(seed, device), 0x53414D50)
+
+
+def _inverse(temperature: float) -> float:
+    """float32 1/T: the reference's compiled steps scale logits by it
+    (XLA turns a division by a constant into this multiply)."""
+    return float(np.float32(1.0) / np.float32(temperature))
+
+
+def sample_rows(logits: torch.Tensor, keys: Optional[torch.Tensor],
+                temperature: float) -> torch.Tensor:
+    """One token per row of ``logits`` (R, V): the argmax at temperature
+    0, else a categorical draw of the logits times float32(1/T), as the
+    reference's compiled scheduler and speculative round sample: from row
+    r's own key ``keys[r]`` ((R, 2) keys), or from one key (2,) over the
+    whole batch.  int64 (R,)."""
+    if temperature <= 0:
+        return torch.argmax(logits, dim=-1)
+    return prng.categorical(keys, logits * _inverse(temperature))
+
+
+def _softmax(x: torch.Tensor) -> torch.Tensor:
+    e = torch.exp(x - x.amax(dim=-1, keepdim=True))
+    return e / e.sum(dim=-1, keepdim=True)
+
+
+def rejection_accept(drafts: torch.Tensor, d_logits: torch.Tensor,
+                     vlogits: torch.Tensor, u: torch.Tensor,
+                     temperature: float):
+    """Speculative sampling's accept rule at temperature T: drafts (B,
+    K) drawn from the draft logits (B, K, V), the verify logits (B, K+1,
+    V) and uniforms u (B, K) -> (n_acc (B,), residual log-weights (B,
+    V)).  Draft i is kept while u_i p_d(d_i) < p_v(d_i); at the first
+    rejection the correction is drawn from max(p_v - p_d, 0), normalized
+    (p_v where that sums to 0), and after a fully accepted block from
+    p_v at position K: the caller draws it with ``prng.categorical`` of
+    the returned log(max(res, 1e-38)).  The reference's operations in
+    its order (``launch/scheduler.py::spec_step``)."""
+    K = drafts.shape[1]
+    inv = _inverse(temperature)
+    p_d = _softmax(d_logits * inv)
+    p_v = _softmax(vlogits * inv)
+    idx = drafts[..., None]
+    pd_tok = torch.gather(p_d, -1, idx)[..., 0]
+    pv_tok = torch.gather(p_v[:, :K], -1, idx)[..., 0]
+    acc = (u * pd_tok < pv_tok).to(torch.int32)
+    n_acc = torch.cumprod(acc, dim=1).sum(dim=1)
+    rows = torch.arange(drafts.shape[0], device=drafts.device)
+    pv_n = p_v[rows, n_acc]
+    pd_n = torch.cat([p_d, torch.zeros_like(p_d[:, :1])], dim=1)[rows, n_acc]
+    res = torch.clamp_min(pv_n - pd_n, 0.0)
+    tot = res.sum(dim=-1, keepdim=True)
+    res = torch.where(tot > 0, res / torch.clamp_min(tot, 1e-38), pv_n)
+    return n_acc, prng.log(torch.clamp_min(res, 1e-38))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -192,7 +261,7 @@ class ServeReport:
 
 
 class ContinuousBatchingScheduler:
-    """Fixed-slot continuous batching, greedy.
+    """Fixed-slot continuous batching, greedy or sampled.
 
     ``params`` may hold prepacked CIM weights (lm.pack_cim_params); the
     scheduler never touches weights.  ``max_new_cap`` bounds every
@@ -210,20 +279,17 @@ class ContinuousBatchingScheduler:
     the acceptance EMA.  ``graphs`` (default: on a CUDA device) replays
     the step branch from captured graphs, one for the pooled step and one
     per rung; ``True`` off CUDA raises.  The device is the params'
-    device."""
+    device.  ``temperature`` > 0 samples every token from the request's
+    stream under ``sampling_key(seed)`` (greedy at 0)."""
 
     def __init__(self, params, cfg: ModelConfig, slots: int, prompt_len: int,
-                 max_new_cap: int, temperature: float = 0.0,
+                 max_new_cap: int, temperature: float = 0.0, seed: int = 0,
                  pad_token: int = 0, draft_k: int = 0, draft_plan=None,
                  paged: Optional[PagedLayout] = None,
                  prefill_chunk: Optional[int] = None,
                  prefix_sharing: bool = True,
                  adaptive_draft_k: bool = False, obs=None,
                  graphs: Optional[bool] = None):
-        if temperature > 0:
-            raise NotImplementedError(
-                "sampling at temperature > 0 waits on jax.random parity; "
-                "the torch scheduler is greedy only")
         if obs is not None:
             raise NotImplementedError("telemetry (obs) is not ported yet")
         if cfg.family != "dense":
@@ -236,7 +302,7 @@ class ContinuousBatchingScheduler:
             raise ValueError("adaptive_draft_k needs draft_k > 0")
         self.cfg, self.slots = cfg, slots
         self.prompt_len, self.cap = prompt_len, max_new_cap
-        self.pad_token = pad_token
+        self.temperature, self.pad_token = temperature, pad_token
         self.draft_k = draft_k
         rungs: List[int] = []
         for k in (draft_k, draft_k // 2, draft_k // 4):
@@ -251,6 +317,7 @@ class ContinuousBatchingScheduler:
         self.max_seq = prompt_len + max_new_cap + draft_k
         self._params = params
         self.device = _params_device(params)
+        self._base_key = sampling_key(seed, self.device)
         self.graphs = use_graphs(graphs, self.device)
         self._st: Optional[Dict] = None         # the pool state, see _state
         self._graphs: Dict[int, StepGraph] = {}  # 0: the step; K: a round
@@ -336,6 +403,8 @@ class ContinuousBatchingScheduler:
                     max_new=((B,), torch.int32, 0),
                     stop=((B,), torch.int32, -1),
                     out=((B, cap), torch.int32, pad))
+        if self.temperature > 0:
+            init["keys"] = ((B, 2), torch.int64, 0)
         if self.draft_k:
             init.update(n_drafted=((), torch.int32, 0),
                         n_accepted=((), torch.int32, 0),
@@ -364,14 +433,27 @@ class ContinuousBatchingScheduler:
             st["ref"][0] = 1                    # the trash block's pin
         return st
 
+    def _first_token(self, st: Dict, slot: int, logits: torch.Tensor,
+                     key: Optional[torch.Tensor]) -> torch.Tensor:
+        """A request's first token from its last prompt logits (1, V):
+        at temperature, drawn with one split of its stream ``key``, whose
+        other half becomes the slot's key."""
+        if self.temperature <= 0:
+            return torch.argmax(logits, dim=-1)
+        ks = prng.split(key)
+        st["keys"][slot] = ks[0]
+        return sample_rows(logits, ks[1:], self.temperature)
+
     def _arm_slot(self, st: Dict, slot: int, prompt: torch.Tensor,
-                  max_new: int, stop: int) -> None:
-        """Reset + prefill ``slot`` with one request and take its first
-        token.  A request can finish ON that token; the event is parked
-        in the pending mask like any step finish."""
+                  max_new: int, stop: int, rid: int = 0) -> None:
+        """Reset + prefill ``slot`` with one request (its sampling stream
+        from ``rid``) and take its first token.  A request can finish ON
+        that token; the event is parked in the pending mask like any step
+        finish."""
         logits, st["cache"] = lm.prefill_into_slot(
             self._params, self.cfg, prompt, st["cache"], slot)
-        tok = torch.argmax(logits[:, -1], dim=-1)            # (1,)
+        tok = self._first_token(st, slot, logits[:, -1],
+                                self._request_key(rid))      # (1,)
         fin0 = (tok == stop) | (max_new <= 1)
         st["last_tok"][slot] = tok
         st["out"][slot] = self.pad_token
@@ -382,13 +464,37 @@ class ContinuousBatchingScheduler:
         st["live"][slot] = ~fin0[0]
         st["pending"][slot] = fin0[0]
 
+    def _request_key(self, rid: int) -> Optional[torch.Tensor]:
+        """A request's sampling stream: the base key folded with its
+        rid (None when greedy)."""
+        if self.temperature <= 0:
+            return None
+        return prng.fold_in(self._base_key, rid)
+
+    def _subkeys(self, st: Dict, live: torch.Tensor) -> torch.Tensor:
+        """One split of every slot's key: the live slots keep the first
+        half (written in place), and the second halves (B, 2) are
+        returned for this draw."""
+        splits = prng.split(st["keys"])                       # (B, 2, 2)
+        st["keys"].copy_(torch.where(live[:, None], splits[:, 0],
+                                     st["keys"]))
+        return splits[:, 1]
+
+    def _sample(self, st: Dict, logits: torch.Tensor, live: torch.Tensor
+                ) -> torch.Tensor:
+        """The pool's tokens from logits (B, V): greedy, or one draw from
+        every slot's stream."""
+        if self.temperature <= 0:
+            return torch.argmax(logits, dim=-1)
+        return sample_rows(logits, self._subkeys(st, live), self.temperature)
+
     def _step(self, st: Dict) -> None:
         """One pooled decode step; finishes land in pending.  Every
         changed entry of ``st`` is written in place (a captured body)."""
         live = st["live"]
         logits, _ = lm.decode_step(self._params, self.cfg, st["last_tok"],
                                    st["cache"], live=live)
-        tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        tok = self._sample(st, logits[:, -1], live).to(torch.int32)
         tok = torch.where(live, tok, self.pad_token)
         ar = torch.arange(self.slots, device=self.device)
         idx = torch.clamp(st["n_gen"], max=self.cap - 1).long()
@@ -405,28 +511,39 @@ class ContinuousBatchingScheduler:
         """One speculative round as a pooled step: K draft steps under
         ``draft_cfg`` (same pack), the positions rolled back, one verify
         forward over the K+1 positions, then the longest agreeing prefix
-        plus the verify model's correction, 1..K+1 tokens a live slot,
+        plus the verify model's correction (at temperature: rejection
+        sampling, ``rejection_accept``, each draw one split of the slot's
+        key), 1..K+1 tokens a live slot,
         clamped by its budget and cut after a stop token.  The draft
         counters and the acceptance EMA (and from it the next round's
         rung) are updated on the device, and every changed entry of
         ``st`` is written in place (a captured body)."""
         live, pad = st["live"], self.pad_token
-        cache, last, drafts = st["cache"], st["last_tok"], []
+        cache, last, drafts, d_logits = st["cache"], st["last_tok"], [], []
         pos = cache["pos"]
         pos0 = pos.clone()
         for _ in range(K):
             logits, _ = lm.decode_step(self._params, self.draft_cfg, last,
                                        cache, live=live)
-            dtok = torch.where(live, torch.argmax(logits[:, -1], dim=-1),
+            dtok = torch.where(live, self._sample(st, logits[:, -1], live),
                                pad)
             drafts.append(dtok)
+            if self.temperature > 0:
+                d_logits.append(logits[:, -1])
             last = dtok[:, None]
         drafts = torch.stack(drafts, dim=1)                  # (B, K)
         pos.copy_(pos0)                                      # rollback
         vlogits, _ = lm.verify_step(
             self._params, self.cfg, torch.cat([st["last_tok"], drafts], 1),
             cache, live=live)
-        emitted, n_acc = greedy_accept(drafts, vlogits)
+        if self.temperature <= 0:
+            emitted, n_acc = greedy_accept(drafts, vlogits)
+        else:
+            u = prng.uniform(self._subkeys(st, live), (K,))
+            n_acc, res = rejection_accept(drafts, torch.stack(d_logits, 1),
+                                          vlogits, u, self.temperature)
+            emitted = place_correction(drafts, n_acc, prng.categorical(
+                self._subkeys(st, live), res))
         emitted = emitted.to(torch.int32)
         cols = torch.arange(K + 1, device=self.device)[None, :]
         allowed = torch.clamp_min(st["max_new"] - st["n_gen"], 0)
@@ -617,7 +734,7 @@ class ContinuousBatchingScheduler:
                 occupant[slot] = qidx
                 if paged is None:
                     self._arm_slot(st, slot, plan["q_toks"][qidx:qidx + 1],
-                                   r.max_new_tokens, r.stop_token)
+                                   r.max_new_tokens, r.stop_token, r.rid)
                     res_first[qidx] = n_iter
                 else:
                     n_blk = int(plan["max_blk"][qidx])
@@ -653,6 +770,8 @@ class ContinuousBatchingScheduler:
                     st["max_new"][slot] = r.max_new_tokens
                     st["stop"][slot] = r.stop_token
                     st["out"][slot] = self.pad_token
+                    if self.temperature > 0:
+                        st["keys"][slot] = self._request_key(r.rid)
                 q_head += 1
             elif want_pf:
                 branch = "prefill"
@@ -667,7 +786,10 @@ class ContinuousBatchingScheduler:
                 if done:
                     # the final chunk ran to the padded span; commit pos =
                     # plen so decode writes land right after the prompt
-                    tok = torch.argmax(logits[0, min(plen - 1 - start, C - 1)])
+                    row = min(plen - 1 - start, C - 1)
+                    key = st["keys"][slot] if "keys" in st else None
+                    tok = self._first_token(st, slot, logits[:, row],
+                                            key)[0]
                     fin0 = (tok == r.stop_token) | (r.max_new_tokens <= 1)
                     st["cache"]["pos"][slot] = plen
                     st["last_tok"][slot, 0] = tok
@@ -744,7 +866,7 @@ class ContinuousBatchingScheduler:
                     # stop -1, budget wave_max: every slot decodes the wave
                     i = w0 + slot
                     self._arm_slot(st, slot, plan["q_toks"][i:i + 1],
-                                   wave_max, -1)
+                                   wave_max, -1, r.rid)
                     n_admits += 1
                 for _ in range(wave_max - 1):
                     self._advance(st)
@@ -768,6 +890,18 @@ class ContinuousBatchingScheduler:
                            n_iter=n_steps + n_admits, host_syncs=syncs)
 
 
+def place_correction(drafts: torch.Tensor, n_acc: torch.Tensor,
+                     corr: torch.Tensor) -> torch.Tensor:
+    """A round's emitted block (B, K+1): the drafts, with column n_acc
+    replaced by the correction ``corr`` ((B, K+1) per column, or (B,))."""
+    K = drafts.shape[1]
+    cand = torch.cat([drafts, drafts[:, -1:]], dim=1)
+    cols = torch.arange(K + 1, device=drafts.device)[None, :]
+    if corr.dim() == 1:
+        corr = corr[:, None]
+    return torch.where(cols == n_acc[:, None], corr, cand)
+
+
 def greedy_accept(drafts: torch.Tensor, vlogits: torch.Tensor):
     """The greedy accept rule of a speculative round: drafts (B, K) and
     the verify logits (B, K+1, V) -> (emitted (B, K+1), n_acc (B,)).
@@ -779,9 +913,7 @@ def greedy_accept(drafts: torch.Tensor, vlogits: torch.Tensor):
     v_arg = torch.argmax(vlogits, dim=-1)
     n_acc = torch.cumprod((v_arg[:, :K] == drafts).to(torch.int32),
                           dim=1).sum(dim=1)
-    cand = torch.cat([drafts, drafts[:, -1:]], dim=1)
-    cols = torch.arange(K + 1, device=drafts.device)[None, :]
-    return torch.where(cols == n_acc[:, None], v_arg, cand), n_acc
+    return place_correction(drafts, n_acc, v_arg), n_acc
 
 
 def _params_device(params) -> torch.device:

@@ -3,18 +3,27 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm-2b \
       [--smoke] [--cim] [--no-fuse] [--batch 4] \
       [--prompt-len 32] [--gen 16] [--device cuda] [--no-graphs] \
+      [--temperature T] [--noise-seed S] \
       [--speculative [--draft-k 8] [--draft-adc-bits B]
        [--adaptive-draft-k]] \
       [--continuous [--requests 8] [--paged-blocks N [--block-size 16]
        [--prefill-chunk C] [--no-prefix-sharing]]]
 
 Counterpart of ``repro/launch/serve.py``.  ``serve`` prefills one fixed
-batch together and decodes greedily in lock step for exactly ``gen``
-tokens.  ``serve_speculative`` (``--speculative``) decodes the same batch
-by plan-cascade speculative rounds: the all-analog shadow of the serving
-plan drafts ``draft_k`` tokens from the same pack, one verify forward
-over all k+1 positions checks them, and the longest agreeing prefix plus
-a correction is kept -- greedy tokens equal ``serve``'s.
+batch together and decodes in lock step for exactly ``gen`` tokens,
+greedily or, at ``--temperature`` > 0, sampling every token (the first
+included) from ``scheduler.sampling_key(seed)`` through ``core/prng.py``,
+the reference's threefry streams bit for bit.  ``serve_speculative``
+(``--speculative``) decodes the same batch by plan-cascade speculative
+rounds: the all-analog shadow of the serving plan drafts ``draft_k``
+tokens from the same pack, one verify forward over all k+1 positions
+checks them, and the longest agreeing prefix plus a correction is kept
+-- greedy tokens equal ``serve``'s; at temperature the round is
+rejection sampling, equal to the reference's round for round.
+``--noise-seed`` (``noise_seed=``, CIM only) adds the macro's analog
+noise to every conversion, one stream per projection; the noisy GEMMs
+run the chunked fast GEMM in torch, not the noise-free kernels, as the
+reference's leave its Pallas kernels.
 ``serve_continuous`` (``--continuous``) serves a mixed-length request
 queue from a fixed pool of ``--batch`` slots through
 ``launch/scheduler.py``, with a contiguous KV cache or, under
@@ -45,13 +54,15 @@ import torch
 
 from .. import resolve_device
 from ..configs import ARCHS, get_config
+from ..core import prng
 from ..data import DataConfig, batch_at
 from ..models import lm
 from ..plan import draft_plan_for_model
 from .graphs import StepGraph, use_graphs
 from .paging import PagedLayout, cdiv
 from .scheduler import (ContinuousBatchingScheduler, greedy_accept,
-                        mixed_length_requests)
+                        mixed_length_requests, place_correction,
+                        rejection_accept, sample_rows, sampling_key)
 
 
 def _sync(device: torch.device) -> None:
@@ -59,27 +70,49 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _greedy_only(temperature: float) -> None:
-    if temperature > 0:
-        raise NotImplementedError(
-            "sampling at temperature > 0 waits on jax.random parity; the "
-            "torch driver is greedy only")
-
-
 def _model_config(arch: str, smoke: bool, cim: bool, plan, fuse: bool,
-                  use_kernel=None):
+                  use_kernel=None, noise_seed: Optional[int] = None):
     """(cfg, cim): the arch's config under the serving options; a plan
-    implies CIM."""
+    implies CIM, and analog noise needs it."""
     cfg = get_config(arch, smoke=smoke)
     if plan is not None:
         cim = True
         cfg = dataclasses.replace(cfg, cim_plan=plan)
     if not fuse:
         cfg = dataclasses.replace(cfg, cim_fuse=False)
+    if noise_seed is not None:
+        if not cim:
+            raise ValueError(
+                "noise_seed emulates the macro's analog noise and needs "
+                "cim=True (or a plan); without it serving would silently "
+                "run noise-free")
+        cfg = dataclasses.replace(cfg, cim_noise_seed=noise_seed)
     if cim:
         cfg = dataclasses.replace(cfg, cim_mode=True,
                                   cim_use_kernel=use_kernel)
     return cfg, cim
+
+
+def _next_subkey(key: torch.Tensor) -> torch.Tensor:
+    """``key, sub = split(key)``: ``key`` is advanced in place (static
+    state of a captured body) and the subkey returned."""
+    ks = prng.split(key)
+    key.copy_(ks[0])
+    return ks[1]
+
+
+def lockstep_sample(logits: torch.Tensor, key: Optional[torch.Tensor],
+                    temperature: float) -> torch.Tensor:
+    """The lock-step driver's sampler, (B, V) -> (B, 1): the argmax at
+    temperature 0, else one split of ``key`` and one categorical draw
+    over the batch of the logits divided by T -- a true division, as the
+    reference's sampler runs op by op (a 0-d tensor divisor keeps CUDA
+    from multiplying by a reciprocal instead)."""
+    if temperature <= 0:
+        return torch.argmax(logits, dim=-1)[:, None]
+    t = torch.full((), temperature, dtype=torch.float32,
+                   device=logits.device)
+    return prng.categorical(_next_subkey(key), logits / t)[:, None]
 
 
 def tree_bytes(tree) -> int:
@@ -98,7 +131,8 @@ def serve(arch: str, smoke: bool = True, batch: int = 4, prompt_len: int = 32,
           gen: int = 16, cim: bool = False, temperature: float = 0.0,
           seed: int = 0, return_stats: bool = False,
           fuse: bool = True, device=None, params=None,
-          use_kernel=None, plan=None, graphs: Optional[bool] = None):
+          use_kernel=None, plan=None, graphs: Optional[bool] = None,
+          noise_seed: Optional[int] = None):
     """Returns the generated tokens (batch, gen) as int32 numpy; with
     ``return_stats=True``, (tokens, stats).
 
@@ -114,15 +148,19 @@ def serve(arch: str, smoke: bool = True, batch: int = 4, prompt_len: int = 32,
     init from ``seed``.  ``use_kernel`` sets ``cfg.cim_use_kernel``
     (False: the kernels' plain version, for comparison runs).  ``plan``
     (a ``repro_torch.plan.DeploymentPlan``) serves each projection under
-    its own macro config and fidelity (implies cim).  Stats hold
+    its own macro config and fidelity (implies cim).  ``temperature`` > 0
+    samples every token, the first included, from
+    ``sampling_key(seed)``, one split a token (the key is state the
+    captured step advances); ``noise_seed`` turns on the macro's analog
+    noise (``cfg.cim_noise_seed``; needs cim).  Stats hold
     ``pack_s``, ``prefill_s``, ``decode_s`` and ``decode_tok_s``, each
     phase timed between device synchronizations, ``pack_bytes``, the
     last step's logits and, when captured, ``capture_s``,
     ``graph_pool_bytes`` and ``replay_tok_s`` (the replayed steps alone)."""
-    _greedy_only(temperature)
     dev = resolve_device(device)
     captured = use_graphs(graphs, dev)
-    cfg, cim = _model_config(arch, smoke, cim, plan, fuse, use_kernel)
+    cfg, cim = _model_config(arch, smoke, cim, plan, fuse, use_kernel,
+                             noise_seed)
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=prompt_len,
                       global_batch=batch, seed=seed, d_model=cfg.d_model)
     with torch.inference_mode():
@@ -142,10 +180,12 @@ def serve(arch: str, smoke: bool = True, batch: int = 4, prompt_len: int = 32,
         pack_bytes = tree_bytes(params)
 
         cache = lm.init_cache(cfg, batch, prompt_len + gen, device=dev)
+        # sampling draws from its own stream, not the params-init one
+        key = sampling_key(seed, dev) if temperature > 0 else None
         _sync(dev)
         t0 = time.perf_counter()
         logits, cache = lm.prefill(params, cfg, tokens, cache)
-        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        tok = lockstep_sample(logits[:, -1], key, temperature)
         _sync(dev)
         t_prefill = time.perf_counter() - t0
 
@@ -154,7 +194,8 @@ def serve(arch: str, smoke: bool = True, batch: int = 4, prompt_len: int = 32,
         out = torch.zeros((batch, gen), dtype=torch.int64, device=dev)
         out[:, :1] = tok
         col = torch.ones((1, 1), dtype=torch.int64, device=dev)
-        body = decode_body(params, cfg, tok, cache, out, col)
+        body = decode_body(params, cfg, tok, cache, out, col, temperature,
+                           key)
         step = StepGraph(body, dev) if captured else body
         t0 = time.perf_counter()
         for i in range(gen - 1):
@@ -173,6 +214,7 @@ def serve(arch: str, smoke: bool = True, batch: int = 4, prompt_len: int = 32,
     stats = dict(arch=arch, smoke=smoke, n_layers=cfg.n_layers, batch=batch,
                  prompt_len=prompt_len, gen=gen, cim=cim,
                  fused=cim and cfg.cim_fuse, device=str(dev),
+                 temperature=temperature, noise_seed=noise_seed,
                  plan=None if plan is None else plan.summary(),
                  pack_s=t_pack, pack_bytes=pack_bytes,
                  prefill_s=t_prefill, decode_s=t_decode,
@@ -195,17 +237,19 @@ def serve(arch: str, smoke: bool = True, batch: int = 4, prompt_len: int = 32,
 
 
 def decode_body(params, cfg, tok: torch.Tensor, cache, out: torch.Tensor,
-                col: torch.Tensor):
+                col: torch.Tensor, temperature: float = 0.0,
+                key: Optional[torch.Tensor] = None):
     """``serve``'s decode step as a body of no arguments over static
-    state: one ``lm.decode_step`` from ``tok`` (B, 1), the greedy token
-    written back into ``tok`` and into column ``col`` ((1, 1) int64) of
-    ``out`` (B, gen), and ``col`` advanced, all on the device.  Returns
-    the step's logits."""
+    state: one ``lm.decode_step`` from ``tok`` (B, 1), the next token
+    (greedy, or at ``temperature`` > 0 drawn with one split of ``key``,
+    advanced in place) written back into ``tok`` and into column ``col``
+    ((1, 1) int64) of ``out`` (B, gen), and ``col`` advanced, all on the
+    device.  Returns the step's logits."""
     B = tok.shape[0]
 
     def body():
         lg, _ = lm.decode_step(params, cfg, tok, cache)
-        tok.copy_(torch.argmax(lg[:, -1], dim=-1)[:, None])
+        tok.copy_(lockstep_sample(lg[:, -1], key, temperature))
         out.scatter_(1, col.expand(B, 1), tok)
         col.add_(1)
         return lg
@@ -213,15 +257,18 @@ def decode_body(params, cfg, tok: torch.Tensor, cache, out: torch.Tensor,
 
 
 def round_body(params, cfg, draft_cfg, k: int, tok: torch.Tensor, cache,
-               counts: torch.Tensor, target: int):
+               counts: torch.Tensor, target: int, temperature: float = 0.0,
+               key: Optional[torch.Tensor] = None):
     """``serve_speculative``'s round as a body of no arguments over static
     state: one ``speculative_round`` from ``tok`` (B, 1) for the rows whose
     ``counts`` ((B,) int64, tokens emitted so far) are below ``target``,
-    then ``counts`` and ``tok`` advanced, all on the device.  Returns the
-    round's emitted tokens and each row's count, (B, k+2)."""
+    then ``counts`` and ``tok`` (and at temperature ``key``) advanced, all
+    on the device.  Returns the round's emitted tokens and each row's
+    count, (B, k+2)."""
     def body():
         emitted, n_emit, new_last, _ = speculative_round(
-            params, cfg, draft_cfg, k, tok, cache, counts < target)
+            params, cfg, draft_cfg, k, tok, cache, counts < target,
+            temperature, key)
         counts.add_(n_emit)
         tok.copy_(new_last)
         return torch.cat([emitted, n_emit[:, None]], dim=1)
@@ -229,29 +276,46 @@ def round_body(params, cfg, draft_cfg, k: int, tok: torch.Tensor, cache,
 
 
 def speculative_round(params, cfg, draft_cfg, k: int, last: torch.Tensor,
-                      cache, live: torch.Tensor):
-    """One greedy draft/verify round over a lock-step batch.
+                      cache, live: torch.Tensor, temperature: float = 0.0,
+                      key: Optional[torch.Tensor] = None):
+    """One draft/verify round over a lock-step batch.
 
     ``k`` decode steps under ``draft_cfg`` (same pack), the positions
     rolled back, one ``lm.verify_step`` over the k+1 positions under
     ``cfg``, then the longest agreeing prefix plus the verify model's
-    token at the first disagreement (or after the last draft).  Rows
+    token at the first disagreement (or after the last draft).  At
+    ``temperature`` > 0 the drafts are sampled and the block is accepted
+    by rejection sampling (``scheduler.rejection_accept``); every draw
+    takes one split of ``key``, advanced in place, in the reference's
+    order (a draw per draft, the uniforms, the correction).  Rows
     not ``live`` emit nothing and keep their position.  Returns
     (emitted (B, k+1), n_emit (B,), new_last (B, 1), cache); every
     output stays on the device, and ``cache["pos"]`` is written in place
     (the round is one captured body in ``serve_speculative``)."""
     pos = cache["pos"]
     pos0 = pos.clone()
-    tok, drafts = last, []
+    tok, drafts, d_logits = last, [], []
     for _ in range(k):
         logits, _ = lm.decode_step(params, draft_cfg, tok, cache, live=live)
-        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        if temperature > 0:
+            tok = sample_rows(logits[:, -1], _next_subkey(key),
+                              temperature)[:, None]
+            d_logits.append(logits[:, -1])
+        else:
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
         drafts.append(tok)
     drafts = torch.cat(drafts, dim=1)                       # (B, k)
     pos.copy_(pos0)                                         # rollback
     vlogits, _ = lm.verify_step(params, cfg,
                                 torch.cat([last, drafts], dim=1), cache)
-    emitted, n_acc = greedy_accept(drafts, vlogits)
+    if temperature > 0:
+        u = prng.uniform(_next_subkey(key), drafts.shape)
+        n_acc, res = rejection_accept(drafts, torch.stack(d_logits, 1),
+                                      vlogits, u, temperature)
+        emitted = place_correction(
+            drafts, n_acc, prng.categorical(_next_subkey(key), res))
+    else:
+        emitted, n_acc = greedy_accept(drafts, vlogits)
     n_emit = torch.where(live, n_acc + 1, 0)
     new_last = torch.where(live[:, None],
                            torch.gather(emitted, 1, n_acc[:, None]), last)
@@ -267,7 +331,7 @@ def serve_speculative(arch: str, smoke: bool = True, batch: int = 2,
                       compare_baseline: bool = True,
                       return_stats: bool = False, device=None, params=None,
                       use_kernel=None, graphs: Optional[bool] = None):
-    """Plan-cascade speculative lock-step driver, greedy.
+    """Plan-cascade speculative lock-step driver.
 
     The draft plan (``plan.draft_plan_for_model``: the all-analog shadow
     of the serving plan at ``draft_adc_bits``) serves from the same
@@ -280,7 +344,11 @@ def serve_speculative(arch: str, smoke: bool = True, batch: int = 2,
     compiled round: the first round runs eagerly and is captured, later
     rounds replay it (``launch/graphs.py``).  Greedy tokens equal
     ``serve``'s, which ``compare_baseline`` runs on the same params (and
-    the same ``graphs``) and asserts.
+    the same ``graphs``) and asserts.  At ``temperature`` > 0 the first
+    token and every draw of a round come from ``sampling_key(seed)``
+    (rejection sampling, ``speculative_round``): the tokens follow the
+    verify model's distribution but not ``serve``'s stream, so the
+    baseline is timed and not compared.
 
     Returns tokens (batch, gen) int64; with ``return_stats=True``,
     (tokens, stats) with ``n_rounds``, ``n_drafted``, ``n_accepted``,
@@ -288,7 +356,6 @@ def serve_speculative(arch: str, smoke: bool = True, batch: int = 2,
     ``decode_speedup_speculative`` when ``compare_baseline``); when
     captured, ``capture_s``, ``graph_pool_bytes`` and ``replay_tok_s``
     (the rounds after the first alone)."""
-    _greedy_only(temperature)
     dev = resolve_device(device)
     captured = use_graphs(graphs, dev)
     cfg, cim = _model_config(arch, smoke, cim, plan, fuse, use_kernel)
@@ -315,9 +382,10 @@ def serve_speculative(arch: str, smoke: bool = True, batch: int = 2,
         # and verify writes k rows past the frontier
         cache = lm.init_cache(cfg, batch, prompt_len + gen + 2 * K + 1,
                               device=dev)
+        key = sampling_key(seed, dev) if temperature > 0 else None
         t0 = time.perf_counter()
         logits, cache = lm.prefill(params, cfg, tokens, cache)
-        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        tok = lockstep_sample(logits[:, -1], key, temperature)
         first = tok[:, 0].cpu().numpy()
         t_prefill = time.perf_counter() - t0
 
@@ -326,7 +394,7 @@ def serve_speculative(arch: str, smoke: bool = True, batch: int = 2,
         counts = np.zeros(batch, np.int64)
         counts_dev = torch.zeros((batch,), dtype=torch.int64, device=dev)
         body = round_body(params, cfg, dcfg, K, tok, cache, counts_dev,
-                          target)
+                          target, temperature, key)
         round_ = StepGraph(body, dev) if captured else body
         n_rounds = n_drafted = n_accepted = 0
         t0 = time.perf_counter()
@@ -350,7 +418,8 @@ def serve_speculative(arch: str, smoke: bool = True, batch: int = 2,
     stats = dict(
         arch=arch, smoke=smoke, n_layers=cfg.n_layers, batch=batch,
         prompt_len=prompt_len, gen=gen, cim=cim, draft_k=K,
-        device=str(dev), draft_plan=draft_plan.summary()["<default>"],
+        temperature=temperature, device=str(dev),
+        draft_plan=draft_plan.summary()["<default>"],
         pack_s=t_pack, prefill_s=t_prefill, decode_s=t_decode,
         decode_tok_s=decode_tok_s, n_rounds=n_rounds,
         n_drafted=n_drafted, n_accepted=n_accepted,
@@ -370,21 +439,23 @@ def serve_speculative(arch: str, smoke: bool = True, batch: int = 2,
     if compare_baseline:
         base_toks, base = serve(arch, smoke=smoke, batch=batch,
                                 prompt_len=prompt_len, gen=gen, cim=cim,
-                                seed=seed, return_stats=True, fuse=fuse,
+                                temperature=temperature, seed=seed,
+                                return_stats=True, fuse=fuse,
                                 device=dev, params=float_params,
                                 use_kernel=use_kernel, plan=plan,
                                 graphs=graphs)
-        np.testing.assert_array_equal(
-            gen_tokens, base_toks,
-            err_msg="speculative greedy decode changed tokens vs the "
-                    "non-speculative baseline")
-        stats["tokens_match_baseline"] = True
+        if temperature <= 0:
+            np.testing.assert_array_equal(
+                gen_tokens, base_toks,
+                err_msg="speculative greedy decode changed tokens vs the "
+                        "non-speculative baseline")
+            stats["tokens_match_baseline"] = True
         stats["baseline_decode_tok_s"] = base["decode_tok_s"]
         stats["decode_speedup_speculative"] = (
             decode_tok_s / base["decode_tok_s"])
         print(f"[serve-spec] speedup vs non-speculative: "
-              f"{stats['decode_speedup_speculative']:.2f}x (tokens "
-              "identical)")
+              f"{stats['decode_speedup_speculative']:.2f}x"
+              + (" (tokens identical)" if temperature <= 0 else ""))
     if return_stats:
         return gen_tokens, stats
     return gen_tokens
@@ -400,7 +471,8 @@ def serve_continuous(arch: str, smoke: bool = True, slots: int = 2,
                      prefix_sharing: bool = True, metrics: bool = False,
                      device=None, params=None, plan=None,
                      draft_adc_bits=None, adaptive_draft_k: bool = False,
-                     graphs: Optional[bool] = None):
+                     graphs: Optional[bool] = None,
+                     noise_seed: Optional[int] = None):
     """Continuous-batching driver: a mixed-length request queue served
     from a fixed pool of ``slots`` decode slots (launch/scheduler.py).
 
@@ -416,14 +488,22 @@ def serve_continuous(arch: str, smoke: bool = True, slots: int = 2,
     ``draft_adc_bits``; greedy tokens still equal the non-speculative
     lock-step baseline's.  ``graphs`` (default: on a CUDA device) replays
     the scheduler's pooled step and speculative rounds from captured
-    graphs, in every scheduler this driver builds.  Telemetry and
-    sampling are not ported yet and raise."""
-    _greedy_only(temperature)
+    graphs, in every scheduler this driver builds.  ``temperature`` > 0
+    samples each request from its own stream under ``sampling_key(seed)``:
+    pool tokens still equal the lock-step baseline's, but a speculative
+    pool is compared with nothing (rejection sampling matches the
+    baseline in distribution only), as in the reference.  ``noise_seed``
+    adds the macro's analog noise; it is drawn per pool row, so a noisy
+    pool is not compared either.  Telemetry is not ported yet and
+    raises."""
     if metrics:
         raise NotImplementedError("telemetry is not ported yet")
+    if (draft_k and temperature > 0) or noise_seed is not None:
+        compare_lockstep = False
     dev = resolve_device(device)
     use_graphs(graphs, dev)                 # raises before any work
-    cfg, cim = _model_config(arch, smoke, cim, plan, fuse)
+    cfg, cim = _model_config(arch, smoke, cim, plan, fuse,
+                             noise_seed=noise_seed)
     draft_plan = (draft_plan_for_model(cfg, draft_adc_bits) if draft_k
                   else None)
     requests = mixed_length_requests(n_requests, prompt_len, cfg.vocab_size,
@@ -439,7 +519,8 @@ def serve_continuous(arch: str, smoke: bool = True, slots: int = 2,
         _sync(dev)
         t_pack = time.perf_counter() - t0
     spec = dict(draft_k=draft_k, draft_plan=draft_plan,
-                adaptive_draft_k=adaptive_draft_k, graphs=graphs)
+                adaptive_draft_k=adaptive_draft_k, graphs=graphs,
+                temperature=temperature, seed=seed)
     sched = ContinuousBatchingScheduler(
         params, cfg, slots=slots, prompt_len=prompt_len, max_new_cap=cap,
         paged=paged, prefill_chunk=prefill_chunk,
@@ -448,6 +529,7 @@ def serve_continuous(arch: str, smoke: bool = True, slots: int = 2,
     want = report.tokens_by_rid()
     stats = dict(arch=arch, n_layers=cfg.n_layers, slots=slots,
                  prompt_len=prompt_len, n_requests=n_requests, cim=cim,
+                 temperature=temperature, noise_seed=noise_seed,
                  device=str(dev), pack_s=round(t_pack, 4),
                  graphs=sched.graphs, capture=sched.graph_stats(),
                  continuous=report.summary(), n_iter=report.n_iter,
@@ -563,6 +645,11 @@ def main():
                     help="run every decode step, speculative round and "
                          "pooled step eagerly (default: replay captured "
                          "CUDA graphs on a CUDA device)")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sample at this temperature (default: greedy)")
+    ap.add_argument("--noise-seed", type=int, default=None,
+                    help="(--cim) emulate the macro's analog noise from "
+                         "this seed")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the "
@@ -585,7 +672,8 @@ def main():
             paged=paged, prefill_chunk=args.prefill_chunk,
             prefix_sharing=args.prefix_sharing, device=args.device,
             draft_k=draft_k, draft_adc_bits=args.draft_adc_bits,
-            adaptive_draft_k=args.adaptive_draft_k, graphs=args.graphs)
+            adaptive_draft_k=args.adaptive_draft_k, graphs=args.graphs,
+            temperature=args.temperature, noise_seed=args.noise_seed)
         for rid in sorted(toks):
             print(rid, toks[rid].tolist())
         return
@@ -594,12 +682,14 @@ def main():
             args.arch, smoke=args.smoke, batch=args.batch,
             prompt_len=args.prompt_len, gen=args.gen, draft_k=args.draft_k,
             draft_adc_bits=args.draft_adc_bits, seed=args.seed,
-            fuse=args.fuse, device=args.device, graphs=args.graphs)
+            fuse=args.fuse, device=args.device, graphs=args.graphs,
+            temperature=args.temperature)
     else:
         toks = serve(args.arch, smoke=args.smoke, batch=args.batch,
                      prompt_len=args.prompt_len, gen=args.gen, cim=args.cim,
                      seed=args.seed, fuse=args.fuse, device=args.device,
-                     graphs=args.graphs)
+                     graphs=args.graphs, temperature=args.temperature,
+                     noise_seed=args.noise_seed)
     print(np.array2string(toks, max_line_width=120))
 
 

@@ -78,7 +78,7 @@ class ModelConfig:
     # path resolves to its own macro config and fidelity
     cim_plan: Optional[Any] = None
     cim_fuse: bool = True              # fuse QKV and gate/up into one GEMM
-    cim_noise_seed: Optional[int] = None   # analog noise: a later slice
+    cim_noise_seed: Optional[int] = None   # analog noise stream seed (fast)
 
     lr_schedule: str = "cosine"
 

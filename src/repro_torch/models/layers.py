@@ -12,12 +12,14 @@ from __future__ import annotations
 import contextlib
 import functools
 import math
+import zlib
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core import prng
 from ..core.ccim import DEFAULT_CONFIG
 from ..core.engine import CimEngine, FusedPackedCimWeights, PackedCimWeights
 from ..kernels.paged_attn import ops as paged_attn_ops
@@ -40,8 +42,6 @@ def cim_engine(cfg: ModelConfig, path: Optional[str] = None) -> CimEngine:
     fidelity and kernel routing all come from the config).  With a
     deployment plan (``cfg.cim_plan``) the projection ``path`` (e.g.
     "attn/wq") resolves to its own entry's macro config and fidelity."""
-    if cfg.cim_noise_seed is not None:
-        raise NotImplementedError("analog-noise serving is not ported yet")
     if cfg.cim_plan is not None and path is not None:
         e = cfg.cim_plan.resolve(path)
         return CimEngine(cfg=e.cfg, fidelity=e.fidelity,
@@ -51,11 +51,37 @@ def cim_engine(cfg: ModelConfig, path: Optional[str] = None) -> CimEngine:
                      use_kernel=cfg.cim_use_kernel)
 
 
+@functools.lru_cache(maxsize=64)
+def _noise_key(seed: int, path: str, device: torch.device) -> torch.Tensor:
+    key = prng.fold_in(prng.PRNGKey(seed),
+                       zlib.crc32(path.encode("utf-8")))
+    return key.to(device)
+
+
+def _dense_noise_key(cfg: ModelConfig, path: Optional[str],
+                     device) -> Optional[torch.Tensor]:
+    """The projection's analog-noise stream under ``cfg.cim_noise_seed``
+    (None without one): the seed folded with the crc32 of the path, so
+    every projection draws its own noise, reproducibly.  The layers of a
+    stack share a path, and so one draw pattern, as the macro's banks are
+    reused for every layer.  Cached per (seed, path, device), so a
+    captured step reads a key that already sits on the device; the
+    graph holds the keys it read (``hold_tables``)."""
+    if cfg.cim_noise_seed is None:
+        return None
+    args = (cfg.cim_noise_seed, path or "", torch.device(device))
+    key = _noise_key(*args)
+    for held in _HOLDERS:
+        held[("noise_key",) + args] = key
+    return key
+
+
 def _dense(x: torch.Tensor, w, cfg: ModelConfig,
            path: Optional[str] = None) -> torch.Tensor:
-    """x (..., K) @ w (K, N); packed weights run on the macro.  ``path``
-    names the projection for the deployment plan; a plan's ``float``
-    fidelity bypasses the macro."""
+    """x (..., K) @ w (K, N); packed weights run on the macro, with the
+    path's analog noise under ``cfg.cim_noise_seed``.  ``path`` names the
+    projection for the deployment plan and its noise stream; a plan's
+    ``float`` fidelity bypasses the macro."""
     if isinstance(w, PackedCimWeights):
         if not cfg.cim_mode:
             raise ValueError(
@@ -67,7 +93,7 @@ def _dense(x: torch.Tensor, w, cfg: ModelConfig,
                 f"plan assigns fidelity 'float' to {path!r} but its weights "
                 "are packed macro array contents; re-pack under the plan "
                 "(lm.pack_cim_params leaves float-fidelity sites unpacked)")
-        return eng.matmul(x, w)
+        return eng.matmul(x, w, _dense_noise_key(cfg, path, x.device))
     if cfg.cim_mode:
         if cim_engine(cfg, path).fidelity == "float":
             return matmul(x, w)
@@ -146,16 +172,27 @@ def _split_segments(y: torch.Tensor, names, dims) -> Dict[str, torch.Tensor]:
             for i, n in enumerate(names)}
 
 
+def _seg_noise(cfg: ModelConfig, prefix: str, names, device
+               ) -> Optional[Tuple[torch.Tensor, ...]]:
+    """Per-segment noise keys of a fused group: each segment draws the
+    stream its unfused projection would, which keeps fusion bit-identical
+    under analog noise."""
+    if cfg.cim_noise_seed is None:
+        return None
+    return tuple(_dense_noise_key(cfg, prefix + n, device) for n in names)
+
+
 def _dense_fused(x: torch.Tensor, leaf: FusedPackedCimWeights,
                  cfg: ModelConfig, prefix: str, names
                  ) -> Dict[str, torch.Tensor]:
     """One activation quantization + one wide macro GEMM, split per
-    segment."""
+    segment (each segment with its own noise stream)."""
     if not cfg.cim_mode:
         raise ValueError(
             "fused packed CIM weights require cim_mode=True (packed params "
             "are macro array contents, not float matrices)")
-    y = cim_engine(cfg, prefix + names[0]).matmul(x, leaf)
+    y = cim_engine(cfg, prefix + names[0]).matmul(
+        x, leaf, _seg_noise(cfg, prefix, names, x.device))
     return _split_segments(y, names, leaf.seg_dims)
 
 
@@ -270,10 +307,11 @@ _HOLDERS: list = []        # the dicts of the open ``hold_tables`` blocks
 
 @contextlib.contextmanager
 def hold_tables():
-    """Yields a dict that receives every cached table ``rope`` reads
-    inside the block.  A captured graph (``launch/graphs.py``) keeps it:
-    its replays read the tables' memory, which the bounded cache alone
-    would free on eviction."""
+    """Yields a dict that receives every cached table ``rope`` reads and
+    every cached noise key ``_dense_noise_key`` hands out inside the
+    block.  A captured graph (``launch/graphs.py``) keeps it: its replays
+    read the tensors' memory, which the bounded caches alone would free
+    on eviction."""
     held: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
     _HOLDERS.append(held)
     try:

@@ -133,7 +133,20 @@ def test_chunk_blocking_is_invisible():
 
 
 def test_noise_key_is_refused():
+    """The fast GEMM takes a ``core.prng`` key (tests/test_torch_noise.py)
+    and refuses anything else; raw weights refuse noise at every fidelity
+    but 'exact', which ignores it (noisy serving runs on packed weights;
+    bit-true and SAR noise are not ported)."""
     xq = torch.zeros((1, 1, 16), dtype=torch.int32)
     wq = torch.zeros((1, 16, 2), dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        T.hybrid_mac_fast_gemm(xq, wq, noise_key=object())
+    with pytest.raises(ValueError, match="key"):
+        T.hybrid_mac_fast_gemm(xq, wq, noise_key=torch.zeros(3))
+    key = torch.tensor([0, 7])
+    with pytest.raises(NotImplementedError, match="noise"):
+        T.cim_matmul_int(xq[0], wq[0], noise_key=key,
+                         fidelity="fast_broadcast")
+    with pytest.raises(NotImplementedError, match="noise"):
+        T.cim_matmul_int(xq[0], wq[0], noise_key=key)
+    assert torch.equal(T.cim_matmul_int(xq[0], wq[0], noise_key=key,
+                                        fidelity="exact"),
+                       torch.zeros((1, 2), dtype=torch.int32))

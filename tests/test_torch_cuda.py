@@ -15,7 +15,9 @@ epilogue the plain version's two float32 roundings.  The
 paged-attention kernel computes P.V in float32 where the plain version
 rounds p to bf16 first; it is held to the tolerance written beside it.
 The serving drivers' captured graphs (``launch/graphs.py``) are held to
-their eager runs with ``==`` on tokens and logits, and on launch counts.
+their eager runs with ``==`` on tokens and logits, and on launch counts,
+sampled and noisy serving included; the card's threefry draws and noisy
+GEMM ints to the CPU port's with ``==``.
 """
 import dataclasses
 
@@ -762,3 +764,68 @@ def test_captured_scheduler_equals_eager(dev, mode):
             assert (toks[rid] == want[0][rid]).all(), (key, rid)
     if mode == "paged":
         assert want[2]["paged_attention_cuda"] > 0
+
+
+# ---------------------------------------------------------------------------
+# threefry on the card (core/prng.py), sampled and noisy serving
+# ---------------------------------------------------------------------------
+
+
+def test_prng_on_card_equals_cpu(dev):
+    """Keys, bits and uniforms are integer work and exact float steps;
+    normals and Gumbels are single IEEE operations in the same order
+    (XLA's CPU approximations written out): all equal the CPU port's."""
+    from repro_torch.core import prng
+    for seed in (0, 2 ** 32 - 1):
+        kc, kd = prng.PRNGKey(seed), prng.PRNGKey(seed, dev)
+        assert torch.equal(prng.split(kd, 3).cpu(), prng.split(kc, 3))
+        keys_c = prng.split(kc, 6)
+        assert torch.equal(prng.split(keys_c.to(dev)).cpu(),
+                           prng.split(keys_c))
+        assert torch.equal(prng.fold_in(kd, 12345).cpu(),
+                           prng.fold_in(kc, 12345))
+        shape = (3, 1 << 16)
+        assert torch.equal(prng.bits(kd, shape).cpu(), prng.bits(kc, shape))
+        assert torch.equal(prng.uniform(kd, shape, -3.0, 5.0).cpu(),
+                           prng.uniform(kc, shape, -3.0, 5.0))
+        assert torch.equal(prng.normal(kd, shape).cpu(),
+                           prng.normal(kc, shape))
+        assert torch.equal(prng.gumbel(kd, shape).cpu(),
+                           prng.gumbel(kc, shape))
+
+
+@pytest.mark.parametrize("shape", [(4, 144, 64), (33, 40, 300)])
+def test_noisy_fast_gemm_on_card_equals_cpu(dev, shape):
+    """The noisy chunked GEMM on the card: the same draws, the same fused
+    multiply-adds (float64, one rounding) and exact float32 dots give the
+    CPU port's ints."""
+    from repro_torch.core import prng
+    M, C, N = shape
+    gen = torch.Generator().manual_seed(M * C)
+    xq = torch.randint(-127, 128, (M, C, 16), generator=gen,
+                       dtype=torch.int32)
+    wq = torch.randint(-127, 128, (C, 16, N), generator=gen,
+                       dtype=torch.int32)
+    key = prng.fold_in(prng.PRNGKey(0), 7)
+    want = ccim.hybrid_mac_fast_gemm(xq, wq, key)
+    got = ccim.hybrid_mac_fast_gemm(xq.to(dev), wq.to(dev), key.to(dev))
+    assert torch.equal(got.cpu(), want)
+
+
+def test_captured_sampled_serve_equals_eager(dev):
+    """A sampled (T 0.7) decode step, its key advanced in place by the
+    replayed graph, gives the eager run's tokens and logits; a noisy
+    serve's captured decode (noise drawn inside the graph) too."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import lm
+    params = lm.init(0, get_config("minicpm-2b", smoke=True))
+    for kw in (dict(temperature=0.7), dict(noise_seed=0)):
+        runs = {}
+        for graphs in (False, True):
+            runs[graphs] = serve("minicpm-2b", batch=4, prompt_len=16,
+                                 gen=12, cim=True, params=params,
+                                 graphs=graphs, return_stats=True, **kw)
+        (te, se), (tc, sc) = runs[False], runs[True]
+        assert sc["graphs"] and (te == tc).all(), kw
+        assert torch.equal(se["last_logits"], sc["last_logits"]), kw

@@ -314,6 +314,24 @@ def test_graph_holds_the_rope_tables_it_reads():
     assert not L._HOLDERS and list(g._held) == [key]
 
 
+def test_graph_holds_the_noise_keys_it_reads():
+    """A captured body's analog-noise keys stay alive with the graph after
+    their bounded cache drops them; outside a capture nothing is held."""
+    cfg = types.SimpleNamespace(cim_noise_seed=12345)
+    path = "mlp/w1"
+    g = _StubGraph(lambda: L._dense_noise_key(cfg, path, "cpu"), "cpu")
+    g()
+    key = ("noise_key", 12345, path, torch.device("cpu"))
+    held = g._held[key]
+    assert list(g._held) == [key]
+    assert held is L._noise_key(12345, path, torch.device("cpu"))
+    L._noise_key.cache_clear()
+    assert L._noise_key.cache_info().maxsize == 64
+    assert g._held[key] is held and held.shape == (2,)
+    L._dense_noise_key(cfg, path, "cpu")
+    assert not L._HOLDERS and list(g._held) == [key]
+
+
 def test_launch_accounting_on_a_stub_graph():
     """A capture's ticks are undone and each replay credits the captured
     launches; the first call is a real step and counts as one."""

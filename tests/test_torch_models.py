@@ -176,5 +176,9 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 
 def test_sampling_is_refused():
-    with pytest.raises(NotImplementedError):
-        tserve("minicpm-2b", smoke=True, temperature=0.7, device="cpu")
+    """Sampling and analog noise are served (tests/test_torch_sampling.py,
+    tests/test_torch_noise.py); noise without the macro is refused, as
+    the reference refuses it."""
+    with pytest.raises(ValueError, match="cim=True"):
+        tserve("minicpm-2b", smoke=True, temperature=0.7, noise_seed=0,
+               device="cpu")

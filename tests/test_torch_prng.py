@@ -1,0 +1,150 @@
+"""Port parity: repro_torch.core.prng against jax.random (threefry2x32,
+``jax_threefry_partitionable`` on, as jax 0.9.0 has it by default).
+
+Keys, bits and uniforms are integer or exact float work: they must equal
+jax's with ``==``.  Normals and Gumbels go through float32 ``log1p``,
+``log``, ``sqrt`` and ``erf_inv``; the port evaluates XLA's CPU
+approximations of those operation for operation (``prng.log``,
+``prng.log1p``, fused multiply-adds where XLA's CPU compiler fuses
+them), so over the draws below they differ from jax's in no element:
+the stated residue, ``NORMAL_RESIDUE`` and ``CATEGORICAL_RESIDUE``, is
+0.  (Evaluated with torch's own float32 ``log1p`` and ``sqrt`` instead,
+10,233 of the 2^20 normals differed, by up to 3 ulps; the ``log``
+of the Gumbels, 240,093 of 2^20 by 1 ulp.)
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import prng as P
+
+# the suite runs several workers at once: one torch thread each
+torch.set_num_threads(1)
+
+SEEDS = [0, 7, 2 ** 31 + 5, 2 ** 32 - 1, -1]
+SHAPES = [(), (3,), (5, 7, 11), (2 ** 16 + 3,)]
+# elements that may differ from jax's, of 2^20 normals / 10,000 rows
+NORMAL_RESIDUE = 0
+CATEGORICAL_RESIDUE = 0
+
+
+def _j(key) -> np.ndarray:
+    return np.asarray(key).astype(np.int64)
+
+
+def _t(key) -> torch.Tensor:
+    return torch.from_numpy(_j(key))
+
+
+def test_partitionable_threefry_is_jax_default():
+    """The port implements the partitionable scheme only: a change of
+    jax's default must show here, not as a silent mismatch."""
+    assert jax.config.jax_threefry_partitionable is True
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_keys_fold_in_and_split_equal_jax(seed):
+    jk, tk = jax.random.PRNGKey(seed), P.PRNGKey(seed)
+    assert np.array_equal(_j(jk), tk.numpy())
+    assert tk.tolist() == [0, seed % 2 ** 32]
+    for data in (0, 1, 0x53414D50, 2 ** 31 + 3, 2 ** 32 - 1):
+        assert np.array_equal(_j(jax.random.fold_in(jk, data)),
+                              P.fold_in(tk, data).numpy())
+    for n in (2, 3, 4):
+        assert np.array_equal(_j(jax.random.split(jk, n)),
+                              P.split(tk, n).numpy())
+
+
+@pytest.mark.parametrize("n", [2, 3])
+def test_batched_split_and_fold_in_equal_vmap(n):
+    """A (B, 2) batch of keys splits as ``jax.vmap(jax.random.split)``
+    does and as B separate splits do; fold_in broadcasts data over it."""
+    jks = jax.random.split(jax.random.PRNGKey(11), 5)
+    tks = _t(jks)
+    got = P.split(tks, n)
+    assert np.array_equal(_j(jax.vmap(lambda k: jax.random.split(k, n))(jks)),
+                          got.numpy())
+    for b in range(5):
+        assert torch.equal(got[b], P.split(tks[b], n))
+    rids = torch.arange(5)
+    assert np.array_equal(
+        _j(jax.vmap(jax.random.fold_in)(jks, jnp.arange(5))),
+        P.fold_in(tks, rids).numpy())
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("seed", SEEDS)
+def test_bits_and_uniform_equal_jax(seed, shape):
+    jk, tk = jax.random.PRNGKey(seed), P.PRNGKey(seed)
+    assert np.array_equal(np.asarray(jax.random.bits(jk, shape)).astype(
+        np.int64), P.bits(tk, shape).numpy())
+    assert np.array_equal(np.asarray(jax.random.uniform(jk, shape)),
+                          P.uniform(tk, shape).numpy())
+    for lo, hi in ((-3.0, 5.0), (0.3, 1.7), (float(np.finfo(np.float32).tiny),
+                                             1.0)):
+        assert np.array_equal(
+            np.asarray(jax.random.uniform(jk, shape, minval=lo, maxval=hi)),
+            P.uniform(tk, shape, lo, hi).numpy()), (lo, hi)
+
+
+def test_bits_at_is_a_slice_of_bits():
+    """``bits_at`` draws any re-layout of a draw: the fast GEMM's noise
+    blocks rest on it."""
+    tk = P.PRNGKey(3)
+    full = P.bits(tk, (4, 5, 6))
+    idx = torch.arange(4 * 5 * 6).reshape(4, 5, 6).permute(2, 0, 1)[1:4]
+    assert torch.equal(P.bits_at(tk, idx), full.permute(2, 0, 1)[1:4])
+
+
+@pytest.mark.parametrize("seed", [0, 2 ** 32 - 1])
+def test_normal_equals_jax_up_to_the_stated_residue(seed):
+    jk, tk = jax.random.PRNGKey(seed), P.PRNGKey(seed)
+    want = np.asarray(jax.random.normal(jk, (2 ** 20,)))
+    got = P.normal(tk, (2 ** 20,)).numpy()
+    differ = want != got
+    assert int(differ.sum()) <= NORMAL_RESIDUE
+    ulps = np.abs(want.view(np.int32).astype(np.int64)
+                  - got.view(np.int32).astype(np.int64))
+    assert ulps.max() <= 2
+    # the tails exercise erf_inv's w >= 5 polynomial and log1p's log branch
+    assert np.abs(got).max() > 4.5
+
+
+def test_gumbel_and_erf_inv_edges_equal_jax():
+    jk, tk = jax.random.PRNGKey(5), P.PRNGKey(5)
+    assert np.array_equal(np.asarray(jax.random.gumbel(jk, (2 ** 18,))),
+                          P.gumbel(tk, (2 ** 18,)).numpy())
+    x = np.float32([-1.0, 1.0, 0.0, -0.5, 0.999999, 1e-30])
+    want = np.asarray(jax.lax.erf_inv(jnp.asarray(x)))
+    got = P.erf_inv(torch.from_numpy(x)).numpy()
+    assert np.array_equal(want, got)
+    v = np.float32([0.0, 1e-45, 1e-38, 0.5, 1.0, 3.0e38, np.inf])
+    assert np.array_equal(np.asarray(jnp.log(jnp.asarray(v))),
+                          P.log(torch.from_numpy(v)).numpy())
+
+
+@pytest.mark.parametrize("per_row", [False, True])
+def test_categorical_equals_jax_up_to_the_stated_residue(per_row):
+    """10,000 rows at the smoke vocab (512): one key for the batch, as the
+    lock-step sampler draws, or one key per row, as the scheduler's
+    ``vmap`` draws."""
+    rng = np.random.default_rng(1)
+    logits = (rng.standard_normal((10_000, 512)) * 3).astype(np.float32)
+    jk = jax.random.PRNGKey(9)
+    if per_row:
+        jks = jax.random.split(jk, 10_000)
+        want = jax.vmap(jax.random.categorical)(jks, jnp.asarray(logits))
+        got = P.categorical(_t(jks), torch.from_numpy(logits))
+    else:
+        want = jax.random.categorical(jk, jnp.asarray(logits))
+        got = P.categorical(_t(jk), torch.from_numpy(logits))
+    assert int((np.asarray(want) != got.numpy()).sum()) <= CATEGORICAL_RESIDUE
+
+
+def test_key_checks():
+    with pytest.raises(ValueError, match="uint32"):
+        P.fold_in(P.PRNGKey(0), -1)
+    with pytest.raises(ValueError, match="key"):
+        P.bits(torch.zeros(3, dtype=torch.int64), (2,))

@@ -173,11 +173,12 @@ def test_serve_continuous_drivers():
         np.testing.assert_array_equal(ptoks[rid], toks[rid])
 
 
-@pytest.mark.parametrize("kw", [dict(temperature=0.7), dict(family="moe"),
+@pytest.mark.parametrize("kw", [dict(family="ssm"), dict(family="moe"),
                                 dict(obs=object())])
 def test_unported_options_raise(kw):
     """Options the port does not serve yet raise (speculative rounds,
-    ``draft_k``, are served now: tests/test_torch_spec_scheduler.py)."""
+    ``draft_k``, are served now: tests/test_torch_spec_scheduler.py; and
+    sampling: tests/test_torch_sampling.py)."""
     kw = dict(kw)
     cfg = dataclasses.replace(tget("minicpm-2b", smoke=True),
                               family=kw.pop("family", "dense"))

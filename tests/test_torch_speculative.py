@@ -221,11 +221,13 @@ def test_adaptive_draft_k_requires_speculative(models):
 
 
 def test_temperature_and_metrics_still_raise(models):
-    _, _, _, tp, _ = models
-    with pytest.raises(NotImplementedError, match="greedy"):
-        tspec("minicpm-2b", temperature=0.7, device="cpu", params=tp)
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        serve_continuous("minicpm-2b", draft_k=2, metrics=True, device="cpu")
+    """Sampled speculative decoding is served now
+    (tests/test_torch_sampling.py); telemetry still raises, sampled or
+    not."""
+    for temperature in (0.0, 0.7):
+        with pytest.raises(NotImplementedError, match="telemetry"):
+            serve_continuous("minicpm-2b", draft_k=2, metrics=True,
+                             temperature=temperature, device="cpu")
 
 
 def test_rung_ladder(models):
