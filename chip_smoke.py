@@ -9,8 +9,10 @@ full width and depth (40 layers, packed and fused, prototype macro),
 served lock-step and with continuous batching over a contiguous and a
 paged KV cache; the unpacked macro GEMM behind ``cim_matmul`` on raw
 weights; the complex-MAC lane behind MUSIC direction-of-arrival
-estimation on 64- and 32-element arrays; and the kernel bench and Fig. 6
-twins with the W8A8 all-digital baseline and the bit-true macro model.
+estimation on 64- and 32-element arrays, noise-free and with the
+macro's analog noise (the figS3 twin); and the kernel bench and Fig. 6
+twins with the W8A8 all-digital baseline and the bit-true macro model,
+its comparator noise drawn as the reference draws it.
 Each phase prints one JSON line; the script exits non-zero at the first
 failure.  Phases:
 
@@ -93,12 +95,17 @@ failure.  Phases:
      ``int8_matmul`` call and none from the plain run;
  19. the kernel bench twin (``launch/kernel_bench.py --scale card``):
      every row's parity assert and the 1.05x decode floor, with the
-     launches of every kernel it drives;
+     launches of every kernel it drives; its two noisy rows (bit-true
+     and fast on the reference's operands, die and key) with their
+     errors and times;
  20. the Fig. 6 twin at 1,048,576 conversions on the card (peak memory
-     under 8 GB), and the same seed and dies on the CPU: the floor's,
-     all-analog's and this die's y8 codes compared, the count of
-     differing codes printed (0 expected: the bit-true sum runs in one
-     order on both);
+     under 8 GB; the reference's keyed operands and dies), and the same
+     seed on the CPU: this work's (the comparator noise), this die's,
+     the floor's and all-analog's y8 codes compared (0 may differ: the
+     draws and the bit-true sum run the same operations on both); the
+     first 16,384 conversions, the reference's run, give its 0.408 /
+     0.226 / 0.339 % and equal a CPU run of that size; CUDA-event times
+     of the bit-true model at 2^20 with and without the noise;
  21. times of the W8A8 kernel per layer (the four full-width GEMMs) at M
      4 and 128: CUDA-event time per call (``ms``, host wrapper included,
      as every row is timed), device time from CUDA-graph replays on one
@@ -174,7 +181,15 @@ failure.  Phases:
      rows 1 and 2 (noisy GEMMs take the chunked GEMM in torch, as the
      reference's leave its kernels); prefill and decode time, peak
      memory, and the CUDA-event time of a decode step's noise draws
-     against the step.
+     against the step;
+ 32. MUSIC DoA with the macro's analog noise: keyed dies on the card
+     equal the CPU's; the figS3 twin (12 trials of the reference's
+     8-element array, noise keys PRNGKey(t)) on the card equals its CPU
+     run trial by trial (covariance ints, spectra, estimates) under the
+     4 % bound; 32 noisy frames each of ``ula32`` and ``ula64``: RMSE
+     under 4 % of the field of view, frames/s, and no launch of any
+     kernel (noisy GEMMs run in torch, as the reference's leave its
+     Pallas kernels).
 
 The serving drivers replay captured graphs by default on the card
 (``launch/graphs.py``), so phases 9, 11, 22 and 24 serve captured.  A
@@ -1256,6 +1271,13 @@ def kernel_bench_phase(torch, dev) -> dict:
     by_op = {}
     for r in rows:
         by_op.setdefault(r["op"], []).append(r)
+    noisy = {}
+    for op in ("bit_true_emulation", "fast_emulation"):
+        note = by_op[op][0]["note"]
+        err = float(re.search(r"max FS-rel err ([0-9.]+)", note).group(1))
+        check("analog noise of the reference's key" in note and 0 < err
+              < 0.02, f"kernel bench {op}: {note}")
+        noisy[op] = {"us": by_op[op][0]["us"], "max_fs_rel_err": err}
     floor = by_op["decode_gemm_prepacked"][0]["speedup_vs_prev"]
     check(floor >= kernel_bench.DECODE_SPEEDUP_FLOOR,
           f"decode floor {floor} < {kernel_bench.DECODE_SPEEDUP_FLOOR}")
@@ -1263,6 +1285,7 @@ def kernel_bench_phase(torch, dev) -> dict:
           "seconds": time.time() - t0, "launches": launches,
           "decode_speedup": floor,
           "decode_floor": kernel_bench.DECODE_SPEEDUP_FLOOR,
+          "noisy_rows": noisy,
           "rows": [{k: r[k] for k in ("op", "shape", "us",
                                       "speedup_vs_prev")} for r in rows],
           "notes": {r["op"]: r["note"] for r in rows}})
@@ -1271,8 +1294,8 @@ def kernel_bench_phase(torch, dev) -> dict:
 
 def fig6_phase(torch, dev) -> dict:
     """Phase 20: the Fig. 6 twin on the card at 1,048,576 conversions,
-    and the same seed and dies on the CPU."""
-    from repro_torch.core.ccim import DEFAULT_CONFIG
+    the same seed on the CPU, and the reference's 16,384 as a prefix."""
+    from repro_torch.core.ccim import DEFAULT_CONFIG, hybrid_mac_bit_true
     from repro_torch.launch import fig6_rms
     rows = []
     seed = 0
@@ -1283,29 +1306,49 @@ def fig6_phase(torch, dev) -> dict:
     check(n == fig6_rms.CARD_N, f"fig6 ran {n} conversions on the card")
     peak = torch.cuda.max_memory_allocated()
     check(peak < 8 * 2 ** 30, f"fig6 peak device memory {peak} >= 8 GB")
+    xq, wq, macro, _, key = fig6_rms.conversions(seed, n, DEFAULT_CONFIG,
+                                                 dev)
+    bit_true_ms = {
+        "noisy": cuda_ms(lambda: hybrid_mac_bit_true(
+            xq, wq, macro, DEFAULT_CONFIG, key), reps=5),
+        "noise_free": cuda_ms(lambda: hybrid_mac_bit_true(
+            xq, wq, macro, DEFAULT_CONFIG), reps=5)}
+    del xq, wq
     t0 = time.time()
-    xq, wq, macro, macro_a = fig6_rms.conversions(seed, n, DEFAULT_CONFIG)
-    ys_cpu = fig6_rms.evaluate(xq, wq, macro, macro_a, DEFAULT_CONFIG)
+    ys_cpu = fig6_rms.evaluate(*fig6_rms.conversions(seed, n, DEFAULT_CONFIG),
+                               DEFAULT_CONFIG)
     cpu_s = time.time() - t0
     differ = {k: int((out["ys"][k].cpu() != ys_cpu[k]).sum())
-              for k in ("floor", "all_analog", "this_die", "exact")}
-    check(differ["floor"] == 0 and differ["all_analog"] == 0
-          and differ["exact"] == 0,
-          f"fig6: card and CPU ints differ {differ}")
-    check(differ["this_die"] == 0,
-          f"fig6: {differ['this_die']} of {n} bit-true codes of the "
-          "fabricated die differ between the card and the CPU")
+              for k in ("this_work", "floor", "all_analog", "this_die",
+                        "exact")}
+    check(all(v == 0 for v in differ.values()),
+          f"fig6: card and CPU codes differ {differ} (of {n})")
     rms_cpu = fig6_rms.rows(ys_cpu, DEFAULT_CONFIG)
     check(rms_cpu == out["rms"], f"fig6 RMS card {out['rms']} != CPU "
           f"{rms_cpu}")
     for v in out["rms"].values():
         check(0 < v < 2, f"fig6 RMS out of range: {out['rms']}")
+    # the reference's run is the first REF_N conversions of the card's
+    m = fig6_rms.REF_N
+    ys_ref = fig6_rms.evaluate(*fig6_rms.conversions(seed, m, DEFAULT_CONFIG),
+                               DEFAULT_CONFIG)
+    prefix = {k: v[:m].cpu() for k, v in out["ys"].items()}
+    check(all(torch.equal(prefix[k], ys_ref[k]) for k in ys_ref),
+          "fig6: the card's first 16,384 conversions differ from a CPU run "
+          "of that size")
+    rms_ref = fig6_rms.rows(prefix, DEFAULT_CONFIG)
+    printed = {k: f"{rms_ref[k]:.3f}" for k in ("this_work", "floor",
+                                                 "all_analog")}
+    check(printed == {"this_work": "0.408", "floor": "0.226",
+                      "all_analog": "0.339"},
+          f"fig6: the reference-size prefix gives {printed}, not the "
+          "reference's 0.408 / 0.226 / 0.339 %")
     emit({"phase": "fig6", "ok": True, "n": n, "seed": seed,
-          "rms_pct": out["rms"], "card_us": out["us"],
+          "rms_pct": out["rms"], "rms_pct_first_16384": rms_ref,
+          "card_us": out["us"], "bit_true_ms_2e20": bit_true_ms,
           "cpu_seconds": cpu_s, "peak_device_bytes": peak,
           "codes_differing_card_vs_cpu": differ,
-          "rows": {r["name"]: r.get("value") for r in rows},
-          "not_ported": "the noisy 'this work' row (ROADMAP Queue 1 item 4)"})
+          "rows": {r["name"]: r.get("value") for r in rows}})
     return out
 
 
@@ -2606,6 +2649,82 @@ def noisy_serve_phase(torch, dev, params, cfg_full) -> dict:
     return ne
 
 
+def noisy_doa_phase(torch, dev) -> dict:
+    """Phase 32: MUSIC DoA with the macro's analog noise.  Keyed dies on
+    the card against the CPU; the figS3 twin on the card against its CPU
+    run, trial by trial; noisy frames of both large arrays (RMSE, frames/s,
+    no kernel launch)."""
+    import numpy as np
+    from repro_torch.core import ccim, prng
+    from repro_torch.launch import doa, figS3_doa
+
+    for seed in (0, 1, 2 ** 32 - 1):
+        d_card = ccim.fabricate(prng.PRNGKey(seed, dev))
+        d_cpu = ccim.fabricate(prng.PRNGKey(seed))
+        check(all(torch.equal(getattr(d_card, f).cpu(), getattr(d_cpu, f))
+                  for f in ("eps_array", "adc_cap_eps", "vref_pol_eps")),
+              f"phase 32: the keyed die of seed {seed} differs card vs CPU")
+    zero = {k: 0 for k in _all_launches()}
+    _reset_all_launches()
+    rows = []
+    card = figS3_doa.run(seed=0, device=dev, emit=rows.append)
+    check(_all_launches() == zero,
+          f"phase 32: the noisy figS3 twin launched kernels {_all_launches()}")
+    t0 = time.time()
+    cpu = figS3_doa.run(seed=0, device="cpu", emit=lambda row: None)
+    cpu_s = time.time() - t0
+    for t, (a, b) in enumerate(zip(card["trials"], cpu["trials"])):
+        check(_equal_pair(tuple(v.cpu() for v in a["r_int"]), b["r_int"])
+              == 0, f"phase 32: figS3 trial {t}: covariance ints differ")
+        check(torch.equal(a["p"].cpu(), b["p"]),
+              f"phase 32: figS3 trial {t}: spectra differ card vs CPU")
+        check(a["cim"] == b["cim"], f"phase 32: figS3 trial {t}: estimates "
+              f"{a['cim']} (card) != {b['cim']} (CPU)")
+    check(card["rmse_pct_fov"] < doa.RMSE_LIMIT_PCT,
+          f"phase 32: figS3 RMSE {card['rmse_pct_fov']} % of the FOV")
+    arrays = {}
+    for name, _ in DOA_ARRAYS:
+        _reset_all_launches()
+        out = doa.run(name, DOA_FRAMES, seed=0, device=dev)
+        launches = _all_launches()
+        check(launches == zero,
+              f"phase 32: noisy {name} frames launched kernels {launches}")
+        check(out["rmse_pct_fov"] < doa.RMSE_LIMIT_PCT,
+              f"phase 32: noisy {name} RMSE {out['rmse_pct_fov']:.3f} % of "
+              "the field of view")
+        check(all(bool(torch.isfinite(f["p"]).all()) for f in out["frames"]),
+              f"phase 32: noisy {name}: a non-finite spectrum")
+        arrays[name] = {k: out[k] for k in (
+            "n_frames", "rmse_cim_deg", "rmse_software_deg",
+            "rmse_cim_vs_software_deg", "rmse_pct_fov", "cim_frames_per_s")}
+        arrays[name]["frame_ms"] = 1e3 / out["cim_frames_per_s"]
+        arrays[name]["first_frame"] = {
+            k: out["frames"][0][k] for k in ("true", "cim", "software")}
+    # the digital back end's eigendecomposition at the ula64 covariance:
+    # the port's route (scipy's heevd on the host, the reference's LAPACK)
+    # against torch's eigh on the card
+    rng = np.random.default_rng(0)
+    X = torch.from_numpy(doa.draw_frame(rng, doa.ARRAYS["ula64"])[1]).to(dev)
+    R, _ = doa.covariance(X)
+    ns = doa.ARRAYS["ula64"].n_sources
+    eigh_ms = {"host_heevd": cuda_ms(lambda: doa.noise_subspace(R, ns), 20),
+               "card_torch_eigh": cuda_ms(lambda: torch.linalg.eigh(
+                   (R + R.conj().t()) * 0.5), 20)}
+    emit({"phase": "doa_noisy", "ok": True, "keyed_dies_equal": True,
+          "eigh_ms_ula64": eigh_ms,
+          "figS3": {"rows": {r["name"]: r["value"] for r in rows},
+                    "rmse_pct_fov": card["rmse_pct_fov"],
+                    "card_frame_us": card["us"], "cpu_frame_us": cpu["us"],
+                    "cpu_seconds": cpu_s, "trials_equal_cpu": len(
+                        card["trials"]),
+                    "estimates": [tr["cim"] for tr in card["trials"]]},
+          "arrays": arrays, "kernel_launches": zero,
+          "mean_spectrum_nmse_pct": card["spectrum_nmse_pct"],
+          "noise_keys": "PRNGKey(seed * 100 + t); projections fold_in(key, 1)",
+          "rmse_limit_pct": doa.RMSE_LIMIT_PCT})
+    return arrays
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2902,6 +3021,8 @@ def main() -> int:
         sampled["paged"]["paged_attn"])
     by_path["serve_noisy"] = noisy_serve_phase(torch, dev, params, cfg_full)
     del params
+    # -- 32. noisy DoA --------------------------------------------------------
+    noisy_doa_phase(torch, dev)
 
     src = "src/repro_torch/kernels/ccim_matmul/csrc/"
     table = []

@@ -1,6 +1,8 @@
 """Functional accuracy baselines the paper compares against (Fig. 6).
 
-Counterpart of ``repro/core/baselines.py``, noise-free:
+Counterpart of ``repro/core/baselines.py``; a noise key adds the SAR's
+comparator noise as the reference draws it (the complex baselines split
+it in four, one key per sub-MAC in the order ac, bd, ad, bc):
 
   * duplicated-weight C-CIM [3]  -- two independent macro instances (two
     mismatch draws), weights quantized twice; 1.5x area.
@@ -18,7 +20,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import ccim
+from . import ccim, prng
 from .ccim import CCIMConfig, DEFAULT_CONFIG, MacroInstance
 
 
@@ -43,10 +45,13 @@ def all_analog_mac(x_q: torch.Tensor, w_q: torch.Tensor,
 
 def _four_sub_macs(x_re, x_im, w_re, w_im, macro_ac_bd, macro_ad_bc, cfg,
                    noise_key) -> Tuple[torch.Tensor, torch.Tensor]:
-    ccim._no_noise(noise_key)
-    y8 = lambda x, w, m: ccim.hybrid_mac_bit_true(x, w, m, cfg)["y8"]
-    ac, bd = y8(x_re, w_re, macro_ac_bd), y8(x_im, w_im, macro_ac_bd)
-    ad, bc = y8(x_re, w_im, macro_ad_bc), y8(x_im, w_re, macro_ad_bc)
+    keys = ((None,) * 4 if noise_key is None
+            else prng.split(noise_key, 4).unbind(-2))
+    y8 = lambda x, w, m, k: ccim.hybrid_mac_bit_true(x, w, m, cfg, k)["y8"]
+    ac = y8(x_re, w_re, macro_ac_bd, keys[0])
+    bd = y8(x_im, w_im, macro_ac_bd, keys[1])
+    ad = y8(x_re, w_im, macro_ad_bc, keys[2])
+    bc = y8(x_im, w_re, macro_ad_bc, keys[3])
     return ac - bd, ad + bc
 
 

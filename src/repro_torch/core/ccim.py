@@ -18,14 +18,17 @@ kernels on the card), 'fast_broadcast' (the elementwise model),
 'bit_true' (every bit-product with the die's mismatch) and 'exact' (the
 integer dot).
 
-Analog noise (a ``core.prng`` key): the fast model's matched Gaussian,
-drawn as the reference draws it (``_fast_gemm_noise``), in
-``hybrid_mac_fast`` and the chunked fast GEMM; 'exact' ignores the key.
-The noise-free CUDA kernels do not take it: a noisy 'fast' GEMM runs
-the chunked GEMM in torch, as the reference's noisy GEMMs leave its
-Pallas kernels for XLA.  The die draws (``fabricate``), the SAR
-comparator noise and bit-true noise are not ported: those functions
-refuse a key.
+Random draws are ``core.prng``'s, so each equals the reference's
+``jax.random`` draw bit for bit: a die (``fabricate`` from a key), the
+SAR's comparator noise (one key per ADC bit, in ``sar_adc`` and so in
+the bit-true model) and the fast model's matched Gaussian
+(``hybrid_mac_fast`` and the chunked fast GEMM, ``_fast_gemm_noise``);
+'exact' ignores a noise key.  The noise-free CUDA kernels do not take
+one: a noisy GEMM runs in torch at every fidelity, as the reference's
+noisy GEMMs leave its Pallas kernels for XLA.  Where a model evaluates
+a draw in blocks, each block draws its elements at their flat indices
+in the whole draw (``prng.bits_at``), so any blocking gives the same
+numbers.
 """
 from __future__ import annotations
 
@@ -135,14 +138,6 @@ class CCIMConfig:
 DEFAULT_CONFIG = CCIMConfig()
 
 
-def _no_noise(noise_key) -> None:
-    if noise_key is not None:
-        raise NotImplementedError(
-            "analog noise is ported for the fast model only; this path "
-            "(die draws, SAR comparator noise, bit-true, complex) is "
-            "noise-free (pass noise_key=None)")
-
-
 # ---------------------------------------------------------------------------
 # Fabrication: the static analog error pattern of one die
 # ---------------------------------------------------------------------------
@@ -173,35 +168,50 @@ def _eps_shape(cfg: CCIMConfig) -> Tuple[int, ...]:
             else (nb, nb))
 
 
-def fabricate(generator: torch.Generator, cfg: CCIMConfig = DEFAULT_CONFIG,
-              device=None) -> MacroInstance:
-    """Monte-Carlo 'tape-out': draw the static mismatch of one macro from
-    ``generator`` (on the generator's device), then move it to ``device``
-    (default: stay there).  The sigmas are the reference's; the draws are
-    torch's, so a die is carried across from the reference with
-    ``convert.macro_from_jax`` where two runs must agree."""
-    gdev = generator.device
+def _die_sigmas(cfg: CCIMConfig, device) -> Tuple[torch.Tensor,
+                                                   torch.Tensor]:
+    """(sig2d (7, 7), sig_bit (adc_bits,)): the relative sigma of each
+    array cell and CDAC capacitor, float32, evaluated as the reference
+    evaluates them (true divisions, correctly rounded square roots)."""
     nb = cfg.n_mag_bits
-    jk = torch.arange(nb, dtype=torch.float32, device=gdev)
+    jk = torch.arange(nb, dtype=torch.float32, device=device)
     cells = (2.0 ** jk)[:, None] * (2.0 ** jk)[None, :]
     if cfg.use_split_dac:
         # the LSB section sits behind an attenuation cap: the effective
         # unit count of low-significance cells stops growing
         cells = torch.minimum(cells, 2.0 ** torch.ceil(
             (jk[:, None] + jk[None, :]) / 2.0))
-    sig2d = cfg.sigma_unit / torch.sqrt(cells)
-    eps_array = torch.randn(_eps_shape(cfg), generator=generator,
-                            device=gdev) * sig2d
-    bits = torch.arange(cfg.adc_bits, dtype=torch.float32, device=gdev)
-    if cfg.adc_mismatch_model == "conservative":
-        sig_bit = cfg.sigma_unit / torch.sqrt(2.0 ** bits)
+    sigma = torch.full((), cfg.sigma_unit, dtype=torch.float32,
+                       device=device)
+    bits = 2.0 ** torch.arange(cfg.adc_bits, dtype=torch.float32,
+                               device=device)
+    if cfg.adc_mismatch_model != "conservative":
+        bits = cfg.adc_lsb_units * bits
+    return sigma / prng.sqrt(cells), sigma / prng.sqrt(bits)
+
+
+def fabricate(source, cfg: CCIMConfig = DEFAULT_CONFIG,
+              device=None) -> MacroInstance:
+    """Monte-Carlo 'tape-out': draw the static mismatch of one macro
+    (standard normals times the reference's sigmas), then move it to
+    ``device`` (default: stay where it was drawn).
+
+    ``source`` is a ``core.prng`` key or a ``torch.Generator``.  A key
+    draws the reference's die bit for bit: it is split in three, for
+    ``eps_array``, ``adc_cap_eps`` and ``vref_pol_eps`` (on the key's
+    device).  A generator draws torch's own normals, on its device."""
+    dev = source.device
+    shapes = (_eps_shape(cfg), (cfg.adc_bits,), ())
+    if isinstance(source, torch.Generator):
+        eps, adc, vref = (torch.randn(s, generator=source, device=dev)
+                          for s in shapes)
     else:
-        sig_bit = cfg.sigma_unit / torch.sqrt(cfg.adc_lsb_units * 2.0 ** bits)
-    adc_cap_eps = torch.randn((cfg.adc_bits,), generator=generator,
-                              device=gdev) * sig_bit
-    vref_pol_eps = torch.randn((), generator=generator,
-                               device=gdev) * cfg.sigma_vref_pol
-    macro = MacroInstance(eps_array, adc_cap_eps, vref_pol_eps)
+        eps, adc, vref = (prng.normal(k, s) for k, s in zip(
+            prng.split(source, 3).unbind(-2), shapes))
+    sig2d, sig_bit = _die_sigmas(cfg, dev)
+    sig_vref = torch.full((), cfg.sigma_vref_pol, dtype=torch.float32,
+                          device=dev)
+    macro = MacroInstance(eps * sig2d, adc * sig_bit, vref * sig_vref)
     return macro if device is None else macro.to(device)
 
 
@@ -265,24 +275,48 @@ def _signed_bits(q: torch.Tensor, cfg: CCIMConfig) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _flat_index(shape, offset: int, device) -> torch.Tensor:
+    """The flat indices of a block of ``shape`` that starts at element
+    ``offset`` of a larger draw whose trailing axes it shares."""
+    return offset + torch.arange(math.prod(shape), dtype=torch.int64,
+                                 device=device).reshape(shape)
+
+
 def sar_adc(v_lsb: torch.Tensor, adc_cap_eps: torch.Tensor,
-            cfg: CCIMConfig = DEFAULT_CONFIG, noise_key=None) -> torch.Tensor:
+            cfg: CCIMConfig = DEFAULT_CONFIG, noise_key=None, *,
+            draw_offset: int = 0) -> torch.Tensor:
     """Convert ``v_lsb`` (float32, in ideal-LSB units, signed) to a code in
     [-half, half - 1], int32: successive approximation, MSB first, against
     the die's float32 trial weights 2^b (1 + eps_b), a bit kept where the
     sample is >= the trial level.  The code is the ideal-binary reading of
-    the decided bits, which is how CDAC mismatch becomes DNL/INL.  The
-    comparator noise of the reference is not ported."""
-    _no_noise(noise_key)
+    the decided bits, which is how CDAC mismatch becomes DNL/INL.
+
+    With ``noise_key`` the comparator sees the sample plus
+    ``comparator_noise_lsb`` standard normals: ``split(noise_key,
+    adc_bits)``, key b drawing over ``v_lsb``'s shape for bit b, as the
+    reference draws them.  The sum is formed as the reference's compiled
+    code forms it (``prng.scaled_normal_fma``: one fused multiply-add);
+    op by op the reference rounds the product first, which can move a
+    sample across a trial level only where it sits within an ulp of it.
+    ``draw_offset`` places a block of a larger conversion batch: its
+    draws are those of the flat indices from ``draw_offset`` on."""
     half = cfg.adc_half_range
     x = torch.clamp(v_lsb, -half, half - 1) + half + 0.5   # two roundings
     real_w = (2.0 ** torch.arange(cfg.adc_bits, dtype=torch.float32,
                                   device=v_lsb.device)
               ) * (1.0 + adc_cap_eps.to(v_lsb.device))
+    keys = None
+    if noise_key is not None and cfg.comparator_noise_lsb > 0:
+        keys = prng.split(noise_key, cfg.adc_bits)
+        idx = _flat_index(x.shape, draw_offset, x.device)
     acc = torch.zeros_like(x)
     code = torch.zeros(x.shape, dtype=torch.int32, device=x.device)
     for b in range(cfg.adc_bits - 1, -1, -1):
-        bit = x >= acc + real_w[b]
+        cmp_in = x
+        if keys is not None:
+            cmp_in = prng.scaled_normal_fma(prng.bits_at(keys[b], idx),
+                                            cfg.comparator_noise_lsb, x)
+        bit = cmp_in >= acc + real_w[b]
         acc = acc + bit.to(torch.float32) * real_w[b]
         code = code + bit.to(torch.int32) * (1 << b)
     return code - half
@@ -335,14 +369,14 @@ def _a_real(xb: torch.Tensor, wb: torch.Tensor, real_w: torch.Tensor
 def hybrid_mac_bit_true(x_q: torch.Tensor, w_q: torch.Tensor,
                         macro: MacroInstance,
                         cfg: CCIMConfig = DEFAULT_CONFIG,
-                        noise_key=None) -> dict:
+                        noise_key=None, *, draw_offset: int = 0) -> dict:
     """One macro conversion per trailing ``acc_len`` axis of ``x_q`` and
     ``w_q`` (ints in [-127, 127], leading axes broadcast), on the die
     ``macro``.  Returns dict(y8, dcim, adc_code, a_real, a_ideal, exact):
     ``exact`` the integer dot, ``y8`` the macro's 8-bit output (y8 * 2^11
-    approximates ``exact``).  The reference's dynamic noise is not
-    ported."""
-    _no_noise(noise_key)
+    approximates ``exact``).  ``noise_key`` adds the SAR's comparator
+    noise over the broadcast output shape (``sar_adc``, with
+    ``draw_offset``)."""
     dev = x_q.device
     d_elem, a_elem, prod = _dcim_terms(x_q.to(torch.int32),
                                        w_q.to(torch.int32), cfg)
@@ -355,7 +389,8 @@ def hybrid_mac_bit_true(x_q: torch.Tensor, w_q: torch.Tensor,
     # VREFCLK polarity-path asymmetry: +/- conversions see slightly
     # different reference gains
     a_real = a_real * (1.0 + macro.vref_pol_eps.to(dev) * torch.sign(a_real))
-    adc_code = sar_adc(a_real / cfg.dcim_lsb, macro.adc_cap_eps, cfg)
+    adc_code = sar_adc(a_real / cfg.dcim_lsb, macro.adc_cap_eps, cfg,
+                       noise_key, draw_offset=draw_offset)
     return dict(y8=dcim + adc_code, dcim=dcim, adc_code=adc_code,
                 a_real=a_real, a_ideal=a_ideal, exact=_isum(prod))
 
@@ -387,18 +422,22 @@ def _noisy(a_real: torch.Tensor, a_mag: torch.Tensor, draw: torch.Tensor,
 
 
 def hybrid_mac_fast(x_q: torch.Tensor, w_q: torch.Tensor, noise_key=None,
-                    cfg: CCIMConfig = DEFAULT_CONFIG) -> dict:
+                    cfg: CCIMConfig = DEFAULT_CONFIG, *,
+                    draw_offset: int = 0) -> dict:
     """The moment-matched macro model: exact ints, one matched Gaussian
     per conversion (a ``core.prng`` key, drawn over the broadcast output
-    shape as the reference draws it; none without a key) and the ideal
-    ADC.  Same dict keys as ``hybrid_mac_bit_true``."""
+    shape as the reference draws it, from flat index ``draw_offset`` on;
+    none without a key) and the ideal ADC.  Same dict keys as
+    ``hybrid_mac_bit_true``."""
     x_q, w_q = x_q.to(torch.int32), w_q.to(torch.int32)
     d_elem, a_elem, prod = _dcim_terms(x_q, w_q, cfg)
     dcim, a_ideal = _isum(d_elem), _isum(a_elem)
     a_real = a_ideal.to(torch.float32)
     if noise_key is not None:
+        idx = _flat_index(a_real.shape, draw_offset, a_real.device)
         a_real = _noisy(a_real, _isum(a_elem.abs()),
-                        prng.normal(noise_key, a_real.shape), cfg)
+                        prng.normal_from_bits(prng.bits_at(noise_key, idx)),
+                        cfg)
     code = _adc_round(a_real, cfg)
     return dict(y8=dcim + code, dcim=dcim, adc_code=code, a_real=a_real,
                 a_ideal=a_ideal, exact=_isum(prod))
@@ -605,34 +644,46 @@ def int_matmul_exact(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
     return acc.to(torch.int32)
 
 
+def _chunk_operands(x_q: torch.Tensor, w_q: torch.Tensor, acc_len: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(M, K) and (K, N) ints -> (M, C, L) and (C, L, N) int32, K
+    zero-padded to whole ``acc_len`` chunks."""
+    C = _pad_to_chunks(x_q.shape[1], acc_len)
+    pad = C * acc_len - x_q.shape[1]
+    return (F.pad(x_q.to(torch.int32), (0, pad)).reshape(
+                x_q.shape[0], C, acc_len),
+            F.pad(w_q.to(torch.int32), (0, 0, 0, pad)).reshape(
+                C, acc_len, w_q.shape[1]))
+
+
 # elements of one broadcast (rows, N, C, L) block of the elementwise
 # fidelities: bounds their working set (output rows are independent)
 _BROADCAST_ELEMS = 1 << 22
 
 
 def _elementwise_gemm(x_q: torch.Tensor, w_q: torch.Tensor, cfg: CCIMConfig,
-                      fidelity: str, macro: Optional[MacroInstance]
-                      ) -> torch.Tensor:
+                      fidelity: str, macro: Optional[MacroInstance],
+                      noise_key=None) -> torch.Tensor:
     """sum_c y8_c (unscaled, int32) of the elementwise models on the
     (M, 1, C, L) x (1, N, C, L) broadcast of the chunked operands, a
-    block of rows at a time."""
-    M, K = x_q.shape
-    N = w_q.shape[1]
-    L = cfg.acc_len
-    C = _pad_to_chunks(K, L)
-    pad = C * L - K
-    xq = F.pad(x_q.to(torch.int32), (0, pad)).reshape(M, C, L)
-    wc = F.pad(w_q.to(torch.int32), (0, 0, 0, pad)).reshape(
-        C, L, N).permute(2, 0, 1).contiguous()[None]            # (1, N, C, L)
+    block of rows at a time.  A noise key draws over the whole (M, N, C)
+    output, as the reference draws it: a block of rows is the contiguous
+    run of flat indices that starts at its first row."""
+    xq, wq = _chunk_operands(x_q, w_q, cfg.acc_len)
+    M, C, L = xq.shape
+    N = wq.shape[-1]
+    wc = wq.permute(2, 0, 1).contiguous()[None]                 # (1, N, C, L)
     rows = max(1, _BROADCAST_ELEMS // max(N * C * L, 1))
     out = []
     for m0 in range(0, M, rows):
         xc = xq[m0:m0 + rows, None]                             # (r, 1, C, L)
         if fidelity == "fast_broadcast":
-            y8 = hybrid_mac_fast(xc, wc, None, cfg)["y8"]
+            res = hybrid_mac_fast(xc, wc, noise_key, cfg,
+                                  draw_offset=m0 * N * C)
         else:
-            y8 = hybrid_mac_bit_true(xc, wc, macro, cfg)["y8"]
-        out.append(y8.sum(-1, dtype=torch.int32))
+            res = hybrid_mac_bit_true(xc, wc, macro, cfg, noise_key,
+                                      draw_offset=m0 * N * C)
+        out.append(res["y8"].sum(-1, dtype=torch.int32))
     return torch.cat(out)
 
 
@@ -660,18 +711,22 @@ def cim_matmul_int(x_q: torch.Tensor, w_q,
     take every design point -- bit-identical, since packing is a caching
     transform.  The other fidelities are plain torch on any device.
 
-    ``noise_key`` adds the fast model's analog noise at 'fast' on packed
-    weights (``engine.packed_cim_matmul_int``); 'exact' ignores it, and
-    raw weights at the other fidelities refuse it."""
+    ``noise_key`` adds the macro's analog noise, as the reference draws
+    it, and takes the GEMM off the kernels: at 'fast' the chunked fast
+    GEMM in torch (on a pack, ``engine.packed_cim_matmul_int`` reads its
+    int8 views), at 'fast_broadcast' the matched Gaussian of
+    ``hybrid_mac_fast``, at 'bit_true' the SAR's comparator noise;
+    'exact' ignores it."""
     from .engine import (PackedCimWeights, pack_quantized_cim_weights,
                          packed_cim_matmul_int)
     if isinstance(w_q, PackedCimWeights):
         return packed_cim_matmul_int(x_q, w_q, cfg, noise_key, fidelity,
                                      use_kernel=use_kernel, macro=macro)
-    if fidelity != "exact":
-        _no_noise(noise_key)
     if x_q.shape[1] != w_q.shape[0]:
         raise ValueError(f"x {tuple(x_q.shape)} @ w {tuple(w_q.shape)}")
+    if fidelity == "fast" and noise_key is not None:
+        xq, wq = _chunk_operands(x_q, w_q, cfg.acc_len)
+        return hybrid_mac_fast_gemm(xq, wq, noise_key, cfg) * cfg.dcim_lsb
     if fidelity == "fast":
         if _kernel_numerics_match(cfg):
             from ..kernels.ccim_matmul import ops as kops
@@ -688,7 +743,8 @@ def cim_matmul_int(x_q: torch.Tensor, w_q,
     if fidelity == "bit_true" and macro is None:
         raise ValueError("the 'bit_true' fidelity needs a MacroInstance "
                          "(fabricate or ideal_macro)")
-    return _elementwise_gemm(x_q, w_q, cfg, fidelity, macro) * cfg.dcim_lsb
+    return _elementwise_gemm(x_q, w_q, cfg, fidelity, macro,
+                             noise_key) * cfg.dcim_lsb
 
 
 # ---------------------------------------------------------------------------

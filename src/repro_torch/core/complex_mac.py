@@ -11,8 +11,10 @@ prototype's numerics, noise-free 'fast', the fused kernels of
 ``kernels/ccim_complex`` do exactly that (on the CPU their plain
 versions); every other design point and fidelity takes four real macro
 GEMMs through ``ccim.cim_matmul_int`` ('bit_true' on one die: the
-sequenced sub-MACs share its mismatch).  Analog noise is not ported: a
-noise key raises.
+sequenced sub-MACs share its mismatch).  A noise key (``core.prng``)
+also takes the four-GEMM route, each sub-MAC drawing under its own
+quarter of ``split(noise_key, 4)`` in the order ac, bd, ad, bc, as the
+reference draws them.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import ccim
+from . import ccim, prng
 from .ccim import CCIMConfig, DEFAULT_CONFIG, MacroInstance
 from .engine import PackedComplexCimWeights, pack_compatible
 
@@ -52,8 +54,9 @@ def complex_cim_matmul_int(
     Noise-free 'fast' GEMMs at the prototype's numerics go to the fused
     complex kernels: one weight residency serves the four real sub-MACs
     and emits Re and Im together, as in the silicon.  Other design points
-    and fidelities run four real macro GEMMs sharing the same weights
-    (and, at 'bit_true', the die ``macro``).
+    and fidelities, and noisy GEMMs, run four real macro GEMMs sharing
+    the same weights (and, at 'bit_true', the die ``macro``); with
+    ``noise_key`` sub-MAC i draws under ``split(noise_key, 4)[i]``.
 
     ``w_re`` may be a ``PackedComplexCimWeights`` (``w_im`` then omitted):
     the co-located pair is packed once and served from storage --
@@ -61,7 +64,6 @@ def complex_cim_matmul_int(
     launches the CUDA kernels on CUDA tensors and runs their plain
     versions on CPU tensors; False forces the plain versions.
     """
-    ccim._no_noise(noise_key)
     packed = w_re if isinstance(w_re, PackedComplexCimWeights) else None
     if (packed is None) == (w_im is None):
         raise ValueError("pass a raw (w_re, w_im) pair or one "
@@ -69,7 +71,8 @@ def complex_cim_matmul_int(
     if packed is not None and not pack_compatible(packed.re.cfg, cfg):
         raise ValueError(f"complex pack made for {packed.re.cfg}, served "
                          f"with {cfg}")
-    if fidelity == "fast" and ccim._kernel_numerics_match(cfg):
+    if (fidelity == "fast" and noise_key is None
+            and ccim._kernel_numerics_match(cfg)):
         from ..kernels.ccim_complex import ops as cops
         if packed is not None:
             re, im = packed.re, packed.im
@@ -82,11 +85,16 @@ def complex_cim_matmul_int(
     if packed is not None:
         w_re, w_im = packed.re, packed.im      # cim_matmul_int takes packs
 
-    def mm(a, b):
-        return ccim.cim_matmul_int(a, b, cfg, None, fidelity,
+    keys = ((None,) * 4 if noise_key is None
+            else prng.split(noise_key, 4).unbind(-2))
+
+    def mm(a, b, key):
+        return ccim.cim_matmul_int(a, b, cfg, key, fidelity,
                                    use_kernel=use_kernel, macro=macro)
     # four real sub-MACs sharing the same weight arrays (no duplication)
-    return mm(x_re, w_re) - mm(x_im, w_im), mm(x_re, w_im) + mm(x_im, w_re)
+    ac, bd = mm(x_re, w_re, keys[0]), mm(x_im, w_im, keys[1])
+    ad, bc = mm(x_re, w_im, keys[2]), mm(x_im, w_re, keys[3])
+    return ac - bd, ad + bc
 
 
 def complex_cim_matmul(

@@ -1,8 +1,9 @@
 """Threefry2x32 counter-based random numbers, bit for bit ``jax.random``'s.
 
 Counterpart of the ``jax.random`` calls the reference makes while
-serving: ``PRNGKey``, ``fold_in``, ``split``, ``bits``, ``uniform``,
-``normal``, ``gumbel`` and ``categorical``, under jax's default
+serving and in its macro models: ``PRNGKey``, ``fold_in``, ``split``,
+``bits``, ``uniform``, ``randint``, ``normal``, ``gumbel`` and
+``categorical``, under jax's default
 ``jax_threefry_partitionable=True`` scheme:
 
   * a key is two uint32 words; here a ``(..., 2)`` int64 tensor holding
@@ -21,6 +22,9 @@ transforms are written as XLA writes them:
 
   * ``uniform``: the top 23 bits as the mantissa of a float in [1, 2),
     minus 1, scaled, then ``max(lo, .)``;
+  * ``randint``: two 32-bit draws (under the two halves of a split key)
+    folded into [lo, hi) with uint32 arithmetic, ``2^32 mod span`` as
+    the high draw's multiplier;
   * ``normal``: ``sqrt(2) * erf_inv(u)``, u uniform in
     (nextafter(-1, 0), 1), with XLA's float32 ``erf_inv`` (Giles: two
     9-term polynomials in ``w = -log1p(-u^2)``, Horner with fused
@@ -277,11 +281,65 @@ def normal_from_bits(b: torch.Tensor) -> torch.Tensor:
     return erf_inv(uniform_from_bits(b, _NORMAL_LO, 1.0)) * _SQRT2
 
 
+def scaled_normal_fma(b: torch.Tensor, scale: float, addend: torch.Tensor
+                     ) -> torch.Tensor:
+    """``addend + scale * normal`` of drawn bits as XLA compiles it inside
+    ``jax.jit``: the constant ``scale`` folds into the normal's sqrt(2)
+    (one float32 constant), and the add fuses with that multiply:
+    fma(erf_inv(u), f32(sqrt(2) * scale), addend).  (Op by op, outside
+    ``jit``, the product is rounded before the add.)"""
+    c = float(np.float32(_SQRT2) * np.float32(scale))
+    return fma(erf_inv(uniform_from_bits(b, _NORMAL_LO, 1.0)), c, addend)
+
+
 def normal(key: torch.Tensor, shape: Shape) -> torch.Tensor:
     """float32 standard normals of ``shape`` (after the key's leading
     axes), ``jax.random.normal``'s (equal over the parity tests'
     draws)."""
     return normal_from_bits(bits(key, shape))
+
+
+_I32_MIN, _I32_MAX = -(1 << 31), (1 << 31) - 1
+
+
+def _rem(a: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """uint32 remainder as XLA defines it: a mod n, and a where n is 0."""
+    return torch.where(n == 0, a, a % torch.where(n == 0, 1, n))
+
+
+def _mul32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The low 32 bits of a * b for a, b in [0, 2^32), in int64 without
+    overflow: b taken in 16-bit halves."""
+    lo = a * (b & 0xFFFF)
+    hi = (a * (b >> 16)) & 0xFFFF
+    return (lo + (hi << 16)) & _MASK
+
+
+def randint(key: torch.Tensor, shape: Shape, minval: int, maxval: int
+            ) -> torch.Tensor:
+    """int32 integers in [minval, maxval) of ``shape`` (after the key's
+    leading axes), ``jax.random.randint``'s with its default int32 type:
+    the bounds clipped to int32 (a ``maxval`` above it widens the span by
+    one, so int32's maximum can be drawn), span 1 where maxval <= minval,
+    and the offset (hi mod span) * (2^32 mod span) + lo mod span, mod
+    span, in uint32, from 32 bits under each of ``split(key)``."""
+    shape = _shape(shape)
+    over = maxval > _I32_MAX
+    lo_v = min(max(int(minval), _I32_MIN), _I32_MAX)
+    hi_v = min(max(int(maxval), _I32_MIN), _I32_MAX)
+    span = (hi_v - lo_v) & _MASK
+    if hi_v <= lo_v:
+        span = 1
+    elif over:
+        span = (span + 1) & _MASK
+    k = split(key)
+    higher, lower = bits(k[..., 0, :], shape), bits(k[..., 1, :], shape)
+    n = torch.full((), span, dtype=torch.int64, device=key.device)
+    mult = _rem(torch.full_like(n, 1 << 16), n)
+    mult = _rem(_mul32(mult, mult), n)
+    off = _rem((_mul32(_rem(higher, n), mult) + _rem(lower, n)) & _MASK, n)
+    v = (lo_v + off) & _MASK
+    return torch.where(v > _I32_MAX, v - (1 << 32), v).to(torch.int32)
 
 
 def gumbel(key: torch.Tensor, shape: Shape) -> torch.Tensor:

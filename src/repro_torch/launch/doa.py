@@ -1,13 +1,21 @@
 """MUSIC direction-of-arrival estimation on the complex macro.
 
 Port of the reference's DoA application (``benchmarks/figS3_doa.py``,
-with the CLI of ``examples/doa_estimation.py``), noise-free on the
-macro: per frame the complex covariance X X^H runs on raw operands
-through the fused complex GEMM (the unpacked kernel on the card), the
-eigendecomposition stays in the digital back end (``torch.linalg.eigh``),
-and the noise-subspace projections E_n^H a(theta) run against the
-steering matrix, packed once per (array, grid) because it is stationary
-(the prepacked complex kernels: skinny for M <= 32, general above).
+with the CLI of ``examples/doa_estimation.py``): per frame the complex
+covariance X X^H runs on raw operands through the complex macro GEMM,
+the eigendecomposition stays in the digital back end (LAPACK on the
+host, ``noise_subspace``), and the noise-subspace projections E_n^H
+a(theta) run against the steering matrix, packed once per (array, grid)
+because it is stationary.
+
+Frames carry the macro's analog noise as the reference's do: frame t of
+seed s draws under ``PRNGKey(s * 100 + t)`` (``frame_key``), the
+covariance under that key and the projections under ``fold_in(key, 1)``;
+the noisy GEMMs run in torch, off the kernels, as the reference's leave
+its Pallas kernels.  Noise-free frames (``noise_key=None``, the CLI's
+``--noise-free``) take the fused complex kernels: the unpacked one for
+the covariance, the prepacked ones for the spectrum (skinny for M <= 32,
+general above).
 
 Arrays (``ARRAYS``): ``ref`` is the reference's size (8-element ULA, 64
 snapshots, 2 sources, 0.5 degree grid); ``ula32`` and ``ula64`` are
@@ -19,6 +27,7 @@ figS3.
 
     PYTHONPATH=src python -m repro_torch.launch.doa            # ula64, card
     PYTHONPATH=src python -m repro_torch.launch.doa --device cpu   # ref size
+    PYTHONPATH=src python -m repro_torch.launch.doa --noise-free
 """
 from __future__ import annotations
 
@@ -31,6 +40,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..core import prng
 from ..core.complex_mac import (complex_cim_matmul, complex_cim_matmul_int,
                                 complex_mac_reference, quantize_complex)
 from ..core.engine import PackedComplexCimWeights, pack_complex_cim_weights
@@ -84,35 +94,60 @@ def steering(n_sensors: int, thetas_deg, device=None) -> torch.Tensor:
     return a.reshape(phase.shape).to(resolve_device(device))
 
 
+def _real_dot(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """float32 (n, K) @ (K, T), the K products summed in order."""
+    acc = a[:, :1] * b[:1]
+    for k in range(1, a.shape[1]):
+        acc = acc + a[:, k:k + 1] * b[k:k + 1]
+    return acc
+
+
 def draw_frame(rng: np.random.Generator, arr: ArrayConfig
                ) -> Tuple[np.ndarray, np.ndarray]:
     """(true angles, X): sources uniform in -50..50 degrees at least
     ``MIN_SEPARATION`` apart, unit-power complex Gaussian signals and
     noise of ``NOISE`` per component -- drawn in figS3's order.  X is
-    (n_sensors, n_snapshots) complex64."""
+    (n_sensors, n_snapshots) complex64, A S + N evaluated as figS3's
+    ``jnp.asarray(A @ S + N, jnp.complex64)`` evaluates it: S and N
+    rounded to complex64, the complex product as four float32 real dots
+    (re = ar.sr - ai.si, im = ar.si + ai.sr), then + N."""
     n, T, ns = arr.n_sensors, arr.n_snapshots, arr.n_sources
     true = np.sort(rng.uniform(-50, 50, ns))
     while ns > 1 and np.diff(true).min() < MIN_SEPARATION:
         true = np.sort(rng.uniform(-50, 50, ns))
-    A = steering(n, true, "cpu").numpy().astype(np.complex128)
-    S = (rng.standard_normal((ns, T))
-         + 1j * rng.standard_normal((ns, T))) / np.sqrt(2)
-    N = (rng.standard_normal((n, T))
-         + 1j * rng.standard_normal((n, T))) * NOISE
-    return true, (A @ S + N).astype(np.complex64)
+    A = steering(n, true, "cpu").numpy()
+    S = ((rng.standard_normal((ns, T))
+          + 1j * rng.standard_normal((ns, T))) / np.sqrt(2)
+         ).astype(np.complex64)
+    N = ((rng.standard_normal((n, T))
+          + 1j * rng.standard_normal((n, T))) * NOISE).astype(np.complex64)
+    ar, ai, sr, si = A.real, A.imag, S.real, S.imag
+    AS = (_real_dot(ar, sr) - _real_dot(ai, si)) + 1j * (
+        _real_dot(ar, si) + _real_dot(ai, sr))
+    return true, AS.astype(np.complex64) + N
 
 
-def covariance(X: torch.Tensor, *, use_kernel: Optional[bool] = None
+def frame_key(seed: int, t: int, device=None) -> torch.Tensor:
+    """The noise key of frame ``t`` of a run seeded ``seed``: figS3's
+    ``PRNGKey(seed * 100 + t)``."""
+    return prng.PRNGKey(seed * 100 + t, resolve_device(device))
+
+
+def covariance(X: torch.Tensor, *, noise_key=None,
+               use_kernel: Optional[bool] = None
                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """(R, (y_re, y_im)): R = X X^H / T through the complex macro on raw
-    operands, and its int32 Re/Im at x 2^11.
+    operands (with the analog noise of ``noise_key``), and its int32
+    Re/Im at x 2^11.
 
     X is quantized once: X^H's ints and per-column scales are the
     conjugate transpose of X's per-row ones (the same rounding of the
     same values), so R equals the reference's
-    ``complex_cim_matmul(X, X.conj().T) / T`` bit for bit."""
+    ``complex_cim_matmul(X, X.conj().T, noise_key=...) / T`` bit for
+    bit."""
     q_re, q_im, s = quantize_complex(X, -1)
     y_re, y_im = complex_cim_matmul_int(q_re, q_im, q_re.t(), -q_im.t(),
+                                        noise_key=noise_key,
                                         use_kernel=use_kernel)
     scale = s * s.reshape(1, -1)
     R = torch.complex(y_re * scale, y_im * scale) / X.shape[1]
@@ -121,20 +156,31 @@ def covariance(X: torch.Tensor, *, use_kernel: Optional[bool] = None
 
 def noise_subspace(R: torch.Tensor, n_sources: int) -> torch.Tensor:
     """E_n: eigenvectors of the n - n_sources smallest eigenvalues (the
-    digital back end, Fig. S3's DBP)."""
-    _, v = torch.linalg.eigh(R)
-    return v[:, :R.shape[0] - n_sources]
+    digital back end, Fig. S3's DBP), on R's device.
+
+    As the reference's ``jnp.linalg.eigh`` does, this decomposes
+    (R + R^H) / 2 (a noisy covariance is not Hermitian; for a noise-free
+    one the average is exact) with LAPACK's divide-and-conquer ``heevd``
+    on the host, through SciPy, whose LAPACK the reference's CPU eigh
+    calls too: so the eigenvectors are the reference's, and the same on
+    every device (another solver may flip an eigenvector's sign or move
+    its last bits, which moves the noisy GEMM's codes)."""
+    import scipy.linalg
+    r = ((R + R.conj().t()) * 0.5).cpu().numpy()
+    _, v = scipy.linalg.eigh(r, lower=True, driver="evd")
+    return torch.from_numpy(v[:, :R.shape[0] - n_sources]).to(R.device)
 
 
 def _abs(z: torch.Tensor) -> torch.Tensor:
     """|z| of complex64 as the reference's CPU lowering computes it:
     max * sqrt(fma(q, q, 1)) with q = min / max of |re|, |im|.  The fma
     is taken in float64 (exact product, one rounding of the sum) and
-    rounded to float32."""
+    rounded to float32, the square root correctly rounded
+    (``prng.sqrt``), so the card's spectrum is the CPU's."""
     re, im = z.real.abs(), z.imag.abs()
     mx, mn = torch.maximum(re, im), torch.minimum(re, im)
     q = (mn / mx).to(torch.float64)
-    r = mx * torch.sqrt((q * q + 1.0).to(torch.float32))
+    r = mx * prng.sqrt((q * q + 1.0).to(torch.float32))
     return torch.where(mx > 0, r, mx)
 
 
@@ -146,10 +192,13 @@ def _spectrum(proj: torch.Tensor) -> torch.Tensor:
 
 
 def music_spectrum(En: torch.Tensor, steering_pack: PackedComplexCimWeights,
-                   *, use_kernel: Optional[bool] = None) -> torch.Tensor:
+                   *, noise_key=None, use_kernel: Optional[bool] = None
+                   ) -> torch.Tensor:
     """(G,) float32 MUSIC pseudo-spectrum: E_n^H a(theta) on the macro
-    against the packed steering matrix."""
+    against the packed steering matrix (with the analog noise of
+    ``noise_key``)."""
     return _spectrum(complex_cim_matmul(En.conj().t(), steering_pack,
+                                        noise_key=noise_key,
                                         use_kernel=use_kernel))
 
 
@@ -181,13 +230,15 @@ class Frame(NamedTuple):
 
 
 def music_frame(X: torch.Tensor, steering_pack: PackedComplexCimWeights,
-                grid: np.ndarray, n_sources: int, *,
+                grid: np.ndarray, n_sources: int, *, noise_key=None,
                 use_kernel: Optional[bool] = None) -> Frame:
     """One frame of CIM MUSIC: covariance, noise subspace, spectrum,
-    peaks."""
-    R, r_int = covariance(X, use_kernel=use_kernel)
+    peaks; with ``noise_key`` the covariance draws under it and the
+    projections under ``fold_in(noise_key, 1)``, as figS3 draws them."""
+    R, r_int = covariance(X, noise_key=noise_key, use_kernel=use_kernel)
+    spec_key = None if noise_key is None else prng.fold_in(noise_key, 1)
     p = music_spectrum(noise_subspace(R, n_sources), steering_pack,
-                       use_kernel=use_kernel)
+                       noise_key=spec_key, use_kernel=use_kernel)
     return Frame(r_int, p, estimate(p, grid, n_sources))
 
 
@@ -196,9 +247,10 @@ def rmse(est, true) -> float:
 
 
 def run(array: str = "ref", n_frames: int = 12, seed: int = 0,
-        device=None) -> dict:
+        device=None, noisy: bool = True) -> dict:
     """CIM MUSIC and fp32 software MUSIC over ``n_frames`` seeded frames
-    of ``ARRAYS[array]``; RMSEs against the true angles as in figS3."""
+    of ``ARRAYS[array]`` (with the macro's analog noise unless ``noisy``
+    is False); RMSEs against the true angles as in figS3."""
     arr = ARRAYS[array]
     dev = resolve_device(device)
     grid = angle_grid(arr.grid_step)
@@ -206,13 +258,14 @@ def run(array: str = "ref", n_frames: int = 12, seed: int = 0,
     pack = pack_complex_cim_weights(A.real, A.imag)
     rng = np.random.default_rng(seed)
     frames, cim_s = [], 0.0
-    for _ in range(n_frames):
+    for t in range(n_frames):
         true, x = draw_frame(rng, arr)
         X = torch.from_numpy(x).to(dev)
+        key = frame_key(seed, t, dev) if noisy else None
         if dev.type == "cuda":
             torch.cuda.synchronize()
         t0 = time.perf_counter()
-        fr = music_frame(X, pack, grid, arr.n_sources)
+        fr = music_frame(X, pack, grid, arr.n_sources, noise_key=key)
         cim_s += time.perf_counter() - t0      # estimate() read p back
         est_sw = estimate(software_spectrum(X, A, arr.n_sources), grid,
                           arr.n_sources)
@@ -221,7 +274,8 @@ def run(array: str = "ref", n_frames: int = 12, seed: int = 0,
     err_cim = [rmse(f["cim"], f["true"]) for f in frames]
     err_sw = [rmse(f["software"], f["true"]) for f in frames]
     return dict(
-        array=array, config=dataclasses.asdict(arr), frames=frames,
+        array=array, config=dataclasses.asdict(arr), noisy=noisy,
+        frames=frames,
         grid=grid, device=str(dev), n_frames=n_frames,
         rmse_cim_deg=float(np.mean(err_cim)),
         rmse_software_deg=float(np.mean(err_sw)),
@@ -238,12 +292,15 @@ def main(argv=None) -> int:
     ap.add_argument("--frames", type=int, default=12)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None)
+    ap.add_argument("--noise-free", action="store_true",
+                    help="no analog noise: the fused complex kernels")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
     array = args.array or ("ula64" if dev.type == "cuda" else "ref")
-    out = run(array, args.frames, args.seed, dev)
+    out = run(array, args.frames, args.seed, dev, not args.noise_free)
     f0 = out["frames"][0]
-    print(f"array {array}: {out['config']} on {out['device']}")
+    print(f"array {array}: {out['config']} on {out['device']}, "
+          f"{'with' if out['noisy'] else 'without'} analog noise")
     print(f"true DOA:          {[round(v, 2) for v in f0['true']]}")
     print(f"software MUSIC:    {f0['software']}")
     print(f"C-CIM MUSIC:       {f0['cim']}")

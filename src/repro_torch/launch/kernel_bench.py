@@ -7,11 +7,14 @@ writes no file unless given ``--out``.  Times are medians of CUDA-event
 timings of one call on the card (host clock on the CPU), in
 microseconds, each call including its host-side wrapper.
 
+Operands, die and noise key are the reference's draws (``core/prng.py``:
+``PRNGKey(seed)``, its split, ``normal`` and ``randint``), so the two
+noisy rows (``bit_true_emulation`` on the die of ``fabricate(key)``,
+``fast_emulation``) compute the reference's outputs, noise included, and
+their errors are the reference's.  With noise the GEMMs run in torch, off
+the kernels, as the reference's leave its Pallas kernels.
+
 Differences from the reference:
-  * the two rows the reference runs with analog noise
-    (``bit_true_emulation``, ``fast_emulation``) run noise-free -- the
-    noise is not ported (ROADMAP Queue 1 item 4) -- and say so in their
-    note;
   * the kernel rows (``decode_skinny_pallas``, ``complex_fused_kernel``,
     ``decode_complex_fused_prepacked``) time the port's CUDA kernels on
     the card where the reference timed its Pallas kernels on a TPU; on
@@ -28,7 +31,8 @@ Differences from the reference:
   * ``--scale card`` runs the decode rows at minicpm-2b's fused QKV width
     and adds the W8A8 row at minicpm-2b's four full-width layer GEMMs
     (fused QKV, wo, fused gate-up, w2) at M 4 and M 128, each held to its
-    plain version bit for bit.
+    plain version bit for bit.  Their operands are normals under
+    ``fold_in(key, m)`` (the reference has no such rows).
 
     PYTHONPATH=src python -m repro_torch.launch.kernel_bench --scale card
     PYTHONPATH=src python -m repro_torch.launch.kernel_bench --device cpu
@@ -44,6 +48,7 @@ from typing import Callable, List, Optional
 import torch
 
 from .. import resolve_device
+from ..core import prng
 from ..core.ccim import DEFAULT_CONFIG, cim_matmul, cim_matmul_int, fabricate
 from ..core.complex_mac import complex_cim_matmul, complex_cim_matmul_int
 from ..core.engine import pack_cim_weights, pack_complex_cim_weights
@@ -64,8 +69,19 @@ MINICPM_LAYER = {"qkv": (2304, 9216), "wo": (3072, 2304),
 DECODE_SHAPE = {"ref": (4, 1024, 256), "card": (4, 2304, 3072)}
 INT8_MS = (4, 128)
 
-NOISE_FREE = ("noise-free: the reference draws analog noise in this row; "
-              "the noise is not ported (ROADMAP Queue 1 item 4)")
+FIDELITY_SHAPE = (64, 512, 64)
+
+
+def fidelity_operands(seed: int, device=None):
+    """(x, w, macro, key) of the two noisy rows, on ``device``: the
+    reference's ``normal`` operands under the halves of ``split(key)``
+    and its die ``fabricate(key)``, ``key = PRNGKey(seed)`` also the
+    noise key."""
+    M, K, N = FIDELITY_SHAPE
+    key = prng.PRNGKey(seed, resolve_device(device))
+    k1, k2 = prng.split(key)
+    return (prng.normal(k1, (M, K)), prng.normal(k2, (K, N)),
+            fabricate(key, DEFAULT_CONFIG), key)
 
 
 class Bench:
@@ -144,33 +160,34 @@ def run(seed: int = 0, device=None, scale: str = "ref", quick: bool = False,
     dev = resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = DEFAULT_CONFIG
-    gen = torch.Generator().manual_seed(seed)
     on_card = dev.type == "cuda"
     B = Bench(dev, quick, emit)
-    randn = lambda *s: torch.randn(s, generator=gen).to(dev)
-    rand_q = lambda *s: torch.randint(-127, 128, s, generator=gen,
-                                      dtype=torch.int32).to(dev)
+    key = prng.PRNGKey(seed, dev)
+    k1, k2 = prng.split(key)
+    kk = prng.split(key, 4)
+    rand_q = lambda k, *s: prng.randint(k, s, -127, 128).clamp(-127, 127)
 
-    # ---- fidelity: bit-true oracle vs fast -------------------------------
-    M, K, N = 64, 512, 64
-    x, w = randn(M, K), randn(K, N)
-    macro = fabricate(gen, cfg, device=dev)
+    # ---- fidelity: bit-true oracle vs fast, with the analog noise --------
+    M, K, N = FIDELITY_SHAPE
+    x, w, macro, _ = fidelity_operands(seed, dev)
     us_bit, y_bit = B.time_us(lambda: cim_matmul(
-        x, w, cfg, fidelity="bit_true", macro=macro), 2, 1, heavy=True)
-    us_fast, y_fast = B.time_us(lambda: cim_matmul(x, w, cfg), 2, 1)
+        x, w, cfg, key, fidelity="bit_true", macro=macro), 2, 1, heavy=True)
+    us_fast, y_fast = B.time_us(lambda: cim_matmul(x, w, cfg, key), 2, 1)
     ref = x @ w
     fs = float(x.abs().max() * w.abs().max() * K)
     err_bit = float((y_bit - ref).abs().max()) / fs
     err_fast = float((y_fast - ref).abs().max()) / fs
     B.record("bit_true_emulation", (M, K, N), us_bit,
-             note=f"max FS-rel err {err_bit:.4f}; {NOISE_FREE}")
+             note=f"max FS-rel err {err_bit:.4f}; analog noise of the "
+             "reference's key (SAR comparator), torch off the kernels")
     B.record("fast_emulation", (M, K, N), us_fast, us_bit / us_fast,
-             f"vs bit_true oracle; max FS-rel err {err_fast:.4f}; "
-             f"{NOISE_FREE}")
+             f"vs bit_true oracle; max FS-rel err {err_fast:.4f}; analog "
+             "noise of the reference's key (matched Gaussian), torch off "
+             "the kernels")
 
     # ---- fast-fidelity GEMM: matmul-ized vs elementwise broadcast --------
     M2, K2, N2 = 256, 1024, 256
-    qx2, qw2 = rand_q(M2, K2), rand_q(K2, N2)
+    qx2, qw2 = rand_q(k1, M2, K2), rand_q(k2, K2, N2)
     us_bc, y_bc = B.time_us(lambda: cim_matmul_int(
         qx2, qw2, cfg, fidelity="fast_broadcast"), 3, 1, heavy=True)
     us_mm, y_mm = B.time_us(lambda: cim_matmul_int(
@@ -183,7 +200,7 @@ def run(seed: int = 0, device=None, scale: str = "ref", quick: bool = False,
 
     # ---- decode shape: per-call conditioning vs packed weights -----------
     Md, Kd, Nd = DECODE_SHAPE[scale]
-    xd, wd = randn(Md, Kd), randn(Kd, Nd)
+    xd, wd = prng.normal(k1, (Md, Kd)), prng.normal(k2, (Kd, Nd))
     packed = pack_cim_weights(wd, cfg)
     (us_unp, y_unp), (us_pk, y_pk) = B.time_pair_us(
         lambda: cim_matmul(xd, wd, cfg), lambda: cim_matmul(xd, packed, cfg),
@@ -203,7 +220,7 @@ def run(seed: int = 0, device=None, scale: str = "ref", quick: bool = False,
             "must beat per-call conditioning at serving shapes)")
 
     # ---- horizontal fusion at decode shape: one wide GEMM vs three -------
-    w3s = [randn(Kd, Nd) for _ in range(3)]
+    w3s = [prng.normal(k, (Kd, Nd)) for k in prng.split(k2, 3)]
     pk3 = [pack_cim_weights(v, cfg) for v in w3s]
     pk_f = pack_cim_weights(torch.cat(w3s, dim=1), cfg)
     (us_sep, y_sep), (us_fus, y_fus) = B.time_pair_us(
@@ -217,7 +234,7 @@ def run(seed: int = 0, device=None, scale: str = "ref", quick: bool = False,
              "(bit-identical per segment)")
 
     # ---- skinny prepacked kernel at decode shape -------------------------
-    qxd = rand_q(Md, Kd)
+    qxd = rand_q(k1, Md, Kd)
     us_sk, y_sk = B.time_us(lambda: cim_matmul_int(qxd, packed, cfg), 16, 4)
     ok_sk = torch.equal(y_sk, cim_matmul_int(qxd, packed.wq(), cfg,
                                              use_kernel=False))
@@ -229,8 +246,8 @@ def run(seed: int = 0, device=None, scale: str = "ref", quick: bool = False,
     assert ok_sk, "skinny prepacked kernel diverged from the reference"
 
     # ---- complex GEMM: matmul-ized 4-pass vs broadcast 4-pass ------------
-    cxr, cxi, cwr, cwi = (rand_q(M2, K2), rand_q(M2, K2), rand_q(K2, N2),
-                          rand_q(K2, N2))
+    cxr, cxi = rand_q(kk[0], M2, K2), rand_q(kk[1], M2, K2)
+    cwr, cwi = rand_q(kk[2], K2, N2), rand_q(kk[3], K2, N2)
     us_cb, y_cb = B.time_us(lambda: complex_cim_matmul_int(
         cxr, cxi, cwr, cwi, cfg, fidelity="fast_broadcast"), 2, 1,
         heavy=True)
@@ -244,8 +261,8 @@ def run(seed: int = 0, device=None, scale: str = "ref", quick: bool = False,
 
     # ---- fused single-pass complex kernel --------------------------------
     Mc, Kc, Nc = 16, 64, 16
-    fxr, fxi, fwr, fwi = (rand_q(Mc, Kc), rand_q(Mc, Kc), rand_q(Kc, Nc),
-                          rand_q(Kc, Nc))
+    fxr, fxi = rand_q(kk[0], Mc, Kc), rand_q(kk[1], Mc, Kc)
+    fwr, fwi = rand_q(kk[2], Kc, Nc), rand_q(kk[3], Kc, Nc)
     ok = _equal(ccim_complex_matmul_int(fxr, fxi, fwr, fwi),
                 ccim_complex_matmul_ref(fxr, fxi, fwr, fwi))
     if on_card:
@@ -263,8 +280,10 @@ def run(seed: int = 0, device=None, scale: str = "ref", quick: bool = False,
 
     # ---- decode-shaped fused complex kernel (skinny prepacked) -----------
     Mcd, Kcd, Ncd = 4, 256, 128
-    cpk = pack_complex_cim_weights(randn(Kcd, Ncd), randn(Kcd, Ncd), cfg)
-    cxz = torch.complex(randn(Mcd, Kcd), randn(Mcd, Kcd))
+    cpk = pack_complex_cim_weights(prng.normal(kk[0], (Kcd, Ncd)),
+                                   prng.normal(kk[1], (Kcd, Ncd)), cfg)
+    cxz = torch.complex(prng.normal(kk[2], (Mcd, Kcd)),
+                        prng.normal(kk[3], (Mcd, Kcd)))
     (us_cd, y_cd), (us_cr, y_cr) = B.time_pair_us(
         lambda: complex_cim_matmul(cxz, cpk, cfg),
         lambda: complex_cim_matmul(cxz, cpk, cfg, use_kernel=False), 16, 4)
@@ -282,7 +301,8 @@ def run(seed: int = 0, device=None, scale: str = "ref", quick: bool = False,
     assert ok_cd, "skinny fused complex kernel diverged from the reference"
 
     # ---- integer oracle and the all-digital W8A8 baseline ----------------
-    qx, qw = rand_q(M, K).to(torch.int8), rand_q(K, N).to(torch.int8)
+    qx = rand_q(k1, M, K).to(torch.int8)
+    qw = rand_q(k2, K, N).to(torch.int8)
     us_ref, _ = B.time_us(lambda: ccim_matmul_ref(qx, qw), 3, 2)
     B.record("ccim_ref_oracle", (M, K, N), us_ref,
              note="int GEMM (plain oracle)")
@@ -293,7 +313,9 @@ def run(seed: int = 0, device=None, scale: str = "ref", quick: bool = False,
     if scale == "card":
         for m in INT8_MS:
             for name, (k, n) in MINICPM_LAYER.items():
-                xm, wm = randn(m, k), randn(k, n)
+                km = prng.split(prng.fold_in(key, m))
+                xm, wm = prng.normal(km[0], (m, k)), prng.normal(km[1],
+                                                                 (k, n))
                 us_k, y_k = B.time_us(lambda: int8_matmul(xm, wm), 20, 3)
                 us_p, y_p = B.time_us(lambda: int8_matmul(
                     xm, wm, use_kernel=False), 5, 1)

@@ -133,20 +133,29 @@ def test_chunk_blocking_is_invisible():
 
 
 def test_noise_key_is_refused():
-    """The fast GEMM takes a ``core.prng`` key (tests/test_torch_noise.py)
-    and refuses anything else; raw weights refuse noise at every fidelity
-    but 'exact', which ignores it (noisy serving runs on packed weights;
-    bit-true and SAR noise are not ported)."""
+    """The noisy GEMMs take a ``core.prng`` key and refuse anything else;
+    with a key, raw weights give the reference's noisy ints at 'fast' and
+    'fast_broadcast' (tests/test_torch_die_noise.py holds every fidelity,
+    packed and complex), and 'exact' ignores it."""
+    import jax
     xq = torch.zeros((1, 1, 16), dtype=torch.int32)
     wq = torch.zeros((1, 16, 2), dtype=torch.int32)
     with pytest.raises(ValueError, match="key"):
         T.hybrid_mac_fast_gemm(xq, wq, noise_key=torch.zeros(3))
+    with pytest.raises(ValueError, match="key"):
+        T.cim_matmul_int(xq[0], wq[0], noise_key=torch.zeros(3))
+    rng = np.random.default_rng(21)
+    x = rng.integers(-127, 128, (3, 40)).astype(np.int32)
+    w = rng.integers(-127, 128, (40, 5)).astype(np.int32)
+    jk = jax.random.PRNGKey(7)
     key = torch.tensor([0, 7])
-    with pytest.raises(NotImplementedError, match="noise"):
-        T.cim_matmul_int(xq[0], wq[0], noise_key=key,
-                         fidelity="fast_broadcast")
-    with pytest.raises(NotImplementedError, match="noise"):
-        T.cim_matmul_int(xq[0], wq[0], noise_key=key)
+    for fid in ("fast_broadcast", "fast"):
+        want = jax.jit(lambda a, b, k: J.cim_matmul_int(
+            a, b, None, J.DEFAULT_CONFIG, k, fid, use_pallas=False))(
+            jnp.asarray(x), jnp.asarray(w), jk)
+        got = T.cim_matmul_int(torch.from_numpy(x), torch.from_numpy(w),
+                               noise_key=key, fidelity=fid)
+        assert np.array_equal(np.asarray(want), got.numpy()), fid
     assert torch.equal(T.cim_matmul_int(xq[0], wq[0], noise_key=key,
                                         fidelity="exact"),
                        torch.zeros((1, 2), dtype=torch.int32))

@@ -191,12 +191,24 @@ def test_four_pass_route_off_prototype(nd, adc, acc):
 def test_noise_key_and_bad_operands_raise():
     x = torch.zeros((2, 16), dtype=torch.int32)
     w = torch.zeros((16, 3), dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        Tm.complex_cim_matmul_int(x, x, w, w, noise_key=object())
-    with pytest.raises(NotImplementedError):
+    # a noise key is a core.prng key: anything else is refused; a key
+    # takes the four noisy sub-MACs and gives the reference's ints (every
+    # fidelity, raw and packed: tests/test_torch_die_noise.py)
+    with pytest.raises(ValueError, match="key"):
+        Tm.complex_cim_matmul_int(x, x, w, w, noise_key=torch.zeros(3))
+    with pytest.raises(ValueError, match="key"):
         Tm.complex_cim_matmul(torch.zeros((2, 16), dtype=torch.complex64),
                               torch.zeros((16, 3), dtype=torch.complex64),
-                              noise_key=object())
+                              noise_key=torch.zeros(3))
+    xr, xi, wr, wi = _operands(4, 37, 5)
+    want = jax.jit(lambda a, b, c, d, k: Jm.complex_cim_matmul_int(
+        a, b, c, d, None, Jc.DEFAULT_CONFIG, k, use_pallas=False))(
+        *(jnp.asarray(v) for v in (xr, xi, wr, wi)), jax.random.PRNGKey(3))
+    got = Tm.complex_cim_matmul_int(
+        *(torch.from_numpy(v) for v in (xr, xi, wr, wi)),
+        noise_key=torch.tensor([0, 3], dtype=torch.int64))
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
     with pytest.raises(ValueError, match="raw"):
         Tm.complex_cim_matmul_int(x, x, w)
     p = Te.pack_complex_cim_weights(torch.randn(16, 3), torch.randn(16, 3))

@@ -523,6 +523,54 @@ def test_plain_fidelities_on_the_card_equal_cpu(dev, fidelity):
     assert torch.equal(got.cpu(), want)
 
 
+@pytest.mark.parametrize("cfg_kw", [{}, dict(mismatch_granularity="per_macro",
+                                         use_split_dac=False,
+                                         adc_mismatch_model="averaged"),
+                                    dict(n_dcim_products=0, adc_bits=8)])
+def test_keyed_dies_on_the_card_equal_cpu(dev, cfg_kw):
+    from repro_torch.core import prng
+    cfg = CCIMConfig(**cfg_kw)
+    for seed in (0, 1, 2 ** 32 - 1):
+        want = ccim.fabricate(prng.PRNGKey(seed), cfg)
+        got = ccim.fabricate(prng.PRNGKey(seed, dev), cfg)
+        assert got.eps_array.is_cuda
+        for f in ("eps_array", "adc_cap_eps", "vref_pol_eps"):
+            assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+
+
+def test_sar_noise_codes_on_the_card_equal_cpu(dev):
+    """2^20 conversions of the noisy SAR (one key per ADC bit, the fused
+    comparator input): the card's codes are the CPU's."""
+    from repro_torch.core import prng
+    n = 1 << 20
+    v = prng.uniform(prng.PRNGKey(3), (n,), -70.0, 70.0)
+    macro = ccim.fabricate(prng.PRNGKey(4))
+    key = prng.PRNGKey(5)
+    want = ccim.sar_adc(v, macro.adc_cap_eps, noise_key=key)
+    got = ccim.sar_adc(v.to(dev), macro.adc_cap_eps.to(dev),
+                       noise_key=key.to(dev))
+    assert torch.equal(got.cpu(), want)
+    assert not torch.equal(want, ccim.sar_adc(v, macro.adc_cap_eps))
+
+
+@pytest.mark.parametrize("fidelity", ["bit_true", "fast_broadcast", "fast"])
+def test_noisy_plain_fidelities_on_the_card_equal_cpu(dev, fidelity):
+    """Noisy GEMMs on raw weights are plain torch on any device: the
+    card's ints are the CPU's (bit-true on a keyed die, the broadcast's
+    row blocks drawing their own flat indices)."""
+    from repro_torch.core import prng
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randint(-127, 128, (9, 200), generator=gen, dtype=torch.int32)
+    w = torch.randint(-127, 128, (200, 13), generator=gen, dtype=torch.int32)
+    macro = ccim.fabricate(prng.PRNGKey(6))
+    key = prng.PRNGKey(7)
+    want = ccim.cim_matmul_int(x, w, noise_key=key, fidelity=fidelity,
+                               macro=macro)
+    got = ccim.cim_matmul_int(x.to(dev), w.to(dev), noise_key=key.to(dev),
+                              fidelity=fidelity, macro=macro.to(dev))
+    assert torch.equal(got.cpu(), want)
+
+
 # ---------------------------------------------------------------------------
 # speculative decoding: row-invariant forwards, the verify contract
 # ---------------------------------------------------------------------------
@@ -549,10 +597,16 @@ def _mixed_plan():
                             label="hybrid3/adc8/L32"))
 
 
+# every bf16 GEMM a plan's 'float' site can put on the verify path at
+# minicpm-2b's width, (K, N): wq/wk/wv, wo, w1/w3, w2
+FLOAT_SITE_SHAPES = ((2304, 3072), (3072, 2304), (2304, 5760), (5760, 2304))
+
+
 def test_model_ops_are_row_invariant(dev):
     """The row-local float operations of a forward give each row the same
     bits whatever the number of rows beside it: the bf16 GEMM (lm_head
-    at minicpm-2b's width), rms_norm and the plain attention read."""
+    and every float-site projection at minicpm-2b's width), rms_norm and
+    the plain attention read."""
     from repro_torch.models import layers as L
     gen = torch.Generator(device=dev)
     gen.manual_seed(23)
@@ -580,6 +634,15 @@ def test_model_ops_are_row_invariant(dev):
         assert torch.equal(L.matmul(x[:m], w), y[:m]), m
         assert torch.equal(L.rms_norm(x[:m], g, 1e-6), r[:m]), m
         assert torch.equal(L.rms_norm(xf[:m], g, 1e-6), rf[:m]), m
+    for k_dim, n_dim in FLOAT_SITE_SHAPES:
+        xs = torch.randn((n, k_dim), generator=gen, device=dev).to(
+            torch.bfloat16)
+        ws = (torch.randn((k_dim, n_dim), generator=gen, device=dev)
+              * 0.02).to(torch.bfloat16)
+        ys = L.matmul(xs, ws)
+        for m in _ROW_COUNTS:
+            assert torch.equal(L.matmul(xs[:m], ws), ys[:m]), (k_dim, n_dim,
+                                                               m)
     for i in range(9):
         one = L.plain_attention(q[:, i:i + 1], k, v, qpos[:, i:i + 1], kpos,
                                 cfg, False)

@@ -219,11 +219,22 @@ def test_fidelity_arguments_checked():
         Tc.cim_matmul_int(x, w, tc, fidelity="bit_true")
     with pytest.raises(ValueError, match="fidelity"):
         Tc.cim_matmul_int(x, w, tc, fidelity="noisy")
-    with pytest.raises(NotImplementedError):
+    # a noise key is a core.prng key: anything else is refused, and a key
+    # gives the reference's noisy codes (tests/test_torch_die_noise.py)
+    with pytest.raises(ValueError, match="key"):
         Tc.hybrid_mac_bit_true(x, x, Tc.ideal_macro(tc), tc,
-                               noise_key=object())
-    with pytest.raises(NotImplementedError):
-        Tc.sar_adc(torch.zeros(3), torch.zeros(7), tc, noise_key=object())
+                               noise_key=torch.zeros(3))
+    with pytest.raises(ValueError, match="key"):
+        Tc.sar_adc(torch.zeros(3), torch.zeros(7), tc,
+                   noise_key=torch.zeros(3))
+    v = np.linspace(-70, 70, 301, dtype=np.float32)
+    jm, tm = _die(Jc.DEFAULT_CONFIG, 4)
+    want = jax.jit(lambda a, k: Jc.sar_adc(a, jm.adc_cap_eps,
+                                           Jc.DEFAULT_CONFIG, k))(
+        jnp.asarray(v), jax.random.PRNGKey(9))
+    got = Tc.sar_adc(_t(v), tm.adc_cap_eps, tc,
+                     torch.tensor([0, 9], dtype=torch.int64))
+    np.testing.assert_array_equal(np.asarray(want), got.numpy())
 
 
 @pytest.mark.parametrize("die", ["ideal", "fabricated"])

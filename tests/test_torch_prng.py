@@ -143,6 +143,39 @@ def test_categorical_equals_jax_up_to_the_stated_residue(per_row):
     assert int((np.asarray(want) != got.numpy()).sum()) <= CATEGORICAL_RESIDUE
 
 
+RANDINT_RANGES = [(-127, 128), (0, 1), (5, 5), (9, 3), (0, 10),
+                  (-1000, 1000), (-2 ** 31, 2 ** 31 - 1),
+                  (-2 ** 31, -2 ** 31 + 7), (0, 2 ** 31), (-5, 2 ** 40),
+                  (2 ** 31 - 2, 2 ** 33)]
+
+
+@pytest.mark.parametrize("seed", SEEDS[:3])
+@pytest.mark.parametrize("lo,hi", RANDINT_RANGES)
+def test_randint_equals_jax(seed, lo, hi):
+    """int32 draws in [lo, hi): span 1 where hi <= lo, the int32 limits,
+    and a maxval above int32's range (which jax takes as a 64-bit bound
+    with ``dtype=int32``, under x64)."""
+    jk, tk = jax.random.PRNGKey(seed), P.PRNGKey(seed)
+    for shape in ((), (3,), (5, 7), (1000, 16)):
+        if hi > 2 ** 31 - 1:
+            with jax.enable_x64(True):
+                want = jax.random.randint(jk, shape, lo, hi, dtype=jnp.int32)
+        else:
+            want = jax.random.randint(jk, shape, lo, hi)
+        got = P.randint(tk, shape, lo, hi)
+        assert got.dtype == torch.int32 and tuple(got.shape) == shape
+        assert np.array_equal(np.asarray(want), got.numpy()), shape
+
+
+def test_randint_and_normal_are_partitionable():
+    """A draw of more rows holds the smaller draw as its first rows (the
+    card's 2^20 Fig. 6 conversions start with the reference's 16,384)."""
+    k = P.PRNGKey(0)
+    assert torch.equal(P.randint(k, (1 << 14, 16), -127, 128),
+                       P.randint(k, (1 << 16, 16), -127, 128)[:1 << 14])
+    assert torch.equal(P.normal(k, (100, 16)), P.normal(k, (300, 16))[:100])
+
+
 def test_key_checks():
     with pytest.raises(ValueError, match="uint32"):
         P.fold_in(P.PRNGKey(0), -1)

@@ -7,8 +7,10 @@ the row-invariant forms cost.
 A speculative verify forward runs k+1 positions of each row where a
 decode step runs one, so every operation whose per-row result depends on
 the number of rows breaks the greedy contract (verify logits == the
-decode chain's).  For the bf16 lm_head GEMM, rms_norm and the plain
-attention read at minicpm-2b's full-width shapes this prints, as JSON
+decode chain's).  For the bf16 GEMMs (the lm_head, and every
+projection a plan's 'float' site can put on the verify path: wq/wk/wv,
+wo, w1/w3 and w2), rms_norm and the plain attention read at minicpm-2b's
+full-width shapes this prints, as JSON
 lines: how many output rows of the library form (``x @ w``,
 ``torch.mean`` on float32 rows, a softmax sum and an ``einsum``) differ
 between a run over m rows and the same rows taken from a larger run,
@@ -29,6 +31,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "..", "src"))
 
 D, V, H, DH = 2304, 122753, 48, 64
+# the float-site projections' (K, N) at minicpm-2b's width
+FLOAT_SITES = {"wq_wk_wv": (2304, 3072), "wo": (3072, 2304),
+               "w1_w3": (2304, 5760), "w2": (5760, 2304)}
 ROWS = (1, 2, 4, 8, 9, 16, 18, 32, 36, 40)
 
 
@@ -91,6 +96,13 @@ def main() -> int:
 
     ops = {"lm_head": (lambda t: t @ w, lambda t: L.matmul(t, w), x),
            "rms_norm": (mean_norm, lambda t: L.rms_norm(t, g, 1e-6), xf)}
+    for name, (k_dim, n_dim) in FLOAT_SITES.items():
+        xs = torch.randn((n, k_dim), generator=gen, device=dev).to(
+            torch.bfloat16)
+        ws = (torch.randn((k_dim, n_dim), generator=gen, device=dev)
+              * 0.02).to(torch.bfloat16)
+        ops[name] = (lambda t, ws=ws: t @ ws,
+                     lambda t, ws=ws: L.matmul(t, ws), xs)
     for name, (lib, port, x) in ops.items():
         rec = {"op": name, "rows": list(ROWS),
                "library_rows_differing": differing_rows(torch, lib, x, ROWS),
