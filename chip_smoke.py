@@ -7,12 +7,13 @@ Builds the port's CUDA kernels from ``src/repro_torch`` (all eight
 sources compiled together) and drives its main paths: minicpm-2b at its
 full width and depth (40 layers, packed and fused, prototype macro),
 served lock-step and with continuous batching over a contiguous and a
-paged KV cache; the unpacked macro GEMM behind ``cim_matmul`` on raw
-weights; the complex-MAC lane behind MUSIC direction-of-arrival
-estimation on 64- and 32-element arrays, noise-free and with the
-macro's analog noise (the figS3 twin); and the kernel bench and Fig. 6
-twins with the W8A8 all-digital baseline and the bit-true macro model,
-its comparator noise drawn as the reference draws it.
+paged KV cache, and on its raw weights through the unpacked macro
+GEMM; the deployment planner over forwards of those raw weights; the
+complex-MAC lane behind MUSIC direction-of-arrival estimation on 64-
+and 32-element arrays, noise-free and with the macro's analog noise
+(the figS3 twin); and the kernel bench, Fig. 6 and figure twins with
+the W8A8 all-digital baseline and the bit-true macro model, its
+comparator noise drawn as the reference draws it.
 Each phase prints one JSON line; the script exits non-zero at the first
 failure.  Phases:
 
@@ -26,7 +27,7 @@ failure.  Phases:
      with the launch counts that show every macro GEMM went through them;
   5. the same serve through the plain version on the same weights:
      tokens and last logits must be identical;
-  6. a torch.profiler trace of three lock-step decode steps: step wall
+  6. a torch.profiler trace of one lock-step decode step: step wall
      time, device busy time and the kernels that take it;
   7. per-kernel times of the macro GEMMs at the full-width shapes:
      CUDA events around one call (``ms``) and device time from CUDA-graph
@@ -61,7 +62,7 @@ failure.  Phases:
      pool tokens must equal solo runs of 3 of the requests;
  12. phase 11 with the plain version of the paged read on the card: token
      agreement with phase 11 and the first decode step's logits, and a
-     torch.profiler trace of three paged decode steps (device busy, idle
+     torch.profiler trace of one paged decode step (device busy, idle
      share, the paged read's device time per step);
  13. times of the paged-attention kernel at the minicpm-2b decode shape
      for lengths 32-4096 (per call and device time, as phase 7, and cold:
@@ -100,9 +101,10 @@ failure.  Phases:
      errors and times;
  20. the Fig. 6 twin at 1,048,576 conversions on the card (peak memory
      under 8 GB; the reference's keyed operands and dies), and the same
-     seed on the CPU: this work's (the comparator noise), this die's,
-     the floor's and all-analog's y8 codes compared (0 may differ: the
-     draws and the bit-true sum run the same operations on both); the
+     seed on the CPU over the first 262,144 of them: this work's (the
+     comparator noise), this die's, the floor's and all-analog's y8
+     codes compared (0 may differ: the draws and the bit-true sum run
+     the same operations on both); the
      first 16,384 conversions, the reference's run, give its 0.408 /
      0.226 / 0.339 % and equal a CPU run of that size; CUDA-event times
      of the bit-true model at 2^20 with and without the noise;
@@ -157,7 +159,7 @@ failure.  Phases:
      per branch and each branch's share of the wall time; one replay of
      each graph traced, kernels equal to the credit;
  28. ``core/prng.py`` (threefry2x32, ``jax.random``'s streams) on the
-     card against the CPU port at 2^24 draws: keys (single and batched
+     card against the CPU port at 2^22 draws: keys (single and batched
      splits, fold_in), bits, uniforms and a per-row categorical bit for
      bit; normals and Gumbels compared element by element (count and
      largest difference reported) with mean and variance within five
@@ -176,12 +178,12 @@ failure.  Phases:
      pool's agreement with the contiguous one reported, not gated (as
      phase 10);
  31. lock-step serve with the macro's analog noise (noise seed 0, batch
-     2, prompt 16, 8 tokens), eager and captured: equal tokens and logits,
+     2, prompt 8, 6 tokens), eager and captured: equal tokens and logits,
      logits that differ from the noise-free run's, no launch of kernel
      rows 1 and 2 (noisy GEMMs take the chunked GEMM in torch, as the
      reference's leave its kernels); prefill and decode time, peak
-     memory, and the CUDA-event time of a decode step's noise draws
-     against the step;
+     memory, and a profile of one eager noisy decode step (its noise
+     draws' device and host time);
  32. MUSIC DoA with the macro's analog noise: keyed dies on the card
      equal the CPU's; the figS3 twin (12 trials of the reference's
      8-element array, noise keys PRNGKey(t)) on the card equals its CPU
@@ -189,7 +191,26 @@ failure.  Phases:
      4 % bound; 32 noisy frames each of ``ula32`` and ``ula64``: RMSE
      under 4 % of the field of view, frames/s, and no launch of any
      kernel (noisy GEMMs run in torch, as the reference's leave its
-     Pallas kernels).
+     Pallas kernels);
+ 33. phase 4's serve (captured) on the raw weights, quantized at every
+     call (``serve(pack=False)``): kernel row 6 carries every macro GEMM
+     (160 launches a forward, credited per replay; rows 1 and 2 none),
+     tokens and last logits equal phase 4's through the kernel and
+     through its plain version; packed and unpacked in turns (decode
+     tok/s, peak memory); the captured step's kernel nodes by name;
+     phase 22's mixed plan unpacked (packed per call onto rows 1 and 2)
+     equal to phase 22's tokens;
+ 34. the deployment planner at full width on the raw weights: the
+     noise-free profile of all seven sites under three candidates
+     (digital, the prototype on row 6, hybrid3 / 8 b / L32 on row 1)
+     and the Pareto search at budget 1.0 and 0.6, through the kernels
+     and through their plain versions, equal; the plan_pareto twin at
+     card scale (its four points, the domination gate, decode tok/s of
+     three plans served packed); one forward on the profiler's noise
+     seed (no kernel), timed, repeatable;
+ 35. the figure twins (figS2 at 4 multipliers x 8 dies x 2,048
+     conversions with its all-analog rows, fig5, figS1, fig2) on the
+     card equal to the CPU port, row for row, and figS2's per-die RMS.
 
 The serving drivers replay captured graphs by default on the card
 (``launch/graphs.py``), so phases 9, 11, 22 and 24 serve captured.  A
@@ -626,7 +647,7 @@ def first_step_logits(torch, dev, packed, cfg, cfg_plain, reqs, layout,
         lp, _ = lm.decode_step(packed, cfg_plain, tok, cache, live=live)
         prof_rec = None
         if profile:
-            steps = 3
+            steps = 1
             torch.cuda.synchronize()
             with torch.profiler.profile(activities=[
                     torch.profiler.ProfilerActivity.CPU,
@@ -1314,18 +1335,22 @@ def fig6_phase(torch, dev) -> dict:
         "noise_free": cuda_ms(lambda: hybrid_mac_bit_true(
             xq, wq, macro, DEFAULT_CONFIG), reps=5)}
     del xq, wq
+    # the draws are partitionable, so the card's first FIG6_CPU_N
+    # conversions are a CPU run of that size, codes and all
     t0 = time.time()
-    ys_cpu = fig6_rms.evaluate(*fig6_rms.conversions(seed, n, DEFAULT_CONFIG),
+    ys_cpu = fig6_rms.evaluate(*fig6_rms.conversions(seed, FIG6_CPU_N,
+                                                     DEFAULT_CONFIG),
                                DEFAULT_CONFIG)
     cpu_s = time.time() - t0
-    differ = {k: int((out["ys"][k].cpu() != ys_cpu[k]).sum())
+    head = {k: v[:FIG6_CPU_N].cpu() for k, v in out["ys"].items()}
+    differ = {k: int((head[k] != ys_cpu[k]).sum())
               for k in ("this_work", "floor", "all_analog", "this_die",
                         "exact")}
     check(all(v == 0 for v in differ.values()),
-          f"fig6: card and CPU codes differ {differ} (of {n})")
+          f"fig6: card and CPU codes differ {differ} (of {FIG6_CPU_N})")
     rms_cpu = fig6_rms.rows(ys_cpu, DEFAULT_CONFIG)
-    check(rms_cpu == out["rms"], f"fig6 RMS card {out['rms']} != CPU "
-          f"{rms_cpu}")
+    check(rms_cpu == fig6_rms.rows(head, DEFAULT_CONFIG),
+          f"fig6 RMS of the first {FIG6_CPU_N}: card != CPU {rms_cpu}")
     for v in out["rms"].values():
         check(0 < v < 2, f"fig6 RMS out of range: {out['rms']}")
     # the reference's run is the first REF_N conversions of the card's
@@ -1346,7 +1371,8 @@ def fig6_phase(torch, dev) -> dict:
     emit({"phase": "fig6", "ok": True, "n": n, "seed": seed,
           "rms_pct": out["rms"], "rms_pct_first_16384": rms_ref,
           "card_us": out["us"], "bit_true_ms_2e20": bit_true_ms,
-          "cpu_seconds": cpu_s, "peak_device_bytes": peak,
+          "cpu_seconds": cpu_s, "cpu_check_n": FIG6_CPU_N,
+          "peak_device_bytes": peak,
           "codes_differing_card_vs_cpu": differ,
           "rows": {r["name"]: r.get("value") for r in rows}})
     return out
@@ -1685,7 +1711,8 @@ def _macro_launches() -> dict:
 
 def plan_phase(torch, dev, params, cfg_full, uniform: dict) -> dict:
     """Phase 22: lock-step serving under ``mixed_plan`` through the
-    kernels and their plain versions.  Returns the kernel run's launches."""
+    kernels and their plain versions.  Returns the kernel run (tokens,
+    last logits, launches, stats)."""
     from repro_torch.core.engine import FusedPackedCimWeights, PackedCimWeights
     from repro_torch.kernels.ccim_matmul import kernel as K
     from repro_torch.launch.serve import serve, tree_bytes
@@ -1755,7 +1782,7 @@ def plan_phase(torch, dev, params, cfg_full, uniform: dict) -> dict:
           "decode_tok_s": kr["stats"]["decode_tok_s"],
           "plain_decode_tok_s": pr["stats"]["decode_tok_s"],
           "tokens_row0": kr["toks"][0].tolist()})
-    return kr["launches"]
+    return kr
 
 
 def verify_chain_diff(torch, dev, packed, cfg, prompt, toks, start: int,
@@ -1985,10 +2012,12 @@ def profile_steps(torch, step, steps: int = 3) -> dict:
             **device_breakdown(prof, steps, wall_ms)}
 
 
-def graph_nodes(graph) -> tuple:
-    """A captured ``StepGraph``'s kernel nodes by serving-kernel symbol,
-    and its count of nodes that run on the device (kernels, copies,
-    memsets), read from the kept graph with the driver API."""
+def graph_nodes(graph, patterns=None) -> tuple:
+    """A captured ``StepGraph``'s kernel nodes by serving-kernel symbol
+    (or by the names of ``patterns``, name -> regex over the kernel's
+    name), and its count of nodes that run on the device (kernels,
+    copies, memsets), read from the kept graph with the driver API."""
+    patterns = SYMBOL_RE if patterns is None else patterns
     import ctypes
     cu = ctypes.CDLL("libcuda.so.1")
 
@@ -2001,7 +2030,7 @@ def graph_nodes(graph) -> tuple:
     call("cuGraphGetNodes", h, None, ctypes.byref(n))
     nodes = (ctypes.c_void_p * n.value)()
     call("cuGraphGetNodes", h, nodes, ctypes.byref(n))
-    symbols, on_device = dict.fromkeys(SYMBOL_RE, 0), 0
+    symbols, on_device = dict.fromkeys(patterns, 0), 0
     for node in nodes:
         kind = ctypes.c_int(-1)
         call("cuGraphNodeGetType", ctypes.c_void_p(node), ctypes.byref(kind))
@@ -2013,7 +2042,7 @@ def graph_nodes(graph) -> tuple:
         func = ctypes.c_void_p.from_buffer(params).value   # its first field
         name = ctypes.c_char_p()
         call("cuFuncGetName", ctypes.byref(name), ctypes.c_void_p(func))
-        for sym, pat in SYMBOL_RE.items():
+        for sym, pat in patterns.items():
             symbols[sym] += bool(pat.search(name.value.decode()))
     return symbols, on_device
 
@@ -2289,7 +2318,9 @@ def captured_scheduler_phase(torch, dev, params, cfg_full,
 
 # -- phases 28-31: threefry on the card, sampled and noisy serving ---------
 
-PRNG_DRAWS = 1 << 24
+PRNG_DRAWS = 1 << 22
+# conversions of phase 20's CPU cross-check: the first 2^18 of the card's
+FIG6_CPU_N = 1 << 18
 TEMPERATURE = 0.7
 EULER_GAMMA = 0.5772156649015329
 
@@ -2302,7 +2333,7 @@ def _moment_bounds(n: int, var: float, kurtosis: float) -> tuple:
 
 
 def prng_phase(torch, dev) -> dict:
-    """Phase 28: ``core/prng.py`` on the card against the CPU port, 2^24
+    """Phase 28: ``core/prng.py`` on the card against the CPU port, 2^22
     draws: keys, bits, uniforms, normals, Gumbels and categorical rows
     bit for bit (gate; the float transforms evaluate XLA's CPU
     approximations with correctly rounded float32 operations, so the
@@ -2577,18 +2608,18 @@ def noise_draw_profile(torch, dev, params, cfg, batch: int, plen: int
 
 def noisy_serve_phase(torch, dev, params, cfg_full) -> dict:
     """Phase 31: lock-step serve with the macro's analog noise (noise seed
-    0; batch 2, prompt 16, 8 tokens), eager and captured: identical
+    0; batch 2, prompt 8, 6 tokens), eager and captured: identical
     tokens and logits (the draws are deterministic), logits that differ
     from the noise-free run's, and no launch of kernel rows 1 and 2 (the
     noisy GEMMs take the chunked GEMM in torch, as the reference's leave
     its kernels); prefill and decode wall time, peak memory, and the
     share of an eager decode step's device time spent in the noise
-    draws, from a profile of one step.  Then a noisy prefill of M 128
-    (batch 2, prompt 64, the chunk-blocked draws at a prefill's width)
-    beside the noise-free one: wall time and peak memory."""
+    draws, from a profile of one step.  (The noisy prefill at M 128 that
+    this phase also timed, 51.7 s, was cut to make room for phases
+    33-35.)"""
     from repro_torch.launch.serve import serve
 
-    batch, plen, gen = 2, 16, 8
+    batch, plen, gen = 2, 8, 6
     common = dict(smoke=False, batch=batch, prompt_len=plen, gen=gen,
                   cim=True, params=params, return_stats=True)
     zero = {"general": 0, "skinny": 0}
@@ -2612,22 +2643,6 @@ def noisy_serve_phase(torch, dev, params, cfg_full) -> dict:
     check(bool(torch.isfinite(le).all()), "phase 31: non-finite logits")
     cfg = dataclasses.replace(cfg_full, cim_mode=True, cim_noise_seed=0)
     profile = noise_draw_profile(torch, dev, params, cfg, batch, plen)
-    prefill = {}
-    for label, kw in (("noisy", dict(noise_seed=0)), ("noise_free", {})):
-        _reset_all_launches()
-        torch.cuda.reset_peak_memory_stats()
-        _, st = serve("minicpm-2b", **dict(common, prompt_len=64, gen=1),
-                      graphs=False, **kw)
-        launches = _macro_launches()
-        check(bool(torch.isfinite(st["last_logits"]).all()),
-              f"phase 31: non-finite logits after the {label} M-128 prefill")
-        if label == "noisy":
-            check(launches == zero, f"phase 31: the noisy M-128 prefill "
-                  f"launched macro kernels {launches}")
-        prefill[label] = {"prefill_s": st["prefill_s"],
-                          "max_memory_allocated":
-                              torch.cuda.max_memory_allocated(),
-                          "macro_launches": launches}
     emit({"phase": "serve_noisy", "ok": True, "noise_seed": 0,
           "batch": batch, "prompt_len": plen, "gen": gen,
           "runs_identical": True, "logits_differ_from_noise_free": True,
@@ -2644,7 +2659,6 @@ def noisy_serve_phase(torch, dev, params, cfg_full) -> dict:
                                    "noise_free": runs["noise_free"][4]},
           "eager_decode_step_ms": 1e3 * se["decode_s"] / (gen - 1),
           "profile_eager_noisy_step": profile,
-          "prefill_m128": dict(prefill, batch=batch, prompt_len=64),
           "tokens_row0": te[0].tolist()})
     return ne
 
@@ -2723,6 +2737,302 @@ def noisy_doa_phase(torch, dev) -> dict:
           "noise_keys": "PRNGKey(seed * 100 + t); projections fold_in(key, 1)",
           "rmse_limit_pct": doa.RMSE_LIMIT_PCT})
     return arrays
+
+
+# -- phases 33-35: unpacked serving, the planner, the figure twins ---------
+
+# an unpacked graph's kernel nodes, by wrapper: row 6 runs the general
+# template over the raw-weight fill (``general_kernel<..., RawFill, 1>``),
+# row 2 over the packed fill
+UNPACKED_NODE_RE = {
+    "ccim_matmul_unpacked_cuda": re.compile(r"general_kernel.*RawFill"),
+    "ccim_matmul_prepacked_general_cuda": re.compile(
+        r"general_kernel.*PackedFill"),
+    "ccim_matmul_prepacked_skinny_cuda": re.compile(
+        r"(?<![A-Za-z_])skinny_kernel")}
+UNPACKED_TURNS = ("packed", "unpacked", "unpacked", "packed")
+
+
+def _rows_launches() -> dict:
+    """Launches of kernel rows 1, 2 and 6 since the last reset."""
+    n = _all_launches()
+    return {k: n[k] for k in ("skinny", "general", "unpacked")}
+
+
+def unpacked_serve_phase(torch, dev, params, cfg_full, phase4,
+                         phase22) -> dict:
+    """Phase 33: phase 4's lock-step serve (batch 4, prompt 32, 16 tokens,
+    captured) on the raw weights, quantized at every call: row 6 carries
+    every macro GEMM (4 a layer: QKV, wo, w1+w3, w2; M 128 in prefill, M
+    4 in decode, credited per replay), rows 1 and 2 none.  Tokens and
+    last logits equal phase 4's packed run, through the kernel and
+    through its plain version; packed and unpacked serving in turns
+    (decode tok/s, peak memory); the captured step's kernel nodes read
+    back by name; then phase 22's mixed plan unpacked, its design points
+    packed per call onto rows 1 and 2, equal to phase 22's tokens.
+    Returns the launches by path of rows 1, 2 and 6."""
+    from repro_torch.launch.graphs import StepGraph
+    from repro_torch.launch.serve import decode_body, serve
+    from repro_torch.models import lm
+
+    batch, plen, gen = 4, 32, 16
+    want_toks, want_logits, _ = phase4
+    n_fwd = 4 * cfg_full.n_layers
+    common = dict(smoke=False, batch=batch, prompt_len=plen, gen=gen,
+                  params=params, return_stats=True)
+    want = {"packed": {"skinny": n_fwd * (gen - 1), "general": n_fwd,
+                       "unpacked": 0},
+            "unpacked": {"skinny": 0, "general": 0, "unpacked": n_fwd * gen}}
+    turns = []
+    for turn in UNPACKED_TURNS:
+        _reset_all_launches()
+        torch.cuda.reset_peak_memory_stats()
+        toks, st = serve("minicpm-2b", cim=True, pack=turn == "packed",
+                         **common)
+        launches = _rows_launches()
+        check((toks == want_toks).all() and torch.equal(
+            st["last_logits"], want_logits),
+            f"phase 33 {turn}: tokens or last logits != phase 4's")
+        check(launches == want[turn], f"phase 33 {turn}: launches "
+              f"{launches}, expected {want[turn]}")
+        turns.append({"turn": turn, "max_memory_allocated":
+                      torch.cuda.max_memory_allocated(),
+                      **{k: st[k] for k in (
+                          "pack_s", "pack_bytes", "prefill_s", "decode_s",
+                          "decode_tok_s", "replay_tok_s", "capture_s",
+                          "graph_pool_bytes") if k in st}})
+    _reset_all_launches()
+    toks, st = serve("minicpm-2b", cim=True, pack=False, use_kernel=False,
+                     **common)
+    check((toks == want_toks).all() and torch.equal(
+        st["last_logits"], want_logits),
+        "phase 33: the plain version of row 6 gave other tokens or logits")
+    check(not any(_all_launches().values()),
+          "phase 33: the plain unpacked run launched kernels")
+    plain = {k: st[k] for k in ("prefill_s", "decode_s", "decode_tok_s")}
+    # one captured unpacked decode step: its kernel nodes by name
+    cfg = dataclasses.replace(cfg_full, cim_mode=True)
+    with torch.inference_mode():
+        max_seq = plen + 32          # room for the warm step and 9 replays
+        cache = lm.init_cache(cfg, batch, max_seq, device=dev)
+        prompt = torch.zeros((batch, plen), dtype=torch.int64, device=dev)
+        _, cache = lm.prefill(params, cfg, prompt, cache)
+        tok = prompt[:, :1].clone()
+        out = torch.zeros((batch, max_seq), dtype=torch.int64, device=dev)
+        col = torch.ones((1, 1), dtype=torch.int64, device=dev)
+        graph = StepGraph(decode_body(params, cfg, tok, cache, out, col),
+                          dev)
+        graph()
+        graph()
+        nodes, _ = graph_nodes(graph, UNPACKED_NODE_RE)
+        credit = dict(graph.launches)
+        replay_ms = cuda_ms(graph, reps=5, warmup=1)
+    del cache, graph
+    check(credit == {"ccim_matmul_unpacked_cuda": n_fwd}, f"phase 33: the "
+          f"captured step credits {credit}, expected {n_fwd} row-6 launches")
+    check(nodes == {k: credit.get(k, 0) for k in UNPACKED_NODE_RE},
+          f"phase 33: the captured step holds kernel nodes {nodes}, it "
+          f"credits {credit}")
+    # phase 22's mixed plan, unpacked: packed per call onto rows 1 and 2
+    _reset_all_launches()
+    toks, st = serve("minicpm-2b", plan=mixed_plan(), pack=False, **common)
+    plan_launches = _rows_launches()
+    check((toks == phase22["toks"]).all() and torch.equal(
+        st["last_logits"], phase22["logits"]),
+        "phase 33: the unpacked mixed plan's tokens or logits != phase 22's")
+    check(plan_launches == {"skinny": n_fwd * (gen - 1), "general": n_fwd,
+                            "unpacked": 0},
+          f"phase 33: the unpacked mixed plan launched {plan_launches}")
+    by_turn = lambda t: [r for r in turns if r["turn"] == t]
+    emit({"phase": "serve_unpacked", "ok": True, "batch": batch,
+          "prompt_len": plen, "gen": gen, "turns": turns,
+          "tokens_equal_phase4": True, "logits_equal_phase4": True,
+          "launches": want["unpacked"], "plain": plain,
+          "captured_step": {"kernel_nodes": nodes, "credit": credit,
+                            "replay_cuda_event_ms": replay_ms},
+          "decode_tok_s_packed": [r["decode_tok_s"]
+                                  for r in by_turn("packed")],
+          "decode_tok_s_unpacked": [r["decode_tok_s"]
+                                    for r in by_turn("unpacked")],
+          "plan": {"tokens_equal_phase22": True, "launches": plan_launches,
+                   "decode_tok_s": st["decode_tok_s"],
+                   "prefill_s": st["prefill_s"]},
+          "tokens_row0": toks[0].tolist()})
+    return {"serve_unpacked": want["unpacked"],
+            "serve_unpacked_plan": plan_launches}
+
+
+def planner_candidates():
+    """Phase 34's candidates (``tests/test_plan.py::_small_candidates``):
+    all-digital, the prototype and hybrid3 / 8 b / L32."""
+    from repro_torch import plan as TP
+    from repro_torch.core.ccim import CCIMConfig
+    return [TP.digital_candidate(), TP.prototype_candidate(),
+            TP.make_candidate("hybrid3/adc8/L32",
+                              CCIMConfig(acc_len=32, adc_bits=8))]
+
+
+def planner_phase(torch, dev, params, cfg_full) -> dict:
+    """Phase 34: the deployment planner at full width on the raw weights
+    (calibration batch 2 x 16, M 32).  The noise-free profile of all seven
+    sites under ``planner_candidates`` through the kernels (the prototype
+    on row 6, the L32 point packed per call on row 1, digital exact) and
+    through their plain versions: equal tables (``==``) and equal
+    ``pareto_search`` results at budget scales 1.0 and 0.6.  Then the
+    ``launch/plan_pareto.py`` twin at card scale, noise-free (its grid of
+    7 candidates): four points, the domination gate, decode tok/s of
+    three plans served packed.  Last, one forward on the profiler's
+    default noise seed (site mlp/w2 on the prototype): no kernel, its
+    seconds, and two runs equal.  Returns the kernel runs' launches of
+    rows 1, 2 and 6."""
+    from repro_torch import plan as TP
+    from repro_torch.launch import plan_pareto
+    from repro_torch.models import lm
+
+    toks = TP.calibration_batch(cfg_full, batch=2, seq_len=16)
+    cands = planner_candidates()
+    n_sites = len(lm.iter_packable_paths(params))
+    runs = {}
+    for label, use_kernel in (("kernel", None), ("plain", False)):
+        cfg = dataclasses.replace(cfg_full, cim_use_kernel=use_kernel)
+        _reset_all_launches()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        ref = TP.reference_logits(params, cfg, toks)
+        prof = TP.profile_sensitivities(params, cfg, toks, cands,
+                                        noise_seed=None, ref=ref)
+        torch.cuda.synchronize()
+        t_prof = time.time() - t0
+        launches = _rows_launches()
+        _reset_all_launches()
+        t0 = time.time()
+        searches = {scale: TP.pareto_search(
+            params, cfg, toks, candidates=cands, profile=prof, ref=ref,
+            noise_seed=None, budget_scale=scale) for scale in (1.0, 0.6)}
+        torch.cuda.synchronize()
+        runs[label] = dict(prof=prof, searches=searches, profile_s=t_prof,
+                           search_s=time.time() - t0,
+                           profile_launches=launches,
+                           search_launches=_rows_launches())
+    kr, pr = runs["kernel"], runs["plain"]
+    n_layers = cfg_full.n_layers
+    check(kr["profile_launches"] == {"skinny": n_sites * n_layers,
+                                     "general": 0,
+                                     "unpacked": n_sites * n_layers},
+          f"phase 34: the profile launched {kr['profile_launches']}")
+    check(not any(pr["profile_launches"].values())
+          and not any(pr["search_launches"].values()),
+          "phase 34: the plain planner launched kernels")
+    check(kr["prof"].as_table() == pr["prof"].as_table(),
+          "phase 34: the profile through the kernels != through the plain "
+          "versions")
+    for scale in (1.0, 0.6):
+        a, b = kr["searches"][scale], pr["searches"][scale]
+        check(a.assignment == b.assignment and a.moves == b.moves
+              and a.n_reverts == b.n_reverts
+              and a.measured_rms == b.measured_rms,
+              f"phase 34: pareto_search at {scale} differs kernel vs plain")
+    # the plan_pareto twin at card scale
+    _reset_all_launches()
+    t0 = time.time()
+    pareto = plan_pareto.run_arch(smoke=False, batch=2, prompt_len=16,
+                                  gen=16, params=params, device=dev,
+                                  noise_seed=None)
+    pareto_s = time.time() - t0
+    pareto_launches = _rows_launches()
+    check(not pareto["planned_dominated_by_global_hybrid"],
+          "phase 34: planned-mixed is dominated by global-hybrid")
+    pts = pareto["points"]
+    check(all(pts[p]["decode_tok_s"] > 0 for p in (
+        "global_digital", "global_hybrid", "planned_mixed")),
+        "phase 34: a served plan has no decode tok/s")
+    # one forward on the profiler's default noise seed: no kernel
+    plan = TP.DeploymentPlan.from_dict(
+        {"mlp/w2": TP.prototype_candidate().entry}, default=TP.FLOAT_ENTRY)
+    _reset_all_launches()
+    noisy, secs = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        noisy.append(TP.planned_logits(params, cfg_full, toks, plan))
+        torch.cuda.synchronize()
+        secs.append(time.time() - t0)
+    check(not any(_all_launches().values()),
+          "phase 34: the noisy forward launched kernels")
+    check(torch.equal(noisy[0], noisy[1])
+          and bool(torch.isfinite(noisy[0]).all()),
+          "phase 34: two noisy forwards differ or are not finite")
+    emit({"phase": "planner", "ok": True, "calibration": [2, 16],
+          "candidates": [c.label for c in cands],
+          "sites": kr["prof"].sites, "table": kr["prof"].as_table(),
+          "tables_equal": True, "searches_equal": True,
+          "searches": {str(s): dict(assignment=r.assignment,
+                                    n_moves=len(r.moves),
+                                    n_reverts=r.n_reverts,
+                                    measured_rms=r.measured_rms,
+                                    combined_cost=r.cost["combined"])
+                       for s, r in kr["searches"].items()},
+          "profile_s": {"kernel": kr["profile_s"], "plain": pr["profile_s"]},
+          "search_s": {"kernel": kr["search_s"], "plain": pr["search_s"]},
+          "launches": {"profile": kr["profile_launches"],
+                       "search": kr["search_launches"],
+                       "plan_pareto": pareto_launches},
+          "plan_pareto": {"seconds": pareto_s, "points": pts,
+                          "dominates": pareto[
+                              "planned_dominates_global_hybrid"],
+                          "dominated": pareto[
+                              "planned_dominated_by_global_hybrid"],
+                          "search": pareto["search"],
+                          "sensitivity": pareto["sensitivity"]},
+          "noisy_forward": {"site": "mlp/w2",
+                            "candidate": TP.prototype_candidate().label,
+                            "seconds": secs, "equal": True,
+                            "kernel_launches": 0}})
+    return {"planner_profile": kr["profile_launches"],
+            "planner_search": kr["search_launches"],
+            "plan_pareto": pareto_launches}
+
+
+def figure_twins_phase(torch, dev) -> dict:
+    """Phase 35: the figure twins (figS2 at the reference's size, 4
+    multipliers x 8 dies x 2,048 conversions, with the all-analog rows;
+    fig5, figS1, fig2) on the card and on the CPU: every row's printed
+    text and values equal (fig5's sweep time aside), no kernel launched;
+    figS2's per-die RMS and each twin's seconds on both."""
+    from repro_torch.launch import (fig2_contribution, fig5_transfer,
+                                    figS1_cost, figS2_montecarlo)
+    quiet = lambda *a: None
+    twins = (("figS2", figS2_montecarlo.run), ("fig5", fig5_transfer.run),
+             ("figS1", figS1_cost.run),
+             ("fig2", lambda device, emit: fig2_contribution.run(emit)))
+    rec = {}
+    _reset_all_launches()
+    for name, run in twins:
+        out, secs = {}, {}
+        for where in (dev, "cpu"):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out[str(where)] = run(device=where, emit=quiet)
+            torch.cuda.synchronize()
+            secs[str(where)] = time.time() - t0
+        card, cpu = out[str(dev)], out["cpu"]
+        strip = lambda rows: {k: {f: v for f, v in r.items() if f != "us"}
+                              for k, r in rows.items()}
+        check(strip(card) == strip(cpu), f"phase 35: the {name} twin on the "
+              "card differs from the CPU run")
+        rec[name] = {"seconds": secs, "rows": len(card),
+                     "derived": {k: r["derived"] for k, r in card.items()}}
+        if name == "figS2":
+            rec[name]["dies"] = {k: r["dies"] for k, r in card.items()
+                                 if "dies" in r}
+        if name == "fig5":
+            rec[name]["sweep_us"] = {
+                w: out[w]["fig5.transfer_sweep"]["us"] for w in out}
+    check(not any(_all_launches().values()),
+          "phase 35: a figure twin launched kernels")
+    emit({"phase": "figure_twins", "ok": True, "card_equals_cpu": True,
+          **rec})
+    return rec
 
 
 def main() -> int:
@@ -2897,7 +3207,7 @@ def main() -> int:
         tok = tok[:, :1]
         lm.decode_step(packed, cfg_cim, tok, cache)      # warm
         torch.cuda.synchronize()
-        steps = 3
+        steps = 1                 # phase 25 profiles three eager steps
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -2989,9 +3299,8 @@ def main() -> int:
     i8_row = times_int8(torch, dev, gen)
     # -- 22.-24. deployment plans and speculative decoding -----------------
     params = lm.init(0, cfg_full, device=dev)       # phase 4's weights
-    by_path = {"serve": k_launch,
-               "serve_plan": plan_phase(torch, dev, params, cfg_full,
-                                        uniform)}
+    phase22 = plan_phase(torch, dev, params, cfg_full, uniform)
+    by_path = {"serve": k_launch, "serve_plan": phase22["launches"]}
     by_path.update(speculative_phase(torch, dev, params, cfg_full))
     cont_spec = continuous_speculative_phase(torch, dev, params, cfg_full,
                                              serve_phases)
@@ -3020,9 +3329,17 @@ def main() -> int:
     serve_phases["paged_launches_by_path"]["scheduler_sampled_paged"] = (
         sampled["paged"]["paged_attn"])
     by_path["serve_noisy"] = noisy_serve_phase(torch, dev, params, cfg_full)
+    # -- 33.-34. unpacked serving and the planner on raw weights ------------
+    raw_paths = unpacked_serve_phase(torch, dev, params, cfg_full,
+                                     runs["kernel"], phase22)
+    raw_paths.update(planner_phase(torch, dev, params, cfg_full))
+    for path, n in raw_paths.items():
+        if path != "serve_unpacked":
+            by_path[path] = {k_: n[k_] for k_ in ("general", "skinny")}
     del params
-    # -- 32. noisy DoA --------------------------------------------------------
+    # -- 32. noisy DoA; 35. the figure twins ----------------------------------
     noisy_doa_phase(torch, dev)
+    figure_twins_phase(torch, dev)
 
     src = "src/repro_torch/kernels/ccim_matmul/csrc/"
     table = []
@@ -3065,7 +3382,8 @@ def main() -> int:
              cx_err["complex_general"]),
             ("unpacked", "ccim_matmul_unpacked", src + "ccim_unpacked.cu",
              "src/repro/kernels/ccim_matmul/kernel.py:327",
-             unpacked["launches"], unpacked["max_abs_err"]),
+             raw_paths["serve_unpacked"]["unpacked"],
+             unpacked["max_abs_err"]),
             ("complex_unpacked", "ccim_complex_unpacked",
              csrc + "ccim_complex_unpacked.cu", ref + "301",
              doa_run["launches"]["complex_unpacked"],
@@ -3082,6 +3400,10 @@ def main() -> int:
             "four_pass_ms": t["four_pass_ms"],
             "four_pass_device_ms": t["four_pass_device_ms"],
             "at_m": t["m"]})
+        if name == "unpacked":
+            table[-1]["launches_by_path"] = {
+                "cim_matmul_raw": unpacked["launches"],
+                **{p: n["unpacked"] for p, n in raw_paths.items()}}
     table.append({
         "name": "int8_w8a8", "route": "cuda",
         "source": "src/repro_torch/kernels/int8_matmul/csrc/int8_w8a8.cu",

@@ -607,10 +607,14 @@ def hybrid_mac_fast_gemm_prepacked(
 
 
 def hybrid_mac_fast_gemm(xq: torch.Tensor, wq: torch.Tensor, noise_key=None,
-                         cfg: CCIMConfig = DEFAULT_CONFIG) -> torch.Tensor:
-    """Chunked fast-path GEMM on raw (C, L, N) integer weights."""
+                         cfg: CCIMConfig = DEFAULT_CONFIG,
+                         noise_segments: Optional[Sequence[int]] = None
+                         ) -> torch.Tensor:
+    """Chunked fast-path GEMM on raw (C, L, N) integer weights; with
+    ``noise_segments`` each segment of N draws from its own key."""
     wf, w_planes = fast_gemm_weight_ops(wq, cfg)
-    return hybrid_mac_fast_gemm_prepacked(xq, wf, w_planes, noise_key, cfg)
+    return hybrid_mac_fast_gemm_prepacked(xq, wf, w_planes, noise_key, cfg,
+                                          noise_segments)
 
 
 # ---------------------------------------------------------------------------
@@ -691,7 +695,9 @@ def cim_matmul_int(x_q: torch.Tensor, w_q,
                    cfg: CCIMConfig = DEFAULT_CONFIG, noise_key=None,
                    fidelity: str = "fast", *,
                    use_kernel: Optional[bool] = None,
-                   macro: Optional[MacroInstance] = None) -> torch.Tensor:
+                   macro: Optional[MacroInstance] = None,
+                   noise_segments: Optional[Sequence[int]] = None
+                   ) -> torch.Tensor:
     """Integer GEMM through the macro: (M, K) @ (K, N) -> (M, N) int32 at
     product scale (already times ``dcim_lsb``).  K is tiled into
     ``acc_len`` chunks, one ADC conversion each.
@@ -709,24 +715,36 @@ def cim_matmul_int(x_q: torch.Tensor, w_q,
     decomposes the weights itself; at any other design point raw weights
     are packed for the call and served by the prepacked kernels, which
     take every design point -- bit-identical, since packing is a caching
-    transform.  The other fidelities are plain torch on any device.
+    transform; a design point outside their envelope runs the chunked
+    fast GEMM in torch.  The other fidelities are plain torch on any
+    device.
 
     ``noise_key`` adds the macro's analog noise, as the reference draws
     it, and takes the GEMM off the kernels: at 'fast' the chunked fast
     GEMM in torch (on a pack, ``engine.packed_cim_matmul_int`` reads its
     int8 views), at 'fast_broadcast' the matched Gaussian of
     ``hybrid_mac_fast``, at 'bit_true' the SAR's comparator noise;
-    'exact' ignores it."""
-    from .engine import (PackedCimWeights, pack_quantized_cim_weights,
-                         packed_cim_matmul_int)
+    'exact' ignores it.  ``noise_segments`` (the N sizes of a fused
+    projection group, with one key per segment) draws each segment's own
+    stream; it is defined for 'fast' and 'exact' only, as in the
+    reference."""
+    from .engine import (PackedCimWeights, _prepacked_kernel_supported,
+                         pack_quantized_cim_weights, packed_cim_matmul_int)
     if isinstance(w_q, PackedCimWeights):
         return packed_cim_matmul_int(x_q, w_q, cfg, noise_key, fidelity,
-                                     use_kernel=use_kernel, macro=macro)
+                                     use_kernel=use_kernel, macro=macro,
+                                     noise_segments=noise_segments)
     if x_q.shape[1] != w_q.shape[0]:
         raise ValueError(f"x {tuple(x_q.shape)} @ w {tuple(w_q.shape)}")
-    if fidelity == "fast" and noise_key is not None:
+    if noise_segments is not None and fidelity not in ("fast", "exact"):
+        raise ValueError(
+            "per-segment noise streams (fused projection groups) are only "
+            f"defined for the 'fast'/'exact' fidelities, got {fidelity!r}")
+    if fidelity == "fast" and (noise_key is not None
+                               or not _prepacked_kernel_supported(cfg)):
         xq, wq = _chunk_operands(x_q, w_q, cfg.acc_len)
-        return hybrid_mac_fast_gemm(xq, wq, noise_key, cfg) * cfg.dcim_lsb
+        return hybrid_mac_fast_gemm(xq, wq, noise_key, cfg,
+                                    noise_segments) * cfg.dcim_lsb
     if fidelity == "fast":
         if _kernel_numerics_match(cfg):
             from ..kernels.ccim_matmul import ops as kops
@@ -756,19 +774,23 @@ def cim_matmul(x: torch.Tensor, w, cfg: CCIMConfig = DEFAULT_CONFIG,
                noise_key=None, fidelity: str = "fast",
                per_channel: bool = True,
                use_kernel: Optional[bool] = None,
-               macro: Optional[MacroInstance] = None) -> torch.Tensor:
+               macro: Optional[MacroInstance] = None,
+               noise_segments: Optional[Sequence[int]] = None
+               ) -> torch.Tensor:
     """float (M, K) @ (K, N) through the emulated macro, dequantized to
     float32.  ``w`` may be an ``engine.PackedCimWeights``; activation
     quantization then runs per call while the weight conditioning is
-    served prepacked.  ``macro`` is the die of the 'bit_true' fidelity."""
+    served prepacked.  ``macro`` is the die of the 'bit_true' fidelity;
+    ``noise_segments`` as in ``cim_matmul_int``."""
     from .engine import PackedCimWeights, packed_cim_matmul
     if isinstance(w, PackedCimWeights):
         return packed_cim_matmul(x, w, cfg, noise_key, fidelity,
-                                 use_kernel=use_kernel, macro=macro)
+                                 use_kernel=use_kernel, macro=macro,
+                                 noise_segments=noise_segments)
     sx = smf_scale(x, dim=-1, keepdim=True, cfg=cfg)            # per row
     sw = (smf_scale(w, dim=0, keepdim=True, cfg=cfg) if per_channel
           else smf_scale(w, cfg=cfg))
     y = cim_matmul_int(quantize_smf(x, sx, cfg), quantize_smf(w, sw, cfg),
                        cfg, noise_key, fidelity, use_kernel=use_kernel,
-                       macro=macro)
+                       macro=macro, noise_segments=noise_segments)
     return y.to(torch.float32) * sx * sw.reshape(1, -1)

@@ -223,9 +223,11 @@ def packed_cim_matmul_int(
     'fast' runs the prepacked kernels: ``use_kernel`` None launches the
     CUDA kernels on CUDA tensors and runs their plain version on CPU
     tensors; False forces the plain version.  With a ``noise_key`` (one
-    per segment of N with ``noise_segments``), 'fast' runs
-    ``ccim.hybrid_mac_fast_gemm_prepacked`` on int8 views of the pack
-    instead, as the reference routes its noisy GEMMs off its kernels.
+    per segment of N with ``noise_segments``), or at a design point
+    outside the kernels' envelope (``_prepacked_kernel_supported``),
+    'fast' runs ``ccim.hybrid_mac_fast_gemm_prepacked`` on int8 views of
+    the pack instead, as the reference routes such GEMMs off its
+    kernels.
     The other fidelities rebuild the raw ints (one O(K*N) copy, dwarfed
     by their own work) and take ``ccim.cim_matmul_int``."""
     if packed.kernel_w.dim() != 2:
@@ -242,9 +244,13 @@ def packed_cim_matmul_int(
     if fidelity != "fast":
         from .ccim import cim_matmul_int
         return cim_matmul_int(x_q, packed.wq(), cfg, noise_key, fidelity,
-                              use_kernel=use_kernel, macro=macro)
+                              use_kernel=use_kernel, macro=macro,
+                              noise_segments=noise_segments)
     x_bits = tuple(_dcim_by_j(cfg))
-    if noise_key is not None:
+    if noise_key is not None or not _prepacked_kernel_supported(cfg):
+        # off the kernels, as the reference: the chunked fast GEMM on
+        # int8 views of the pack (a design point outside the kernels'
+        # envelope takes it noise-free)
         L = cfg.acc_len
         w, planes = packed.gemm_views()
         C = w.shape[0]
@@ -252,10 +258,6 @@ def packed_cim_matmul_int(
         return hybrid_mac_fast_gemm_prepacked(
             xq, w, planes[:len(x_bits)], noise_key, cfg,
             noise_segments) * cfg.dcim_lsb
-    if not _prepacked_kernel_supported(cfg):
-        raise NotImplementedError(
-            f"the prepacked kernels do not serve {cfg} (need n_mag_bits=7, "
-            "n_dcim_products <= 6, acc_len in 8/16/32/64)")
     # analog-subset serving of a hybrid pack reads no planes
     planes = packed.kernel_planes[:len(x_bits)]
     return kops.ccim_matmul_int_prepacked(
@@ -294,11 +296,15 @@ class CimEngine:
     """Execution-policy handle: macro config + fidelity + kernel routing.
 
     ``use_kernel`` None: CUDA kernels for CUDA tensors, their plain
-    version for CPU tensors; False: the plain version everywhere."""
+    version for CPU tensors; False: the plain version everywhere.
+    ``macro`` is the die ``matmul_int`` hands the 'bit_true' fidelity.
+    ``matmul`` dispatches on the weight: raw floats (quantized per call,
+    ``qat.cim_linear``), a pack or a fused packed group."""
 
     cfg: CCIMConfig = DEFAULT_CONFIG
     fidelity: str = "fast"
     use_kernel: Optional[bool] = None
+    macro: Optional[MacroInstance] = None
 
     def pack(self, w: torch.Tensor, per_channel: bool = True
              ) -> PackedCimWeights:
@@ -308,19 +314,33 @@ class CimEngine:
                      ) -> PackedComplexCimWeights:
         return pack_complex_cim_weights(w_re, w_im, self.cfg)
 
-    def matmul(self, x: torch.Tensor, w, noise_key=None) -> torch.Tensor:
-        """(..., K) @ w -> (..., N); w packed or a fused packed group (a
-        group's noise key is then a tuple of per-segment keys, drawn per
-        segment of its ``seg_dims``)."""
-        from .qat import cim_linear_packed
-        segments = None
+    def matmul(self, x: torch.Tensor, w, noise_key=None,
+               noise_segments: Optional[Sequence[int]] = None
+               ) -> torch.Tensor:
+        """(..., K) @ w -> (..., N); w raw, packed or a fused packed group
+        (a group's noise key is then a tuple of per-segment keys, drawn
+        per segment of its ``seg_dims``; for raw or packed w,
+        ``noise_segments`` gives the segments' N sizes)."""
+        from .qat import cim_linear, cim_linear_packed
         if isinstance(w, FusedPackedCimWeights):
-            if noise_key is not None:
-                segments = w.seg_dims
-            w = w.packed
+            segs = w.seg_dims if noise_key is not None else None
+            return cim_linear_packed(x, w.packed, noise_key, self.cfg,
+                                     self.fidelity, self.use_kernel, segs)
         if isinstance(w, PackedCimWeights):
             return cim_linear_packed(x, w, noise_key, self.cfg, self.fidelity,
-                                     self.use_kernel, segments)
-        raise NotImplementedError(
-            "unpacked (per-call) CIM execution is not ported yet; pack the "
-            "weights (lm.pack_cim_params / CimEngine.pack)")
+                                     self.use_kernel, noise_segments)
+        return cim_linear(x, w, noise_key, self.cfg, self.fidelity,
+                          self.use_kernel, noise_segments)
+
+    def matmul_int(self, x_q: torch.Tensor, w, noise_key=None
+                   ) -> torch.Tensor:
+        """(M, K) ints @ w (raw (K, N) ints or a pack) -> (M, N) int32 at
+        product scale, under the engine's config, fidelity and die."""
+        if isinstance(w, PackedCimWeights):
+            return packed_cim_matmul_int(x_q, w, self.cfg, noise_key,
+                                         self.fidelity,
+                                         use_kernel=self.use_kernel,
+                                         macro=self.macro)
+        from .ccim import cim_matmul_int
+        return cim_matmul_int(x_q, w, self.cfg, noise_key, self.fidelity,
+                              use_kernel=self.use_kernel, macro=self.macro)

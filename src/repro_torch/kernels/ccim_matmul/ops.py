@@ -11,6 +11,7 @@ not padded: the kernels mask the ragged edge.  At minicpm-2b's shapes
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -28,9 +29,12 @@ def _pad_to(v: int, m: int) -> int:
 
 
 def weight_layout(K: int, N: int, acc_len: int = ACC_LEN) -> Tuple[int, int]:
-    """(Kp, Np): padded K and N of the ``(Np, Kp)`` kernel weight layout.
-    Independent of M, so a weight matrix is laid out once at pack time."""
-    return _pad_to(K, max(acc_len, 16)), N
+    """(Kp, Np): padded K and N of the ``(Np, Kp)`` kernel weight layout,
+    K padded to whole chunks and 16-byte rows (``max(acc_len, 16)`` for
+    the kernels' power-of-two chunks; the chunked fast GEMM's views of
+    a pack need whole chunks at any other acc_len too).  Independent of
+    M, so a weight matrix is laid out once at pack time."""
+    return _pad_to(K, math.lcm(acc_len, 16)), N
 
 
 def resolve_use_kernel(use_kernel: Optional[bool], x: torch.Tensor) -> bool:

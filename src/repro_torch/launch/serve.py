@@ -1,7 +1,7 @@
 """Serving drivers: lock-step, speculative and continuous batching.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm-2b \
-      [--smoke] [--cim] [--no-fuse] [--batch 4] \
+      [--smoke] [--cim [--no-pack]] [--no-fuse] [--batch 4] \
       [--prompt-len 32] [--gen 16] [--device cuda] [--no-graphs] \
       [--temperature T] [--noise-seed S] \
       [--speculative [--draft-k 8] [--draft-adc-bits B]
@@ -30,9 +30,12 @@ queue from a fixed pool of ``--batch`` slots through
 ``--paged-blocks``, a paged one (chunked prefill, shared prefixes, and
 the paged-attention kernel for decode reads), speculative rounds under
 ``--speculative``.  Under ``--cim`` every projection is packed once
-(``lm.pack_cim_params``; unpacked per-call conditioning is not ported)
-and each macro GEMM runs through the CUDA kernels on the card (their
-plain version on the CPU); ``plan=`` (a ``repro_torch.plan``
+(``lm.pack_cim_params``) and each macro GEMM runs through the CUDA
+kernels on the card (their plain version on the CPU); lock-step
+``--no-pack`` (``serve(pack=False)``) serves the raw weights instead,
+quantizing them at every call (the unpacked kernel, row 6, at the
+prototype's numerics; a pack made for the call elsewhere), with tokens
+equal to packed serving's; ``plan=`` (a ``repro_torch.plan``
 ``DeploymentPlan``) serves each projection under its own design point
 and implies it.  On a CUDA device the decode step, the speculative round
 and the scheduler's pooled step replay CUDA graphs captured at their
@@ -132,9 +135,14 @@ def serve(arch: str, smoke: bool = True, batch: int = 4, prompt_len: int = 32,
           seed: int = 0, return_stats: bool = False,
           fuse: bool = True, device=None, params=None,
           use_kernel=None, plan=None, graphs: Optional[bool] = None,
-          noise_seed: Optional[int] = None):
+          noise_seed: Optional[int] = None, pack: bool = True):
     """Returns the generated tokens (batch, gen) as int32 numpy; with
     ``return_stats=True``, (tokens, stats).
+
+    Under CIM the projections are packed once (``pack``, the default) or,
+    with ``pack=False``, served from the raw weights, which every macro
+    GEMM quantizes itself (inside the captured step too); the tokens are
+    the same either way, with and without ``noise_seed``.
 
     Each decode step is one body that writes the next token into a
     static tensor and its column of the output on the device.  With
@@ -161,6 +169,7 @@ def serve(arch: str, smoke: bool = True, batch: int = 4, prompt_len: int = 32,
     captured = use_graphs(graphs, dev)
     cfg, cim = _model_config(arch, smoke, cim, plan, fuse, use_kernel,
                              noise_seed)
+    pack = pack and cim
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=prompt_len,
                       global_batch=batch, seed=seed, d_model=cfg.d_model)
     with torch.inference_mode():
@@ -173,7 +182,7 @@ def serve(arch: str, smoke: bool = True, batch: int = 4, prompt_len: int = 32,
 
         _sync(dev)
         t0 = time.perf_counter()
-        if cim:
+        if pack:
             params = lm.pack_cim_params(params, cfg, dev)
         _sync(dev)
         t_pack = time.perf_counter() - t0
@@ -212,7 +221,7 @@ def serve(arch: str, smoke: bool = True, batch: int = 4, prompt_len: int = 32,
     decode_tok_s = (batch * steps / t_decode if steps and t_decode > 0
                     else float("nan"))
     stats = dict(arch=arch, smoke=smoke, n_layers=cfg.n_layers, batch=batch,
-                 prompt_len=prompt_len, gen=gen, cim=cim,
+                 prompt_len=prompt_len, gen=gen, cim=cim, packed=pack,
                  fused=cim and cfg.cim_fuse, device=str(dev),
                  temperature=temperature, noise_seed=noise_seed,
                  plan=None if plan is None else plan.summary(),
@@ -225,7 +234,8 @@ def serve(arch: str, smoke: bool = True, batch: int = 4, prompt_len: int = 32,
         stats.update(capture_s=step.capture_s,
                      graph_pool_bytes=step.pool_bytes,
                      replay_tok_s=batch * (gen - 2) / (t_end - t_replay0))
-    mode = ("cim-packed" + ("-planned" if plan is not None else "")
+    mode = ("cim-" + ("packed" if pack else "unpacked")
+            + ("-planned" if plan is not None else "")
             if cim else "fp") + (", captured" if captured else "")
     print(f"[serve] {arch} ({mode}, {dev}): batch {batch}, prompt "
           f"{prompt_len}, gen {gen} | pack {t_pack:.3f}s, prefill "
@@ -612,6 +622,9 @@ def main():
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--cim", action="store_true")
+    ap.add_argument("--no-pack", dest="pack", action="store_false",
+                    help="(--cim, lock-step) serve the raw weights, "
+                         "quantized at every call, not a pack")
     ap.add_argument("--no-fuse", dest="fuse", action="store_false")
     ap.add_argument("--speculative", action="store_true",
                     help="plan-cascade speculative decoding (analog draft "
@@ -655,6 +668,8 @@ def main():
                     help="torch device (default: cuda; 'cpu' runs the "
                          "plain reference path)")
     args = ap.parse_args()
+    if not args.pack and (args.continuous or args.speculative):
+        ap.error("--no-pack serves lock-step only")
     draft_k = args.draft_k if args.speculative else 0
     if args.continuous:
         paged = None
@@ -689,7 +704,7 @@ def main():
                      prompt_len=args.prompt_len, gen=args.gen, cim=args.cim,
                      seed=args.seed, fuse=args.fuse, device=args.device,
                      graphs=args.graphs, temperature=args.temperature,
-                     noise_seed=args.noise_seed)
+                     noise_seed=args.noise_seed, pack=args.pack)
     print(np.array2string(toks, max_line_width=120))
 
 

@@ -78,10 +78,11 @@ def _dense_noise_key(cfg: ModelConfig, path: Optional[str],
 
 def _dense(x: torch.Tensor, w, cfg: ModelConfig,
            path: Optional[str] = None) -> torch.Tensor:
-    """x (..., K) @ w (K, N); packed weights run on the macro, with the
-    path's analog noise under ``cfg.cim_noise_seed``.  ``path`` names the
-    projection for the deployment plan and its noise stream; a plan's
-    ``float`` fidelity bypasses the macro."""
+    """x (..., K) @ w (K, N); packed weights run on the macro, and so do
+    raw float weights under ``cfg.cim_mode`` (quantized per call), with
+    the path's analog noise under ``cfg.cim_noise_seed``.  ``path`` names
+    the projection for the deployment plan and its noise stream; a
+    plan's ``float`` fidelity bypasses the macro."""
     if isinstance(w, PackedCimWeights):
         if not cfg.cim_mode:
             raise ValueError(
@@ -95,11 +96,10 @@ def _dense(x: torch.Tensor, w, cfg: ModelConfig,
                 "(lm.pack_cim_params leaves float-fidelity sites unpacked)")
         return eng.matmul(x, w, _dense_noise_key(cfg, path, x.device))
     if cfg.cim_mode:
-        if cim_engine(cfg, path).fidelity == "float":
+        eng = cim_engine(cfg, path)
+        if eng.fidelity == "float":
             return matmul(x, w)
-        raise NotImplementedError(
-            "unpacked CIM serving is not ported yet; pack the weights "
-            "(lm.pack_cim_params)")
+        return eng.matmul(x, w, _dense_noise_key(cfg, path, x.device))
     return matmul(x, w)
 
 
@@ -198,8 +198,13 @@ def _dense_fused(x: torch.Tensor, leaf: FusedPackedCimWeights,
 
 def _dense_group(x: torch.Tensor, p: Params, names, cfg: ModelConfig,
                  prefix: str) -> Dict[str, torch.Tensor]:
-    """Run a block's projections that all consume ``x``: pack-time fused
-    leaves (key "wq+wk+wv") as one GEMM each, the rest per projection."""
+    """Run a block's projections that all consume ``x``, each result
+    bit-identical to ``_dense``'s: pack-time fused leaves (key
+    "wq+wk+wv") as one GEMM each; under ``cfg.cim_mode`` and
+    ``cfg.cim_fuse``, raw weights that resolve to one plan entry
+    concatenated along N for the call (unpacked serving runs the same
+    few wide GEMMs a packed one does, each segment with its own noise
+    stream); the rest per projection."""
     remaining = list(names)
     out: Dict[str, torch.Tensor] = {}
     for key, leaf in p.items():
@@ -208,6 +213,19 @@ def _dense_group(x: torch.Tensor, p: Params, names, cfg: ModelConfig,
             if all(s in remaining for s in segs):
                 out.update(_dense_fused(x, leaf, cfg, prefix, segs))
                 remaining = [n for n in remaining if n not in segs]
+    if cfg.cim_mode and cfg.cim_fuse and len(remaining) > 1:
+        fusable = [n for n in remaining
+                   if isinstance(p.get(n), torch.Tensor)]
+        for ecfg, fid, g in fusion_partitions(cfg, prefix, fusable):
+            eng = CimEngine(cfg=ecfg, fidelity=fid,
+                            use_kernel=cfg.cim_use_kernel)
+            wcat = torch.cat([p[n] for n in g], dim=-1)
+            dims = tuple(int(p[n].shape[-1]) for n in g)
+            nkeys = _seg_noise(cfg, prefix, g, x.device)
+            y = eng.matmul(x, wcat, nkeys,
+                           noise_segments=dims if nkeys else None)
+            out.update(_split_segments(y, g, dims))
+            remaining = [n for n in remaining if n not in g]
     for n in remaining:
         out[n] = _dense(x, p[n], cfg, prefix + n)
     return out

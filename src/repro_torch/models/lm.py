@@ -5,6 +5,8 @@ Counterpart of ``repro/models/lm.py`` (dense serve subset):
 
   init(key, cfg, device=None)             -> params
   pack_cim_params(params, cfg, device=None) -> packed params
+  iter_packable_paths(params)             -> plan path -> leaf shape
+  forward(params, cfg, tokens)            -> logits, aux (no cache)
   init_cache / init_paged_cache           -> contiguous / paged KV cache
   prefill(params, cfg, tokens, cache)     -> logits, cache
   decode_step(params, cfg, token, cache, live=None) -> logits, cache
@@ -93,6 +95,38 @@ _CIM_PACKABLE = frozenset({"wq", "wk", "wv", "wo", "w1", "w2", "w3"})
 # Projection groups that consume the same input activation.
 _FUSE_GROUPS = (("wq", "wk", "wv"),            # attention QKV
                 ("w1", "w3"))                  # SwiGLU gate/up
+
+
+def _walk_packable(tree, visit, path=()):
+    """Rebuild ``tree`` with ``visit(plan_path, leaf)`` applied to every
+    projection leaf ``layers._dense`` consumes.  ``plan_path`` is the
+    deployment plan's path: tree keys joined with "/", the stacked key
+    "layers" dropped (one entry covers every layer), e.g. "attn/wq".  The
+    level directly under "moe" holds expert tensors, not projections."""
+    out = {}
+    for k, v in tree.items():
+        sub = path if k == "layers" else path + (k,)
+        if isinstance(v, dict):
+            out[k] = _walk_packable(v, visit, sub)
+        elif k in _CIM_PACKABLE and not (path and path[-1] == "moe"):
+            out[k] = visit("/".join(sub), v)
+        else:
+            out[k] = v
+    return out
+
+
+def iter_packable_paths(params: Params) -> Dict[str, Tuple[int, ...]]:
+    """Deployment-plan path -> leaf shape for every ``_dense`` projection:
+    the planner's site list (a stacked leaf appears once, with its
+    (layers, K, N) shape)."""
+    sites: Dict[str, Tuple[int, ...]] = {}
+
+    def visit(path, v):
+        sites[path] = tuple(v.shape)
+        return v
+
+    _walk_packable(params, visit)
+    return sites
 
 
 def _pack_single(path: str, v, cfg: ModelConfig):
@@ -187,7 +221,7 @@ def _logits(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return L.softcap(logits.to(torch.float32), cfg.logit_softcap)
 
 
-def _attn_block(blk, x, cfg, positions, is_local, kv, cache_pos,
+def _attn_block(blk, x, cfg, positions, is_local, kv=None, cache_pos=None,
                 block_table=None, write_mask=None):
     h, new_kv = L.attention_apply(
         blk["attn"], L.rms_norm(x, blk["ln1"], cfg.norm_eps), cfg, positions,
@@ -202,6 +236,40 @@ def _attn_block(blk, x, cfg, positions, is_local, kv, cache_pos,
                     L.rms_norm(xf, blk["ln2"], cfg.norm_eps).to(x.dtype),
                     cfg)
     return x + h, new_kv
+
+
+# ---------------------------------------------------------------------------
+# forward without a cache (the planner's calibration forward)
+# ---------------------------------------------------------------------------
+
+
+def hidden_states(params, cfg: ModelConfig, tokens: torch.Tensor,
+                  frontend_embs: Optional[torch.Tensor] = None,
+                  remat: bool = True
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens (B, S) -> final hidden (B, S, D), aux loss (0 for the dense
+    family).  ``frontend_embs`` feeds only the vision and audio families
+    (none is ported), and ``remat`` is a training option that changes
+    nothing in a forward pass; both are kept for the reference's
+    signature."""
+    _dense_only(cfg)
+    x = _embed(params, cfg, tokens)
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    for i in range(cfg.n_layers):
+        x, _ = _attn_block(_layer(params["layers"], i), x, cfg, positions,
+                           cfg.layer_is_local(i))
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
+            frontend_embs: Optional[torch.Tensor] = None,
+            remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens (B, S) -> logits (B, S, V) float32, aux loss: every position
+    through the model with no cache (causal attention over the tokens
+    themselves), packed or raw weights, under ``cfg``'s plan and noise."""
+    x, aux = hidden_states(params, cfg, tokens, frontend_embs, remat)
+    return _logits(params, cfg, x), aux
 
 
 # ---------------------------------------------------------------------------

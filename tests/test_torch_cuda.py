@@ -892,3 +892,68 @@ def test_captured_sampled_serve_equals_eager(dev):
         (te, se), (tc, sc) = runs[False], runs[True]
         assert sc["graphs"] and (te == tc).all(), kw
         assert torch.equal(se["last_logits"], sc["last_logits"]), kw
+
+
+# ---------------------------------------------------------------------------
+# unpacked serving and the planner: raw weights through kernel row 6
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("m", [4, 32, 128])
+def test_unpacked_forward_equals_packed_at_full_width(dev, m):
+    """A full-width forward over M = batch x tokens rows on the raw weights
+    (kernel row 6, 4 launches a layer: QKV, wo, w1+w3, w2) equals the
+    forward on their pack (row 1 at M <= 32, row 2 above) bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(get_config("minicpm-2b"), cim_mode=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(m)
+    batch = 1 if m == 4 else 4
+    with torch.inference_mode():
+        params = lm.init(gen, cfg)
+        toks = torch.randint(0, cfg.vocab_size, (batch, m // batch),
+                             generator=gen, device=dev)
+        K.reset_launch_counts()
+        raw, _ = lm.forward(params, cfg, toks)
+        torch.cuda.synchronize()
+        n_raw = K.ccim_matmul_unpacked_cuda.launches
+        packed = lm.pack_cim_params(params, cfg)
+        del params
+        K.reset_launch_counts()
+        want, _ = lm.forward(packed, cfg, toks)
+        torch.cuda.synchronize()
+    row = (K.ccim_matmul_prepacked_skinny_cuda if m <= K.SKINNY_M
+           else K.ccim_matmul_prepacked_general_cuda)
+    assert n_raw == 4 * cfg.n_layers and row.launches == 4 * cfg.n_layers
+    assert K.ccim_matmul_unpacked_cuda.launches == 0
+    assert torch.equal(raw, want)
+
+
+def test_profile_through_kernels_equals_plain(dev):
+    """At smoke width, the noise-free profile of every site under the
+    digital, prototype and hybrid3/adc8/L32 candidates is the same table
+    through the kernels (rows 6 and 1) as through their plain versions."""
+    from repro_torch import plan as TP
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    cfg = get_config("minicpm-2b", smoke=True)
+    params = lm.init(0, cfg)
+    toks = TP.calibration_batch(cfg)
+    cands = [TP.digital_candidate(), TP.prototype_candidate(),
+             TP.make_candidate("hybrid3/adc8/L32",
+                               CCIMConfig(acc_len=32, adc_bits=8))]
+    tables = {}
+    for use_kernel in (None, False):
+        c = dataclasses.replace(cfg, cim_use_kernel=use_kernel)
+        K.reset_launch_counts()
+        tables[use_kernel] = TP.profile_sensitivities(
+            params, c, toks, cands, noise_seed=None).as_table()
+        launched = (K.ccim_matmul_unpacked_cuda.launches,
+                    K.ccim_matmul_prepacked_skinny_cuda.launches)
+        if use_kernel is None:
+            # the prototype's 7 forwards on row 6, the L32 point's on row 1
+            assert launched == (7 * cfg.n_layers, 7 * cfg.n_layers)
+        else:
+            assert launched == (0, 0)
+    assert tables[None] == tables[False]

@@ -134,8 +134,11 @@ def test_pack_cim_params_matches_jax_tree(fuse):
 
 
 def test_engine_refuses_unpacked_weights():
+    """Raw weights are served now, quantized per call, and equal their
+    pack bit for bit (tests/test_torch_unpacked.py holds both to the
+    reference); a pack keeps the leading axes of x."""
     eng = T.CimEngine()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        eng.matmul(torch.randn(2, 16), torch.randn(16, 4))
+    x, w = torch.randn(2, 16), torch.randn(16, 4)
+    assert torch.equal(eng.matmul(x, w), eng.matmul(x, eng.pack(w)))
     p = eng.pack(torch.randn(16, 4))
     assert eng.matmul(torch.randn(3, 2, 16), p).shape == (3, 2, 4)

@@ -273,10 +273,12 @@ def test_packed_leaf_on_float_site_raises(mixed):
     toks = torch.zeros((1, 4), dtype=torch.int64)
     with pytest.raises(ValueError, match="float"):
         tlm.prefill(tpk, bad, toks, tlm.init_cache(bad, 1, 8, device="cpu"))
-    # raw weights on a fast site still need a pack
-    with pytest.raises(NotImplementedError, match="unpacked"):
-        tlm.prefill(tparams, tcfg, toks,
-                    tlm.init_cache(tcfg, 1, 8, device="cpu"))
+    # raw weights on a fast site are served unpacked, equal to the pack
+    raw, _ = tlm.prefill(tparams, tcfg, toks,
+                         tlm.init_cache(tcfg, 1, 8, device="cpu"))
+    packed, _ = tlm.prefill(tpk, tcfg, toks,
+                            tlm.init_cache(tcfg, 1, 8, device="cpu"))
+    assert torch.equal(raw, packed)
 
 
 def test_mixed_prefill_logits_match_reference(mixed):
