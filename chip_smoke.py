@@ -133,57 +133,62 @@ failure.  Phases:
      speculative tokens equal lock-step ones (with the count of equal
      rows, the first differing (row, position) and the logits' largest
      difference if they do not), launches per round; acceptance, rounds
-     and decode tok/s of speculative and lock-step serving in turns, and
-     a torch.profiler trace of one round;
+     and decode tok/s of speculative and lock-step serving in one turn
+     each (the second turn and the profile of one round were cut to make
+     room for phases 36-37);
  24. continuous batching with speculative rounds (k 4, adaptive depth):
      phase 9's 16 requests over 8 slots, contiguous, pool tokens equal
      phase 9's and the lock-step waves'; then 8 of them paged as in phase
      10, with the paged read launched 40 times a draft step and the token
      agreement with phase 10 reported;
  25. phase 4's serve eager and with its decode step replayed from a CUDA
-     graph, in turns (eager, captured, captured, eager): every turn's
+     graph, in turns (eager, captured): every turn's
      tokens, last logits and launches equal phase 4's; decode tok/s,
      replayed-step tok/s, capture seconds, graph pool bytes and peak
-     memory; a torch.profiler trace of three eager and three replayed
-     steps of one decode body (``device_breakdown``), in which each
+     memory; a torch.profiler trace of one eager and one replayed
+     step of one decode body (``device_breakdown``), in which each
      replay ran as many of each serving kernel as the graph credits;
  26. phase 23's two speculative cases with the round captured, against
-     captured lock-step serving in turns: speculative tokens equal
-     lock-step ones, launches as phase 23 counts them per round; two
-     replayed rounds of each case traced, kernels equal to the credit;
+     captured lock-step serving, one turn each: speculative tokens equal
+     lock-step ones, launches as phase 23 counts them per round; a
+     replayed round of each case traced (the model's first 4 layers),
+     kernels equal to the credit;
  27. the scheduler with its step branch captured (one graph for the
-     pooled step, one per rung of the speculative ladder) at phase 9's
-     queue, phase 24's speculative queue (contiguous) and phase 10's paged
-     queue, against the eager scheduler in turns: pool tokens,
-     iterations by branch and launches equal the eager run's; tok/s, ms
-     per branch and each branch's share of the wall time; one replay of
-     each graph traced, kernels equal to the credit;
+     pooled step, one per rung of the speculative ladder) on phase 9's
+     first 8 prompts at half their stop lengths: contiguous, phase 24's
+     speculative queue and phase 10's paged queue, against the eager
+     scheduler, one turn each: pool tokens, iterations by branch and
+     launches equal the eager run's; tok/s, ms per branch and each
+     branch's share of the wall time; one replay of each graph traced,
+     kernels equal to the credit;
  28. ``core/prng.py`` (threefry2x32, ``jax.random``'s streams) on the
-     card against the CPU port at 2^22 draws: keys (single and batched
+     card against the CPU port at 2^21 draws: keys (single and batched
      splits, fold_in), bits, uniforms and a per-row categorical bit for
-     bit; normals and Gumbels compared element by element (count and
-     largest difference reported) with mean and variance within five
-     standard errors; device time of one normal((4, 11520, 144)) draw (a
-     decode step's fused w1/w3 noise at batch 4) and one (128, 11520,
-     144) draw;
+     bit (16 rows over the vocabulary); normals and Gumbels compared
+     element by element (count and largest difference reported) with
+     mean and variance within five standard errors; device time of one
+     normal((4, 11520, 144)) draw (a decode step's fused w1/w3 noise at
+     batch 4) and one (128, 11520, 144) draw;
  29. phase 4's lock-step serve at temperature 0.7 (the first token
      sampled too): kernels and plain version give equal tokens and last
      logits, launches equal phase 4's, eager and captured in turns (equal
      bit for bit; tok/s of each), and tokens that differ from phase 4's
      greedy ones;
- 30. the scheduler at temperature 0.7 on phase 9's queue, through the
-     kernels: the contiguous pool captured equals it eager and equals
-     solo runs of 3 of its requests; a speculative pool at k 4 (fixed
-     depth) equals speculative solo runs, acceptance reported; the paged
-     pool's agreement with the contiguous one reported, not gated (as
-     phase 10);
+ 30. the scheduler at temperature 0.7 on phase 9's first 8 prompts at
+     half their stop lengths, through the kernels: the contiguous pool
+     captured equals it eager and equals a solo run of its first
+     request; a speculative pool at k 4 (fixed depth) equals a
+     speculative solo run, acceptance reported; the paged pool's
+     agreement with the contiguous one reported, not gated (as phase
+     10);
  31. lock-step serve with the macro's analog noise (noise seed 0, batch
-     2, prompt 8, 6 tokens), eager and captured: equal tokens and logits,
+     2, a one-token prompt, 4 tokens), eager and captured: equal tokens
+     and logits,
      logits that differ from the noise-free run's, no launch of kernel
      rows 1 and 2 (noisy GEMMs take the chunked GEMM in torch, as the
      reference's leave its kernels); prefill and decode time, peak
-     memory, and a profile of one eager noisy decode step (its noise
-     draws' device and host time);
+     memory, and a profile of one eager noisy decode step of the model
+     cut to its first 4 layers (its noise draws' device and host time);
  32. MUSIC DoA with the macro's analog noise: keyed dies on the card
      equal the CPU's; the figS3 twin (12 trials of the reference's
      8-element array, noise keys PRNGKey(t)) on the card equals its CPU
@@ -196,8 +201,8 @@ failure.  Phases:
      call (``serve(pack=False)``): kernel row 6 carries every macro GEMM
      (160 launches a forward, credited per replay; rows 1 and 2 none),
      tokens and last logits equal phase 4's through the kernel and
-     through its plain version; packed and unpacked in turns (decode
-     tok/s, peak memory); the captured step's kernel nodes by name;
+     through its plain version; packed and unpacked, one turn each
+     (decode tok/s, peak memory); the captured step's kernel nodes by name;
      phase 22's mixed plan unpacked (packed per call onto rows 1 and 2)
      equal to phase 22's tokens;
  34. the deployment planner at full width on the raw weights: the
@@ -210,7 +215,26 @@ failure.  Phases:
      seed (no kernel), timed, repeatable;
  35. the figure twins (figS2 at 4 multipliers x 8 dies x 2,048
      conversions with its all-analog rows, fig5, figS1, fig2) on the
-     card equal to the CPU port, row for row, and figS2's per-die RMS.
+     card equal to the CPU port, row for row, and figS2's per-die RMS;
+ 36. serving telemetry at full width (minicpm-2b, prototype macro,
+     packed and fused, captured): phase 4's serve with ``metrics=True``
+     (its tokens, the four spans, the registry); the paged scheduler on
+     the multi-tenant trace (16 requests with Poisson arrivals at 0.5 an
+     iteration, 8 slots, context 128, prompts <= 64, blocks of 16,
+     chunks of 32), metrics off and on in turns: tokens equal, one flags
+     read per iteration, the ring TTFT equal to ``run_instrumented``'s
+     first_iter, counted tokens equal to the emitted ones, the rows 1-3
+     kernel nodes per replay equal on and off, the best-of on/off tok/s
+     ratio and each graph's fingerprint; the contiguous scheduler with
+     speculative rounds at draft ADC 5 and metrics on, through the
+     kernels and their plain version: equal tokens and ADC clip counts,
+     the count > 0; kernel rows 1 and 2 alone at the full-width shapes
+     (M 4 and 128; the prototype at ADC 7 and 5, all-analog at 5): clip
+     counts equal the plain version's, device time with the counter on
+     and off;
+ 37. the serve_bench twin (``python -m repro_torch.launch.serve_bench
+     --smoke --gate``) in a process of its own, its gates held, its JSON
+     document on one line.
 
 The serving drivers replay captured graphs by default on the card
 (``launch/graphs.py``), so phases 9, 11, 22 and 24 serve captured.  A
@@ -1680,6 +1704,8 @@ def times_int8(torch, dev, gen) -> dict:
 # phase 23's cases: (batch, prompt, generated tokens, draft depth k); the
 # verify forward runs batch * (k + 1) rows: 18 on kernel row 1, 36 on row 2
 SPEC_CASES = ((2, 16, 24, 8), (4, 16, 12, 8))
+# phase 26's turns (its second round of turns was cut for time)
+SPEC_TURNS = ("lockstep", "speculative")
 
 
 def mixed_plan():
@@ -1810,15 +1836,13 @@ def verify_chain_diff(torch, dev, packed, cfg, prompt, toks, start: int,
 
 def speculative_phase(torch, dev, params, cfg_full) -> dict:
     """Phase 23: plan-cascade speculative decoding at full width, kernel
-    and plain, against lock-step serving in turns.  Returns the kernel
-    runs' launches by case."""
+    and plain, against lock-step serving (one turn each).  Returns the
+    kernel runs' launches by case."""
     import numpy as np
     from repro_torch.data import DataConfig, batch_at
     from repro_torch.kernels.ccim_matmul import kernel as K
-    from repro_torch.launch.serve import (serve, serve_speculative,
-                                          speculative_round)
+    from repro_torch.launch.serve import serve, serve_speculative
     from repro_torch.models import lm
-    from repro_torch.plan import draft_plan_for_model
 
     L = cfg_full.n_layers
     out = {}
@@ -1827,7 +1851,7 @@ def speculative_phase(torch, dev, params, cfg_full) -> dict:
         common = dict(smoke=False, batch=batch, prompt_len=plen, gen=gen,
                       params=params, return_stats=True, graphs=False)
         tok_s = {"lockstep": [], "speculative": []}
-        for turn in ("lockstep", "speculative", "speculative", "lockstep"):
+        for turn in ("lockstep", "speculative"):
             if turn == "lockstep":
                 base, st = serve("minicpm-2b", cim=True, **common)
             else:
@@ -1867,8 +1891,7 @@ def speculative_phase(torch, dev, params, cfg_full) -> dict:
                "launches_per_round": {
                    "skinny": 4 * L * (k + (m <= K.SKINNY_M)),
                    "general": 4 * L * (m > K.SKINNY_M)},
-               "decode_tok_s_turns": ["lockstep", "speculative",
-                                      "speculative", "lockstep"],
+               "decode_tok_s_turns": ["lockstep", "speculative"],
                "speculative_decode_tok_s": tok_s["speculative"],
                "lockstep_decode_tok_s": tok_s["lockstep"],
                "plain_speculative_decode_tok_s": pst["decode_tok_s"],
@@ -1893,29 +1916,6 @@ def speculative_phase(torch, dev, params, cfg_full) -> dict:
             rec["first_differing_row_position"] = diverge[0].tolist()
         check(not len(diverge), f"phase 23 (M {m}): speculative tokens "
               f"differ from lock-step: {rec}")
-        if m <= K.SKINNY_M:
-            # one round under the profiler: device busy and idle share
-            draft_cfg = dataclasses.replace(
-                cfg, cim_plan=draft_plan_for_model(cfg))
-            with torch.inference_mode():
-                cache = lm.init_cache(cfg, batch, plen + gen + 2 * k + 1,
-                                      device=dev)
-                lg, cache = lm.prefill(packed, cfg, prompt, cache)
-                tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
-                live = torch.ones((batch,), dtype=torch.bool, device=dev)
-                _, _, tok, cache = speculative_round(
-                    packed, cfg, draft_cfg, k, tok, cache, live)  # warm
-                torch.cuda.synchronize()
-                with torch.profiler.profile(activities=[
-                        torch.profiler.ProfilerActivity.CPU,
-                        torch.profiler.ProfilerActivity.CUDA]) as prof:
-                    t0 = time.perf_counter()
-                    speculative_round(packed, cfg, draft_cfg, k, tok, cache,
-                                      live)
-                    torch.cuda.synchronize()
-                    wall_ms = 1e3 * (time.perf_counter() - t0)
-            rec["round_profile"] = {"round_wall_ms": wall_ms,
-                                    **device_breakdown(prof, 1, wall_ms)}
         del packed
         out[f"serve_speculative_m{m}"] = launches
         emit({"phase": "serve_speculative", "ok": True, **rec})
@@ -1993,7 +1993,19 @@ def continuous_speculative_phase(torch, dev, params, cfg_full,
 
 # -- phases 25-27: the serving bodies as CUDA graphs -----------------------
 
-GRAPH_TURNS = ("eager", "captured", "captured", "eager")
+GRAPH_TURNS = ("eager", "captured")
+# layers of the model behind the profiles of phase 26's speculative round
+# and phase 31's noisy step: at full depth they trace ~82,000 and
+# ~139,000 device events, and reading those took most of each phase
+PROFILE_LAYERS = 4
+
+
+def _first_layers(params, n: int):
+    """``params`` with its stacked layer tree cut to the first ``n``
+    layers (views)."""
+    cut = lambda t: ({k: cut(v) for k, v in t.items()}
+                     if isinstance(t, dict) else t[:n])
+    return dict(params, layers=cut(params["layers"]))
 
 
 def profile_steps(torch, step, steps: int = 3) -> dict:
@@ -2016,35 +2028,10 @@ def graph_nodes(graph, patterns=None) -> tuple:
     """A captured ``StepGraph``'s kernel nodes by serving-kernel symbol
     (or by the names of ``patterns``, name -> regex over the kernel's
     name), and its count of nodes that run on the device (kernels,
-    copies, memsets), read from the kept graph with the driver API."""
-    patterns = SYMBOL_RE if patterns is None else patterns
-    import ctypes
-    cu = ctypes.CDLL("libcuda.so.1")
-
-    def call(fn, *args):
-        rc = getattr(cu, fn)(*args)
-        check(rc == 0, f"{fn} returned {rc}")
-
-    h = ctypes.c_void_p(graph.graph.raw_cuda_graph())
-    n = ctypes.c_size_t(0)
-    call("cuGraphGetNodes", h, None, ctypes.byref(n))
-    nodes = (ctypes.c_void_p * n.value)()
-    call("cuGraphGetNodes", h, nodes, ctypes.byref(n))
-    symbols, on_device = dict.fromkeys(patterns, 0), 0
-    for node in nodes:
-        kind = ctypes.c_int(-1)
-        call("cuGraphNodeGetType", ctypes.c_void_p(node), ctypes.byref(kind))
-        on_device += kind.value in (0, 1, 2)     # kernel, memcpy, memset
-        if kind.value != 0:
-            continue
-        params = (ctypes.c_byte * 256)()  # CUDA_KERNEL_NODE_PARAMS_v2
-        call("cuGraphKernelNodeGetParams_v2", ctypes.c_void_p(node), params)
-        func = ctypes.c_void_p.from_buffer(params).value   # its first field
-        name = ctypes.c_char_p()
-        call("cuFuncGetName", ctypes.byref(name), ctypes.c_void_p(func))
-        for sym, pat in patterns.items():
-            symbols[sym] += bool(pat.search(name.value.decode()))
-    return symbols, on_device
+    copies, memsets): ``repro_torch.obs.fingerprint.graph_nodes``, which
+    reads the kept graph with the driver API."""
+    from repro_torch.obs.fingerprint import graph_nodes as read_nodes
+    return read_nodes(graph, SYMBOL_RE if patterns is None else patterns)
 
 
 def check_replays(torch, graph, label: str) -> dict:
@@ -2076,8 +2063,8 @@ def check_replays(torch, graph, label: str) -> dict:
 
 def captured_serve_phase(torch, dev, params, cfg_full, phase4) -> dict:
     """Phase 25: phase 4's lock-step serve with its decode step captured,
-    against eager serving in turns, and a profile of eager and replayed
-    steps.  Returns the captured runs' launches."""
+    against eager serving in turns, and a profile of an eager and a
+    replayed step.  Returns the captured runs' launches."""
     from repro_torch.launch.graphs import StepGraph
     from repro_torch.launch.serve import decode_body, serve
     from repro_torch.models import lm
@@ -2119,11 +2106,11 @@ def captured_serve_phase(torch, dev, params, cfg_full, phase4) -> dict:
         col = torch.ones((1, 1), dtype=torch.int64, device=dev)
         body = decode_body(packed, cfg, tok, cache, out, col)
         body()                                               # warm
-        eager = profile_steps(torch, body)
+        eager = profile_steps(torch, body, steps=1)
         graph = StepGraph(body, dev)
         graph()                                              # capture
         graph()
-        replayed = profile_steps(torch, graph)
+        replayed = profile_steps(torch, graph, steps=1)
         replay_trace = check_replays(torch, graph, "phase 25 decode step")
         replay_ms = cuda_ms(graph, reps=5, warmup=1)
     del packed, cache, graph
@@ -2143,8 +2130,9 @@ def captured_serve_phase(torch, dev, params, cfg_full, phase4) -> dict:
 
 def captured_speculative_phase(torch, dev, params, cfg_full) -> dict:
     """Phase 26: phase 23's speculative cases with the round captured,
-    against captured lock-step serving in turns, and a profile of
-    replayed rounds.  Returns the speculative runs' launches by case."""
+    against captured lock-step serving, one turn each, and a profile of
+    a replayed round of the model's first ``PROFILE_LAYERS`` layers.
+    Returns the speculative runs' launches by case."""
     from repro_torch.data import DataConfig, batch_at
     from repro_torch.kernels.ccim_matmul import kernel as K
     from repro_torch.launch.graphs import StepGraph
@@ -2160,7 +2148,7 @@ def captured_speculative_phase(torch, dev, params, cfg_full) -> dict:
                       params=params, return_stats=True, graphs=True)
         tok_s = {"lockstep": [], "speculative": []}
         replay_tok_s = {"lockstep": [], "speculative": []}
-        for turn in ("lockstep", "speculative", "speculative", "lockstep"):
+        for turn in SPEC_TURNS:
             if turn == "lockstep":
                 base, st = serve("minicpm-2b", cim=True, **common)
             else:
@@ -2188,8 +2176,7 @@ def captured_speculative_phase(torch, dev, params, cfg_full) -> dict:
                "launches": launches,
                "capture_s": sst.get("capture_s"),
                "graph_pool_bytes": sst.get("graph_pool_bytes"),
-               "decode_tok_s_turns": ["lockstep", "speculative",
-                                      "speculative", "lockstep"],
+               "decode_tok_s_turns": list(SPEC_TURNS),
                "speculative_decode_tok_s": tok_s["speculative"],
                "lockstep_decode_tok_s": tok_s["lockstep"],
                "speculative_over_lockstep": (
@@ -2205,15 +2192,18 @@ def captured_speculative_phase(torch, dev, params, cfg_full) -> dict:
             rec["speculative_over_lockstep_replayed"] = (
                 statistics.mean(replay_tok_s["speculative"])
                 / statistics.mean(replay_tok_s["lockstep"]))
-        # replayed rounds under the profiler, every row live throughout
-        cfg = dataclasses.replace(cfg_full, cim_mode=True)
+        # a replayed round under the profiler, every row live throughout,
+        # of the model's first PROFILE_LAYERS layers
+        cfg = dataclasses.replace(cfg_full, cim_mode=True,
+                                  n_layers=PROFILE_LAYERS)
         dcfg = dataclasses.replace(cfg,
                                    cim_plan=draft_plan_for_model(cfg))
         prompt = torch.from_numpy(batch_at(DataConfig(
             vocab_size=cfg.vocab_size, seq_len=plen, global_batch=batch,
             seed=0), 0)["tokens"]).to(dev, torch.int64)
         with torch.inference_mode():
-            packed = lm.pack_cim_params(params, cfg, dev)
+            packed = lm.pack_cim_params(
+                _first_layers(params, PROFILE_LAYERS), cfg, dev)
             cache = lm.init_cache(cfg, batch, plen + 8 * (k + 1) + 2 * k
                                   + 1, device=dev)
             lg, cache = lm.prefill(packed, cfg, prompt, cache)
@@ -2223,8 +2213,9 @@ def captured_speculative_phase(torch, dev, params, cfg_full) -> dict:
                                          counts, 10 ** 6), dev)
             graph()                                      # capture
             graph()
-            rec["round_profile_replayed"] = check_replays(
-                torch, graph, f"phase 26 round (M {m})")
+            rec["round_profile_replayed"] = dict(check_replays(
+                torch, graph, f"phase 26 round (M {m})"),
+                n_layers=PROFILE_LAYERS)
         del packed, cache, graph
         out[f"serve_speculative_captured_m{m}"] = launches
         emit({"phase": "serve_speculative_captured", "ok": True, **rec})
@@ -2233,17 +2224,20 @@ def captured_speculative_phase(torch, dev, params, cfg_full) -> dict:
 
 def captured_scheduler_phase(torch, dev, params, cfg_full,
                              serve_phases) -> dict:
-    """Phase 27: the scheduler with its step branch captured, at phase
-    9's queue (contiguous), phase 24's speculative queue and phase 10's
-    paged queue, against the eager scheduler in turns.  Returns the
-    captured runs' macro and paged-read launches by queue."""
+    """Phase 27: the scheduler with its step branch captured, on phase
+    9's first 8 prompts at half their stop lengths (agreement with the
+    earlier phase's tokens is reported over that prefix): contiguous,
+    phase 24's speculative queue and phase 10's paged queue, against
+    the eager scheduler, one turn each.  Returns the captured runs'
+    macro and paged-read launches by queue."""
     from repro_torch.launch.paging import PagedLayout, cdiv
     from repro_torch.launch.scheduler import (ContinuousBatchingScheduler,
                                               mixed_length_requests)
     from repro_torch.models import lm
     from repro_torch.plan import draft_plan_for_model
 
-    slots, plen, stops, n_req = 8, 64, (8, 24, 16, 32), 16  # phase 9's
+    # phase 9's first 8 prompts, each request stopping at half its length
+    slots, plen, stops, n_req = 8, 64, (4, 12, 8, 16), 8
     cfg = dataclasses.replace(cfg_full, cim_mode=True)
     reqs = mixed_length_requests(n_req, plen, cfg.vocab_size,
                                  stop_lengths=stops, seed=0)
@@ -2290,7 +2284,8 @@ def captured_scheduler_phase(torch, dev, params, cfg_full,
                     for b, t in rep.branch_s.items() if rep.branch_counts[b]},
                 "branch_share_of_wall": {
                     b: t / rep.wall_s for b, t in rep.branch_s.items()}})
-        same = [_tokens_equal(first[0][r], earlier[name][r])
+        same = [_tokens_equal(first[0][r],
+                              earlier[name][r][:len(first[0][r])])
                 for r in earlier[name] if r in first[0]]
         if name == "paged":
             check(first[2]["paged_attn"] > 0,
@@ -2318,7 +2313,7 @@ def captured_scheduler_phase(torch, dev, params, cfg_full,
 
 # -- phases 28-31: threefry on the card, sampled and noisy serving ---------
 
-PRNG_DRAWS = 1 << 22
+PRNG_DRAWS = 1 << 21
 # conversions of phase 20's CPU cross-check: the first 2^18 of the card's
 FIG6_CPU_N = 1 << 18
 TEMPERATURE = 0.7
@@ -2333,7 +2328,7 @@ def _moment_bounds(n: int, var: float, kurtosis: float) -> tuple:
 
 
 def prng_phase(torch, dev) -> dict:
-    """Phase 28: ``core/prng.py`` on the card against the CPU port, 2^22
+    """Phase 28: ``core/prng.py`` on the card against the CPU port, 2^21
     draws: keys, bits, uniforms, normals, Gumbels and categorical rows
     bit for bit (gate; the float transforms evaluate XLA's CPU
     approximations with correctly rounded float32 operations, so the
@@ -2352,7 +2347,7 @@ def prng_phase(torch, dev) -> dict:
         "split_batched": lambda k: prng.split(prng.split(k, 1 << 16), 3),
         "fold_in": lambda k: prng.fold_in(prng.split(k, 1 << 16), rids(k)),
         "categorical_rows": lambda k: prng.categorical(
-            prng.split(k, 64), prng.normal(k, (64, 122753)) * 3),
+            prng.split(k, 16), prng.normal(k, (16, 122753)) * 3),
     }
     rec = {"draws": n}
     for name, fn in exact.items():
@@ -2448,14 +2443,15 @@ def sampled_serve_phase(torch, dev, params, cfg_full, phase4) -> dict:
 
 def sampled_scheduler_phase(torch, dev, params, cfg_full) -> dict:
     """Phase 30: the scheduler at temperature 0.7 through the kernels on
-    phase 9's queue, captured and eager, each run's counts reset before
-    it: a contiguous pool, a speculative pool at k 4 (fixed depth) under
-    a clipping draft (ADC 5, so that rejection sampling rejects and
-    draws corrections), and a paged pool.  Each queue's captured run
+    phase 9's first 8 prompts at half their stop lengths, captured and
+    eager, each run's counts reset before it: a contiguous pool, a
+    speculative pool at k 4 (fixed depth) under a clipping draft (ADC 5,
+    so that rejection sampling rejects and draws corrections), and a
+    paged pool.  Each queue's captured run
     must equal its eager run (tokens, iterations by branch, launches),
     and each graph's kernel nodes and a traced replay must equal what it
-    credits; the contiguous and speculative pools must equal solo runs
-    of 3 of their requests, the speculative acceptance must lie strictly
+    credits; the contiguous and speculative pools must equal a solo run
+    of their first request, the speculative acceptance must lie strictly
     between 0 and 1, and the paged pool's agreement with the contiguous
     one is reported.  Returns the eager runs' launches by queue."""
     from repro_torch.launch.paging import PagedLayout, cdiv
@@ -2464,7 +2460,8 @@ def sampled_scheduler_phase(torch, dev, params, cfg_full) -> dict:
     from repro_torch.models import lm
     from repro_torch.plan import draft_plan_for_model
 
-    slots, plen, stops, n_req = 8, 64, (8, 24, 16, 32), 16  # phase 9's
+    # phase 9's first 8 prompts, each request stopping at half its length
+    slots, plen, stops, n_req = 8, 64, (4, 12, 8, 16), 8
     cfg = dataclasses.replace(cfg_full, cim_mode=True)
     reqs = mixed_length_requests(n_req, plen, cfg.vocab_size,
                                  stop_lengths=stops, seed=0)
@@ -2473,7 +2470,7 @@ def sampled_scheduler_phase(torch, dev, params, cfg_full) -> dict:
     base = dict(slots=slots, prompt_len=plen, max_new_cap=max(stops),
                 temperature=TEMPERATURE)
     draft_adc = 5
-    solo_rids = (0, 1, 2)
+    solo_rids = (0,)
     out, pools = {}, {}
     for name, kw in (
             ("contiguous", dict(base)),
@@ -2551,9 +2548,10 @@ def sampled_scheduler_phase(torch, dev, params, cfg_full) -> dict:
 
 def noise_draw_profile(torch, dev, params, cfg, batch: int, plen: int
                        ) -> dict:
-    """A profile of one eager noisy decode step at phase 31's shape: the
-    step's wall and device busy time (``device_breakdown``) and, over
-    the noise draws' profiler range (``ccim.NOISE_RANGE``, every
+    """A profile of one eager noisy decode step at phase 31's width and
+    batch, the model cut to its first ``PROFILE_LAYERS`` layers:
+    the step's wall and device busy time (``device_breakdown``) and,
+    over the noise draws' profiler range (``ccim.NOISE_RANGE``, every
     ``_fast_gemm_noise`` call), the device time of the kernels launched
     inside it, its host time, and the union of its device-side spans
     (a draw's first kernel start to its last kernel end)."""
@@ -2561,6 +2559,8 @@ def noise_draw_profile(torch, dev, params, cfg, batch: int, plen: int
     from repro_torch.core import ccim
     from repro_torch.launch.serve import decode_body
     from repro_torch.models import lm
+    cfg = dataclasses.replace(cfg, n_layers=PROFILE_LAYERS)
+    params = _first_layers(params, PROFILE_LAYERS)
     with torch.inference_mode():
         packed = lm.pack_cim_params(params, cfg, dev)
         cache = lm.init_cache(cfg, batch, plen + 8, device=dev)
@@ -2598,7 +2598,8 @@ def noise_draw_profile(torch, dev, params, cfg, batch: int, plen: int
     check(busy is not None and host and kernel_ms > 0,
           "phase 31: the profile of a noisy step holds no device events, "
           "no noise-draw range or no kernel under it")
-    return {"step_wall_ms": wall_ms, "noise_draw_calls": len(host),
+    return {"n_layers": PROFILE_LAYERS,
+            "step_wall_ms": wall_ms, "noise_draw_calls": len(host),
             "draw_kernel_ms": kernel_ms, "draw_host_ms": host_ms,
             "draw_device_span_ms": span_us / 1e3,
             "draw_kernels_share_of_device_busy": kernel_ms / busy,
@@ -2608,18 +2609,22 @@ def noise_draw_profile(torch, dev, params, cfg, batch: int, plen: int
 
 def noisy_serve_phase(torch, dev, params, cfg_full) -> dict:
     """Phase 31: lock-step serve with the macro's analog noise (noise seed
-    0; batch 2, prompt 8, 6 tokens), eager and captured: identical
+    0; batch 2, prompt 1, 4 tokens), eager and captured: identical
     tokens and logits (the draws are deterministic), logits that differ
     from the noise-free run's, and no launch of kernel rows 1 and 2 (the
     noisy GEMMs take the chunked GEMM in torch, as the reference's leave
     its kernels); prefill and decode wall time, peak memory, and the
     share of an eager decode step's device time spent in the noise
-    draws, from a profile of one step.  (The noisy prefill at M 128 that
-    this phase also timed, 51.7 s, was cut to make room for phases
-    33-35.)"""
+    draws, from a profile of one step of the model's first layers.  (The
+    noisy prefill at M 128 that this phase also timed, 51.7 s, was cut
+    to make room for phases 33-35; the prompt of 8 tokens, whose M-16
+    noisy prefills ran in each of the two noisy serves, became one token
+    to make room for phases 36-37; to keep the run well inside its time
+    limit, the serves went from 6 tokens to 4 and the profiled step
+    from 40 layers to 4.)"""
     from repro_torch.launch.serve import serve
 
-    batch, plen, gen = 2, 8, 6
+    batch, plen, gen = 2, 1, 4
     common = dict(smoke=False, batch=batch, prompt_len=plen, gen=gen,
                   cim=True, params=params, return_stats=True)
     zero = {"general": 0, "skinny": 0}
@@ -2750,7 +2755,7 @@ UNPACKED_NODE_RE = {
         r"general_kernel.*PackedFill"),
     "ccim_matmul_prepacked_skinny_cuda": re.compile(
         r"(?<![A-Za-z_])skinny_kernel")}
-UNPACKED_TURNS = ("packed", "unpacked", "unpacked", "packed")
+UNPACKED_TURNS = ("packed", "unpacked")
 
 
 def _rows_launches() -> dict:
@@ -3033,6 +3038,246 @@ def figure_twins_phase(torch, dev) -> dict:
     emit({"phase": "figure_twins", "ok": True, "card_equals_cpu": True,
           **rec})
     return rec
+
+
+# -- phases 36-37: serving telemetry and the serve_bench twin ----------------
+
+# phase 36 (b): the multi-tenant trace at full width
+MT_REQUESTS, MT_SLOTS, MT_PROMPT, MT_MAX_PROMPT = 16, 8, 128, 64
+MT_BS, MT_CHUNK, MT_CAP, MT_RATE = 16, 32, 12, 0.5
+# phase 36 (d): rows 1 and 2 alone, (K, N) at full width
+CLIP_SHAPES = ((2304, 6912), (2304, 11520), (5760, 2304))
+
+
+# phase 36 (d): the prototype at ADC 7 and 5, and the all-analog macro
+# at ADC 5 (the configuration that clips on these operands)
+CLIP_CONFIGS = (dict(adc_bits=7), dict(adc_bits=5),
+                dict(adc_bits=5, n_dcim_products=0))
+
+
+def clip_rows(torch, dev, gen) -> dict:
+    """Phase 36 (d): kernel rows 1 and 2 with the clip counter, at the
+    full-width shapes, M 4 (row 1) and 128 (row 2), the prototype at ADC
+    7 and 5 bits and the all-analog macro at 5: the outputs and the
+    counts equal the plain version's; device time per call with the
+    counter on and off, from CUDA-graph replays."""
+    from repro_torch.core import engine
+    from repro_torch.core.ccim import (CCIMConfig, _dcim_by_j, quantize_smf,
+                                       smf_scale)
+    from repro_torch.kernels.ccim_matmul import kernel as K
+    from repro_torch.obs import taps
+
+    def smf(shape):
+        v = torch.randn(shape, generator=gen, device=dev)
+        return quantize_smf(v, smf_scale(v, dim=-1, keepdim=True))
+
+    out = {}
+    for k, n in CLIP_SHAPES:
+        wq = smf((n, k)).t()
+        for ckw in CLIP_CONFIGS:
+            cfg = CCIMConfig(**ckw)
+            p = engine.pack_quantized_cim_weights(
+                wq, torch.ones((1, n), device=dev), cfg)
+            meta = dict(acc_len=cfg.acc_len, x_bits=tuple(_dcim_by_j(cfg)),
+                        dcim_lsb=cfg.dcim_lsb, adc_half=cfg.adc_half_range)
+            for m in (4, 128):
+                x = smf((m, k))
+                counts, ys = {}, {}
+                for label, uk in (("kernel", True), ("plain", False)):
+                    with taps.collect() as fr:
+                        ys[label] = engine.packed_cim_matmul_int(
+                            x, p, cfg, use_kernel=uk)
+                        counts[label] = int(taps.drain_sum(fr, "adc_clip"))
+                tag = (f"K {k} N {n} M {m} ADC {cfg.adc_bits} "
+                       f"n_dcim {cfg.n_dcim_products}")
+                check(torch.equal(ys["kernel"], ys["plain"]),
+                      f"phase 36 (d) {tag}: kernel != plain")
+                check(counts["kernel"] == counts["plain"],
+                      f"phase 36 (d) {tag}: kernel counted "
+                      f"{counts['kernel']} clips, plain {counts['plain']}")
+                xp = x.to(torch.int8).contiguous()
+                fn = (K.ccim_matmul_prepacked_skinny_cuda if m <= K.SKINNY_M
+                      else K.ccim_matmul_prepacked_general_cuda)
+                buf = torch.zeros((1,), dtype=torch.int32, device=dev)
+                w, planes = p.kernel_w, p.kernel_planes
+                on = graph_ms(torch, lambda: fn(xp, w, planes, **meta,
+                                                clips=buf))
+                off = graph_ms(torch, lambda: fn(xp, w, planes, **meta))
+                out[tag] = {"row": 1 if m <= K.SKINNY_M else 2,
+                            "clips": counts["kernel"],
+                            "conversions": m * n * (k // cfg.acc_len),
+                            "device_ms_counter_on": on,
+                            "device_ms_counter_off": off}
+    check(any(r["clips"] > 0 for r in out.values()),
+          "phase 36 (d): no case clipped")
+    by_row = {}
+    for r in out.values():
+        t = by_row.setdefault(r["row"], {"on": 0.0, "off": 0.0, "cases": 0})
+        t["on"] += r["device_ms_counter_on"]
+        t["off"] += r["device_ms_counter_off"]
+        t["cases"] += 1
+    return {"cases": out, "by_row_device_ms": by_row}
+
+
+def telemetry_phase(torch, dev, params, cfg_full, phase4_tokens) -> dict:
+    """Phase 36: telemetry at full width (minicpm-2b, prototype macro,
+    packed and fused, captured).  (a) lock-step serve with metrics: the
+    tokens of phase 4 and the four spans; (b) the paged scheduler on the
+    multi-tenant trace, metrics off and on in turns: equal tokens, one
+    flags read per iteration, ring TTFT == run_instrumented's first_iter,
+    counted tokens == emitted, the same rows 1-3 kernel nodes per replay;
+    (c) the contiguous speculative scheduler at draft ADC 5 with metrics,
+    kernels and plain: equal tokens and ADC clips, clips > 0; (d) rows 1
+    and 2 alone (``clip_rows``).  Returns rows 1-2 launches of (b)'s
+    metrics-on runs."""
+    import numpy as np
+    from repro_torch.launch.paging import PagedLayout, cdiv
+    from repro_torch.launch.scheduler import (ContinuousBatchingScheduler,
+                                              mixed_length_requests,
+                                              multi_tenant_trace)
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import lm
+    from repro_torch.obs import ObsConfig, get_tracer
+    from repro_torch.obs.fingerprint import graph_fingerprint
+    from repro_torch.plan import draft_plan_for_model
+
+    # (a) lock-step serve, captured, metrics on; the tracer keeps every
+    # span since its last drain, so drain the earlier phases' first
+    get_tracer().drain()
+    toks, st = serve("minicpm-2b", smoke=False, batch=4, prompt_len=32,
+                     gen=16, cim=True, params=params, return_stats=True,
+                     metrics=True)
+    names = {sp["name"] for sp in st["spans"]}
+    want_spans = {"serve.pack", "serve.compile", "serve.prefill",
+                  "serve.decode"}
+    check((toks == phase4_tokens).all(),
+          "phase 36 (a): serve(metrics=True) tokens != phase 4's")
+    check(want_spans <= names, f"phase 36 (a): spans {sorted(names)}")
+    check(st["metrics"]["serve_tokens_total"][0]["value"] >= 4 * 16,
+          "phase 36 (a): the registry holds no token count")
+    emit({"phase": "telemetry_lockstep", "ok": True,
+          "tokens_equal_phase4": True, "spans": [
+              {k: sp[k] for k in ("name", "dur_s", "attrs")}
+              for sp in st["spans"]],
+          "metrics": st["metrics"], "decode_tok_s": st["decode_tok_s"]})
+
+    # (b) the paged multi-tenant trace, metrics off and on
+    cfg = dataclasses.replace(cfg_full, cim_mode=True)
+    with torch.inference_mode():
+        packed = lm.pack_cim_params(params, cfg, dev)
+    reqs, arrivals = multi_tenant_trace(MT_REQUESTS, MT_MAX_PROMPT,
+                                        cfg.vocab_size, MT_BS,
+                                        arrival_rate=MT_RATE)
+    lay = PagedLayout(block_size=MT_BS,
+                      n_tbl=cdiv(MT_PROMPT + MT_CAP, MT_BS),
+                      n_blocks=2 * MT_SLOTS * cdiv(MT_MAX_PROMPT + MT_CAP,
+                                                   MT_BS) + 8)
+    kw = dict(slots=MT_SLOTS, prompt_len=MT_PROMPT, max_new_cap=MT_CAP,
+              paged=lay, prefill_chunk=MT_CHUNK)
+    scheds = {"off": ContinuousBatchingScheduler(packed, cfg, **kw),
+              "on": ContinuousBatchingScheduler(packed, cfg,
+                                                obs=ObsConfig(), **kw)}
+    runs = {"off": [], "on": []}
+    first, on_launches = None, None
+    for turn in ("off", "on") * 4:              # the first pair captures
+        _reset_all_launches()
+        rep = scheds[turn].run(reqs, arrivals)
+        launches = _all_launches()
+        toks = rep.tokens_by_rid()
+        if first is None:
+            first = toks
+        check(all(_tokens_equal(toks[r], first[r]) for r in first),
+              f"phase 36 (b) {turn}: tokens differ from the first run's")
+        check(rep.host_syncs == rep.n_iter + 1, f"phase 36 (b) {turn}: "
+              f"{rep.host_syncs} flags reads over {rep.n_iter} iterations")
+        if turn == "on":
+            check(rep.obs.counters["tokens"] == rep.total_tokens,
+                  f"phase 36 (b): counted {rep.obs.counters['tokens']} "
+                  f"tokens, emitted {rep.total_tokens}")
+            on_launches = launches
+        runs[turn].append(rep)
+    inst, timeline = scheds["on"].run_instrumented(reqs, arrivals)
+    ring = runs["on"][-1].obs.ttft_iters
+    check(ring == {f.rid: f.first_iter for f in inst.finished},
+          "phase 36 (b): ring TTFT != run_instrumented's first_iter")
+    timed = {t: r[1:] for t, r in runs.items()}       # after the capture
+    best = {t: max(r.tok_s for r in timed[t]) for t in timed}
+    nodes = {t: graph_nodes(scheds[t]._graphs[0])[0] for t in scheds}
+    check(nodes["on"] == nodes["off"] and any(nodes["on"].values()),
+          f"phase 36 (b): rows 1-3 nodes per replay on {nodes['on']}, off "
+          f"{nodes['off']}")
+    snap = runs["on"][-1].obs
+    steps = timeline["iter_s"][timeline["branch"] == 3]
+    emit({"phase": "telemetry_paged", "ok": True, "requests": MT_REQUESTS,
+          "slots": MT_SLOTS, "arrival_rate": MT_RATE,
+          "arrival_iters": arrivals, "tokens_equal": True,
+          "host_syncs_equal_n_iter_plus_1": True,
+          "ring_ttft_equals_instrumented": True,
+          "tok_s": {t: [r.tok_s for r in timed[t]] for t in timed},
+          "on_off_best_tok_s_ratio": best["on"] / best["off"],
+          "n_iter": runs["on"][-1].n_iter,
+          "branch_counts": runs["on"][-1].branch_counts,
+          "ttft_percentiles_s": inst.ttft_percentiles(),
+          "latency_percentiles_s": inst.latency_percentiles(),
+          "stall_factor": (float(np.percentile(timeline["iter_s"], 95))
+                           / float(np.median(steps))),
+          "median_step_ms": 1e3 * float(np.median(steps)),
+          "rows_1_3_nodes_per_replay": nodes,
+          "graph_fingerprint": {t: graph_fingerprint(scheds[t]._graphs[0])
+                                for t in scheds},
+          "launches_metrics_on": on_launches,
+          "telemetry": snap.to_dict()})
+    del scheds
+
+    # (c) speculative at draft ADC 5, metrics on, kernels and plain (at
+    # ADC 6 these weights and prompts clip no conversion)
+    spec_reqs = mixed_length_requests(4, 16, cfg.vocab_size,
+                                      stop_lengths=(6, 10, 8, 12), seed=0)
+    spec = {}
+    for label, uk in (("kernel", None), ("plain", False)):
+        c = dataclasses.replace(cfg, cim_use_kernel=uk)
+        sched = ContinuousBatchingScheduler(
+            packed, c, slots=4, prompt_len=16, max_new_cap=12, draft_k=4,
+            draft_plan=draft_plan_for_model(c, 5), obs=ObsConfig(),
+            graphs=uk is None)
+        _reset_all_launches()
+        rep = sched.run(spec_reqs)
+        spec[label] = (rep, _all_launches())
+    (rk, lk), (rp, lp) = spec["kernel"], spec["plain"]
+    check(all(_tokens_equal(rk.tokens_by_rid()[r], rp.tokens_by_rid()[r])
+              for r in rk.tokens_by_rid()),
+          "phase 36 (c): kernel and plain speculative tokens differ")
+    ck, cp = rk.obs.counters["adc_clip"], rp.obs.counters["adc_clip"]
+    check(ck == cp and ck > 0, f"phase 36 (c): ADC clips kernel {ck}, "
+          f"plain {cp} (must be equal and > 0)")
+    check(lp["skinny"] == 0 and lp["general"] == 0 and lk["skinny"] > 0,
+          f"phase 36 (c): launches kernel {lk}, plain {lp}")
+    del packed
+    rows = clip_rows(torch, dev, torch.Generator(device=dev).manual_seed(36))
+    emit({"phase": "telemetry_clips", "ok": True,
+          "speculative": {"draft_adc_bits": 5, "adc_clip": ck,
+                          "acceptance_rate": rk.acceptance_rate,
+                          "tokens_equal_plain": True,
+                          "launches_kernel": lk},
+          "rows": rows})
+    return {k_: on_launches[k_] for k_ in ("general", "skinny")}
+
+
+def serve_bench_phase() -> dict:
+    """Phase 37: the serve_bench twin at its smoke sizes with its gates,
+    in a process of its own; its JSON document on one line."""
+    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve_bench", "--smoke",
+         "--gate"], capture_output=True, text=True, env=env, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    check(proc.returncode == 0 and lines, "phase 37: serve_bench --smoke "
+          f"--gate exited {proc.returncode}: {proc.stderr[-2000:]}"
+          f"{lines[-1][:4000] if lines else ''}")
+    result = json.loads(lines[-1])
+    emit({"phase": "serve_bench", "ok": True, **result})
+    return result
 
 
 def main() -> int:
@@ -3340,6 +3585,12 @@ def main() -> int:
     # -- 32. noisy DoA; 35. the figure twins ----------------------------------
     noisy_doa_phase(torch, dev)
     figure_twins_phase(torch, dev)
+    # -- 36.-37. serving telemetry and the serve_bench twin ------------------
+    params = lm.init(0, cfg_full, device=dev)       # phase 4's weights
+    by_path["scheduler_telemetry_paged"] = telemetry_phase(
+        torch, dev, params, cfg_full, runs["kernel"][0])
+    del params
+    serve_bench_phase()
 
     src = "src/repro_torch/kernels/ccim_matmul/csrc/"
     table = []

@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from . import prng
+from ..obs import taps
 
 
 @dataclasses.dataclass(frozen=True)
@@ -535,7 +536,8 @@ def fast_gemm_int(xq: torch.Tensor, wf: torch.Tensor,
                   x_bits: Sequence[int], dcim_lsb: int, adc_half: int,
                   chunk_block: Optional[int] = None, *,
                   noise_key=None, noise_segments=None,
-                  cfg: Optional[CCIMConfig] = None) -> torch.Tensor:
+                  cfg: Optional[CCIMConfig] = None,
+                  clips: Optional[torch.Tensor] = None) -> torch.Tensor:
     """sum_c y8_c as (M, N) int32 (unscaled), for the split described by
     ``x_bits`` (one activation bit per folded plane), ``dcim_lsb`` and
     ``adc_half``.  xq (M, C, L) ints; wf (C, L, N) weights and
@@ -549,6 +551,12 @@ def fast_gemm_int(xq: torch.Tensor, wf: torch.Tensor,
     dots.  Float32 batched dots are exact here: every partial is an
     integer below 2^24 (|chunk dot| <= 64 * 127^2).  TF32 would break
     that, so it is switched off for both matmul back ends first.
+
+    ``clips`` (one int32 element on the device; by default the open
+    telemetry collector's ``adc_clip`` buffer, ``obs/taps.py``) gets the
+    count of conversions whose ADC code clipped, ``raw < -half`` or
+    ``raw > half - 1``, as the reference's fast path counts them; with
+    neither, nothing is counted.
     """
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -564,6 +572,8 @@ def fast_gemm_int(xq: torch.Tensor, wf: torch.Tensor,
     lsb, half = float(dcim_lsb), adc_half
     cb = chunk_block or max(1, min(C, _PARTIAL_ELEMS // max(M * N, 1)))
     acc = torch.zeros((M, N), dtype=torch.int32, device=xq.device)
+    if clips is None:
+        clips = taps.sink("adc_clip", xq.device)
     for c0 in range(0, C, cb):
         c1 = min(C, c0 + cb)
         wb = wf[c0:c1].to(f32)
@@ -584,7 +594,11 @@ def fast_gemm_int(xq: torch.Tensor, wf: torch.Tensor,
                     torch.cat([b[c0:c1] for b in x_bit], -1), wpl.abs())
             a_real = _noisy(a_real, a_mag, _fast_gemm_noise(
                 noise_key, M, N, C, noise_segments, c0, c1), cfg)
-        code = torch.clamp(torch.floor(a_real / lsb + 0.5), -half, half - 1)
+        raw = torch.floor(a_real / lsb + 0.5)
+        if clips is not None:
+            clips.add_(((raw < -half) | (raw > half - 1)).sum(
+                dtype=torch.int32))
+        code = torch.clamp(raw, -half, half - 1)
         acc += (dcim + code).to(torch.int32).sum(dim=0, dtype=torch.int32)
     return acc
 

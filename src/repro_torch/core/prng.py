@@ -250,6 +250,37 @@ def log(v: torch.Tensor) -> torch.Tensor:
     return torch.where(v == float("inf"), float("inf"), r)
 
 
+# XLA's CPU expf (Cephes): the input range, log2(e), ln 2 in two parts
+# and the polynomial of e^a on (-ln 2 / 2, ln 2 / 2)
+_EXP_LO, _EXP_HI = _f32("C055F33340000000"), _f32("4056333340000000")
+_LOG2E = _f32("3FF7154760000000")
+_EXP_C1, _EXP_C2 = _f32("3FE6300000000000"), _f32("BF2BD01060000000")
+_EXP_P = tuple(_f32(h) for h in (
+    "3F2A0D2CE0000000", "3F56E879C0000000", "3F81112100000000",
+    "3FA5553820000000", "3FC5555540000000"))
+
+
+def exp(x: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU float32 exp, operation for operation (its multiply-adds
+    fused as the CPU compiler fuses them): x clamped to [-87.8, 88.8], n =
+    floor(x log2(e) + 1/2) clamped to [-127, 127], a = x - n ln 2 in two
+    parts, e^a by a degree-5 polynomial, times 2^n built in the exponent
+    bits; results below the smallest normal flushed to 0, as that code
+    runs with denormals off.  Equal to jax's jitted exp on 1.5 M inputs
+    in [-100, 17]; torch's float32 exp differs on about a sixth of
+    them."""
+    x = torch.clamp(x, _EXP_LO, _EXP_HI)
+    n = torch.clamp(torch.floor(fma(x, _LOG2E, 0.5)), -127.0, 127.0)
+    a = fma(n, -_EXP_C1, x)
+    a = fma(n, -_EXP_C2, a)
+    z = fma(a, _EXP_P[0], _EXP_P[1])
+    for c in _EXP_P[2:]:
+        z = fma(z, a, c)
+    z = 1.0 + fma(fma(z, a, 0.5), a * a, a)
+    r = z * ((n.to(torch.int32) + 127) << 23).view(_F32)
+    return torch.where(r.abs() < _TINY, 0.0, r)
+
+
 def log1p(x: torch.Tensor) -> torch.Tensor:
     """XLA's CPU float32 log1p: log(1 + x), or for |x| < sqrt(2) - 1
     x - x^2/2 + x^3 * P(x)/Q(x)."""

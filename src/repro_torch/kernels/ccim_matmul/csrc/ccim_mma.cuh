@@ -63,6 +63,18 @@
 // from disjoint chunk ranges then add exactly in any order (mod 2^32, as
 // the reference's int32 sum), so split-K adds with red.global.add.
 //
+// Clip count (the telemetry tap of obs/taps.py): an instance with kCount
+// adds to *a.clips the conversions whose ADC code clipped, raw < -h or raw
+// > h - 1: in the folded form, those whose clamp moved t = (exact + lsb/2)
+// >> s (convert_count).  The tile computes padded rows and columns too,
+// and only valid (m < M, n < N) conversions are counted: here a padded
+// row or column holds zeros (the fills zero-fill past M, N and the
+// split's end), so its conversion is t = 0 inside [dc, dc + span] = [-h,
+// h - 1] and never counts; the skinny kernel, whose padded token rows
+// hold stale bytes, masks them.  Each thread counts in a register; a warp
+// sums its lanes and adds once with atomicAdd.  The count-off instance
+// (kCount false, a null pointer) is the kernel without it.
+//
 // wgmma is not used: its int8 form takes K = 32 per instruction, so at
 // the prototype's acc_len 16 a chunk is half an instruction (half its
 // work wasted on zeros), and its asynchronous accumulators would have to
@@ -120,6 +132,7 @@ struct Args {
   const int8_t* planes[2];  // packed: (n_planes, N, Kp) per side
   int32_t* out[2];          // (M, N) per output
   int M, N, Kp, x_bits, lsb_shift, adc_half, k_split;
+  int32_t* clips;           // the clip count (kCount instances), or null
 };
 
 // byte offset of 16-byte segment s of row r in a 64-byte-row stage
@@ -224,6 +237,25 @@ __device__ __forceinline__ void transpose4(unsigned (&r)[4]) {
 __device__ __forceinline__ int convert_folded(int ex, int dc, int shift,
                                               int span) {
   return __viaddmin_s32(dc, span, max(ex >> shift, dc));
+}
+
+// convert_folded, and in clips one more when the clamp moved the value
+// (the code clipped: raw < -h or raw > h - 1)
+__device__ __forceinline__ int convert_count(int ex, int dc, int shift,
+                                             int span, int& clips) {
+  const int t = ex >> shift;
+  const int cv = __viaddmin_s32(dc, span, max(t, dc));
+  clips += cv != t;
+  return cv;
+}
+
+// A warp's clip counts (one per lane) summed and added to *clips once;
+// every lane of the warp must call it
+__device__ __forceinline__ void add_clips(int32_t* clips, int n) {
+  const unsigned tot =
+      __reduce_add_sync(0xffffffffu, static_cast<unsigned>(n));
+  if ((threadIdx.x & 31) == 0 && tot)
+    atomicAdd(reinterpret_cast<unsigned*>(clips), tot);
 }
 
 // x rows m0.. of one side of one stage at st: 16 bytes a thread per
@@ -380,7 +412,8 @@ struct RawFill {
   }
 };
 
-template <int ACC, int NP, template <class, int, int> class Fill, int S = 1>
+template <int ACC, int NP, template <class, int, int> class Fill, int S = 1,
+          bool kCount = false>
 __global__ void __launch_bounds__(kThreads, 1) general_kernel(const Args a) {
   using T = Tile<ACC, S>;
   constexpr int NT = T::NT, NG = T::NG, BM = T::BM, BN = T::BN;
@@ -415,6 +448,9 @@ __global__ void __launch_bounds__(kThreads, 1) general_kernel(const Args a) {
 
   // ldmatrix lane roles: matrix q = lane / 8, its row i = lane % 8
   const int q = lane >> 3, i8 = lane & 7;
+  // clip count: this thread's C-fragment rows g, g + 8 and columns 2 t4,
+  // 2 t4 + 1 of each n8 tile (S == 1 only)
+  [[maybe_unused]] int n_clip = 0;  // kCount: this thread's clipped codes
 
   // one stage: each side's x at st, each side's w and planes at wo
   auto compute = [&](const int8_t* st, const int8_t* wo) {
@@ -485,8 +521,12 @@ __global__ void __launch_bounds__(kThreads, 1) general_kernel(const Args a) {
                               b[1 + pl][j][h] & keep, d);
 #pragma unroll
                     for (int r = 0; r < 4; ++r) {
-                      const int cv =
-                          convert_folded(e[r], d[r], a.lsb_shift, span);
+                      int cv;
+                      if constexpr (kCount)
+                        cv = convert_count(e[r], d[r], a.lsb_shift, span,
+                                           n_clip);
+                      else
+                        cv = convert_folded(e[r], d[r], a.lsb_shift, span);
                       acc[xs ^ ws][nt][r] += xs & ws ? -cv : cv;
                     }
                   }
@@ -506,9 +546,14 @@ __global__ void __launch_bounds__(kThreads, 1) general_kernel(const Args a) {
                         d);
               if (ACC == 32 || hp == 1) {
 #pragma unroll
-                for (int r = 0; r < 4; ++r)
-                  acc[0][nt][r] +=
-                      convert_folded(e[r], d[r], a.lsb_shift, span);
+                for (int r = 0; r < 4; ++r) {
+                  if constexpr (kCount)
+                    acc[0][nt][r] += convert_count(e[r], d[r], a.lsb_shift,
+                                                   span, n_clip);
+                  else
+                    acc[0][nt][r] +=
+                        convert_folded(e[r], d[r], a.lsb_shift, span);
+                }
               } else {
 #pragma unroll
                 for (int r = 0; r < 4; ++r) {
@@ -564,9 +609,11 @@ __global__ void __launch_bounds__(kThreads, 1) general_kernel(const Args a) {
         else
           *dst = v;
       }
+  if constexpr (kCount) add_clips(a.clips, n_clip);
 }
 
-template <int ACC, int NP, template <class, int, int> class Fill, int S = 1>
+template <int ACC, int NP, template <class, int, int> class Fill, int S = 1,
+          bool kCount = false>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   using T = Tile<ACC, S>;
   using F = Fill<T, NP, S>;
@@ -574,14 +621,15 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   static bool sized = false;  // above 48 KB needs the opt-in, once
   if (!sized) {
     const cudaError_t e = cudaFuncSetAttribute(
-        general_kernel<ACC, NP, Fill, S>,
+        general_kernel<ACC, NP, Fill, S, kCount>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return e;
     sized = true;
   }
   const dim3 grid((a.N + T::BN - 1) / T::BN, (a.M + T::BM - 1) / T::BM,
                   (a.Kp + a.k_split - 1) / a.k_split);
-  general_kernel<ACC, NP, Fill, S><<<grid, kThreads, bytes, stream>>>(a);
+  general_kernel<ACC, NP, Fill, S, kCount>
+      <<<grid, kThreads, bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -619,7 +667,8 @@ inline int sm_count() {
 
 // Picks the split for the shape, zeroes the outputs on the stream when
 // there is more than one (the splits add into them), and launches.
-template <int ACC, int NP, template <class, int, int> class Fill, int S = 1>
+template <int ACC, int NP, template <class, int, int> class Fill, int S = 1,
+          bool kCount = false>
 cudaError_t run(Args a, cudaStream_t stream) {
   a.k_split = pick_k_split(a.M, a.N, a.Kp, ACC, sm_count(), S);
   if (a.k_split < a.Kp) {
@@ -629,7 +678,7 @@ cudaError_t run(Args a, cudaStream_t stream) {
       if (e != cudaSuccess) return e;
     }
   }
-  return launch<ACC, NP, Fill, S>(a, stream);
+  return launch<ACC, NP, Fill, S, kCount>(a, stream);
 }
 
 }  // namespace mma

@@ -25,7 +25,11 @@
 // Design: general_kernel of ccim_mma.cuh over its packed fill (x, w and
 // each plane copied into the stage by cp.async, in the layout the MMAs
 // read), instantiated for acc_len 8, 16, 32, 64 and 0-3 planes; the
-// header holds the tile, the folded conversion and the split of K.
+// header holds the tile, the folded conversion and the split of K.  With
+// a clip counter (int32, on the device) the entry point launches the
+// instances that also count the conversions whose ADC code clipped
+// (ccim_mma.cuh: kCount), the telemetry the scheduler's rings read; with
+// none, the instances without the count.
 #include "ccim_mma.cuh"
 
 namespace {
@@ -33,15 +37,22 @@ namespace {
 using ccim::mma::Args;
 using ccim::mma::PackedFill;
 
-template <int ACC>
+template <int ACC, bool kCount>
 cudaError_t run_planes(const Args& a, int n_planes, cudaStream_t stream) {
   switch (n_planes) {
-    case 0: return ccim::mma::run<ACC, 0, PackedFill>(a, stream);
-    case 1: return ccim::mma::run<ACC, 1, PackedFill>(a, stream);
-    case 2: return ccim::mma::run<ACC, 2, PackedFill>(a, stream);
-    case 3: return ccim::mma::run<ACC, 3, PackedFill>(a, stream);
+    case 0: return ccim::mma::run<ACC, 0, PackedFill, 1, kCount>(a, stream);
+    case 1: return ccim::mma::run<ACC, 1, PackedFill, 1, kCount>(a, stream);
+    case 2: return ccim::mma::run<ACC, 2, PackedFill, 1, kCount>(a, stream);
+    case 3: return ccim::mma::run<ACC, 3, PackedFill, 1, kCount>(a, stream);
   }
   return cudaErrorInvalidValue;
+}
+
+// the clip-counting instances when clips is set, else today's kernel
+template <int ACC>
+cudaError_t run_count(const Args& a, int n_planes, cudaStream_t stream) {
+  return a.clips ? run_planes<ACC, true>(a, n_planes, stream)
+                 : run_planes<ACC, false>(a, n_planes, stream);
 }
 
 }  // namespace
@@ -57,7 +68,7 @@ extern "C" int ccim_prepacked_general(const void* x, const void* w,
                                       const void* planes, void* out, int M,
                                       int N, int Kp, int n_planes, int x_bits,
                                       int lsb_shift, int adc_half, int acc_len,
-                                      void* stream) {
+                                      void* clips, void* stream) {
   if (M <= 0 || N <= 0 || Kp <= 0 || Kp % 16 || n_planes < 0 ||
       n_planes > ccim::kMaxPlanes ||
       (acc_len != 8 && acc_len != 16 && acc_len != 32 && acc_len != 64))
@@ -67,13 +78,14 @@ extern "C" int ccim_prepacked_general(const void* x, const void* w,
                {static_cast<const int8_t*>(w)},
                {static_cast<const int8_t*>(planes)},
                {static_cast<int32_t*>(out)},
-               M, N, Kp, x_bits, lsb_shift, adc_half, 0};
+               M, N, Kp, x_bits, lsb_shift, adc_half, 0,
+               static_cast<int32_t*>(clips)};
   cudaError_t err = cudaErrorInvalidValue;
   switch (acc_len) {
-    case 8: err = run_planes<8>(a, n_planes, s); break;
-    case 16: err = run_planes<16>(a, n_planes, s); break;
-    case 32: err = run_planes<32>(a, n_planes, s); break;
-    case 64: err = run_planes<64>(a, n_planes, s); break;
+    case 8: err = run_count<8>(a, n_planes, s); break;
+    case 16: err = run_count<16>(a, n_planes, s); break;
+    case 32: err = run_count<32>(a, n_planes, s); break;
+    case 64: err = run_count<64>(a, n_planes, s); break;
   }
   return static_cast<int>(err);
 }

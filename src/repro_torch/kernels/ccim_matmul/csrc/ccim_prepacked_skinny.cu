@@ -51,6 +51,17 @@
 // and order-free, since the clip is per chunk, and the entry point zeroes out
 // on the stream first.  The skinny complex kernel (ccim_complex_skinny.cu)
 // keeps ccim_common.cuh's dp4a helpers; this one uses ccim_mma.cuh's.
+//
+// Clip count: with a counter (int32, on the device) the entry point
+// launches the instances that also count the conversions whose ADC code
+// clipped (kCount; ccim_mma.cuh's convert_count and add_clips), over the
+// valid (m < M, n < N) outputs only.  The counting instances zero-fill a
+// live token group's rows past M (the others leave them stale, as flush
+// never stores them), and the weight rows past N are zero-filled by every
+// instance, so a padded output's conversion is t = 0 inside [-h, h - 1]
+// and never counts: no mask in the loop.  Each thread counts in a
+// register and each warp adds its sum once.  With no counter, the
+// instances without it.
 #include <algorithm>
 
 #include "ccim_mma.cuh"
@@ -102,6 +113,7 @@ struct Args {
   int32_t* out;
   int M, N, Kp, x_bits, lsb_shift, adc_half;
   int split;  // 1: out was zeroed and every partial sum is added
+  int32_t* clips;  // the clip count (kCount instances), or null
 };
 
 __host__ __device__ inline long cdiv(long a, long b) {
@@ -124,7 +136,7 @@ inline int grid_blocks(int M, int N, int Kp) {
       cdiv(total_stages(N, Kp), warps_per_block(M)), ccim::mma::sm_count()));
 }
 
-template <int ACC, int TG, int NP>
+template <int ACC, int TG, int NP, bool kCount>
 __global__ void __launch_bounds__(32 * Ring<TG, NP>::kWarps, 1)
     skinny_kernel(const Args a) {
   using R = Ring<TG, NP>;
@@ -164,15 +176,17 @@ __global__ void __launch_bounds__(32 * Ring<TG, NP>::kWarps, 1)
       }
     }
     // x rows 0 .. M - 1 only: a row past M or a byte past Kp meets
-    // outputs that are not stored or zero weights
+    // outputs that are not stored or zero weights (kCount: a live token
+    // group's rows past M are zero-filled, so they never count a clip)
 #pragma unroll
     for (int i = 0; i < kHalves * TG; ++i) {
       const int p = lane + 32 * i, r = p / kPieces, s8 = p % kPieces;
       const int k = k0 + 16 * s8;
-      if (r < a.M && k < a.Kp)
+      const bool ok = r < a.M && k < a.Kp;
+      if (kCount ? r < 8 * ntg : ok)
         load16(smem_addr(st + R::kOps + (s8 >> 2) * R::kXHalf +
                              swz(r, s8 & 3)),
-                   a.x + (size_t)r * a.Kp + k, true);
+                   ok ? a.x + (size_t)r * a.Kp + k : a.x, ok);
     }
   };
 
@@ -191,6 +205,8 @@ __global__ void __launch_bounds__(32 * Ring<TG, NP>::kWarps, 1)
   for (int tg = 0; tg < TG; ++tg)
 #pragma unroll
     for (int r = 0; r < 4; ++r) acc[tg][r] = 0;
+
+  [[maybe_unused]] int n_clip = 0;  // kCount: this thread's clipped codes
 
   // one stage, half by half: the tile's 16 columns of every operand
   // against each token group's x and bit-planes
@@ -244,9 +260,15 @@ __global__ void __launch_bounds__(32 * Ring<TG, NP>::kWarps, 1)
                                    av[1 + pl][hp][h2 + 1],
                                    b[1 + pl][s] & keep, d);
 #pragma unroll
-              for (int r = 0; r < 4; ++r)
-                acc[tg][r] +=
-                    ccim::mma::convert_folded(e[r], d[r], a.lsb_shift, span);
+              for (int r = 0; r < 4; ++r) {
+                if constexpr (kCount) {
+                  acc[tg][r] += ccim::mma::convert_count(
+                      e[r], d[r], a.lsb_shift, span, n_clip);
+                } else {
+                  acc[tg][r] += ccim::mma::convert_folded(e[r], d[r],
+                                                          a.lsb_shift, span);
+                }
+              }
             }
           }
         } else {
@@ -266,9 +288,15 @@ __global__ void __launch_bounds__(32 * Ring<TG, NP>::kWarps, 1)
                                  b[1 + pl][2 * hp + 1], d);
             if (ACC == 32 || hp == 1) {
 #pragma unroll
-              for (int r = 0; r < 4; ++r)
-                acc[tg][r] +=
-                    ccim::mma::convert_folded(e[r], d[r], a.lsb_shift, span);
+              for (int r = 0; r < 4; ++r) {
+                if constexpr (kCount) {
+                  acc[tg][r] += ccim::mma::convert_count(
+                      e[r], d[r], a.lsb_shift, span, n_clip);
+                } else {
+                  acc[tg][r] += ccim::mma::convert_folded(e[r], d[r],
+                                                          a.lsb_shift, span);
+                }
+              }
             }
           }
         }
@@ -318,41 +346,51 @@ __global__ void __launch_bounds__(32 * Ring<TG, NP>::kWarps, 1)
       flush(static_cast<int>(L / ks_n) * kRows);
   }
   cp_async_wait<0>();
+  if constexpr (kCount) ccim::mma::add_clips(a.clips, n_clip);
 }
 
-template <int ACC, int TG, int NP>
+template <int ACC, int TG, int NP, bool kCount>
 cudaError_t launch(const Args& a, int blocks, cudaStream_t stream) {
   using R = Ring<TG, NP>;
   static bool sized = false;  // above 48 KB needs the opt-in, once
   if (!sized) {
     const cudaError_t e = cudaFuncSetAttribute(
-        skinny_kernel<ACC, TG, NP>,
+        skinny_kernel<ACC, TG, NP, kCount>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, R::kBytes);
     if (e != cudaSuccess) return e;
     sized = true;
   }
-  skinny_kernel<ACC, TG, NP>
+  skinny_kernel<ACC, TG, NP, kCount>
       <<<blocks, 32 * R::kWarps, R::kBytes, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <int ACC, int TG>
+template <int ACC, int TG, bool kCount>
 cudaError_t launch_planes(const Args& a, int n_planes, int blocks,
                           cudaStream_t stream) {
   switch (n_planes) {
-    case 0: return launch<ACC, TG, 0>(a, blocks, stream);
-    case 1: return launch<ACC, TG, 1>(a, blocks, stream);
-    case 2: return launch<ACC, TG, 2>(a, blocks, stream);
-    case 3: return launch<ACC, TG, 3>(a, blocks, stream);
+    case 0: return launch<ACC, TG, 0, kCount>(a, blocks, stream);
+    case 1: return launch<ACC, TG, 1, kCount>(a, blocks, stream);
+    case 2: return launch<ACC, TG, 2, kCount>(a, blocks, stream);
+    case 3: return launch<ACC, TG, 3, kCount>(a, blocks, stream);
   }
   return cudaErrorInvalidValue;
 }
 
+template <int ACC, bool kCount>
+cudaError_t launch_tg(const Args& a, int n_planes, int blocks,
+                      cudaStream_t stream) {
+  return a.M <= 8
+             ? launch_planes<ACC, 1, kCount>(a, n_planes, blocks, stream)
+             : launch_planes<ACC, 4, kCount>(a, n_planes, blocks, stream);
+}
+
+// the clip-counting instances when a.clips is set, else today's kernel
 template <int ACC>
 cudaError_t launch_m(const Args& a, int n_planes, int blocks,
                      cudaStream_t stream) {
-  return a.M <= 8 ? launch_planes<ACC, 1>(a, n_planes, blocks, stream)
-                  : launch_planes<ACC, 4>(a, n_planes, blocks, stream);
+  return a.clips ? launch_tg<ACC, true>(a, n_planes, blocks, stream)
+                 : launch_tg<ACC, false>(a, n_planes, blocks, stream);
 }
 
 }  // namespace
@@ -374,7 +412,7 @@ extern "C" int ccim_prepacked_skinny(const void* x, const void* w,
                                      const void* planes, void* out, int M,
                                      int N, int Kp, int n_planes, int x_bits,
                                      int lsb_shift, int adc_half, int acc_len,
-                                     void* stream) {
+                                     void* clips, void* stream) {
   if (M <= 0 || M > 32 || N <= 0 || Kp <= 0 || Kp % 16 || n_planes < 0 ||
       n_planes > ccim::kMaxPlanes ||
       (acc_len != 8 && acc_len != 16 && acc_len != 32 && acc_len != 64) ||
@@ -396,7 +434,8 @@ extern "C" int ccim_prepacked_skinny(const void* x, const void* w,
   }
   const Args a{static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
                static_cast<const int8_t*>(planes), static_cast<int32_t*>(out),
-               M, N, Kp, x_bits, lsb_shift, adc_half, split};
+               M, N, Kp, x_bits, lsb_shift, adc_half, split,
+               static_cast<int32_t*>(clips)};
   cudaError_t err = cudaErrorInvalidValue;
   switch (acc_len) {
     case 8: err = launch_m<8>(a, n_planes, blocks, s); break;

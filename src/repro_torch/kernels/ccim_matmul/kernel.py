@@ -26,6 +26,14 @@ is its plain version.
 The sources are built and loaded by ``kernels/build.py`` (nvcc for
 sm_90a at first use, a plain C interface bound through ctypes).  Each
 wrapper counts its launches in ``.launches``.
+
+The prepacked kernels and their plain version also count the
+conversions whose ADC code clipped (``clips``: one int32 element on the
+device, added into; by default the open telemetry collector's
+``adc_clip`` buffer, ``obs/taps.py``, and nothing with none open): the
+kernels launch their counting instances for it, and the count equals
+the plain version's bit for bit.  The TPU kernels count nothing; the
+reference counts clips only in its XLA fast path.
 """
 from __future__ import annotations
 
@@ -35,6 +43,7 @@ from typing import Dict, Optional, Sequence
 import torch
 
 from ...core import ccim
+from ...obs import taps
 from .. import build
 from .ref import ACC_LEN, DCIM_LSB
 
@@ -42,7 +51,7 @@ SKINNY_M = 32          # a skinny stage holds <= 32 rows of x (4 token groups)
 MAX_PLANES = 3         # distinct activation bits of the widest split (top-6)
 
 _PREPACKED_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-                   + [ctypes.c_void_p])
+                   + [ctypes.c_void_p] * 2)
 # library name -> (entry point, argtypes)
 _ENTRY = {"skinny": ("ccim_prepacked_skinny", _PREPACKED_ARGS),
           "general": ("ccim_prepacked_general", _PREPACKED_ARGS),
@@ -126,9 +135,26 @@ def _check(x: torch.Tensor, w: torch.Tensor, planes: torch.Tensor,
         raise ValueError(f"dcim_lsb {dcim_lsb} is not a power of two")
 
 
+def _clip_sink(clips: Optional[torch.Tensor], x: torch.Tensor
+               ) -> Optional[torch.Tensor]:
+    """The clip counter a kernel adds into: ``clips``, or the open
+    collector's ``adc_clip`` buffer (None with no collector)."""
+    if clips is None:
+        clips = taps.sink("adc_clip", x.device)
+    if clips is not None and (clips.dtype != torch.int32
+                              or clips.numel() != 1
+                              or clips.device != x.device):
+        raise ValueError("clips must be one int32 element on the device of "
+                         f"x, got {clips.dtype} {tuple(clips.shape)} on "
+                         f"{clips.device}")
+    return clips
+
+
 def _launch(name: str, x, w, planes, *, acc_len: int, x_bits, dcim_lsb: int,
-            adc_half: int) -> torch.Tensor:
+            adc_half: int, clips: Optional[torch.Tensor] = None
+            ) -> torch.Tensor:
     _check(x, w, planes, x_bits, dcim_lsb, acc_len)
+    clips = _clip_sink(clips, x)
     fn = load_kernels()[name]
     M, Kp = x.shape
     N = w.shape[0]
@@ -138,7 +164,8 @@ def _launch(name: str, x, w, planes, *, acc_len: int, x_bits, dcim_lsb: int,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(x.data_ptr(), w.data_ptr(), planes.data_ptr() or None,
              out.data_ptr(), M, N, Kp, len(x_bits), _pack_x_bits(x_bits),
-             dcim_lsb.bit_length() - 1, adc_half, acc_len, stream)
+             dcim_lsb.bit_length() - 1, adc_half, acc_len,
+             None if clips is None else clips.data_ptr(), stream)
     if err:
         raise RuntimeError(f"{_ENTRY[name][0]} launch failed: CUDA error "
                            f"{err}")
@@ -148,14 +175,15 @@ def _launch(name: str, x, w, planes, *, acc_len: int, x_bits, dcim_lsb: int,
 def ccim_matmul_prepacked_skinny_cuda(
     x: torch.Tensor, w: torch.Tensor, planes: torch.Tensor, *,
     acc_len: int = 16, x_bits: Sequence[int] = (6, 5), dcim_lsb: int = 2048,
-    adc_half: int = 64,
+    adc_half: int = 64, clips: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Skinny-M hybrid-CIM GEMM (M <= 32) -> (M, N) int32."""
+    """Skinny-M hybrid-CIM GEMM (M <= 32) -> (M, N) int32; clipped
+    conversions added into ``clips`` (module docstring)."""
     if x.shape[0] > SKINNY_M:
         raise ValueError(f"skinny kernel takes M <= {SKINNY_M}, got "
                          f"{x.shape[0]}")
     out = _launch("skinny", x, w, planes, acc_len=acc_len, x_bits=x_bits,
-                  dcim_lsb=dcim_lsb, adc_half=adc_half)
+                  dcim_lsb=dcim_lsb, adc_half=adc_half, clips=clips)
     ccim_matmul_prepacked_skinny_cuda.launches += 1
     return out
 
@@ -163,12 +191,12 @@ def ccim_matmul_prepacked_skinny_cuda(
 def ccim_matmul_prepacked_general_cuda(
     x: torch.Tensor, w: torch.Tensor, planes: torch.Tensor, *,
     acc_len: int = 16, x_bits: Sequence[int] = (6, 5), dcim_lsb: int = 2048,
-    adc_half: int = 64,
+    adc_half: int = 64, clips: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """General-M hybrid-CIM GEMM -> (M, N) int32, on the int8 tensor
-    cores."""
+    cores; clipped conversions added into ``clips``."""
     out = _launch("general", x, w, planes, acc_len=acc_len, x_bits=x_bits,
-                  dcim_lsb=dcim_lsb, adc_half=adc_half)
+                  dcim_lsb=dcim_lsb, adc_half=adc_half, clips=clips)
     ccim_matmul_prepacked_general_cuda.launches += 1
     return out
 
@@ -218,11 +246,11 @@ def chunked_operands(w: torch.Tensor, planes: torch.Tensor, acc_len: int,
 def ccim_matmul_prepacked_plain(
     x: torch.Tensor, w: torch.Tensor, planes: torch.Tensor, *,
     acc_len: int = 16, x_bits: Sequence[int] = (6, 5), dcim_lsb: int = 2048,
-    adc_half: int = 64,
+    adc_half: int = 64, clips: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The kernels' function in plain PyTorch: x (M, Kp) ints, w (N, Kp)
     and planes (n_j, N, Kp) int8 -> (M, N) int32, bit-identical to the
-    kernels.  The float32 operands are cast from int8 views of the
+    kernels, and so is the clip count added into ``clips``.  The float32 operands are cast from int8 views of the
     layout on each call, whole (the cast of a whole view keeps its
     strides, so it streams; nothing float32 is kept beside the pack)."""
     M, Kp = x.shape
@@ -231,7 +259,8 @@ def ccim_matmul_prepacked_plain(
     wv, planes_v = chunked_operands(w, planes[:len(x_bits)], acc_len)
     xq = x.to(torch.int32).reshape(M, C, acc_len)
     return ccim.fast_gemm_int(xq, f32(wv), [f32(p) for p in planes_v],
-                              tuple(x_bits), dcim_lsb, adc_half) * dcim_lsb
+                              tuple(x_bits), dcim_lsb, adc_half,
+                              clips=clips) * dcim_lsb
 
 
 def ccim_matmul_unpacked_plain(x: torch.Tensor, w: torch.Tensor

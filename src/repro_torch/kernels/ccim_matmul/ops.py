@@ -17,6 +17,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from ...obs import taps
 from .kernel import (SKINNY_M, ccim_matmul_prepacked_general_cuda,
                      ccim_matmul_prepacked_plain,
                      ccim_matmul_prepacked_skinny_cuda,
@@ -67,6 +68,7 @@ def ccim_matmul_int_prepacked(
     dcim_lsb: int = DCIM_LSB,
     adc_bits: int = 7,
     use_kernel: Optional[bool] = None,
+    clips: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Prepacked-weight macro GEMM -> (M, n_dim) int32 at product scale.
 
@@ -75,6 +77,9 @@ def ccim_matmul_int_prepacked(
     version for CPU tensors; False forces the plain version (the plain
     comparison run); True on a CPU tensor raises.  On CUDA, M <= 32 goes
     to the skinny kernel and any other M to the general kernel.
+    ``clips`` (one int32 element on the device; by default the open
+    telemetry collector's ``adc_clip`` buffer) gets the count of
+    clipped conversions, from the kernel or the plain version alike.
     """
     M, K = x_q.shape
     if K != k_dim:
@@ -87,7 +92,7 @@ def ccim_matmul_int_prepacked(
                          f"{(len(x_bits), Np, Kp)}")
     use_kernel = resolve_use_kernel(use_kernel, x_q)
     meta = dict(acc_len=acc_len, x_bits=tuple(x_bits), dcim_lsb=dcim_lsb,
-                adc_half=1 << (adc_bits - 1))
+                adc_half=1 << (adc_bits - 1), clips=clips)
     xp = pad_k_int8(x_q, Kp, 1)
     if not use_kernel:
         return ccim_matmul_prepacked_plain(xp, w, planes, **meta)
@@ -108,5 +113,10 @@ def ccim_matmul_int(x_q: torch.Tensor, w_q: torch.Tensor, *,
         raise ValueError(f"x {tuple(x_q.shape)} @ w {tuple(w_q.shape)}")
     xp, wp = pad_k_int8(x_q, Kp, 1), pad_k_int8(w_q, Kp, 0)
     if resolve_use_kernel(use_kernel, x_q):
+        if taps.active():
+            # row 6 counts no clips: a telemetry run would read a false 0
+            raise NotImplementedError(
+                "the unpacked kernel counts no ADC clips; serve packed "
+                "weights (or the plain version) with telemetry on")
         return ccim_matmul_unpacked_cuda(xp, wp)
     return ccim_matmul_unpacked_plain(xp, wp)

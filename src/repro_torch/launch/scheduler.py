@@ -1,7 +1,6 @@
 """Continuous-batching serving scheduler over a fixed pool of decode slots.
 
-Counterpart of ``repro/launch/scheduler.py`` (greedy, without
-telemetry).  The paper's macro is weight-stationary: weights are
+Counterpart of ``repro/launch/scheduler.py``.  The paper's macro is weight-stationary: weights are
 written once and activations stream.  The serving analogue is a fixed
 pool of decode slots over prepacked weights; every pooled step advances
 only live slots, and a freed slot is refilled from the request queue.
@@ -44,10 +43,14 @@ pooled step, and each rung's speculative round, is a CUDA graph
 captured at its first call and replayed after (``launch/graphs.py``;
 ``graphs=False`` runs it eagerly, as the CPU does).  The step bodies
 write every entry of the state they change into the tensor that holds
-it, so the flags read sees what a replay wrote; harvest, admit and the
-paged prefill chunk pick Python-int slots and stay eager.  The pool
-state lives on the scheduler and each run resets it in place, so the
-graphs outlive a run.
+it, so the flags read sees what a replay wrote; harvest and admit pick
+Python-int slots and stay eager.  The paged prefill chunk's forward is
+one graph per slot (``_prefill_chunk``): every chunk of a slot has the
+same shapes and starts at the slot's device position, so only its
+tokens change, copied into a static buffer before the replay; the first
+token is sampled eagerly from the replay's logits.  The pool state
+lives on the scheduler and each run resets it in place, so the graphs
+outlive a run.
 
 PAGED mode (``paged=PagedLayout(...)``) replaces the per-slot contiguous
 ``max_seq`` regions with global per-layer block pools and per-slot block
@@ -83,10 +86,39 @@ equal speculative solo runs at the same ``draft_k``.  Analog noise
 (``cfg.cim_noise_seed``) is drawn per pool row, so noisy tokens depend
 on the slot a request ran in -- as on silicon, where each slot maps to
 a physical macro bank -- and the slot-independence contract holds only
-noise-free.  Telemetry is not ported yet and raises.
+noise-free.
+
+Open-loop arrivals: ``run(requests, arrival_iters)`` admits request i
+no earlier than loop iteration ``arrival_iters[i]`` (the device clock
+is the iteration count); while nothing is due the loop steps the pool,
+as the reference's does, so iteration stamps equal the reference's.
+``run_instrumented`` returns the same report with the per-iteration
+timeline (each iteration's branch and seconds): the loop reads the host
+clock at every flags read anyway, so it is the same program as ``run``,
+and both fill each request's ``ttft_s``.
+
+Telemetry (``obs=ObsConfig(...)``, ``obs/rings.py``): fixed-size int32
+rings beside the pool state record each request's admit, first-token
+and finish iterations (at the sites that set ``res_first`` and
+``res_iter``), one sample row per iteration and scalar counters --
+tokens, stall iterations, ADC clips, shared-prefix blocks and admits,
+the free-list low-water mark.  The pooled step and the speculative
+rounds write their sample rows and counters on the device inside their
+bodies, so their captured graphs carry them (a metrics-on scheduler
+captures its own graphs); harvest, admit and the prefill chunk, whose
+every value the host decides, keep their events and rows on the host
+(``obs_rings.EagerRecords``) and write them into the device rings in one
+batch after the loop, so an eager iteration launches nothing more.  The ADC clips come through ``obs/taps.py``: one collector
+frame over the run, whose buffer is the rings' ``CTR_ADC_CLIP`` slot,
+into which kernel rows 1 and 2 (and the plain version on the CPU) add
+directly.  The rings only read values the loop already computes, so the
+tokens are equal with metrics on and off, and the loop reads the device
+no more often (``host_syncs == n_iter + 1``); ``harvest_obs`` reads them
+in one transfer after the loop.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 import weakref
@@ -98,6 +130,9 @@ import torch
 from ..core import prng
 from ..models import lm
 from ..models.config import ModelConfig
+from ..obs import rings as obs_rings
+from ..obs import taps
+from ..obs.rings import ObsConfig, ObsSnapshot
 from .graphs import StepGraph, use_graphs
 from .paging import PagedLayout, cdiv, contiguous_kv_bytes, plan_prefix_sharing
 
@@ -181,6 +216,8 @@ class FinishedRequest:
     latency_s: float              # run start -> end of its harvest iteration
     finish_iter: int              # loop iteration the request finished at
     first_iter: int = 0           # loop iteration its first token appeared
+    ttft_s: float = float("nan")  # run start -> end of its first-token
+                                  # iteration
 
 
 @dataclasses.dataclass
@@ -201,6 +238,7 @@ class ServeReport:
     branch_counts: Dict[str, int] = dataclasses.field(default_factory=dict)
     branch_s: Dict[str, float] = dataclasses.field(default_factory=dict)
     ref_final: Optional[np.ndarray] = None   # block refcounts after drain
+    obs: Optional[ObsSnapshot] = None        # harvested rings (obs mode)
 
     @property
     def total_tokens(self) -> int:
@@ -237,6 +275,16 @@ class ServeReport:
         pick = lambda q: lats[min(len(lats) - 1,
                                   int(q * (len(lats) - 1) + 0.5))]
         return {"p50_s": pick(0.50), "p95_s": pick(0.95)}
+
+    def ttft_percentiles(self) -> Dict[str, float]:
+        """Time-to-first-token percentiles over the requests whose
+        ``ttft_s`` was measured (NaN when none was)."""
+        ts = sorted(f.ttft_s for f in self.finished
+                    if not np.isnan(f.ttft_s))
+        if not ts:
+            return {"ttft_p50_s": float("nan"), "ttft_p95_s": float("nan")}
+        pick = lambda q: ts[min(len(ts) - 1, int(q * (len(ts) - 1) + 0.5))]
+        return {"ttft_p50_s": pick(0.50), "ttft_p95_s": pick(0.95)}
 
     def summary(self) -> Dict:
         out = dict(total_tokens=self.total_tokens,
@@ -280,7 +328,9 @@ class ContinuousBatchingScheduler:
     the step branch from captured graphs, one for the pooled step and one
     per rung; ``True`` off CUDA raises.  The device is the params'
     device.  ``temperature`` > 0 samples every token from the request's
-    stream under ``sampling_key(seed)`` (greedy at 0)."""
+    stream under ``sampling_key(seed)`` (greedy at 0).  ``obs`` (an
+    ``obs.ObsConfig``) keeps the telemetry rings (module docstring) and
+    fills ``ServeReport.obs``."""
 
     def __init__(self, params, cfg: ModelConfig, slots: int, prompt_len: int,
                  max_new_cap: int, temperature: float = 0.0, seed: int = 0,
@@ -288,10 +338,9 @@ class ContinuousBatchingScheduler:
                  paged: Optional[PagedLayout] = None,
                  prefill_chunk: Optional[int] = None,
                  prefix_sharing: bool = True,
-                 adaptive_draft_k: bool = False, obs=None,
+                 adaptive_draft_k: bool = False,
+                 obs: Optional[ObsConfig] = None,
                  graphs: Optional[bool] = None):
-        if obs is not None:
-            raise NotImplementedError("telemetry (obs) is not ported yet")
         if cfg.family != "dense":
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet (dense only)")
@@ -301,6 +350,7 @@ class ContinuousBatchingScheduler:
         if adaptive_draft_k and not draft_k:
             raise ValueError("adaptive_draft_k needs draft_k > 0")
         self.cfg, self.slots = cfg, slots
+        self.obs = obs
         self.prompt_len, self.cap = prompt_len, max_new_cap
         self.temperature, self.pad_token = temperature, pad_token
         self.draft_k = draft_k
@@ -321,6 +371,7 @@ class ContinuousBatchingScheduler:
         self.graphs = use_graphs(graphs, self.device)
         self._st: Optional[Dict] = None         # the pool state, see _state
         self._graphs: Dict[int, StepGraph] = {}  # 0: the step; K: a round
+        self._chunk_graphs: Dict[int, StepGraph] = {}   # slot -> its chunk
         self.paged = paged
         self.prefix_sharing = prefix_sharing
         if paged is not None:
@@ -343,6 +394,9 @@ class ContinuousBatchingScheduler:
             self.prefill_chunk = prompt_len
             self._p_pad = prompt_len
         self.last_prefix_plan = None
+        # the reference's branch indices: its lax.switch order
+        self._branch_code = dict(harvest=0, admit=1, prefill=2,
+                                 step=3 if paged is not None else 2)
 
     # -- KV footprint accounting ---------------------------------------
 
@@ -363,12 +417,16 @@ class ContinuousBatchingScheduler:
     # -- pool state ----------------------------------------------------
 
     def graph_stats(self) -> Dict[str, Dict]:
-        """Per captured body (``step``, or ``round_k<K>``): capture
-        seconds, pool bytes, replays and kernel launches per replay."""
-        return {("step" if k == 0 else f"round_k{k}"): dict(
-                    capture_s=g.capture_s, pool_bytes=g.pool_bytes,
-                    replays=g.replays, launches_per_replay=g.launches)
-                for k, g in self._graphs.items() if g.graph is not None}
+        """Per captured body (``step``, ``round_k<K>``, or a slot's
+        prefill chunk, ``chunk_slot<s>``): capture seconds, pool bytes,
+        replays and kernel launches per replay."""
+        named = [("step" if k == 0 else f"round_k{k}", g)
+                 for k, g in self._graphs.items()]
+        named += [(f"chunk_slot{s}", g)
+                  for s, g in self._chunk_graphs.items()]
+        return {name: dict(capture_s=g.capture_s, pool_bytes=g.pool_bytes,
+                           replays=g.replays, launches_per_replay=g.launches)
+                for name, g in named if g.graph is not None}
 
     def _advance(self, st: Dict, K: int = 0) -> None:
         """The step branch: a pooled decode step (K == 0) or a
@@ -389,6 +447,28 @@ class ContinuousBatchingScheduler:
                     else (lambda: me()._spec_step(st, K)))
             self._graphs[K] = StepGraph(body, self.device)
         self._graphs[K]()
+
+    def _prefill_chunk(self, st: Dict, slot: int, toks: torch.Tensor
+                       ) -> torch.Tensor:
+        """The prefill branch's forward: ``lm.prefill_chunk_into_slot`` of
+        ``slot`` on the chunk's tokens (1, C), which starts at the slot's
+        device position; returns the chunk's logits (1, C, V).  When the
+        scheduler captures, each slot's chunk is one graph (its tokens
+        copied into a static buffer first), replayed for every later chunk
+        of that slot; its shapes are the same for every chunk."""
+        if not self.graphs:
+            logits, st["cache"] = lm.prefill_chunk_into_slot(
+                self._params, self.cfg, toks, st["cache"], slot)
+            return logits
+        buf = st["chunk_tok"]
+        buf.copy_(toks)
+        if slot not in self._chunk_graphs:
+            me, cache = weakref.ref(self), st["cache"]
+            self._chunk_graphs[slot] = StepGraph(
+                lambda: lm.prefill_chunk_into_slot(
+                    me()._params, me().cfg, buf, cache, slot)[0],
+                self.device)
+        return self._chunk_graphs[slot]()
 
     def _state(self) -> Dict:
         """The pool state at the start of a run.  Its tensors are made by
@@ -412,6 +492,9 @@ class ContinuousBatchingScheduler:
                         rung=((), torch.int32, 0))
         if self.paged is not None:
             init["ref"] = ((self.paged.n_blocks,), torch.int32, 0)
+            if self.graphs:
+                init["chunk_tok"] = ((1, self.prefill_chunk), torch.int64,
+                                     pad)
         if self._st is None:
             st = {k: torch.empty(shape, dtype=dt, device=dev)
                   for k, (shape, dt, _) in init.items()}
@@ -423,6 +506,11 @@ class ContinuousBatchingScheduler:
             else:
                 st["cache"] = lm.init_cache(self.cfg, B, self.max_seq,
                                             device=dev)
+            if self.obs is not None:
+                st["obs"] = obs_rings.init_obs_state(self.obs, dev)
+                # the step bodies' int32 constants (branch codes, zero),
+                # made outside any capture
+                st["obs_k"] = torch.arange(4, dtype=torch.int32, device=dev)
             self._st = st
         st = self._st
         for k, (_, _, value) in init.items():
@@ -431,7 +519,23 @@ class ContinuousBatchingScheduler:
             t.zero_()
         if self.paged is not None:
             st["ref"][0] = 1                    # the trash block's pin
+        if self.obs is not None:
+            obs_rings.reset_obs_state(st["obs"])
         return st
+
+    def _tick(self, st: Dict, live: torch.Tensor, tok: torch.Tensor,
+              drafted=None, accepted=None, stall=None) -> None:
+        """A step body's ring sample (``obs_rings.iter_tick``), int32
+        device values, at the device clock, which it then advances."""
+        obs, k = st["obs"], st["obs_k"]
+        free = ((st["ref"] == 0).sum(dtype=torch.int32)
+                if self.paged is not None else None)
+        obs_rings.iter_tick(
+            obs, obs["n_iter"], k[self._branch_code["step"]], live,
+            k[0] if drafted is None else drafted,
+            k[0] if accepted is None else accepted, free, tok=tok,
+            stall=stall)
+        obs["n_iter"].add_(1)
 
     def _first_token(self, st: Dict, slot: int, logits: torch.Tensor,
                      key: Optional[torch.Tensor]) -> torch.Tensor:
@@ -502,6 +606,10 @@ class ContinuousBatchingScheduler:
         st["out"][ar, idx] = torch.where(live, tok, row)
         n_gen = st["n_gen"] + live.to(torch.int32)
         finished = live & ((tok == st["stop"]) | (n_gen >= st["max_new"]))
+        if self.obs is not None:
+            # every live slot emits one token, so none stalls
+            n_live = live.sum(dtype=torch.int32)
+            self._tick(st, n_live, n_live, stall=0)
         st["last_tok"].copy_(tok[:, None])
         st["n_gen"].copy_(n_gen)
         st["pending"].logical_or_(finished)
@@ -571,6 +679,10 @@ class ContinuousBatchingScheduler:
         ema = torch.where(drafted > 0, 0.8 * st["acc_ema"] + 0.2 * rate,
                           st["acc_ema"])
         R = len(self._rungs)
+        if self.obs is not None:
+            self._tick(st, live.sum(dtype=torch.int32),
+                       n_emit.sum(dtype=torch.int32),
+                       drafted.to(torch.int32), accepted.to(torch.int32))
         st["last_tok"].copy_(torch.where(n_emit[:, None] > 0,
                                          new_last.long(), st["last_tok"]))
         pos.copy_(pos0 + n_emit)
@@ -611,15 +723,21 @@ class ContinuousBatchingScheduler:
         if len({r.rid for r in requests}) != len(requests):
             raise ValueError("request rids must be unique within a run")
 
-    def _stage(self, requests: Sequence[Request]) -> Dict:
+    def _stage(self, requests: Sequence[Request],
+               arrival_iters: Optional[Sequence[int]] = None) -> Dict:
         """The workload's host plan and its device buffers: prompts padded
-        to the prefill span, and (paged) the prefix plan, per-request
-        block grants and pin counts."""
+        to the prefill span, each request's arrival iteration (0 by
+        default), and (paged) the prefix plan, per-request block grants
+        and pin counts."""
         n = len(requests)
+        if arrival_iters is not None and len(arrival_iters) != n:
+            raise ValueError("arrival_iters length != len(requests)")
         toks = np.full((n, self._p_pad), self.pad_token, np.int64)
         for i, r in enumerate(requests):
             toks[i, :len(r.prompt)] = np.asarray(r.prompt)
-        plan = dict(q_toks=torch.from_numpy(toks).to(self.device))
+        plan = dict(q_toks=torch.from_numpy(toks).to(self.device),
+                    arrival=([0] * n if arrival_iters is None
+                             else [int(a) for a in arrival_iters]))
         if self.paged is None:
             return plan
         lay, C = self.paged, self.prefill_chunk
@@ -648,18 +766,55 @@ class ContinuousBatchingScheduler:
 
     # -- the serve loop ------------------------------------------------
 
-    def run(self, requests: Sequence[Request]) -> ServeReport:
+    def run(self, requests: Sequence[Request],
+            arrival_iters: Optional[Sequence[int]] = None,
+            on_branch=None) -> ServeReport:
         """Serve ``requests`` to completion, admitting them in queue
-        order."""
-        self._check(requests)
-        with torch.inference_mode():
-            return self._run(requests)
+        order, request i no earlier than iteration ``arrival_iters[i]``
+        (an open-loop schedule in loop iterations; default: all at 0).
+        ``on_branch`` (a function of the branch name, then of None when
+        the branch is done) marks each iteration's branch for a caller
+        that records what the branches run (``obs/fingerprint.py``)."""
+        return self._serve(requests, arrival_iters, on_branch)[0]
 
-    def _run(self, requests: Sequence[Request]) -> ServeReport:
+    def run_instrumented(self, requests: Sequence[Request],
+                         arrival_iters: Optional[Sequence[int]] = None):
+        """``run``, with the loop's timeline: returns (report, timeline),
+        timeline ``branch`` (each iteration's branch, as the reference's
+        switch index: harvest 0, admit 1, prefill 2 (paged), step 3
+        (paged) or 2) and ``iter_s`` (each iteration's seconds, between
+        the host's flags reads).  The loop reads the host clock at every
+        iteration in ``run`` too, so this is the same program."""
+        return self._serve(requests, arrival_iters, None)
+
+    def _serve(self, requests, arrival_iters, on_branch):
+        self._check(requests)
+        with torch.inference_mode(), self._collector():
+            return self._run(requests, arrival_iters, on_branch)
+
+    def _collector(self):
+        """With telemetry on, one collector frame over a run whose
+        ``adc_clip`` buffer is the rings' counter slot: the GEMMs add
+        their ADC clips there (kernel rows 1 and 2 directly, so a step
+        graph captured inside it counts at every replay)."""
+        if self.obs is None:
+            return contextlib.nullcontext()
+        ctr = self._state()["obs"]["ctr"]
+        return taps.collect(adc_clip=ctr[obs_rings.CTR_ADC_CLIP:
+                                         obs_rings.CTR_ADC_CLIP + 1])
+
+    def _run(self, requests: Sequence[Request], arrival_iters=None,
+             on_branch=None):
         n, B, paged = len(requests), self.slots, self.paged
-        plan = self._stage(requests)
+        plan = self._stage(requests, arrival_iters)
         st = self._state()
         dev = self.device
+        obs = st.get("obs")
+        arrival = plan["arrival"]
+        # the eager branches' ring records, and the iteration the device
+        # clock holds (a step advances it)
+        rec = obs_rings.EagerRecords() if obs is not None else None
+        code, clock = self._branch_code, 0
         if paged is not None:
             NB, n_tbl, bs = paged.n_blocks, paged.n_tbl, paged.block_size
             ar_nb = torch.arange(NB, dtype=torch.int32, device=dev)
@@ -696,12 +851,15 @@ class ContinuousBatchingScheduler:
             iter_end.append(time.perf_counter() - t0)
             pending = flags[:B].tolist()
             live = flags[B:2 * B].tolist()
+            if rec is not None and paged is not None:
+                rec.set_free(int(flags[2 * B]))     # the last branch's
             occupied = [p or lv or f for p, lv, f in
                         zip(pending, live, filling)]
             if not any(occupied) and q_head >= n:
                 break
             qh = min(q_head, n - 1)
-            can_admit = q_head < n and not all(occupied)
+            can_admit = (q_head < n and not all(occupied)
+                         and arrival[qh] <= n_iter)
             if paged is not None:
                 n_sh = int(pp.n_shared_blocks[qh])
                 src = int(pp.share_src[qh])
@@ -710,13 +868,18 @@ class ContinuousBatchingScheduler:
                 want_pf = any(filling) and (not any(live) or not last_pf)
             else:
                 want_pf = False
+            live0 = sum(live)
             if any(pending):
                 branch = "harvest"
+                if on_branch is not None:
+                    on_branch(branch)
                 slot = pending.index(1)
                 qidx = occupant[slot]
                 res_out[qidx] = st["out"][slot]
                 res_n[qidx] = st["n_gen"][slot]
                 res_iter[qidx] = n_iter
+                if rec is not None:
+                    rec.push(obs_rings.EV_FINISH, requests[qidx].rid, n_iter)
                 st["pending"][slot] = False
                 occupant[slot] = -1
                 if paged is not None:
@@ -727,15 +890,26 @@ class ContinuousBatchingScheduler:
                     st["ref"].index_add_(0, grant.long(),
                                          torch.full_like(grant, -1))
                     st["cache"]["table"][slot] = 0
+                if rec is not None:
+                    rec.tick(n_iter, code[branch], live0, 0,
+                             free_blocks=None if paged is not None else -1)
             elif can_admit:
                 branch = "admit"
+                if on_branch is not None:
+                    on_branch(branch)
                 slot = occupied.index(False)
                 qidx, r = q_head, requests[q_head]
                 occupant[slot] = qidx
+                if rec is not None:
+                    rec.push(obs_rings.EV_ADMIT, r.rid, n_iter)
                 if paged is None:
                     self._arm_slot(st, slot, plan["q_toks"][qidx:qidx + 1],
                                    r.max_new_tokens, r.stop_token, r.rid)
                     res_first[qidx] = n_iter
+                    if rec is not None:
+                        # the whole-prompt prefill samples the first token
+                        rec.push(obs_rings.EV_FIRST, r.rid, n_iter)
+                        rec.tick(n_iter, code[branch], live0, 1)
                 else:
                     n_blk = int(plan["max_blk"][qidx])
                     # the free list is the refcount vector: argsort(free
@@ -772,16 +946,21 @@ class ContinuousBatchingScheduler:
                     st["out"][slot] = self.pad_token
                     if self.temperature > 0:
                         st["keys"][slot] = self._request_key(r.rid)
+                    if rec is not None:
+                        rec.add(obs_rings.CTR_PREFIX_BLOCKS, n_sh)
+                        rec.add(obs_rings.CTR_SHARED_ADMITS, int(n_sh > 0))
+                        rec.tick(n_iter, code[branch], live0, 0,
+                                 free_blocks=None)
                 q_head += 1
             elif want_pf:
                 branch = "prefill"
+                if on_branch is not None:
+                    on_branch(branch)
                 slot = filling.index(True)
                 qidx, r = occupant[slot], requests[occupant[slot]]
                 C, plen, start = self.prefill_chunk, len(r.prompt), fill_pos[slot]
-                logits, st["cache"] = lm.prefill_chunk_into_slot(
-                    self._params, self.cfg,
-                    plan["q_toks"][qidx:qidx + 1, start:start + C],
-                    st["cache"], slot)
+                logits = self._prefill_chunk(
+                    st, slot, plan["q_toks"][qidx:qidx + 1, start:start + C])
                 done = start + C >= plen
                 if done:
                     # the final chunk ran to the padded span; commit pos =
@@ -800,11 +979,21 @@ class ContinuousBatchingScheduler:
                     filling[slot] = False
                     pf_done[qidx] = True
                     res_first[qidx] = n_iter
+                    if rec is not None:
+                        rec.push(obs_rings.EV_FIRST, r.rid, n_iter)
                 else:
                     fill_pos[slot] = start + C
+                if rec is not None:
+                    rec.tick(n_iter, code[branch], live0, int(done),
+                             free_blocks=None)
                 last_pf = True
             else:
                 branch = "step"
+                if on_branch is not None:
+                    on_branch(branch)
+                if obs is not None and clock != n_iter:
+                    obs["n_iter"].fill_(n_iter)       # after eager branches
+                clock = n_iter + 1
                 if spec:
                     # the rung sits after the masks and the free count
                     K = self._rungs[int(flags[2 * B + (paged is not None)])]
@@ -813,6 +1002,8 @@ class ContinuousBatchingScheduler:
                 else:
                     self._advance(st)
                 last_pf = False
+            if on_branch is not None:
+                on_branch(None)
             branches.append(branch)
             n_iter += 1
         wall = time.perf_counter() - t0
@@ -827,7 +1018,8 @@ class ContinuousBatchingScheduler:
         done = [FinishedRequest(
             rid=r.rid, tokens=res_out_h[i, :res_n_h[i]].copy(),
             latency_s=iter_end[res_iter[i] + 1],
-            finish_iter=res_iter[i], first_iter=res_first[i])
+            finish_iter=res_iter[i], first_iter=res_first[i],
+            ttft_s=iter_end[res_first[i] + 1])
             for i, r in enumerate(requests)]
         report = ServeReport(
             finished=done, wall_s=wall, n_steps=counts["step"],
@@ -841,7 +1033,16 @@ class ContinuousBatchingScheduler:
         if paged is not None:
             report.peak_blocks = int(peak)
             report.ref_final = st["ref"].cpu().numpy()
-        return report
+        if obs is not None:
+            rec.apply(obs)
+            report.obs = obs_rings.harvest_obs(
+                self.obs, obs, n_iter=n_iter, wall_s=wall, slots=B,
+                n_steps=report.n_steps, n_drafted=report.n_drafted,
+                n_accepted=report.n_accepted, paged=paged is not None)
+        timeline = dict(
+            branch=np.asarray([code[b] for b in branches], np.int32),
+            iter_s=np.diff(np.asarray(iter_end)))
+        return report, timeline
 
     def run_lockstep(self, requests: Sequence[Request]) -> ServeReport:
         """Lock-step baseline through the SAME per-slot machinery: waves
@@ -856,7 +1057,7 @@ class ContinuousBatchingScheduler:
         plan = self._stage(requests)
         done: List[FinishedRequest] = []
         n_steps = n_admits = syncs = 0
-        with torch.inference_mode():
+        with torch.inference_mode(), self._collector():
             st = self._state()
             t0 = time.perf_counter()
             for w0 in range(0, len(requests), self.slots):
@@ -969,3 +1170,37 @@ def shared_prefix_requests(n: int, prefix_len: int, min_len: int,
                             max_new_tokens=int(
                                 stop_lengths[i % len(stop_lengths)])))
     return reqs
+
+
+def multi_tenant_trace(n_requests: int, max_prompt: int, vocab: int,
+                       block_size: int, n_tenants: int = 3, seed: int = 0,
+                       arrival_rate: float = 0.5):
+    """Open-loop multi-tenant workload (the reference's
+    ``benchmarks/serve_bench.py::multi_tenant_trace``, draw for draw):
+    ``n_tenants`` tenants, each with a shared system prompt (a
+    block-aligned prefix the paged scheduler can share), per-request tails
+    of mixed length, decode budgets of 4-12 tokens and Poisson arrivals
+    (exponential inter-arrival times in loop iterations).  Prompts top out
+    at ``max_prompt``; request 0 is the one long prompt (the
+    admission-stall stressor), the rest are chat-sized.  Returns
+    (requests, arrival_iters)."""
+    rng = np.random.default_rng(seed)
+    pre_blocks = [3, 1, 2, 4, 2, 3][:n_tenants]
+    prefixes = [rng.integers(0, vocab, nb * block_size, dtype=np.int32)
+                for nb in pre_blocks]
+    reqs, arrivals = [], []
+    t = 0.0
+    for i in range(n_requests):
+        pre = prefixes[i % n_tenants]     # round-robin keeps tenants mixed
+        if i == 0:
+            tail = max_prompt - len(pre)
+        else:
+            tail = int(rng.integers(
+                1, min(max_prompt - len(pre), 3 * block_size) + 1))
+        prompt = np.concatenate(
+            [pre, rng.integers(0, vocab, tail, dtype=np.int32)])
+        reqs.append(Request(rid=i, prompt=prompt,
+                            max_new_tokens=int(rng.integers(4, 13))))
+        arrivals.append(int(t))
+        t += rng.exponential(1.0 / arrival_rate)
+    return reqs, arrivals

@@ -7,7 +7,8 @@
       [--speculative [--draft-k 8] [--draft-adc-bits B]
        [--adaptive-draft-k]] \
       [--continuous [--requests 8] [--paged-blocks N [--block-size 16]
-       [--prefill-chunk C] [--no-prefix-sharing]]]
+       [--prefill-chunk C] [--no-prefix-sharing]]] \
+      [--metrics] [--metrics-out PATH] [--trace-out PATH]
 
 Counterpart of ``repro/launch/serve.py``.  ``serve`` prefills one fixed
 batch together and decodes in lock step for exactly ``gen`` tokens,
@@ -44,13 +45,28 @@ compiled executables; ``--no-graphs`` (``graphs=False``) runs them
 eagerly, and the CPU always does.  Runs on CUDA unless ``--device cpu``
 is given; without ``--smoke`` it serves the full width and depth of the
 arch.
+
+Telemetry (``obs/``).  Every driver records the spans ``serve.pack``,
+``serve.compile`` (the kernel build before the first forward and, when
+captured, the first step's graph capture, a span inside the decode
+span), ``serve.prefill`` and ``serve.decode`` (``serve.workload`` for
+the scheduler's run) through the obs tracer (``--trace-out`` appends
+them as JSON lines).  ``metrics=True`` (``--metrics``) also publishes
+the run's totals into ``obs.REGISTRY`` and returns its snapshot in
+``stats["metrics"]`` and the spans in ``stats["spans"]``;
+``serve_continuous(metrics=True or an ObsConfig)`` serves with the
+scheduler's device rings and returns their snapshot in
+``stats["telemetry"]``.  ``--metrics-out PATH`` writes the registry's
+Prometheus text exposition there.  The tokens are the same with metrics
+on and off.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import statistics
 import time
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -60,6 +76,7 @@ from ..configs import ARCHS, get_config
 from ..core import prng
 from ..data import DataConfig, batch_at
 from ..models import lm
+from ..obs import REGISTRY, ObsConfig, get_tracer, set_trace_path, span
 from ..plan import draft_plan_for_model
 from .graphs import StepGraph, use_graphs
 from .paging import PagedLayout, cdiv
@@ -71,6 +88,24 @@ from .scheduler import (ContinuousBatchingScheduler, greedy_accept,
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _build_kernels(device: torch.device, cim: bool) -> None:
+    """The kernel build, under the ``serve.compile`` span (nvcc at first
+    use; loading the libraries after): only CIM serving on a CUDA
+    device launches kernels."""
+    if cim and device.type == "cuda":
+        from ..kernels import build
+        build.load_all()
+
+
+def _first_call(fn, captured: bool):
+    """``fn()``: a captured body's first call (a real step, then its
+    graph capture) under a ``serve.compile`` span."""
+    if not captured:
+        return fn()
+    with span("serve.compile", graph=True):
+        return fn()
 
 
 def _model_config(arch: str, smoke: bool, cim: bool, plan, fuse: bool,
@@ -135,9 +170,15 @@ def serve(arch: str, smoke: bool = True, batch: int = 4, prompt_len: int = 32,
           seed: int = 0, return_stats: bool = False,
           fuse: bool = True, device=None, params=None,
           use_kernel=None, plan=None, graphs: Optional[bool] = None,
-          noise_seed: Optional[int] = None, pack: bool = True):
+          noise_seed: Optional[int] = None, pack: bool = True,
+          metrics: bool = False):
     """Returns the generated tokens (batch, gen) as int32 numpy; with
     ``return_stats=True``, (tokens, stats).
+
+    ``metrics=True`` publishes the run's totals into ``obs.REGISTRY``
+    (tokens, decode tok/s, the mean decode-step seconds) and returns its
+    snapshot as ``stats["metrics"]`` and the recorded spans as
+    ``stats["spans"]``; the lock-step driver has no device rings.
 
     Under CIM the projections are packed once (``pack``, the default) or,
     with ``pack=False``, served from the raw weights, which every macro
@@ -183,19 +224,23 @@ def serve(arch: str, smoke: bool = True, batch: int = 4, prompt_len: int = 32,
         _sync(dev)
         t0 = time.perf_counter()
         if pack:
-            params = lm.pack_cim_params(params, cfg, dev)
-        _sync(dev)
+            with span("serve.pack", arch=arch):
+                params = lm.pack_cim_params(params, cfg, dev)
+                _sync(dev)
         t_pack = time.perf_counter() - t0
         pack_bytes = tree_bytes(params)
 
+        with span("serve.compile", arch=arch):
+            _build_kernels(dev, cim)
         cache = lm.init_cache(cfg, batch, prompt_len + gen, device=dev)
         # sampling draws from its own stream, not the params-init one
         key = sampling_key(seed, dev) if temperature > 0 else None
         _sync(dev)
         t0 = time.perf_counter()
-        logits, cache = lm.prefill(params, cfg, tokens, cache)
-        tok = lockstep_sample(logits[:, -1], key, temperature)
-        _sync(dev)
+        with span("serve.prefill", arch=arch):
+            logits, cache = lm.prefill(params, cfg, tokens, cache)
+            tok = lockstep_sample(logits[:, -1], key, temperature)
+            _sync(dev)
         t_prefill = time.perf_counter() - t0
 
         # the step's static state: the token, the output and the column
@@ -207,14 +252,15 @@ def serve(arch: str, smoke: bool = True, batch: int = 4, prompt_len: int = 32,
                            key)
         step = StepGraph(body, dev) if captured else body
         t0 = time.perf_counter()
-        for i in range(gen - 1):
-            if i == 1 and captured:
-                _sync(dev)
-                t_replay0 = time.perf_counter()
-            logits = step()
-        _sync(dev)
-        t_end = time.perf_counter()
-        gen_tokens = out.to(torch.int32).cpu().numpy()
+        with span("serve.decode", arch=arch, steps=gen - 1):
+            for i in range(gen - 1):
+                if i == 1 and captured:
+                    _sync(dev)
+                    t_replay0 = time.perf_counter()
+                logits = _first_call(step, captured) if i == 0 else step()
+            _sync(dev)
+            t_end = time.perf_counter()
+            gen_tokens = out.to(torch.int32).cpu().numpy()
         t_decode = time.perf_counter() - t0
 
     steps = gen - 1
@@ -234,6 +280,18 @@ def serve(arch: str, smoke: bool = True, batch: int = 4, prompt_len: int = 32,
         stats.update(capture_s=step.capture_s,
                      graph_pool_bytes=step.pool_bytes,
                      replay_tok_s=batch * (gen - 2) / (t_end - t_replay0))
+    if metrics:
+        REGISTRY.counter(
+            "serve_tokens_total",
+            "tokens emitted by the serving drivers").inc(batch * gen)
+        REGISTRY.gauge("serve_decode_tok_s",
+                       "lock-step decode throughput").set(decode_tok_s)
+        REGISTRY.histogram(
+            "serve_decode_step_seconds", "mean decode-step latency",
+            buckets=(0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0)).observe_many(
+            [t_decode / steps] * steps if steps else [])
+        stats["metrics"] = REGISTRY.snapshot()
+        stats["spans"] = get_tracer().drain()
     mode = ("cim-" + ("packed" if pack else "unpacked")
             + ("-planned" if plan is not None else "")
             if cim else "fp") + (", captured" if captured else "")
@@ -340,7 +398,8 @@ def serve_speculative(arch: str, smoke: bool = True, batch: int = 2,
                       fuse: bool = True,
                       compare_baseline: bool = True,
                       return_stats: bool = False, device=None, params=None,
-                      use_kernel=None, graphs: Optional[bool] = None):
+                      use_kernel=None, graphs: Optional[bool] = None,
+                      metrics: bool = False):
     """Plan-cascade speculative lock-step driver.
 
     The draft plan (``plan.draft_plan_for_model``: the all-analog shadow
@@ -365,7 +424,10 @@ def serve_speculative(arch: str, smoke: bool = True, batch: int = 2,
     ``acceptance_rate``, ``tokens_per_round`` and ``decode_tok_s`` (and
     ``decode_speedup_speculative`` when ``compare_baseline``); when
     captured, ``capture_s``, ``graph_pool_bytes`` and ``replay_tok_s``
-    (the rounds after the first alone)."""
+    (the rounds after the first alone).  ``metrics=True`` publishes the
+    tokens, drafted and accepted counts and the decode tok/s into
+    ``obs.REGISTRY`` and returns ``stats["metrics"]`` and
+    ``stats["spans"]``, as ``serve`` does."""
     dev = resolve_device(device)
     captured = use_graphs(graphs, dev)
     cfg, cim = _model_config(arch, smoke, cim, plan, fuse, use_kernel)
@@ -385,18 +447,22 @@ def serve_speculative(arch: str, smoke: bool = True, batch: int = 2,
         _sync(dev)
         t0 = time.perf_counter()
         if cim:
-            params = lm.pack_cim_params(params, cfg, dev)
-        _sync(dev)
+            with span("serve.pack", arch=arch):
+                params = lm.pack_cim_params(params, cfg, dev)
+                _sync(dev)
         t_pack = time.perf_counter() - t0
+        with span("serve.compile", arch=arch):
+            _build_kernels(dev, cim)
         # live rows can overshoot the target by up to one block a round,
         # and verify writes k rows past the frontier
         cache = lm.init_cache(cfg, batch, prompt_len + gen + 2 * K + 1,
                               device=dev)
         key = sampling_key(seed, dev) if temperature > 0 else None
         t0 = time.perf_counter()
-        logits, cache = lm.prefill(params, cfg, tokens, cache)
-        tok = lockstep_sample(logits[:, -1], key, temperature)
-        first = tok[:, 0].cpu().numpy()
+        with span("serve.prefill", arch=arch):
+            logits, cache = lm.prefill(params, cfg, tokens, cache)
+            tok = lockstep_sample(logits[:, -1], key, temperature)
+            first = tok[:, 0].cpu().numpy()
         t_prefill = time.perf_counter() - t0
 
         target = gen - 1                  # decode tokens after the first
@@ -408,18 +474,20 @@ def serve_speculative(arch: str, smoke: bool = True, batch: int = 2,
         round_ = StepGraph(body, dev) if captured else body
         n_rounds = n_drafted = n_accepted = 0
         t0 = time.perf_counter()
-        while counts.min() < target:
-            got = round_().cpu().numpy()
-            em, ne = got[:, :K + 1], got[:, K + 1]
-            for b in range(batch):
-                rows[b].extend(em[b, :ne[b]].tolist())
-            n_drafted += K * int((counts < target).sum())
-            n_accepted += int(np.maximum(ne - 1, 0).sum())
-            counts += ne
-            n_rounds += 1
-            if n_rounds == 1:             # the replays start after round 1
-                t_replay0 = time.perf_counter()
-                done1 = int(np.minimum(counts, target).sum())
+        with span("serve.decode", arch=arch, draft_k=K):
+            while counts.min() < target:
+                got = (_first_call(round_, captured) if n_rounds == 0
+                       else round_()).cpu().numpy()
+                em, ne = got[:, :K + 1], got[:, K + 1]
+                for b in range(batch):
+                    rows[b].extend(em[b, :ne[b]].tolist())
+                n_drafted += K * int((counts < target).sum())
+                n_accepted += int(np.maximum(ne - 1, 0).sum())
+                counts += ne
+                n_rounds += 1
+                if n_rounds == 1:         # the replays start after round 1
+                    t_replay0 = time.perf_counter()
+                    done1 = int(np.minimum(counts, target).sum())
         t_decode = time.perf_counter() - t0
     gen_tokens = np.asarray([r[:gen] for r in rows], dtype=np.int64)
 
@@ -442,6 +510,18 @@ def serve_speculative(arch: str, smoke: bool = True, batch: int = 2,
                      graph_pool_bytes=round_.pool_bytes,
                      replay_tok_s=(batch * target - done1)
                      / (t0 + t_decode - t_replay0))
+    if metrics:
+        REGISTRY.counter("serve_tokens_total",
+                         "tokens emitted by the serving drivers").inc(
+            batch * gen)
+        REGISTRY.counter("serve_drafted_total",
+                         "speculative draft tokens proposed").inc(n_drafted)
+        REGISTRY.counter("serve_accepted_total",
+                         "speculative draft tokens accepted").inc(n_accepted)
+        REGISTRY.gauge("serve_decode_tok_s",
+                       "lock-step decode throughput").set(decode_tok_s)
+        stats["metrics"] = REGISTRY.snapshot()
+        stats["spans"] = get_tracer().drain()
     print(f"[serve-spec] {arch} (k={K}, draft {stats['draft_plan']}, "
           f"{dev}): batch {batch}, gen {gen} | decode {t_decode:.3f}s "
           f"({decode_tok_s:.1f} tok/s), acceptance "
@@ -478,13 +558,17 @@ def serve_continuous(arch: str, smoke: bool = True, slots: int = 2,
                      compare_lockstep: bool = True, fuse: bool = True,
                      draft_k: int = 0, paged: Optional[PagedLayout] = None,
                      prefill_chunk: Optional[int] = None,
-                     prefix_sharing: bool = True, metrics: bool = False,
+                     prefix_sharing: bool = True,
+                     metrics: Union[bool, ObsConfig] = False,
                      device=None, params=None, plan=None,
                      draft_adc_bits=None, adaptive_draft_k: bool = False,
                      graphs: Optional[bool] = None,
-                     noise_seed: Optional[int] = None):
+                     noise_seed: Optional[int] = None, repeats: int = 1):
     """Continuous-batching driver: a mixed-length request queue served
     from a fixed pool of ``slots`` decode slots (launch/scheduler.py).
+    ``repeats`` reruns the pool (and the lock-step baseline), asserts
+    every rerun's tokens equal, keeps the best run for the report and the
+    per-run median (``tok_s_median``) for the speedup.
 
     Returns (tokens_by_rid, stats).  With ``compare_lockstep=True`` the
     same requests also run through the lock-step wave baseline on the
@@ -504,10 +588,16 @@ def serve_continuous(arch: str, smoke: bool = True, slots: int = 2,
     pool is compared with nothing (rejection sampling matches the
     baseline in distribution only), as in the reference.  ``noise_seed``
     adds the macro's analog noise; it is drawn per pool row, so a noisy
-    pool is not compared either.  Telemetry is not ported yet and
-    raises."""
-    if metrics:
-        raise NotImplementedError("telemetry is not ported yet")
+    pool is not compared either.
+
+    ``metrics`` (True or an ``obs.ObsConfig``) serves with the
+    scheduler's device rings (``obs/rings.py``): the harvested snapshot
+    lands in ``stats["telemetry"]`` and in ``obs.REGISTRY``
+    (``stats["metrics"]``), and the pack, compile and workload spans in
+    ``stats["spans"]``.  The tokens are the same with metrics on and
+    off."""
+    obs = (metrics if isinstance(metrics, ObsConfig)
+           else (ObsConfig() if metrics else None))
     if (draft_k and temperature > 0) or noise_seed is not None:
         compare_lockstep = False
     dev = resolve_device(device)
@@ -525,24 +615,35 @@ def serve_continuous(arch: str, smoke: bool = True, slots: int = 2,
         _sync(dev)
         t0 = time.perf_counter()
         if cim:
-            params = lm.pack_cim_params(params, cfg, dev)
-        _sync(dev)
+            with span("serve.pack", arch=arch):
+                params = lm.pack_cim_params(params, cfg, dev)
+                _sync(dev)
         t_pack = time.perf_counter() - t0
+        with span("serve.compile", arch=arch, n_queue=n_requests):
+            _build_kernels(dev, cim)
     spec = dict(draft_k=draft_k, draft_plan=draft_plan,
                 adaptive_draft_k=adaptive_draft_k, graphs=graphs,
                 temperature=temperature, seed=seed)
     sched = ContinuousBatchingScheduler(
         params, cfg, slots=slots, prompt_len=prompt_len, max_new_cap=cap,
         paged=paged, prefill_chunk=prefill_chunk,
-        prefix_sharing=prefix_sharing, **spec)
-    report = sched.run(requests)
-    want = report.tokens_by_rid()
+        prefix_sharing=prefix_sharing, obs=obs, **spec)
+    with span("serve.workload", arch=arch, n_requests=n_requests,
+              repeats=repeats):
+        runs = [sched.run(requests) for _ in range(repeats)]
+    want = runs[0].tokens_by_rid()
+    for other in runs[1:]:
+        for rid, toks in other.tokens_by_rid().items():
+            np.testing.assert_array_equal(toks, want[rid])
+    report = max(runs, key=lambda r: r.tok_s)
     stats = dict(arch=arch, n_layers=cfg.n_layers, slots=slots,
                  prompt_len=prompt_len, n_requests=n_requests, cim=cim,
                  temperature=temperature, noise_seed=noise_seed,
                  device=str(dev), pack_s=round(t_pack, 4),
                  graphs=sched.graphs, capture=sched.graph_stats(),
-                 continuous=report.summary(), n_iter=report.n_iter,
+                 continuous=report.summary(), repeats=repeats,
+                 tok_s_median=statistics.median(r.tok_s for r in runs),
+                 n_iter=report.n_iter,
                  host_syncs=report.host_syncs,
                  host_syncs_per_iter=report.host_syncs / max(report.n_iter, 1),
                  iter_ms=1e3 * report.wall_s / max(report.n_iter, 1),
@@ -587,15 +688,27 @@ def serve_continuous(arch: str, smoke: bool = True, slots: int = 2,
                                 "the contiguous scheduler")
                 stats["tokens_match_contiguous"] = True
     elif compare_lockstep:
-        base = sched.run_lockstep(requests)
-        for rid, toks in base.tokens_by_rid().items():
-            np.testing.assert_array_equal(
-                want[rid], toks,
-                err_msg=f"request {rid}: continuous batching changed tokens "
-                        "vs the lock-step baseline")
+        base_runs = [sched.run_lockstep(requests) for _ in range(repeats)]
+        for base in base_runs:
+            for rid, toks in base.tokens_by_rid().items():
+                np.testing.assert_array_equal(
+                    want[rid], toks,
+                    err_msg=f"request {rid}: continuous batching changed "
+                            "tokens vs the lock-step baseline")
+        base = max(base_runs, key=lambda r: r.tok_s)
+        base_median = statistics.median(r.tok_s for r in base_runs)
         stats["lockstep"] = base.summary()
+        stats["lockstep_tok_s_median"] = base_median
         stats["tokens_match_lockstep"] = True
-        stats["speedup_vs_lockstep"] = round(report.tok_s / base.tok_s, 2)
+        stats["speedup_vs_lockstep"] = round(
+            stats["tok_s_median"] / base_median, 2)
+    if obs is not None:
+        report.obs.register(REGISTRY)
+        REGISTRY.gauge("serve_decode_tok_s",
+                       "continuous-batching throughput").set(report.tok_s)
+        stats["telemetry"] = report.obs.to_dict()
+        stats["metrics"] = REGISTRY.snapshot()
+        stats["spans"] = get_tracer().drain()
     mode = "cim-packed" if cim else "fp"
     if draft_k:
         mode += f"+spec-k{draft_k}" + ("-adaptive" if adaptive_draft_k
@@ -667,7 +780,18 @@ def main():
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the "
                          "plain reference path)")
+    ap.add_argument("--metrics", action="store_true",
+                    help="telemetry: the scheduler's device rings "
+                         "(--continuous) and the metrics registry")
+    ap.add_argument("--metrics-out", type=str, default=None,
+                    help="write the Prometheus text exposition here "
+                         "(implies --metrics)")
+    ap.add_argument("--trace-out", type=str, default=None,
+                    help="append JSON-lines span traces here")
     args = ap.parse_args()
+    metrics = args.metrics or bool(args.metrics_out)
+    if args.trace_out:
+        set_trace_path(args.trace_out)
     if not args.pack and (args.continuous or args.speculative):
         ap.error("--no-pack serves lock-step only")
     draft_k = args.draft_k if args.speculative else 0
@@ -688,24 +812,30 @@ def main():
             prefix_sharing=args.prefix_sharing, device=args.device,
             draft_k=draft_k, draft_adc_bits=args.draft_adc_bits,
             adaptive_draft_k=args.adaptive_draft_k, graphs=args.graphs,
-            temperature=args.temperature, noise_seed=args.noise_seed)
+            temperature=args.temperature, noise_seed=args.noise_seed,
+            metrics=metrics)
         for rid in sorted(toks):
             print(rid, toks[rid].tolist())
-        return
-    if args.speculative:
+    elif args.speculative:
         toks = serve_speculative(
             args.arch, smoke=args.smoke, batch=args.batch,
             prompt_len=args.prompt_len, gen=args.gen, draft_k=args.draft_k,
             draft_adc_bits=args.draft_adc_bits, seed=args.seed,
             fuse=args.fuse, device=args.device, graphs=args.graphs,
-            temperature=args.temperature)
+            temperature=args.temperature, metrics=metrics)
+        print(np.array2string(toks, max_line_width=120))
     else:
         toks = serve(args.arch, smoke=args.smoke, batch=args.batch,
                      prompt_len=args.prompt_len, gen=args.gen, cim=args.cim,
                      seed=args.seed, fuse=args.fuse, device=args.device,
                      graphs=args.graphs, temperature=args.temperature,
-                     noise_seed=args.noise_seed, pack=args.pack)
-    print(np.array2string(toks, max_line_width=120))
+                     noise_seed=args.noise_seed, pack=args.pack,
+                     metrics=metrics)
+        print(np.array2string(toks, max_line_width=120))
+    if args.metrics_out:
+        with open(args.metrics_out, "w") as f:
+            f.write(REGISTRY.export_prometheus())
+        print(f"[serve] metrics exposition -> {args.metrics_out}")
 
 
 if __name__ == "__main__":

@@ -528,14 +528,19 @@ def plain_attention(q, k, v, q_pos, k_pos, cfg: ModelConfig, is_local,
     s = softcap(s, cfg.attn_softcap)
     msk = _mask(q_pos, k_pos, is_local, cfg.sliding_window, n_prefix)
     s = torch.where(msk[:, None, None, :, :], s, _NEG)
-    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    s = s - s.amax(dim=-1, keepdim=True)
     if q.is_cuda:
+        e = torch.exp(s)
         p = e / _tree_sum(e)[..., None]
         vt = v.to(torch.float32).permute(0, 2, 3, 1)[:, :, None, None]
         pv = p.to(v.dtype).to(torch.float32)[..., None, :] * vt
         out = _tree_sum(pv).permute(0, 3, 1, 2, 4).to(v.dtype)
         return out.reshape(B, Sq, Hq, Dh)
-    p = e / e.sum(dim=-1, keepdim=True)          # jax.nn.softmax's form
+    # jax.nn.softmax as the reference's compiled CPU code runs it: XLA's
+    # exp and its windowed sum (torch's exp differs on about a sixth of
+    # float32 inputs, and its sum order from the windows')
+    e = prng.exp(s)
+    p = e / _window_sum(e)[..., None]
     out = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype).to(torch.float32),
                        v.to(torch.float32)).to(v.dtype)
     return out.reshape(B, Sq, Hq, Dh)

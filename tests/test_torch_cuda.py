@@ -17,7 +17,9 @@ rounds p to bf16 first; it is held to the tolerance written beside it.
 The serving drivers' captured graphs (``launch/graphs.py``) are held to
 their eager runs with ``==`` on tokens and logits, and on launch counts,
 sampled and noisy serving included; the card's threefry draws and noisy
-GEMM ints to the CPU port's with ``==``.
+GEMM ints to the CPU port's with ``==``.  Rows 1 and 2 count the clipped
+ADC conversions as their plain version does, with ``==``, and the
+telemetry rings a captured step writes equal the eager step's.
 """
 import dataclasses
 
@@ -957,3 +959,155 @@ def test_profile_through_kernels_equals_plain(dev):
         else:
             assert launched == (0, 0)
     assert tables[None] == tables[False]
+
+
+# ---------------------------------------------------------------------------
+# telemetry: the ADC clip count of rows 1 and 2, rings in captured steps
+# ---------------------------------------------------------------------------
+
+# (design point, M) cases of the clip count: the prototype at ADC 7 and 5,
+# the all-analog macro at 5 (which clips on uniform ints), every acc_len
+_CLIP_CFGS = [dict(adc_bits=7), dict(adc_bits=5),
+              dict(adc_bits=5, n_dcim_products=0),
+              dict(adc_bits=5, n_dcim_products=0, acc_len=8),
+              dict(adc_bits=6, n_dcim_products=1, acc_len=32),
+              dict(adc_bits=5, n_dcim_products=0, acc_len=64)]
+
+
+@pytest.mark.parametrize("cfg_kw", _CLIP_CFGS)
+@pytest.mark.parametrize("shape", [(5, 520, 70), (32, 520, 70),
+                                   (33, 520, 70), (100, 1000, 300),
+                                   (4, 2304, 6912), (128, 2304, 11520),
+                                   (4, 5760, 2304), (128, 5760, 2304)])
+def test_clip_count_equals_plain(dev, cfg_kw, shape):
+    """Rows 1 (M <= 32) and 2 count the conversions whose ADC code
+    clipped exactly as the plain version does, ragged M and N and the
+    full-width shapes included; the outputs stay equal."""
+    from repro_torch.obs import taps
+    m, k, n = shape
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(m * 7 + k + n)
+    cfg = CCIMConfig(**cfg_kw)
+    p = engine.pack_quantized_cim_weights(
+        _ints(gen, (k, n), dev), torch.ones((1, n), device=dev), cfg)
+    x = _ints(gen, (m, k), dev)
+    got = {}
+    for use_kernel in (None, False):
+        K.reset_launch_counts()
+        with taps.collect() as fr:
+            y = engine.packed_cim_matmul_int(x, p, cfg=cfg,
+                                             use_kernel=use_kernel)
+            got[use_kernel] = (y, int(taps.drain_sum(fr, "adc_clip")))
+        launched = (K.ccim_matmul_prepacked_skinny_cuda.launches
+                    + K.ccim_matmul_prepacked_general_cuda.launches)
+        assert launched == (1 if use_kernel is None else 0)
+    assert torch.equal(got[None][0], got[False][0])
+    assert got[None][1] == got[False][1]
+    if cfg_kw.get("n_dcim_products") == 0 and cfg.acc_len >= 16:
+        assert got[None][1] > 0
+
+
+def test_clip_counter_off_without_a_collector(dev):
+    """With no collector open the kernels take no counter; an explicit
+    ``clips`` buffer accumulates over calls."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    cfg = CCIMConfig(adc_bits=5, n_dcim_products=0)
+    p = engine.pack_quantized_cim_weights(       # K 512: no padding
+        _ints(gen, (512, 70), dev), torch.ones((1, 70), device=dev), cfg)
+    x = _ints(gen, (4, 512), dev).to(torch.int8)
+    meta = dict(acc_len=16, x_bits=(), dcim_lsb=cfg.dcim_lsb,
+                adc_half=cfg.adc_half_range)
+    buf = torch.zeros((1,), dtype=torch.int32, device=dev)
+    y0 = K.ccim_matmul_prepacked_skinny_cuda(x, p.kernel_w, p.kernel_planes,
+                                             **meta)
+    y1 = K.ccim_matmul_prepacked_skinny_cuda(x, p.kernel_w, p.kernel_planes,
+                                             **meta, clips=buf)
+    one = int(buf)
+    K.ccim_matmul_prepacked_skinny_cuda(x, p.kernel_w, p.kernel_planes,
+                                        **meta, clips=buf)
+    plain = torch.zeros((1,), dtype=torch.int32, device=dev)
+    K.ccim_matmul_prepacked_plain(x, p.kernel_w, p.kernel_planes, **meta,
+                                  clips=plain)
+    assert torch.equal(y0, y1) and one > 0
+    assert int(buf) == 2 * one and int(plain) == one
+    with pytest.raises(ValueError):
+        K.ccim_matmul_prepacked_skinny_cuda(
+            x, p.kernel_w, p.kernel_planes, **meta,
+            clips=torch.zeros((1,), dtype=torch.int64, device=dev))
+
+
+def _obs_sched(obs, graphs, mode="paged"):
+    import dataclasses as dc
+    from repro_torch.configs import get_config
+    from repro_torch.launch import scheduler as TS
+    from repro_torch.launch.paging import PagedLayout
+    from repro_torch.models import lm
+    from repro_torch.plan import draft_plan_for_model
+    cfg = dc.replace(get_config("minicpm-2b", smoke=True), cim_mode=True,
+                     d_head=64)
+    with torch.inference_mode():
+        params = lm.pack_cim_params(lm.init(0, cfg), cfg)
+    kw = dict(slots=4, prompt_len=16, max_new_cap=12, obs=obs, graphs=graphs)
+    if mode == "paged":
+        kw.update(paged=PagedLayout(block_size=4, n_tbl=7, n_blocks=40),
+                  prefill_chunk=8)
+    else:
+        kw.update(draft_k=4, draft_plan=draft_plan_for_model(cfg, 5))
+    reqs = TS.mixed_length_requests(8, 16, cfg.vocab_size,
+                                    stop_lengths=(3, 12, 6, 9), seed=0)
+    return TS.ContinuousBatchingScheduler(params, cfg, **kw), reqs
+
+
+@pytest.mark.parametrize("mode", ["paged", "speculative"])
+def test_captured_rings_equal_eager(dev, mode):
+    """The ring writes a captured step replays equal the eager step's:
+    the harvested snapshot (the wall clock aside), every per-iteration
+    sample and the ADC clips, over two runs of one scheduler; tokens equal
+    the metrics-off run's, one flags read an iteration."""
+    import numpy as np
+    from repro_torch.obs import ObsConfig
+    wall = ("wall_s", "iter_s_est", "ttft_p50_s", "ttft_p95_s")
+    snaps = {}
+    off_sched, reqs = _obs_sched(None, False, mode)
+    want = off_sched.run(reqs).tokens_by_rid()
+    for graphs in (False, True):
+        sched, _ = _obs_sched(ObsConfig(), graphs, mode)
+        for turn in range(2):
+            rep = sched.run(reqs)
+            assert rep.host_syncs == rep.n_iter + 1
+            for rid, toks in rep.tokens_by_rid().items():
+                assert (toks == want[rid]).all(), (graphs, turn, rid)
+            d = rep.obs.to_dict()
+            d = {k_: v for k_, v in d.items() if k_ not in wall}
+            d["spans"] = [{k_: v for k_, v in s.items() if k_ != "ttft_s_est"}
+                          for s in d["spans"]]
+            snaps[graphs, turn] = (d, rep.obs.iter_samples)
+    base = snaps[False, 0]
+    for key, (d, samples) in snaps.items():
+        assert d == base[0], key
+        for name, col in samples.items():
+            assert np.array_equal(col, base[1][name]), (key, name)
+    if mode == "speculative":
+        assert base[0]["counters"]["adc_clip"] > 0
+
+
+def test_metrics_off_graph_unchanged_by_telemetry(dev):
+    """A metrics-off scheduler's captured step holds the same device
+    nodes (kernels, in order) before and after a metrics-on scheduler
+    ran in the process, and the metrics-on graph the same serving-kernel
+    nodes: the rings add only their own small kernels."""
+    import re
+    from repro_torch.obs import ObsConfig
+    from repro_torch.obs.fingerprint import graph_node_names, graph_nodes
+    pat = {s: re.compile(rf"(?<![A-Za-z_]){s}")
+           for s in ("skinny_kernel", "general_kernel", "paged_attn_walk")}
+    names = []
+    for obs in (None, ObsConfig(), None):
+        sched, reqs = _obs_sched(obs, True)
+        sched.run(reqs)
+        g = sched._graphs[0]
+        names.append((graph_node_names(g), graph_nodes(g, pat)[0]))
+    assert names[0][0] == names[2][0]
+    assert names[1][1] == names[0][1] and any(names[0][1].values())
+    assert len(names[1][0]) > len(names[0][0])

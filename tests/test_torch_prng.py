@@ -181,3 +181,18 @@ def test_key_checks():
         P.fold_in(P.PRNGKey(0), -1)
     with pytest.raises(ValueError, match="key"):
         P.bits(torch.zeros(3, dtype=torch.int64), (2,))
+
+
+def test_exp_equals_xla_cpu():
+    """``prng.exp`` is XLA's CPU float32 exp (the decode softmax's):
+    equal to jax's compiled exp bit for bit over the softmax's range,
+    the clamps, the flushed tails and a wide normal spread."""
+    rng = np.random.default_rng(7)
+    v = np.concatenate([
+        rng.uniform(-100.0, 10.0, 1 << 18), rng.uniform(-1.0, 1.0, 1 << 16),
+        rng.standard_normal(1 << 16) * 5.0,
+        [0.0, -0.0, -87.8, -87.7, -88.0, -1e30, 88.7, 88.8, 100.0]]
+    ).astype(np.float32)
+    want = np.asarray(jax.jit(jnp.exp)(jnp.asarray(v)))
+    got = P.exp(torch.from_numpy(v)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))

@@ -174,11 +174,12 @@ def test_serve_continuous_drivers():
 
 
 @pytest.mark.parametrize("kw", [dict(family="ssm"), dict(family="moe"),
-                                dict(obs=object())])
+                                dict(family="hybrid")])
 def test_unported_options_raise(kw):
     """Options the port does not serve yet raise (speculative rounds,
-    ``draft_k``, are served now: tests/test_torch_spec_scheduler.py; and
-    sampling: tests/test_torch_sampling.py)."""
+    ``draft_k``, are served now: tests/test_torch_spec_scheduler.py;
+    sampling: tests/test_torch_sampling.py; and telemetry, ``obs``:
+    tests/test_torch_obs.py)."""
     kw = dict(kw)
     cfg = dataclasses.replace(tget("minicpm-2b", smoke=True),
                               family=kw.pop("family", "dense"))

@@ -221,13 +221,21 @@ def test_adaptive_draft_k_requires_speculative(models):
 
 
 def test_temperature_and_metrics_still_raise(models):
-    """Sampled speculative decoding is served now
-    (tests/test_torch_sampling.py); telemetry still raises, sampled or
-    not."""
+    """Sampled speculative decoding (tests/test_torch_sampling.py) and
+    telemetry (tests/test_torch_obs.py) are both served now: a
+    speculative pool with metrics on, greedy or sampled, gives the
+    metrics-off tokens and counts every one of them."""
+    kw = dict(smoke=True, draft_k=2, n_requests=4, prompt_len=8,
+              stop_lengths=(3, 5), cim=True, device="cpu")
     for temperature in (0.0, 0.7):
-        with pytest.raises(NotImplementedError, match="telemetry"):
-            serve_continuous("minicpm-2b", draft_k=2, metrics=True,
-                             temperature=temperature, device="cpu")
+        off, _ = serve_continuous("minicpm-2b", temperature=temperature,
+                                  **kw)
+        on, st = serve_continuous("minicpm-2b", temperature=temperature,
+                                  metrics=True, **kw)
+        for rid in off:
+            np.testing.assert_array_equal(on[rid], off[rid])
+        assert st["telemetry"]["counters"]["tokens"] == sum(
+            len(t) for t in on.values())
 
 
 def test_rung_ladder(models):

@@ -83,7 +83,7 @@ def build() -> dict:
             raise SystemExit(f"nvcc failed on variant {name}:\n{log}")
         fn = ctypes.CDLL(so).ccim_prepacked_skinny
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-                       + [ctypes.c_void_p])
+                       + [ctypes.c_void_p] * 2)
         fn.restype = ctypes.c_int
         fns[name] = fn
     return fns
@@ -113,7 +113,7 @@ def main() -> int:
     def call(fn, x, w, planes, out):
         err = fn(x.data_ptr(), w.data_ptr(), planes.data_ptr(),
                  out.data_ptr(), x.shape[0], w.shape[0], x.shape[1], 2,
-                 6 | 5 << 4, 11, 64, 16, stream())
+                 6 | 5 << 4, 11, 64, 16, None, stream())
         if err:
             raise RuntimeError(f"launch failed: CUDA error {err}")
 
