@@ -234,7 +234,27 @@ failure.  Phases:
      and off;
  37. the serve_bench twin (``python -m repro_torch.launch.serve_bench
      --smoke --gate``) in a process of its own, its gates held, its JSON
-     document on one line.
+     document on one line;
+ 38. resilience at full width (minicpm-2b, packed and fused, prototype
+     macro) on phase 9's first 8 prompts at half their stop lengths, 8
+     slots, segments of 4 iterations: the clean ``GuardedServer`` run
+     GREEN with no action and the plain captured scheduler's tokens,
+     every rung's graphs captured in ``compile_for`` and none while
+     serving, rows 1-2 launches equal to the hybrid graph's replays
+     times its kernel nodes (plus the probe's and the admits' GEMMs),
+     ``check_replays`` on the analog and hybrid steps; one turn per rung
+     (tok/s, a replayed step) and the digital rung's ``wq()`` and float64
+     GEMM times; the chaos run under the bench's drift ramp twice, RED
+     within 32 tokens on the digital rung, logs equal; the fault-armed
+     fast GEMM (layer 0 ``wo``, M 4) replayed from one graph at clocks 0,
+     12 and 64 equal to its eager call and to the CPU; stuck-at faults
+     on layer 0 of every packed leaf, card == CPU for ``wo`` and ``w2``;
+ 39. the resilience bench twin (``python -m
+     repro_torch.launch.resilience_bench``) in a process of its own, its
+     five gates held.
+
+Depth cuts for time: phase 6 profiles a decode step of the first 4
+layers, and phase 12 serves the first 8 of phase 11's requests.
 
 The serving drivers replay captured graphs by default on the card
 (``launch/graphs.py``), so phases 9, 11, 22 and 24 serve captured.  A
@@ -489,6 +509,10 @@ def _serve_record(stats) -> dict:
     return {k: stats[k] for k in keep if k in stats}
 
 
+# phase 12's queue: the first requests of phase 11's
+PLAIN_PAGED_REQUESTS = 8
+
+
 def continuous_phases(torch, dev, params, cfg_full) -> dict:
     """Phases 9-12: continuous batching at full width, contiguous and
     paged, through ``serve_continuous`` and the scheduler.  Returns the
@@ -600,16 +624,19 @@ def continuous_phases(torch, dev, params, cfg_full) -> dict:
           "branch_counts": rep.branch_counts})
 
     # -- 12. the plain paged read on the card ------------------------------
+    # (the first 8 of the 16 requests: the agreement is reported, and the
+    # plain read's eager queue was the phase's time)
     cfg_plain = dataclasses.replace(cfg, paged_attn_use_kernel=False)
     reset()
-    rep_p = ContinuousBatchingScheduler(packed, cfg_plain, **kw).run(reqs)
+    rep_p = ContinuousBatchingScheduler(packed, cfg_plain, **kw).run(
+        reqs[:PLAIN_PAGED_REQUESTS])
     n_pl = launches()
     check(n_pl["paged_attn"] == 0, "the plain run launched the kernel")
     check(rep_p.ref_final.tolist() == drained,
           "phase 12 refcounts did not drain")
     plain = rep_p.tokens_by_rid()
     agree = [len(plain[r]) == len(pool[r]) and bool((plain[r] == pool[r]).all())
-             for r in pool]
+             for r in plain]
     lg_diff, arg_equal, step_prof = first_step_logits(
         torch, dev, packed, cfg, cfg_plain, reqs[:slots], layout, chunk,
         profile=True)
@@ -3280,6 +3307,312 @@ def serve_bench_phase() -> dict:
     return result
 
 
+# -- phases 38-39: resilience ------------------------------------------------
+
+# phase 38's segment length (the reference bench's) and stuck-at model
+RES_SEGMENT = 4
+RES_STUCK = dict(seed=11, stuck_frac=0.01)
+# the leaves whose layer-0 stuck-at faults phase 38 also draws on the CPU
+RES_CPU_LEAVES = ("layers/attn/wo", "layers/mlp/w2")
+
+
+def _packed_leaves(tree, path=()):
+    """(tree path, leaf) of every packed leaf of a params tree."""
+    from repro_torch.core.engine import FusedPackedCimWeights, PackedCimWeights
+    out = []
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out += _packed_leaves(v, path + (k,))
+        elif isinstance(v, (PackedCimWeights, FusedPackedCimWeights)):
+            out.append((path + (k,), v))
+    return out
+
+
+def _layer0_tree(leaves, device):
+    """A params tree holding layer 0 of each packed leaf, on ``device``,
+    at the leaves' own tree paths (a 2-D leaf's fault draw is layer 0's
+    of the stacked leaf's)."""
+    import torch
+    tree = {}
+    for path, v in leaves:
+        one = v.layer(0)
+        pk = getattr(one, "packed", one)
+        moved = dataclasses.replace(
+            pk, scale=pk.scale.to(device), kernel_w=pk.kernel_w.to(device),
+            kernel_planes=pk.kernel_planes.to(device))
+        if pk is not one:
+            moved = dataclasses.replace(one, packed=moved)
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = moved
+    return tree
+
+
+def resilience_phase(torch, dev, params, cfg_full) -> dict:
+    """Phase 38: resilience at full width (minicpm-2b, 40 layers, seed-0
+    weights, packed and fused, prototype macro) on phase 9's first 8
+    prompts at half their stop lengths, 8 slots, segments of 4 loop
+    iterations: (a) the clean guarded run GREEN with no action, its
+    tokens equal to the plain captured scheduler's, every rung's graphs
+    captured in ``compile_for`` and none while serving, rows 1-2 launches
+    equal to the hybrid graph's replays times its kernel nodes plus the
+    admits' general GEMMs, and ``check_replays`` on the analog and hybrid
+    step graphs; (b) the chaos run under the bench's drift ramp twice,
+    RED and on the digital rung, logs equal; (c) the fault-armed fast
+    GEMM (layer 0 ``wo``, M 4) replayed from one graph at clocks 0, 12
+    and 64 equal to its eager call and unlike the clean output past the
+    onset; (d) the same GEMM on the CPU, and ``apply_weight_faults`` on
+    layer 0 of every packed leaf, card == CPU; (e) one turn per rung
+    (tok/s, a replayed step's ms) and the digital rung's ``wq()`` and
+    float64 GEMM times, reported.  Returns the clean run's launches."""
+    from repro_torch.core.ccim import int_matmul_exact
+    from repro_torch.core.engine import packed_cim_matmul_int
+    from repro_torch.launch.graphs import StepGraph
+    from repro_torch.launch.resilience_bench import _DRIFT
+    from repro_torch.launch.scheduler import (ContinuousBatchingScheduler,
+                                              mixed_length_requests)
+    from repro_torch.models import lm
+    from repro_torch.resilience import failover as FO
+    from repro_torch.resilience import faults as F
+    from repro_torch.resilience import watchdog as W
+
+    slots, plen, stops, n_req = 8, 64, (4, 12, 8, 16), 8
+    cfg = dataclasses.replace(cfg_full, cim_mode=True)
+    reqs = mixed_length_requests(n_req, plen, cfg.vocab_size,
+                                 stop_lengths=stops, seed=0)
+    with torch.inference_mode():
+        packed = lm.pack_cim_params(params, cfg, dev)
+    base = dict(slots=slots, prompt_len=plen, max_new_cap=max(stops))
+    n_gemm = 4 * cfg.n_layers
+
+    # (a) the clean guarded run against the plain captured scheduler
+    t0 = time.time()
+    plain = ContinuousBatchingScheduler(packed, cfg, **base).run(reqs)
+    want = plain.tokens_by_rid()
+    plain_rec = dict(tok_s=plain.tok_s, wall_s=plain.wall_s)
+    del plain
+    server = FO.GuardedServer(packed, cfg, watchdog=W.Watchdog(),
+                              probe=FO.default_probe(packed),
+                              segment_iters=RES_SEGMENT, **base)
+    t1 = time.time()
+    server.compile_for(n_req)
+    torch.cuda.synchronize()
+    compile_s = time.time() - t1
+    caps = server.captures()
+    check(caps == len(server.ladder), f"phase 38: compile_for captured "
+          f"{caps} graphs for {len(server.ladder)} rungs")
+    hybrid = server.scheduler()._graphs[0]
+    replays0 = hybrid.replays
+    _reset_all_launches()
+    rep, log = server.run(reqs)
+    torch.cuda.synchronize()
+    launches = _all_launches()
+    check(server.captures() == caps, "phase 38: a graph was captured while "
+          "serving")
+    check(server.watchdog.state == W.GREEN and not log.actions,
+          f"phase 38 clean: {server.watchdog.state}, actions {log.actions}")
+    got = rep.tokens_by_rid()
+    check(all(_tokens_equal(got[r], want[r]) for r in want),
+          "phase 38 clean: guarded tokens != the plain captured scheduler's")
+    replays = hybrid.replays - replays0
+    credit = hybrid.launches
+    # the hybrid step's replays, and the golden probe's GEMM (M 4, row 1)
+    # once a window
+    check(launches["skinny"] == replays * credit.get(
+        "ccim_matmul_prepacked_skinny_cuda", 0) + log.n_segments
+          and replays > 0,
+          f"phase 38 clean: {launches['skinny']} skinny launches, the graph "
+          f"replayed {replays} times crediting {credit}, "
+          f"{log.n_segments} probes")
+    check(launches["general"] == n_gemm * rep.n_admits,
+          f"phase 38 clean: {launches['general']} general launches, "
+          f"expected {n_gemm} per admit x {rep.n_admits}")
+    with torch.inference_mode():
+        traces = {server.ladder[i].label: check_replays(
+            torch, server._scheds[i]._graphs[0],
+            f"phase 38 rung {server.ladder[i].label}") for i in (0, 1)}
+    clean = dict(tok_s=rep.tok_s, wall_s=rep.wall_s, plain=plain_rec,
+                 n_iter=rep.n_iter,
+                 n_admits=rep.n_admits, compile_s=compile_s, captures=caps,
+                 launches={k: launches[k] for k in ("skinny", "general")},
+                 hybrid_replays=replays, graph_credit=credit,
+                 replay_traces=traces, probe_clean_floor=
+                 server.probe.clean_floor, resilience=log.to_dict(),
+                 t_run_s=time.time() - t0)
+    emit({"phase": "resilience_clean", "ok": True, **clean})
+
+    # (e) one turn per rung on the same server (every rung is captured),
+    # and the digital rung's exact GEMM pieces
+    server.watchdog = server.probe = None     # each turn stays on its rung
+    rungs = []
+    for i, rung in enumerate(server.ladder):
+        server.start_rung = i
+        r, _ = server.run(reqs)
+        with torch.inference_mode():
+            step_ms = cuda_ms(server._scheds[i]._graphs[0], reps=10)
+        rungs.append(dict(rung=i, label=rung.label, tok_s=r.tok_s,
+                          wall_s=r.wall_s, n_iter=r.n_iter,
+                          replayed_step_ms=step_ms,
+                          iter_ms=1e3 * r.wall_s / r.n_iter))
+    check(server.captures() == caps, "phase 38 rungs: captured while serving")
+    del server
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(38)
+    leaves = _packed_leaves(packed)
+    exact = {}
+    with torch.inference_mode():
+        for path, v in leaves:
+            one = v.layer(0)
+            one = getattr(one, "packed", one)
+            xq = torch.randint(-127, 128, (slots, one.k_dim), generator=gen,
+                               device=dev, dtype=torch.int32)
+            wq = one.wq()
+            exact["/".join(path)] = dict(
+                wq_ms=cuda_ms(one.wq, reps=10),
+                f64_gemm_ms=cuda_ms(lambda: int_matmul_exact(xq, wq),
+                                    reps=10))
+    per_layer = sum(v["wq_ms"] + v["f64_gemm_ms"] for v in exact.values())
+    emit({"phase": "resilience_rungs", "ok": True, "rungs": rungs,
+          "digital_exact_layer0": exact, "digital_exact_ms_per_layer":
+          per_layer, "digital_exact_ms_per_step_est":
+          per_layer * cfg.n_layers})
+
+    # (b) the chaos run, twice: RED, the digital rung, equal logs
+    logs, runs = [], []
+    for turn in range(2):
+        fault = F.FaultModel(**_DRIFT)
+        s = FO.GuardedServer(
+            packed, cfg, fault=fault,
+            watchdog=W.Watchdog(W.WatchdogConfig(debounce=1)),
+            probe=FO.default_probe(packed, fault=fault),
+            segment_iters=RES_SEGMENT, **base)
+        s.compile_for(n_req)
+        caps = s.captures()
+        r, lg = s.run(reqs)
+        check(s.captures() == caps, "phase 38 chaos: captured while serving")
+        check(s.watchdog.state == W.RED and lg.actions
+              and lg.final_rung == len(s.ladder) - 1,
+              f"phase 38 chaos: {s.watchdog.state}, final rung "
+              f"{lg.final_rung}, actions {lg.actions}")
+        logs.append(lg.to_dict())
+        runs.append(dict(tok_s=r.tok_s, wall_s=r.wall_s, n_iter=r.n_iter,
+                         total_tokens=r.total_tokens))
+        del s
+    check(logs[0] == logs[1], "phase 38 chaos: two servers' logs differ")
+    det = logs[0]["detection_tokens"]
+    first = next(w for w in logs[0]["watchdog"]["windows"]
+                 if w["state"] != W.GREEN)
+    red = next(w for w in logs[0]["watchdog"]["windows"]
+               if w["state"] == W.RED)
+    check(red["n_iter"] < runs[0]["n_iter"],
+          "phase 38 chaos: RED only when the queue was served")
+    check(det is not None and det <= 32, f"phase 38 chaos: detection at "
+          f"{det} tokens, past the reference's 32-token budget")
+    tok_per_window = runs[0]["total_tokens"] / max(
+        1, logs[0]["n_segments"])
+    emit({"phase": "resilience_chaos", "ok": True, "fault": _DRIFT,
+          "detection_tokens": det, "detection_n_iter": first["n_iter"],
+          "red_n_iter": red["n_iter"], "reference_budget_tokens": 32,
+          "within_reference_budget": det is not None and det <= 32,
+          "tokens_per_window": tok_per_window, "runs": runs,
+          "logs_equal": True, "resilience": logs[0]})
+
+    # (c)/(d) the clock in a replayed graph; card against CPU
+    leaf = W.first_packed_leaf(packed)
+    x = torch.randint(-127, 128, (4, leaf.k_dim), generator=gen, device=dev,
+                      dtype=torch.int32)
+    leaf_cpu = dataclasses.replace(
+        leaf, scale=leaf.scale.cpu(), kernel_w=leaf.kernel_w.cpu(),
+        kernel_planes=leaf.kernel_planes.cpu())
+    mm = lambda xx, p: packed_cim_matmul_int(xx, p, p.cfg)
+    fault = F.FaultModel(**_DRIFT)
+    clk = torch.zeros((), dtype=torch.int32, device=dev)
+    clock_rec = {}
+    with torch.inference_mode():
+        y_clean = mm(x, leaf)
+        with F.inject(fault), F.clock(clk):
+            g = StepGraph(lambda: mm(x, leaf), dev)
+            g()
+            for t in (0, 12, 64):
+                clk.fill_(t)
+                y = g().clone()
+                e = mm(x, leaf)
+                check(torch.equal(y, e), f"phase 38: replay != eager at t {t}")
+                with F.clock(torch.tensor(t, dtype=torch.int32)):
+                    yc = mm(x.cpu(), leaf_cpu)
+                check(torch.equal(y.cpu(), yc),
+                      f"phase 38: card != CPU at t {t}")
+                check(torch.equal(y, y_clean) == (t <= _DRIFT["onset"]),
+                      f"phase 38: clean-equality wrong at t {t}")
+                clock_rec[t] = int((y != y_clean).sum())
+            eager_ms = cuda_ms(lambda: mm(x, leaf), reps=10)
+            replay_ms = cuda_ms(g, reps=20)
+        kernel_ms = cuda_ms(lambda: mm(x, leaf), reps=20)
+    emit({"phase": "resilience_clock", "ok": True, "shape": [
+          4, leaf.k_dim, leaf.n_dim], "replay_equals_eager": True,
+          "card_equals_cpu": True, "changed_outputs_by_clock": clock_rec,
+          "faulted_eager_ms": eager_ms, "faulted_replay_ms": replay_ms,
+          "clean_kernel_ms": kernel_ms})
+
+    # apply_weight_faults on layer 0 of every packed leaf on the card; on
+    # the CPU for the leaves RES_CPU_LEAVES names (the probe's ``wo``, and
+    # ``w2``, whose tag passes 2^31): the CPU's threefry took 40 s for all
+    # four
+    model = F.FaultModel(**RES_STUCK)
+    t1 = time.time()
+    with torch.inference_mode():
+        on_dev = F.apply_weight_faults(model, _layer0_tree(leaves, dev))
+        torch.cuda.synchronize()
+        dev_s = time.time() - t1
+        t1 = time.time()
+        on_cpu = F.apply_weight_faults(model, _layer0_tree(
+            [(p, v) for p, v in leaves if "/".join(p) in RES_CPU_LEAVES],
+            "cpu"))
+        cpu_s = time.time() - t1
+    cpu_leaves = dict(_packed_leaves(on_cpu))
+    masks = {}
+    for path, a in _packed_leaves(on_dev):
+        a = getattr(a, "packed", a)
+        one = dict(leaves)[path].layer(0)
+        one = getattr(one, "packed", one)
+        masks["/".join(path)] = dict(
+            shape=[a.k_dim, a.n_dim], tag=F.path_tag(path),
+            changed_share=float((a.wq() != one.wq()).float().mean()),
+            card_equals_cpu=None)
+        if path in cpu_leaves:
+            b = getattr(cpu_leaves[path], "packed", cpu_leaves[path])
+            check(torch.equal(a.kernel_w.cpu(), b.kernel_w)
+                  and torch.equal(a.kernel_planes.cpu(), b.kernel_planes),
+                  f"phase 38: stuck-at faults of {path} card != CPU")
+            masks["/".join(path)]["card_equals_cpu"] = True
+    check(len(cpu_leaves) == len(RES_CPU_LEAVES), "phase 38: the CPU "
+          f"compared {sorted(cpu_leaves)}, not {RES_CPU_LEAVES}")
+    emit({"phase": "resilience_stuck", "ok": True, "model": RES_STUCK,
+          "layer": 0, "leaves": masks, "card_s": dev_s, "cpu_s": cpu_s})
+    del on_dev, on_cpu, packed
+    return clean["launches"]
+
+
+def resilience_twin_phase() -> dict:
+    """Phase 39: the resilience bench twin at its smoke config in a process
+    of its own (one repeat per rung), its five gates held."""
+    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.resilience_bench",
+         "--repeats", "1"], capture_output=True, text=True, env=env,
+        timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    check(proc.returncode == 0 and lines, "phase 39: resilience_bench "
+          f"exited {proc.returncode}: {proc.stderr[-2000:]}"
+          f"{lines[-1][:4000] if lines else ''}")
+    result = json.loads(lines[-1])
+    emit({"phase": "resilience_bench", "ok": True,
+          "gates": [ln for ln in lines if ln.startswith("#")], **result})
+    return result
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3442,9 +3775,13 @@ def main() -> int:
           "logits_equal": True})
 
     # -- 6. where a full-width decode step spends its device time ----------
-    cfg_cim = dataclasses.replace(cfg_full, cim_mode=True)
+    # (its first PROFILE_LAYERS layers: at full depth reading the trace's
+    # ~9,000 device events took most of the phase)
+    cfg_cim = dataclasses.replace(cfg_full, cim_mode=True,
+                                  n_layers=PROFILE_LAYERS)
     with torch.inference_mode():
-        packed = lm.pack_cim_params(params, cfg_cim, dev)
+        packed = lm.pack_cim_params(_first_layers(params, PROFILE_LAYERS),
+                                    cfg_cim, dev)
         cache = lm.init_cache(cfg_cim, batch, prompt_len + gen_len,
                               device=dev)
         tok = torch.zeros((batch, prompt_len), dtype=torch.int64, device=dev)
@@ -3463,6 +3800,7 @@ def main() -> int:
             wall_ms = 1e3 * (time.perf_counter() - t0) / steps
     del packed, cache
     emit({"phase": "decode_profile", "steps": steps,
+          "n_layers": PROFILE_LAYERS,
           "step_wall_ms": wall_ms, **device_breakdown(prof, steps, wall_ms)})
 
     # -- 7. per-kernel times --------------------------------------------------
@@ -3591,6 +3929,12 @@ def main() -> int:
         torch, dev, params, cfg_full, runs["kernel"][0])
     del params
     serve_bench_phase()
+    # -- 38.-39. resilience: guarded serving, faults, the bench twin -------
+    params = lm.init(0, cfg_full, device=dev)       # phase 4's weights
+    by_path["scheduler_guarded"] = resilience_phase(torch, dev, params,
+                                                    cfg_full)
+    del params
+    resilience_twin_phase()
 
     src = "src/repro_torch/kernels/ccim_matmul/csrc/"
     table = []

@@ -42,6 +42,7 @@ import torch.nn.functional as F
 
 from . import prng
 from ..obs import taps
+from ..resilience import faults
 
 
 @dataclasses.dataclass(frozen=True)
@@ -557,6 +558,15 @@ def fast_gemm_int(xq: torch.Tensor, wf: torch.Tensor,
     count of conversions whose ADC code clipped, ``raw < -half`` or
     ``raw > half - 1``, as the reference's fast path counts them; with
     neither, nothing is counted.
+
+    An armed fault model (``resilience/faults.py``) perturbs the analog
+    quantities only, as the reference does: the ACIM partial takes the
+    per-column gain and offset drift (``a * gain + off * lsb``, one fused
+    multiply-add, as XLA's CPU compiler evaluates it), the conversion the
+    global ADC offset, and the clip range shrinks to ``half_eff =
+    max(1, floor(half * range_scale))``, by which the clips are counted
+    too.  The DCIM sum is never touched.  With no model armed not one op
+    is added.
     """
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -574,6 +584,13 @@ def fast_gemm_int(xq: torch.Tensor, wf: torch.Tensor,
     acc = torch.zeros((M, N), dtype=torch.int32, device=xq.device)
     if clips is None:
         clips = taps.sink("adc_clip", xq.device)
+    fault = faults.active()
+    if fault:
+        f_gain, f_off, f_adc_off, f_scale = faults.epilogue_terms(
+            N, xq.device)
+        f_off = f_off * lsb
+        half_eff = torch.clamp_min(torch.floor(f_scale * half), 1.0)
+        lo, hi = -half_eff, half_eff - 1
     for c0 in range(0, C, cb):
         c1 = min(C, c0 + cb)
         wb = wf[c0:c1].to(f32)
@@ -594,11 +611,20 @@ def fast_gemm_int(xq: torch.Tensor, wf: torch.Tensor,
                     torch.cat([b[c0:c1] for b in x_bit], -1), wpl.abs())
             a_real = _noisy(a_real, a_mag, _fast_gemm_noise(
                 noise_key, M, N, C, noise_segments, c0, c1), cfg)
-        raw = torch.floor(a_real / lsb + 0.5)
-        if clips is not None:
-            clips.add_(((raw < -half) | (raw > half - 1)).sum(
-                dtype=torch.int32))
-        code = torch.clamp(raw, -half, half - 1)
+        if fault:
+            # capacitor-array drift on the analog partial, then the ADC's
+            # conversion offset and its escalated clip
+            a_real = prng.fma(a_real, f_gain, f_off)
+            raw = torch.floor(a_real / lsb + 0.5 + f_adc_off)
+            if clips is not None:
+                clips.add_(((raw < lo) | (raw > hi)).sum(dtype=torch.int32))
+            code = torch.minimum(torch.maximum(raw, lo), hi)
+        else:
+            raw = torch.floor(a_real / lsb + 0.5)
+            if clips is not None:
+                clips.add_(((raw < -half) | (raw > half - 1)).sum(
+                    dtype=torch.int32))
+            code = torch.clamp(raw, -half, half - 1)
         acc += (dcim + code).to(torch.int32).sum(dim=0, dtype=torch.int32)
     return acc
 
@@ -754,8 +780,11 @@ def cim_matmul_int(x_q: torch.Tensor, w_q,
         raise ValueError(
             "per-segment noise streams (fused projection groups) are only "
             f"defined for the 'fast'/'exact' fidelities, got {fidelity!r}")
+    # an armed fault model (resilience/faults.py) lives in the fast
+    # GEMM's epilogue only: the kernels model the nominal macro
     if fidelity == "fast" and (noise_key is not None
-                               or not _prepacked_kernel_supported(cfg)):
+                               or not _prepacked_kernel_supported(cfg)
+                               or faults.active()):
         xq, wq = _chunk_operands(x_q, w_q, cfg.acc_len)
         return hybrid_mac_fast_gemm(xq, wq, noise_key, cfg,
                                     noise_segments) * cfg.dcim_lsb

@@ -37,6 +37,7 @@ from .ccim import (CCIMConfig, DEFAULT_CONFIG, MacroInstance, _dcim_by_j,
                    split_sign_mag)
 from ..kernels.ccim_matmul import ops as kops
 from ..kernels.ccim_matmul.kernel import chunked_operands
+from ..resilience import faults
 
 
 @dataclasses.dataclass(frozen=True)
@@ -227,7 +228,8 @@ def packed_cim_matmul_int(
     outside the kernels' envelope (``_prepacked_kernel_supported``),
     'fast' runs ``ccim.hybrid_mac_fast_gemm_prepacked`` on int8 views of
     the pack instead, as the reference routes such GEMMs off its
-    kernels.
+    kernels; so does an armed fault model (``resilience/faults.py``),
+    whose drifted conversion epilogue the kernels do not model.
     The other fidelities rebuild the raw ints (one O(K*N) copy, dwarfed
     by their own work) and take ``ccim.cim_matmul_int``."""
     if packed.kernel_w.dim() != 2:
@@ -247,7 +249,8 @@ def packed_cim_matmul_int(
                               use_kernel=use_kernel, macro=macro,
                               noise_segments=noise_segments)
     x_bits = tuple(_dcim_by_j(cfg))
-    if noise_key is not None or not _prepacked_kernel_supported(cfg):
+    if (noise_key is not None or not _prepacked_kernel_supported(cfg)
+            or faults.active()):
         # off the kernels, as the reference: the chunked fast GEMM on
         # int8 views of the pack (a design point outside the kernels'
         # envelope takes it noise-free)

@@ -2,8 +2,8 @@
 
 Counterpart of the ``jax.random`` calls the reference makes while
 serving and in its macro models: ``PRNGKey``, ``fold_in``, ``split``,
-``bits``, ``uniform``, ``randint``, ``normal``, ``gumbel`` and
-``categorical``, under jax's default
+``bits``, ``uniform``, ``bernoulli``, ``randint``, ``normal``,
+``gumbel`` and ``categorical``, under jax's default
 ``jax_threefry_partitionable=True`` scheme:
 
   * a key is two uint32 words; here a ``(..., 2)`` int64 tensor holding
@@ -198,6 +198,13 @@ def uniform(key: torch.Tensor, shape: Shape, lo: float = 0.0,
     """float32 uniforms in [lo, hi) of ``shape`` (after the key's leading
     axes), ``jax.random.uniform``'s."""
     return uniform_from_bits(bits(key, shape), lo, hi)
+
+
+def bernoulli(key: torch.Tensor, p: float, shape: Shape) -> torch.Tensor:
+    """bool draws of ``shape``, True with probability ``p``:
+    ``jax.random.bernoulli``'s (mode "low"), a float32 uniform compared
+    with ``p`` rounded to float32 (the dtype jax gives a Python float)."""
+    return uniform(key, shape) < float(np.float32(p))
 
 
 def _f32(hex_double: str) -> float:

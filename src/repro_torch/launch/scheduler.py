@@ -115,6 +115,18 @@ directly.  The rings only read values the loop already computes, so the
 tokens are equal with metrics on and off, and the loop reads the device
 no more often (``host_syncs == n_iter + 1``); ``harvest_obs`` reads them
 in one transfer after the loop.
+
+Segments and faults (``resilience/failover.py``).  A run is ``_begin``
+(the staged workload, the reset state, the host mirrors), ``_iterate``
+and ``_finish``; ``_iterate(lp, budget)`` stops once the loop's
+iteration count reaches ``budget`` and the next call resumes exactly
+there, in this scheduler or in a sibling that runs on the same pool
+state (``share_state``): the guarded server's segments, its rung
+switches, and ``capture_graphs``, which captures every graph before a
+run.  Under an armed fault model (``resilience/faults.py``) each
+iteration writes its index into the state's device clock
+``fault_clock`` before its branch, and the GEMMs read the drift there,
+captured steps included; with none armed the loop runs not one op more.
 """
 from __future__ import annotations
 
@@ -133,6 +145,7 @@ from ..models.config import ModelConfig
 from ..obs import rings as obs_rings
 from ..obs import taps
 from ..obs.rings import ObsConfig, ObsSnapshot
+from ..resilience import faults
 from .graphs import StepGraph, use_graphs
 from .paging import PagedLayout, cdiv, contiguous_kv_bytes, plan_prefix_sharing
 
@@ -308,6 +321,23 @@ class ServeReport:
         return {f.rid: f.tokens for f in self.finished}
 
 
+class _Loop:
+    """The host side of one run in progress: the staged workload, the
+    pool state it runs on, the per-request result buffers, and the host
+    mirrors of what the host decides (slot occupants, filling slots and
+    their chunk starts, the queue head, the iteration count, the branch
+    record).  A run stopped at a segment boundary resumes from it."""
+
+    def __init__(self):
+        self.done = False
+        self.q_head = self.n_iter = self.syncs = self.draft_steps = 0
+        self.clock = 0                  # the iteration the obs clock holds
+        self.last_pf = False
+        self.flags = None               # the last flags read
+        self.iter_end: List[float] = []  # run clock at each flags read
+        self.branches: List[str] = []
+
+
 class ContinuousBatchingScheduler:
     """Fixed-slot continuous batching, greedy or sampled.
 
@@ -372,6 +402,7 @@ class ContinuousBatchingScheduler:
         self._st: Optional[Dict] = None         # the pool state, see _state
         self._graphs: Dict[int, StepGraph] = {}  # 0: the step; K: a round
         self._chunk_graphs: Dict[int, StepGraph] = {}   # slot -> its chunk
+        self._graph_fault = None   # the fault model the graphs hold
         self.paged = paged
         self.prefix_sharing = prefix_sharing
         if paged is not None:
@@ -438,6 +469,7 @@ class ContinuousBatchingScheduler:
             else:
                 self._step(st)
             return
+        self._check_graph_fault()
         if K not in self._graphs:
             # the graph holds its body, which must not hold the scheduler:
             # a cycle would keep the packed weights, the KV cache and the
@@ -460,6 +492,7 @@ class ContinuousBatchingScheduler:
             logits, st["cache"] = lm.prefill_chunk_into_slot(
                 self._params, self.cfg, toks, st["cache"], slot)
             return logits
+        self._check_graph_fault()
         buf = st["chunk_tok"]
         buf.copy_(toks)
         if slot not in self._chunk_graphs:
@@ -469,6 +502,66 @@ class ContinuousBatchingScheduler:
                     me()._params, me().cfg, buf, cache, slot)[0],
                 self.device)
         return self._chunk_graphs[slot]()
+
+    def _check_graph_fault(self) -> None:
+        """A captured graph holds the fault epilogue armed at its capture
+        (``resilience/faults.py``), or none: replaying it under another
+        arming would silently serve the other macro, so that raises."""
+        armed = faults.site().model if faults.active() else None
+        if not (self._graphs or self._chunk_graphs):
+            self._graph_fault = armed
+        elif armed != self._graph_fault:
+            raise RuntimeError(
+                f"this scheduler's graphs were captured under fault model "
+                f"{self._graph_fault}, not {armed}: serve an armed model "
+                "from a scheduler of its own")
+
+    def capture_graphs(self) -> int:
+        """Capture, before any run, every graph a run replays: the pooled
+        step or each rung's speculative round, and (paged) each slot's
+        prefill chunk, under the fault model armed now (if any) and the
+        telemetry collector.  A graph's first call is one real eager step
+        on the pool state, which is empty here; the state is then reset
+        to its start-of-run values, as every run resets it, so nothing
+        of the warm-up reaches a run.  Returns the number of graphs
+        captured (0 when the scheduler does not capture)."""
+        if not self.graphs:
+            return 0
+        before = len(self._graphs) + len(self._chunk_graphs)
+        st = self._state()
+        with torch.inference_mode(), self._collector(st):
+            fclock = self._fault_clock(st)
+            with (faults.clock(fclock) if fclock is not None
+                  else contextlib.nullcontext()):
+                for K in (self._rungs if self.draft_k else [0]):
+                    if K not in self._graphs:
+                        self._advance(st, K)
+                if self.paged is not None:
+                    toks = torch.full((1, self.prefill_chunk),
+                                      self.pad_token, dtype=torch.int64,
+                                      device=self.device)
+                    for slot in range(self.slots):
+                        if slot not in self._chunk_graphs:
+                            self._prefill_chunk(st, slot, toks)
+        self._state()
+        return len(self._graphs) + len(self._chunk_graphs) - before
+
+    def share_state(self, other: "ContinuousBatchingScheduler") -> None:
+        """Run on ``other``'s pool state from now on: a sibling scheduler
+        (same params, slot geometry, telemetry and sampling, a
+        pack-compatible plan) whose runs and segments this scheduler can
+        continue.  Its graphs, captured on that state, stay its own."""
+        if self._graphs or self._chunk_graphs:
+            raise RuntimeError("share_state after a capture: the graphs "
+                               "hold the old state")
+        same = lambda a: (a.slots, a.cap, a.prompt_len, a.max_seq, a.paged,
+                          a.prefill_chunk, a.obs, a.temperature,
+                          a.pad_token, a.draft_k, a.device)
+        if same(self) != same(other):
+            raise ValueError("share_state needs the same slot geometry, "
+                             "telemetry, sampling and device")
+        other._state()
+        self._st = other._st
 
     def _state(self) -> Dict:
         """The pool state at the start of a run.  Its tensors are made by
@@ -792,54 +885,94 @@ class ContinuousBatchingScheduler:
         with torch.inference_mode(), self._collector():
             return self._run(requests, arrival_iters, on_branch)
 
-    def _collector(self):
+    def _collector(self, st: Optional[Dict] = None):
         """With telemetry on, one collector frame over a run whose
         ``adc_clip`` buffer is the rings' counter slot: the GEMMs add
         their ADC clips there (kernel rows 1 and 2 directly, so a step
-        graph captured inside it counts at every replay)."""
+        graph captured inside it counts at every replay).  ``st`` is a
+        run's pool state in progress (default: the state reset for a new
+        run)."""
         if self.obs is None:
             return contextlib.nullcontext()
-        ctr = self._state()["obs"]["ctr"]
+        ctr = (self._state() if st is None else st)["obs"]["ctr"]
         return taps.collect(adc_clip=ctr[obs_rings.CTR_ADC_CLIP:
                                          obs_rings.CTR_ADC_CLIP + 1])
 
     def _run(self, requests: Sequence[Request], arrival_iters=None,
              on_branch=None):
-        n, B, paged = len(requests), self.slots, self.paged
-        plan = self._stage(requests, arrival_iters)
-        st = self._state()
-        dev = self.device
-        obs = st.get("obs")
-        arrival = plan["arrival"]
-        # the eager branches' ring records, and the iteration the device
-        # clock holds (a step advances it)
-        rec = obs_rings.EagerRecords() if obs is not None else None
-        code, clock = self._branch_code, 0
-        if paged is not None:
-            NB, n_tbl, bs = paged.n_blocks, paged.n_tbl, paged.block_size
-            ar_nb = torch.arange(NB, dtype=torch.int32, device=dev)
-            j_tbl = torch.arange(n_tbl, device=dev)
-            req_tables = torch.zeros((n, n_tbl), dtype=torch.int32,
-                                     device=dev)
-            peak = torch.zeros((), dtype=torch.int32, device=dev)
-            pp = plan["prefix"]
-        res_out = torch.full((n, self.cap), self.pad_token,
-                             dtype=torch.int32, device=dev)
-        res_n = torch.zeros((n,), dtype=torch.int32, device=dev)
-        # host mirrors of what the host decides
-        occupant = [-1] * B
-        filling = [False] * B
-        fill_pos = [0] * B                 # next chunk start of a filling slot
-        pf_done = [False] * n
-        res_iter, res_first = [0] * n, [0] * n
-        iter_end: List[float] = []         # run clock at each flags read
-        branches: List[str] = []
-        q_head, n_iter, syncs, last_pf, draft_steps = 0, 0, 0, False, 0
-        spec = self.draft_k > 0
+        lp = self._begin(requests, arrival_iters)
+        self._iterate(lp, on_branch=on_branch)
+        return self._finish(lp)
+
+    def _begin(self, requests: Sequence[Request], arrival_iters=None
+               ) -> "_Loop":
+        """A run's start: the workload staged, the pool state reset, the
+        per-request result buffers made and the host mirrors at zero."""
+        lp = _Loop()
+        lp.requests, lp.n = requests, len(requests)
+        lp.plan = self._stage(requests, arrival_iters)
+        lp.st = self._state()
+        dev, n = self.device, lp.n
+        # the eager branches' ring records
+        lp.rec = obs_rings.EagerRecords() if self.obs is not None else None
+        if self.paged is not None:
+            NB, n_tbl = self.paged.n_blocks, self.paged.n_tbl
+            lp.ar_nb = torch.arange(NB, dtype=torch.int32, device=dev)
+            lp.j_tbl = torch.arange(n_tbl, device=dev)
+            lp.req_tables = torch.zeros((n, n_tbl), dtype=torch.int32,
+                                        device=dev)
+            lp.peak = torch.zeros((), dtype=torch.int32, device=dev)
+        lp.res_out = torch.full((n, self.cap), self.pad_token,
+                                dtype=torch.int32, device=dev)
+        lp.res_n = torch.zeros((n,), dtype=torch.int32, device=dev)
+        B = self.slots
+        lp.occupant, lp.filling, lp.fill_pos = [-1] * B, [False] * B, [0] * B
+        lp.pf_done = [False] * n
+        lp.res_iter, lp.res_first = [0] * n, [0] * n
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-        t0 = time.perf_counter()
-        while True:
+        lp.t0 = time.perf_counter()
+        return lp
+
+    def _fault_clock(self, st: Dict) -> Optional[torch.Tensor]:
+        """Under an armed fault model (``resilience/faults.py``), the pool
+        state's device clock (0-d int32) that every branch's GEMMs read
+        the drift schedule at; None otherwise."""
+        if not faults.active():
+            return None
+        if "fault_clock" not in st:
+            st["fault_clock"] = torch.zeros((), dtype=torch.int32,
+                                            device=self.device)
+        return st["fault_clock"]
+
+    def _iterate(self, lp: "_Loop", budget: Optional[int] = None,
+                 on_branch=None) -> bool:
+        """Run ``lp``'s loop until the queue is served, or (``budget``)
+        until its iteration count reaches ``budget``: the guarded server's
+        segment, after which the loop resumes exactly where it stopped,
+        in this scheduler or a sibling on the same pool state.  Returns
+        whether the queue is served.  Under an armed fault model each
+        iteration first writes its index into the device clock."""
+        fclock = self._fault_clock(lp.st)
+        with (faults.clock(fclock) if fclock is not None
+              else contextlib.nullcontext()):
+            return self._loop(lp, budget, on_branch, fclock)
+
+    def _loop(self, lp: "_Loop", budget, on_branch, fclock) -> bool:
+        n, B, paged = lp.n, self.slots, self.paged
+        st, plan, rec, requests = lp.st, lp.plan, lp.rec, lp.requests
+        obs = st.get("obs")
+        arrival = plan["arrival"]
+        code = self._branch_code
+        occupant, filling, fill_pos = lp.occupant, lp.filling, lp.fill_pos
+        spec = self.draft_k > 0
+        if paged is not None:
+            NB, bs = paged.n_blocks, paged.block_size
+            pp = plan["prefix"]
+        while not lp.done:
+            if budget is not None and lp.n_iter >= budget:
+                break
+            n_iter, q_head = lp.n_iter, lp.q_head
             parts = [st["pending"], st["live"]]
             if paged is not None:
                 parts.append((st["ref"] == 0).sum()[None])
@@ -847,8 +980,9 @@ class ContinuousBatchingScheduler:
                 parts += [st["rung"][None], st["n_drafted"][None],
                           st["n_accepted"][None]]
             flags = torch.cat([p.to(torch.int32) for p in parts]).cpu()
-            syncs += 1
-            iter_end.append(time.perf_counter() - t0)
+            lp.flags = flags
+            lp.syncs += 1
+            lp.iter_end.append(time.perf_counter() - lp.t0)
             pending = flags[:B].tolist()
             live = flags[B:2 * B].tolist()
             if rec is not None and paged is not None:
@@ -856,16 +990,19 @@ class ContinuousBatchingScheduler:
             occupied = [p or lv or f for p, lv, f in
                         zip(pending, live, filling)]
             if not any(occupied) and q_head >= n:
+                lp.done = True
                 break
+            if fclock is not None:
+                fclock.fill_(n_iter)
             qh = min(q_head, n - 1)
             can_admit = (q_head < n and not all(occupied)
                          and arrival[qh] <= n_iter)
             if paged is not None:
                 n_sh = int(pp.n_shared_blocks[qh])
                 src = int(pp.share_src[qh])
-                can_admit = (can_admit and (n_sh == 0 or pf_done[src])
+                can_admit = (can_admit and (n_sh == 0 or lp.pf_done[src])
                              and int(flags[2 * B]) >= plan["max_blk"][qh] - n_sh)
-                want_pf = any(filling) and (not any(live) or not last_pf)
+                want_pf = any(filling) and (not any(live) or not lp.last_pf)
             else:
                 want_pf = False
             live0 = sum(live)
@@ -875,9 +1012,9 @@ class ContinuousBatchingScheduler:
                     on_branch(branch)
                 slot = pending.index(1)
                 qidx = occupant[slot]
-                res_out[qidx] = st["out"][slot]
-                res_n[qidx] = st["n_gen"][slot]
-                res_iter[qidx] = n_iter
+                lp.res_out[qidx] = st["out"][slot]
+                lp.res_n[qidx] = st["n_gen"][slot]
+                lp.res_iter[qidx] = n_iter
                 if rec is not None:
                     rec.push(obs_rings.EV_FINISH, requests[qidx].rid, n_iter)
                 st["pending"][slot] = False
@@ -905,7 +1042,7 @@ class ContinuousBatchingScheduler:
                 if paged is None:
                     self._arm_slot(st, slot, plan["q_toks"][qidx:qidx + 1],
                                    r.max_new_tokens, r.stop_token, r.rid)
-                    res_first[qidx] = n_iter
+                    lp.res_first[qidx] = n_iter
                     if rec is not None:
                         # the whole-prompt prefill samples the first token
                         rec.push(obs_rings.EV_FIRST, r.rid, n_iter)
@@ -916,19 +1053,21 @@ class ContinuousBatchingScheduler:
                     # first, by id) makes the grant deterministic, and the
                     # admission gate guaranteed enough free blocks
                     order = torch.argsort(torch.where(
-                        st["ref"] == 0, ar_nb, NB + ar_nb))
-                    fresh = order[torch.clamp(j_tbl - n_sh, 0, NB - 1)]
-                    shared = req_tables[max(src, 0)]
+                        st["ref"] == 0, lp.ar_nb, NB + lp.ar_nb))
+                    fresh = order[torch.clamp(lp.j_tbl - n_sh, 0, NB - 1)]
+                    shared = lp.req_tables[max(src, 0)]
                     row = torch.where(
-                        j_tbl < n_sh, shared,
-                        torch.where(j_tbl < n_blk, fresh.to(torch.int32), 0))
+                        lp.j_tbl < n_sh, shared,
+                        torch.where(lp.j_tbl < n_blk, fresh.to(torch.int32),
+                                    0))
                     # fresh blocks come up at ref 1 (+ pins for later
                     # chains through them); shared blocks were pinned by
                     # their materializer
                     st["ref"].index_add_(
                         0, row[n_sh:n_blk].long(),
                         1 + plan["q_pins"][qidx, n_sh:n_blk])
-                    peak = torch.maximum(peak, (st["ref"] > 0).sum() - 1)
+                    lp.peak = torch.maximum(lp.peak,
+                                            (st["ref"] > 0).sum() - 1)
                     cache = lm.reset_slot(st["cache"], slot)
                     # a sharer starts its chunk walk at the last chunk
                     # boundary inside the shared region: the few
@@ -936,7 +1075,7 @@ class ContinuousBatchingScheduler:
                     s0 = (n_sh * bs) // self.prefill_chunk * self.prefill_chunk
                     cache["table"][slot] = row
                     cache["pos"][slot] = s0
-                    req_tables[qidx] = row
+                    lp.req_tables[qidx] = row
                     filling[slot], fill_pos[slot] = True, s0
                     st["live"][slot] = False
                     st["pending"][slot] = False
@@ -951,7 +1090,7 @@ class ContinuousBatchingScheduler:
                         rec.add(obs_rings.CTR_SHARED_ADMITS, int(n_sh > 0))
                         rec.tick(n_iter, code[branch], live0, 0,
                                  free_blocks=None)
-                q_head += 1
+                lp.q_head += 1
             elif want_pf:
                 branch = "prefill"
                 if on_branch is not None:
@@ -977,8 +1116,8 @@ class ContinuousBatchingScheduler:
                     st["live"][slot] = ~fin0
                     st["pending"][slot] = fin0
                     filling[slot] = False
-                    pf_done[qidx] = True
-                    res_first[qidx] = n_iter
+                    lp.pf_done[qidx] = True
+                    lp.res_first[qidx] = n_iter
                     if rec is not None:
                         rec.push(obs_rings.EV_FIRST, r.rid, n_iter)
                 else:
@@ -986,59 +1125,66 @@ class ContinuousBatchingScheduler:
                 if rec is not None:
                     rec.tick(n_iter, code[branch], live0, int(done),
                              free_blocks=None)
-                last_pf = True
+                lp.last_pf = True
             else:
                 branch = "step"
                 if on_branch is not None:
                     on_branch(branch)
-                if obs is not None and clock != n_iter:
+                if obs is not None and lp.clock != n_iter:
                     obs["n_iter"].fill_(n_iter)       # after eager branches
-                clock = n_iter + 1
+                lp.clock = n_iter + 1
                 if spec:
                     # the rung sits after the masks and the free count
                     K = self._rungs[int(flags[2 * B + (paged is not None)])]
                     self._advance(st, K)
-                    draft_steps += K
+                    lp.draft_steps += K
                 else:
                     self._advance(st)
-                last_pf = False
+                lp.last_pf = False
             if on_branch is not None:
                 on_branch(None)
-            branches.append(branch)
-            n_iter += 1
-        wall = time.perf_counter() - t0
+            lp.branches.append(branch)
+            lp.n_iter += 1
+        return lp.done
+
+    def _finish(self, lp: "_Loop"):
+        """The report (and timeline) of a served loop ``lp``."""
+        B, paged, obs = self.slots, self.paged, lp.st.get("obs")
+        n_iter, iter_end, branches = lp.n_iter, lp.iter_end, lp.branches
+        wall = time.perf_counter() - lp.t0
         # iteration k runs from flags read k to flags read k + 1
         counts = dict.fromkeys(BRANCHES, 0)
         times = dict.fromkeys(BRANCHES, 0.0)
         for k, b in enumerate(branches):
             counts[b] += 1
             times[b] += iter_end[k + 1] - iter_end[k]
-        res_out_h = res_out.cpu().numpy()
-        res_n_h = res_n.cpu().numpy()
+        res_out_h = lp.res_out.cpu().numpy()
+        res_n_h = lp.res_n.cpu().numpy()
         done = [FinishedRequest(
             rid=r.rid, tokens=res_out_h[i, :res_n_h[i]].copy(),
-            latency_s=iter_end[res_iter[i] + 1],
-            finish_iter=res_iter[i], first_iter=res_first[i],
-            ttft_s=iter_end[res_first[i] + 1])
-            for i, r in enumerate(requests)]
+            latency_s=iter_end[lp.res_iter[i] + 1],
+            finish_iter=lp.res_iter[i], first_iter=lp.res_first[i],
+            ttft_s=iter_end[lp.res_first[i] + 1])
+            for i, r in enumerate(lp.requests)]
         report = ServeReport(
             finished=done, wall_s=wall, n_steps=counts["step"],
             n_admits=counts["admit"], slots=B, n_pf=counts["prefill"],
-            n_iter=n_iter, host_syncs=syncs, branch_counts=counts,
-            branch_s=times, draft_steps=draft_steps)
-        if spec:
+            n_iter=n_iter, host_syncs=lp.syncs, branch_counts=counts,
+            branch_s=times, draft_steps=lp.draft_steps)
+        if self.draft_k > 0:
             # the last flags read came after the last round
-            report.n_drafted, report.n_accepted = (int(flags[-2]),
-                                                   int(flags[-1]))
+            report.n_drafted, report.n_accepted = (int(lp.flags[-2]),
+                                                   int(lp.flags[-1]))
         if paged is not None:
-            report.peak_blocks = int(peak)
-            report.ref_final = st["ref"].cpu().numpy()
+            report.peak_blocks = int(lp.peak)
+            report.ref_final = lp.st["ref"].cpu().numpy()
         if obs is not None:
-            rec.apply(obs)
+            lp.rec.apply(obs)
             report.obs = obs_rings.harvest_obs(
                 self.obs, obs, n_iter=n_iter, wall_s=wall, slots=B,
                 n_steps=report.n_steps, n_drafted=report.n_drafted,
                 n_accepted=report.n_accepted, paged=paged is not None)
+        code = self._branch_code
         timeline = dict(
             branch=np.asarray([code[b] for b in branches], np.int32),
             iter_s=np.diff(np.asarray(iter_end)))

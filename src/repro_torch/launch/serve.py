@@ -8,6 +8,7 @@
        [--adaptive-draft-k]] \
       [--continuous [--requests 8] [--paged-blocks N [--block-size 16]
        [--prefill-chunk C] [--no-prefix-sharing]]] \
+      [--watchdog] [--inject-fault SPEC] [--segment-iters 8] \
       [--metrics] [--metrics-out PATH] [--trace-out PATH]
 
 Counterpart of ``repro/launch/serve.py``.  ``serve`` prefills one fixed
@@ -45,6 +46,15 @@ compiled executables; ``--no-graphs`` (``graphs=False``) runs them
 eagerly, and the CPU always does.  Runs on CUDA unless ``--device cpu``
 is given; without ``--smoke`` it serves the full width and depth of the
 arch.
+
+``serve_guarded`` (``--watchdog``; ``--inject-fault SPEC`` implies it)
+serves the continuous queue through ``resilience.failover.GuardedServer``:
+one scheduler per rung of the analog -> hybrid -> digital ladder over
+one pack, all on one pool state, in segments of ``--segment-iters``
+loop iterations with the drift watchdog and the golden probe read at
+each boundary; ``SPEC`` (``FaultModel.parse``, e.g.
+``gain_amp=0.6,offset_lsb=2,schedule=ramp,onset=4,period=16``) arms
+seeded analog drift on the loop's device clock.
 
 Telemetry (``obs/``).  Every driver records the spans ``serve.pack``,
 ``serve.compile`` (the kernel build before the first forward and, when
@@ -208,6 +218,8 @@ def serve(arch: str, smoke: bool = True, batch: int = 4, prompt_len: int = 32,
     ``graph_pool_bytes`` and ``replay_tok_s`` (the replayed steps alone)."""
     dev = resolve_device(device)
     captured = use_graphs(graphs, dev)
+    if metrics:
+        get_tracer().drain()        # stats["spans"]: this call's spans
     cfg, cim = _model_config(arch, smoke, cim, plan, fuse, use_kernel,
                              noise_seed)
     pack = pack and cim
@@ -430,6 +442,8 @@ def serve_speculative(arch: str, smoke: bool = True, batch: int = 2,
     ``stats["spans"]``, as ``serve`` does."""
     dev = resolve_device(device)
     captured = use_graphs(graphs, dev)
+    if metrics:
+        get_tracer().drain()        # stats["spans"]: this call's spans
     cfg, cim = _model_config(arch, smoke, cim, plan, fuse, use_kernel)
     draft_plan = draft_plan_for_model(cfg, draft_adc_bits)
     dcfg = dataclasses.replace(cfg, cim_plan=draft_plan) if cim else cfg
@@ -598,6 +612,8 @@ def serve_continuous(arch: str, smoke: bool = True, slots: int = 2,
     off."""
     obs = (metrics if isinstance(metrics, ObsConfig)
            else (ObsConfig() if metrics else None))
+    if obs is not None:
+        get_tracer().drain()        # stats["spans"]: this call's spans
     if (draft_k and temperature > 0) or noise_seed is not None:
         compare_lockstep = False
     dev = resolve_device(device)
@@ -725,6 +741,96 @@ def serve_continuous(arch: str, smoke: bool = True, slots: int = 2,
     return want, stats
 
 
+def serve_guarded(arch: str, smoke: bool = True, slots: int = 2,
+                  prompt_len: int = 16, n_requests: int = 8,
+                  stop_lengths=(4, 16, 8, 12), temperature: float = 0.0,
+                  seed: int = 0, plan=None, fuse: bool = True,
+                  draft_k: int = 0, paged: Optional[PagedLayout] = None,
+                  prefill_chunk: Optional[int] = None,
+                  prefix_sharing: bool = True, fault=None, watchdog=True,
+                  probe: bool = True, segment_iters: int = 8,
+                  start_rung: Optional[int] = None, device=None,
+                  params=None, graphs: Optional[bool] = None):
+    """Watchdog-guarded continuous serving with plan-degradation failover
+    (the reference's ``serve_guarded``, argument for argument, plus
+    ``device``, ``params`` (float params instead of a fresh init from
+    ``seed``) and ``graphs``).
+
+    The queue runs through ``resilience.failover.GuardedServer``: one
+    pack-compatible scheduler per ladder rung over one packed weight set
+    and one pool state, in budget-bounded segments with the health read
+    at each boundary (ADC clip rate, speculative acceptance, golden
+    probe).  ``fault`` (a ``resilience.faults.FaultModel`` or its
+    ``FaultModel.parse`` spec) arms deterministic analog drift on the
+    loop's device clock.  Every rung's graphs are captured before the
+    first request (on a CUDA device).  Returns (tokens_by_rid, stats);
+    ``stats["resilience"]`` is the ``ResilienceLog.to_dict()``."""
+    from ..resilience.failover import GuardedServer, default_probe
+    from ..resilience.faults import FaultModel
+    from ..resilience.watchdog import Watchdog, WatchdogConfig
+
+    if isinstance(fault, str):
+        fault = FaultModel.parse(fault)
+    if watchdog is True:
+        watchdog = Watchdog()
+    elif isinstance(watchdog, WatchdogConfig):
+        watchdog = Watchdog(watchdog)
+    elif watchdog is False:
+        watchdog = None
+    dev = resolve_device(device)
+    use_graphs(graphs, dev)                 # raises before any work
+    # resilience is a macro feature: the ladder degrades between analog,
+    # hybrid and digital executions of one packed weight set
+    cfg, _ = _model_config(arch, smoke, True, plan, fuse)
+    with torch.inference_mode():
+        params = (lm.init(seed, cfg, device=dev) if params is None
+                  else lm._to_device(params, dev))
+        _sync(dev)
+        t0 = time.perf_counter()
+        with span("serve.pack", arch=arch):
+            params = lm.pack_cim_params(params, cfg, dev)
+            _sync(dev)
+        t_pack = time.perf_counter() - t0
+    gp = default_probe(params, fault=fault) if probe else None
+    server = GuardedServer(
+        params, cfg, slots=slots, prompt_len=prompt_len,
+        max_new_cap=max(stop_lengths), temperature=temperature, seed=seed,
+        draft_k=draft_k, paged=paged, prefill_chunk=prefill_chunk,
+        prefix_sharing=prefix_sharing, watchdog=watchdog, probe=gp,
+        fault=fault, segment_iters=segment_iters, start_rung=start_rung,
+        graphs=graphs)
+    requests = mixed_length_requests(n_requests, prompt_len, cfg.vocab_size,
+                                     stop_lengths=stop_lengths, seed=seed)
+    t0 = time.perf_counter()
+    with span("serve.compile", arch=arch, n_queue=n_requests):
+        _build_kernels(dev, True)
+        server.compile_for(n_requests)
+        _sync(dev)
+    t_compile = time.perf_counter() - t0
+    with span("serve.workload", arch=arch, n_requests=n_requests):
+        report, log = server.run(requests)
+
+    stats = dict(arch=arch, slots=slots, prompt_len=prompt_len,
+                 n_requests=n_requests, stop_lengths=list(stop_lengths),
+                 draft_k=draft_k, segment_iters=segment_iters,
+                 device=str(dev),
+                 fault=None if fault is None else dataclasses.asdict(fault),
+                 pack_s=round(t_pack, 4), compile_s=round(t_compile, 4),
+                 n_compiles=server.n_compiles, captures=server.captures(),
+                 continuous=report.summary(),
+                 resilience=log.to_dict())
+    state = watchdog.state if watchdog is not None else "(no watchdog)"
+    line = (f"[serve-guarded] {arch} ({dev}): {n_requests} reqs over "
+            f"{slots} slots | {report.tok_s:.1f} tok/s | health {state}, "
+            f"serving rung '{log.rung_labels[log.final_rung]}'")
+    if log.actions:
+        line += f", {len(log.actions)} failover action(s)"
+    if fault is not None and log.detection_tokens is not None:
+        line += f" | fault detected at {log.detection_tokens} tokens"
+    print(line)
+    return report.tokens_by_rid(), stats
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCHS, required=True)
@@ -766,6 +872,17 @@ def main():
     ap.add_argument("--no-prefix-sharing", dest="prefix_sharing",
                     action="store_false",
                     help="(--paged-blocks) disable shared-prefix reuse")
+    ap.add_argument("--watchdog", action="store_true",
+                    help="guarded continuous serving: drift watchdog and "
+                         "plan-degradation failover ladder over one pack")
+    ap.add_argument("--inject-fault", type=str, default=None, metavar="SPEC",
+                    help="arm a deterministic analog FaultModel on the "
+                         "loop's device clock, e.g. 'gain_amp=0.5,"
+                         "schedule=ramp,onset=8,period=32' (see "
+                         "resilience.faults.FaultModel; implies --watchdog)")
+    ap.add_argument("--segment-iters", type=int, default=8,
+                    help="(--watchdog) scheduler iterations per guarded "
+                         "segment between health checks")
     ap.add_argument("--no-graphs", dest="graphs", action="store_false",
                     default=None,
                     help="run every decode step, speculative round and "
@@ -795,15 +912,25 @@ def main():
     if not args.pack and (args.continuous or args.speculative):
         ap.error("--no-pack serves lock-step only")
     draft_k = args.draft_k if args.speculative else 0
-    if args.continuous:
-        paged = None
-        if args.paged_blocks:
-            # the default workload's longest budget is 16 tokens, and a
-            # speculative round writes draft_k rows past it
-            paged = PagedLayout(
-                block_size=args.block_size,
-                n_tbl=cdiv(args.prompt_len + 16 + draft_k, args.block_size),
-                n_blocks=args.paged_blocks)
+    paged = None
+    if args.paged_blocks:
+        # the default workload's longest budget is 16 tokens, and a
+        # speculative round writes draft_k rows past it
+        paged = PagedLayout(
+            block_size=args.block_size,
+            n_tbl=cdiv(args.prompt_len + 16 + draft_k, args.block_size),
+            n_blocks=args.paged_blocks)
+    if args.watchdog or args.inject_fault:
+        serve_guarded(args.arch, smoke=args.smoke, slots=args.batch,
+                      prompt_len=args.prompt_len, n_requests=args.requests,
+                      temperature=args.temperature, seed=args.seed,
+                      fuse=args.fuse, draft_k=draft_k, paged=paged,
+                      prefill_chunk=args.prefill_chunk,
+                      prefix_sharing=args.prefix_sharing,
+                      fault=args.inject_fault,
+                      segment_iters=args.segment_iters, device=args.device,
+                      graphs=args.graphs)
+    elif args.continuous:
         toks, _ = serve_continuous(
             args.arch, smoke=args.smoke, slots=args.batch,
             prompt_len=args.prompt_len, n_requests=args.requests,

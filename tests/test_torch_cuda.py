@@ -1111,3 +1111,80 @@ def test_metrics_off_graph_unchanged_by_telemetry(dev):
     assert names[0][0] == names[2][0]
     assert names[1][1] == names[0][1] and any(names[0][1].values())
     assert len(names[1][0]) > len(names[0][0])
+
+
+_DRIFT = dict(seed=3, gain_amp=0.6, offset_lsb=2.0, schedule="ramp",
+              onset=4, period=16)
+
+
+def test_faulted_gemm_replays_equal_eager_under_a_ramp(dev):
+    """A fault-armed fast GEMM captured once replays the drift at every
+    clock the device tensor holds: equal to its eager call and to the
+    CPU port at clocks 0-40 (the ramp from onset to full), and unlike the
+    clean output past the onset."""
+    from repro_torch.launch.graphs import StepGraph
+    from repro_torch.resilience import faults as F
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    w = _ints(gen, (520, 96), dev)
+    p = engine.pack_quantized_cim_weights(
+        w, torch.ones((1, 96), device=dev), ccim.DEFAULT_CONFIG)
+    x = _ints(gen, (4, 520), dev)
+    cpu = dataclasses.replace(p, scale=p.scale.cpu(), kernel_w=p.kernel_w.cpu(),
+                              kernel_planes=p.kernel_planes.cpu())
+    clk = torch.zeros((), dtype=torch.int32, device=dev)
+    mm = lambda xx, pp: engine.packed_cim_matmul_int(xx, pp, p.cfg)
+    clean = mm(x, p)
+    with torch.inference_mode(), F.inject(F.FaultModel(**_DRIFT)), \
+            F.clock(clk):
+        g = StepGraph(lambda: mm(x, p), dev)
+        g()
+        for t in range(41):
+            clk.fill_(t)
+            got = g().clone()
+            assert torch.equal(got, mm(x, p)), t
+            with F.clock(torch.tensor(t, dtype=torch.int32)):
+                assert torch.equal(got.cpu(), mm(x.cpu(), cpu)), t
+            if t > 8:
+                assert not torch.equal(got, clean), t
+
+
+def test_guarded_server_captures_up_front(dev):
+    """``GuardedServer`` captures every rung's graphs in ``compile_for``
+    and none while serving; the clean run equals the plain captured
+    scheduler's tokens, and the chaos run (drift ramp) reaches RED and the
+    digital rung, its log equal to an eager (uncaptured) server's."""
+    import dataclasses as dc
+    from repro_torch.configs import get_config
+    from repro_torch.launch import scheduler as TS
+    from repro_torch.models import lm
+    from repro_torch.resilience import failover as FO
+    from repro_torch.resilience import faults as F
+    from repro_torch.resilience import watchdog as W
+    cfg = dc.replace(get_config("minicpm-2b", smoke=True), cim_mode=True)
+    with torch.inference_mode():
+        params = lm.pack_cim_params(lm.init(0, cfg), cfg)
+    reqs = TS.mixed_length_requests(4, 8, cfg.vocab_size,
+                                    stop_lengths=(4, 16, 8, 12), seed=0)
+    kw = dict(slots=2, prompt_len=8, max_new_cap=16, segment_iters=4)
+    want = TS.ContinuousBatchingScheduler(
+        params, cfg, slots=2, prompt_len=8, max_new_cap=16).run(reqs)
+    server = FO.GuardedServer(params, cfg, watchdog=W.Watchdog(),
+                              probe=FO.default_probe(params), **kw)
+    server.compile_for(len(reqs))
+    assert server.captures() == 3
+    rep, log = server.run(reqs)
+    assert server.captures() == 3 and not log.actions
+    for rid, toks in want.tokens_by_rid().items():
+        assert (rep.tokens_by_rid()[rid] == toks).all(), rid
+    logs = []
+    for graphs in (True, False):
+        fault = F.FaultModel(**_DRIFT)
+        s = FO.GuardedServer(
+            params, cfg, fault=fault, graphs=graphs,
+            watchdog=W.Watchdog(W.WatchdogConfig(debounce=1)),
+            probe=FO.default_probe(params, fault=fault), **kw)
+        logs.append(s.run(reqs)[1].to_dict())
+        assert s.watchdog.state == W.RED
+    assert logs[0] == logs[1]
+    assert logs[0]["final_rung"] == 2
