@@ -8,7 +8,9 @@ sources compiled together) and drives its main paths: minicpm-2b at its
 full width and depth (40 layers, packed and fused, prototype macro),
 served lock-step and with continuous batching over a contiguous and a
 paged KV cache, and on its raw weights through the unpacked macro
-GEMM; the deployment planner over forwards of those raw weights; the
+GEMM; the SSM family's mamba2-130m at its full width and depth, served
+the same ways; the deployment planner over forwards of those raw
+weights; the
 complex-MAC lane behind MUSIC direction-of-arrival estimation on 64-
 and 32-element arrays, noise-free and with the macro's analog noise
 (the figS3 twin); and the kernel bench, Fig. 6 and figure twins with
@@ -155,7 +157,7 @@ failure.  Phases:
      kernels equal to the credit;
  27. the scheduler with its step branch captured (one graph for the
      pooled step, one per rung of the speculative ladder) on phase 9's
-     first 8 prompts at half their stop lengths: contiguous, phase 24's
+     first 4 prompts at half their stop lengths: contiguous, phase 24's
      speculative queue and phase 10's paged queue, against the eager
      scheduler, one turn each: pool tokens, iterations by branch and
      launches equal the eager run's; tok/s, ms per branch and each
@@ -174,7 +176,7 @@ failure.  Phases:
      logits, launches equal phase 4's, eager and captured in turns (equal
      bit for bit; tok/s of each), and tokens that differ from phase 4's
      greedy ones;
- 30. the scheduler at temperature 0.7 on phase 9's first 8 prompts at
+ 30. the scheduler at temperature 0.7 on phase 9's first 4 prompts at
      half their stop lengths, through the kernels: the contiguous pool
      captured equals it eager and equals a solo run of its first
      request; a speculative pool at k 4 (fixed depth) equals a
@@ -182,7 +184,7 @@ failure.  Phases:
      agreement with the contiguous one reported, not gated (as phase
      10);
  31. lock-step serve with the macro's analog noise (noise seed 0, batch
-     2, a one-token prompt, 4 tokens), eager and captured: equal tokens
+     2, a one-token prompt, 3 tokens), eager and captured: equal tokens
      and logits,
      logits that differ from the noise-free run's, no launch of kernel
      rows 1 and 2 (noisy GEMMs take the chunked GEMM in torch, as the
@@ -211,8 +213,9 @@ failure.  Phases:
      and the Pareto search at budget 1.0 and 0.6, through the kernels
      and through their plain versions, equal; the plan_pareto twin at
      card scale (its four points, the domination gate, decode tok/s of
-     three plans served packed); one forward on the profiler's noise
-     seed (no kernel), timed, repeatable;
+     three plans served packed) and its mamba2-130m arch at smoke; one
+     forward on the profiler's noise seed (no kernel), timed,
+     repeatable;
  35. the figure twins (figS2 at 4 multipliers x 8 dies x 2,048
      conversions with its all-analog rows, fig5, figS1, fig2) on the
      card equal to the CPU port, row for row, and figS2's per-die RMS;
@@ -251,10 +254,34 @@ failure.  Phases:
      on layer 0 of every packed leaf, card == CPU for ``wo`` and ``w2``;
  39. the resilience bench twin (``python -m
      repro_torch.launch.resilience_bench``) in a process of its own, its
-     five gates held.
+     five gates held;
+ 40. the SSM family: mamba2-130m at full width and depth (24 layers,
+     d_model 768, d_inner 1,536, state 128, 24 heads of 64, chunk 128,
+     vocab 50,280; random weights from seed 0, packed and fused,
+     prototype macro), lock-step batch 4, prompt 128 (one SSD chunk), 32
+     generated: through the kernels and their plain versions, captured,
+     and on the raw weights through row 6, tokens and last logits equal
+     in all four; rows 1 / 2 / 6 launches equal the packed tree's GEMMs
+     per forward (2 a layer: the fused input group, K 768 N 3,352, and
+     out_proj, K 1,536 N 768) times the forwards; a replayed decode
+     step's kernel nodes held to its credit and traced; decode tok/s,
+     prefill s, the replayed step's ms beside the bound of one read of
+     the macro layers and the lm_head, pack and peak bytes;
+ 41. mamba2-130m continuous batching, 16 requests of 128 tokens (stops
+     8-32) over 8 slots, captured: contiguous, and paged with prefill
+     chunks of 128 (aligned with the SSD chunk; tokens equal the
+     contiguous pool's, gated) and of 32 (row 1 at M 32; agreement
+     reported); rows 1-2 launches equal the GEMMs per forward times each
+     pool's forwards, each pooled step's replay held to its nodes; the
+     SSM and conv state bytes a slot.
+
+Phase 34 also runs the plan_pareto twin's second arch, mamba2-130m, at
+the reference bench's smoke size and noise seed.
 
 Depth cuts for time: phase 6 profiles a decode step of the first 4
-layers, and phase 12 serves the first 8 of phase 11's requests.
+layers; to make room for phases 40-41, phase 12 serves the first 4 of
+phase 11's requests (from 8), phases 27 and 30 the first 4 of phase 9's
+(from 8) and phase 31 3 tokens (from 4).
 
 The serving drivers replay captured graphs by default on the card
 (``launch/graphs.py``), so phases 9, 11, 22 and 24 serve captured.  A
@@ -510,7 +537,7 @@ def _serve_record(stats) -> dict:
 
 
 # phase 12's queue: the first requests of phase 11's
-PLAIN_PAGED_REQUESTS = 8
+PLAIN_PAGED_REQUESTS = 4
 
 
 def continuous_phases(torch, dev, params, cfg_full) -> dict:
@@ -624,8 +651,9 @@ def continuous_phases(torch, dev, params, cfg_full) -> dict:
           "branch_counts": rep.branch_counts})
 
     # -- 12. the plain paged read on the card ------------------------------
-    # (the first 8 of the 16 requests: the agreement is reported, and the
-    # plain read's eager queue was the phase's time)
+    # (the first 4 of the 16 requests, 8 until phases 40-41 needed the
+    # time: the agreement is reported, and the plain read's eager queue
+    # was the phase's time)
     cfg_plain = dataclasses.replace(cfg, paged_attn_use_kernel=False)
     reset()
     rep_p = ContinuousBatchingScheduler(packed, cfg_plain, **kw).run(
@@ -2252,7 +2280,7 @@ def captured_speculative_phase(torch, dev, params, cfg_full) -> dict:
 def captured_scheduler_phase(torch, dev, params, cfg_full,
                              serve_phases) -> dict:
     """Phase 27: the scheduler with its step branch captured, on phase
-    9's first 8 prompts at half their stop lengths (agreement with the
+    9's first 4 prompts at half their stop lengths (agreement with the
     earlier phase's tokens is reported over that prefix): contiguous,
     phase 24's speculative queue and phase 10's paged queue, against
     the eager scheduler, one turn each.  Returns the captured runs'
@@ -2263,8 +2291,9 @@ def captured_scheduler_phase(torch, dev, params, cfg_full,
     from repro_torch.models import lm
     from repro_torch.plan import draft_plan_for_model
 
-    # phase 9's first 8 prompts, each request stopping at half its length
-    slots, plen, stops, n_req = 8, 64, (4, 12, 8, 16), 8
+    # phase 9's first 4 prompts (8 until phases 40-41 needed the time),
+    # each request stopping at half its length
+    slots, plen, stops, n_req = 8, 64, (4, 12, 8, 16), 4
     cfg = dataclasses.replace(cfg_full, cim_mode=True)
     reqs = mixed_length_requests(n_req, plen, cfg.vocab_size,
                                  stop_lengths=stops, seed=0)
@@ -2470,7 +2499,7 @@ def sampled_serve_phase(torch, dev, params, cfg_full, phase4) -> dict:
 
 def sampled_scheduler_phase(torch, dev, params, cfg_full) -> dict:
     """Phase 30: the scheduler at temperature 0.7 through the kernels on
-    phase 9's first 8 prompts at half their stop lengths, captured and
+    phase 9's first 4 prompts at half their stop lengths, captured and
     eager, each run's counts reset before it: a contiguous pool, a
     speculative pool at k 4 (fixed depth) under a clipping draft (ADC 5,
     so that rejection sampling rejects and draws corrections), and a
@@ -2487,8 +2516,9 @@ def sampled_scheduler_phase(torch, dev, params, cfg_full) -> dict:
     from repro_torch.models import lm
     from repro_torch.plan import draft_plan_for_model
 
-    # phase 9's first 8 prompts, each request stopping at half its length
-    slots, plen, stops, n_req = 8, 64, (4, 12, 8, 16), 8
+    # phase 9's first 4 prompts (8 until phases 40-41 needed the time),
+    # each request stopping at half its length
+    slots, plen, stops, n_req = 8, 64, (4, 12, 8, 16), 4
     cfg = dataclasses.replace(cfg_full, cim_mode=True)
     reqs = mixed_length_requests(n_req, plen, cfg.vocab_size,
                                  stop_lengths=stops, seed=0)
@@ -2636,7 +2666,7 @@ def noise_draw_profile(torch, dev, params, cfg, batch: int, plen: int
 
 def noisy_serve_phase(torch, dev, params, cfg_full) -> dict:
     """Phase 31: lock-step serve with the macro's analog noise (noise seed
-    0; batch 2, prompt 1, 4 tokens), eager and captured: identical
+    0; batch 2, prompt 1, 3 tokens), eager and captured: identical
     tokens and logits (the draws are deterministic), logits that differ
     from the noise-free run's, and no launch of kernel rows 1 and 2 (the
     noisy GEMMs take the chunked GEMM in torch, as the reference's leave
@@ -2648,10 +2678,10 @@ def noisy_serve_phase(torch, dev, params, cfg_full) -> dict:
     noisy prefills ran in each of the two noisy serves, became one token
     to make room for phases 36-37; to keep the run well inside its time
     limit, the serves went from 6 tokens to 4 and the profiled step
-    from 40 layers to 4.)"""
+    from 40 layers to 4; to make room for phases 40-41, to 3 tokens.)"""
     from repro_torch.launch.serve import serve
 
-    batch, plen, gen = 2, 1, 4
+    batch, plen, gen = 2, 1, 3
     common = dict(smoke=False, batch=batch, prompt_len=plen, gen=gen,
                   cim=True, params=params, return_stats=True)
     zero = {"general": 0, "skinny": 0}
@@ -2913,10 +2943,11 @@ def planner_phase(torch, dev, params, cfg_full) -> dict:
     ``pareto_search`` results at budget scales 1.0 and 0.6.  Then the
     ``launch/plan_pareto.py`` twin at card scale, noise-free (its grid of
     7 candidates): four points, the domination gate, decode tok/s of
-    three plans served packed.  Last, one forward on the profiler's
-    default noise seed (site mlp/w2 on the prototype): no kernel, its
-    seconds, and two runs equal.  Returns the kernel runs' launches of
-    rows 1, 2 and 6."""
+    three plans served packed, and its second arch, mamba2-130m, at the
+    reference bench's smoke size and noise seed.  Last, one forward on
+    the profiler's default noise seed (site mlp/w2 on the prototype): no
+    kernel, its seconds, and two runs equal.  Returns the kernel runs'
+    launches of rows 1, 2 and 6."""
     from repro_torch import plan as TP
     from repro_torch.launch import plan_pareto
     from repro_torch.models import lm
@@ -2967,9 +2998,9 @@ def planner_phase(torch, dev, params, cfg_full) -> dict:
     # the plan_pareto twin at card scale
     _reset_all_launches()
     t0 = time.time()
-    pareto = plan_pareto.run_arch(smoke=False, batch=2, prompt_len=16,
-                                  gen=16, params=params, device=dev,
-                                  noise_seed=None)
+    pareto = plan_pareto.run_arch("minicpm-2b", smoke=False, batch=2,
+                                  prompt_len=16, gen=16, params=params,
+                                  device=dev, noise_seed=None)
     pareto_s = time.time() - t0
     pareto_launches = _rows_launches()
     check(not pareto["planned_dominated_by_global_hybrid"],
@@ -2978,6 +3009,25 @@ def planner_phase(torch, dev, params, cfg_full) -> dict:
     check(all(pts[p]["decode_tok_s"] > 0 for p in (
         "global_digital", "global_hybrid", "planned_mixed")),
         "phase 34: a served plan has no decode tok/s")
+    # the twin's second arch, mamba2-130m, at the reference bench's smoke
+    # size and noise seed (the noisy forwards run in torch, no kernel)
+    from repro_torch.configs import get_config
+    sparams = lm.init(0, get_config(SSM_ARCH, smoke=True), device=dev)
+    _reset_all_launches()
+    t0 = time.time()
+    ssm_pareto = plan_pareto.run_arch(SSM_ARCH, smoke=True, batch=2,
+                                      prompt_len=16, gen=16, params=sparams,
+                                      device=dev)
+    ssm_pareto_s = time.time() - t0
+    ssm_pareto_launches = _rows_launches()
+    spts = ssm_pareto["points"]
+    check(not ssm_pareto["planned_dominated_by_global_hybrid"],
+          "phase 34: mamba2-130m's planned-mixed is dominated")
+    check(all(spts[p]["decode_tok_s"] > 0 for p in (
+        "global_digital", "global_hybrid", "planned_mixed"))
+        and list(ssm_pareto["sites"]) == list(
+            lm.iter_packable_paths(sparams)),
+        "phase 34: mamba2-130m's twin lacks a point's tok/s or a site")
     # one forward on the profiler's default noise seed: no kernel
     plan = TP.DeploymentPlan.from_dict(
         {"mlp/w2": TP.prototype_candidate().entry}, default=TP.FLOAT_ENTRY)
@@ -3016,13 +3066,20 @@ def planner_phase(torch, dev, params, cfg_full) -> dict:
                               "planned_dominated_by_global_hybrid"],
                           "search": pareto["search"],
                           "sensitivity": pareto["sensitivity"]},
+          "plan_pareto_ssm": {"arch": SSM_ARCH, "scale": "smoke",
+                              "seconds": ssm_pareto_s, "points": spts,
+                              "sites": ssm_pareto["sites"],
+                              "dominates": ssm_pareto[
+                                  "planned_dominates_global_hybrid"],
+                              "launches": ssm_pareto_launches},
           "noisy_forward": {"site": "mlp/w2",
                             "candidate": TP.prototype_candidate().label,
                             "seconds": secs, "equal": True,
                             "kernel_launches": 0}})
     return {"planner_profile": kr["profile_launches"],
             "planner_search": kr["search_launches"],
-            "plan_pareto": pareto_launches}
+            "plan_pareto": pareto_launches,
+            "plan_pareto_ssm": ssm_pareto_launches}
 
 
 def figure_twins_phase(torch, dev) -> dict:
@@ -3613,6 +3670,225 @@ def resilience_twin_phase() -> dict:
     return result
 
 
+# phases 40-41: the SSM family, mamba2-130m at full width and depth
+SSM_ARCH = "mamba2-130m"
+SSM_BATCH, SSM_PROMPT, SSM_GEN = 4, 128, 32
+SSM_SLOTS, SSM_REQUESTS, SSM_STOPS = 8, 16, (8, 16, 24, 32)
+
+
+def _macro_gemms_per_layer(packed) -> int:
+    """Macro GEMMs one layer of a packed model runs, read from its params
+    tree: each packed leaf is one GEMM (a fused group counts once)."""
+    from repro_torch.core.engine import (FusedPackedCimWeights,
+                                         PackedCimWeights)
+
+    def count(t):
+        if isinstance(t, dict):
+            return sum(count(v) for v in t.values())
+        return int(isinstance(t, (PackedCimWeights, FusedPackedCimWeights)))
+    return count(packed["layers"])
+
+
+def _ssm_model(torch, dev):
+    """mamba2-130m at full width, random weights from seed 0: the config,
+    the raw params, the packed params (prototype macro, fused) and the
+    macro GEMMs of one forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    cfg = get_config(SSM_ARCH)
+    params = lm.init(0, cfg, device=dev)
+    ccfg = dataclasses.replace(cfg, cim_mode=True)
+    with torch.inference_mode():
+        packed = lm.pack_cim_params(params, ccfg, dev)
+    return cfg, params, packed, _macro_gemms_per_layer(packed) * cfg.n_layers
+
+
+def ssm_lockstep_phase(torch, dev) -> dict:
+    """Phase 40: mamba2-130m lock-step (batch 4, prompt 128: one SSD
+    chunk, 32 generated) through the kernels and through their plain
+    versions (graphs off: the wrappers' own counts), captured, and on the
+    raw weights (row 6): equal tokens and last logits in all four, the
+    launches of rows 1, 2 and 6 equal to the packed tree's GEMMs per
+    forward (the fused input group and out_proj a layer) times the
+    forwards, a replayed decode step's kernel nodes equal to its credit
+    (``check_replays``).  Returns the launches by path of rows 1, 2, 6."""
+    from repro_torch.launch.graphs import StepGraph
+    from repro_torch.launch.serve import decode_body, serve, tree_bytes
+    from repro_torch.models import lm
+
+    cfg, params, packed, n_fwd = _ssm_model(torch, dev)
+    want = {"packed": {"skinny": n_fwd * (SSM_GEN - 1), "general": n_fwd,
+                       "unpacked": 0},
+            "unpacked": {"skinny": 0, "general": 0,
+                         "unpacked": n_fwd * SSM_GEN}}
+    runs = {}
+    for label, kw in (("kernel", dict(graphs=False)),
+                      ("plain", dict(graphs=False, use_kernel=False)),
+                      ("captured", dict(graphs=True)),
+                      ("unpacked", dict(pack=False))):
+        _reset_all_launches()
+        torch.cuda.reset_peak_memory_stats()
+        toks, st = serve(SSM_ARCH, smoke=False, batch=SSM_BATCH,
+                         prompt_len=SSM_PROMPT, gen=SSM_GEN, cim=True,
+                         params=params, return_stats=True, **kw)
+        torch.cuda.synchronize()
+        logits = st.pop("last_logits")
+        runs[label] = dict(toks=toks, logits=logits,
+                           launches=_rows_launches(),
+                           peak=torch.cuda.max_memory_allocated(), **{
+                               k: st[k] for k in (
+                                   "pack_s", "pack_bytes", "prefill_s",
+                                   "decode_s", "decode_tok_s", "replay_tok_s",
+                                   "capture_s", "graph_pool_bytes")
+                               if k in st})
+        check(toks.shape == (SSM_BATCH, SSM_GEN)
+              and bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
+              and bool(torch.isfinite(logits).all()),
+              f"phase 40 {label}: tokens out of range or logits not finite")
+    k = runs["kernel"]
+    for label in ("plain", "captured", "unpacked"):
+        r = runs[label]
+        check((r["toks"] == k["toks"]).all()
+              and torch.equal(r["logits"], k["logits"]),
+              f"phase 40: {label} tokens or last logits != the kernels'")
+    for label, w in (("kernel", want["packed"]), ("captured", want["packed"]),
+                     ("unpacked", want["unpacked"])):
+        check(runs[label]["launches"] == w, f"phase 40 {label}: launches "
+              f"{runs[label]['launches']}, expected {w}")
+    check(not any(runs["plain"]["launches"].values()),
+          "phase 40: the plain run launched kernels")
+    # one captured decode step: its kernel nodes, a traced replay, its ms
+    ccfg = dataclasses.replace(cfg, cim_mode=True)
+    with torch.inference_mode():
+        max_seq = SSM_PROMPT + 32
+        cache = lm.init_cache(ccfg, SSM_BATCH, max_seq, device=dev)
+        prompt = torch.zeros((SSM_BATCH, SSM_PROMPT), dtype=torch.int64,
+                             device=dev)
+        _, cache = lm.prefill(packed, ccfg, prompt, cache)
+        tok = prompt[:, :1].clone()
+        out = torch.zeros((SSM_BATCH, max_seq), dtype=torch.int64,
+                          device=dev)
+        col = torch.ones((1, 1), dtype=torch.int64, device=dev)
+        graph = StepGraph(decode_body(packed, ccfg, tok, cache, out, col),
+                          dev)
+        graph()
+        graph()
+        check(graph.launches == {"ccim_matmul_prepacked_skinny_cuda":
+                                 n_fwd},
+              f"phase 40: the captured step credits {graph.launches}")
+        trace = check_replays(torch, graph, "phase 40 decode step")
+        replay_ms = cuda_ms(graph, reps=10, warmup=1)
+    macro_bytes = tree_bytes(packed["layers"])
+    head_bytes = packed["lm_head"].numel() * packed["lm_head"].element_size()
+    state_bytes = {name: t[:, :1].numel() * t.element_size()
+                   for name, t in cache.items() if name != "pos"}
+    del cache, graph
+    emit({"phase": "ssm_lockstep", "ok": True, "arch": SSM_ARCH,
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "d_inner": cfg.d_inner, "ssm_state": cfg.ssm_state,
+          "ssm_heads": cfg.ssm_heads, "ssm_chunk": cfg.ssm_chunk,
+          "vocab": cfg.vocab_size, "batch": SSM_BATCH,
+          "prompt_len": SSM_PROMPT, "gen": SSM_GEN,
+          "macro_gemms_per_forward": n_fwd,
+          "tokens_equal": ["plain", "captured", "unpacked"],
+          "logits_equal": True,
+          "runs": {lab: {k_: v for k_, v in r.items()
+                         if k_ not in ("toks", "logits")}
+                   for lab, r in runs.items()},
+          "replayed_step_ms": replay_ms, "replay_trace": trace,
+          "decode_bound_ms": 1e3 * (macro_bytes + head_bytes) / HBM_BYTES_S,
+          "decode_bound_bytes": {"macro_layers": macro_bytes,
+                                 "lm_head": head_bytes},
+          "ssm_state_bytes_per_slot": state_bytes,
+          "tokens_row0": k["toks"][0].tolist()})
+    return {"ssm_serve": runs["kernel"]["launches"],
+            "ssm_serve_captured": runs["captured"]["launches"],
+            "ssm_serve_unpacked": runs["unpacked"]["launches"]}
+
+
+def ssm_continuous_phase(torch, dev) -> dict:
+    """Phase 41: mamba2-130m continuous batching, 16 requests of 128
+    tokens (stops 8-32) over 8 slots, captured: the contiguous pool, the
+    paged pool with prefill chunks of 128 (aligned with the SSD chunk:
+    tokens equal the contiguous pool's, gated) and with chunks of 32 (row
+    1 at M 32; agreement reported, not gated).  Rows 1-2 launches equal
+    the GEMMs per forward times the forwards each pool ran (admits or
+    chunks, pooled steps); the pooled step's replay held to its kernel
+    nodes.  Returns the launches by path of rows 1, 2 and 6."""
+    import numpy as np
+    from repro_torch.launch.paging import PagedLayout, cdiv
+    from repro_torch.launch.scheduler import (ContinuousBatchingScheduler,
+                                              mixed_length_requests)
+    from repro_torch.models import lm
+
+    cfg, _, packed, n_fwd = _ssm_model(torch, dev)
+    ccfg = dataclasses.replace(cfg, cim_mode=True)
+    reqs = mixed_length_requests(SSM_REQUESTS, SSM_PROMPT, cfg.vocab_size,
+                                 stop_lengths=SSM_STOPS, seed=0)
+    cap = max(SSM_STOPS)
+    n_tbl = cdiv(SSM_PROMPT + cap - 1, PA_BS)
+    layout = PagedLayout(block_size=PA_BS, n_tbl=n_tbl,
+                         n_blocks=SSM_SLOTS * n_tbl + 1)
+    recs, toks, by_path = {}, {}, {}
+    for label, kw in (("contiguous", {}),
+                      ("paged", dict(paged=layout,
+                                     prefill_chunk=SSM_PROMPT)),
+                      ("paged_c32", dict(paged=layout, prefill_chunk=32))):
+        _reset_all_launches()
+        torch.cuda.reset_peak_memory_stats()
+        sched = ContinuousBatchingScheduler(
+            packed, ccfg, slots=SSM_SLOTS, prompt_len=SSM_PROMPT,
+            max_new_cap=cap, **kw)
+        rep = sched.run(reqs)
+        torch.cuda.synchronize()
+        launches = dict(_rows_launches(),
+                        paged_attn=_all_launches()["paged_attn"])
+        # prefill forwards: the admits (contiguous) or the chunks (paged),
+        # on row 2 at M 128 and on row 1 at M 32
+        prefills = rep.n_pf if "paged" in kw else rep.n_admits
+        on_row1 = kw.get("prefill_chunk", SSM_PROMPT) <= 32
+        want = {"general": 0 if on_row1 else n_fwd * prefills,
+                "skinny": n_fwd * (rep.n_steps + (prefills if on_row1
+                                                  else 0)),
+                "unpacked": 0, "paged_attn": 0}
+        check(launches == want, f"phase 41 {label}: launches {launches}, "
+              f"expected {want}")
+        check(rep.n_admits == SSM_REQUESTS and all(
+            len(f.tokens) > 0 for f in rep.finished),
+            f"phase 41 {label}: {rep.n_admits} admits")
+        trace = check_replays(torch, sched._graphs[0],
+                              f"phase 41 {label} pooled step")
+        toks[label] = rep.tokens_by_rid()
+        by_path[f"ssm_scheduler_{label}"] = launches
+        recs[label] = dict(
+            rep.summary(), n_iter=rep.n_iter, n_pf=rep.n_pf,
+            host_syncs=rep.host_syncs, branch_counts=rep.branch_counts,
+            iter_ms=1e3 * rep.wall_s / max(rep.n_iter, 1),
+            launches=launches, capture=sched.graph_stats(),
+            replay_trace=trace,
+            max_memory_allocated=torch.cuda.max_memory_allocated())
+        del sched
+    same = lambda a, b: sum(np.array_equal(toks[a][r], toks[b][r])
+                            for r in toks[b])
+    n_paged = same("paged", "contiguous")
+    check(n_paged == SSM_REQUESTS, f"phase 41: paged (chunk "
+          f"{SSM_PROMPT}) tokens equal the contiguous pool's on {n_paged}"
+          f" of {SSM_REQUESTS} requests")
+    with torch.inference_mode():
+        one = lm.init_cache(ccfg, 1, 1, device=dev)
+    state_bytes = {k: t.numel() * t.element_size() for k, t in one.items()
+                   if k != "pos"}
+    emit({"phase": "ssm_continuous", "ok": True, "arch": SSM_ARCH,
+          "requests": SSM_REQUESTS, "prompt_len": SSM_PROMPT,
+          "stop_lengths": list(SSM_STOPS), "slots": SSM_SLOTS,
+          "paged_layout": [layout.block_size, layout.n_tbl,
+                           layout.n_blocks],
+          "paged_equal_contiguous": n_paged,
+          "paged_c32_equal_contiguous": same("paged_c32", "contiguous"),
+          "ssm_state_bytes_per_slot": state_bytes, "runs": recs})
+    return by_path
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3935,6 +4211,12 @@ def main() -> int:
                                                     cfg_full)
     del params
     resilience_twin_phase()
+    # -- 40.-41. the SSM family: mamba2-130m at full width -----------------
+    ssm_paths = ssm_lockstep_phase(torch, dev)
+    ssm_paths.update(ssm_continuous_phase(torch, dev))
+    for path, n in ssm_paths.items():
+        by_path[path] = {k_: n[k_] for k_ in ("general", "skinny")}
+        raw_paths[path] = n
 
     src = "src/repro_torch/kernels/ccim_matmul/csrc/"
     table = []

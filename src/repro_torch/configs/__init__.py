@@ -1,7 +1,8 @@
 """Architecture registry: --arch <id> resolution for launchers/tests.
 
-Every architecture of the reference is listed; only ``minicpm-2b`` is
-ported so far, and the others raise ``NotImplementedError``.
+Every architecture of the reference is listed; ``minicpm-2b`` (dense)
+and ``mamba2-130m`` (ssm) are ported so far, and the others raise
+``NotImplementedError``.
 """
 from importlib import import_module
 
@@ -10,7 +11,7 @@ _MODULES = {
     "qwen3-14b": None,
     "starcoder2-7b": None,
     "gemma2-9b": None,
-    "mamba2-130m": None,
+    "mamba2-130m": "mamba2_130m",
     "qwen2-moe-a2.7b": None,
     "arctic-480b": None,
     "paligemma-3b": None,

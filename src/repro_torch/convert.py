@@ -3,8 +3,10 @@
 ``params_from_jax`` takes the nested dict that the reference ``lm.init``
 returns, with every leaf already a numpy array (bfloat16 leaves converted
 to float32 by the caller: ``torch.from_numpy`` rejects ml_dtypes'
-bfloat16), and returns the port's float params in the config's dtype.
-The f32 -> bf16 round trip of a bf16 value is exact.
+bfloat16), and returns the port's float params, each leaf in the dtype
+the reference gives it: the config's dtype, but float32 for the Mamba2
+leaves the reference keeps in float32 (``A_log``, ``D_skip``,
+``dt_bias``).  The f32 -> bf16 round trip of a bf16 value is exact.
 
 ``packed_from_jax`` maps a reference ``PackedCimWeights`` or
 ``FusedPackedCimWeights`` (numpy leaves, any object with the reference
@@ -34,6 +36,12 @@ from .models.lm import torch_dtype
 from .plan import DeploymentPlan, PlanEntry
 
 
+# leaves the reference's init makes in float32 whatever the model dtype
+# (repro/models/layers.py::mamba2_init): a bf16 A_log would move every
+# decay
+FLOAT32_LEAVES = frozenset({"A_log", "D_skip", "dt_bias"})
+
+
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
                     device=None) -> Dict[str, Any]:
     """Reference float params (numpy leaves) -> port params on ``device``.
@@ -41,10 +49,11 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
 
-    def conv(v):
+    def conv(v, name=""):
         if isinstance(v, dict):
-            return {k: conv(x) for k, x in v.items()}
-        return torch.from_numpy(np.array(v)).to(dev, dtype)
+            return {k: conv(x, k) for k, x in v.items()}
+        dt = torch.float32 if name in FLOAT32_LEAVES else dtype
+        return torch.from_numpy(np.array(v, np.float32)).to(dev, dt)
     return conv(tree)
 
 

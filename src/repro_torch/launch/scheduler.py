@@ -60,7 +60,11 @@ admission grants ``max_blk`` blocks as ``argsort(free-first, by id)``, so
 block ids and ``peak_blocks`` come out as the reference's; harvest
 decrements.  Shared prompt prefixes are planned on the host
 (paging.plan_prefix_sharing), and the refcounts return to ``[1, 0, ...]``
-when the queue drains.
+when the queue drains.  The ssm family keeps its SSM and conv state per
+slot, dense, and follows the reference's rules: a paged prompt is a
+whole number of prefill chunks (a padded chunk tail would run through
+the recurrent state), no prefix is shared, and no speculative round
+runs (the state cannot roll back a rejected draft).
 
 SPECULATIVE mode (``draft_k > 0``) turns each step branch into one
 plan-cascade round: ``draft_k`` pooled decode steps under ``draft_cfg``
@@ -371,9 +375,9 @@ class ContinuousBatchingScheduler:
                  adaptive_draft_k: bool = False,
                  obs: Optional[ObsConfig] = None,
                  graphs: Optional[bool] = None):
-        if cfg.family != "dense":
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (dense only)")
+        lm.check_family(cfg)
+        if draft_k:
+            lm.check_speculative(cfg)
         if draft_k < 0 or draft_k > 31:
             raise ValueError(f"draft_k {draft_k} outside [0, 31] (k+1 must "
                              "stay on the skinny-M verify path)")
@@ -802,6 +806,12 @@ class ContinuousBatchingScheduler:
                     raise ValueError(
                         f"request {r.rid}: prompt len {plen} outside "
                         f"[1, {self.prompt_len}]")
+                if self.cfg.family == "ssm" and plen % self.prefill_chunk:
+                    raise ValueError(
+                        f"request {r.rid}: prompt len {plen} must be a "
+                        f"multiple of prefill_chunk {self.prefill_chunk} "
+                        f"for the {self.cfg.family!r} family (a garbage "
+                        "chunk tail would corrupt the recurrent state)")
                 need = max(cdiv(plen, self.prefill_chunk)
                            * self.prefill_chunk,
                            plen + r.max_new_tokens - 1 + self.draft_k)
@@ -834,9 +844,11 @@ class ContinuousBatchingScheduler:
         if self.paged is None:
             return plan
         lay, C = self.paged, self.prefill_chunk
+        # a shared prefix reuses KV blocks; recurrent state has none
         pp = plan_prefix_sharing([np.asarray(r.prompt) for r in requests],
                                  lay.block_size, lay.n_tbl,
-                                 enable=self.prefix_sharing)
+                                 enable=(self.prefix_sharing
+                                         and self.cfg.family != "ssm"))
         self.last_prefix_plan = pp
         max_blk = np.array([lay.blocks_for(max(
             cdiv(len(r.prompt), C) * C,

@@ -445,6 +445,7 @@ def serve_speculative(arch: str, smoke: bool = True, batch: int = 2,
     if metrics:
         get_tracer().drain()        # stats["spans"]: this call's spans
     cfg, cim = _model_config(arch, smoke, cim, plan, fuse, use_kernel)
+    lm.check_speculative(cfg)
     draft_plan = draft_plan_for_model(cfg, draft_adc_bits)
     dcfg = dataclasses.replace(cfg, cim_plan=draft_plan) if cim else cfg
     K = draft_k

@@ -1,10 +1,12 @@
-"""Model-zoo building blocks, dense subset: RMSNorm, RoPE, GQA attention
-(blocked flash forward and plain), SwiGLU MLP.
+"""Model-zoo building blocks of the dense and ssm families: RMSNorm,
+RoPE, GQA attention (blocked flash forward and plain), SwiGLU MLP, and
+the Mamba2 (SSD) mixer.
 
 Counterpart of ``repro/models/layers.py``.  Every projection routes
 through ``_dense`` -> ``core.engine.CimEngine``, so packed weights
 (``lm.pack_cim_params``) run on the emulated C-CIM macro; fused packed
-groups (QKV, gate/up) run as one wide macro GEMM each.  Functions are
+groups (QKV, gate/up, the mamba2 input projections) run as one wide
+macro GEMM each.  Functions are
 plain torch on tensors; ``*_init`` take an explicit ``torch.Generator``.
 """
 from __future__ import annotations
@@ -674,3 +676,239 @@ def mlp_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
     else:
         h = F.gelu(gu["w1"], approximate="tanh") * gu["w3"]
     return _dense(h, p["w2"], cfg, f"{path}/w2")
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 (SSD): chunked parallel scan for prefill, one-step recurrence for
+# decode
+# ---------------------------------------------------------------------------
+# On the CPU the float32 arithmetic follows the reference's compiled CPU
+# code, which the port's tests hold it to: XLA's exp and log1p
+# (``core/prng.py``), its blocked cumulative sum (``_scan_sum``), its
+# multiply-adds fused (``_fma``) and its dot's summation order
+# (``_dot``).  On CUDA the same formulas run as plain torch ops.
+
+
+def mamba2_init(gen: torch.Generator, cfg: ModelConfig, n_layers: int,
+                dtype) -> Params:
+    """Stacked (n_layers, ...) Mamba2 mixer params: the input projections
+    kept separate (w_z, w_x, w_bc, w_dt; packing fuses them), depthwise
+    convs per stream, and the float32 A_log, D_skip and dt_bias."""
+    D, DI, N, H = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    W, dev = cfg.ssm_conv_width, gen.device
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    def conv(c):
+        return (torch.randn((n_layers, W, c), generator=gen, **f32)
+                / W).to(dtype)
+    dt0 = torch.exp(torch.rand((n_layers, H), generator=gen, **f32)
+                    * (math.log(1e-1) - math.log(1e-3)) + math.log(1e-3))
+    return {
+        "w_z": _init_dense(gen, (n_layers, D, DI), dtype),
+        "w_x": _init_dense(gen, (n_layers, D, DI), dtype),
+        "w_bc": _init_dense(gen, (n_layers, D, 2 * N), dtype),
+        "w_dt": _init_dense(gen, (n_layers, D, H), dtype),
+        "conv_x": conv(DI),
+        "conv_b": conv(2 * N),
+        "conv_bias_x": torch.zeros((n_layers, DI), dtype=dtype, device=dev),
+        "conv_bias_b": torch.zeros((n_layers, 2 * N), dtype=dtype,
+                                   device=dev),
+        "A_log": torch.log(torch.linspace(1.0, 16.0, H, **f32)).expand(
+            n_layers, H).clone(),
+        "D_skip": torch.ones((n_layers, H), **f32),
+        "dt_bias": torch.log(torch.expm1(dt0)),
+        "gate_norm": torch.zeros((n_layers, DI), dtype=dtype, device=dev),
+        "out_proj": _init_dense(gen, (n_layers, DI, D), dtype),
+    }
+
+
+def _exp(t: torch.Tensor) -> torch.Tensor:
+    return torch.exp(t) if t.is_cuda else prng.exp(t)
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a * b + c in float32: rounded once on the CPU, as XLA's CPU code
+    contracts a multiply feeding an add."""
+    return a * b + c if a.is_cuda else prng.fma(a, b, c)
+
+
+def _softplus(v: torch.Tensor) -> torch.Tensor:
+    """log(1 + e^v) as jax evaluates it: max(v, 0) + log1p(e^-|v|)."""
+    if v.is_cuda:
+        return torch.clamp_min(v, 0) + torch.log1p(torch.exp(-v.abs()))
+    return torch.clamp_min(v, 0) + prng.log1p(prng.exp(-v.abs()))
+
+
+_SCAN_BASE = 16     # XLA's CPU rewrite of a long cumulative sum
+
+
+def _scan_sum(t: torch.Tensor) -> torch.Tensor:
+    """Inclusive cumulative sum over the last axis.  On the CPU in the
+    reference's compiled order: XLA rewrites a cumulative sum longer than
+    16 into blocks of 16 (the axis zero-padded at its end), each summed in
+    order, plus the exclusive sum of the block totals, which is itself
+    taken the same way."""
+    if t.is_cuda:
+        return torch.cumsum(t, dim=-1)
+    n = t.shape[-1]
+    if n <= _SCAN_BASE:
+        out = [t[..., 0]]
+        for i in range(1, n):
+            out.append(out[-1] + t[..., i])
+        return torch.stack(out, dim=-1)
+    nb = -(-n // _SCAN_BASE)
+    blk = _scan_sum(F.pad(t, (0, nb * _SCAN_BASE - n)).reshape(
+        *t.shape[:-1], nb, _SCAN_BASE))
+    before = F.pad(_scan_sum(blk[..., -1])[..., :-1], (1, 0))
+    return (blk + before[..., None]).reshape(
+        *t.shape[:-1], nb * _SCAN_BASE)[..., :n]
+
+
+def _dot_lanes(m: int, n: int, nt: bool) -> int:
+    """The number of interleaved K lanes of XLA's CPU dot for an (m, K) x
+    (K, n) product (``nt``: the right operand stored (n, K)), measured on
+    the shapes of this module's dots: each lane sums its k = l mod lanes
+    in order with fused multiply-adds, and the lanes add pairwise."""
+    if m == 1 or (not nt and m < 64 and n > 16):
+        return 1
+    return 4 if n < 32 else 2 if n < 64 else 1
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor, nt: bool = False
+         ) -> torch.Tensor:
+    """a (..., M, K) @ b (..., K, N), float32.  On the CPU in the order of
+    the reference's compiled dot (``_dot_lanes``): products exact in
+    float64, each lane's running sum rounded once per step."""
+    if a.is_cuda:
+        return a @ b
+    M, K = a.shape[-2:]
+    lanes = _dot_lanes(M, b.shape[-1], nt)
+    a64, b64 = a.to(torch.float64), b.to(torch.float64)
+    acc = []
+    for lane in range(lanes):
+        s = None
+        for k in range(lane, K, lanes):
+            p = a64[..., :, k, None] * b64[..., None, k, :]
+            s = p.to(torch.float32) if s is None else (
+                s.to(torch.float64) + p).to(torch.float32)
+        acc.append(s)
+    while len(acc) > 1:
+        acc = [acc[i] + acc[i + 1] for i in range(0, len(acc), 2)]
+    return acc[0]
+
+
+def _segsum(a: torch.Tensor) -> torch.Tensor:
+    """(..., Q) log-decays -> (..., Q, Q): entry (i, j) the sum over
+    (j, i] for j <= i, -inf above the diagonal."""
+    Q = a.shape[-1]
+    cs = _scan_sum(a)
+    diff = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=a.device))
+    return torch.where(mask, diff, float("-inf"))
+
+
+def _causal_conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 state: Optional[torch.Tensor] = None):
+    """Depthwise causal conv: u (B, S, C), w (W, C), bias (C); ``state``
+    (B, W-1, C) holds the previous W-1 inputs (zeros when None).  Every
+    product and sum is rounded to u's dtype, as the reference's compiled
+    bf16 code rounds them.  Returns (silu(out), the last W-1 inputs)."""
+    W, S = w.shape[0], u.shape[1]
+    if state is None:
+        state = torch.zeros((u.shape[0], W - 1, u.shape[2]), dtype=u.dtype,
+                            device=u.device)
+    u_p = torch.cat([state.to(u.dtype), u], dim=1)
+    out = u_p[:, 0:S] * w[0]
+    for i in range(1, W):
+        out = out + u_p[:, i:i + S] * w[i]
+    return _silu(out + b), u_p[:, S:]
+
+
+def mamba2_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                 ssm_state: Optional[torch.Tensor] = None,
+                 conv_state=None, decode: bool = False):
+    """x (B, S, D) -> (y (B, S, D), (new ssm state (B, H, P, N) float32,
+    (new conv_x, new conv_bc))).  Prefill (``decode=False``) pads S to a
+    multiple of the chunk with dt = 0 (identity decay, no update) and runs
+    the chunked SSD scan from ``ssm_state`` (zeros when None);
+    ``decode=True`` takes one step (S == 1) of the recurrence."""
+    B, S, D = x.shape
+    DI, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    f32 = torch.float32
+    proj = _dense_group(x, p, ("w_z", "w_x", "w_bc", "w_dt"), cfg, "mamba/")
+    z, xc, BCc, dt_raw = (proj[n] for n in ("w_z", "w_x", "w_bc", "w_dt"))
+    cs_x, cs_bc = conv_state if conv_state is not None else (None, None)
+    xc, new_cx = _causal_conv(xc, p["conv_x"], p["conv_bias_x"], cs_x)
+    BCc, new_cbc = _causal_conv(BCc, p["conv_b"], p["conv_bias_b"], cs_bc)
+    Bc, Cc = BCc[..., :N], BCc[..., N:]
+    dt = _softplus(dt_raw.to(f32) + p["dt_bias"])                 # (B,S,H)
+    A = -_exp(p["A_log"])                                         # (H,)
+    D_skip = p["D_skip"]
+
+    if decode:
+        xh = xc[:, 0].reshape(B, H, P).to(f32)
+        Bh, Ch, dt0 = Bc[:, 0].to(f32), Cc[:, 0].to(f32), dt[:, 0]
+        a = _exp(dt0 * A)                                         # (B,H)
+        dBx = xh[..., None] * (Bh[:, None, :] * dt0[..., None])[:, :, None]
+        state = (ssm_state if ssm_state is not None else
+                 torch.zeros((B, H, P, N), dtype=f32, device=x.device))
+        new_state = _fma(state, a[..., None, None], dBx)
+        y = _dot(Ch[:, None, None, :],
+                 new_state.reshape(B, H * P, N).transpose(1, 2)[:, None])
+        y = _fma(D_skip[:, None], xh, y.reshape(B, H, P))
+        y = y.reshape(B, 1, DI)
+    else:
+        Q = min(cfg.ssm_chunk, S)
+        pad = -S % Q
+        if pad:
+            z, xc, Bc, Cc, dt = (F.pad(t, (0, 0, 0, pad))
+                                 for t in (z, xc, Bc, Cc, dt))
+        Sp = S + pad
+        nc = Sp // Q
+        xb = xc.to(f32).reshape(B, nc, Q, H, P)
+        Bb = Bc.to(f32).reshape(B, nc, Q, N)
+        Cb = Cc.to(f32).reshape(B, nc, Q, N)
+        dtb = dt.reshape(B, nc, Q, H)
+        a_t = (dtb * A).transpose(2, 3)                           # (B,nc,H,Q)
+        L = _exp(_segsum(a_t))                                    # (B,nc,H,Q,Q)
+        scores = _dot(Cb, Bb.transpose(-1, -2), nt=True)          # (B,nc,Q,Q)
+        dt_k = dtb.transpose(2, 3)[:, :, :, None, :]              # (B,nc,H,1,Q)
+        if x.is_cuda:
+            y_diag = (scores[:, :, None] * L * dt_k) @ xb.permute(0, 1, 3, 2, 4)
+        else:
+            # the reference's pairing: (L dt) against (scores x), summed
+            # over k as one dot per (b, c, h, q)
+            lhs = (L * dt_k)[..., None, :]                        # (..,Q,1,K)
+            rhs = (scores[:, :, None, :, :, None]
+                   * xb.permute(0, 1, 3, 2, 4)[:, :, :, None])    # (..,Q,K,P)
+            y_diag = _dot(lhs, rhs)[..., 0, :]
+        a_cum = _scan_sum(a_t)                                    # (B,nc,H,Q)
+        decay_end = _exp(a_cum[..., -1:] - a_cum)
+        wx = (xb.permute(0, 1, 3, 4, 2)
+              * (decay_end * dtb.transpose(2, 3))[:, :, :, None, :])
+        states = _dot(wx.reshape(B, nc, H * P, Q), Bb).reshape(
+            B, nc, H, P, N)
+        chunk_decay = _exp(a_cum[..., -1])                        # (B,nc,H)
+        h = (ssm_state if ssm_state is not None else
+             torch.zeros((B, H, P, N), dtype=f32, device=x.device))
+        h_prev = []
+        for c in range(nc):
+            h_prev.append(h)
+            h = _fma(h, chunk_decay[:, c, :, None, None], states[:, c])
+        new_state = h
+        h_prev = torch.stack(h_prev, dim=1)                       # (B,nc,H,P,N)
+        cw = Cb[:, :, None] * _exp(a_cum)[..., None]              # (B,nc,H,Q,N)
+        y_off = _dot(cw, h_prev.transpose(-1, -2), nt=True)       # (B,nc,H,Q,P)
+        y = (y_diag + y_off).permute(0, 1, 3, 2, 4).reshape(B, Sp, H, P)
+        y = _fma(D_skip[:, None], xb.reshape(B, Sp, H, P), y)
+        y = y.reshape(B, Sp, DI)
+
+    # y rounded to bf16 times silu(z) feeds the gated norm unrounded (the
+    # reference's compiled code drops that product's rounding: a product
+    # of two bf16 values is exact in float32)
+    g = y.to(x.dtype).to(f32) * _silu(z).to(f32)
+    y = rms_norm(g, p["gate_norm"], cfg.norm_eps).to(x.dtype)
+    out = _dense(y, p["out_proj"], cfg, "mamba/out_proj")
+    if not decode and pad:
+        out = out[:, :S]
+    return out, (new_state, (new_cx, new_cbc))

@@ -1,7 +1,9 @@
-"""Decoder LM assembly, dense family: init, packing, prefill, decode,
-and the slot-level cache ops of continuous batching.
+"""Decoder LM assembly, dense and SSM families: init, packing, prefill,
+decode, and the slot-level cache ops of continuous batching.
 
-Counterpart of ``repro/models/lm.py`` (dense serve subset):
+Counterpart of ``repro/models/lm.py`` (the dense family, [attn, mlp] x L,
+and the ssm family, [mamba2] x L; moe, hybrid, vlm and audio are not
+ported and raise ``NotImplementedError``):
 
   init(key, cfg, device=None)             -> params
   pack_cim_params(params, cfg, device=None) -> packed params
@@ -17,9 +19,10 @@ The params tree has the reference's layout: ``params["layers"]`` holds
 stacked leaves with a leading layer axis, and the forward walks the
 layers in a Python loop (the reference scans them).  KV entries are
 written into the cache's tensors in place (the reference returns
-updated copies); ``pos`` comes back as a new tensor from prefill,
-``decode_step`` advances it in place, and the slot ops write their slot
-of every entry in place.
+updated copies), and so are the SSM family's recurrent ``ssm``,
+``conv_x`` and ``conv_bc`` entries; ``pos`` comes back as a new tensor
+from prefill, ``decode_step`` advances it in place, and the slot ops
+write their slot of every entry in place.
 """
 from __future__ import annotations
 
@@ -42,10 +45,25 @@ def torch_dtype(name: str) -> torch.dtype:
             "float16": torch.float16}[name]
 
 
-def _dense_only(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+PORTED_FAMILIES = ("dense", "ssm")
+
+
+def check_family(cfg: ModelConfig) -> None:
+    """Refuse the families the port does not serve yet."""
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense only)")
+            f"family {cfg.family!r} is not ported yet (ported: "
+            f"{', '.join(PORTED_FAMILIES)})")
+
+
+def check_speculative(cfg: ModelConfig) -> None:
+    """Refuse speculative decoding where it cannot roll back: the ssm
+    family's recurrent state advances destructively."""
+    if cfg.family == "ssm":
+        raise NotImplementedError(
+            "speculative decoding needs positional KV rollback; the "
+            f"{cfg.family!r} family carries recurrent SSM/conv state that "
+            "a rejected draft block cannot roll back")
 
 
 # ---------------------------------------------------------------------------
@@ -58,7 +76,7 @@ def init(key: Union[int, torch.Generator], cfg: ModelConfig,
     """Random params from ``key`` (a seed or a ``torch.Generator``), made
     on ``device`` (CUDA unless ``device="cpu"``).  The numbers differ from
     the reference's ``jax.random`` draws; the distributions match."""
-    _dense_only(cfg)
+    check_family(cfg)
     if isinstance(key, torch.Generator):
         gen = key
     else:
@@ -71,12 +89,18 @@ def init(key: Union[int, torch.Generator], cfg: ModelConfig,
     p["embed"] = (torch.randn((cfg.vocab_size, d), generator=gen,
                               dtype=torch.float32, device=dev)
                   * 0.02).to(dtype)
-    p["layers"] = {
-        "attn": L.attention_init(gen, cfg, n, dtype),
-        "ln1": torch.zeros((n, d), dtype=dtype, device=dev),
-        "ln2": torch.zeros((n, d), dtype=dtype, device=dev),
-        "mlp": L.mlp_init(gen, cfg, n, dtype),
-    }
+    if cfg.family == "ssm":
+        p["layers"] = {
+            "mamba": L.mamba2_init(gen, cfg, n, dtype),
+            "ln1": torch.zeros((n, d), dtype=dtype, device=dev),
+        }
+    else:
+        p["layers"] = {
+            "attn": L.attention_init(gen, cfg, n, dtype),
+            "ln1": torch.zeros((n, d), dtype=dtype, device=dev),
+            "ln2": torch.zeros((n, d), dtype=dtype, device=dev),
+            "mlp": L.mlp_init(gen, cfg, n, dtype),
+        }
     p["ln_f"] = torch.zeros((d,), dtype=dtype, device=dev)
     if not cfg.tie_embeddings:
         p["lm_head"] = L._init_dense(gen, (d, cfg.vocab_size), dtype)
@@ -88,21 +112,27 @@ def init(key: Union[int, torch.Generator], cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 
-# Projection leaves consumed by layers._dense; embeddings, lm_head and
-# norms stay float.
-_CIM_PACKABLE = frozenset({"wq", "wk", "wv", "wo", "w1", "w2", "w3"})
+# Projection leaves consumed by layers._dense; embeddings, lm_head,
+# convs and norms stay float.
+_CIM_PACKABLE = frozenset({
+    "wq", "wk", "wv", "wo",                      # attention
+    "w1", "w2", "w3",                            # MLP
+    "w_z", "w_x", "w_bc", "w_dt", "out_proj",    # mamba2 projections
+})
 
 # Projection groups that consume the same input activation.
-_FUSE_GROUPS = (("wq", "wk", "wv"),            # attention QKV
-                ("w1", "w3"))                  # SwiGLU gate/up
+_FUSE_GROUPS = (("wq", "wk", "wv"),              # attention QKV
+                ("w1", "w3"),                    # SwiGLU gate/up
+                ("w_z", "w_x", "w_bc", "w_dt"))  # mamba2 input projections
 
 
 def _walk_packable(tree, visit, path=()):
     """Rebuild ``tree`` with ``visit(plan_path, leaf)`` applied to every
     projection leaf ``layers._dense`` consumes.  ``plan_path`` is the
     deployment plan's path: tree keys joined with "/", the stacked key
-    "layers" dropped (one entry covers every layer), e.g. "attn/wq".  The
-    level directly under "moe" holds expert tensors, not projections."""
+    "layers" dropped (one entry covers every layer), e.g. "attn/wq" or
+    "mamba/out_proj".  The level directly under "moe" holds expert
+    tensors, not projections."""
     out = {}
     for k, v in tree.items():
         sub = path if k == "layers" else path + (k,)
@@ -187,8 +217,9 @@ def pack_cim_params(params: Params, cfg: ModelConfig, device=None) -> Params:
     """Replace every _dense-consumed projection with packed macro array
     contents, on ``device`` (CUDA unless ``device="cpu"``).  Under a
     deployment plan each projection packs under its own entry's config
-    and ``float`` sites stay raw.  With cfg.cim_fuse, QKV and gate/up
-    pack as one wide fused leaf per plan-compatible partition."""
+    and ``float`` sites stay raw.  With cfg.cim_fuse, QKV, gate/up and
+    the mamba2 input projections pack as one wide fused leaf per
+    plan-compatible partition."""
     if not cfg.cim_mode:
         raise ValueError("pack_cim_params requires cfg.cim_mode=True")
     return _pack_tree(_to_device(params, resolve_device(device)), cfg)
@@ -238,6 +269,17 @@ def _attn_block(blk, x, cfg, positions, is_local, kv=None, cache_pos=None,
     return x + h, new_kv
 
 
+def _mamba_block(blk, x, cfg, ssm_state=None, conv_state=None,
+                 decode=False):
+    """x + mamba2(rms_norm(x)): the ssm family's layer; returns (x, (new
+    ssm state, new conv states))."""
+    h, new = L.mamba2_apply(blk["mamba"],
+                            L.rms_norm(x, blk["ln1"], cfg.norm_eps), cfg,
+                            ssm_state=ssm_state, conv_state=conv_state,
+                            decode=decode)
+    return x + h, new
+
+
 # ---------------------------------------------------------------------------
 # forward without a cache (the planner's calibration forward)
 # ---------------------------------------------------------------------------
@@ -248,17 +290,21 @@ def hidden_states(params, cfg: ModelConfig, tokens: torch.Tensor,
                   remat: bool = True
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) -> final hidden (B, S, D), aux loss (0 for the dense
-    family).  ``frontend_embs`` feeds only the vision and audio families
-    (none is ported), and ``remat`` is a training option that changes
-    nothing in a forward pass; both are kept for the reference's
+    and ssm families).  ``frontend_embs`` feeds only the vision and audio
+    families (none is ported), and ``remat`` is a training option that
+    changes nothing in a forward pass; both are kept for the reference's
     signature."""
-    _dense_only(cfg)
+    check_family(cfg)
     x = _embed(params, cfg, tokens)
     B, S, _ = x.shape
-    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
-    for i in range(cfg.n_layers):
-        x, _ = _attn_block(_layer(params["layers"], i), x, cfg, positions,
-                           cfg.layer_is_local(i))
+    if cfg.family == "ssm":
+        for i in range(cfg.n_layers):
+            x = _mamba_block(_layer(params["layers"], i), x, cfg)[0]
+    else:
+        positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+        for i in range(cfg.n_layers):
+            x, _ = _attn_block(_layer(params["layers"], i), x, cfg,
+                               positions, cfg.layer_is_local(i))
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -280,13 +326,32 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                dtype=torch.bfloat16, device=None) -> Dict[str, torch.Tensor]:
     """Decode cache for ``batch`` sequences of up to ``max_seq``; ``pos``
-    is each row's write position."""
-    _dense_only(cfg)
+    is each row's write position.  The dense family keeps KV rows; the
+    ssm family keeps, per layer and row, the float32 SSM state (H, P, N)
+    and the last W-1 inputs of each conv (``conv_x``, ``conv_bc``)."""
+    check_family(cfg)
     dev = resolve_device(device)
-    shape = (cfg.n_layers, batch, max_seq, cfg.padded_kv_heads, cfg.head_dim)
-    return {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
-            "k": torch.zeros(shape, dtype=dtype, device=dev),
-            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    c = {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+    if cfg.family == "ssm":
+        c.update(_ssm_entries(cfg, batch, dtype, dev))
+    else:
+        shape = (cfg.n_layers, batch, max_seq, cfg.padded_kv_heads,
+                 cfg.head_dim)
+        c["k"] = torch.zeros(shape, dtype=dtype, device=dev)
+        c["v"] = torch.zeros(shape, dtype=dtype, device=dev)
+    return c
+
+
+def _ssm_entries(cfg: ModelConfig, batch: int, dtype, dev
+                 ) -> Dict[str, torch.Tensor]:
+    H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    W, n = cfg.ssm_conv_width, cfg.n_layers
+    return {"ssm": torch.zeros((n, batch, H, P, N), dtype=torch.float32,
+                               device=dev),
+            "conv_x": torch.zeros((n, batch, W - 1, cfg.d_inner),
+                                  dtype=dtype, device=dev),
+            "conv_bc": torch.zeros((n, batch, W - 1, 2 * N), dtype=dtype,
+                                   device=dev)}
 
 
 def init_paged_cache(cfg: ModelConfig, batch: int, n_blocks: int,
@@ -298,16 +363,21 @@ def init_paged_cache(cfg: ModelConfig, batch: int, n_blocks: int,
     ``table[b, p // block_size]``.  The ``"table"`` key is what flips
     prefill/decode_step and the slot helpers into paged mode.  Block 0 is
     the trash block (launch/scheduler.py): an all-zero table row, the
-    reset state, points every position at rows no live slot reads."""
-    _dense_only(cfg)
+    reset state, points every position at rows no live slot reads.  The
+    ssm family's SSM and conv state stays dense per slot (it is O(1) per
+    slot, not O(max_seq)), and it has no KV pools."""
+    check_family(cfg)
     dev = resolve_device(device)
-    shape = (cfg.n_layers, n_blocks, block_size, cfg.padded_kv_heads,
-             cfg.head_dim)
-    return {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
-            "table": torch.zeros((batch, n_tbl), dtype=torch.int32,
-                                 device=dev),
-            "k": torch.zeros(shape, dtype=dtype, device=dev),
-            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    c = {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
+         "table": torch.zeros((batch, n_tbl), dtype=torch.int32, device=dev)}
+    if cfg.family == "ssm":
+        c.update(_ssm_entries(cfg, batch, dtype, dev))
+    else:
+        shape = (cfg.n_layers, n_blocks, block_size, cfg.padded_kv_heads,
+                 cfg.head_dim)
+        c["k"] = torch.zeros(shape, dtype=dtype, device=dev)
+        c["v"] = torch.zeros(shape, dtype=dtype, device=dev)
+    return c
 
 
 # ---------------------------------------------------------------------------
@@ -316,9 +386,9 @@ def init_paged_cache(cfg: ModelConfig, batch: int, n_blocks: int,
 # Every cache entry carries the pool (batch) dimension at axis 1 (stacked
 # per layer) except "pos" and "table", which carry it at axis 0.  In PAGED
 # caches the KV entries are global block pools with no batch axis: the
-# slot helpers pass them through whole, and per-slot state is "pos" and
-# "table".  ``slot`` is a Python int (the scheduler picks slots on the
-# host).
+# slot helpers pass them through whole, and per-slot state is "pos",
+# "table" and the SSM/conv entries.  ``slot`` is a Python int (the
+# scheduler picks slots on the host).
 
 
 _POOL_KEYS = frozenset({"k", "v"})
@@ -360,7 +430,9 @@ def slot_update(cache: Dict, sub: Dict, slot: int) -> Dict:
 def _zeroed_slot(cache: Dict, slot: int) -> Dict:
     """A zeroed batch-1 sub-cache for ``slot`` -- the reset state.  KV
     rows do not strictly need zeroing (the attention validity mask hides
-    everything at or beyond ``pos``), but one op clears every entry.
+    everything at or beyond ``pos``), but SSM/conv state feeds the
+    recurrence as its initial value, so a freed slot must be cleared
+    before its next prefill; one op clears every entry.
     Paged caches keep the pools (shared) AND the slot's table row: the
     scheduler's allocator arms the table before prefilling and clears it
     at harvest, and a reset between the two must not sever the mapping."""
@@ -372,8 +444,32 @@ def _zeroed_slot(cache: Dict, slot: int) -> Dict:
 
 
 def reset_slot(cache: Dict, slot: int) -> Dict:
-    """Zero one slot's state (KV rows and position) in place."""
+    """Zero one slot's state (KV rows, SSM/conv state, position) in
+    place."""
     return slot_update(cache, _zeroed_slot(cache, slot), slot)
+
+
+def _ssm_stack(params, cfg, x, cache, decode: bool, chunked: bool = False,
+               write_mask=None):
+    """The ssm family's layers over a cache: each layer's SSM state and
+    conv state are read from the cache and the new ones written into it
+    in place.  ``chunked`` (a mid-prompt prefill chunk) and ``decode``
+    continue from the cached conv inputs; a fresh prefill starts from
+    zeros.  ``write_mask`` ((B,) bool) keeps a masked row's state as it
+    was (paged decode: a filling slot's recurrence must survive the pool
+    steps between its chunks)."""
+    for i in range(cfg.n_layers):
+        st, cx, cbc = (cache[k][i] for k in ("ssm", "conv_x", "conv_bc"))
+        x, (new_st, (new_cx, new_cbc)) = _mamba_block(
+            _layer(params["layers"], i), x, cfg, ssm_state=st,
+            conv_state=(cx, cbc) if (decode or chunked) else None,
+            decode=decode)
+        for old, new in ((st, new_st), (cx, new_cx), (cbc, new_cbc)):
+            if write_mask is not None:
+                keep = write_mask.reshape(-1, *[1] * (old.dim() - 1))
+                new = torch.where(keep, new.to(old.dtype), old)
+            old.copy_(new)
+    return x
 
 
 def _stack(params, cfg, x, positions, cache, cache_pos, write_mask=None):
@@ -391,13 +487,16 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, cache: Dict
             ) -> Tuple[torch.Tensor, Dict]:
     """Run the prompt, fill the cache, return last-position logits
     (B, 1, V) float32."""
-    _dense_only(cfg)
+    check_family(cfg)
     x = _embed(params, cfg, tokens)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     cache = dict(cache)
-    x = _stack(params, cfg, x, positions, cache,
-               torch.zeros((B,), dtype=torch.int32, device=x.device))
+    if cfg.family == "ssm":
+        x = _ssm_stack(params, cfg, x, cache, decode=False)
+    else:
+        x = _stack(params, cfg, x, positions, cache,
+                   torch.zeros((B,), dtype=torch.int32, device=x.device))
     cache["pos"] = torch.full((B,), S, dtype=torch.int32, device=x.device)
     return _logits(params, cfg, x[:, -1:, :]), cache
 
@@ -423,14 +522,22 @@ def prefill_chunk_into_slot(params, cfg: ModelConfig, tokens: torch.Tensor,
     prefix's refcounted blocks) are the context this chunk attends to.
     Returns logits for ALL C chunk positions (1, C, V); every row equals
     the same row of a single-shot prefill (row-local GEMMs and a per-row
-    softmax over an identical masked key stream)."""
-    _dense_only(cfg)
+    softmax over an identical masked key stream).  The ssm family
+    carries conv and SSM state across chunks: its rows equal a
+    single-shot prefill's when the chunk boundaries fall on multiples of
+    ``cfg.ssm_chunk`` and the prompt is a whole number of chunks (the
+    scheduler enforces the latter: a padded chunk tail would run through
+    the recurrent state, where attention's validity horizon masks it)."""
+    check_family(cfg)
     sub = dict(slot_slice(cache, slot))
     x = _embed(params, cfg, tokens)
     B, S, _ = x.shape
     pos = sub["pos"]
-    positions = pos[:, None] + torch.arange(S, device=x.device)[None, :]
-    x = _stack(params, cfg, x, positions, sub, pos)
+    if cfg.family == "ssm":
+        x = _ssm_stack(params, cfg, x, sub, decode=False, chunked=True)
+    else:
+        positions = pos[:, None] + torch.arange(S, device=x.device)[None, :]
+        x = _stack(params, cfg, x, positions, sub, pos)
     sub["pos"] = pos + S
     return _logits(params, cfg, x), slot_update(cache, sub, slot)
 
@@ -445,17 +552,22 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, cache: Dict,
     logits are computed and discarded), and in PAGED caches their KV
     write goes to the trash block -- their table may alias blocks a live
     request reads (shared prefixes, or their own half-prefilled
-    chunks).
+    chunks), and their SSM and conv state is held (a filling slot's
+    recurrence must survive the pool steps between its chunks).
 
     ``cache["pos"]`` is advanced in place and ``cache`` itself returned:
     every tensor of the state keeps its storage, which a captured step
     (``launch/graphs.py``) needs.  A caller that steps twice from one
     state clones ``pos`` first."""
-    _dense_only(cfg)
+    check_family(cfg)
     x = _embed(params, cfg, token)
     pos = cache["pos"]
     wmask = live if (live is not None and is_paged(cache)) else None
-    x = _stack(params, cfg, x, pos[:, None], cache, pos, write_mask=wmask)
+    if cfg.family == "ssm":
+        x = _ssm_stack(params, cfg, x, cache, decode=True, write_mask=wmask)
+    else:
+        x = _stack(params, cfg, x, pos[:, None], cache, pos,
+                   write_mask=wmask)
     pos.add_(1 if live is None else live.to(torch.int32))
     return _logits(params, cfg, x), cache
 
@@ -481,8 +593,11 @@ def verify_step(params, cfg: ModelConfig, tokens: torch.Tensor, cache: Dict,
     ``layers.plain_attention`` see to that; ``tools/row_probe.py`` and
     ``tools/verify_divergence.py`` measure it).  ``live``
     matters only for paged caches: it sends non-live rows' writes to the
-    trash block."""
-    _dense_only(cfg)
+    trash block.  Restricted to positional-cache families: the ssm
+    family's recurrent state advances destructively and a draft block
+    cannot roll it back."""
+    check_family(cfg)
+    check_speculative(cfg)
     if cfg.attn_impl != "plain":
         cfg = dataclasses.replace(cfg, attn_impl="plain")
     x = _embed(params, cfg, tokens)

@@ -110,6 +110,9 @@ def test_general_kernel_equals_plain(dev, acc_len, n_planes, m):
 
 # minicpm-2b's four full-width layer GEMMs, (K, N)
 FULL_SHAPES = ((2304, 9216), (3072, 2304), (2304, 11520), (5760, 2304))
+# mamba2-130m's two: the fused input group w_z+w_x+w_bc+w_dt (N 1,536 +
+# 1,536 + 256 + 24, ragged: 16 x 209 + 8) and out_proj
+MAMBA_SHAPES = ((768, 3352), (1536, 768))
 
 
 def _skinny_case(dev, gen, m, k, n, acc_len, n_planes, packed):
@@ -133,14 +136,16 @@ def _skinny_case(dev, gen, m, k, n, acc_len, n_planes, packed):
 
 @pytest.mark.parametrize(
     "m,k,n,acc_len,n_planes",
-    [(m, k, n, 16, 2) for k, n in FULL_SHAPES
+    [(m, k, n, 16, 2) for k, n in FULL_SHAPES + MAMBA_SHAPES
      for m in (1, 2, 4, 8, 16, 17, 31, 32)]
     + [(3, 1008, 37, 16, 2), (4, 64, 33792, 16, 2)]
     + [(m, 1000, 300, acc, np_) for m in (4, 32) for acc in (8, 16, 32, 64)
        for np_ in range(4)])
 def test_skinny_kernel_equals_plain(dev, m, k, n, acc_len, n_planes):
     """Kernel row 1 against its plain version: the four full-width layer
-    GEMMs of a prototype pack at M 1-32 (wo and w2 cut every column group
+    GEMMs of minicpm-2b's and mamba2-130m's two (the SSM's decode steps
+    at M 1-8, its paged prefill chunks at M 32) of a prototype pack at M
+    1-32 (wo and w2 cut every column group
     between blocks: split < Kp), a ragged one (M 3, K 1008, N 37), one
     where each block walks whole one-stage groups (K 64, N 33,792:
     no group is cut, plain stores), and 0-3 planes in [-7, 7] x acc_len
@@ -163,6 +168,25 @@ def test_skinny_kernel_equals_plain(dev, m, k, n, acc_len, n_planes):
     assert K.ccim_matmul_prepacked_skinny_cuda.launches == 1
     want = K.ccim_matmul_prepacked_plain(x, w, planes, **meta)
     assert got.dtype == torch.int32 and torch.equal(got, want), split
+
+
+@pytest.mark.parametrize("m", [33, 128, 512])
+@pytest.mark.parametrize("k,n", MAMBA_SHAPES)
+def test_general_kernel_mamba_shapes_equal_plain(dev, m, k, n):
+    """Kernel row 2 on a prototype pack at mamba2-130m's two GEMMs (K 768
+    has not met the kernel's K split elsewhere): M 128 is a one-chunk
+    prefill row block, M 512 the lock-step prefill of batch 4; ints
+    compared with torch.equal; one launch per call."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(m + k + n)
+    x, w, planes, meta = _skinny_case(dev, gen, m, k, n, 16, 2, packed=True)
+    K.reset_launch_counts()
+    got = K.ccim_matmul_prepacked_general_cuda(x, w, planes, **meta)
+    torch.cuda.synchronize()
+    assert K.ccim_matmul_prepacked_general_cuda.launches == 1
+    want = K.ccim_matmul_prepacked_plain(x, w, planes, **meta)
+    assert got.dtype == torch.int32 and torch.equal(got, want), (
+        K.general_k_split(m, n, w.shape[1], 16))
 
 
 def test_skinny_kernel_repeats_and_alternates(dev):
@@ -271,13 +295,16 @@ def _ragged_unpacked_split_k(m: int, n: int,
 @pytest.mark.parametrize("m,k,n", [(m, FULL_K, FULL_N) for m in
                                    (1, 4, 32, 33, 128, 129, 512)]
                          + [(2, 1001, 333), (3, 130, 2401), (45, 999, 257),
-                            (1, 37, 11), (4, None, 2304), (128, None, 2304)])
+                            (1, 37, 11), (4, None, 2304), (128, None, 2304)]
+                         + [(m, k, n) for k, n in MAMBA_SHAPES
+                            for m in (1, 4, 32, 128, 512)])
 def test_unpacked_kernel_equals_plain(dev, m, k, n):
     """Kernel 6 (the tensor-core template over a raw-weight fill) through
     ``ccim_matmul_int`` against its plain version: full width (fused QKV)
     at M 1-512, ragged N (rows not 16-byte aligned) and ragged K (Kp a
-    multiple of 16, not of the 64-byte stage), and K None: a K that the
-    kernel's own split leaves a shorter last split.  ints compared with
+    multiple of 16, not of the 64-byte stage), K None: a K that the
+    kernel's own split leaves a shorter last split, and mamba2-130m's two
+    GEMMs (unpacked SSM serving) at M 1-512.  ints compared with
     torch.equal; one launch per call."""
     if k is None:
         k = _ragged_unpacked_split_k(m, n)
@@ -757,6 +784,48 @@ def test_captured_serve_equals_eager(dev, width):
     assert (te == tc).all() and torch.equal(se["last_logits"],
                                             sc["last_logits"])
     assert le == lc and lc["ccim_matmul_prepacked_skinny_cuda"] > 0
+
+
+@pytest.mark.parametrize("width", ["smoke", "full"])
+def test_captured_ssm_decode_equals_eager(dev, width):
+    """mamba2-130m's decode step (packed, prototype macro) replayed from
+    one graph over 8 steps against 8 eager steps from the same prefill:
+    logits, the SSM state, both conv states and the positions equal
+    (``==``) after every step; the graph credits the packed tree's two
+    row-1 GEMMs a layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.graphs import StepGraph
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(get_config("mamba2-130m",
+                                         smoke=width == "smoke"),
+                              cim_mode=True)
+    packed = lm.pack_cim_params(lm.init(0, cfg), cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (4, cfg.ssm_chunk),
+                           generator=gen, device=dev)
+    steps = torch.randint(0, cfg.vocab_size, (8, 4, 1), generator=gen,
+                          device=dev)
+    caches = []
+    with torch.inference_mode():
+        for _ in range(2):
+            _, c = lm.prefill(packed, cfg, prompt,
+                              lm.init_cache(cfg, 4, 1, device=dev))
+            caches.append(c)
+        eager, replay = caches
+        tok = torch.zeros((4, 1), dtype=torch.int64, device=dev)
+        graph = StepGraph(lambda: lm.decode_step(packed, cfg, tok,
+                                                 replay)[0], dev)
+        for i in range(8):
+            want, _ = lm.decode_step(packed, cfg, steps[i], eager)
+            tok.copy_(steps[i])
+            got = graph()
+            assert torch.equal(got, want), i
+            for key in ("ssm", "conv_x", "conv_bc", "pos"):
+                assert torch.equal(replay[key], eager[key]), (i, key)
+    assert graph.replays == 7
+    assert graph.launches == {"ccim_matmul_prepacked_skinny_cuda":
+                              2 * cfg.n_layers}
 
 
 @pytest.mark.parametrize("batch", [2, 4])

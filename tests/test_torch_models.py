@@ -135,15 +135,19 @@ def test_data_pipeline_matches():
 
 
 def test_configs_match_reference_and_others_raise():
-    for smoke in (False, True):
-        j, t = jget("minicpm-2b", smoke), tget("minicpm-2b", smoke)
-        for f in dataclasses.fields(t):
-            if f.name not in ("cim_use_kernel", "paged_attn_use_kernel"):
-                assert getattr(t, f.name) == getattr(j, f.name), f.name
+    ported = ("minicpm-2b", "mamba2-130m")
+    for arch in ported:
+        for smoke in (False, True):
+            j, t = jget(arch, smoke), tget(arch, smoke)
+            for f in dataclasses.fields(t):
+                if f.name not in ("cim_use_kernel", "paged_attn_use_kernel"):
+                    assert getattr(t, f.name) == getattr(j, f.name), (
+                        arch, f.name)
+            assert (t.d_inner, t.ssm_heads) == (j.d_inner, j.ssm_heads)
     assert tget("minicpm-2b").padded_heads == 48
     assert tget("minicpm-2b", smoke=True).tp_head_pad == 1
     for arch in ARCHS:
-        if arch != "minicpm-2b":
+        if arch not in ported:
             with pytest.raises(NotImplementedError):
                 tget(arch)
 

@@ -173,13 +173,16 @@ def test_serve_continuous_drivers():
         np.testing.assert_array_equal(ptoks[rid], toks[rid])
 
 
-@pytest.mark.parametrize("kw", [dict(family="ssm"), dict(family="moe"),
-                                dict(family="hybrid")])
+@pytest.mark.parametrize("kw", [dict(family="ssm", draft_k=4),
+                                dict(family="moe"), dict(family="hybrid")])
 def test_unported_options_raise(kw):
-    """Options the port does not serve yet raise (speculative rounds,
-    ``draft_k``, are served now: tests/test_torch_spec_scheduler.py;
-    sampling: tests/test_torch_sampling.py; and telemetry, ``obs``:
-    tests/test_torch_obs.py)."""
+    """Options the port does not serve raise: the families not ported
+    yet, and speculative rounds over the ssm family, which the reference
+    refuses too (its recurrent state cannot roll back a draft block).
+    Speculative rounds on the dense family are served
+    (tests/test_torch_spec_scheduler.py), and so are the ssm family
+    (tests/test_torch_ssm.py), sampling (tests/test_torch_sampling.py)
+    and telemetry, ``obs`` (tests/test_torch_obs.py)."""
     kw = dict(kw)
     cfg = dataclasses.replace(tget("minicpm-2b", smoke=True),
                               family=kw.pop("family", "dense"))
