@@ -54,11 +54,11 @@ failure.  Phases:
   9. continuous batching, contiguous KV: 16 mixed-length requests over 8
      slots; pool tokens must equal the lock-step wave baseline's, and no
      paged-attention kernel may launch;
- 10. the same requests with a paged KV cache (block 16, prefill chunks of
-     32): 40 paged-attention launches per decode step; how many
-     requests' tokens equal phase 9's is reported, not gated (the kernel's float32
-     P.V can move a bf16 activation by one ulp, and in CIM mode an ADC
-     code with it);
+ 10. the first 8 of those requests with a paged KV cache (block 16,
+     prefill chunks of 32): 40 paged-attention launches per decode step;
+     how many requests' tokens equal phase 9's is reported, not gated
+     (the kernel's float32 P.V can move a bf16 activation by one ulp,
+     and in CIM mode an ADC code with it);
  11. paged serving of 16 requests, half behind one shared 32-token
      prefix: refcounts must drain, the prefix plan must share blocks, and
      pool tokens must equal solo runs of 3 of the requests;
@@ -71,6 +71,10 @@ failure.  Phases:
      replays over distinct KV pools), beside the plain version, a gather +
      scaled_dot_product_attention yardstick (same pool and cold) and the
      byte bound, and cold device time over the split count at long walks;
+     and at head dim 256, gemma2-9b's heads (16 over 8, softcap 50, a
+     4,096 window) and paligemma-3b's (8 over 1) at lengths 96 and 1,024:
+     kernel == plain to the tolerance, one launch counted a call, per
+     call, same-pool and cold device time, the byte bound;
  14. the fused complex kernels (prepacked skinny and general, unpacked)
      vs their plain versions with torch.equal at the full-width shapes,
      on ragged shapes and at the DoA shapes; off the prototype design
@@ -97,13 +101,14 @@ failure.  Phases:
      32, 128, 256, 512) and ragged M, K, N: exactly one launch per
      ``int8_matmul`` call and none from the plain run;
  19. the kernel bench twin (``launch/kernel_bench.py --scale card``):
-     every row's parity assert and the 1.05x decode floor, with the
-     launches of every kernel it drives; its two noisy rows (bit-true
+     every row's parity assert and the 1.05x decode floor (its two
+     routes replayed from CUDA graphs, as the reference jits them), with
+     the launches of every kernel it drives; its two noisy rows (bit-true
      and fast on the reference's operands, die and key) with their
      errors and times;
  20. the Fig. 6 twin at 1,048,576 conversions on the card (peak memory
      under 8 GB; the reference's keyed operands and dies), and the same
-     seed on the CPU over the first 262,144 of them: this work's (the
+     seed on the CPU over the first 131,072 of them: this work's (the
      comparator noise), this die's, the floor's and all-analog's y8
      codes compared (0 may differ: the draws and the bit-true sum run
      the same operations on both); the
@@ -153,7 +158,7 @@ failure.  Phases:
  26. phase 23's two speculative cases with the round captured, against
      captured lock-step serving, one turn each: speculative tokens equal
      lock-step ones, launches as phase 23 counts them per round; a
-     replayed round of each case traced (the model's first 4 layers),
+     replayed round of each case traced (the model's first 2 layers),
      kernels equal to the credit;
  27. the scheduler with its step branch captured (one graph for the
      pooled step, one per rung of the speculative ladder) on phase 9's
@@ -177,7 +182,8 @@ failure.  Phases:
      bit for bit; tok/s of each), and tokens that differ from phase 4's
      greedy ones;
  30. the scheduler at temperature 0.7 on phase 9's first 4 prompts at
-     half their stop lengths, through the kernels: the contiguous pool
+     a quarter of their stop lengths, through the kernels: the contiguous
+     pool
      captured equals it eager and equals a solo run of its first
      request; a speculative pool at k 4 (fixed depth) equals a
      speculative solo run, acceptance reported; the paged pool's
@@ -190,7 +196,7 @@ failure.  Phases:
      rows 1 and 2 (noisy GEMMs take the chunked GEMM in torch, as the
      reference's leave its kernels); prefill and decode time, peak
      memory, and a profile of one eager noisy decode step of the model
-     cut to its first 4 layers (its noise draws' device and host time);
+     cut to its first 2 layers (its noise draws' device and host time);
  32. MUSIC DoA with the macro's analog noise: keyed dies on the card
      equal the CPU's; the figS3 twin (12 trials of the reference's
      8-element array, noise keys PRNGKey(t)) on the card equals its CPU
@@ -273,15 +279,41 @@ failure.  Phases:
      contiguous pool's, gated) and of 32 (row 1 at M 32; agreement
      reported); rows 1-2 launches equal the GEMMs per forward times each
      pool's forwards, each pooled step's replay held to its nodes; the
-     SSM and conv state bytes a slot.
+     SSM and conv state bytes a slot;
+ 42. the hybrid family: zamba2-1.2b at full width and depth (38 Mamba2
+     layers, d_model 2,048, d_inner 4,096, state 64, 64 heads of 64; the
+     shared attention + MLP block, 32 heads of 64, d_ff 8,192, after
+     layers 6, 12, ..., 36; vocab 32,000; random weights from seed 0,
+     packed and fused, prototype macro), phase 40's lock-step workload
+     and gates: 100 macro GEMMs a forward (76 of the Mamba2 layers, the
+     shared block's QKV, wo, w1+w3 and w2 at each of its 6 invocations);
+     the replayed step against the bound of the macro layers, the shared
+     block 6 times and the lm_head read once;
+ 43. zamba2-1.2b continuous batching, phase 41's 16 requests over 8
+     slots, captured: contiguous and paged with prefill chunks of 128
+     (rows 1-2 launches equal 100 GEMMs times each pool's forwards, row 3
+     6 launches a paged pooled step, refcounts drained, each pooled
+     step's replay held to its nodes), the paged pool equal to solo runs
+     of requests 0-2; reported, not gated: paged tokens equal to the
+     contiguous pool's (as phase 10), and agreement with a paged run on
+     the plain read over the first 4 requests (as phase 12).
 
 Phase 34 also runs the plan_pareto twin's second arch, mamba2-130m, at
 the reference bench's smoke size and noise seed.
 
-Depth cuts for time: phase 6 profiles a decode step of the first 4
+Depth cuts for time: phase 6 profiles a decode step of the first 2
 layers; to make room for phases 40-41, phase 12 serves the first 4 of
 phase 11's requests (from 8), phases 27 and 30 the first 4 of phase 9's
-(from 8) and phase 31 3 tokens (from 4).
+(from 8) and phase 31 3 tokens (from 4); to make room for phases 42-43,
+phases 6, 26 and 31 profile 2 layers (from 4), phase 20 checks 131,072
+conversions on the CPU (from 262,144), phases 23 and 26 generate 12
+tokens in their first case (from 24: two rounds at k 8, the fewest that
+capture and replay a round), phase 34's plan_pareto twin 8 (from 16),
+phase 10 serves the first 8 of phase 9's requests (from 16), phase 30
+stops its requests at a quarter of phase 9's stop lengths (from half),
+phase 36 (b) times 2 pairs of turns (from 4), (c) stops at 4-8 tokens
+(from 6-12) and phase 37 runs the
+serve_bench twin with one repeat of its ungated rows (from 3).
 
 The serving drivers replay captured graphs by default on the card
 (``launch/graphs.py``), so phases 9, 11, 22 and 24 serve captured.  A
@@ -538,6 +570,9 @@ def _serve_record(stats) -> dict:
 
 # phase 12's queue: the first requests of phase 11's
 PLAIN_PAGED_REQUESTS = 4
+# phase 10's queue: the first requests of phase 9's (16 until phases 42-43
+# needed the time; a request's tokens do not depend on its neighbours)
+PAGED_REQUESTS = 8
 
 
 def continuous_phases(torch, dev, params, cfg_full) -> dict:
@@ -590,7 +625,8 @@ def continuous_phases(torch, dev, params, cfg_full) -> dict:
     reset()
     toks_p, st_p = serve_continuous("minicpm-2b", compare_lockstep=False,
                                     paged=layout, prefill_chunk=chunk,
-                                    graphs=False, **common)
+                                    graphs=False, **dict(
+                                        common, n_requests=PAGED_REQUESTS))
     n_p = launches()
     n_steps = st_p["continuous"]["n_steps"]
     check(n_p["paged_attn"] == cfg_full.n_layers * n_steps,
@@ -599,10 +635,10 @@ def continuous_phases(torch, dev, params, cfg_full) -> dict:
           f"{n_steps} decode steps")
     check(st_p["paged"]["refcounts_drained"], "phase 10 refcounts leaked")
     same = [bool((toks_p[r] == toks_c[r]).all()) if len(toks_p[r]) ==
-            len(toks_c[r]) else False for r in toks_c]
+            len(toks_c[r]) else False for r in toks_p]
     counts["serve_paged"] = n_p["paged_attn"]
     emit({"phase": "serve_paged", "ok": True, "launches": n_p,
-          "decode_steps": n_steps,
+          "requests": PAGED_REQUESTS, "decode_steps": n_steps,
           "requests_equal_contiguous": f"{sum(same)} of {len(same)}",
           "requests_equal_contiguous_share": sum(same) / len(same),
           "not_gated_because": "the kernel's float32 P.V can move a bf16 "
@@ -748,26 +784,96 @@ def first_step_logits(torch, dev, packed, cfg, cfg_plain, reqs, layout,
     return diff, eq, prof_rec
 
 
-def paged_pools(torch, dev, gen, B: int, L: int, copies: int = 1):
-    """Phase 13's operands at batch ``B`` and length ``L``: q, the table
-    of each row's distinct blocks (shuffled over the pool) and the
-    lengths, and ``copies`` distinct (k_pool, v_pool) pairs that the table
-    indexes alike."""
-    H, Dh, bs = PA_HEADS, PA_DH, PA_BS
+def paged_pools(torch, dev, gen, B: int, L: int, copies: int = 1,
+                hq: int = PA_HEADS, hkv: int = PA_HEADS, dh: int = PA_DH):
+    """Phase 13's operands at batch ``B`` and length ``L`` (minicpm-2b's
+    heads unless given): q, the table of each row's distinct blocks
+    (shuffled over the pool) and the lengths, and ``copies`` distinct
+    (k_pool, v_pool) pairs that the table indexes alike."""
+    bs = PA_BS
     nt = -(-L // bs)
     nb = B * nt + 1
     bf = lambda *sh: torch.randn(sh, generator=gen, device=dev).to(
         torch.bfloat16)
-    q = bf(B, H, Dh)
-    pools = [(bf(nb, bs, H, Dh), bf(nb, bs, H, Dh)) for _ in range(copies)]
+    q = bf(B, hq, dh)
+    pools = [(bf(nb, bs, hkv, dh), bf(nb, bs, hkv, dh))
+             for _ in range(copies)]
     table = (1 + torch.randperm(nb - 1, generator=gen, device=dev)[
         :B * nt]).to(torch.int32).view(B, nt)
     lengths = torch.full((B,), L, dtype=torch.int32, device=dev)
     return q, pools, table, lengths
 
 
-def paged_pool_bytes(B: int, L: int) -> int:
-    return 2 * (B * -(-L // PA_BS) + 1) * PA_BS * PA_HEADS * PA_DH * 2
+def paged_pool_bytes(B: int, L: int, hkv: int = PA_HEADS,
+                     dh: int = PA_DH) -> int:
+    return 2 * (B * -(-L // PA_BS) + 1) * PA_BS * hkv * dh * 2
+
+
+# phase 13's head dim 256 shapes: (B, query heads, kv heads, softcap,
+# window, is_local) of gemma2-9b (a local layer: its window of 4,096
+# covers these lengths whole) and paligemma-3b, at PA_DH256_LENGTHS
+PA_DH256 = {"gemma2-9b": (8, 16, 8, 50.0, 4096, True),
+            "paligemma-3b": (8, 8, 1, None, None, False)}
+PA_DH256_LENGTHS = (96, 1024)
+
+
+def times_paged_attn_dh256(torch, dev) -> dict:
+    """Phase 13's head dim 256 cases: the kernel against its plain
+    version (rtol 2^-7, atol 2^-7 max|v|), one launch counted a call,
+    per call (``ms``), same-pool device time and cold (rotating distinct
+    pools), beside the plain version and the bound by bytes (K and V read
+    up to the lengths, q read and the output written once)."""
+    from repro_torch.kernels.paged_attn import kernel as PK
+    from repro_torch.kernels.paged_attn import ref as PR
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(256)
+    n_sm = PK.sm_count(dev)
+    rows = {}
+    for model, (B, hq, hkv, softcap, window, local) in PA_DH256.items():
+        for L in PA_DH256_LENGTHS:
+            copies = cold_copy_count(torch, dev,
+                                     paged_pool_bytes(B, L, hkv, 256))
+            q, pools, table, lengths = paged_pools(
+                torch, dev, gen, B, L, copies, hq, hkv, 256)
+            kp, vp = pools[0]
+            kw = dict(softcap=softcap, window=window)
+            kern = lambda kp=kp, vp=vp: PK.paged_attention_cuda(
+                q, kp, vp, table, lengths, local, **kw)
+            plain_fn = lambda: PR.paged_attention_ref(
+                q, kp, vp, table, lengths, is_local=local, **kw)
+            n0 = PK.paged_attention_cuda.launches
+            y = kern()
+            check(PK.paged_attention_cuda.launches == n0 + 1,
+                  f"phase 13: Dh 256 {model} L {L}: a call counted "
+                  f"{PK.paged_attention_cuda.launches - n0} launches")
+            r = plain_fn()
+            check(paged_tolerance_ok(torch, y, r, vp),
+                  f"phase 13: paged kernel != plain at Dh 256, {model}, "
+                  f"L {L}")
+            err = float((y.float() - r.float()).abs().max())
+            ms = cuda_ms(kern, reps=50)
+            plain = cuda_ms(plain_fn, reps=5 if L > 1000 else 20)
+            dev_ms = graph_ms(torch, kern)
+            cold = graph_rotation_ms(torch, [
+                lambda kp=kp, vp=vp: kern(kp, vp) for kp, vp in pools])
+            nbytes = 2 * B * L * hkv * 256 * 2 + 2 * B * hq * 256 * 2
+            nops = 4 * B * hq * L * 256
+            rows[f"{model}_L{L}"] = dict(
+                B=B, hq=hq, hkv=hkv, dh=256, L=L, softcap=softcap,
+                window=window, is_local=local, max_abs_err=err, ms=ms,
+                device_ms=dev_ms, device_cold_ms=cold, plain_ms=plain,
+                bound_ms=1e3 * max(nbytes / HBM_BYTES_S, nops / BF16_OPS_S),
+                bound_by=("bytes" if nbytes / HBM_BYTES_S
+                          >= nops / BF16_OPS_S else "operations"),
+                bytes=nbytes, cold_copies=copies,
+                n_split=PK.paged_split(B, hkv, hq // hkv, -(-L // PA_BS),
+                                       n_sm))
+            del pools, kp, vp
+    emit({"phase": "times_paged_attn_dh256", "ok": True, "bs": PA_BS,
+          "by_case": rows, "cold": COLD, "timing": TIMING,
+          "tolerance": "rtol 2^-7, atol 2^-7 max|v|"})
+    return rows
 
 
 def paged_tolerance_ok(torch, y, r, vp) -> bool:
@@ -1758,7 +1864,7 @@ def times_int8(torch, dev, gen) -> dict:
 
 # phase 23's cases: (batch, prompt, generated tokens, draft depth k); the
 # verify forward runs batch * (k + 1) rows: 18 on kernel row 1, 36 on row 2
-SPEC_CASES = ((2, 16, 24, 8), (4, 16, 12, 8))
+SPEC_CASES = ((2, 16, 12, 8), (4, 16, 12, 8))
 # phase 26's turns (its second round of turns was cut for time)
 SPEC_TURNS = ("lockstep", "speculative")
 
@@ -2050,9 +2156,10 @@ def continuous_speculative_phase(torch, dev, params, cfg_full,
 
 GRAPH_TURNS = ("eager", "captured")
 # layers of the model behind the profiles of phase 26's speculative round
-# and phase 31's noisy step: at full depth they trace ~82,000 and
-# ~139,000 device events, and reading those took most of each phase
-PROFILE_LAYERS = 4
+# and phase 31's noisy step (and of phase 6's step): at full depth they
+# trace ~82,000 and ~139,000 device events, and reading those took most
+# of each phase (4 layers until phases 42-43 needed the time)
+PROFILE_LAYERS = 2
 
 
 def _first_layers(params, n: int):
@@ -2165,8 +2272,7 @@ def captured_serve_phase(torch, dev, params, cfg_full, phase4) -> dict:
         graph = StepGraph(body, dev)
         graph()                                              # capture
         graph()
-        replayed = profile_steps(torch, graph, steps=1)
-        replay_trace = check_replays(torch, graph, "phase 25 decode step")
+        replayed = check_replays(torch, graph, "phase 25 decode step")
         replay_ms = cuda_ms(graph, reps=5, warmup=1)
     del packed, cache, graph
     emit({"phase": "serve_captured", "ok": True, "batch": batch,
@@ -2174,7 +2280,6 @@ def captured_serve_phase(torch, dev, params, cfg_full, phase4) -> dict:
           "tokens_equal_phase4": True, "logits_equal_phase4": True,
           "launches": captured_launches,
           "profile_eager_step": eager, "profile_replayed_step": replayed,
-          "replay_trace": replay_trace,
           "replay_cuda_event_ms": replay_ms,
           "replay_idle_share_vs_cuda_events": (
               1 - replayed["device_busy_ms"] / replay_ms
@@ -2370,8 +2475,9 @@ def captured_scheduler_phase(torch, dev, params, cfg_full,
 # -- phases 28-31: threefry on the card, sampled and noisy serving ---------
 
 PRNG_DRAWS = 1 << 21
-# conversions of phase 20's CPU cross-check: the first 2^18 of the card's
-FIG6_CPU_N = 1 << 18
+# conversions of phase 20's CPU cross-check: the first 2^17 of the card's
+# (2^18 until phases 42-43 needed the time)
+FIG6_CPU_N = 1 << 17
 TEMPERATURE = 0.7
 EULER_GAMMA = 0.5772156649015329
 
@@ -2499,7 +2605,8 @@ def sampled_serve_phase(torch, dev, params, cfg_full, phase4) -> dict:
 
 def sampled_scheduler_phase(torch, dev, params, cfg_full) -> dict:
     """Phase 30: the scheduler at temperature 0.7 through the kernels on
-    phase 9's first 4 prompts at half their stop lengths, captured and
+    phase 9's first 4 prompts at a quarter of their stop lengths, captured
+    and
     eager, each run's counts reset before it: a contiguous pool, a
     speculative pool at k 4 (fixed depth) under a clipping draft (ADC 5,
     so that rejection sampling rejects and draws corrections), and a
@@ -2517,8 +2624,9 @@ def sampled_scheduler_phase(torch, dev, params, cfg_full) -> dict:
     from repro_torch.plan import draft_plan_for_model
 
     # phase 9's first 4 prompts (8 until phases 40-41 needed the time),
-    # each request stopping at half its length
-    slots, plen, stops, n_req = 8, 64, (4, 12, 8, 16), 4
+    # each request stopping at a quarter of its length (half until phases
+    # 42-43 needed the time)
+    slots, plen, stops, n_req = 8, 64, (2, 6, 4, 8), 4
     cfg = dataclasses.replace(cfg_full, cim_mode=True)
     reqs = mixed_length_requests(n_req, plen, cfg.vocab_size,
                                  stop_lengths=stops, seed=0)
@@ -2999,7 +3107,7 @@ def planner_phase(torch, dev, params, cfg_full) -> dict:
     _reset_all_launches()
     t0 = time.time()
     pareto = plan_pareto.run_arch("minicpm-2b", smoke=False, batch=2,
-                                  prompt_len=16, gen=16, params=params,
+                                  prompt_len=16, gen=8, params=params,
                                   device=dev, noise_seed=None)
     pareto_s = time.time() - t0
     pareto_launches = _rows_launches()
@@ -3131,6 +3239,9 @@ MT_REQUESTS, MT_SLOTS, MT_PROMPT, MT_MAX_PROMPT = 16, 8, 128, 64
 MT_BS, MT_CHUNK, MT_CAP, MT_RATE = 16, 32, 12, 0.5
 # phase 36 (d): rows 1 and 2 alone, (K, N) at full width
 CLIP_SHAPES = ((2304, 6912), (2304, 11520), (5760, 2304))
+# phase 36 (c)'s stop lengths ((6, 10, 8, 12) until phases 42-43 needed
+# the time)
+SPEC_CLIP_STOPS = (4, 6, 5, 8)
 
 
 # phase 36 (d): the prototype at ADC 7 and 5, and the all-analog macro
@@ -3263,7 +3374,7 @@ def telemetry_phase(torch, dev, params, cfg_full, phase4_tokens) -> dict:
                                                 obs=ObsConfig(), **kw)}
     runs = {"off": [], "on": []}
     first, on_launches = None, None
-    for turn in ("off", "on") * 4:              # the first pair captures
+    for turn in ("off", "on") * 2:              # the first pair captures
         _reset_all_launches()
         rep = scheds[turn].run(reqs, arrivals)
         launches = _all_launches()
@@ -3316,12 +3427,13 @@ def telemetry_phase(torch, dev, params, cfg_full, phase4_tokens) -> dict:
     # (c) speculative at draft ADC 5, metrics on, kernels and plain (at
     # ADC 6 these weights and prompts clip no conversion)
     spec_reqs = mixed_length_requests(4, 16, cfg.vocab_size,
-                                      stop_lengths=(6, 10, 8, 12), seed=0)
+                                      stop_lengths=SPEC_CLIP_STOPS, seed=0)
     spec = {}
     for label, uk in (("kernel", None), ("plain", False)):
         c = dataclasses.replace(cfg, cim_use_kernel=uk)
         sched = ContinuousBatchingScheduler(
-            packed, c, slots=4, prompt_len=16, max_new_cap=12, draft_k=4,
+            packed, c, slots=4, prompt_len=16,
+            max_new_cap=max(SPEC_CLIP_STOPS), draft_k=4,
             draft_plan=draft_plan_for_model(c, 5), obs=ObsConfig(),
             graphs=uk is None)
         _reset_all_launches()
@@ -3354,7 +3466,8 @@ def serve_bench_phase() -> dict:
                + os.environ.get("PYTHONPATH", ""))
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve_bench", "--smoke",
-         "--gate"], capture_output=True, text=True, env=env, timeout=600)
+         "--gate", "--repeats", "1"], capture_output=True, text=True,
+        env=env, timeout=600)
     lines = proc.stdout.strip().splitlines()
     check(proc.returncode == 0 and lines, "phase 37: serve_bench --smoke "
           f"--gate exited {proc.returncode}: {proc.stderr[-2000:]}"
@@ -3670,53 +3783,70 @@ def resilience_twin_phase() -> dict:
     return result
 
 
-# phases 40-41: the SSM family, mamba2-130m at full width and depth
+# phases 40-43: the SSM family (mamba2-130m) and the hybrid family
+# (zamba2-1.2b) at full width and depth, on the same serving workloads
 SSM_ARCH = "mamba2-130m"
+HYBRID_ARCH = "zamba2-1.2b"
 SSM_BATCH, SSM_PROMPT, SSM_GEN = 4, 128, 32
 SSM_SLOTS, SSM_REQUESTS, SSM_STOPS = 8, 16, (8, 16, 24, 32)
+# phase 43: the requests served solo (held to the pool) and through the
+# plain paged read (agreement reported)
+HYBRID_SOLO, HYBRID_PLAIN_READ = 3, 4
+RECURRENT_PHASES = {SSM_ARCH: (40, "ssm"), HYBRID_ARCH: (42, "hybrid")}
 
 
-def _macro_gemms_per_layer(packed) -> int:
-    """Macro GEMMs one layer of a packed model runs, read from its params
-    tree: each packed leaf is one GEMM (a fused group counts once)."""
+def _macro_gemms_per_forward(packed, cfg) -> int:
+    """Macro GEMMs one forward of a packed model runs, read from its
+    params tree: each packed leaf is one GEMM (a fused group counts
+    once), the stacked layers' once a layer, the hybrid's shared block's
+    once an invocation."""
     from repro_torch.core.engine import (FusedPackedCimWeights,
                                          PackedCimWeights)
+    from repro_torch.models import lm
 
     def count(t):
         if isinstance(t, dict):
             return sum(count(v) for v in t.values())
         return int(isinstance(t, (PackedCimWeights, FusedPackedCimWeights)))
-    return count(packed["layers"])
+    return (count(packed["layers"]) * cfg.n_layers
+            + count(packed.get("shared", {})) * lm.n_shared_invocations(cfg))
 
 
-def _ssm_model(torch, dev):
-    """mamba2-130m at full width, random weights from seed 0: the config,
+def _recurrent_model(torch, dev, arch: str):
+    """``arch`` at full width, random weights from seed 0: the config,
     the raw params, the packed params (prototype macro, fused) and the
     macro GEMMs of one forward."""
     from repro_torch.configs import get_config
     from repro_torch.models import lm
-    cfg = get_config(SSM_ARCH)
+    cfg = get_config(arch)
     params = lm.init(0, cfg, device=dev)
     ccfg = dataclasses.replace(cfg, cim_mode=True)
     with torch.inference_mode():
         packed = lm.pack_cim_params(params, ccfg, dev)
-    return cfg, params, packed, _macro_gemms_per_layer(packed) * cfg.n_layers
+    return cfg, params, packed, _macro_gemms_per_forward(packed, cfg)
 
 
-def ssm_lockstep_phase(torch, dev) -> dict:
-    """Phase 40: mamba2-130m lock-step (batch 4, prompt 128: one SSD
-    chunk, 32 generated) through the kernels and through their plain
-    versions (graphs off: the wrappers' own counts), captured, and on the
-    raw weights (row 6): equal tokens and last logits in all four, the
-    launches of rows 1, 2 and 6 equal to the packed tree's GEMMs per
-    forward (the fused input group and out_proj a layer) times the
-    forwards, a replayed decode step's kernel nodes equal to its credit
-    (``check_replays``).  Returns the launches by path of rows 1, 2, 6."""
+def recurrent_lockstep_phase(torch, dev, arch: str, model) -> dict:
+    """Phases 40 (mamba2-130m) and 42 (zamba2-1.2b): lock-step (batch 4,
+    prompt 128: one SSD chunk, 32 generated) through the kernels and
+    through their plain versions (graphs off: the wrappers' own counts),
+    captured, and on the raw weights (row 6): equal tokens and last
+    logits in all four, the launches of rows 1, 2 and 6 equal to the
+    packed tree's GEMMs per forward (mamba2: the fused input group and
+    out_proj a layer; the hybrid adds the shared block's QKV, wo, w1+w3
+    and w2 an invocation) times the forwards, a replayed decode step's
+    kernel nodes equal to its credit (``check_replays``).  Reports the
+    replayed step against the bound of one read of the macro weights a
+    step (the shared block once an invocation: it does not stay in L2)
+    and the lm_head, decode tok/s, pack and peak bytes and the state a
+    slot.  ``model`` is ``_recurrent_model``'s.  Returns the launches by
+    path of rows 1, 2 and 6."""
     from repro_torch.launch.graphs import StepGraph
     from repro_torch.launch.serve import decode_body, serve, tree_bytes
     from repro_torch.models import lm
 
-    cfg, params, packed, n_fwd = _ssm_model(torch, dev)
+    phase, tag = RECURRENT_PHASES[arch]
+    cfg, params, packed, n_fwd = model
     want = {"packed": {"skinny": n_fwd * (SSM_GEN - 1), "general": n_fwd,
                        "unpacked": 0},
             "unpacked": {"skinny": 0, "general": 0,
@@ -3728,7 +3858,7 @@ def ssm_lockstep_phase(torch, dev) -> dict:
                       ("unpacked", dict(pack=False))):
         _reset_all_launches()
         torch.cuda.reset_peak_memory_stats()
-        toks, st = serve(SSM_ARCH, smoke=False, batch=SSM_BATCH,
+        toks, st = serve(arch, smoke=False, batch=SSM_BATCH,
                          prompt_len=SSM_PROMPT, gen=SSM_GEN, cim=True,
                          params=params, return_stats=True, **kw)
         torch.cuda.synchronize()
@@ -3744,19 +3874,21 @@ def ssm_lockstep_phase(torch, dev) -> dict:
         check(toks.shape == (SSM_BATCH, SSM_GEN)
               and bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
               and bool(torch.isfinite(logits).all()),
-              f"phase 40 {label}: tokens out of range or logits not finite")
+              f"phase {phase} {label}: tokens out of range or logits not "
+              "finite")
     k = runs["kernel"]
     for label in ("plain", "captured", "unpacked"):
         r = runs[label]
         check((r["toks"] == k["toks"]).all()
               and torch.equal(r["logits"], k["logits"]),
-              f"phase 40: {label} tokens or last logits != the kernels'")
+              f"phase {phase}: {label} tokens or last logits != the "
+              "kernels'")
     for label, w in (("kernel", want["packed"]), ("captured", want["packed"]),
                      ("unpacked", want["unpacked"])):
-        check(runs[label]["launches"] == w, f"phase 40 {label}: launches "
-              f"{runs[label]['launches']}, expected {w}")
+        check(runs[label]["launches"] == w, f"phase {phase} {label}: "
+              f"launches {runs[label]['launches']}, expected {w}")
     check(not any(runs["plain"]["launches"].values()),
-          "phase 40: the plain run launched kernels")
+          f"phase {phase}: the plain run launched kernels")
     # one captured decode step: its kernel nodes, a traced replay, its ms
     ccfg = dataclasses.replace(cfg, cim_mode=True)
     with torch.inference_mode():
@@ -3775,20 +3907,26 @@ def ssm_lockstep_phase(torch, dev) -> dict:
         graph()
         check(graph.launches == {"ccim_matmul_prepacked_skinny_cuda":
                                  n_fwd},
-              f"phase 40: the captured step credits {graph.launches}")
-        trace = check_replays(torch, graph, "phase 40 decode step")
+              f"phase {phase}: the captured step credits {graph.launches}")
+        trace = check_replays(torch, graph, f"phase {phase} decode step")
         replay_ms = cuda_ms(graph, reps=10, warmup=1)
-    macro_bytes = tree_bytes(packed["layers"])
-    head_bytes = packed["lm_head"].numel() * packed["lm_head"].element_size()
+    n_inv = lm.n_shared_invocations(cfg)
+    bound_bytes = {"macro_layers": tree_bytes(packed["layers"]),
+                   "shared_block": tree_bytes(packed.get("shared", {})),
+                   "shared_invocations": n_inv,
+                   "lm_head": packed["lm_head"].numel()
+                   * packed["lm_head"].element_size()}
+    step_bytes = (bound_bytes["macro_layers"] + bound_bytes["lm_head"]
+                  + n_inv * bound_bytes["shared_block"])
     state_bytes = {name: t[:, :1].numel() * t.element_size()
                    for name, t in cache.items() if name != "pos"}
     del cache, graph
-    emit({"phase": "ssm_lockstep", "ok": True, "arch": SSM_ARCH,
+    emit({"phase": f"{tag}_lockstep", "ok": True, "arch": arch,
           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
           "d_inner": cfg.d_inner, "ssm_state": cfg.ssm_state,
           "ssm_heads": cfg.ssm_heads, "ssm_chunk": cfg.ssm_chunk,
-          "vocab": cfg.vocab_size, "batch": SSM_BATCH,
-          "prompt_len": SSM_PROMPT, "gen": SSM_GEN,
+          "shared_invocations": n_inv, "vocab": cfg.vocab_size,
+          "batch": SSM_BATCH, "prompt_len": SSM_PROMPT, "gen": SSM_GEN,
           "macro_gemms_per_forward": n_fwd,
           "tokens_equal": ["plain", "captured", "unpacked"],
           "logits_equal": True,
@@ -3796,48 +3934,35 @@ def ssm_lockstep_phase(torch, dev) -> dict:
                          if k_ not in ("toks", "logits")}
                    for lab, r in runs.items()},
           "replayed_step_ms": replay_ms, "replay_trace": trace,
-          "decode_bound_ms": 1e3 * (macro_bytes + head_bytes) / HBM_BYTES_S,
-          "decode_bound_bytes": {"macro_layers": macro_bytes,
-                                 "lm_head": head_bytes},
-          "ssm_state_bytes_per_slot": state_bytes,
+          "decode_bound_ms": 1e3 * step_bytes / HBM_BYTES_S,
+          "decode_bound_bytes": bound_bytes,
+          "state_bytes_per_slot": state_bytes, "state_max_seq": max_seq,
           "tokens_row0": k["toks"][0].tolist()})
-    return {"ssm_serve": runs["kernel"]["launches"],
-            "ssm_serve_captured": runs["captured"]["launches"],
-            "ssm_serve_unpacked": runs["unpacked"]["launches"]}
+    return {f"{tag}_serve": runs["kernel"]["launches"],
+            f"{tag}_serve_captured": runs["captured"]["launches"],
+            f"{tag}_serve_unpacked": runs["unpacked"]["launches"]}
 
 
-def ssm_continuous_phase(torch, dev) -> dict:
-    """Phase 41: mamba2-130m continuous batching, 16 requests of 128
-    tokens (stops 8-32) over 8 slots, captured: the contiguous pool, the
-    paged pool with prefill chunks of 128 (aligned with the SSD chunk:
-    tokens equal the contiguous pool's, gated) and with chunks of 32 (row
-    1 at M 32; agreement reported, not gated).  Rows 1-2 launches equal
-    the GEMMs per forward times the forwards each pool ran (admits or
-    chunks, pooled steps); the pooled step's replay held to its kernel
-    nodes.  Returns the launches by path of rows 1, 2 and 6."""
-    import numpy as np
-    from repro_torch.launch.paging import PagedLayout, cdiv
-    from repro_torch.launch.scheduler import (ContinuousBatchingScheduler,
-                                              mixed_length_requests)
+def _queue_runs(torch, cfg, packed, n_fwd, reqs, runs, phase):
+    """The scheduler over ``reqs`` (8 slots, captured) once per (label,
+    scheduler kwargs, cfg) of ``runs``: rows 1-2 launches equal the GEMMs
+    per forward times the forwards (admits or chunks, pooled steps), row
+    3's equal the shared-block invocations times the pooled steps of a
+    paged pool reading through the kernel, every request admitted and
+    answered, a paged pool's refcounts drained, the pooled step's replay
+    held to its kernel nodes.  Returns the records, the tokens by rid and
+    the launches by label."""
+    from repro_torch.launch.scheduler import ContinuousBatchingScheduler
     from repro_torch.models import lm
 
-    cfg, _, packed, n_fwd = _ssm_model(torch, dev)
-    ccfg = dataclasses.replace(cfg, cim_mode=True)
-    reqs = mixed_length_requests(SSM_REQUESTS, SSM_PROMPT, cfg.vocab_size,
-                                 stop_lengths=SSM_STOPS, seed=0)
+    n_inv = lm.n_shared_invocations(cfg)
     cap = max(SSM_STOPS)
-    n_tbl = cdiv(SSM_PROMPT + cap - 1, PA_BS)
-    layout = PagedLayout(block_size=PA_BS, n_tbl=n_tbl,
-                         n_blocks=SSM_SLOTS * n_tbl + 1)
-    recs, toks, by_path = {}, {}, {}
-    for label, kw in (("contiguous", {}),
-                      ("paged", dict(paged=layout,
-                                     prefill_chunk=SSM_PROMPT)),
-                      ("paged_c32", dict(paged=layout, prefill_chunk=32))):
+    recs, toks, launches_by = {}, {}, {}
+    for label, kw, rcfg in runs:
         _reset_all_launches()
         torch.cuda.reset_peak_memory_stats()
         sched = ContinuousBatchingScheduler(
-            packed, ccfg, slots=SSM_SLOTS, prompt_len=SSM_PROMPT,
+            packed, rcfg, slots=SSM_SLOTS, prompt_len=SSM_PROMPT,
             max_new_cap=cap, **kw)
         rep = sched.run(reqs)
         torch.cuda.synchronize()
@@ -3845,32 +3970,74 @@ def ssm_continuous_phase(torch, dev) -> dict:
                         paged_attn=_all_launches()["paged_attn"])
         # prefill forwards: the admits (contiguous) or the chunks (paged),
         # on row 2 at M 128 and on row 1 at M 32
-        prefills = rep.n_pf if "paged" in kw else rep.n_admits
+        paged = "paged" in kw
+        prefills = rep.n_pf if paged else rep.n_admits
         on_row1 = kw.get("prefill_chunk", SSM_PROMPT) <= 32
         want = {"general": 0 if on_row1 else n_fwd * prefills,
                 "skinny": n_fwd * (rep.n_steps + (prefills if on_row1
                                                   else 0)),
-                "unpacked": 0, "paged_attn": 0}
-        check(launches == want, f"phase 41 {label}: launches {launches}, "
-              f"expected {want}")
-        check(rep.n_admits == SSM_REQUESTS and all(
+                "unpacked": 0,
+                "paged_attn": (n_inv * rep.n_steps
+                               if paged and rcfg.paged_attn_use_kernel
+                               is not False else 0)}
+        check(launches == want, f"phase {phase} {label}: launches "
+              f"{launches}, expected {want}")
+        check(rep.n_admits == len(reqs) and all(
             len(f.tokens) > 0 for f in rep.finished),
-            f"phase 41 {label}: {rep.n_admits} admits")
+            f"phase {phase} {label}: {rep.n_admits} admits")
+        if paged:
+            check(rep.ref_final.tolist()
+                  == [1] + [0] * (kw["paged"].n_blocks - 1),
+                  f"phase {phase} {label}: refcounts did not drain")
         trace = check_replays(torch, sched._graphs[0],
-                              f"phase 41 {label} pooled step")
+                              f"phase {phase} {label} pooled step")
         toks[label] = rep.tokens_by_rid()
-        by_path[f"ssm_scheduler_{label}"] = launches
+        launches_by[label] = launches
         recs[label] = dict(
             rep.summary(), n_iter=rep.n_iter, n_pf=rep.n_pf,
-            host_syncs=rep.host_syncs, branch_counts=rep.branch_counts,
+            n_steps=rep.n_steps, host_syncs=rep.host_syncs,
+            branch_counts=rep.branch_counts,
             iter_ms=1e3 * rep.wall_s / max(rep.n_iter, 1),
             launches=launches, capture=sched.graph_stats(),
             replay_trace=trace,
             max_memory_allocated=torch.cuda.max_memory_allocated())
         del sched
-    same = lambda a, b: sum(np.array_equal(toks[a][r], toks[b][r])
-                            for r in toks[b])
-    n_paged = same("paged", "contiguous")
+    return recs, toks, launches_by
+
+
+def _queue_layout():
+    from repro_torch.launch.paging import PagedLayout, cdiv
+    n_tbl = cdiv(SSM_PROMPT + max(SSM_STOPS) - 1, PA_BS)
+    return PagedLayout(block_size=PA_BS, n_tbl=n_tbl,
+                       n_blocks=SSM_SLOTS * n_tbl + 1)
+
+
+def _same_tokens(a: dict, b: dict, rids=None) -> int:
+    import numpy as np
+    return sum(np.array_equal(a[r], b[r]) for r in (rids or b))
+
+
+def ssm_continuous_phase(torch, dev, model) -> dict:
+    """Phase 41: mamba2-130m continuous batching, 16 requests of 128
+    tokens (stops 8-32) over 8 slots, captured: the contiguous pool, the
+    paged pool with prefill chunks of 128 (aligned with the SSD chunk:
+    tokens equal the contiguous pool's, gated) and with chunks of 32 (row
+    1 at M 32; agreement reported, not gated); ``_queue_runs``'s gates.
+    Returns the launches by path of rows 1, 2 and 6."""
+    from repro_torch.launch.scheduler import mixed_length_requests
+    from repro_torch.models import lm
+
+    cfg, _, packed, n_fwd = model
+    ccfg = dataclasses.replace(cfg, cim_mode=True)
+    reqs = mixed_length_requests(SSM_REQUESTS, SSM_PROMPT, cfg.vocab_size,
+                                 stop_lengths=SSM_STOPS, seed=0)
+    layout = _queue_layout()
+    recs, toks, launches = _queue_runs(
+        torch, ccfg, packed, n_fwd, reqs,
+        (("contiguous", {}, ccfg),
+         ("paged", dict(paged=layout, prefill_chunk=SSM_PROMPT), ccfg),
+         ("paged_c32", dict(paged=layout, prefill_chunk=32), ccfg)), 41)
+    n_paged = _same_tokens(toks["paged"], toks["contiguous"])
     check(n_paged == SSM_REQUESTS, f"phase 41: paged (chunk "
           f"{SSM_PROMPT}) tokens equal the contiguous pool's on {n_paged}"
           f" of {SSM_REQUESTS} requests")
@@ -3884,9 +4051,69 @@ def ssm_continuous_phase(torch, dev) -> dict:
           "paged_layout": [layout.block_size, layout.n_tbl,
                            layout.n_blocks],
           "paged_equal_contiguous": n_paged,
-          "paged_c32_equal_contiguous": same("paged_c32", "contiguous"),
+          "paged_c32_equal_contiguous": _same_tokens(toks["paged_c32"],
+                                                     toks["contiguous"]),
           "ssm_state_bytes_per_slot": state_bytes, "runs": recs})
-    return by_path
+    return {f"ssm_scheduler_{k}": v for k, v in launches.items()}
+
+
+def hybrid_continuous_phase(torch, dev, model) -> dict:
+    """Phase 43: zamba2-1.2b continuous batching, phase 41's 16 requests
+    of 128 tokens (stops 8-32) over 8 slots, captured: the contiguous
+    pool and the paged pool with prefill chunks of 128 (the shared
+    block's KV paged: 6 row-3 launches a pooled step), with
+    ``_queue_runs``'s gates, and the paged pool equal to solo runs of
+    requests 0-2.  Reported, not gated: how many requests' paged tokens
+    equal the contiguous pool's (the kernel's float32 P.V can move a bf16
+    activation by one ulp, and in CIM mode an ADC code with it), and the
+    paged pool's agreement with the paged read's plain version on the
+    first 4 requests.  Returns the launches by path of rows 1, 2, 3 and
+    6."""
+    from repro_torch.launch.scheduler import (ContinuousBatchingScheduler,
+                                              mixed_length_requests)
+    from repro_torch.models import lm
+
+    cfg, _, packed, n_fwd = model
+    ccfg = dataclasses.replace(cfg, cim_mode=True)
+    plain = dataclasses.replace(ccfg, paged_attn_use_kernel=False)
+    reqs = mixed_length_requests(SSM_REQUESTS, SSM_PROMPT, cfg.vocab_size,
+                                 stop_lengths=SSM_STOPS, seed=0)
+    layout = _queue_layout()
+    paged = dict(paged=layout, prefill_chunk=SSM_PROMPT)
+    recs, toks, launches = _queue_runs(
+        torch, ccfg, packed, n_fwd, reqs,
+        (("contiguous", {}, ccfg), ("paged", paged, ccfg)), 43)
+    plain_recs, plain_toks, _ = _queue_runs(
+        torch, plain, packed, n_fwd, reqs[:HYBRID_PLAIN_READ],
+        (("paged_plain_read", paged, plain),), 43)
+    recs.update(plain_recs)
+    rids = [r.rid for r in reqs[:HYBRID_SOLO]]
+    solo = {}
+    for r in reqs[:HYBRID_SOLO]:
+        solo.update(ContinuousBatchingScheduler(
+            packed, ccfg, slots=1, prompt_len=SSM_PROMPT,
+            max_new_cap=max(SSM_STOPS), **paged).run([r]).tokens_by_rid())
+    n_solo = _same_tokens(toks["paged"], solo, rids)
+    check(n_solo == HYBRID_SOLO, f"phase 43: the paged pool's tokens equal "
+          f"solo runs on {n_solo} of requests 0-{HYBRID_SOLO - 1}")
+    with torch.inference_mode():
+        one = lm.init_cache(ccfg, 1, layout.tokens_per_slot, device=dev)
+    state_bytes = {k: t.numel() * t.element_size() for k, t in one.items()
+                   if k != "pos"}
+    emit({"phase": "hybrid_continuous", "ok": True, "arch": HYBRID_ARCH,
+          "requests": SSM_REQUESTS, "prompt_len": SSM_PROMPT,
+          "stop_lengths": list(SSM_STOPS), "slots": SSM_SLOTS,
+          "paged_layout": [layout.block_size, layout.n_tbl,
+                           layout.n_blocks],
+          "paged_equal_solo": n_solo,
+          "paged_equal_contiguous": _same_tokens(toks["paged"],
+                                                 toks["contiguous"]),
+          "paged_equal_plain_read": _same_tokens(
+              toks["paged"], plain_toks["paged_plain_read"]),
+          "plain_read_requests": HYBRID_PLAIN_READ,
+          "state_bytes_per_slot": state_bytes,
+          "state_max_seq": layout.tokens_per_slot, "runs": recs})
+    return {f"hybrid_scheduler_{k}": v for k, v in launches.items()}
 
 
 def main() -> int:
@@ -4145,6 +4372,9 @@ def main() -> int:
     pa_err = paged_attn_shapes(torch, dev)
     serve_phases = continuous_phases(torch, dev, params, cfg_full)
     pa_time = times_paged_attn(torch, dev)
+    pa_time["dh256"] = times_paged_attn_dh256(torch, dev)
+    pa_err = max([pa_err] + [r["max_abs_err"]
+                             for r in pa_time["dh256"].values()])
     del params
     # -- 14.-17. the complex-MAC lane and the unpacked real GEMM ------------
     cx_err = complex_kernels(torch, dev, gen)
@@ -4211,12 +4441,19 @@ def main() -> int:
                                                     cfg_full)
     del params
     resilience_twin_phase()
-    # -- 40.-41. the SSM family: mamba2-130m at full width -----------------
-    ssm_paths = ssm_lockstep_phase(torch, dev)
-    ssm_paths.update(ssm_continuous_phase(torch, dev))
-    for path, n in ssm_paths.items():
+    # -- 40.-43. the SSM and hybrid families at full width -----------------
+    rec_paths = {}
+    for arch, queue in ((SSM_ARCH, ssm_continuous_phase),
+                        (HYBRID_ARCH, hybrid_continuous_phase)):
+        model = _recurrent_model(torch, dev, arch)
+        rec_paths.update(recurrent_lockstep_phase(torch, dev, arch, model))
+        rec_paths.update(queue(torch, dev, model))
+        del model
+    for path, n in rec_paths.items():
         by_path[path] = {k_: n[k_] for k_ in ("general", "skinny")}
         raw_paths[path] = n
+        if n.get("paged_attn"):
+            serve_phases["paged_launches_by_path"][path] = n["paged_attn"]
 
     src = "src/repro_torch/kernels/ccim_matmul/csrc/"
     table = []

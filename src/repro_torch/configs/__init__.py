@@ -1,8 +1,8 @@
 """Architecture registry: --arch <id> resolution for launchers/tests.
 
-Every architecture of the reference is listed; ``minicpm-2b`` (dense)
-and ``mamba2-130m`` (ssm) are ported so far, and the others raise
-``NotImplementedError``.
+Every architecture of the reference is listed; ``minicpm-2b`` (dense),
+``mamba2-130m`` (ssm) and ``zamba2-1.2b`` (hybrid) are ported so far,
+and the others raise ``NotImplementedError``.
 """
 from importlib import import_module
 
@@ -15,7 +15,7 @@ _MODULES = {
     "qwen2-moe-a2.7b": None,
     "arctic-480b": None,
     "paligemma-3b": None,
-    "zamba2-1.2b": None,
+    "zamba2-1.2b": "zamba2_1_2b",
     "musicgen-medium": None,
 }
 

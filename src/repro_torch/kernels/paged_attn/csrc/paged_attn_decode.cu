@@ -57,7 +57,9 @@
 //    decode shape, ~48 KB in flight per SM.
 //  - 16-byte loads, work for every lane: a lane loads 8 dims (16 bytes)
 //    of a K row and the same 8 of the V row, so Dh / 8 lanes cover a row
-//    and a warp load covers 32 / (Dh / 8) rows (4 at Dh 64).  Scores
+//    and a warp load covers 32 / (Dh / 8) rows (4 at Dh 64, 1 at Dh 256,
+//    where a chunk is 4 tokens and the score reduction spans the whole
+//    warp).  Head dims 64, 128 and 256 are instantiated.  Scores
 //    reduce within each row's lanes by shuffle; each row group keeps its
 //    own online softmax over its rows, and P.V runs in the same layout
 //    (the lane multiplies its own V slice by its own row's p), so the
@@ -417,6 +419,14 @@ extern "C" int paged_attn_decode(const void* q, const void* k_pool,
                          n_tbl, n_blocks, n_split, scale, softcap, window,
                          is_local, s)
         : launch<128, kGroup>(q, k_pool, v_pool, tp, lp, out, wp, B, Hkv, G,
+                              bs, n_tbl, n_blocks, n_split, scale, softcap,
+                              window, is_local, s);
+  if (Dh == 256)
+    return G == 1
+        ? launch<256, 1>(q, k_pool, v_pool, tp, lp, out, wp, B, Hkv, G, bs,
+                         n_tbl, n_blocks, n_split, scale, softcap, window,
+                         is_local, s)
+        : launch<256, kGroup>(q, k_pool, v_pool, tp, lp, out, wp, B, Hkv, G,
                               bs, n_tbl, n_blocks, n_split, scale, softcap,
                               window, is_local, s);
   return static_cast<int>(cudaErrorInvalidValue);

@@ -24,7 +24,7 @@ import torch
 from .. import build, sm_count
 
 MAX_GROUP = 16            # query heads per kv head
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 GROUP_TILE = 4            # query heads one block takes when G > 1
 # split rule: walks of at most SPLIT_MIN_ENTRIES table entries stay whole;
 # longer ones are cut so that the grid has FILL_BLOCKS_PER_SM blocks per

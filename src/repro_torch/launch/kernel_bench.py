@@ -5,7 +5,8 @@ reference's ``benchmarks/run.py``): the same rows, names and parity
 asserts, printed as JSON lines on stdout (one header line first).  It
 writes no file unless given ``--out``.  Times are medians of CUDA-event
 timings of one call on the card (host clock on the CPU), in
-microseconds, each call including its host-side wrapper.
+microseconds, each call including its host-side wrapper (a graph
+replay for the decode-shape pairs, below).
 
 Operands, die and noise key are the reference's draws (``core/prng.py``:
 ``PRNGKey(seed)``, its split, ``normal`` and ``randint``), so the two
@@ -24,10 +25,14 @@ Differences from the reference:
     against packed weights (the skinny prepacked kernel), with the
     reference's floor ``DECODE_SPEEDUP_FLOOR``;
   * the two routes of each decode-shape ratio (the floor's pair, the
-    fused QKV pair, the fused complex pair) are timed with their calls
-    interleaved: at those shapes the host's dispatch sets both per-call
-    times, and on a shared host its speed drifts between two runs of 16
-    calls (the reference takes the minimum of sequential runs instead);
+    fused QKV pair, the fused complex pair) are each captured into a
+    CUDA graph on the card and replayed, the port's counterpart of the
+    reference's jitted routes (timed op by op, the host's dispatch of
+    their small ops sets both per-call times, and the floor's ratio
+    fell from 1.22-1.25x to 1.04x on a slower host), with their calls
+    interleaved, because a shared host's speed drifts between two runs
+    of 16 calls (the reference takes the minimum of sequential runs
+    instead);
   * ``--scale card`` runs the decode rows at minicpm-2b's fused QKV width
     and adds the W8A8 row at minicpm-2b's four full-width layer GEMMs
     (fused QKV, wo, fused gate-up, w2) at M 4 and M 128, each held to its
@@ -56,6 +61,7 @@ from ..kernels.ccim_complex.ops import ccim_complex_matmul_int
 from ..kernels.ccim_complex.ref import ccim_complex_matmul_ref
 from ..kernels.ccim_matmul.ref import ccim_matmul_ref
 from ..kernels.int8_matmul.ops import int8_matmul
+from .graphs import StepGraph
 
 # The reference's decode-shape gate: packed weights must beat per-call
 # weight conditioning at serving shapes by at least this factor.
@@ -121,10 +127,15 @@ class Bench:
         return statistics.median(ts), out
 
     def time_pair_us(self, fa, fb, iters: int, warmup: int):
-        """``time_us`` of two routes whose ratio is recorded, their calls
-        interleaved (a b, then b a) so that a drift of the host's speed,
-        which sets both routes' per-call time at decode shapes, falls on
-        both alike.  Returns ((us_a, out_a), (us_b, out_b))."""
+        """``time_us`` of two routes whose ratio is recorded.  On the card
+        each route is captured into a CUDA graph and replayed, as the
+        reference times each route as one jitted program: eagerly, the
+        host's dispatch of the routes' small ops would set both per-call
+        times at decode shapes.  The calls are interleaved (a b, then b
+        a) so that a drift of the host's speed falls on both alike.
+        Returns ((us_a, out_a), (us_b, out_b))."""
+        if self.dev.type == "cuda":
+            fa, fb = StepGraph(fa, self.dev), StepGraph(fb, self.dev)
         for _ in range(warmup):
             fa()
             fb()

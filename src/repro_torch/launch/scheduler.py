@@ -60,8 +60,9 @@ admission grants ``max_blk`` blocks as ``argsort(free-first, by id)``, so
 block ids and ``peak_blocks`` come out as the reference's; harvest
 decrements.  Shared prompt prefixes are planned on the host
 (paging.plan_prefix_sharing), and the refcounts return to ``[1, 0, ...]``
-when the queue drains.  The ssm family keeps its SSM and conv state per
-slot, dense, and follows the reference's rules: a paged prompt is a
+when the queue drains.  The ssm and hybrid families keep their SSM and
+conv state per slot, dense (the hybrid's shared-block KV is paged like
+any KV), and follow the reference's rules: a paged prompt is a
 whole number of prefill chunks (a padded chunk tail would run through
 the recurrent state), no prefix is shared, and no speculative round
 runs (the state cannot roll back a rejected draft).
@@ -806,7 +807,8 @@ class ContinuousBatchingScheduler:
                     raise ValueError(
                         f"request {r.rid}: prompt len {plen} outside "
                         f"[1, {self.prompt_len}]")
-                if self.cfg.family == "ssm" and plen % self.prefill_chunk:
+                if (self.cfg.family in lm.RECURRENT_FAMILIES
+                        and plen % self.prefill_chunk):
                     raise ValueError(
                         f"request {r.rid}: prompt len {plen} must be a "
                         f"multiple of prefill_chunk {self.prefill_chunk} "
@@ -848,7 +850,8 @@ class ContinuousBatchingScheduler:
         pp = plan_prefix_sharing([np.asarray(r.prompt) for r in requests],
                                  lay.block_size, lay.n_tbl,
                                  enable=(self.prefix_sharing
-                                         and self.cfg.family != "ssm"))
+                                         and self.cfg.family
+                                         not in lm.RECURRENT_FAMILIES))
         self.last_prefix_plan = pp
         max_blk = np.array([lay.blocks_for(max(
             cdiv(len(r.prompt), C) * C,

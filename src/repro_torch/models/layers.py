@@ -374,16 +374,22 @@ def _head_mask(cfg: ModelConfig, device) -> Optional[torch.Tensor]:
             < cfg.n_heads).to(torch.float32)
 
 
-def attention_init(gen: torch.Generator, cfg: ModelConfig, n_layers: int,
-                   dtype) -> Params:
+def _lead(n_layers: Optional[int]) -> tuple:
+    """The stacked layer axis, or none for one unstacked block."""
+    return () if n_layers is None else (n_layers,)
+
+
+def attention_init(gen: torch.Generator, cfg: ModelConfig,
+                   n_layers: Optional[int], dtype) -> Params:
     """Stacked (n_layers, ...) projections with TP-padded head counts; pad
-    head slots are zero and masked after attention."""
-    dh, d = cfg.head_dim, cfg.d_model
+    head slots are zero and masked after attention.  ``n_layers=None``
+    gives one unstacked block (2-D leaves: the hybrid's shared block)."""
+    dh, d, n = cfg.head_dim, cfg.d_model, _lead(n_layers)
     hq, hkv = cfg.padded_heads, cfg.padded_kv_heads
-    p = {"wq": _init_dense(gen, (n_layers, d, hq * dh), dtype),
-         "wk": _init_dense(gen, (n_layers, d, hkv * dh), dtype),
-         "wv": _init_dense(gen, (n_layers, d, hkv * dh), dtype),
-         "wo": _init_dense(gen, (n_layers, hq * dh, d), dtype)}
+    p = {"wq": _init_dense(gen, (*n, d, hq * dh), dtype),
+         "wk": _init_dense(gen, (*n, d, hkv * dh), dtype),
+         "wv": _init_dense(gen, (*n, d, hkv * dh), dtype),
+         "wo": _init_dense(gen, (*n, hq * dh, d), dtype)}
     mask = _head_mask(cfg, gen.device)
     if mask is not None:
         mq = torch.repeat_interleave(mask, dh)[None, :].to(dtype)
@@ -393,10 +399,8 @@ def attention_init(gen: torch.Generator, cfg: ModelConfig, n_layers: int,
             p["wk"] = p["wk"] * mq
             p["wv"] = p["wv"] * mq
     if cfg.qk_norm:
-        p["q_norm"] = torch.zeros((n_layers, dh), dtype=dtype,
-                                  device=gen.device)
-        p["k_norm"] = torch.zeros((n_layers, dh), dtype=dtype,
-                                  device=gen.device)
+        p["q_norm"] = torch.zeros((*n, dh), dtype=dtype, device=gen.device)
+        p["k_norm"] = torch.zeros((*n, dh), dtype=dtype, device=gen.device)
     return p
 
 
@@ -652,12 +656,15 @@ def _attn_out(p: Params, out: torch.Tensor, cfg: ModelConfig, B: int, S: int,
 # ---------------------------------------------------------------------------
 
 
-def mlp_init(gen: torch.Generator, cfg: ModelConfig, n_layers: int, dtype,
+def mlp_init(gen: torch.Generator, cfg: ModelConfig,
+             n_layers: Optional[int], dtype,
              d_ff: Optional[int] = None) -> Params:
-    d_ff = d_ff or cfg.d_ff
-    return {"w1": _init_dense(gen, (n_layers, cfg.d_model, d_ff), dtype),
-            "w3": _init_dense(gen, (n_layers, cfg.d_model, d_ff), dtype),
-            "w2": _init_dense(gen, (n_layers, d_ff, cfg.d_model), dtype)}
+    """Stacked (n_layers, ...) SwiGLU weights; ``n_layers=None`` gives one
+    unstacked block."""
+    d_ff, n = d_ff or cfg.d_ff, _lead(n_layers)
+    return {"w1": _init_dense(gen, (*n, cfg.d_model, d_ff), dtype),
+            "w3": _init_dense(gen, (*n, cfg.d_model, d_ff), dtype),
+            "w2": _init_dense(gen, (*n, d_ff, cfg.d_model), dtype)}
 
 
 def _silu(x: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,11 @@
-"""Decoder LM assembly, dense and SSM families: init, packing, prefill,
-decode, and the slot-level cache ops of continuous batching.
+"""Decoder LM assembly, dense, SSM and hybrid families: init, packing,
+prefill, decode, and the slot-level cache ops of continuous batching.
 
-Counterpart of ``repro/models/lm.py`` (the dense family, [attn, mlp] x L,
-and the ssm family, [mamba2] x L; moe, hybrid, vlm and audio are not
-ported and raise ``NotImplementedError``):
+Counterpart of ``repro/models/lm.py`` (the dense family, [attn, mlp] x L;
+the ssm family, [mamba2] x L; the hybrid family, groups of
+``shared_attn_period`` mamba2 layers each followed by ONE shared attn +
+mlp block, zamba2; moe, vlm and audio are not ported and raise
+``NotImplementedError``):
 
   init(key, cfg, device=None)             -> params
   pack_cim_params(params, cfg, device=None) -> packed params
@@ -17,12 +19,14 @@ ported and raise ``NotImplementedError``):
 
 The params tree has the reference's layout: ``params["layers"]`` holds
 stacked leaves with a leading layer axis, and the forward walks the
-layers in a Python loop (the reference scans them).  KV entries are
-written into the cache's tensors in place (the reference returns
-updated copies), and so are the SSM family's recurrent ``ssm``,
-``conv_x`` and ``conv_bc`` entries; ``pos`` comes back as a new tensor
-from prefill, ``decode_step`` advances it in place, and the slot ops
-write their slot of every entry in place.
+layers in a Python loop (the reference scans them); the hybrid's
+``params["shared"]`` holds the one shared block's unstacked (2-D)
+leaves.  KV entries are written into the cache's tensors in place (the
+reference returns updated copies), and so are the SSM family's
+recurrent ``ssm``, ``conv_x`` and ``conv_bc`` entries and the hybrid's
+``shared_k`` / ``shared_v``; ``pos`` comes back as a new tensor from
+prefill, ``decode_step`` advances it in place, and the slot ops write
+their slot of every entry in place.
 """
 from __future__ import annotations
 
@@ -45,7 +49,8 @@ def torch_dtype(name: str) -> torch.dtype:
             "float16": torch.float16}[name]
 
 
-PORTED_FAMILIES = ("dense", "ssm")
+PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+RECURRENT_FAMILIES = ("ssm", "hybrid")     # carry SSM and conv state
 
 
 def check_family(cfg: ModelConfig) -> None:
@@ -57,9 +62,9 @@ def check_family(cfg: ModelConfig) -> None:
 
 
 def check_speculative(cfg: ModelConfig) -> None:
-    """Refuse speculative decoding where it cannot roll back: the ssm
-    family's recurrent state advances destructively."""
-    if cfg.family == "ssm":
+    """Refuse speculative decoding where it cannot roll back: the ssm and
+    hybrid families' recurrent state advances destructively."""
+    if cfg.family in RECURRENT_FAMILIES:
         raise NotImplementedError(
             "speculative decoding needs positional KV rollback; the "
             f"{cfg.family!r} family carries recurrent SSM/conv state that "
@@ -89,11 +94,13 @@ def init(key: Union[int, torch.Generator], cfg: ModelConfig,
     p["embed"] = (torch.randn((cfg.vocab_size, d), generator=gen,
                               dtype=torch.float32, device=dev)
                   * 0.02).to(dtype)
-    if cfg.family == "ssm":
+    if cfg.family in RECURRENT_FAMILIES:
         p["layers"] = {
             "mamba": L.mamba2_init(gen, cfg, n, dtype),
             "ln1": torch.zeros((n, d), dtype=dtype, device=dev),
         }
+        if cfg.family == "hybrid":
+            p["shared"] = _shared_block_init(gen, cfg, dtype)
     else:
         p["layers"] = {
             "attn": L.attention_init(gen, cfg, n, dtype),
@@ -105,6 +112,16 @@ def init(key: Union[int, torch.Generator], cfg: ModelConfig,
     if not cfg.tie_embeddings:
         p["lm_head"] = L._init_dense(gen, (d, cfg.vocab_size), dtype)
     return p
+
+
+def _shared_block_init(gen: torch.Generator, cfg: ModelConfig,
+                       dtype) -> Params:
+    """The hybrid's one shared attn + mlp block: unstacked 2-D leaves."""
+    d, dev = cfg.d_model, gen.device
+    return {"attn": L.attention_init(gen, cfg, None, dtype),
+            "mlp": L.mlp_init(gen, cfg, None, dtype),
+            "ln1": torch.zeros((d,), dtype=dtype, device=dev),
+            "ln2": torch.zeros((d,), dtype=dtype, device=dev)}
 
 
 # ---------------------------------------------------------------------------
@@ -130,9 +147,9 @@ def _walk_packable(tree, visit, path=()):
     """Rebuild ``tree`` with ``visit(plan_path, leaf)`` applied to every
     projection leaf ``layers._dense`` consumes.  ``plan_path`` is the
     deployment plan's path: tree keys joined with "/", the stacked key
-    "layers" dropped (one entry covers every layer), e.g. "attn/wq" or
-    "mamba/out_proj".  The level directly under "moe" holds expert
-    tensors, not projections."""
+    "layers" dropped (one entry covers every layer), e.g. "attn/wq",
+    "mamba/out_proj" or the hybrid's "shared/mlp/w2".  The level directly
+    under "moe" holds expert tensors, not projections."""
     out = {}
     for k, v in tree.items():
         sub = path if k == "layers" else path + (k,)
@@ -246,18 +263,29 @@ def _embed(p, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def _logits(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    x = L.rms_norm(x, p["ln_f"], cfg.norm_eps)
+    """logits of the final hidden ``x``: the model's dtype, or the float32
+    residual sum a hybrid's last shared block leaves unrounded (see
+    ``_attn_block``)."""
+    x = L.rms_norm(x, p["ln_f"], cfg.norm_eps).to(torch_dtype(cfg.dtype))
     head = p["embed"].T if cfg.tie_embeddings else p["lm_head"]
     logits = L.matmul(x, head.to(x.dtype))
     return L.softcap(logits.to(torch.float32), cfg.logit_softcap)
 
 
 def _attn_block(blk, x, cfg, positions, is_local, kv=None, cache_pos=None,
-                block_table=None, write_mask=None):
+                block_table=None, write_mask=None, prefix="",
+                unrounded=False):
+    """``prefix`` qualifies the plan paths (and so the plan entries and
+    the noise keys) of the block's projections: "" for the stacked
+    layers ("attn/wq", ...), "shared/" for the hybrid's shared block.
+    ``unrounded`` returns the block's output as the float32 sum x + h:
+    where the block is the hybrid's last op, the reference's compiled
+    step feeds that sum to the final norm unrounded, as it does inside
+    the block (below)."""
     h, new_kv = L.attention_apply(
         blk["attn"], L.rms_norm(x, blk["ln1"], cfg.norm_eps), cfg, positions,
-        is_local, kv_cache=kv, cache_pos=cache_pos, block_table=block_table,
-        write_mask=write_mask)
+        is_local, kv_cache=kv, cache_pos=cache_pos, path=prefix + "attn",
+        block_table=block_table, write_mask=write_mask)
     # the reference's compiled step normalizes the UNROUNDED float32 sum
     # x + h (XLA fuses the add into the norm's convert), while the
     # residual stream itself carries the rounded sum; the port does both
@@ -265,14 +293,16 @@ def _attn_block(blk, x, cfg, positions, is_local, kv=None, cache_pos=None,
     x = xf.to(x.dtype)
     h = L.mlp_apply(blk["mlp"],
                     L.rms_norm(xf, blk["ln2"], cfg.norm_eps).to(x.dtype),
-                    cfg)
+                    cfg, path=prefix + "mlp")
+    if unrounded:
+        return x.to(torch.float32) + h.to(torch.float32), new_kv
     return x + h, new_kv
 
 
 def _mamba_block(blk, x, cfg, ssm_state=None, conv_state=None,
                  decode=False):
-    """x + mamba2(rms_norm(x)): the ssm family's layer; returns (x, (new
-    ssm state, new conv states))."""
+    """x + mamba2(rms_norm(x)): the recurrent families' layer; returns
+    (x, (new ssm state, new conv states))."""
     h, new = L.mamba2_apply(blk["mamba"],
                             L.rms_norm(x, blk["ln1"], cfg.norm_eps), cfg,
                             ssm_state=ssm_state, conv_state=conv_state,
@@ -280,31 +310,63 @@ def _mamba_block(blk, x, cfg, ssm_state=None, conv_state=None,
     return x + h, new
 
 
+def _groups(cfg: ModelConfig):
+    """The recurrent stack's schedule: (lo, hi, g) runs mamba layers
+    [lo, hi) and then, where g is not None, shared-block invocation g
+    (the hybrid's groups of ``shared_attn_period``; the ssm family and a
+    hybrid's remainder group have none)."""
+    n = cfg.n_layers
+    period = cfg.shared_attn_period if cfg.family == "hybrid" else 0
+    if not period:
+        return [(0, n, None)]
+    out = [(g * period, (g + 1) * period, g) for g in range(n // period)]
+    done = n // period * period
+    return out + ([(done, n, None)] if done < n else [])
+
+
+def n_shared_invocations(cfg: ModelConfig) -> int:
+    """Shared-block invocations a forward runs (0 outside the hybrid)."""
+    return sum(g is not None for _, _, g in _groups(cfg))
+
+
 # ---------------------------------------------------------------------------
 # forward without a cache (the planner's calibration forward)
 # ---------------------------------------------------------------------------
+
+
+def _hidden(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """The final hidden states, as ``_logits`` takes them (a hybrid ending
+    in its shared block leaves them float32, unrounded)."""
+    check_family(cfg)
+    x = _embed(params, cfg, tokens)
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    if cfg.family in RECURRENT_FAMILIES:
+        groups = _groups(cfg)
+        for lo, hi, g in groups:
+            for i in range(lo, hi):
+                x = _mamba_block(_layer(params["layers"], i), x, cfg)[0]
+            if g is not None:
+                x, _ = _attn_block(params["shared"], x, cfg, positions,
+                                   False, prefix="shared/",
+                                   unrounded=hi == groups[-1][1])
+    else:
+        for i in range(cfg.n_layers):
+            x, _ = _attn_block(_layer(params["layers"], i), x, cfg,
+                               positions, cfg.layer_is_local(i))
+    return x
 
 
 def hidden_states(params, cfg: ModelConfig, tokens: torch.Tensor,
                   frontend_embs: Optional[torch.Tensor] = None,
                   remat: bool = True
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens (B, S) -> final hidden (B, S, D), aux loss (0 for the dense
-    and ssm families).  ``frontend_embs`` feeds only the vision and audio
+    """tokens (B, S) -> final hidden (B, S, D), aux loss (0 for the
+    ported families).  ``frontend_embs`` feeds only the vision and audio
     families (none is ported), and ``remat`` is a training option that
     changes nothing in a forward pass; both are kept for the reference's
     signature."""
-    check_family(cfg)
-    x = _embed(params, cfg, tokens)
-    B, S, _ = x.shape
-    if cfg.family == "ssm":
-        for i in range(cfg.n_layers):
-            x = _mamba_block(_layer(params["layers"], i), x, cfg)[0]
-    else:
-        positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
-        for i in range(cfg.n_layers):
-            x, _ = _attn_block(_layer(params["layers"], i), x, cfg,
-                               positions, cfg.layer_is_local(i))
+    x = _hidden(params, cfg, tokens).to(torch_dtype(cfg.dtype))
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -314,8 +376,9 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
     """tokens (B, S) -> logits (B, S, V) float32, aux loss: every position
     through the model with no cache (causal attention over the tokens
     themselves), packed or raw weights, under ``cfg``'s plan and noise."""
-    x, aux = hidden_states(params, cfg, tokens, frontend_embs, remat)
-    return _logits(params, cfg, x), aux
+    x = _hidden(params, cfg, tokens)
+    return _logits(params, cfg, x), torch.zeros(
+        (), dtype=torch.float32, device=x.device)
 
 
 # ---------------------------------------------------------------------------
@@ -328,18 +391,31 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     """Decode cache for ``batch`` sequences of up to ``max_seq``; ``pos``
     is each row's write position.  The dense family keeps KV rows; the
     ssm family keeps, per layer and row, the float32 SSM state (H, P, N)
-    and the last W-1 inputs of each conv (``conv_x``, ``conv_bc``)."""
+    and the last W-1 inputs of each conv (``conv_x``, ``conv_bc``); the
+    hybrid adds the shared block's KV rows per invocation (``shared_k``,
+    ``shared_v``: (n_inv, batch, max_seq, Hkv, Dh))."""
     check_family(cfg)
     dev = resolve_device(device)
     c = {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
-    if cfg.family == "ssm":
+    kv = (batch, max_seq, cfg.padded_kv_heads, cfg.head_dim)
+    if cfg.family in RECURRENT_FAMILIES:
         c.update(_ssm_entries(cfg, batch, dtype, dev))
+        c.update(_shared_kv(cfg, kv, dtype, dev))
     else:
-        shape = (cfg.n_layers, batch, max_seq, cfg.padded_kv_heads,
-                 cfg.head_dim)
-        c["k"] = torch.zeros(shape, dtype=dtype, device=dev)
-        c["v"] = torch.zeros(shape, dtype=dtype, device=dev)
+        c["k"] = torch.zeros((cfg.n_layers, *kv), dtype=dtype, device=dev)
+        c["v"] = torch.zeros((cfg.n_layers, *kv), dtype=dtype, device=dev)
     return c
+
+
+def _shared_kv(cfg: ModelConfig, shape, dtype, dev
+               ) -> Dict[str, torch.Tensor]:
+    """The hybrid's shared-block KV, one ``shape`` entry per invocation
+    (none for the ssm family)."""
+    n_inv = n_shared_invocations(cfg)
+    if not n_inv:
+        return {}
+    return {k: torch.zeros((n_inv, *shape), dtype=dtype, device=dev)
+            for k in ("shared_k", "shared_v")}
 
 
 def _ssm_entries(cfg: ModelConfig, batch: int, dtype, dev
@@ -364,19 +440,21 @@ def init_paged_cache(cfg: ModelConfig, batch: int, n_blocks: int,
     prefill/decode_step and the slot helpers into paged mode.  Block 0 is
     the trash block (launch/scheduler.py): an all-zero table row, the
     reset state, points every position at rows no live slot reads.  The
-    ssm family's SSM and conv state stays dense per slot (it is O(1) per
-    slot, not O(max_seq)), and it has no KV pools."""
+    SSM and conv state stays dense per slot (it is O(1) per slot, not
+    O(max_seq)); the ssm family has no KV pools, the hybrid one pair per
+    shared-block invocation (``shared_k``, ``shared_v``: (n_inv,
+    n_blocks, block_size, Hkv, Dh))."""
     check_family(cfg)
     dev = resolve_device(device)
     c = {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
          "table": torch.zeros((batch, n_tbl), dtype=torch.int32, device=dev)}
-    if cfg.family == "ssm":
+    kv = (n_blocks, block_size, cfg.padded_kv_heads, cfg.head_dim)
+    if cfg.family in RECURRENT_FAMILIES:
         c.update(_ssm_entries(cfg, batch, dtype, dev))
+        c.update(_shared_kv(cfg, kv, dtype, dev))
     else:
-        shape = (cfg.n_layers, n_blocks, block_size, cfg.padded_kv_heads,
-                 cfg.head_dim)
-        c["k"] = torch.zeros(shape, dtype=dtype, device=dev)
-        c["v"] = torch.zeros(shape, dtype=dtype, device=dev)
+        c["k"] = torch.zeros((cfg.n_layers, *kv), dtype=dtype, device=dev)
+        c["v"] = torch.zeros((cfg.n_layers, *kv), dtype=dtype, device=dev)
     return c
 
 
@@ -391,7 +469,7 @@ def init_paged_cache(cfg: ModelConfig, batch: int, n_blocks: int,
 # scheduler picks slots on the host).
 
 
-_POOL_KEYS = frozenset({"k", "v"})
+_POOL_KEYS = frozenset({"k", "v", "shared_k", "shared_v"})
 
 
 def is_paged(cache: Dict) -> bool:
@@ -449,26 +527,42 @@ def reset_slot(cache: Dict, slot: int) -> Dict:
     return slot_update(cache, _zeroed_slot(cache, slot), slot)
 
 
-def _ssm_stack(params, cfg, x, cache, decode: bool, chunked: bool = False,
-               write_mask=None):
-    """The ssm family's layers over a cache: each layer's SSM state and
-    conv state are read from the cache and the new ones written into it
-    in place.  ``chunked`` (a mid-prompt prefill chunk) and ``decode``
-    continue from the cached conv inputs; a fresh prefill starts from
-    zeros.  ``write_mask`` ((B,) bool) keeps a masked row's state as it
-    was (paged decode: a filling slot's recurrence must survive the pool
-    steps between its chunks)."""
-    for i in range(cfg.n_layers):
-        st, cx, cbc = (cache[k][i] for k in ("ssm", "conv_x", "conv_bc"))
-        x, (new_st, (new_cx, new_cbc)) = _mamba_block(
-            _layer(params["layers"], i), x, cfg, ssm_state=st,
-            conv_state=(cx, cbc) if (decode or chunked) else None,
-            decode=decode)
-        for old, new in ((st, new_st), (cx, new_cx), (cbc, new_cbc)):
-            if write_mask is not None:
-                keep = write_mask.reshape(-1, *[1] * (old.dim() - 1))
-                new = torch.where(keep, new.to(old.dtype), old)
-            old.copy_(new)
+def _ssm_stack(params, cfg, x, positions, cache, decode: bool,
+               chunked: bool = False, write_mask=None):
+    """The ssm and hybrid families' layers over a cache: each layer's SSM
+    state and conv state are read from the cache and the new ones written
+    into it in place.  ``chunked`` (a mid-prompt prefill chunk) and
+    ``decode`` continue from the cached conv inputs; a fresh prefill
+    starts from zeros.  ``write_mask`` ((B,) bool) keeps a masked row's
+    state as it was (paged decode: a filling slot's recurrence must
+    survive the pool steps between its chunks) and sends its shared-KV
+    writes to the trash block.  The hybrid's shared block g attends over
+    (and writes its KV rows into) views of ``cache["shared_k"][g]`` and
+    ``["shared_v"][g]``, from position 0 in a fresh prefill and from
+    ``cache["pos"]`` in decode and chunks."""
+    pos = cache["pos"]
+    cache_pos = pos if (decode or chunked) else torch.zeros_like(pos)
+    groups = _groups(cfg)
+    for lo, hi, g in groups:
+        for i in range(lo, hi):
+            st, cx, cbc = (cache[k][i] for k in ("ssm", "conv_x",
+                                                 "conv_bc"))
+            x, (new_st, (new_cx, new_cbc)) = _mamba_block(
+                _layer(params["layers"], i), x, cfg, ssm_state=st,
+                conv_state=(cx, cbc) if (decode or chunked) else None,
+                decode=decode)
+            for old, new in ((st, new_st), (cx, new_cx), (cbc, new_cbc)):
+                if write_mask is not None:
+                    keep = write_mask.reshape(-1, *[1] * (old.dim() - 1))
+                    new = torch.where(keep, new.to(old.dtype), old)
+                old.copy_(new)
+        if g is not None:
+            x, _ = _attn_block(
+                params["shared"], x, cfg, positions, False,
+                kv=(cache["shared_k"][g], cache["shared_v"][g]),
+                cache_pos=cache_pos, block_table=cache.get("table"),
+                write_mask=write_mask, prefix="shared/",
+                unrounded=hi == groups[-1][1])
     return x
 
 
@@ -492,13 +586,16 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, cache: Dict
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     cache = dict(cache)
-    if cfg.family == "ssm":
-        x = _ssm_stack(params, cfg, x, cache, decode=False)
+    if cfg.family in RECURRENT_FAMILIES:
+        x = _ssm_stack(params, cfg, x, positions, cache, decode=False)
     else:
         x = _stack(params, cfg, x, positions, cache,
                    torch.zeros((B,), dtype=torch.int32, device=x.device))
     cache["pos"] = torch.full((B,), S, dtype=torch.int32, device=x.device)
-    return _logits(params, cfg, x[:, -1:, :]), cache
+    # the last position of the rounded hidden: in the reference the slice
+    # stands between a hybrid's final sum and the norm, so none is fused
+    last = x[:, -1:, :].to(torch_dtype(cfg.dtype))
+    return _logits(params, cfg, last), cache
 
 
 def prefill_into_slot(params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -522,8 +619,8 @@ def prefill_chunk_into_slot(params, cfg: ModelConfig, tokens: torch.Tensor,
     prefix's refcounted blocks) are the context this chunk attends to.
     Returns logits for ALL C chunk positions (1, C, V); every row equals
     the same row of a single-shot prefill (row-local GEMMs and a per-row
-    softmax over an identical masked key stream).  The ssm family
-    carries conv and SSM state across chunks: its rows equal a
+    softmax over an identical masked key stream).  The ssm and hybrid
+    families carry conv and SSM state across chunks: its rows equal a
     single-shot prefill's when the chunk boundaries fall on multiples of
     ``cfg.ssm_chunk`` and the prompt is a whole number of chunks (the
     scheduler enforces the latter: a padded chunk tail would run through
@@ -533,10 +630,11 @@ def prefill_chunk_into_slot(params, cfg: ModelConfig, tokens: torch.Tensor,
     x = _embed(params, cfg, tokens)
     B, S, _ = x.shape
     pos = sub["pos"]
-    if cfg.family == "ssm":
-        x = _ssm_stack(params, cfg, x, sub, decode=False, chunked=True)
+    positions = pos[:, None] + torch.arange(S, device=x.device)[None, :]
+    if cfg.family in RECURRENT_FAMILIES:
+        x = _ssm_stack(params, cfg, x, positions, sub, decode=False,
+                       chunked=True)
     else:
-        positions = pos[:, None] + torch.arange(S, device=x.device)[None, :]
         x = _stack(params, cfg, x, positions, sub, pos)
     sub["pos"] = pos + S
     return _logits(params, cfg, x), slot_update(cache, sub, slot)
@@ -563,8 +661,9 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, cache: Dict,
     x = _embed(params, cfg, token)
     pos = cache["pos"]
     wmask = live if (live is not None and is_paged(cache)) else None
-    if cfg.family == "ssm":
-        x = _ssm_stack(params, cfg, x, cache, decode=True, write_mask=wmask)
+    if cfg.family in RECURRENT_FAMILIES:
+        x = _ssm_stack(params, cfg, x, pos[:, None], cache, decode=True,
+                       write_mask=wmask)
     else:
         x = _stack(params, cfg, x, pos[:, None], cache, pos,
                    write_mask=wmask)
@@ -593,9 +692,9 @@ def verify_step(params, cfg: ModelConfig, tokens: torch.Tensor, cache: Dict,
     ``layers.plain_attention`` see to that; ``tools/row_probe.py`` and
     ``tools/verify_divergence.py`` measure it).  ``live``
     matters only for paged caches: it sends non-live rows' writes to the
-    trash block.  Restricted to positional-cache families: the ssm
-    family's recurrent state advances destructively and a draft block
-    cannot roll it back."""
+    trash block.  Restricted to positional-cache families: the ssm and
+    hybrid families' recurrent state advances destructively and a draft
+    block cannot roll it back."""
     check_family(cfg)
     check_speculative(cfg)
     if cfg.attn_impl != "plain":

@@ -113,6 +113,10 @@ FULL_SHAPES = ((2304, 9216), (3072, 2304), (2304, 11520), (5760, 2304))
 # mamba2-130m's two: the fused input group w_z+w_x+w_bc+w_dt (N 1,536 +
 # 1,536 + 256 + 24, ragged: 16 x 209 + 8) and out_proj
 MAMBA_SHAPES = ((768, 3352), (1536, 768))
+# zamba2-1.2b's six: the Mamba2 fused input group (N 4,096 + 4,096 + 128
+# + 64), out_proj, and the shared block's QKV, wo, w1+w3 and w2
+ZAMBA_SHAPES = ((2048, 8384), (4096, 2048), (2048, 6144), (2048, 2048),
+                (2048, 16384), (8192, 2048))
 
 
 def _skinny_case(dev, gen, m, k, n, acc_len, n_planes, packed):
@@ -187,6 +191,30 @@ def test_general_kernel_mamba_shapes_equal_plain(dev, m, k, n):
     want = K.ccim_matmul_prepacked_plain(x, w, planes, **meta)
     assert got.dtype == torch.int32 and torch.equal(got, want), (
         K.general_k_split(m, n, w.shape[1], 16))
+
+
+@pytest.mark.parametrize("m", [4, 128])
+@pytest.mark.parametrize("k,n", ZAMBA_SHAPES)
+def test_zamba_shapes_rows_1_2_6_equal_plain(dev, m, k, n):
+    """zamba2-1.2b's six GEMMs on a prototype pack: kernel row 1 at M 4
+    (decode) or row 2 at M 128 (a one-chunk admit), and row 6 on the raw
+    ints at the same M; ints compared with torch.equal, one launch each."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(m + k + n)
+    x, w, planes, meta = _skinny_case(dev, gen, m, k, n, 16, 2, packed=True)
+    row = (K.ccim_matmul_prepacked_skinny_cuda if m <= K.SKINNY_M
+           else K.ccim_matmul_prepacked_general_cuda)
+    K.reset_launch_counts()
+    got = row(x, w, planes, **meta)
+    torch.cuda.synchronize()
+    assert row.launches == 1
+    want = K.ccim_matmul_prepacked_plain(x, w, planes, **meta)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    xi, wi = _ints(gen, (m, k), dev), _ints(gen, (k, n), dev)
+    got = KO.ccim_matmul_int(xi, wi)
+    torch.cuda.synchronize()
+    assert K.ccim_matmul_unpacked_cuda.launches == 1
+    assert torch.equal(got, KO.ccim_matmul_int(xi, wi, use_kernel=False))
 
 
 def test_skinny_kernel_repeats_and_alternates(dev):
@@ -400,7 +428,12 @@ PAGED_SHAPES = {"small": (3, 2, 4, 128, 8, 5, 12, 40),
                 "minicpm_long": (8, 48, 1, 64, 16, 256, 8 * 256 + 1, 4096),
                 "gqa_long": (3, 2, 8, 128, 16, 64, 3 * 64 + 1, 1024),
                 "boundaries": (8, 8, 1, 64, 16, 48, 8 * 48 + 1,
-                               (768, 720, 721, 80, 81, 64, 17, 1))}
+                               (768, 720, 721, 80, 81, 64, 17, 1)),
+                # head dim 256: MHA, gemma2-9b's 16 over 8 and
+                # paligemma-3b's 8 over 1, up to 1,024 positions (split)
+                "dh256_g1": (4, 4, 1, 256, 16, 64, 4 * 64 + 1, 1024),
+                "dh256_g2": (8, 8, 2, 256, 16, 64, 8 * 64 + 1, 1024),
+                "dh256_g8": (8, 1, 8, 256, 16, 64, 8 * 64 + 1, 1024)}
 
 
 def _paged_case(dev, shape):
@@ -433,7 +466,7 @@ def test_paged_attention_kernel_matches_plain(dev, shape, softcap, window,
     trash block.  At window 7 the long shapes' later splits get no work."""
     q, kp, vp, table, lengths = _paged_case(dev, shape)
     B, Hq, _ = q.shape
-    if shape.endswith("_long") or shape == "boundaries":
+    if shape.endswith("_long") or shape in ("boundaries", "dh256_g8"):
         assert PK.paged_split(B, kp.shape[2], Hq // kp.shape[2],
                               table.shape[1], PK.sm_count(dev)) > 1
     n0 = PK.paged_attention_cuda.launches
@@ -826,6 +859,69 @@ def test_captured_ssm_decode_equals_eager(dev, width):
     assert graph.replays == 7
     assert graph.launches == {"ccim_matmul_prepacked_skinny_cuda":
                               2 * cfg.n_layers}
+
+
+@pytest.mark.parametrize("width,paged", [("smoke", False), ("full", False),
+                                         ("full", True)])
+def test_captured_hybrid_decode_equals_eager(dev, width, paged):
+    """zamba2-1.2b's decode step (packed, prototype macro; at full width
+    cut to 7 layers: one shared-block invocation and a remainder layer)
+    replayed from one graph over 8 steps against 8 eager steps from the
+    same prefill, with a contiguous or (at full width: row 3 takes head
+    dims 64-256, the smoke config's is 32) a paged cache: logits, the SSM,
+    conv and shared-KV state and the positions equal (``==``) after every
+    step; the graph credits the packed tree's GEMMs a forward and, paged,
+    one row-3 launch an invocation."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.graphs import StepGraph
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(get_config("zamba2-1.2b",
+                                         smoke=width == "smoke"),
+                              cim_mode=True)
+    if width == "full":
+        cfg = dataclasses.replace(cfg, n_layers=7)
+    packed = lm.pack_cim_params(lm.init(0, cfg), cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    S, B, bs = cfg.ssm_chunk, 4, 16
+    prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device=dev)
+    steps = torch.randint(0, cfg.vocab_size, (8, B, 1), generator=gen,
+                          device=dev)
+    n_tbl = -(-(S + 8) // bs)
+
+    def cache():
+        if not paged:
+            return lm.init_cache(cfg, B, S + 8, device=dev)
+        c = lm.init_paged_cache(cfg, B, B * n_tbl + 1, bs, n_tbl,
+                                device=dev)
+        c["table"].copy_(1 + torch.arange(B * n_tbl, device=dev,
+                                          dtype=torch.int32).view(B, n_tbl))
+        return c
+    caches = []
+    with torch.inference_mode():
+        for _ in range(2):
+            _, c = lm.prefill(packed, cfg, prompt, cache())
+            caches.append(c)
+        eager, replay = caches
+        tok = torch.zeros((B, 1), dtype=torch.int64, device=dev)
+        graph = StepGraph(lambda: lm.decode_step(packed, cfg, tok,
+                                                 replay)[0], dev)
+        for i in range(8):
+            want, _ = lm.decode_step(packed, cfg, steps[i], eager)
+            tok.copy_(steps[i])
+            got = graph()
+            assert torch.equal(got, want), i
+            for key in ("ssm", "conv_x", "conv_bc", "shared_k", "shared_v",
+                        "pos"):
+                assert torch.equal(replay[key], eager[key]), (i, key)
+    n_inv = lm.n_shared_invocations(cfg)
+    assert graph.replays == 7 and n_inv == (2 if width == "smoke" else 1)
+    want = {"ccim_matmul_prepacked_skinny_cuda":
+            2 * cfg.n_layers + 4 * n_inv}
+    if paged:
+        want["paged_attention_cuda"] = n_inv
+    assert graph.launches == want
 
 
 @pytest.mark.parametrize("batch", [2, 4])

@@ -589,7 +589,8 @@ def _walk_model(q, kp, vp, table, lengths, is_local, softcap, window,
 
 @pytest.mark.parametrize("Dh,G,bs,n_split", [(64, 1, 16, 1), (64, 1, 16, 3),
                                              (64, 4, 5, 2), (128, 2, 32, 4),
-                                             (128, 1, 8, 7)])
+                                             (128, 1, 8, 7), (256, 1, 16, 2),
+                                             (256, 8, 16, 1)])
 @pytest.mark.parametrize("softcap,window,is_local", [(None, None, False),
                                                      (30.0, 7, True)])
 def test_paged_kernel_walk_matches_plain(Dh, G, bs, n_split, softcap, window,

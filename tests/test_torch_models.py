@@ -135,7 +135,7 @@ def test_data_pipeline_matches():
 
 
 def test_configs_match_reference_and_others_raise():
-    ported = ("minicpm-2b", "mamba2-130m")
+    ported = ("minicpm-2b", "mamba2-130m", "zamba2-1.2b")
     for arch in ported:
         for smoke in (False, True):
             j, t = jget(arch, smoke), tget(arch, smoke)

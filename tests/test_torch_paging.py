@@ -132,10 +132,11 @@ def test_prefix_plan_matches_reference(seed, bs, n_tbl, enable):
         assert got.stats()["shared_blocks"] > 0     # not vacuous
 
 
-def _attn_inputs(G, seed=0):
-    """B 3, Dh 32, bs 4, n_tbl 5; row 2's table is all trash block."""
-    rng = np.random.default_rng(seed + G)
-    B, Hkv, Dh, bs, NB = 3, 2, 32, 4, 12
+def _attn_inputs(G, seed=0, Dh=32):
+    """B 3, Dh 32 (or ``Dh``), bs 4, n_tbl 5; row 2's table is all trash
+    block."""
+    rng = np.random.default_rng(seed + G + (0 if Dh == 32 else Dh))
+    B, Hkv, bs, NB = 3, 2, 4, 12
     bf = lambda a: np.asarray(jnp.asarray(a).astype(jnp.bfloat16)
                               .astype(jnp.float32))
     q = bf(rng.standard_normal((B, Hkv * G, Dh)) * 2)
@@ -155,8 +156,8 @@ def _T(a):
     return torch.tensor(a).to(torch.bfloat16)
 
 
-def _both(G, softcap, window, is_local):
-    q, kp, vp, table, lengths = _attn_inputs(G)
+def _both(G, softcap, window, is_local, Dh=32):
+    q, kp, vp, table, lengths = _attn_inputs(G, Dh=Dh)
     want = jax.jit(lambda a, b, c, d, e: jref.paged_attention_ref(
         a, b, c, d, e, softcap=softcap, window=window, is_local=is_local))(
         _J(q), _J(kp), _J(vp), jnp.asarray(table), jnp.asarray(lengths))
@@ -171,13 +172,39 @@ CASES = [(G, sc, win, loc) for G in (1, 4) for sc in (None, 30.0)
          for win, loc in ((None, 0), (3, 0), (3, 1))]
 
 
+# head dim 256 (gemma2-9b, paligemma-3b), the kernel's widest instance:
+# MHA and GQA, with gemma2's attention softcap and a window
+CASES_256 = [(G, sc, win, loc) for G in (1, 2, 8)
+             for sc, win, loc in ((None, None, 0), (50.0, 3, 1))]
+
+
+def _plain_equals_oracle(G, softcap, window, is_local, Dh):
+    _, want, got = _both(G, softcap, window, is_local, Dh)
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+def _plain_matches_pallas(G, softcap, window, is_local, Dh):
+    (q, kp, vp, table, lengths), _, got = _both(G, softcap, window,
+                                                is_local, Dh)
+    pal = paged_attention_pallas(
+        _J(q), _J(kp), _J(vp), jnp.asarray(table), jnp.asarray(lengths),
+        is_local, softcap=softcap, window=window, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(pal.astype(jnp.float32)),
+                               rtol=2 ** -7,
+                               atol=2 ** -7 * float(np.abs(vp).max()))
+
+
 @pytest.mark.parametrize("G,softcap,window,is_local", CASES)
 def test_plain_equals_reference_oracle(G, softcap, window, is_local):
     """The CPU dispatch takes the plain version, which equals the
     reference's ``paged_attention_ref`` bit for bit."""
-    _, want, got = _both(G, softcap, window, is_local)
-    assert got.shape == want.shape
-    np.testing.assert_array_equal(got, want)
+    _plain_equals_oracle(G, softcap, window, is_local, 32)
+
+
+@pytest.mark.parametrize("G,softcap,window,is_local", CASES_256)
+def test_plain_equals_reference_oracle_dh256(G, softcap, window, is_local):
+    _plain_equals_oracle(G, softcap, window, is_local, 256)
 
 
 @pytest.mark.parametrize("G,softcap,window,is_local", CASES)
@@ -188,14 +215,12 @@ def test_plain_matches_pallas_interpret(G, softcap, window, is_local):
     first, which costs up to 2^-9 of sum(p |v|) <= 2^-9 max|v| per
     output, and both outputs are rounded to bf16 once: rtol 2^-7, atol
     2^-7 max|v|."""
-    (q, kp, vp, table, lengths), _, got = _both(G, softcap, window,
-                                                is_local)
-    pal = paged_attention_pallas(
-        _J(q), _J(kp), _J(vp), jnp.asarray(table), jnp.asarray(lengths),
-        is_local, softcap=softcap, window=window, interpret=True)
-    np.testing.assert_allclose(got, np.asarray(pal.astype(jnp.float32)),
-                               rtol=2 ** -7,
-                               atol=2 ** -7 * float(np.abs(vp).max()))
+    _plain_matches_pallas(G, softcap, window, is_local, 32)
+
+
+@pytest.mark.parametrize("G,softcap,window,is_local", CASES_256)
+def test_plain_matches_pallas_interpret_dh256(G, softcap, window, is_local):
+    _plain_matches_pallas(G, softcap, window, is_local, 256)
 
 
 def _long_inputs(G):

@@ -174,15 +174,17 @@ def test_serve_continuous_drivers():
 
 
 @pytest.mark.parametrize("kw", [dict(family="ssm", draft_k=4),
-                                dict(family="moe"), dict(family="hybrid")])
+                                dict(family="moe"),
+                                dict(family="hybrid", draft_k=4)])
 def test_unported_options_raise(kw):
     """Options the port does not serve raise: the families not ported
-    yet, and speculative rounds over the ssm family, which the reference
-    refuses too (its recurrent state cannot roll back a draft block).
-    Speculative rounds on the dense family are served
-    (tests/test_torch_spec_scheduler.py), and so are the ssm family
-    (tests/test_torch_ssm.py), sampling (tests/test_torch_sampling.py)
-    and telemetry, ``obs`` (tests/test_torch_obs.py)."""
+    yet, and speculative rounds over the ssm and hybrid families, which
+    the reference refuses too (their recurrent state cannot roll back a
+    draft block).  Speculative rounds on the dense family are served
+    (tests/test_torch_spec_scheduler.py), and so are the ssm and hybrid
+    families (tests/test_torch_ssm.py, tests/test_torch_hybrid_scheduler.py),
+    sampling (tests/test_torch_sampling.py) and telemetry, ``obs``
+    (tests/test_torch_obs.py)."""
     kw = dict(kw)
     cfg = dataclasses.replace(tget("minicpm-2b", smoke=True),
                               family=kw.pop("family", "dense"))

@@ -505,11 +505,11 @@ def test_speculative_paths_refuse_ssm(model):
                         cache)
 
 
-@pytest.mark.parametrize("arch", ["zamba2-1.2b", "qwen2-moe-a2.7b",
-                                  "paligemma-3b", "musicgen-medium"])
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "paligemma-3b",
+                                  "musicgen-medium"])
 def test_unported_families_raise(arch):
-    """hybrid, moe, vlm and audio stay refused: the registry and every
-    entry point of ``lm``."""
+    """moe, vlm and audio stay refused: the registry and every entry point
+    of ``lm``."""
     with pytest.raises(NotImplementedError):
         tget(arch)
     cfg = dataclasses.replace(tget(ARCH, smoke=True),
