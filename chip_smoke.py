@@ -6,6 +6,7 @@
 Builds the port's CUDA kernels from ``src/repro_torch`` (all eight
 sources compiled together) and drives its main paths: minicpm-2b at its
 full width and depth (40 layers, packed and fused, prototype macro),
+and the dense family's qwen3-14b, starcoder2-7b and gemma2-9b at theirs,
 served lock-step and with continuous batching over a contiguous and a
 paged KV cache, and on its raw weights through the unpacked macro
 GEMM; the SSM family's mamba2-130m at its full width and depth, served
@@ -74,7 +75,8 @@ failure.  Phases:
      and at head dim 256, gemma2-9b's heads (16 over 8, softcap 50, a
      4,096 window) and paligemma-3b's (8 over 1) at lengths 96 and 1,024:
      kernel == plain to the tolerance, one launch counted a call, per
-     call, same-pool and cold device time, the byte bound;
+     call, same-pool and cold device time, the byte bound, and the gather
+     + SDPA yardstick (without the softcap and window: another function);
  14. the fused complex kernels (prepacked skinny and general, unpacked)
      vs their plain versions with torch.equal at the full-width shapes,
      on ragged shapes and at the DoA shapes; off the prototype design
@@ -108,7 +110,7 @@ failure.  Phases:
      errors and times;
  20. the Fig. 6 twin at 1,048,576 conversions on the card (peak memory
      under 8 GB; the reference's keyed operands and dies), and the same
-     seed on the CPU over the first 131,072 of them: this work's (the
+     seed on the CPU over the first 65,536 of them: this work's (the
      comparator noise), this die's, the floor's and all-analog's y8
      codes compared (0 may differ: the draws and the bit-true sum run
      the same operations on both); the
@@ -144,8 +146,8 @@ failure.  Phases:
      each (the second turn and the profile of one round were cut to make
      room for phases 36-37);
  24. continuous batching with speculative rounds (k 4, adaptive depth):
-     phase 9's 16 requests over 8 slots, contiguous, pool tokens equal
-     phase 9's and the lock-step waves'; then 8 of them paged as in phase
+     phase 9's first 12 requests over 8 slots, contiguous, pool tokens equal
+     phase 9's and the lock-step waves'; then 4 of them paged as in phase
      10, with the paged read launched 40 times a draft step and the token
      agreement with phase 10 reported;
  25. phase 4's serve eager and with its decode step replayed from a CUDA
@@ -273,8 +275,9 @@ failure.  Phases:
      step's kernel nodes held to its credit and traced; decode tok/s,
      prefill s, the replayed step's ms beside the bound of one read of
      the macro layers and the lm_head, pack and peak bytes;
- 41. mamba2-130m continuous batching, 16 requests of 128 tokens (stops
-     8-32) over 8 slots, captured: contiguous, and paged with prefill
+ 41. mamba2-130m continuous batching, 12 requests of 128 tokens (stops
+     8-32) over 8 slots (4 refilled: a reused slot's state reset inside
+     the captured step), captured: contiguous, and paged with prefill
      chunks of 128 (aligned with the SSD chunk; tokens equal the
      contiguous pool's, gated) and of 32 (row 1 at M 32; agreement
      reported); rows 1-2 launches equal the GEMMs per forward times each
@@ -289,14 +292,42 @@ failure.  Phases:
      shared block's QKV, wo, w1+w3 and w2 at each of its 6 invocations);
      the replayed step against the bound of the macro layers, the shared
      block 6 times and the lm_head read once;
- 43. zamba2-1.2b continuous batching, phase 41's 16 requests over 8
+ 43. zamba2-1.2b continuous batching, phase 41's 12 requests over 8
      slots, captured: contiguous and paged with prefill chunks of 128
      (rows 1-2 launches equal 100 GEMMs times each pool's forwards, row 3
      6 launches a paged pooled step, refcounts drained, each pooled
      step's replay held to its nodes), the paged pool equal to solo runs
      of requests 0-2; reported, not gated: paged tokens equal to the
      contiguous pool's (as phase 10), and agreement with a paged run on
-     the plain read over the first 4 requests (as phase 12).
+     the plain read over the first 2 requests (as phase 12);
+ 44. the dense configs at full width and depth: qwen3-14b (40 layers,
+     d_model 5,120, 40 query heads padded to 48 over 8 kv heads of 128,
+     qk_norm, d_ff 17,408, vocab 151,936; random weights from seed 0,
+     packed and fused, prototype macro; nothing of an earlier phase
+     live: at most 2 GB allocated at entry; each raw projection released
+     once packed, as ``serve`` packs the params it makes; the init and
+     pack peaks), phase 4's workload through ``serve`` with the decode
+     step captured: 4 row-2 launches a layer in prefill and 4 row-1
+     launches a layer a step (160 and 2,400), pack bytes and peak memory;
+     on the same pack the first 4 tokens eagerly through the kernels and
+     through their plain versions, tokens equal the captured run's and each
+     other's, last logits equal; a replayed decode step's kernel nodes
+     held to its credit and its ms against the bound of one read of the
+     pack's layers and the lm_head; one layer's four GEMMs timed as in
+     phase 7 (row 1 at M 4, row 2 at M 128; same-operand and cold over
+     the stack's first layers);
+ 45. starcoder2-7b (32 layers, d_model 4,608, 36 heads padded to 48 over
+     4 kv heads of 128, GELU, d_ff 18,432, vocab 49,152), phase 44's
+     workload and gates (128 and 1,920 launches);
+ 46. gemma2-9b (42 layers, d_model 3,584, 16 heads over 8 kv heads of
+     256, local / global layers with a 4,096 window, attention softcap 50,
+     logit softcap 30, GELU, tied embeddings, d_ff 14,336, vocab
+     256,000), phase 44's workload and gates (168 and 2,520 launches);
+     then phase 9's first 8 requests over 8 slots, captured: contiguous,
+     pool tokens equal the lock-step waves' (gated); paged as phase 10
+     (blocks of 16, chunks of 32), 42 row-3 launches a pooled step at G
+     2, Dh 256, softcap 50, refcounts drained, the pool equal to solo
+     runs of requests 0-2 (gated), paged == contiguous reported.
 
 Phase 34 also runs the plan_pareto twin's second arch, mamba2-130m, at
 the reference bench's smoke size and noise seed.
@@ -313,7 +344,14 @@ phase 10 serves the first 8 of phase 9's requests (from 16), phase 30
 stops its requests at a quarter of phase 9's stop lengths (from half),
 phase 36 (b) times 2 pairs of turns (from 4), (c) stops at 4-8 tokens
 (from 6-12) and phase 37 runs the
-serve_bench twin with one repeat of its ungated rows (from 3).
+serve_bench twin with one repeat of its ungated rows (from 3); to make
+room for phases 44-46, phase 12 serves the first 2 of phase 11's
+requests through the plain read (from 4), phase 20 checks 65,536
+conversions on the CPU (from 131,072), phase 34's plan_pareto twin
+generates 4 tokens (from 8), phase 43's plain read serves 2 requests
+(from 4), phase 24 serves 12 of phase 9's requests contiguous (from 16)
+and 4 paged (from 8), and phases 41 and 43 serve 12 requests (from 16;
+each pool still refills 4 of its 8 slots).
 
 The serving drivers replay captured graphs by default on the card
 (``launch/graphs.py``), so phases 9, 11, 22 and 24 serve captured.  A
@@ -568,8 +606,9 @@ def _serve_record(stats) -> dict:
     return {k: stats[k] for k in keep if k in stats}
 
 
-# phase 12's queue: the first requests of phase 11's
-PLAIN_PAGED_REQUESTS = 4
+# phase 12's queue: the first requests of phase 11's (8 until phases
+# 40-41 and 4 until phases 44-46 needed the time)
+PLAIN_PAGED_REQUESTS = 2
 # phase 10's queue: the first requests of phase 9's (16 until phases 42-43
 # needed the time; a request's tokens do not depend on its neighbours)
 PAGED_REQUESTS = 8
@@ -687,9 +726,8 @@ def continuous_phases(torch, dev, params, cfg_full) -> dict:
           "branch_counts": rep.branch_counts})
 
     # -- 12. the plain paged read on the card ------------------------------
-    # (the first 4 of the 16 requests, 8 until phases 40-41 needed the
-    # time: the agreement is reported, and the plain read's eager queue
-    # was the phase's time)
+    # (the first PLAIN_PAGED_REQUESTS of the 16: the agreement is
+    # reported, and the plain read's eager queue was the phase's time)
     cfg_plain = dataclasses.replace(cfg, paged_attn_use_kernel=False)
     reset()
     rep_p = ContinuousBatchingScheduler(packed, cfg_plain, **kw).run(
@@ -821,8 +859,11 @@ def times_paged_attn_dh256(torch, dev) -> dict:
     """Phase 13's head dim 256 cases: the kernel against its plain
     version (rtol 2^-7, atol 2^-7 max|v|), one launch counted a call,
     per call (``ms``), same-pool device time and cold (rotating distinct
-    pools), beside the plain version and the bound by bytes (K and V read
-    up to the lengths, q read and the output written once)."""
+    pools), beside the plain version, the gather + SDPA yardstick (same
+    pool and cold; without gemma2's softcap and window, so a yardstick of
+    another function) and the bound by bytes (K and V read up to the
+    lengths, q read and the output written once)."""
+    import torch.nn.functional as F
     from repro_torch.kernels.paged_attn import kernel as PK
     from repro_torch.kernels.paged_attn import ref as PR
 
@@ -857,9 +898,22 @@ def times_paged_attn_dh256(torch, dev) -> dict:
             dev_ms = graph_ms(torch, kern)
             cold = graph_rotation_ms(torch, [
                 lambda kp=kp, vp=vp: kern(kp, vp) for kp, vp in pools])
+            # the library yardstick: gather + SDPA over every position
+            # (no softcap, window or length mask: another function)
+            def sdpa(kp=kp, vp=vp):
+                k = PR.paged_gather_kv(kp, table).transpose(1, 2)
+                v = PR.paged_gather_kv(vp, table).transpose(1, 2)
+                return F.scaled_dot_product_attention(
+                    q[:, :, None], k, v, enable_gqa=hq != hkv)
+            lib = cuda_ms(sdpa, reps=50)
+            lib_dev = graph_ms(torch, sdpa)
+            lib_cold = graph_rotation_ms(torch, [
+                lambda kp=kp, vp=vp: sdpa(kp, vp) for kp, vp in pools])
             nbytes = 2 * B * L * hkv * 256 * 2 + 2 * B * hq * 256 * 2
             nops = 4 * B * hq * L * 256
             rows[f"{model}_L{L}"] = dict(
+                library_ms=lib, library_device_ms=lib_dev,
+                library_cold_ms=lib_cold,
                 B=B, hq=hq, hkv=hkv, dh=256, L=L, softcap=softcap,
                 window=window, is_local=local, max_abs_err=err, ms=ms,
                 device_ms=dev_ms, device_cold_ms=cold, plain_ms=plain,
@@ -872,7 +926,11 @@ def times_paged_attn_dh256(torch, dev) -> dict:
             del pools, kp, vp
     emit({"phase": "times_paged_attn_dh256", "ok": True, "bs": PA_BS,
           "by_case": rows, "cold": COLD, "timing": TIMING,
-          "tolerance": "rtol 2^-7, atol 2^-7 max|v|"})
+          "tolerance": "rtol 2^-7, atol 2^-7 max|v|",
+          "library": "paged_gather_kv + scaled_dot_product_attention over "
+                     "every position (enable_gqa): a yardstick of another "
+                     "function (no softcap, window or length mask), which "
+                     "the port never calls"})
     return rows
 
 
@@ -2104,24 +2162,26 @@ def continuous_speculative_phase(torch, dev, params, cfg_full,
         PK.reset_launch_counts()
 
     reset()
-    toks, st = serve_continuous("minicpm-2b", n_requests=16,
+    toks, st = serve_continuous("minicpm-2b", n_requests=SPEC_REQUESTS,
                                 compare_lockstep=True, **common)
     n_c = {**_macro_launches(), "paged_attn": PK.paged_attention_cuda.launches}
     want = serve_phases["tokens_contiguous"]
-    same = [_tokens_equal(toks[r], want[r]) for r in want]
+    same = [_tokens_equal(toks[r], want[r]) for r in toks]
     check(st.get("tokens_match_lockstep") is True,
           "phase 24: speculative pool tokens != lock-step tokens")
+    check(st["continuous"]["n_admits"] > slots,
+          "phase 24: no slot was refilled")
     check(all(same), f"phase 24: speculative pool tokens equal phase 9's on "
           f"{sum(same)} of {len(same)} requests")
     check(n_c["paged_attn"] == 0, "phase 24: the contiguous pool launched "
           "the paged read")
     emit({"phase": "serve_continuous_speculative", "ok": True,
-          "requests": 16, "draft_k": k, "adaptive_draft_k": True,
+          "requests": SPEC_REQUESTS, "draft_k": k, "adaptive_draft_k": True,
           "draft_plan": st["draft_plan"], "draft_steps": st["draft_steps"],
           "tokens_equal_phase9": True, "tokens_equal_lockstep": True,
           "launches": n_c, **_serve_record(st)})
 
-    n_req = 8
+    n_req = SPEC_PAGED_REQUESTS
     layout = PagedLayout(block_size=PA_BS,
                          n_tbl=cdiv(plen + max(stops) - 1 + k, PA_BS),
                          n_blocks=64)
@@ -2151,6 +2211,11 @@ def continuous_speculative_phase(torch, dev, params, cfg_full,
                       "serve_paged_speculative": {
                 k_: n_p[k_] for k_ in ("general", "skinny")}},
             "paged_attn": n_p["paged_attn"]}
+
+# phase 24's queues: the first requests of phase 9's, contiguous over 8
+# slots (4 slots refilled; 16 and paged 8 until phases 44-46 needed the
+# time)
+SPEC_REQUESTS, SPEC_PAGED_REQUESTS = 12, 4
 
 # -- phases 25-27: the serving bodies as CUDA graphs -----------------------
 
@@ -2475,9 +2540,9 @@ def captured_scheduler_phase(torch, dev, params, cfg_full,
 # -- phases 28-31: threefry on the card, sampled and noisy serving ---------
 
 PRNG_DRAWS = 1 << 21
-# conversions of phase 20's CPU cross-check: the first 2^17 of the card's
-# (2^18 until phases 42-43 needed the time)
-FIG6_CPU_N = 1 << 17
+# conversions of phase 20's CPU cross-check: the first 2^16 of the card's
+# (2^18 until phases 42-43 and 2^17 until phases 44-46 needed the time)
+FIG6_CPU_N = 1 << 16
 TEMPERATURE = 0.7
 EULER_GAMMA = 0.5772156649015329
 
@@ -3107,7 +3172,7 @@ def planner_phase(torch, dev, params, cfg_full) -> dict:
     _reset_all_launches()
     t0 = time.time()
     pareto = plan_pareto.run_arch("minicpm-2b", smoke=False, batch=2,
-                                  prompt_len=16, gen=8, params=params,
+                                  prompt_len=16, gen=4, params=params,
                                   device=dev, noise_seed=None)
     pareto_s = time.time() - t0
     pareto_launches = _rows_launches()
@@ -3788,10 +3853,13 @@ def resilience_twin_phase() -> dict:
 SSM_ARCH = "mamba2-130m"
 HYBRID_ARCH = "zamba2-1.2b"
 SSM_BATCH, SSM_PROMPT, SSM_GEN = 4, 128, 32
-SSM_SLOTS, SSM_REQUESTS, SSM_STOPS = 8, 16, (8, 16, 24, 32)
+# phases 41 and 43: requests over 8 slots, 4 of them refilled (16
+# requests until phases 44-46 needed the time)
+SSM_SLOTS, SSM_REQUESTS, SSM_STOPS = 8, 12, (8, 16, 24, 32)
 # phase 43: the requests served solo (held to the pool) and through the
-# plain paged read (agreement reported)
-HYBRID_SOLO, HYBRID_PLAIN_READ = 3, 4
+# plain paged read (agreement reported; 4 until phases 44-46 needed the
+# time)
+HYBRID_SOLO, HYBRID_PLAIN_READ = 3, 2
 RECURRENT_PHASES = {SSM_ARCH: (40, "ssm"), HYBRID_ARCH: (42, "hybrid")}
 
 
@@ -3996,6 +4064,7 @@ def _queue_runs(torch, cfg, packed, n_fwd, reqs, runs, phase):
         recs[label] = dict(
             rep.summary(), n_iter=rep.n_iter, n_pf=rep.n_pf,
             n_steps=rep.n_steps, host_syncs=rep.host_syncs,
+            refilled_slots=max(rep.n_admits - SSM_SLOTS, 0),
             branch_counts=rep.branch_counts,
             iter_ms=1e3 * rep.wall_s / max(rep.n_iter, 1),
             launches=launches, capture=sched.graph_stats(),
@@ -4018,8 +4087,8 @@ def _same_tokens(a: dict, b: dict, rids=None) -> int:
 
 
 def ssm_continuous_phase(torch, dev, model) -> dict:
-    """Phase 41: mamba2-130m continuous batching, 16 requests of 128
-    tokens (stops 8-32) over 8 slots, captured: the contiguous pool, the
+    """Phase 41: mamba2-130m continuous batching, 12 requests of 128
+    tokens (stops 8-32) over 8 slots (4 refilled), captured: the contiguous pool, the
     paged pool with prefill chunks of 128 (aligned with the SSD chunk:
     tokens equal the contiguous pool's, gated) and with chunks of 32 (row
     1 at M 32; agreement reported, not gated); ``_queue_runs``'s gates.
@@ -4037,6 +4106,8 @@ def ssm_continuous_phase(torch, dev, model) -> dict:
         (("contiguous", {}, ccfg),
          ("paged", dict(paged=layout, prefill_chunk=SSM_PROMPT), ccfg),
          ("paged_c32", dict(paged=layout, prefill_chunk=32), ccfg)), 41)
+    check(all(recs[k]["refilled_slots"] > 0 for k in recs),
+          "phase 41: a pool refilled no slot")
     n_paged = _same_tokens(toks["paged"], toks["contiguous"])
     check(n_paged == SSM_REQUESTS, f"phase 41: paged (chunk "
           f"{SSM_PROMPT}) tokens equal the contiguous pool's on {n_paged}"
@@ -4058,8 +4129,8 @@ def ssm_continuous_phase(torch, dev, model) -> dict:
 
 
 def hybrid_continuous_phase(torch, dev, model) -> dict:
-    """Phase 43: zamba2-1.2b continuous batching, phase 41's 16 requests
-    of 128 tokens (stops 8-32) over 8 slots, captured: the contiguous
+    """Phase 43: zamba2-1.2b continuous batching, phase 41's 12 requests
+    of 128 tokens (stops 8-32) over 8 slots (4 refilled), captured: the contiguous
     pool and the paged pool with prefill chunks of 128 (the shared
     block's KV paged: 6 row-3 launches a pooled step), with
     ``_queue_runs``'s gates, and the paged pool equal to solo runs of
@@ -4067,7 +4138,7 @@ def hybrid_continuous_phase(torch, dev, model) -> dict:
     equal the contiguous pool's (the kernel's float32 P.V can move a bf16
     activation by one ulp, and in CIM mode an ADC code with it), and the
     paged pool's agreement with the paged read's plain version on the
-    first 4 requests.  Returns the launches by path of rows 1, 2, 3 and
+    first 2 requests.  Returns the launches by path of rows 1, 2, 3 and
     6."""
     from repro_torch.launch.scheduler import (ContinuousBatchingScheduler,
                                               mixed_length_requests)
@@ -4086,6 +4157,8 @@ def hybrid_continuous_phase(torch, dev, model) -> dict:
     plain_recs, plain_toks, _ = _queue_runs(
         torch, plain, packed, n_fwd, reqs[:HYBRID_PLAIN_READ],
         (("paged_plain_read", paged, plain),), 43)
+    check(all(recs[k]["refilled_slots"] > 0 for k in recs),
+          "phase 43: a pool refilled no slot")
     recs.update(plain_recs)
     rids = [r.rid for r in reqs[:HYBRID_SOLO]]
     solo = {}
@@ -4114,6 +4187,341 @@ def hybrid_continuous_phase(torch, dev, model) -> dict:
           "state_bytes_per_slot": state_bytes,
           "state_max_seq": layout.tokens_per_slot, "runs": recs})
     return {f"hybrid_scheduler_{k}": v for k, v in launches.items()}
+
+
+DENSE_PHASES = {"qwen3-14b": 44, "starcoder2-7b": 45, "gemma2-9b": 46}
+DENSE_BATCH, DENSE_PROMPT, DENSE_GEN = 4, 32, 16     # phase 4's workload
+DENSE_PLAIN_GEN = 4          # tokens of the eager and plain comparison runs
+DENSE_ENTRY_BYTES = 2 * 2 ** 30    # allocated at a dense phase's entry
+DENSE_QUEUE = 8              # phase 9's first requests, phase 46's queues
+DENSE_SOLO = 3
+
+
+def gc_collect(torch) -> None:
+    """Free what unreachable objects (graphs, caches) still hold on the
+    card before a phase reads ``memory_allocated``."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _dense_model(torch, dev, arch: str, phase: int):
+    """``arch`` at full width and depth, random weights from seed 0 (the
+    serve functions' own), packed and fused on the prototype macro by
+    ``pack_cim_params(consume=True)``: each raw projection is released
+    once packed, so the raw stack and the pack are never both whole on
+    the card.  Fails unless at most 2 GB is allocated at entry (nothing
+    of an earlier phase live).  Returns the CIM config, the packed params
+    and the memory record (init and pack seconds and peaks)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import tree_bytes
+    from repro_torch.models import lm
+
+    gc_collect(torch)
+    entry = torch.cuda.memory_allocated()
+    check(entry <= DENSE_ENTRY_BYTES, f"phase {phase}: {entry} bytes "
+          "allocated at entry (an earlier phase's tensors are live)")
+    cfg = dataclasses.replace(get_config(arch), cim_mode=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init(0, cfg, device=dev)
+    torch.cuda.synchronize()
+    mem = dict(entry_bytes=entry, init_s=time.perf_counter() - t0,
+               init_peak_bytes=torch.cuda.max_memory_allocated(),
+               raw_bytes=tree_bytes(params))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        packed = lm.pack_cim_params(params, cfg, dev, consume=True)
+    del params
+    torch.cuda.synchronize()
+    mem.update(pack_s=time.perf_counter() - t0,
+               pack_peak_bytes=torch.cuda.max_memory_allocated(),
+               pack_bytes=tree_bytes(packed),
+               layers_pack_bytes=tree_bytes(packed["layers"]))
+    return cfg, packed, mem
+
+
+def _layer_leaves(packed) -> dict:
+    """Layer 0's four macro GEMMs of a dense pack, name -> the stacked
+    ``PackedCimWeights`` (fused groups unwrapped)."""
+    out = {}
+    for blk in ("attn", "mlp"):
+        for key, leaf in packed["layers"][blk].items():
+            leaf = getattr(leaf, "packed", leaf)
+            if hasattr(leaf, "kernel_w"):
+                out[f"{blk}/{key}"] = leaf
+    return out
+
+
+def times_dense_layer(torch, dev, cfg, packed) -> dict:
+    """One layer's four GEMMs of a dense config at full width, phase 7's
+    way: row 1 at M 4 and row 2 at M 128, per call (``ms``), device time
+    on one layer's operands (``device_ms``) and cold (``device_cold_ms``:
+    replays rotating over the first layers of the stack, distinct
+    weights, at least 4 L2s of bytes), beside the plain version and the
+    bound by bytes and operations."""
+    from repro_torch.core.ccim import DEFAULT_CONFIG
+    from repro_torch.kernels.ccim_matmul import kernel as K
+
+    meta = dict(acc_len=DEFAULT_CONFIG.acc_len, x_bits=(6, 5),
+                dcim_lsb=DEFAULT_CONFIG.dcim_lsb,
+                adc_half=DEFAULT_CONFIG.adc_half_range)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(44)
+    leaves = _layer_leaves(packed)
+    rows = {}
+    for name, m, fn in (("skinny", 4, K.ccim_matmul_prepacked_skinny_cuda),
+                        ("general", 128,
+                         K.ccim_matmul_prepacked_general_cuda)):
+        keys = ("ms", "device_ms", "device_cold_ms", "plain_ms", "bytes",
+                "ops")
+        tot, shapes = dict.fromkeys(keys, 0.0), {}
+        for sname, leaf in leaves.items():
+            n, kp = leaf.kernel_w.shape[1:]
+            n_j = leaf.kernel_planes.shape[1]
+            layer_bytes = (1 + n_j) * n * kp
+            copies = min(cfg.n_layers, cold_copy_count(torch, dev,
+                                                       layer_bytes))
+            x = torch.randint(-127, 128, (m, kp), generator=gen, device=dev,
+                              dtype=torch.int8)
+            w, planes = leaf.kernel_w[0], leaf.kernel_planes[0]
+            kern = lambda: fn(x, w, planes, **meta)
+            cold = [lambda i=i: fn(x, leaf.kernel_w[i],
+                                   leaf.kernel_planes[i], **meta)
+                    for i in range(copies)]
+            nbytes = m * kp + layer_bytes + 4 * m * n
+            nops = 2 * m * n * kp * (1 + n_j)
+            t = dict(ms=cuda_ms(kern, reps=20),
+                     device_ms=graph_ms(torch, kern),
+                     device_cold_ms=graph_rotation_ms(torch, cold),
+                     plain_ms=cuda_ms(lambda: K.ccim_matmul_prepacked_plain(
+                         x, w, planes, **meta), reps=2),
+                     bytes=nbytes, ops=nops, k=leaf.k_dim, n=n,
+                     cold_layers=copies)
+            t.update(_bound(nbytes, nops))
+            shapes[sname] = t
+            for key in keys:
+                tot[key] += t[key]
+        tot.update(_bound(tot["bytes"], tot["ops"]))
+        rows[name] = {"m": m, "layer_total": tot, "shapes": shapes}
+    return rows
+
+
+def dense_lockstep_phase(torch, dev, arch: str) -> dict:
+    """Phases 44 (qwen3-14b), 45 (starcoder2-7b) and 46 (gemma2-9b): the
+    dense configs at full width and depth, random weights from seed 0,
+    packed and fused, prototype macro, phase 4's workload (batch 4,
+    prompt 32, 16 generated).  One pack (``_dense_model``: entry under
+    2 GB, init and pack seconds and peaks, each raw projection released
+    once packed, as ``serve`` packs the params it makes) served through
+    ``serve`` with the decode step captured: launches 4 a layer on row 2
+    in prefill and 4 a layer a step on row 1 (credited per replay), pack
+    and peak bytes.  Then on the same pack the first 4 tokens eagerly
+    through the kernels and through their plain versions: tokens equal
+    the captured run's and each other's, last logits equal; a replayed
+    decode step's kernel nodes held to its credit, its ms against the
+    bound of one read of the pack's layers and of the lm_head (the tied
+    embedding for gemma2); one layer's four GEMMs timed (row 1 at M 4,
+    row 2 at M 128, same-operand and cold).  Returns the model (for
+    phase 46's queues) and the launches by path of rows 1 and 2."""
+    from repro_torch.launch.graphs import StepGraph
+    from repro_torch.launch.serve import decode_body, serve
+    from repro_torch.models import lm
+
+    phase = DENSE_PHASES[arch]
+    model = _dense_model(torch, dev, arch, phase)
+    cfg, packed, mem = model
+    n_fwd = _macro_gemms_per_forward(packed, cfg)
+    check(n_fwd == 4 * cfg.n_layers, f"phase {phase}: {n_fwd} macro GEMMs "
+          "a forward, expected 4 a layer")
+    _reset_all_launches()
+    torch.cuda.reset_peak_memory_stats()
+    toks, st = serve(arch, smoke=False, batch=DENSE_BATCH,
+                     prompt_len=DENSE_PROMPT, gen=DENSE_GEN, cim=True,
+                     params=packed, return_stats=True, graphs=True)
+    torch.cuda.synchronize()
+    served = dict(launches=_rows_launches(),
+                  peak_bytes=max(mem["pack_peak_bytes"],
+                                 torch.cuda.max_memory_allocated()),
+                  pack_s=mem["pack_s"], pack_bytes=mem["pack_bytes"],
+                  **{k: st[k] for k in ("prefill_s", "decode_s",
+                                        "decode_tok_s", "replay_tok_s",
+                                        "capture_s", "graph_pool_bytes")})
+    captured = dict(toks=toks, logits=st["last_logits"])
+    del st
+    want = {"general": n_fwd, "skinny": n_fwd * (DENSE_GEN - 1),
+            "unpacked": 0}
+    check(served["launches"] == want, f"phase {phase} captured: launches "
+          f"{served['launches']}, expected {want}")
+    check(captured["toks"].shape == (DENSE_BATCH, DENSE_GEN)
+          and bool(((captured["toks"] >= 0)
+                    & (captured["toks"] < cfg.vocab_size)).all())
+          and bool(torch.isfinite(captured["logits"]).all()),
+          f"phase {phase}: tokens out of range or logits not finite")
+    runs = {}
+    for label, kw in (("kernel", {}), ("plain", dict(use_kernel=False))):
+        _reset_all_launches()
+        toks, st = serve(arch, smoke=False, batch=DENSE_BATCH,
+                         prompt_len=DENSE_PROMPT, gen=DENSE_PLAIN_GEN,
+                         cim=True, params=packed, return_stats=True,
+                         graphs=False, **kw)
+        torch.cuda.synchronize()
+        runs[label] = dict(toks=toks, logits=st["last_logits"],
+                           launches=_rows_launches(),
+                           **{k: st[k] for k in ("prefill_s", "decode_s",
+                                                 "decode_tok_s")})
+    k_, p_ = runs["kernel"], runs["plain"]
+    check((k_["toks"] == captured["toks"][:, :DENSE_PLAIN_GEN]).all(),
+          f"phase {phase}: the eager kernel run's tokens != the captured "
+          "run's")
+    check((p_["toks"] == k_["toks"]).all()
+          and torch.equal(p_["logits"], k_["logits"]),
+          f"phase {phase}: plain tokens or last logits != the kernels'")
+    check(k_["launches"] == {"general": n_fwd, "unpacked": 0,
+                             "skinny": n_fwd * (DENSE_PLAIN_GEN - 1)},
+          f"phase {phase} eager: launches {k_['launches']}")
+    check(not any(p_["launches"].values()),
+          f"phase {phase}: the plain run launched kernels")
+    # one captured decode step: its kernel nodes, a traced replay, its ms
+    with torch.inference_mode():
+        max_seq = DENSE_PROMPT + DENSE_GEN
+        cache = lm.init_cache(cfg, DENSE_BATCH, max_seq, device=dev)
+        prompt = torch.zeros((DENSE_BATCH, DENSE_PROMPT), dtype=torch.int64,
+                             device=dev)
+        _, cache = lm.prefill(packed, cfg, prompt, cache)
+        tok = prompt[:, :1].clone()
+        out = torch.zeros((DENSE_BATCH, max_seq), dtype=torch.int64,
+                          device=dev)
+        col = torch.ones((1, 1), dtype=torch.int64, device=dev)
+        graph = StepGraph(decode_body(packed, cfg, tok, cache, out, col),
+                          dev)
+        graph()
+        graph()
+        check(graph.launches == {"ccim_matmul_prepacked_skinny_cuda":
+                                 n_fwd},
+              f"phase {phase}: the captured step credits {graph.launches}")
+        trace = check_replays(torch, graph, f"phase {phase} decode step")
+        replay_ms = cuda_ms(graph, reps=10, warmup=1)
+    del cache, graph, out
+    head = packed["embed"] if cfg.tie_embeddings else packed["lm_head"]
+    bound_bytes = {"macro_layers": mem["layers_pack_bytes"],
+                   "lm_head": head.numel() * head.element_size()}
+    step_bytes = sum(bound_bytes.values())
+    gemms = times_dense_layer(torch, dev, cfg, packed)
+    emit({"phase": f"dense_{arch}", "ok": True, "phase_no": phase,
+          "arch": arch, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "heads": [cfg.n_heads, cfg.padded_heads, cfg.n_kv_heads],
+          "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
+          "vocab": cfg.vocab_size, "qk_norm": cfg.qk_norm, "act": cfg.act,
+          "softcaps": [cfg.attn_softcap, cfg.logit_softcap],
+          "window": cfg.sliding_window, "tied": cfg.tie_embeddings,
+          "batch": DENSE_BATCH, "prompt_len": DENSE_PROMPT, "gen": DENSE_GEN,
+          "macro_gemms_per_forward": n_fwd, "served": served,
+          "memory": mem,
+          "compared_tokens": DENSE_PLAIN_GEN,
+          "tokens_equal": ["kernel == captured", "plain == kernel"],
+          "logits_equal": True,
+          "runs": {lab: {k: v for k, v in r.items()
+                         if k not in ("toks", "logits")}
+                   for lab, r in runs.items()},
+          "replayed_step_ms": replay_ms, "replay_trace": trace,
+          "decode_bound_ms": 1e3 * step_bytes / HBM_BYTES_S,
+          "decode_bound_bytes": bound_bytes,
+          "layer_gemms": gemms, "timing": TIMING, "cold": COLD,
+          "tokens_row0": captured["toks"][0].tolist()})
+    return model, {f"{arch}_serve_captured": served["launches"],
+                   f"{arch}_serve": k_["launches"]}
+
+
+def dense_queue_phase(torch, dev, model) -> dict:
+    """Phase 46 (b): gemma2-9b continuous batching over phase 9's first 8
+    requests (prompts of 64, stops 8-32) in 8 slots, captured, on phase
+    46's pack: contiguous, pool tokens == the lock-step waves' (gated);
+    paged as phase 10 (blocks of 16, chunks of 32): 42 row-3 launches a
+    pooled step (G 2, Dh 256, softcap 50, the 4,096 window on the local
+    layers), refcounts drained, the pool == solo runs of requests 0-2
+    (gated); paged == contiguous reported, not gated (as phase 10).
+    Returns the launches by path of rows 1-3."""
+    from repro_torch.launch.paging import PagedLayout, cdiv
+    from repro_torch.launch.scheduler import (ContinuousBatchingScheduler,
+                                              mixed_length_requests)
+    from repro_torch.launch.serve import serve_continuous
+
+    cfg, packed, _ = model
+    slots, plen, stops = 8, 64, (8, 24, 16, 32)
+    layout = PagedLayout(block_size=PA_BS,
+                         n_tbl=cdiv(plen + max(stops) - 1, PA_BS),
+                         n_blocks=64)
+    common = dict(smoke=False, slots=slots, prompt_len=plen,
+                  n_requests=DENSE_QUEUE, stop_lengths=stops, cim=True,
+                  params=packed, device=dev)
+    recs, toks, launches = {}, {}, {}
+    for label, kw in (("contiguous", dict(compare_lockstep=True)),
+                      ("paged", dict(compare_lockstep=False, paged=layout,
+                                     prefill_chunk=32))):
+        _reset_all_launches()
+        torch.cuda.reset_peak_memory_stats()
+        toks[label], st = serve_continuous("gemma2-9b", **kw, **common)
+        torch.cuda.synchronize()
+        launches[label] = dict(_rows_launches(),
+                               paged_attn=_all_launches()["paged_attn"])
+        recs[label] = dict(_serve_record(st), launches=launches[label],
+                           peak_bytes=torch.cuda.max_memory_allocated())
+        n_steps = st["continuous"]["n_steps"]
+        if label == "contiguous":
+            check(st.get("tokens_match_lockstep") is True,
+                  "phase 46: contiguous pool tokens != lock-step tokens")
+            check(launches[label]["paged_attn"] == 0,
+                  "phase 46: the contiguous pool launched row 3")
+        else:
+            check(launches[label]["paged_attn"] == cfg.n_layers * n_steps,
+                  f"phase 46: {launches[label]['paged_attn']} row-3 "
+                  f"launches, expected {cfg.n_layers} x {n_steps} pooled "
+                  "steps")
+            check(st["paged"]["refcounts_drained"],
+                  "phase 46: refcounts did not drain")
+    reqs = mixed_length_requests(DENSE_QUEUE, plen, cfg.vocab_size,
+                                 stop_lengths=stops, seed=0)
+    rids = [r.rid for r in reqs[:DENSE_SOLO]]
+    solo = {}
+    for r in reqs[:DENSE_SOLO]:
+        solo.update(ContinuousBatchingScheduler(
+            packed, cfg, slots=1, prompt_len=plen, max_new_cap=max(stops),
+            paged=layout, prefill_chunk=32).run([r]).tokens_by_rid())
+    n_solo = _same_tokens(toks["paged"], solo, rids)
+    check(n_solo == DENSE_SOLO, f"phase 46: the paged pool's tokens equal "
+          f"solo runs on {n_solo} of requests 0-{DENSE_SOLO - 1}")
+    emit({"phase": "dense_gemma2-9b_queues", "ok": True, "phase_no": 46,
+          "requests": DENSE_QUEUE, "prompt_len": plen,
+          "stop_lengths": list(stops), "slots": slots,
+          "paged_layout": [layout.block_size, layout.n_tbl,
+                           layout.n_blocks], "prefill_chunk": 32,
+          "row3_at": {"G": cfg.q_per_kv, "dh": cfg.head_dim,
+                      "softcap": cfg.attn_softcap,
+                      "window": cfg.sliding_window},
+          "pool_equals_lockstep": True, "paged_equal_solo": n_solo,
+          "paged_equal_contiguous": _same_tokens(toks["paged"],
+                                                 toks["contiguous"]),
+          "not_gated_because": "the kernel's float32 P.V can move a bf16 "
+                               "activation by one ulp, and in CIM mode an "
+                               "ADC code with it",
+          "runs": recs})
+    return {f"gemma2-9b_scheduler_{k}": v for k, v in launches.items()}
+
+
+def dense_phases(torch, dev) -> dict:
+    """Phases 44-46, each on a card with nothing of an earlier phase live
+    and its model freed before the next."""
+    paths = {}
+    for arch in DENSE_PHASES:
+        model, p = dense_lockstep_phase(torch, dev, arch)
+        paths.update(p)
+        if arch == "gemma2-9b":
+            paths.update(dense_queue_phase(torch, dev, model))
+        del model
+        gc_collect(torch)
+    return paths
 
 
 def main() -> int:
@@ -4449,6 +4857,8 @@ def main() -> int:
         rec_paths.update(recurrent_lockstep_phase(torch, dev, arch, model))
         rec_paths.update(queue(torch, dev, model))
         del model
+    # -- 44.-46. the dense configs at full width ---------------------------
+    rec_paths.update(dense_phases(torch, dev))
     for path, n in rec_paths.items():
         by_path[path] = {k_: n[k_] for k_ in ("general", "skinny")}
         raw_paths[path] = n

@@ -1,6 +1,7 @@
 """Architecture registry: --arch <id> resolution for launchers/tests.
 
-Every architecture of the reference is listed; ``minicpm-2b`` (dense),
+Every architecture of the reference is listed; the dense family
+(``minicpm-2b``, ``qwen3-14b``, ``starcoder2-7b``, ``gemma2-9b``),
 ``mamba2-130m`` (ssm) and ``zamba2-1.2b`` (hybrid) are ported so far,
 and the others raise ``NotImplementedError``.
 """
@@ -8,9 +9,9 @@ from importlib import import_module
 
 _MODULES = {
     "minicpm-2b": "minicpm_2b",
-    "qwen3-14b": None,
-    "starcoder2-7b": None,
-    "gemma2-9b": None,
+    "qwen3-14b": "qwen3_14b",
+    "starcoder2-7b": "starcoder2_7b",
+    "gemma2-9b": "gemma2_9b",
     "mamba2-130m": "mamba2_130m",
     "qwen2-moe-a2.7b": None,
     "arctic-480b": None,

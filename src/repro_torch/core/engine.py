@@ -26,7 +26,7 @@ kernels read both packs as stored.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -142,23 +142,45 @@ def pack_quantized_cim_weights(wq: torch.Tensor, scale: torch.Tensor,
                             cfg=cfg)
 
 
-def _stack(packs: List[PackedCimWeights]) -> PackedCimWeights:
-    p0 = packs[0]
-    return dataclasses.replace(
-        p0, scale=torch.stack([p.scale for p in packs]),
-        kernel_w=torch.stack([p.kernel_w for p in packs]),
-        kernel_planes=torch.stack([p.kernel_planes for p in packs]))
+def stack_layers(pack_layer: Callable[[int], PackedCimWeights],
+                 n_layers: int) -> PackedCimWeights:
+    """ONE stacked pack of ``n_layers`` layers, ``pack_layer(i)`` packing
+    layer i: each layer's pack is written into tensors allocated once for
+    the stack and dropped, so the working set is one layer's pack and
+    transients beside the stacked pack (a list of per-layer packs and its
+    stacked copy would hold the pack twice)."""
+    fields = ("scale", "kernel_w", "kernel_planes")
+    p = pack_layer(0)
+    out = dataclasses.replace(p, **{
+        f: getattr(p, f).new_empty((n_layers, *getattr(p, f).shape))
+        for f in fields})
+    for i in range(n_layers):
+        if i:
+            p = pack_layer(i)
+        for f in fields:
+            getattr(out, f)[i].copy_(getattr(p, f))
+        del p
+    return out
+
+
+def pack_cim_layers(layer: Callable[[int], torch.Tensor], n_layers: int,
+                    cfg: CCIMConfig = DEFAULT_CONFIG,
+                    per_channel: bool = True) -> PackedCimWeights:
+    """Pack a stack of ``n_layers`` (K, N) float weights, ``layer(i)``
+    giving layer i (a view, or a fused group's one-layer concatenation),
+    one layer at a time: bit for bit the per-layer packs, stacked."""
+    return stack_layers(
+        lambda i: pack_cim_weights(layer(i), cfg, per_channel), n_layers)
 
 
 def pack_cim_weights(w: torch.Tensor, cfg: CCIMConfig = DEFAULT_CONFIG,
                      per_channel: bool = True) -> PackedCimWeights:
     """Quantize + decompose float weights once: (K, N), or (L, K, N) for a
     stack of layers, packed one layer at a time to bound the transient
-    int32/float32 working set.  Same scale and rounding as the reference
-    ``pack_cim_weights``."""
+    int32/float32 working set (``pack_cim_layers``).  Same scale and
+    rounding as the reference ``pack_cim_weights``."""
     if w.dim() == 3:
-        return _stack([pack_cim_weights(w[i], cfg, per_channel)
-                       for i in range(w.shape[0])])
+        return pack_cim_layers(lambda i: w[i], w.shape[0], cfg, per_channel)
     w = w.to(torch.float32)
     sw = (smf_scale(w, dim=0, keepdim=True, cfg=cfg) if per_channel
           else smf_scale(w, cfg=cfg))

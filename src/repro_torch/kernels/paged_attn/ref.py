@@ -4,10 +4,10 @@ Counterpart of ``repro/kernels/paged_attn/ref.py``: gather the block
 table into a dense per-row view, then the plain decode attention math of
 ``models.layers.plain_attention`` -- float32 scores summed in the
 reference's lane order, optional tanh softcap, -1e30 masking, softmax
-in ``jax.nn.softmax``'s form, and P.V with p rounded to the values'
-dtype.  On the CPU it is bit-identical to the reference's oracle; the
-CUDA kernel (kernel.py) computes P.V in float32 and matches it to a
-tolerance.
+in ``jax.nn.softmax``'s form (on the CPU with XLA's exp, tanh and
+windowed sum), and P.V with p rounded to the values' dtype.  On the CPU
+it is bit-identical to the reference's oracle; the CUDA kernel
+(kernel.py) computes P.V in float32 and matches it to a tolerance.
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ from typing import Optional
 
 import torch
 
+from ...core import prng
 from ...models import layers as L
 
 
@@ -52,15 +53,25 @@ def paged_attention_ref(
     v = paged_gather_kv(v_pool, table)
     n_pos = k.shape[1]
     qg = L._scale_q(q.reshape(B, 1, Hkv, G, Dh))
-    s = L.softcap(L._lane_scores(qg, k.to(torch.float32)), softcap)
+    s = L.softcap(L._lane_scores(qg, k.to(torch.float32),
+                                 L.decode_order(G)), softcap)
     k_pos = torch.arange(n_pos, device=q.device)[None, :]
     q_pos = (lengths.long() - 1)[:, None]
     msk = k_pos <= q_pos
     if window is not None and is_local:
         msk = msk & (q_pos - k_pos < window)
     s = torch.where(msk[:, None, None, None, :], s, L._NEG)
-    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    p = e / e.sum(dim=-1, keepdim=True)          # jax.nn.softmax's form
-    out = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype).to(torch.float32),
-                       v.to(torch.float32)).to(v.dtype)
-    return out.reshape(B, Hq, Dh)
+    s = s - s.amax(dim=-1, keepdim=True)
+    pf = lambda p: p.to(v.dtype).to(torch.float32)
+    if q.is_cuda:
+        e = torch.exp(s)
+        p = e / e.sum(dim=-1, keepdim=True)      # jax.nn.softmax's form
+        out = torch.einsum("bhgqk,bkhd->bqhgd", pf(p), v.to(torch.float32))
+    else:
+        # as the reference's compiled oracle: XLA's exp, its windowed sum
+        # and its P.V order
+        e = prng.exp(s)
+        p = e / L._window_sum(e)[..., None]
+        out = L.decode_pv(pf(p), v.to(torch.float32),
+                          L.decode_order(G))
+    return out.to(v.dtype).reshape(B, Hq, Dh)

@@ -226,7 +226,8 @@ def serve(arch: str, smoke: bool = True, batch: int = 4, prompt_len: int = 32,
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=prompt_len,
                       global_batch=batch, seed=seed, d_model=cfg.d_model)
     with torch.inference_mode():
-        if params is None:
+        made = params is None       # params this call owns: packed in place
+        if made:
             params = lm.init(seed, cfg, device=dev)
         else:
             params = lm._to_device(params, dev)
@@ -237,7 +238,7 @@ def serve(arch: str, smoke: bool = True, batch: int = 4, prompt_len: int = 32,
         t0 = time.perf_counter()
         if pack:
             with span("serve.pack", arch=arch):
-                params = lm.pack_cim_params(params, cfg, dev)
+                params = lm.pack_cim_params(params, cfg, dev, consume=made)
                 _sync(dev)
         t_pack = time.perf_counter() - t0
         pack_bytes = tree_bytes(params)
@@ -627,13 +628,14 @@ def serve_continuous(arch: str, smoke: bool = True, slots: int = 2,
                                      stop_lengths=stop_lengths, seed=seed)
     cap = max(stop_lengths)
     with torch.inference_mode():
-        params = (lm.init(seed, cfg, device=dev) if params is None
+        made = params is None       # params this call owns: packed in place
+        params = (lm.init(seed, cfg, device=dev) if made
                   else lm._to_device(params, dev))
         _sync(dev)
         t0 = time.perf_counter()
         if cim:
             with span("serve.pack", arch=arch):
-                params = lm.pack_cim_params(params, cfg, dev)
+                params = lm.pack_cim_params(params, cfg, dev, consume=made)
                 _sync(dev)
         t_pack = time.perf_counter() - t0
         with span("serve.compile", arch=arch, n_queue=n_requests):
@@ -784,12 +786,13 @@ def serve_guarded(arch: str, smoke: bool = True, slots: int = 2,
     # hybrid and digital executions of one packed weight set
     cfg, _ = _model_config(arch, smoke, True, plan, fuse)
     with torch.inference_mode():
-        params = (lm.init(seed, cfg, device=dev) if params is None
+        made = params is None       # params this call owns: packed in place
+        params = (lm.init(seed, cfg, device=dev) if made
                   else lm._to_device(params, dev))
         _sync(dev)
         t0 = time.perf_counter()
         with span("serve.pack", arch=arch):
-            params = lm.pack_cim_params(params, cfg, dev)
+            params = lm.pack_cim_params(params, cfg, dev, consume=made)
             _sync(dev)
         t_pack = time.perf_counter() - t0
     gp = default_probe(params, fault=fault) if probe else None

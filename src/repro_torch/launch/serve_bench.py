@@ -22,14 +22,14 @@ the port (CUDA by default; ``--device cpu`` runs the plain version):
                 context limit) against the paged pool with chunked
                 prefill and shared prefixes, whose tokens must equal the
                 paged pool's without sharing; throughput from ``run``,
-                TTFT and the stall factor from ``run_instrumented`` (on
+                TTFT and the stall factor from one more run (on
                 the card the smoke model's heads are regrouped into the
                 paged kernel's 64-wide ones, ``paged_config``);
   telemetry     the same trace through one paged scheduler with metrics
                 off and one with them on, interleaved repeats after one
                 warm run each: tokens equal, the ring TTFT equal to
                 ``run_instrumented``'s ``first_iter`` request by request,
-                the best-of on/off tok/s ratio, the metrics-off op-sequence
+                the on/off tok/s ratio, the metrics-off op-sequence
                 fingerprints (``obs.fingerprint.fingerprint_variants``)
                 and the host fingerprint.
 
@@ -39,7 +39,13 @@ committed baseline.  ``--gate`` checks the gates that run inside the
 process: the multi-tenant token parity, the paged pool's throughput-or-
 footprint gate (>= 1.3x tok/s, or >= 2x less peak KV at >= 0.8x tok/s),
 its stall factor within 1.25x the contiguous pool's, and the telemetry
-floor (metrics-on >= 0.95x metrics-off tok/s).  The reference's
+floor (metrics-on >= 0.95x metrics-off tok/s).  The two throughput
+ratios are medians over interleaved pairs of runs (each pair's two runs
+see the same load; the reference gates on the ratio of best-of-N rates,
+whose two sides a shared host moves apart at random).  The gated
+sections time their runs on the scheduler's wall clock on the card and
+on the calling thread's CPU time on the CPU (``_cpu_clock``), where a
+host shared with other processes stretches wall times.  The reference's
 speculative floor (serve-level speedup >= 1.5x) is reported beside the
 measured speedup and not gated: it measures the per-dispatch cost of
 XLA's executables that one compiled round amortizes over its tokens,
@@ -55,6 +61,7 @@ import dataclasses
 import gc
 import json
 import statistics
+import time
 from typing import Optional
 
 import numpy as np
@@ -219,6 +226,45 @@ def _trace_pools(arch: str, smoke: bool, slots: int, prompt_len: int,
     return cfg, params, reqs, arrivals, lay, kw
 
 
+def _cpu_clock():
+    """The clock of the gated sections' runs on the CPU: the calling
+    thread's CPU time (the whole process's when torch runs more than one
+    thread), which a host shared with other processes does not stretch
+    as it stretches wall time."""
+    return (time.thread_time if torch.get_num_threads() == 1
+            else time.process_time)
+
+
+def _rate(run, device) -> tuple:
+    """One scheduler run ``run()`` -> (its report, its tok/s): the
+    report's own on the card (wall clock), per second of ``_cpu_clock``
+    on the CPU."""
+    if torch.device(device).type == "cuda":
+        rep = run()
+        return rep, rep.tok_s
+    clock = _cpu_clock()
+    t0 = clock()
+    rep = run()
+    return rep, rep.total_tokens / max(clock() - t0, 1e-9)
+
+
+def _timeline(sched, reqs, arrivals, device) -> tuple:
+    """(report, timeline) of one run for the stall factor: on the card
+    the scheduler's own (``run_instrumented``: wall time between the
+    host's flags reads); on the CPU each iteration's branch code and its
+    seconds of ``_cpu_clock`` from the branch's start to its end, marked
+    through ``run``'s ``on_branch``."""
+    if torch.device(device).type == "cuda":
+        return sched.run_instrumented(reqs, arrivals)
+    clock, marks = _cpu_clock(), []
+    rep = sched.run(reqs, arrivals,
+                    on_branch=lambda b: marks.append((b, clock())))
+    starts, ends = marks[0::2], marks[1::2]
+    return rep, dict(
+        branch=np.array([sched._branch_code[b] for b, _ in starts]),
+        iter_s=np.array([e - s for (_, s), (_, e) in zip(starts, ends)]))
+
+
 @contextlib.contextmanager
 def _no_gc():
     """Timed runs without Python's garbage collector (collected first):
@@ -275,12 +321,15 @@ def run_multi_tenant(arch: str = "minicpm-2b", smoke: bool = True,
             err_msg=f"request {rid}: chunked/shared paged prefill changed "
                     "tokens vs single-shot paged")
     with _no_gc():
-        pg_runs = [paged.run(reqs, arrivals) for _ in range(repeats)]
-        ct_runs = [contig.run(padded, arrivals) for _ in range(repeats)]
-    pg_tok = statistics.median(r.tok_s for r in pg_runs)
-    ct_tok = statistics.median(r.tok_s for r in ct_runs)
-    pg_rep, pg_tl = paged.run_instrumented(reqs, arrivals)
-    ct_rep, ct_tl = contig.run_instrumented(padded, arrivals)
+        pairs = [(_rate(lambda: paged.run(reqs, arrivals), device),
+                  _rate(lambda: contig.run(padded, arrivals), device))
+                 for _ in range(repeats)]
+    pg_runs = [pg[0] for pg, _ in pairs]
+    pg_tok = statistics.median(pg[1] for pg, _ in pairs)
+    ct_tok = statistics.median(ct[1] for _, ct in pairs)
+    ratio = statistics.median(pg[1] / ct[1] for pg, ct in pairs)
+    pg_rep, pg_tl = _timeline(paged, reqs, arrivals, device)
+    ct_rep, ct_tl = _timeline(contig, padded, arrivals, device)
     peak = max(r.peak_blocks for r in pg_runs + [pg_rep])
     kv_paged = paged.kv_bytes_paged(peak)
     kv_contig = contig.kv_bytes_contiguous()
@@ -296,8 +345,7 @@ def run_multi_tenant(arch: str = "minicpm-2b", smoke: bool = True,
         contiguous=dict(ct_rep.summary(), tok_s_median=ct_tok,
                         **ct_rep.ttft_percentiles(),
                         stall_factor=_stall(ct_tl, 2)),
-        paged_vs_contiguous_tok_s=pg_tok / ct_tok if ct_tok
-        else float("nan"),
+        paged_vs_contiguous_tok_s=ratio,
         kv_bytes_paged_peak=kv_paged, kv_bytes_contiguous=kv_contig,
         kv_reduction=kv_contig / kv_paged if kv_paged else float("nan"))
 
@@ -312,8 +360,8 @@ def run_telemetry(arch: str = "minicpm-2b", smoke: bool = True,
     multi-tenant trace: one warm run each (graph capture off the clock),
     then ``repeats`` interleaved timed runs; tokens equal on every run,
     the ring TTFT equal to ``run_instrumented``'s ``first_iter``, the
-    best-of on/off tok/s ratio (noise only ever subtracts throughput, so
-    best-of-N estimates each loop's rate), and the metrics-off
+    on/off tok/s ratio (the median of the repeats' pairs' ratios; the
+    best rates reported beside it), and the metrics-off
     fingerprints of the three loop variants."""
     cfg, params, reqs, arrivals, lay, kw = _trace_pools(
         arch, smoke, slots, prompt_len, max_prompt, n_requests, block_size,
@@ -333,10 +381,14 @@ def run_telemetry(arch: str = "minicpm-2b", smoke: bool = True,
 
     off_runs = [off.run(reqs, arrivals)]
     on_runs = [on.run(reqs, arrivals)]
+    rates = {"off": [], "on": []}
     with _no_gc():
         for _ in range(repeats):
-            off_runs.append(off.run(reqs, arrivals))
-            on_runs.append(on.run(reqs, arrivals))
+            for name, sched, runs in (("off", off, off_runs),
+                                      ("on", on, on_runs)):
+                rep, rate = _rate(lambda: sched.run(reqs, arrivals), device)
+                runs.append(rep)
+                rates[name].append(rate)
     want = off_runs[0].tokens_by_rid()
     for r in off_runs[1:] + on_runs:
         got = r.tokens_by_rid()
@@ -346,25 +398,24 @@ def run_telemetry(arch: str = "minicpm-2b", smoke: bool = True,
                 err_msg=f"request {rid}: telemetry rings changed tokens")
     syncs_ok = all(r.host_syncs == r.n_iter + 1 for r in off_runs + on_runs)
     assert syncs_ok, "a loop read the device more than once an iteration"
-    timed_off, timed_on = off_runs[1:], on_runs[1:]
-    off_best = max(r.tok_s for r in timed_off)
-    on_best = max(r.tok_s for r in timed_on)
+    off_best, on_best = max(rates["off"]), max(rates["on"])
     ri, _ = on.run_instrumented(reqs, arrivals)
     ring_ttft = on_runs[0].obs.ttft_iters
     inst_ttft = {f.rid: f.first_iter for f in ri.finished}
     assert ring_ttft == inst_ttft, \
         f"ring TTFT diverged from instrumented: {ring_ttft} vs {inst_ttft}"
-    snap = max(on_runs, key=lambda r: r.tok_s).obs
+    snap = on_runs[1 + int(np.argmax(rates["on"]))].obs
     snap.register(REGISTRY)
     if prom_path:
         with open(prom_path, "w") as f:
             f.write(REGISTRY.export_prometheus())
     return dict(
         fingerprints_metrics_off=fps, host=host_fingerprint(device),
-        tok_s_off_median=statistics.median(r.tok_s for r in timed_off),
-        tok_s_on_median=statistics.median(r.tok_s for r in timed_on),
+        tok_s_off_median=statistics.median(rates["off"]),
+        tok_s_on_median=statistics.median(rates["on"]),
         tok_s_off_best=off_best, tok_s_on_best=on_best,
-        on_off_tok_s_ratio=on_best / off_best if off_best else float("nan"),
+        on_off_tok_s_ratio=statistics.median(
+            on / off for on, off in zip(rates["on"], rates["off"])),
         tokens_bit_identical=True, host_syncs_one_per_iteration=syncs_ok,
         ring_ttft_matches_instrumented=True, snapshot=snap.to_dict(),
         prom_path=prom_path)

@@ -32,6 +32,7 @@ Params = Dict[str, Any]
 
 _NEG = -1e30          # masked score (the reference's constant)
 _FAR = 10 ** 9        # k position of a padded / unwritten key
+_TINY_F32 = float(np.finfo(np.float32).tiny)
 
 
 # ---------------------------------------------------------------------------
@@ -236,8 +237,9 @@ def _dense_group(x: torch.Tensor, p: Params, names, cfg: ModelConfig,
 def _init_dense(gen: torch.Generator, shape, dtype, scale=None):
     """Normal(0, 1/d_in) weights of ``shape`` (..., d_in, d_out)."""
     scale = scale if scale is not None else 1.0 / math.sqrt(shape[-2])
+    # scaled in place: a stacked leaf's float32 draw is the init's peak
     w = torch.randn(shape, generator=gen, dtype=torch.float32,
-                    device=gen.device) * scale
+                    device=gen.device).mul_(scale)
     return w.to(dtype)
 
 
@@ -289,9 +291,15 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    """cap * tanh(x / cap) on float32 ``x``.  On the CPU as the
+    reference's compiled code runs it: the division folded into a
+    multiply by the float32 reciprocal, and XLA's tanh (``prng.tanh``;
+    torch's differs on more than half of the float32 inputs)."""
     if cap is None:
         return x
-    return cap * torch.tanh(x / cap)
+    if x.is_cuda:
+        return cap * torch.tanh(x / cap)
+    return cap * prng.tanh(x * float(np.float32(1.0) / np.float32(cap)))
 
 
 def _libm():
@@ -466,18 +474,29 @@ def _flash_fwd(cfg, n_prefix, q, k, v, q_pos, k_pos, is_local):
     l = torch.zeros((B, Hkv, G, Sq), dtype=torch.float32, device=q.device)
     acc = torch.zeros((B, Hkv, G, Sq, Dh), dtype=torch.float32,
                       device=q.device)
+    cpu = not q.is_cuda
     for kc, vc, pc in zip(kb, vb, pb):
         s = _lane_scores(qg, kc.to(torch.float32))
         s = softcap(s, cfg.attn_softcap)
         msk = _mask(q_pos, pc, is_local, cfg.sliding_window, n_prefix)
         s = torch.where(msk[:, None, None, :, :], s, _NEG)
         m_new = torch.maximum(m, s.amax(dim=-1))
-        p = torch.exp(s - m_new[..., None])
-        corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.einsum(
-            "bhgqk,bkhd->bhgqd", p.to(vc.dtype).to(torch.float32),
-            vc.to(torch.float32))
+        if cpu:
+            # the reference's compiled step: XLA's exp, its windowed sum
+            # and the two multiply-adds fused (its P.V dot keeps its own
+            # order by shape: ROADMAP Queue 3 item 8)
+            p = prng.exp(s - m_new[..., None])
+            corr = prng.exp(m - m_new)
+            l = prng.fma(l, corr, _window_sum(p))
+        else:
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("bhgqk,bkhd->bhgqd",
+                          p.to(vc.dtype).to(torch.float32),
+                          vc.to(torch.float32))
+        acc = (prng.fma(acc, corr[..., None], pv) if cpu
+               else acc * corr[..., None] + pv)
         m = m_new
     out = acc / torch.clamp_min(l, 1e-30)[..., None]
     return out, m, l
@@ -494,18 +513,34 @@ def flash_attention(cfg: ModelConfig, n_prefix, q, k, v, q_pos, k_pos,
 _LANES = 8
 
 
-def _lane_scores(qg: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+def _lane_scores(qg: torch.Tensor, k: torch.Tensor,
+                 order: str = "lanes") -> torch.Tensor:
     """Scores (B, Hkv, G, Sq, Sk) of qg (B, Sq, Hkv, G, D) against
     k (B, Sk, Hkv, D), both float32, summed over D in the order the
-    reference's compiled CPU dot uses at these shapes: 8 interleaved
-    lanes (d = l, l + 8, ...), each summed in order, then a pairwise tree
-    across the lanes.  Products of bf16 values are exact in float32, so
-    only the order of the sums can differ; matching it keeps each score
-    bit-identical, and a score one ulp off can flip a bf16 probability
-    and then a macro ADC code downstream."""
+    reference's compiled CPU dot takes at the caller's shapes.  Products
+    of bf16 values are exact in float32, so only the order of the sums
+    can differ; matching it keeps each score bit-identical, and a score
+    one ulp off can flip a bf16 probability and then a macro ADC code
+    downstream.  Orders (XLA-CPU picks one by the dot's shapes and the
+    host's bf16 instructions; ``decode_order`` names the measured ones):
+    "lanes", 8 interleaved lanes (d = l, l + 8, ...) each summed in
+    order, then a pairwise tree across the lanes; "pairs", the
+    pair-wise bf16 dot (VDPBF16PS: acc += p[2i+1], then acc += p[2i]).
+    On CUDA always the 8 lanes: the pair-wise sum over D is D / 2
+    kernels a read, and the card's contract is only that a score does
+    not depend on how many rows come with it."""
     D = qg.shape[-1]
     prod = (qg.permute(0, 2, 3, 1, 4)[:, :, :, :, None, :]
             * k.permute(0, 2, 1, 3)[:, :, None, None, :, :])
+    if prod.is_cuda:
+        order = "lanes"
+    if order == "pairs" and D % 2 == 0:
+        prod = prod.unflatten(-1, (D // 2, 2))
+        acc = prod[..., 0, 1] + prod[..., 0, 0]
+        for i in range(1, D // 2):
+            acc = acc + prod[..., i, 1]
+            acc = acc + prod[..., i, 0]
+        return acc
     if D % _LANES:
         return prod.sum(dim=-1)
     prod = prod.reshape(*prod.shape[:-1], D // _LANES, _LANES)
@@ -515,6 +550,24 @@ def _lane_scores(qg: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     while acc.shape[-1] > 1:
         acc = acc[..., 0::2] + acc[..., 1::2]
     return acc[..., 0]
+
+
+@functools.lru_cache(maxsize=1)
+def bf16_dot_host() -> bool:
+    """Whether this CPU has AVX512-BF16 (VDPBF16PS, the pair-wise bf16
+    dot), the host on which ``decode_order``'s orders were measured."""
+    probe = getattr(torch.cpu, "_is_avx512_bf16_supported", None)
+    return bool(probe is not None and probe())
+
+
+def decode_order(G: int) -> str:
+    """The score dot's order (``_lane_scores``) of a one-query decode
+    read with G query heads a kv head: under GQA on an AVX512-BF16 host
+    the pair-wise bf16 dot, as measured against the reference's jitted
+    reads there; 8 lanes otherwise (XLA-CPU's choice on another host was
+    not measured; ROADMAP Queue 3 item 8 lists the prefill dots' orders,
+    which the port does not reproduce)."""
+    return "pairs" if G > 1 and bf16_dot_host() else "lanes"
 
 
 def plain_attention(q, k, v, q_pos, k_pos, cfg: ModelConfig, is_local,
@@ -530,7 +583,8 @@ def plain_attention(q, k, v, q_pos, k_pos, cfg: ModelConfig, is_local,
     _, Sk, Hkv, _ = k.shape
     G = Hq // Hkv
     qg = _scale_q(q.reshape(B, Sq, Hkv, G, Dh))
-    s = _lane_scores(qg, k.to(torch.float32))
+    s = _lane_scores(qg, k.to(torch.float32),
+                     decode_order(G) if Sq == 1 else "lanes")
     s = softcap(s, cfg.attn_softcap)
     msk = _mask(q_pos, k_pos, is_local, cfg.sliding_window, n_prefix)
     s = torch.where(msk[:, None, None, :, :], s, _NEG)
@@ -547,9 +601,27 @@ def plain_attention(q, k, v, q_pos, k_pos, cfg: ModelConfig, is_local,
     # float32 inputs, and its sum order from the windows')
     e = prng.exp(s)
     p = e / _window_sum(e)[..., None]
-    out = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype).to(torch.float32),
-                       v.to(torch.float32)).to(v.dtype)
-    return out.reshape(B, Sq, Hq, Dh)
+    out = decode_pv(p.to(v.dtype).to(torch.float32), v.to(torch.float32),
+                    decode_order(G) if Sq == 1 else "lanes")
+    return out.to(v.dtype).reshape(B, Sq, Hq, Dh)
+
+
+def decode_pv(p: torch.Tensor, v: torch.Tensor, order: str) -> torch.Tensor:
+    """P.V on the CPU: p (B, Hkv, G, Sq, Sk) and v (B, Sk, Hkv, D), both
+    float32 holding bf16 values -> (B, Sq, Hkv, G, D) float32, summed over
+    the keys in the reference's order at a one-query read
+    (``decode_order``): the pair-wise bf16 dot under GQA, torch's own
+    order otherwise (the order XLA-CPU takes there is not reproduced)."""
+    if order != "pairs":
+        return torch.einsum("bhgqk,bkhd->bqhgd", p, v)
+    prod = p[..., None] * v.permute(0, 2, 1, 3)[:, :, None, None]
+    Sk = prod.shape[-2]
+    acc = torch.zeros_like(prod[..., 0, :])
+    for i in range(0, Sk, 2):
+        if i + 1 < Sk:
+            acc = acc + prod[..., i + 1, :]
+        acc = acc + prod[..., i, :]
+    return acc.permute(0, 3, 1, 2, 4)
 
 
 def attention_apply(
@@ -675,13 +747,31 @@ def _silu(x: torch.Tensor) -> torch.Tensor:
     return x * (1.0 / (1.0 + torch.exp(-x)))
 
 
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (the tanh form) with the reference's rounding on
+    the CPU: x * (0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 * x^3))))
+    with every op rounded to x's dtype (bf16), the constants rounded to
+    it first, XLA's float32 tanh (``prng.tanh``) and a subnormal product
+    flushed to zero.  Equal to the jitted reference on all 65,536 bf16
+    inputs; ``F.gelu`` rounds once and differs on 1,518 of them.  On
+    CUDA it is ``F.gelu``: one kernel a call."""
+    if x.is_cuda:
+        return F.gelu(x, approximate="tanh")
+    rnd = lambda c: float(torch.tensor(c, dtype=x.dtype))
+    inner = x + (x * x) * x * rnd(0.044715)
+    t = prng.tanh((inner * rnd(math.sqrt(2.0 / math.pi))).to(
+        torch.float32)).to(x.dtype)
+    y = x.to(torch.float32) * ((1.0 + t) * 0.5).to(torch.float32)
+    return torch.where(y.abs() < _TINY_F32, 0.0, y).to(x.dtype)
+
+
 def mlp_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
               path: str = "mlp") -> torch.Tensor:
     gu = _dense_group(x, p, ("w1", "w3"), cfg, f"{path}/")
     if cfg.act == "silu":
         h = _silu(gu["w1"]) * gu["w3"]
     else:
-        h = F.gelu(gu["w1"], approximate="tanh") * gu["w3"]
+        h = _gelu(gu["w1"]) * gu["w3"]
     return _dense(h, p["w2"], cfg, f"{path}/w2")
 
 

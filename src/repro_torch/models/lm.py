@@ -37,7 +37,7 @@ import torch
 
 from .. import resolve_device
 from ..core.engine import (CimEngine, FusedPackedCimWeights,
-                           PackedCimWeights)
+                           PackedCimWeights, pack_cim_layers)
 from . import layers as L
 from .config import ModelConfig
 
@@ -177,6 +177,8 @@ def iter_packable_paths(params: Params) -> Dict[str, Tuple[int, ...]]:
 
 
 def _pack_single(path: str, v, cfg: ModelConfig):
+    if not isinstance(v, torch.Tensor):
+        return v                             # packed already
     eng = L.cim_engine(cfg, path)
     if eng.fidelity == "float":
         return v
@@ -185,7 +187,18 @@ def _pack_single(path: str, v, cfg: ModelConfig):
     return v
 
 
-def _pack_tree(tree: Params, cfg: ModelConfig, path=()) -> Params:
+def _pack_group(ws, cfg) -> PackedCimWeights:
+    """One pack of a fusion group's weights concatenated along N; a
+    stacked group is concatenated and packed one layer at a time, so no
+    whole-stack concatenation is ever made."""
+    if ws[0].dim() == 3:
+        return pack_cim_layers(lambda i: torch.cat([w[i] for w in ws], -1),
+                               ws[0].shape[0], cfg)
+    return CimEngine(cfg=cfg).pack(torch.cat(ws, dim=-1))
+
+
+def _pack_tree(tree: Params, cfg: ModelConfig, path=(),
+               consume: bool = False) -> Params:
     """Fusion-aware packing walk.  At every dict level each fusion group
     splits into partitions by resolved plan entry
     (``layers.fusion_partitions``); a partition of two or more sites
@@ -193,9 +206,9 @@ def _pack_tree(tree: Params, cfg: ModelConfig, path=()) -> Params:
     under its entry's config (column-local scales and quantization keep
     it bit-identical per segment to separate packs).  Every other
     projection packs alone under its own entry, and a site the plan
-    keeps ``float`` stays a raw matrix."""
+    keeps ``float`` stays a raw matrix.  ``consume`` deletes each packed
+    raw leaf from ``tree`` as soon as its pack exists."""
     out = dict(tree)
-    consumed = set()
     if cfg.cim_fuse:
         for members in _FUSE_GROUPS:
             present = [m for m in members
@@ -205,22 +218,22 @@ def _pack_tree(tree: Params, cfg: ModelConfig, path=()) -> Params:
                 continue
             prefix = "/".join(path) + "/" if path else ""
             for ecfg, _, g in L.fusion_partitions(cfg, prefix, present):
-                wcat = torch.cat([tree[m] for m in g], dim=-1)
                 out[L.FUSED_SEP.join(g)] = FusedPackedCimWeights(
-                    packed=CimEngine(cfg=ecfg).pack(wcat),
+                    packed=_pack_group([tree[m] for m in g], ecfg),
                     seg_names=tuple(g),
                     seg_dims=tuple(int(tree[m].shape[-1]) for m in g))
-                del wcat
-                consumed.update(g)
-    for k, v in tree.items():
-        if k in consumed:
-            del out[k]
-            continue
+                for m in g:
+                    del out[m]
+                    if consume:
+                        del tree[m]
+    for k in list(out):
         sub = path if k == "layers" else path + (k,)
-        if isinstance(v, dict):
-            out[k] = _pack_tree(v, cfg, sub)
+        if isinstance(out[k], dict):
+            out[k] = _pack_tree(out[k], cfg, sub, consume)
         elif k in _CIM_PACKABLE:
-            out[k] = _pack_single("/".join(sub), v, cfg)
+            out[k] = _pack_single("/".join(sub), out[k], cfg)
+            if consume:
+                del tree[k]
     return out
 
 
@@ -230,16 +243,35 @@ def _to_device(tree, device):
     return tree.to(device) if isinstance(tree, torch.Tensor) else tree
 
 
-def pack_cim_params(params: Params, cfg: ModelConfig, device=None) -> Params:
+def _to_device_in_place(tree, device) -> None:
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _to_device_in_place(v, device)
+        elif isinstance(v, torch.Tensor):
+            tree[k] = v.to(device)
+
+
+def pack_cim_params(params: Params, cfg: ModelConfig, device=None,
+                    consume: bool = False) -> Params:
     """Replace every _dense-consumed projection with packed macro array
     contents, on ``device`` (CUDA unless ``device="cpu"``).  Under a
     deployment plan each projection packs under its own entry's config
     and ``float`` sites stay raw.  With cfg.cim_fuse, QKV, gate/up and
     the mamba2 input projections pack as one wide fused leaf per
-    plan-compatible partition."""
+    plan-compatible partition.  Leaves packed already stay as they are.
+    ``consume`` (for a caller that owns
+    ``params`` and drops it) moves ``params``' leaves to ``device`` in
+    place and deletes each raw projection from it once it is packed, so
+    the raw weights and the pack are never both whole in memory: at
+    full width a 14 B-weight model's raw stack and pack do not fit one
+    card together."""
     if not cfg.cim_mode:
         raise ValueError("pack_cim_params requires cfg.cim_mode=True")
-    return _pack_tree(_to_device(params, resolve_device(device)), cfg)
+    dev = resolve_device(device)
+    if consume:
+        _to_device_in_place(params, dev)
+        return _pack_tree(params, cfg, consume=True)
+    return _pack_tree(_to_device(params, dev), cfg)
 
 
 # ---------------------------------------------------------------------------

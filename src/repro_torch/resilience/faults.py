@@ -301,21 +301,21 @@ def _fault_pack(model: FaultModel, packed, tag: int):
     """A ``PackedCimWeights`` with its cells faulted, re-packed (a stack
     one layer at a time, each layer's slice of one draw over the
     stack)."""
-    from ..core.engine import _stack, pack_quantized_cim_weights
+    from ..core.engine import pack_quantized_cim_weights, stack_layers
     if packed.kernel_w.dim() == 2:
         wq = faulted_wq(model, packed.sign, packed.mag, tag,
                         packed.cfg.n_mag_bits)
         return pack_quantized_cim_weights(wq, packed.scale, packed.cfg)
     n_layers = packed.kernel_w.shape[0]
     shape = (n_layers, packed.k_dim, packed.n_dim)
-    out = []
-    for i in range(n_layers):
+
+    def layer(i):
         one = packed.layer(i)
         mask = stuck_mask(model, shape, tag, one.kernel_w.device, layer=i)
         wq = faulted_wq(model, one.sign, one.mag, tag, one.cfg.n_mag_bits,
                         mask=mask)
-        out.append(pack_quantized_cim_weights(wq, one.scale, one.cfg))
-    return _stack(out)
+        return pack_quantized_cim_weights(wq, one.scale, one.cfg)
+    return stack_layers(layer, n_layers)
 
 
 def apply_weight_faults(model: FaultModel, params):

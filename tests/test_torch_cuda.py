@@ -217,6 +217,89 @@ def test_zamba_shapes_rows_1_2_6_equal_plain(dev, m, k, n):
     assert torch.equal(got, KO.ccim_matmul_int(xi, wi, use_kernel=False))
 
 
+# qwen3-14b's, starcoder2-7b's and gemma2-9b's four full-width layer
+# GEMMs (K, N): the fused QKV (heads padded to 48 for the first two),
+# wo, w1+w3 and w2
+DENSE_SHAPES = ((5120, 8192), (6144, 5120), (5120, 34816), (17408, 5120),
+                (4608, 7168), (6144, 4608), (4608, 36864), (18432, 4608),
+                (3584, 8192), (4096, 3584), (3584, 28672), (14336, 3584))
+
+
+@pytest.mark.parametrize("m", [4, 32, 128])
+@pytest.mark.parametrize("k,n", DENSE_SHAPES)
+def test_dense_config_shapes_rows_1_2_equal_plain(dev, m, k, n):
+    """The three dense configs' GEMMs on a prototype pack, the widest the
+    kernels have met (w1+w3 at N 28,672-36,864): row 1 at M 4 (decode)
+    and 32 (a paged chunk), row 2 at M 128 (prefill); ints compared with
+    torch.equal, one launch each."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(m + k + n)
+    x, w, planes, meta = _skinny_case(dev, gen, m, k, n, 16, 2, packed=True)
+    row = (K.ccim_matmul_prepacked_skinny_cuda if m <= K.SKINNY_M
+           else K.ccim_matmul_prepacked_general_cuda)
+    K.reset_launch_counts()
+    got = row(x, w, planes, **meta)
+    torch.cuda.synchronize()
+    assert row.launches == 1
+    want = K.ccim_matmul_prepacked_plain(x, w, planes, **meta)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+def test_gemma2_smoke_paged_step_row3_equals_plain(dev, monkeypatch):
+    """gemma2-9b's smoke model with its heads widened to Dh 256 (row 3
+    does not take the smoke config's 32; G 2, softcap 50, window 64 on
+    the local layer 0): one paged decode step after a 72-token paged
+    prefill launches row 3 once a layer, and each layer's read, on the
+    step's own operands, is within the plain read's tolerance (rtol 2^-7,
+    atol 2^-7 max|v|: the kernel's float32 P.V against the plain
+    version's p rounded to bf16, as
+    test_paged_attention_kernel_matches_plain)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attn import ops as PO
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(get_config("gemma2-9b", smoke=True),
+                              d_head=256)
+    params = lm.init(0, cfg, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    B, P, bs = 2, 72, 16
+    n_tbl = -(-(P + 1) // bs)
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                           device=dev)
+    tok = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen,
+                        device=dev)
+    reads, decode = [], PO.paged_attention_decode
+
+    def record(q, k_pool, v_pool, table, lengths, is_local=False, **kw):
+        out = decode(q, k_pool, v_pool, table, lengths, is_local, **kw)
+        reads.append((out, q, k_pool.clone(), v_pool.clone(), table,
+                      lengths, is_local, kw))
+        return out
+    monkeypatch.setattr(PO, "paged_attention_decode", record)
+    with torch.inference_mode():
+        cache = lm.init_paged_cache(cfg, B, B * n_tbl + 1, bs, n_tbl,
+                                    device=dev)
+        cache["table"].copy_(1 + torch.arange(
+            B * n_tbl, device=dev, dtype=torch.int32).view(B, n_tbl))
+        _, cache = lm.prefill(params, cfg, prompt, cache)
+        PK.reset_launch_counts()
+        logits, _ = lm.decode_step(params, cfg, tok, cache)
+        torch.cuda.synchronize()
+    assert PK.paged_attention_cuda.launches == cfg.n_layers == len(reads)
+    assert bool(torch.isfinite(logits).all())
+    assert [r[6] for r in reads] == [cfg.layer_is_local(i)
+                                     for i in range(cfg.n_layers)]
+    for out, q, kp, vp, table, lengths, is_local, kw in reads:
+        assert kw["softcap"] == 50.0 and kw["window"] == 64
+        want = PR.paged_attention_ref(q, kp, vp, table, lengths,
+                                      is_local=is_local, **{
+                                          k: kw[k] for k in ("softcap",
+                                                             "window")})
+        torch.testing.assert_close(
+            out.float(), want.float(), rtol=2 ** -7,
+            atol=2 ** -7 * float(vp.float().abs().max()))
+
+
 def test_skinny_kernel_repeats_and_alternates(dev):
     """Kernel row 1 zeroes its output itself where its warps add partial
     sums (a tile cut between warps): calls that alternate shapes and M,
