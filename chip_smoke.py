@@ -3,7 +3,7 @@
 
   python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``src/repro_torch`` (all eight
+Builds the port's CUDA kernels from ``src/repro_torch`` (all nine
 sources compiled together) and drives its main paths: minicpm-2b at its
 full width and depth (40 layers, packed and fused, prototype macro),
 and the dense family's qwen3-14b, starcoder2-7b and gemma2-9b at theirs,
@@ -77,6 +77,8 @@ failure.  Phases:
      kernel == plain to the tolerance, one launch counted a call, per
      call, same-pool and cold device time, the byte bound, and the gather
      + SDPA yardstick (without the softcap and window: another function);
+     head dim 256 runs its own kernel (``paged_attn_dh256.cu``), a row
+     of its own in the kernels line;
  14. the fused complex kernels (prepacked skinny and general, unpacked)
      vs their plain versions with torch.equal at the full-width shapes,
      on ragged shapes and at the DoA shapes; off the prototype design
@@ -327,7 +329,9 @@ failure.  Phases:
      pool tokens equal the lock-step waves' (gated); paged as phase 10
      (blocks of 16, chunks of 32), 42 row-3 launches a pooled step at G
      2, Dh 256, softcap 50, refcounts drained, the pool equal to solo
-     runs of requests 0-2 (gated), paged == contiguous reported.
+     runs of requests 0-2 (gated), paged == contiguous reported; the
+     paged queue served again (the same tokens, gated) with its 10th
+     pooled step traced: row 3's device time in a replayed step.
 
 Phase 34 also runs the plan_pareto twin's second arch, mamba2-130m, at
 the reference bench's smoke size and noise seed.
@@ -346,7 +350,8 @@ phase 36 (b) times 2 pairs of turns (from 4), (c) stops at 4-8 tokens
 (from 6-12) and phase 37 runs the
 serve_bench twin with one repeat of its ungated rows (from 3); to make
 room for phases 44-46, phase 12 serves the first 2 of phase 11's
-requests through the plain read (from 4), phase 20 checks 65,536
+requests through the plain read (from 4; 1 since phase 46 traces a
+pooled step), phase 20 checks 65,536
 conversions on the CPU (from 131,072), phase 34's plan_pareto twin
 generates 4 tokens (from 8), phase 43's plain read serves 2 requests
 (from 4), phase 24 serves 12 of phase 9's requests contiguous (from 16)
@@ -544,7 +549,7 @@ def paged_attn_shapes(torch, dev) -> float:
                                     device=dev, dtype=torch.int32)
         else:
             lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
-        splits.add(PK.paged_split(B, Hkv, G, n_tbl, PK.sm_count(dev)))
+        splits.add(PK.paged_split(B, Hkv, G, n_tbl, PK.sm_count(dev), Dh))
         y = PK.paged_attention_cuda(q, kp, vp, table, lengths, is_local,
                                     softcap=softcap, window=window)
         r = PR.paged_attention_ref(q, kp, vp, table, lengths,
@@ -607,8 +612,9 @@ def _serve_record(stats) -> dict:
 
 
 # phase 12's queue: the first requests of phase 11's (8 until phases
-# 40-41 and 4 until phases 44-46 needed the time)
-PLAIN_PAGED_REQUESTS = 2
+# 40-41, 4 until phases 44-46 and 2 until phase 46's traced pooled step
+# needed the time)
+PLAIN_PAGED_REQUESTS = 1
 # phase 10's queue: the first requests of phase 9's (16 until phases 42-43
 # needed the time; a request's tokens do not depend on its neighbours)
 PAGED_REQUESTS = 8
@@ -922,7 +928,7 @@ def times_paged_attn_dh256(torch, dev) -> dict:
                           >= nops / BF16_OPS_S else "operations"),
                 bytes=nbytes, cold_copies=copies,
                 n_split=PK.paged_split(B, hkv, hq // hkv, -(-L // PA_BS),
-                                       n_sm))
+                                       n_sm, 256))
             del pools, kp, vp
     emit({"phase": "times_paged_attn_dh256", "ok": True, "bs": PA_BS,
           "by_case": rows, "cold": COLD, "timing": TIMING,
@@ -2286,6 +2292,51 @@ def check_replays(torch, graph, label: str) -> dict:
           f"{lost} of {on_device} device events; the graph holds {want}")
     return dict(rec, graph_kernel_nodes=nodes, graph_device_nodes=on_device,
                 trace_events_lost=lost)
+
+
+# row 3's kernels by name: the walk (either design) and the split merge
+ROW3_RE = re.compile(r"(?<![A-Za-z_])paged_attn_(walk|combine)")
+
+
+def pooled_step_tracer(torch, at_step: int = 10):
+    """(on_branch, result): a scheduler run's ``on_branch`` hook that
+    traces its ``at_step``-th pooled step, a graph replay mid-run, and a
+    function that returns the step's wall and device busy time and row
+    3's device time in it (the walk and the split merge, by kernel name),
+    with the number of row 3 kernels the trace holds."""
+    from torch.autograd import DeviceType
+
+    seen, rec = [0], {}
+
+    def on_branch(branch):
+        if branch == "step":
+            seen[0] += 1
+            if seen[0] == at_step:
+                torch.cuda.synchronize()
+                rec["prof"] = torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA])
+                rec["prof"].__enter__()
+                rec["t0"] = time.perf_counter()
+        elif branch is None and "prof" in rec and "wall_ms" not in rec:
+            torch.cuda.synchronize()
+            rec["wall_ms"] = 1e3 * (time.perf_counter() - rec["t0"])
+            rec["prof"].__exit__(None, None, None)
+
+    def result() -> dict:
+        check("wall_ms" in rec, f"the run took {seen[0]} pooled steps, "
+              f"fewer than {at_step}")
+        row3_us, n_row3 = 0.0, 0
+        for e in rec["prof"].events():
+            if e.device_type == DeviceType.CUDA and ROW3_RE.search(e.name):
+                row3_us += e.time_range.end - e.time_range.start
+                n_row3 += 1
+        return dict(device_breakdown(rec["prof"], 1, rec["wall_ms"]),
+                    step_wall_ms=rec["wall_ms"], at_step=at_step,
+                    row3_device_ms=row3_us / 1e3, row3_kernels=n_row3,
+                    pooled_steps=seen[0])
+
+    return on_branch, result
 
 
 def captured_serve_phase(torch, dev, params, cfg_full, phase4) -> dict:
@@ -4434,6 +4485,31 @@ def dense_lockstep_phase(torch, dev, arch: str) -> dict:
                    f"{arch}_serve": k_["launches"]}
 
 
+DENSE_SLOTS, DENSE_PLEN, DENSE_STOPS = 8, 64, (8, 24, 16, 32)
+
+
+def dense_paged_layout():
+    """Phase 46's paged layout: blocks of 16, a table as long as a prompt
+    and its longest stop, 64 blocks."""
+    from repro_torch.launch.paging import PagedLayout, cdiv
+    return PagedLayout(block_size=PA_BS,
+                       n_tbl=cdiv(DENSE_PLEN + max(DENSE_STOPS) - 1, PA_BS),
+                       n_blocks=64)
+
+
+def dense_paged_queue(cfg, packed) -> tuple:
+    """Phase 46's paged pool on ``packed`` (chunks of 32) as a scheduler
+    of its own, and its DENSE_QUEUE requests: (scheduler, requests)."""
+    from repro_torch.launch.scheduler import (ContinuousBatchingScheduler,
+                                              mixed_length_requests)
+    return (ContinuousBatchingScheduler(
+        packed, cfg, slots=DENSE_SLOTS, prompt_len=DENSE_PLEN,
+        max_new_cap=max(DENSE_STOPS), paged=dense_paged_layout(),
+        prefill_chunk=32),
+        mixed_length_requests(DENSE_QUEUE, DENSE_PLEN, cfg.vocab_size,
+                              stop_lengths=DENSE_STOPS, seed=0))
+
+
 def dense_queue_phase(torch, dev, model) -> dict:
     """Phase 46 (b): gemma2-9b continuous batching over phase 9's first 8
     requests (prompts of 64, stops 8-32) in 8 slots, captured, on phase
@@ -4441,18 +4517,18 @@ def dense_queue_phase(torch, dev, model) -> dict:
     paged as phase 10 (blocks of 16, chunks of 32): 42 row-3 launches a
     pooled step (G 2, Dh 256, softcap 50, the 4,096 window on the local
     layers), refcounts drained, the pool == solo runs of requests 0-2
-    (gated); paged == contiguous reported, not gated (as phase 10).
-    Returns the launches by path of rows 1-3."""
-    from repro_torch.launch.paging import PagedLayout, cdiv
+    (gated); paged == contiguous reported, not gated (as phase 10); the
+    paged queue served again (the same tokens, gated) with its 10th
+    pooled step traced: row 3's device time in a replayed step
+    (``pooled_step_tracer``).  Returns the launches by path of rows
+    1-3."""
     from repro_torch.launch.scheduler import (ContinuousBatchingScheduler,
                                               mixed_length_requests)
     from repro_torch.launch.serve import serve_continuous
 
     cfg, packed, _ = model
-    slots, plen, stops = 8, 64, (8, 24, 16, 32)
-    layout = PagedLayout(block_size=PA_BS,
-                         n_tbl=cdiv(plen + max(stops) - 1, PA_BS),
-                         n_blocks=64)
+    slots, plen, stops = DENSE_SLOTS, DENSE_PLEN, DENSE_STOPS
+    layout = dense_paged_layout()
     common = dict(smoke=False, slots=slots, prompt_len=plen,
                   n_requests=DENSE_QUEUE, stop_lengths=stops, cim=True,
                   params=packed, device=dev)
@@ -4492,6 +4568,20 @@ def dense_queue_phase(torch, dev, model) -> dict:
     n_solo = _same_tokens(toks["paged"], solo, rids)
     check(n_solo == DENSE_SOLO, f"phase 46: the paged pool's tokens equal "
           f"solo runs on {n_solo} of requests 0-{DENSE_SOLO - 1}")
+    # row 3's device time in a replayed pooled step: the paged queue
+    # served again in a scheduler of its own (the same tokens, gated),
+    # its 10th pooled step (every slot live) traced; a run apart, so the
+    # paged run's wall holds no profiler
+    sched, reqs_p = dense_paged_queue(cfg, packed)
+    on_branch, traced = pooled_step_tracer(torch)
+    n_again = _same_tokens(sched.run(reqs_p, on_branch=on_branch)
+                           .tokens_by_rid(), toks["paged"])
+    check(n_again == DENSE_QUEUE, f"phase 46: the traced paged run's "
+          f"tokens equal the paged pool's on {n_again} of {DENSE_QUEUE}")
+    trace = traced()
+    check(trace["row3_kernels"] >= cfg.n_layers,
+          f"phase 46: the traced pooled step ran {trace['row3_kernels']} "
+          f"row-3 kernels, fewer than its {cfg.n_layers} reads")
     emit({"phase": "dense_gemma2-9b_queues", "ok": True, "phase_no": 46,
           "requests": DENSE_QUEUE, "prompt_len": plen,
           "stop_lengths": list(stops), "slots": slots,
@@ -4501,6 +4591,7 @@ def dense_queue_phase(torch, dev, model) -> dict:
                       "softcap": cfg.attn_softcap,
                       "window": cfg.sliding_window},
           "pool_equals_lockstep": True, "paged_equal_solo": n_solo,
+          "paged_pooled_step_trace": trace,
           "paged_equal_contiguous": _same_tokens(toks["paged"],
                                                  toks["contiguous"]),
           "not_gated_because": "the kernel's float32 P.V can move a bf16 "
@@ -4780,9 +4871,7 @@ def main() -> int:
     pa_err = paged_attn_shapes(torch, dev)
     serve_phases = continuous_phases(torch, dev, params, cfg_full)
     pa_time = times_paged_attn(torch, dev)
-    pa_time["dh256"] = times_paged_attn_dh256(torch, dev)
-    pa_err = max([pa_err] + [r["max_abs_err"]
-                             for r in pa_time["dh256"].values()])
+    pa_wide = times_paged_attn_dh256(torch, dev)
     del params
     # -- 14.-17. the complex-MAC lane and the unpacked real GEMM ------------
     cx_err = complex_kernels(torch, dev, gen)
@@ -4894,6 +4983,25 @@ def main() -> int:
         "launches": serve_phases["paged_launches"],
         "launches_by_path": serve_phases["paged_launches_by_path"],
         "max_abs_err": pa_err, **pa_time})
+    # head dim 256 (gemma2-9b's paged pool): its own kernel, the row's
+    # numbers at gemma2-9b's heads and L 1,024, every case beside them
+    wide = pa_wide[f"gemma2-9b_L{PA_DH256_LENGTHS[-1]}"]
+    wide_path = "gemma2-9b_scheduler_paged"
+    table.append({
+        "name": "paged_attention_decode_dh256", "route": "cuda",
+        "source": "src/repro_torch/kernels/paged_attn/csrc/"
+                  "paged_attn_dh256.cu",
+        "replaces": "src/repro/kernels/paged_attn/kernel.py:81",
+        "launches": raw_paths[wide_path]["paged_attn"],
+        "launches_by_path": {wide_path: raw_paths[wide_path]["paged_attn"]},
+        "max_abs_err": max(r["max_abs_err"] for r in pa_wide.values()),
+        **{k: wide[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms", "device_ms", "device_cold_ms",
+                                "library_device_ms", "library_cold_ms",
+                                "n_split")},
+        "library": "paged_gather_kv + scaled_dot_product_attention "
+                   "(another function: no softcap, window or mask)",
+        "by_case": pa_wide})
     csrc = "src/repro_torch/kernels/ccim_complex/csrc/"
     ref = "src/repro/kernels/ccim_complex/kernel.py:"
     for name, label, source, replaces, launches, err in (

@@ -32,6 +32,7 @@ SOURCES = {
     "complex_general": "ccim_complex/csrc/ccim_complex_general.cu",
     "complex_unpacked": "ccim_complex/csrc/ccim_complex_unpacked.cu",
     "paged_attn": "paged_attn/csrc/paged_attn_decode.cu",
+    "paged_attn_dh256": "paged_attn/csrc/paged_attn_dh256.cu",
     "int8": "int8_matmul/csrc/int8_w8a8.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -1,5 +1,8 @@
-// Paged-attention decode read for Hopper: one query per row against the
-// KV rows its block table names, with an online softmax.
+// Paged-attention decode read for Hopper at head dims 64 and 128: one
+// query per row against the KV rows its block table names, with an
+// online softmax.  Head dim 256 has a design of its own
+// (paged_attn_dh256.cu); the row walk and the split workspace's layout
+// are shared (paged_attn_common.cuh).
 //
 // Replaces: src/repro/kernels/paged_attn/kernel.py,
 //   paged_attention_pallas (body _paged_attn_kernel).
@@ -57,9 +60,8 @@
 //    decode shape, ~48 KB in flight per SM.
 //  - 16-byte loads, work for every lane: a lane loads 8 dims (16 bytes)
 //    of a K row and the same 8 of the V row, so Dh / 8 lanes cover a row
-//    and a warp load covers 32 / (Dh / 8) rows (4 at Dh 64, 1 at Dh 256,
-//    where a chunk is 4 tokens and the score reduction spans the whole
-//    warp).  Head dims 64, 128 and 256 are instantiated.  Scores
+//    and a warp load covers 32 / (Dh / 8) rows (4 at Dh 64, 2 at Dh
+//    128).  Head dims 64 and 128 are instantiated.  Scores
 //    reduce within each row's lanes by shuffle; each row group keeps its
 //    own online softmax over its rows, and P.V runs in the same layout
 //    (the lane multiplies its own V slice by its own row's p), so the
@@ -67,39 +69,14 @@
 //    warps do.  G > 1 runs groups of up to 4 query heads per block (each
 //    group reads the rows again, mostly from L2): the scores stay on CUDA
 //    cores, the read being far below the card's ridge.
-#include <cstdint>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "paged_attn_common.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kMaxG = 16;                  // query heads per kv head
+using namespace paged_attn;
+
 constexpr int kGroup = 4;                  // query heads a block takes, G > 1
 constexpr int kPasses = 4;                 // warp loads of K (and V) a chunk
-constexpr float kNegInf = -1e30f;          // the TPU kernel's mask value
-
-struct Walk {
-  int q_pos;                               // the query's position
-  int j_lo;                                // first attended table entry
-  int n;                                   // attended entries
-};
-
-__device__ __forceinline__ Walk row_walk(const int* lengths, int b, int bs,
-                                         int n_tbl, int window, bool local) {
-  Walk w;
-  w.q_pos = lengths[b] - 1;
-  w.j_lo = local ? max(w.q_pos - window + 1, 0) / bs : 0;
-  const int j_hi = w.q_pos < 0 ? 0 : min(w.q_pos / bs + 1, n_tbl);
-  w.n = max(j_hi - w.j_lo, 0);
-  return w;
-}
-
-// splits that hold work for a row of n attended entries
-__device__ __forceinline__ int row_splits(int n, int n_split) {
-  return min(max(n, 1), n_split);
-}
 
 __device__ __forceinline__ void bf16x8(const uint4& u, float* f) {
   const uint32_t w[4] = {u.x, u.y, u.z, u.w};
@@ -419,14 +396,6 @@ extern "C" int paged_attn_decode(const void* q, const void* k_pool,
                          n_tbl, n_blocks, n_split, scale, softcap, window,
                          is_local, s)
         : launch<128, kGroup>(q, k_pool, v_pool, tp, lp, out, wp, B, Hkv, G,
-                              bs, n_tbl, n_blocks, n_split, scale, softcap,
-                              window, is_local, s);
-  if (Dh == 256)
-    return G == 1
-        ? launch<256, 1>(q, k_pool, v_pool, tp, lp, out, wp, B, Hkv, G, bs,
-                         n_tbl, n_blocks, n_split, scale, softcap, window,
-                         is_local, s)
-        : launch<256, kGroup>(q, k_pool, v_pool, tp, lp, out, wp, B, Hkv, G,
                               bs, n_tbl, n_blocks, n_split, scale, softcap,
                               window, is_local, s);
   return static_cast<int>(cudaErrorInvalidValue);

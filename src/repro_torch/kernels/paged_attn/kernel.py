@@ -1,17 +1,30 @@
-"""Hopper CUDA kernel of the paged-attention decode read.
+"""Hopper CUDA kernels of the paged-attention decode read.
 
-``paged_attention_cuda`` launches ``csrc/paged_attn_decode.cu``, the port
-of ``repro/kernels/paged_attn/kernel.py::paged_attention_pallas``: one
-query per row against the KV rows its block table names, with a float32
-online softmax and float32 P.V, output rounded to q's dtype once.  The
-source is built and loaded by ``kernels/build.py``; the wrapper counts
+``paged_attention_cuda`` is the port of
+``repro/kernels/paged_attn/kernel.py::paged_attention_pallas``: one query
+per row against the KV rows its block table names, with a float32
+online softmax and P.V with p not rounded to bf16, output rounded to q's
+dtype once.  It launches one of two designs by head dim:
+
+- Dh 64 and 128: ``csrc/paged_attn_decode.cu``, a per-warp walk on CUDA
+  cores (16-byte loads, each warp its own online softmax, G > 1 in
+  blocks of ``GROUP_TILE`` query heads, ``head_groups``);
+- Dh 256: ``csrc/paged_attn_dh256.cu``, all G query heads of a kv head
+  in one 16-row tensor-core tile (``mma.sync`` bf16 scores, P.V with p
+  in two bf16 terms), K and V tiles through a 3-stage ``cp.async`` ring
+  in shared memory, and splits that fill the card in one wave
+  (``WIDE_BLOCKS_PER_SM``) down to one table entry a split.
+
+Both merge a row's splits in split order in a second kernel.  The
+sources are built and loaded by ``kernels/build.py``; the wrapper counts
 its calls in ``.launches`` (one a call, whether the call runs the walk
 alone or the walk and the combine of its splits).  The plain version is
 ``ref.py``.
 
 ``paged_split`` picks how many splits the kernel cuts each row's walk
-into; ``row_walk`` and ``split_ranges`` are the kernel's arithmetic of
-which table entries a row attends and which of them each split walks.
+into (a rule per design); ``row_walk`` and ``split_ranges`` are the
+kernels' arithmetic of which table entries a row attends and which of
+them each split walks.
 """
 from __future__ import annotations
 
@@ -25,27 +38,38 @@ from .. import build, sm_count
 
 MAX_GROUP = 16            # query heads per kv head
 HEAD_DIMS = (64, 128, 256)
-GROUP_TILE = 4            # query heads one block takes when G > 1
-# split rule: walks of at most SPLIT_MIN_ENTRIES table entries stay whole;
-# longer ones are cut so that the grid has FILL_BLOCKS_PER_SM blocks per
-# SM and no split walks more than about SPLIT_MAX_ENTRIES entries
+WIDE_DH = 256             # the head dim of the tensor-core design
+GROUP_TILE = 4            # query heads one block takes when G > 1 (Dh < 256)
+# split rule: walks of at most SPLIT_MIN_ENTRIES table entries stay whole
+# (Dh < 256); longer ones are cut so that the grid has FILL_BLOCKS_PER_SM
+# blocks per SM and no split walks more than about SPLIT_MAX_ENTRIES
+# entries.  At Dh 256 walks are cut down to one entry a split.
 SPLIT_MIN_ENTRIES = 16
 SPLIT_MAX_ENTRIES = 64
 FILL_BLOCKS_PER_SM = 2
+# the Dh 256 walk's blocks resident on an SM (56 KB of shared memory and
+# at most 128 registers a thread): its splits fill them in one wave, up to
+# WIDE_MAX_SPLITS (the split merge reads that many splits' loads at once;
+# more splits measured slower, PERF.md)
+WIDE_BLOCKS_PER_SM = 4
+WIDE_MAX_SPLITS = 16
 H100_SMS = 132
 
-_fn = []
+_fns = {}
 
 
-def _entry():
-    if not _fn:
-        fn = build.library("paged_attn").paged_attn_decode
+def _entry(Dh: int):
+    """The C entry point of the design for head dim ``Dh``."""
+    lib, symbol = (("paged_attn_dh256", "paged_attn_decode_dh256")
+                   if Dh == WIDE_DH else ("paged_attn", "paged_attn_decode"))
+    if symbol not in _fns:
+        fn = getattr(build.library(lib), symbol)
         fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
                        + [ctypes.c_float] * 2 + [ctypes.c_int] * 2
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _fn.append(fn)
-    return _fn[0]
+        _fns[symbol] = fn
+    return _fns[symbol]
 
 
 def _check(q, k_pool, v_pool, table, lengths) -> None:
@@ -77,22 +101,28 @@ def _check(q, k_pool, v_pool, table, lengths) -> None:
 
 
 def head_groups(G: int) -> int:
-    """Blocks per (row, kv head, split): one at G 1, else one per
-    GROUP_TILE query heads."""
+    """Blocks per (row, kv head, split) at Dh 64 and 128: one at G 1, else
+    one per GROUP_TILE query heads (Dh 256 takes all G in one block)."""
     return 1 if G == 1 else -(-G // GROUP_TILE)
 
 
 def paged_split(B: int, Hkv: int, G: int, n_entries: int,
-                n_sm: int = H100_SMS) -> int:
+                n_sm: int = H100_SMS, Dh: int = 64) -> int:
     """Splits of each row's walk over at most ``n_entries`` table entries
-    (the table's width): 1 up to SPLIT_MIN_ENTRIES; above, enough for
-    FILL_BLOCKS_PER_SM blocks per SM and for at most about
-    SPLIT_MAX_ENTRIES entries a split, and never fewer than
-    SPLIT_MIN_ENTRIES // 2 entries a split."""
+    (the table's width).  Dh 64 and 128: 1 up to SPLIT_MIN_ENTRIES;
+    above, enough for FILL_BLOCKS_PER_SM blocks per SM and for at most
+    about SPLIT_MAX_ENTRIES entries a split, and never fewer than
+    SPLIT_MIN_ENTRIES // 2 entries a split.  Dh 256 (one block per row
+    and kv head): as many splits as WIDE_BLOCKS_PER_SM resident blocks per
+    SM hold in one wave, at most WIDE_MAX_SPLITS, and at most about
+    SPLIT_MAX_ENTRIES entries a split, down to one entry a split."""
+    long_walk = -(-n_entries // SPLIT_MAX_ENTRIES)
+    if Dh == WIDE_DH:
+        fill = min(WIDE_BLOCKS_PER_SM * n_sm // (B * Hkv), WIDE_MAX_SPLITS)
+        return max(1, min(max(fill, long_walk), n_entries))
     if n_entries <= SPLIT_MIN_ENTRIES:
         return 1
     fill = -(-FILL_BLOCKS_PER_SM * n_sm // (B * Hkv * head_groups(G)))
-    long_walk = -(-n_entries // SPLIT_MAX_ENTRIES)
     return min(max(fill, long_walk), n_entries // (SPLIT_MIN_ENTRIES // 2))
 
 
@@ -130,10 +160,10 @@ def paged_attention_cuda(
     outside the pool are clamped into it; table entries past
     ceil(lengths[b] / bs) are never read."""
     _check(q, k_pool, v_pool, table, lengths)
-    B, Hq, _ = q.shape
+    B, Hq, Dh = q.shape
     Hkv = k_pool.shape[2]
     n_split = paged_split(B, Hkv, Hq // Hkv, table.shape[1],
-                          sm_count(q.device))
+                          sm_count(q.device), Dh)
     out = _launch(q, k_pool, v_pool, table, lengths, is_local, n_split,
                   softcap, window)
     paged_attention_cuda.launches += 1
@@ -141,6 +171,7 @@ def paged_attention_cuda(
 
 
 paged_attention_cuda.launches = 0
+
 
 def _launch(q, k_pool, v_pool, table, lengths, is_local, n_split, softcap,
             window) -> torch.Tensor:
@@ -154,7 +185,7 @@ def _launch(q, k_pool, v_pool, table, lengths, is_local, n_split, softcap,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     # the reference's Python-float scale, as the float32 it becomes
     scale = float(np.float32(Dh ** -0.5))
-    err = _entry()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+    err = _entry(Dh)(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                    table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
                    0 if ws is None else ws.data_ptr(), B, Hq, Hkv, Dh, bs,
                    table.shape[1], nb, n_split, scale, float(softcap or 0.0),

@@ -460,13 +460,17 @@ def _flash_blocks(k, v, k_pos, blk):
     return kb, vb, pb, pad
 
 
-def _flash_fwd(cfg, n_prefix, q, k, v, q_pos, k_pos, is_local):
+def _flash_fwd(cfg, n_prefix, q, k, v, q_pos, k_pos, is_local,
+               orders=None):
     """Forward over KV blocks in order with an f32 online softmax;
-    returns (out (B, Hkv, G, Sq, Dh) f32, m, l)."""
+    returns (out (B, Hkv, G, Sq, Dh) f32, m, l).  On the CPU the score
+    and P.V dots sum in ``orders`` (``_ordered_sum``'s names; default
+    ``flash_orders`` at this call's shapes)."""
     B, Sq, Hq, Dh = q.shape
     Hkv = k.shape[2]
     G = Hq // Hkv
     blk = min(cfg.flash_block, k.shape[1])
+    s_order, pv_order = orders or flash_orders(G * Sq, Dh, blk)
     kb, vb, pb, _ = _flash_blocks(k, v, k_pos, blk)
     qg = _scale_q(q.reshape(B, Sq, Hkv, G, Dh))
     m = torch.full((B, Hkv, G, Sq), _NEG, dtype=torch.float32,
@@ -476,15 +480,14 @@ def _flash_fwd(cfg, n_prefix, q, k, v, q_pos, k_pos, is_local):
                       device=q.device)
     cpu = not q.is_cuda
     for kc, vc, pc in zip(kb, vb, pb):
-        s = _lane_scores(qg, kc.to(torch.float32))
+        s = _lane_scores(qg, kc.to(torch.float32), s_order)
         s = softcap(s, cfg.attn_softcap)
         msk = _mask(q_pos, pc, is_local, cfg.sliding_window, n_prefix)
         s = torch.where(msk[:, None, None, :, :], s, _NEG)
         m_new = torch.maximum(m, s.amax(dim=-1))
         if cpu:
-            # the reference's compiled step: XLA's exp, its windowed sum
-            # and the two multiply-adds fused (its P.V dot keeps its own
-            # order by shape: ROADMAP Queue 3 item 8)
+            # the reference's compiled step: XLA's exp, its windowed sum,
+            # the two multiply-adds fused and its P.V dot's order
             p = prng.exp(s - m_new[..., None])
             corr = prng.exp(m - m_new)
             l = prng.fma(l, corr, _window_sum(p))
@@ -492,9 +495,14 @@ def _flash_fwd(cfg, n_prefix, q, k, v, q_pos, k_pos, is_local):
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(dim=-1)
-        pv = torch.einsum("bhgqk,bkhd->bhgqd",
-                          p.to(vc.dtype).to(torch.float32),
-                          vc.to(torch.float32))
+        pb = p.to(vc.dtype).to(torch.float32)
+        if cpu and pv_order != "torch":
+            prod = (pb[..., None, :]
+                    * vc.to(torch.float32).permute(0, 2, 3, 1)[:, :, None,
+                                                               None])
+            pv = _ordered_sum(prod, pv_order)
+        else:
+            pv = torch.einsum("bhgqk,bkhd->bhgqd", pb, vc.to(torch.float32))
         acc = (prng.fma(acc, corr[..., None], pv) if cpu
                else acc * corr[..., None] + pv)
         m = m_new
@@ -521,31 +529,51 @@ def _lane_scores(qg: torch.Tensor, k: torch.Tensor,
     of bf16 values are exact in float32, so only the order of the sums
     can differ; matching it keeps each score bit-identical, and a score
     one ulp off can flip a bf16 probability and then a macro ADC code
-    downstream.  Orders (XLA-CPU picks one by the dot's shapes and the
-    host's bf16 instructions; ``decode_order`` names the measured ones):
-    "lanes", 8 interleaved lanes (d = l, l + 8, ...) each summed in
-    order, then a pairwise tree across the lanes; "pairs", the
-    pair-wise bf16 dot (VDPBF16PS: acc += p[2i+1], then acc += p[2i]).
-    On CUDA always the 8 lanes: the pair-wise sum over D is D / 2
-    kernels a read, and the card's contract is only that a score does
-    not depend on how many rows come with it."""
-    D = qg.shape[-1]
+    downstream.  Orders are ``_ordered_sum``'s (XLA-CPU picks one by the
+    dot's shapes and the host's bf16 instructions; ``decode_order`` and
+    ``flash_orders`` name the measured ones).  On CUDA always the 8
+    lanes: the pair-wise sum over D is D / 2 kernels a read, and the
+    card's contract is only that a score does not depend on how many
+    rows come with it."""
     prod = (qg.permute(0, 2, 3, 1, 4)[:, :, :, :, None, :]
             * k.permute(0, 2, 1, 3)[:, :, None, None, :, :])
-    if prod.is_cuda:
-        order = "lanes"
-    if order == "pairs" and D % 2 == 0:
-        prod = prod.unflatten(-1, (D // 2, 2))
-        acc = prod[..., 0, 1] + prod[..., 0, 0]
-        for i in range(1, D // 2):
-            acc = acc + prod[..., i, 1]
-            acc = acc + prod[..., i, 0]
+    return _ordered_sum(prod, "lanes" if prod.is_cuda else order)
+
+
+_BLOCK = 32      # the contraction block of XLA-CPU's two-lane bf16 dot
+
+
+def _ordered_sum(prod: torch.Tensor, order: str) -> torch.Tensor:
+    """Sum of exact float32 products over the last axis, in one of the
+    orders XLA-CPU's bf16 dots take: "lanes", 8 interleaved lanes (k = l,
+    l + 8, ...) each summed in order, then a pairwise tree across the
+    lanes; "pairs", the pair-wise bf16 dot (VDPBF16PS: acc += p[2i+1],
+    then acc += p[2i]; an odd last product added alone); "blocks", per
+    32-element block of the axis two lanes (even and odd k) each summed
+    in order and then added, the blocks' sums added in order.  Other
+    axis lengths than the order takes sum in torch's order."""
+    K = prod.shape[-1]
+    if order == "pairs" and K > 1:
+        acc = prod[..., 1] + prod[..., 0]
+        for i in range(2, K - 1, 2):
+            acc = acc + prod[..., i + 1]
+            acc = acc + prod[..., i]
+        return acc + prod[..., K - 1] if K % 2 else acc
+    if order == "blocks" and K % _BLOCK == 0:
+        prod = prod.unflatten(-1, (K // _BLOCK, _BLOCK // 2, 2))
+        acc = None
+        for b in range(K // _BLOCK):
+            lane = prod[..., b, 0, :]
+            for i in range(1, _BLOCK // 2):
+                lane = lane + prod[..., b, i, :]
+            blk = lane[..., 0] + lane[..., 1]
+            acc = blk if acc is None else acc + blk
         return acc
-    if D % _LANES:
+    if order != "lanes" or K % _LANES:
         return prod.sum(dim=-1)
-    prod = prod.reshape(*prod.shape[:-1], D // _LANES, _LANES)
+    prod = prod.reshape(*prod.shape[:-1], K // _LANES, _LANES)
     acc = prod[..., 0, :]
-    for i in range(1, D // _LANES):
+    for i in range(1, K // _LANES):
         acc = acc + prod[..., i, :]
     while acc.shape[-1] > 1:
         acc = acc[..., 0::2] + acc[..., 1::2]
@@ -568,6 +596,34 @@ def decode_order(G: int) -> str:
     not measured; ROADMAP Queue 3 item 8 lists the prefill dots' orders,
     which the port does not reproduce)."""
     return "pairs" if G > 1 and bf16_dot_host() else "lanes"
+
+
+# XLA-CPU's order for the flash prefill's two bf16 dots on an AVX512-BF16
+# host, by the dot's shape: ("s", M, Dh, blk) the scores (M = G * Sq
+# query rows a kv head, contracting the head dim against a block of
+# keys) and ("pv", M, blk, Dh) P.V (contracting the block's keys).  The
+# dots listed take the two-lane 32-element blocks, every other the
+# pair-wise bf16 dot: measured against the jitted reference's flash at
+# every shape the port's CPU tests reach (``tools/flash_dot_probe.py``,
+# which holds each measured shape to this rule; the order does not
+# depend on G or Sq apart from their product).
+FLASH_BLOCK_DOTS = frozenset({
+    ("s", 24, 32, 32), ("s", 32, 32, 64), ("s", 64, 32, 48),
+    ("s", 128, 32, 64), ("s", 160, 32, 64), ("s", 288, 32, 64),
+    ("pv", 16, 64, 32), ("pv", 32, 64, 32), ("pv", 128, 64, 32),
+    ("pv", 160, 64, 32)})
+
+
+def flash_orders(M: int, Dh: int, blk: int) -> Tuple[str, str]:
+    """(score order, P.V order) of the flash prefill's dots with M query
+    rows a kv head, head dim Dh and key blocks of blk (``_ordered_sum``'s
+    names): ``FLASH_BLOCK_DOTS`` on an AVX512-BF16 host, else the port's
+    8 lanes and torch's order (XLA-CPU's choice on another host was not
+    measured)."""
+    if not bf16_dot_host():
+        return "lanes", "torch"
+    pick = lambda dot: "blocks" if dot in FLASH_BLOCK_DOTS else "pairs"
+    return pick(("s", M, Dh, blk)), pick(("pv", M, blk, Dh))
 
 
 def plain_attention(q, k, v, q_pos, k_pos, cfg: ModelConfig, is_local,
@@ -614,14 +670,9 @@ def decode_pv(p: torch.Tensor, v: torch.Tensor, order: str) -> torch.Tensor:
     order otherwise (the order XLA-CPU takes there is not reproduced)."""
     if order != "pairs":
         return torch.einsum("bhgqk,bkhd->bqhgd", p, v)
-    prod = p[..., None] * v.permute(0, 2, 1, 3)[:, :, None, None]
-    Sk = prod.shape[-2]
-    acc = torch.zeros_like(prod[..., 0, :])
-    for i in range(0, Sk, 2):
-        if i + 1 < Sk:
-            acc = acc + prod[..., i + 1, :]
-        acc = acc + prod[..., i, :]
-    return acc.permute(0, 3, 1, 2, 4)
+    prod = (p[..., None, :]
+            * v.permute(0, 2, 3, 1)[:, :, None, None])
+    return _ordered_sum(prod, order).permute(0, 3, 1, 2, 4)
 
 
 def attention_apply(

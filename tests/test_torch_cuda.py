@@ -513,10 +513,17 @@ PAGED_SHAPES = {"small": (3, 2, 4, 128, 8, 5, 12, 40),
                 "boundaries": (8, 8, 1, 64, 16, 48, 8 * 48 + 1,
                                (768, 720, 721, 80, 81, 64, 17, 1)),
                 # head dim 256: MHA, gemma2-9b's 16 over 8 and
-                # paligemma-3b's 8 over 1, up to 1,024 positions (split)
+                # paligemma-3b's 8 over 1, up to 1,024 positions (split);
+                # G 16, the tensor-core tile's every row; block size 8
+                # with lengths on and off entry and tile boundaries, for
+                # the window shorter than the walk (the parametrization's
+                # window 7, and 40 in the split-count test)
                 "dh256_g1": (4, 4, 1, 256, 16, 64, 4 * 64 + 1, 1024),
                 "dh256_g2": (8, 8, 2, 256, 16, 64, 8 * 64 + 1, 1024),
-                "dh256_g8": (8, 1, 8, 256, 16, 64, 8 * 64 + 1, 1024)}
+                "dh256_g8": (8, 1, 8, 256, 16, 64, 8 * 64 + 1, 1024),
+                "dh256_g16": (4, 2, 16, 256, 16, 64, 4 * 64 + 1, 1024),
+                "dh256_local": (6, 2, 2, 256, 8, 40, 6 * 40 + 1,
+                                (320, 319, 161, 57, 41, 9))}
 
 
 def _paged_case(dev, shape):
@@ -548,10 +555,10 @@ def test_paged_attention_kernel_matches_plain(dev, shape, softcap, window,
     bf16 once: rtol 2^-7, atol 2^-7 max|v|.  The last row's table is all
     trash block.  At window 7 the long shapes' later splits get no work."""
     q, kp, vp, table, lengths = _paged_case(dev, shape)
-    B, Hq, _ = q.shape
-    if shape.endswith("_long") or shape in ("boundaries", "dh256_g8"):
+    B, Hq, Dh = q.shape
+    if shape.endswith("_long") or shape == "boundaries" or Dh == 256:
         assert PK.paged_split(B, kp.shape[2], Hq // kp.shape[2],
-                              table.shape[1], PK.sm_count(dev)) > 1
+                              table.shape[1], PK.sm_count(dev), Dh) > 1
     n0 = PK.paged_attention_cuda.launches
     y = PK.paged_attention_cuda(q, kp, vp, table, lengths, is_local,
                                 softcap=softcap, window=window)
@@ -564,20 +571,32 @@ def test_paged_attention_kernel_matches_plain(dev, shape, softcap, window,
                                atol=2 ** -7 * float(vp.float().abs().max()))
 
 
+DH256_SHAPES = sorted(s for s in PAGED_SHAPES if s.startswith("dh256"))
+
+
+@pytest.mark.parametrize("shape", ["minicpm_long"] + DH256_SHAPES)
 @pytest.mark.parametrize("n_split", [1, 2, 3, 8, 16, 64])
-def test_paged_attention_split_counts_match_plain(dev, n_split):
+def test_paged_attention_split_counts_match_plain(dev, n_split, shape):
     """Every split count, not only the one ``paged_split`` picks, at
     minicpm-2b's shape over 256 table entries (random lengths up to
-    4,096, the last row all trash block), to the same tolerance."""
-    q, kp, vp, table, lengths = _paged_case(dev, "minicpm_long")
-    y = PK._launch(q, kp, vp, table, lengths, False, n_split, None, None)
-    r = PR.paged_attention_ref(q, kp, vp, table, lengths)
+    4,096, the last row all trash block) and at every head dim 256
+    shape (gemma2-9b's softcap 50 and, local, its window of 40 there,
+    shorter than the walk), to the same tolerance."""
+    q, kp, vp, table, lengths = _paged_case(dev, shape)
+    wide = q.shape[2] == 256
+    kw = dict(softcap=50.0 if wide else None,
+              window=40 if shape == "dh256_local" else None)
+    local = kw["window"] is not None
+    y = PK._launch(q, kp, vp, table, lengths, local, n_split, **kw)
+    r = PR.paged_attention_ref(q, kp, vp, table, lengths, is_local=local,
+                               **kw)
     torch.cuda.synchronize()
     torch.testing.assert_close(y.float(), r.float(), rtol=2 ** -7,
                                atol=2 ** -7 * float(vp.float().abs().max()))
 
 
-@pytest.mark.parametrize("shape", ["minicpm", "minicpm_long", "boundaries"])
+@pytest.mark.parametrize("shape", ["minicpm", "minicpm_long", "boundaries"]
+                         + DH256_SHAPES)
 def test_paged_attention_kernel_repeats(dev, shape):
     """Two calls on the same inputs give equal outputs: the warps and
     the splits merge in a fixed order, whichever block ends first."""

@@ -33,6 +33,7 @@ from repro_torch.convert import params_from_jax
 from repro_torch.launch import scheduler as TS
 from repro_torch.launch.paging import PagedLayout as TLayout
 from repro_torch.launch.paging import plan_prefix_sharing
+from repro_torch.models import layers as tL
 from repro_torch.models import lm as tlm
 
 # the suite runs several workers at once: one torch thread each
@@ -116,10 +117,15 @@ def gemma():
 # request 4 from its third token on.  Counted as ROADMAP Queue 3 item 9.
 # The cause is the admit's prefill, not the pooled step
 # (``test_gemma2_contiguous_residue_is_the_prefill``): the prefilled
-# caches differ in layer 1's K and V at one position (the flash
-# prefill's residue, ``test_torch_dense_configs.py::RESIDUE`` and Queue 3
-# item 8), and the port's decode steps from the reference's prefilled
-# cache give the reference's tokens.
+# caches differ in layer 1's K and V at one position, and the port's
+# decode steps from the reference's prefilled cache give the
+# reference's tokens.  Within the prefill it is not the flash (its dots
+# take XLA-CPU's order by shape on an AVX512-BF16 host, and the
+# attention output is ``==``) but layer 0's second norm: XLA-CPU's rsqrt
+# (the processor's estimate and a Newton step, Queue 3 item 1) is one
+# float32 ulp off the correctly rounded one at one position, and an ADC
+# code of the MLP flips downstream
+# (``test_gemma2_contiguous_residue_is_the_norm_rsqrt``).
 CONTIGUOUS_TOKEN_RESIDUE = {4: 4}
 
 
@@ -176,6 +182,59 @@ def test_gemma2_contiguous_residue_is_the_prefill(gemma):
     np.testing.assert_array_equal(toks, want)
     got = gemma["got_c"].tokens_by_rid()[rid]
     assert int((got != want).sum()) == n_diff and same == [False, False]
+
+
+@pytest.mark.skipif(not tL.bf16_dot_host(),
+                    reason="the flash's dot orders are measured on an "
+                           "AVX512-BF16 host (layers.flash_orders)")
+def test_gemma2_contiguous_residue_is_the_norm_rsqrt(gemma):
+    """Where the parting request's prefill differs: layer 0's block on its
+    80-token prompt, the jitted reference op by op against the port.  The
+    attention output (the flash) and the residual sum are ``==``; the
+    second norm differs in one entry, at a position where the jitted
+    reference's rsqrt of the port's own mean square is not the correctly
+    rounded rsqrt the port takes (Queue 3 item 1); the MLP's output then
+    differs at that position alone."""
+    from repro.models import layers as jL
+    jp, jcfg, tp, tcfg = (gemma[k] for k in ("jp", "jcfg", "tp", "tcfg"))
+    (rid, _), = CONTIGUOUS_TOKEN_RESIDUE.items()
+    toks = _gemma_mixed()[rid].prompt[None]
+    S = toks.shape[1]
+    jblk = jax.tree.map(lambda a: a[0], jp["layers"])
+    tblk = tlm._layer(tp["layers"], 0)
+    jc = jlm.init_cache(jcfg, 1, GP + GCAP)
+    tc = tlm.init_cache(tcfg, 1, GP + GCAP, device="cpu")
+
+    def jblock(blk, x, k, v):
+        h, _ = jL.attention_apply(
+            blk["attn"], jL.rms_norm(x, blk["ln1"], jcfg.norm_eps), jcfg,
+            jnp.arange(S)[None], True, kv_cache=(k, v),
+            cache_pos=jnp.zeros((1,), jnp.int32))
+        n2 = jL.rms_norm(x + h, blk["ln2"], jcfg.norm_eps)
+        return h, n2, jL.mlp_apply(blk["mlp"], n2, jcfg)
+
+    x = jnp.take(jp["embed"], jnp.asarray(toks, jnp.int32), axis=0)
+    want = jax.jit(jblock)(jblk, x, jc["k"][0], jc["v"][0])
+    with torch.inference_mode():
+        xt = tp["embed"][torch.from_numpy(toks).long()]
+        h, _ = tL.attention_apply(
+            tblk["attn"], tL.rms_norm(xt, tblk["ln1"], tcfg.norm_eps), tcfg,
+            torch.arange(S)[None], True, kv_cache=(tc["k"][0], tc["v"][0]),
+            cache_pos=torch.zeros((1,), dtype=torch.int32))
+        xf = xt.float() + h.float()
+        n2 = tL.rms_norm(xf, tblk["ln2"], tcfg.norm_eps).to(xt.dtype)
+        got = (h, n2, tL.mlp_apply(tblk["mlp"], n2, tcfg))
+    diff = [np.argwhere(np.asarray(w.astype(jnp.float32)) != g.float().numpy())
+            for w, g in zip(want, got)]
+    assert len(diff[0]) == 0 and len(diff[1]) == 1
+    pos = int(diff[1][0][1])
+    assert len(diff[2]) and (diff[2][:, 1] == pos).all()
+    row = xf[0, pos]
+    inv_d = float(np.float32(1.0) / np.float32(row.shape[-1]))
+    ms = float(tL._window_sum(row * row) * inv_d + tcfg.norm_eps)
+    r_ref = np.float32(jax.jit(jax.lax.rsqrt)(jnp.float32(ms)))
+    r_port = np.float32(1.0 / np.sqrt(np.float64(np.float32(ms))))
+    assert r_ref != r_port
 
 
 def test_gemma2_paged_equals_reference_and_contiguous(gemma):

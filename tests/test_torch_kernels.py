@@ -149,6 +149,7 @@ PALLAS = {"skinny": "ccim_matmul_prepacked_skinny_pallas",
           "complex_general": "ccim_complex_matmul_prepacked_pallas",
           "complex_unpacked": "ccim_complex_matmul_pallas",
           "paged_attn": "paged_attention_pallas",
+          "paged_attn_dh256": "paged_attention_pallas",
           "int8": "int8_matmul_pallas"}
 
 
@@ -504,10 +505,17 @@ def test_paged_splits_cover_the_attended_entries_once(bs, window, is_local):
 def test_paged_split_counts():
     """The split counts at minicpm-2b's decode shape (B 8, 48 kv heads, G
     1) for L 96, 1024 and 4096 at block size 16, as PERF.md states them,
-    and the rule's bounds elsewhere."""
+    and at phase 13's head dim 256 cases (gemma2-9b: B 8, 8 kv heads, G 2;
+    paligemma-3b: B 8, 1 kv head, G 8; L 96 and 1,024), and each rule's
+    bounds elsewhere: at Dh 256 one entry a split at least, at most
+    WIDE_BLOCKS_PER_SM blocks per SM and WIDE_MAX_SPLITS splits unless a
+    walk is longer than SPLIT_MAX_ENTRIES entries a split."""
     counts = {L: PK.paged_split(8, 48, 1, -(-L // 16))
               for L in (96, 1024, 4096)}
     assert counts == {96: 1, 1024: 1, 4096: 4}
+    wide = {(Hkv, L): PK.paged_split(8, Hkv, G, -(-L // 16), Dh=256)
+            for Hkv, G in ((8, 2), (1, 8)) for L in (96, 1024)}
+    assert wide == {(8, 96): 6, (8, 1024): 8, (1, 96): 6, (1, 1024): 16}
     for B, Hkv, G in ((1, 48, 1), (8, 48, 1), (1, 8, 8), (2, 2, 16)):
         for n in range(1, 600, 7):
             s = PK.paged_split(B, Hkv, G, n)
@@ -515,15 +523,76 @@ def test_paged_split_counts():
             assert s == 1 or n // s >= PK.SPLIT_MIN_ENTRIES // 2
             if n <= PK.SPLIT_MIN_ENTRIES:
                 assert s == 1
+            s = PK.paged_split(B, Hkv, G, n, Dh=256)
+            assert 1 <= s <= n
+            assert ((B * Hkv * s <= PK.WIDE_BLOCKS_PER_SM * PK.H100_SMS
+                     and s <= PK.WIDE_MAX_SPLITS)
+                    or s == -(-n // PK.SPLIT_MAX_ENTRIES) or s == 1)
+            assert -(-n // s) <= PK.SPLIT_MAX_ENTRIES
+
+
+def _wide_walk_model(q, kp, vp, table, lengths, is_local, softcap, window,
+                     n_split):
+    """The Dh 256 kernel's walk (``paged_attn_dh256.cu``) in float32: per
+    split, its attended positions in tiles of 16 through the ring, all G
+    query heads of a kv head in one tile (q scaled in bf16), an online
+    softmax per head over the tiles, P.V with p as two bf16 terms (p_hi +
+    p_lo), and the splits merged in split order."""
+    B, Hq, Dh = q.shape
+    nb, bs, Hkv, _ = kp.shape
+    G = Hq // Hkv
+    bf = lambda t: t.to(torch.bfloat16).float()
+    qs = bf(q.float() * float(np.float32(Dh ** -0.5))).view(B, Hkv, G, Dh)
+    kf, vf = kp.float(), vp.float()
+    out = torch.zeros(B, Hkv, G, Dh)
+    for b in range(B):
+        q_pos = int(lengths[b]) - 1
+        local = bool(is_local and window)
+        j_lo, n = PK.row_walk(q_pos + 1, bs, table.shape[1], window,
+                              is_local)
+        splits = []
+        for lo, hi in PK.split_ranges(j_lo, n, n_split):
+            p_lo = max(lo * bs, q_pos - window + 1 if local else 0)
+            p_hi = min(hi * bs, q_pos + 1)
+            m = torch.full((Hkv, G), -1e30)
+            l, acc = torch.zeros(Hkv, G), torch.zeros(Hkv, G, Dh)
+            for p0 in range(p_lo, p_hi, 16):
+                pos = range(p0, min(p0 + 16, p_hi))
+                blk = [min(max(int(table[b, p // bs]), 0), nb - 1)
+                       for p in pos]
+                k = torch.stack([kf[c, p % bs] for c, p in zip(blk, pos)], 1)
+                v = torch.stack([vf[c, p % bs] for c, p in zip(blk, pos)], 1)
+                s = torch.einsum("hgd,htd->hgt", qs[b], k)
+                if softcap:
+                    s = softcap * torch.tanh(s / softcap)
+                mx = torch.maximum(m, s.amax(-1))
+                corr = torch.exp(m - mx)
+                p = torch.exp(s - mx[..., None])
+                ph = bf(p)
+                l = l * corr + p.sum(-1)
+                acc = acc * corr[..., None] + torch.einsum(
+                    "hgt,htd->hgd", ph + bf(p - ph), v)
+                m = mx
+            splits.append((m, l, acc))
+        mm = torch.stack([s[0] for s in splits]).amax(0)
+        w = [torch.exp(s[0] - mm) for s in splits]
+        ls = sum(s[1] * wi for s, wi in zip(splits, w))
+        a = sum(s[2] * wi[..., None] for s, wi in zip(splits, w))
+        out[b] = a / torch.clamp(ls, min=1e-30)[..., None]
+    return out.reshape(B, Hq, Dh).to(torch.bfloat16)
 
 
 def _walk_model(q, kp, vp, table, lengths, is_local, softcap, window,
                 n_split):
-    """The CUDA kernel's walk in float32: per split, warp w folds chunks
-    w, w + 4, ... (4 warp loads of 32 / (Dh / 8) rows each), every row
-    group of a warp its own online softmax; row groups merge pairwise as
-    the shuffles pair them, warps in order, splits in order."""
+    """The CUDA kernel's walk in float32: at Dh 64 and 128, per split,
+    warp w folds chunks w, w + 4, ... (4 warp loads of 32 / (Dh / 8) rows
+    each), every row group of a warp its own online softmax; row groups
+    merge pairwise as the shuffles pair them, warps in order, splits in
+    order.  At Dh 256 the tensor-core walk (``_wide_walk_model``)."""
     B, Hq, Dh = q.shape
+    if Dh == PK.WIDE_DH:
+        return _wide_walk_model(q, kp, vp, table, lengths, is_local, softcap,
+                                window, n_split)
     nb, bs, Hkv, _ = kp.shape
     G = Hq // Hkv
     rp = 32 // (Dh // 8)
@@ -590,16 +659,19 @@ def _walk_model(q, kp, vp, table, lengths, is_local, softcap, window,
 @pytest.mark.parametrize("Dh,G,bs,n_split", [(64, 1, 16, 1), (64, 1, 16, 3),
                                              (64, 4, 5, 2), (128, 2, 32, 4),
                                              (128, 1, 8, 7), (256, 1, 16, 2),
-                                             (256, 8, 16, 1)])
+                                             (256, 8, 16, 1), (256, 16, 16, 3),
+                                             (256, 2, 16, 4)])
 @pytest.mark.parametrize("softcap,window,is_local", [(None, None, False),
                                                      (30.0, 7, True)])
 def test_paged_kernel_walk_matches_plain(Dh, G, bs, n_split, softcap, window,
                                          is_local):
     """The kernel's chunking, masks, per-row-group and per-warp states and
-    split merges, modelled in float32, against the plain version to the
-    card test's tolerance (rtol 2^-7, atol 2^-7 max|v|: the plain version
-    rounds p to bf16 before P.V).  The last row's table is all trash
-    block; lengths fall on and off block boundaries."""
+    split merges (at Dh 256: tiles through the ring, all G heads in one
+    tile, p as p_hi + p_lo, splits in order), modelled in float32, against
+    the plain version to the card test's tolerance (rtol 2^-7, atol 2^-7
+    max|v|: the plain version rounds p to bf16 before P.V).  The last
+    row's table is all trash block; lengths fall on and off block
+    boundaries."""
     rng = np.random.default_rng(Dh + G + bs + n_split)
     B, Hkv, n_tbl = 4, 2, 9
     nb = B * n_tbl + 1
