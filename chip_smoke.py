@@ -6,7 +6,8 @@
 Builds the port's CUDA kernels from ``src/repro_torch`` (all nine
 sources compiled together) and drives its main paths: minicpm-2b at its
 full width and depth (40 layers, packed and fused, prototype macro),
-and the dense family's qwen3-14b, starcoder2-7b and gemma2-9b at theirs,
+and the dense family's qwen3-14b, starcoder2-7b and gemma2-9b and the
+moe family's qwen2-moe-a2.7b at theirs (arctic-480b at smoke size),
 served lock-step and with continuous batching over a contiguous and a
 paged KV cache, and on its raw weights through the unpacked macro
 GEMM; the SSM family's mamba2-130m at its full width and depth, served
@@ -52,7 +53,7 @@ failure.  Phases:
      softcap and sliding window, and on long walks that the kernel
      splits (minicpm-2b's shape at 256 table entries, GQA at Dh 128,
      lengths on split boundaries, window 7 leaving later splits idle);
-  9. continuous batching, contiguous KV: 16 mixed-length requests over 8
+  9. continuous batching, contiguous KV: 12 mixed-length requests over 8
      slots; pool tokens must equal the lock-step wave baseline's, and no
      paged-attention kernel may launch;
  10. the first 8 of those requests with a paged KV cache (block 16,
@@ -60,9 +61,9 @@ failure.  Phases:
      how many requests' tokens equal phase 9's is reported, not gated
      (the kernel's float32 P.V can move a bf16 activation by one ulp,
      and in CIM mode an ADC code with it);
- 11. paged serving of 16 requests, half behind one shared 32-token
+ 11. paged serving of 12 requests, half behind one shared 32-token
      prefix: refcounts must drain, the prefix plan must share blocks, and
-     pool tokens must equal solo runs of 3 of the requests;
+     pool tokens must equal solo runs of 2 of the requests;
  12. phase 11 with the plain version of the paged read on the card: token
      agreement with phase 11 and the first decode step's logits, and a
      torch.profiler trace of one paged decode step (device busy, idle
@@ -329,9 +330,23 @@ failure.  Phases:
      pool tokens equal the lock-step waves' (gated); paged as phase 10
      (blocks of 16, chunks of 32), 42 row-3 launches a pooled step at G
      2, Dh 256, softcap 50, refcounts drained, the pool equal to solo
-     runs of requests 0-2 (gated), paged == contiguous reported; the
+     runs of requests 0-1 (gated), paged == contiguous reported; the
      paged queue served again (the same tokens, gated) with its 10th
-     pooled step traced: row 3's device time in a replayed step.
+     pooled step traced: row 3's device time in a replayed step;
+ 47. the moe family: qwen2-moe-a2.7b at full width and depth (24 layers,
+     d_model 2,048, 16 heads of 128, 60 routed experts top 4 of width
+     1,408 and a shared expert of 5,632, vocab 151,936; the routed
+     experts stay bf16 matrices, the attention and the shared expert are
+     packed), first served unpacked on its raw weights (row 6, 4 tokens,
+     == the packed tokens) and then phase 44's workload and gates (96
+     and 1,440 launches; the step's bounds read every expert, and only
+     the ~14.2 that 16 draws occupy; one layer's expert GEMMs timed);
+     phase 46's queues (row 3 at G 1, Dh 128; solo runs of requests
+     0-1); a speculative lock-step run at verify M 18 (row 1) == the
+     lock-step tokens; one 1 x 1,088 prefill through the grouped
+     dispatch (T * K 4,352 > 4,096) and its dropped share; every peak
+     within the card; and arctic-480b at smoke size (the dense residual
+     beside the moe), kernel == plain tokens and logits.
 
 Phase 34 also runs the plan_pareto twin's second arch, mamba2-130m, at
 the reference bench's smoke size and noise seed.
@@ -356,7 +371,9 @@ conversions on the CPU (from 131,072), phase 34's plan_pareto twin
 generates 4 tokens (from 8), phase 43's plain read serves 2 requests
 (from 4), phase 24 serves 12 of phase 9's requests contiguous (from 16)
 and 4 paged (from 8), and phases 41 and 43 serve 12 requests (from 16;
-each pool still refills 4 of its 8 slots).
+each pool still refills 4 of its 8 slots); to make room for phase 47,
+phases 9 and 11 serve 12 requests (from 16), and phases 11 and 46 hold
+their paged pools to solo runs of 2 requests (from 3).
 
 The serving drivers replay captured graphs by default on the card
 (``launch/graphs.py``), so phases 9, 11, 22 and 24 serve captured.  A
@@ -438,6 +455,9 @@ KERNEL_SYMBOLS = {"ccim_matmul_prepacked_skinny_cuda": "skinny_kernel",
 # and not the tail of another (``complex_skinny_kernel``)
 SYMBOL_RE = {s: re.compile(rf"(?<![A-Za-z_]){s}")
              for s in KERNEL_SYMBOLS.values()}
+# cuBLAS's and CUTLASS's GEMM kernels (the bf16 and float32 matmuls outside
+# the macro: the moe's router and experts, the lm_head)
+LIBRARY_GEMM_RE = re.compile(r"gemm|xmma|cutlass|nvjet", re.IGNORECASE)
 
 
 def device_breakdown(prof, steps: int, wall_ms: float) -> dict:
@@ -450,6 +470,7 @@ def device_breakdown(prof, steps: int, wall_ms: float) -> dict:
     host self times."""
     from torch.autograd import DeviceType
     spans, symbols, ranges = [], dict.fromkeys(SYMBOL_RE, 0), set()
+    sym_us, gemm_us = dict.fromkeys(SYMBOL_RE, 0.0), 0.0
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
@@ -457,8 +478,12 @@ def device_breakdown(prof, steps: int, wall_ms: float) -> dict:
             ranges.add(e.name)
             continue
         spans.append((e.time_range.start, e.time_range.end))
+        dur = e.time_range.end - e.time_range.start
         for sym, pat in SYMBOL_RE.items():
-            symbols[sym] += bool(pat.search(e.name))
+            hit = bool(pat.search(e.name))
+            symbols[sym] += hit
+            sym_us[sym] += dur * hit
+        gemm_us += dur * bool(LIBRARY_GEMM_RE.search(e.name))
     busy_us, end = 0.0, float("-inf")
     for a, b in sorted(spans):
         if b > end:
@@ -482,6 +507,9 @@ def device_breakdown(prof, steps: int, wall_ms: float) -> dict:
                                  / len(spans) if spans else None),
             "kernels_by_symbol_per_step": {k: n / steps
                                            for k, n in symbols.items()},
+            "kernels_by_symbol_ms_per_step": {k: v / 1e3 / steps
+                                              for k, v in sym_us.items()},
+            "library_gemm_ms_per_step": gemm_us / 1e3 / steps,
             "aten_calls_per_step": aten_calls / steps,
             "top_device_ms_per_step": per_step(dev_us),
             "top_host_self_ms_per_step": per_step(host_us)}
@@ -618,6 +646,9 @@ PLAIN_PAGED_REQUESTS = 1
 # phase 10's queue: the first requests of phase 9's (16 until phases 42-43
 # needed the time; a request's tokens do not depend on its neighbours)
 PAGED_REQUESTS = 8
+# phases 9 and 11's queues (16 until phase 47 needed the time; phase 24
+# compares its 12 with phase 9's first 12) and phase 11's solo runs (3)
+PHASE9_REQUESTS, SHARED_SOLO = 12, 2
 
 
 def continuous_phases(torch, dev, params, cfg_full) -> dict:
@@ -632,7 +663,7 @@ def continuous_phases(torch, dev, params, cfg_full) -> dict:
     from repro_torch.launch.serve import serve_continuous
     from repro_torch.models import lm
 
-    slots, plen, stops, n_req = 8, 64, (8, 24, 16, 32), 16
+    slots, plen, stops, n_req = 8, 64, (8, 24, 16, 32), PHASE9_REQUESTS
     layout = PagedLayout(block_size=PA_BS,
                          n_tbl=cdiv(plen + max(stops) - 1, PA_BS),
                          n_blocks=64)
@@ -712,7 +743,7 @@ def continuous_phases(torch, dev, params, cfg_full) -> dict:
           "phase 11 paged-attention launches != 40 per decode step")
     counts["serve_paged_shared"] = n_s["paged_attn"]
     pool = rep.tokens_by_rid()
-    solo_rids = (0, 1, 2)
+    solo_rids = tuple(range(SHARED_SOLO))
     for rid in solo_rids:
         solo = sched.run([reqs[rid]])
         check(solo.ref_final.tolist() == drained, "solo run leaked blocks")
@@ -732,7 +763,7 @@ def continuous_phases(torch, dev, params, cfg_full) -> dict:
           "branch_counts": rep.branch_counts})
 
     # -- 12. the plain paged read on the card ------------------------------
-    # (the first PLAIN_PAGED_REQUESTS of the 16: the agreement is
+    # (the first PLAIN_PAGED_REQUESTS of phase 11's: the agreement is
     # reported, and the plain read's eager queue was the phase's time)
     cfg_plain = dataclasses.replace(cfg, paged_attn_use_kernel=False)
     reset()
@@ -4245,7 +4276,7 @@ DENSE_BATCH, DENSE_PROMPT, DENSE_GEN = 4, 32, 16     # phase 4's workload
 DENSE_PLAIN_GEN = 4          # tokens of the eager and plain comparison runs
 DENSE_ENTRY_BYTES = 2 * 2 ** 30    # allocated at a dense phase's entry
 DENSE_QUEUE = 8              # phase 9's first requests, phase 46's queues
-DENSE_SOLO = 3
+DENSE_SOLO = 2
 
 
 def gc_collect(torch) -> None:
@@ -4256,12 +4287,13 @@ def gc_collect(torch) -> None:
     torch.cuda.empty_cache()
 
 
-def _dense_model(torch, dev, arch: str, phase: int):
+def _dense_model(torch, dev, arch: str, phase: int, raw_hook=None):
     """``arch`` at full width and depth, random weights from seed 0 (the
     serve functions' own), packed and fused on the prototype macro by
     ``pack_cim_params(consume=True)``: each raw projection is released
     once packed, so the raw stack and the pack are never both whole on
-    the card.  Fails unless at most 2 GB is allocated at entry (nothing
+    the card.  ``raw_hook(cfg, params)`` runs on the raw weights before
+    the pack.  Fails unless at most 2 GB is allocated at entry (nothing
     of an earlier phase live).  Returns the CIM config, the packed params
     and the memory record (init and pack seconds and peaks)."""
     from repro_torch.configs import get_config
@@ -4280,6 +4312,8 @@ def _dense_model(torch, dev, arch: str, phase: int):
     mem = dict(entry_bytes=entry, init_s=time.perf_counter() - t0,
                init_peak_bytes=torch.cuda.max_memory_allocated(),
                raw_bytes=tree_bytes(params))
+    if raw_hook is not None:
+        raw_hook(cfg, params)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with torch.inference_mode():
@@ -4293,15 +4327,18 @@ def _dense_model(torch, dev, arch: str, phase: int):
     return cfg, packed, mem
 
 
-def _layer_leaves(packed) -> dict:
-    """Layer 0's four macro GEMMs of a dense pack, name -> the stacked
-    ``PackedCimWeights`` (fused groups unwrapped)."""
+def _layer_leaves(tree, path="") -> dict:
+    """A layer's macro GEMMs of a pack (``packed["layers"]``), plan path
+    -> the stacked ``PackedCimWeights`` (fused groups unwrapped): the
+    dense configs' four, the moe's attention and shared expert."""
     out = {}
-    for blk in ("attn", "mlp"):
-        for key, leaf in packed["layers"][blk].items():
-            leaf = getattr(leaf, "packed", leaf)
-            if hasattr(leaf, "kernel_w"):
-                out[f"{blk}/{key}"] = leaf
+    for key, leaf in tree.items():
+        if isinstance(leaf, dict):
+            out.update(_layer_leaves(leaf, f"{path}{key}/"))
+            continue
+        leaf = getattr(leaf, "packed", leaf)
+        if hasattr(leaf, "kernel_w"):
+            out[path + key] = leaf
     return out
 
 
@@ -4320,7 +4357,7 @@ def times_dense_layer(torch, dev, cfg, packed) -> dict:
                 adc_half=DEFAULT_CONFIG.adc_half_range)
     gen = torch.Generator(device=dev)
     gen.manual_seed(44)
-    leaves = _layer_leaves(packed)
+    leaves = _layer_leaves(packed["layers"])
     rows = {}
     for name, m, fn in (("skinny", 4, K.ccim_matmul_prepacked_skinny_cuda),
                         ("general", 128,
@@ -4359,9 +4396,11 @@ def times_dense_layer(torch, dev, cfg, packed) -> dict:
     return rows
 
 
-def dense_lockstep_phase(torch, dev, arch: str) -> dict:
-    """Phases 44 (qwen3-14b), 45 (starcoder2-7b) and 46 (gemma2-9b): the
-    dense configs at full width and depth, random weights from seed 0,
+def dense_lockstep_phase(torch, dev, arch: str, raw_hook=None) -> tuple:
+    """Phases 44 (qwen3-14b), 45 (starcoder2-7b), 46 (gemma2-9b) and 47
+    (qwen2-moe-a2.7b, with the moe's step record and ``raw_hook`` run on
+    the raw weights): the configs at full width and depth, random
+    weights from seed 0,
     packed and fused, prototype macro, phase 4's workload (batch 4,
     prompt 32, 16 generated).  One pack (``_dense_model``: entry under
     2 GB, init and pack seconds and peaks, each raw projection released
@@ -4375,13 +4414,14 @@ def dense_lockstep_phase(torch, dev, arch: str) -> dict:
     bound of one read of the pack's layers and of the lm_head (the tied
     embedding for gemma2); one layer's four GEMMs timed (row 1 at M 4,
     row 2 at M 128, same-operand and cold).  Returns the model (for
-    phase 46's queues) and the launches by path of rows 1 and 2."""
+    phase 46's queues), the launches by path of rows 1 and 2 and the
+    eager kernel run's tokens."""
     from repro_torch.launch.graphs import StepGraph
     from repro_torch.launch.serve import decode_body, serve
     from repro_torch.models import lm
 
-    phase = DENSE_PHASES[arch]
-    model = _dense_model(torch, dev, arch, phase)
+    phase = DENSE_PHASES.get(arch, MOE_PHASE)
+    model = _dense_model(torch, dev, arch, phase, raw_hook)
     cfg, packed, mem = model
     n_fwd = _macro_gemms_per_forward(packed, cfg)
     check(n_fwd == 4 * cfg.n_layers, f"phase {phase}: {n_fwd} macro GEMMs "
@@ -4460,7 +4500,9 @@ def dense_lockstep_phase(torch, dev, arch: str) -> dict:
                    "lm_head": head.numel() * head.element_size()}
     step_bytes = sum(bound_bytes.values())
     gemms = times_dense_layer(torch, dev, cfg, packed)
-    emit({"phase": f"dense_{arch}", "ok": True, "phase_no": phase,
+    extra = (moe_step_record(torch, dev, cfg, packed, bound_bytes)
+             if cfg.family == "moe" else {})
+    emit({"phase": f"{cfg.family}_{arch}", "ok": True, "phase_no": phase,
           "arch": arch, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
           "heads": [cfg.n_heads, cfg.padded_heads, cfg.n_kv_heads],
           "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
@@ -4480,9 +4522,9 @@ def dense_lockstep_phase(torch, dev, arch: str) -> dict:
           "decode_bound_ms": 1e3 * step_bytes / HBM_BYTES_S,
           "decode_bound_bytes": bound_bytes,
           "layer_gemms": gemms, "timing": TIMING, "cold": COLD,
-          "tokens_row0": captured["toks"][0].tolist()})
+          "tokens_row0": captured["toks"][0].tolist(), **extra})
     return model, {f"{arch}_serve_captured": served["launches"],
-                   f"{arch}_serve": k_["launches"]}
+                   f"{arch}_serve": k_["launches"]}, k_["toks"]
 
 
 DENSE_SLOTS, DENSE_PLEN, DENSE_STOPS = 8, 64, (8, 24, 16, 32)
@@ -4516,7 +4558,7 @@ def dense_queue_phase(torch, dev, model) -> dict:
     46's pack: contiguous, pool tokens == the lock-step waves' (gated);
     paged as phase 10 (blocks of 16, chunks of 32): 42 row-3 launches a
     pooled step (G 2, Dh 256, softcap 50, the 4,096 window on the local
-    layers), refcounts drained, the pool == solo runs of requests 0-2
+    layers), refcounts drained, the pool == solo runs of requests 0-1
     (gated); paged == contiguous reported, not gated (as phase 10); the
     paged queue served again (the same tokens, gated) with its 10th
     pooled step traced: row 3's device time in a replayed step
@@ -4606,12 +4648,291 @@ def dense_phases(torch, dev) -> dict:
     and its model freed before the next."""
     paths = {}
     for arch in DENSE_PHASES:
-        model, p = dense_lockstep_phase(torch, dev, arch)
+        model, p, _ = dense_lockstep_phase(torch, dev, arch)
         paths.update(p)
         if arch == "gemma2-9b":
             paths.update(dense_queue_phase(torch, dev, model))
         del model
         gc_collect(torch)
+    return paths
+
+
+# phase 47: the moe family.  qwen2-moe-a2.7b at full width and depth
+# (the dense phases' lock-step workload and queues, 2 solo runs), a
+# speculative lock-step run at verify M 18 (row 1), one grouped prefill
+# past T * K 4,096; arctic-480b at smoke size
+MOE_PHASE, MOE_ARCH, MOE_SMOKE_ARCH = 47, "qwen2-moe-a2.7b", "arctic-480b"
+MOE_SOLO = 2
+MOE_SPEC = (2, 32, 12, 8)        # batch, prompt, generated, draft k: M 18
+MOE_GROUPED_S = 1088             # B 1: T * K = 4,352 routed rows
+
+
+def moe_step_record(torch, dev, cfg, packed, bound_bytes) -> dict:
+    """A moe decode step beside its two bounds, at phase 4's batch: the
+    reference's form reads every expert (``bound_bytes``: the layers'
+    pack with the raw expert stacks, and the lm_head), reading only the
+    experts that B * K uniform draws of E occupy would read
+    E (1 - (1 - 1/E)^(B K)) of them; and one layer's routed experts
+    (``layers._moe_ffn`` over the (E, T * K, D) buffer) and whole moe
+    (``moe_apply``, the shared expert on row 1 included) at that shape,
+    device time from graph replays."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+
+    E, K, B = cfg.n_experts, cfg.top_k, DENSE_BATCH
+    moe = packed["layers"]["moe"]
+    expert_bytes = sum(moe[k].numel() * moe[k].element_size()
+                       for k in ("w1", "w2", "w3"))
+    occupied = E * (1 - (1 - 1 / E) ** (B * K))
+    occ_bytes = (sum(bound_bytes.values())
+                 - expert_bytes * (1 - occupied / E))
+    p = lm._layer(packed["layers"], 0)["moe"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(47)
+    x = torch.randn((B, 1, cfg.d_model), generator=gen, device=dev).to(
+        torch.bfloat16)
+    buf = torch.randn((E, B * K, cfg.d_model), generator=gen,
+                      device=dev).to(torch.bfloat16)
+    with torch.inference_mode():
+        ffn_ms = graph_ms(torch, lambda: L._moe_ffn(p, buf, cfg))
+        moe_ms = graph_ms(torch, lambda: L.moe_apply(p, x, cfg))
+    rows = -(-B * K // 64) * 64            # the expert GEMMs' 64-row tiles
+    ops = 2 * E * rows * cfg.d_model * cfg.moe_d_ff * 3
+    return {"moe": {
+        "experts": E, "top_k": K, "moe_d_ff": cfg.moe_d_ff,
+        "shared_expert_d_ff": cfg.shared_expert_d_ff,
+        "expert_bytes": expert_bytes,
+        "occupied_experts_expected": occupied,
+        "decode_bound_all_experts_ms": 1e3 * sum(bound_bytes.values())
+        / HBM_BYTES_S,
+        "decode_bound_occupied_experts_ms": 1e3 * occ_bytes / HBM_BYTES_S,
+        "expert_ffn_layer_device_ms": ffn_ms,
+        "expert_ffn_step_device_ms": ffn_ms * cfg.n_layers,
+        "expert_ffn_layer_bound_ms": 1e3 * max(
+            expert_bytes / cfg.n_layers / HBM_BYTES_S, ops / BF16_OPS_S),
+        "moe_layer_device_ms": moe_ms,
+        "timing": "device time per call from CUDA-graph replays of 20 "
+                  "calls, one layer's operands"}}
+
+
+def _moe_drop_tap(L):
+    """Wraps ``layers._moe_grouped`` so that each call records, on the
+    device, its routed rows and those past the capacity (what the group
+    drops); returns (restore, records)."""
+    orig, recs = L._moe_grouped, []
+
+    def tapped(p, x, eidx, gates, cfg):
+        B, S, K = eidx.shape
+        counts = L._one_hot(eidx.reshape(B, S * K), cfg.n_experts).sum(1)
+        recs.append(((counts - L.moe_capacity(S, cfg)).clamp_min(0).sum(),
+                     B * S * K))
+        return orig(p, x, eidx, gates, cfg)
+
+    L._moe_grouped = tapped
+    return (lambda: setattr(L, "_moe_grouped", orig)), recs
+
+
+def moe_phase(torch, dev) -> dict:
+    """Phase 47: qwen2-moe-a2.7b at full width and depth (24 layers,
+    d_model 2048, 60 experts top 4 and a 5,632-wide shared expert),
+    random weights from seed 0, packed and fused on the prototype macro
+    (the attention and the shared expert; the routed experts stay bf16
+    matrices, as in the reference).  (a) The dense phases' lock-step
+    phase (``dense_lockstep_phase``): 96 macro GEMMs a forward, captured
+    == eager == plain tokens, a traced replayed decode step with its
+    kernel nodes, the step's two bounds and the expert GEMMs' time.
+    (b) Continuous batching over phase 9's first 8 requests in 8 slots,
+    captured: contiguous == the lock-step waves (gated), paged through
+    row 3 (G 1, Dh 128) == solo runs of 2 requests (gated), paged ==
+    contiguous reported.  (c) A speculative lock-step run at verify M 18
+    (row 1) == lock-step tokens (gated).  (d) One prefill of 1 x 1,088
+    tokens through the grouped path: its dropped share.  (e) Every peak
+    of the phase within the card's memory.  (f) arctic-480b at smoke size
+    (its dense residual beside the moe): kernel == plain tokens and
+    logits.  Returns the launches by path of rows 1-3."""
+    from repro_torch.kernels.ccim_matmul import kernel as K
+    from repro_torch.launch.scheduler import (ContinuousBatchingScheduler,
+                                              mixed_length_requests)
+    from repro_torch.launch.serve import (serve, serve_continuous,
+                                          serve_speculative)
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+
+    phase, arch = MOE_PHASE, MOE_ARCH
+    unpacked = {}
+
+    def raw_run(cfg, params):
+        """The raw weights served unpacked (row 6) before they are packed:
+        4 tokens, eager."""
+        _reset_all_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t, st = serve(arch, smoke=False, batch=DENSE_BATCH,
+                      prompt_len=DENSE_PROMPT, gen=DENSE_PLAIN_GEN, cim=True,
+                      pack=False, params=params, return_stats=True,
+                      graphs=False)
+        torch.cuda.synchronize()
+        unpacked.update(toks=t, launches=_rows_launches(),
+                        peak=torch.cuda.max_memory_allocated(),
+                        **{k: st[k] for k in ("prefill_s", "decode_s",
+                                              "decode_tok_s")})
+
+    model, paths, kernel_toks = dense_lockstep_phase(torch, dev, arch,
+                                                     raw_run)
+    cfg, packed, mem = model
+    n_fwd = 4 * cfg.n_layers
+    card = torch.cuda.get_device_properties(0).total_memory
+    peaks = {"init": mem["init_peak_bytes"], "pack": mem["pack_peak_bytes"],
+             "unpacked_serve": unpacked["peak"]}
+    # the unpacked run: 4 macro GEMMs a forward on row 6, tokens == the
+    # packed kernel run's (the eager run's first DENSE_PLAIN_GEN tokens)
+    check(unpacked["launches"] == {"unpacked": n_fwd * DENSE_PLAIN_GEN,
+                                   "general": 0, "skinny": 0},
+          f"phase {phase}: the unpacked run launched "
+          f"{unpacked['launches']}")
+    check((unpacked["toks"] == kernel_toks).all(),
+          f"phase {phase}: unpacked tokens != packed tokens")
+    paths[f"{arch}_serve_unpacked"] = unpacked["launches"]
+    # (b) the queues
+    slots, plen, stops = DENSE_SLOTS, DENSE_PLEN, DENSE_STOPS
+    layout = dense_paged_layout()
+    common = dict(smoke=False, slots=slots, prompt_len=plen,
+                  n_requests=DENSE_QUEUE, stop_lengths=stops, cim=True,
+                  params=packed, device=dev)
+    recs, toks = {}, {}
+    for label, kw in (("contiguous", dict(compare_lockstep=True)),
+                      ("paged", dict(compare_lockstep=False, paged=layout,
+                                     prefill_chunk=32))):
+        _reset_all_launches()
+        torch.cuda.reset_peak_memory_stats()
+        toks[label], st = serve_continuous(arch, **kw, **common)
+        torch.cuda.synchronize()
+        n = dict(_rows_launches(), paged_attn=_all_launches()["paged_attn"])
+        paths[f"{arch}_scheduler_{label}"] = n
+        peaks[f"queue_{label}"] = torch.cuda.max_memory_allocated()
+        recs[label] = dict(_serve_record(st), launches=n)
+        n_steps = st["continuous"]["n_steps"]
+        if label == "contiguous":
+            check(st.get("tokens_match_lockstep") is True,
+                  f"phase {phase}: contiguous pool tokens != lock-step "
+                  "tokens")
+            check(n["paged_attn"] == 0,
+                  f"phase {phase}: the contiguous pool launched row 3")
+        else:
+            check(n["paged_attn"] == cfg.n_layers * n_steps,
+                  f"phase {phase}: {n['paged_attn']} row-3 launches, "
+                  f"expected {cfg.n_layers} x {n_steps} pooled steps")
+            check(st["paged"]["refcounts_drained"],
+                  f"phase {phase}: refcounts did not drain")
+    reqs = mixed_length_requests(DENSE_QUEUE, plen, cfg.vocab_size,
+                                 stop_lengths=stops, seed=0)
+    solo = {}
+    for r in reqs[:MOE_SOLO]:
+        solo.update(ContinuousBatchingScheduler(
+            packed, cfg, slots=1, prompt_len=plen, max_new_cap=max(stops),
+            paged=layout, prefill_chunk=32).run([r]).tokens_by_rid())
+    n_solo = _same_tokens(toks["paged"], solo, list(solo))
+    check(n_solo == MOE_SOLO, f"phase {phase}: the paged pool's tokens "
+          f"equal solo runs on {n_solo} of {MOE_SOLO}")
+    # (c) speculative lock-step at verify M 18 (row 1)
+    batch, sp_plen, sp_gen, k = MOE_SPEC
+    _reset_all_launches()
+    torch.cuda.reset_peak_memory_stats()
+    spec, sst = serve_speculative(arch, smoke=False, batch=batch,
+                                  prompt_len=sp_plen, gen=sp_gen, draft_k=k,
+                                  params=packed, return_stats=True)
+    torch.cuda.synchronize()
+    peaks["speculative"] = torch.cuda.max_memory_allocated()
+    check(sst.get("tokens_match_baseline") is True,
+          f"phase {phase}: speculative tokens != lock-step tokens")
+    paths[f"{arch}_serve_speculative_m{batch * (k + 1)}"] = (
+        spec_launches := _rows_launches())
+    check(spec_launches["skinny"] > 0, f"phase {phase}: the speculative run "
+          "launched no row-1 kernel")
+    # (d) one prefill past T * K 4,096: the grouped path and its drops
+    restore, drops = _moe_drop_tap(L)
+    try:
+        _reset_all_launches()
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(47)
+        prompt = torch.randint(0, cfg.vocab_size, (1, MOE_GROUPED_S),
+                               generator=gen, device=dev)
+        with torch.inference_mode():
+            cache = lm.init_cache(cfg, 1, MOE_GROUPED_S, device=dev)
+            t0 = time.perf_counter()
+            logits, cache = lm.prefill(packed, cfg, prompt, cache)
+            torch.cuda.synchronize()
+            grouped_s = time.perf_counter() - t0
+        del cache
+    finally:
+        restore()
+    peaks["grouped_prefill"] = torch.cuda.max_memory_allocated()
+    n_grouped = _rows_launches()
+    paths[f"{arch}_prefill_grouped"] = n_grouped
+    dropped = sum(int(d) for d, _ in drops)
+    routed = sum(n for _, n in drops)
+    check(len(drops) == cfg.n_layers and bool(torch.isfinite(logits).all()),
+          f"phase {phase}: the 1 x {MOE_GROUPED_S} prefill ran the grouped "
+          f"path in {len(drops)} of {cfg.n_layers} layers, or its logits "
+          "are not finite")
+    check(n_grouped["general"] == n_fwd, f"phase {phase}: the grouped "
+          f"prefill launched {n_grouped}")
+    # (e) memory
+    check(max(peaks.values()) <= card, f"phase {phase}: a peak of "
+          f"{max(peaks.values())} bytes exceeds the card's {card}")
+    # (f) arctic-480b at smoke size on the card
+    t0 = time.perf_counter()
+    runs = {}
+    for label, kw in (("kernel", {}), ("plain", dict(use_kernel=False))):
+        _reset_all_launches()
+        t, st = serve(MOE_SMOKE_ARCH, smoke=True, cim=True, device=dev,
+                      return_stats=True, graphs=False, **kw)
+        runs[label] = (t, st["last_logits"], _rows_launches())
+    (kt, kl, kn), (pt, pl, pn) = runs["kernel"], runs["plain"]
+    check((kt == pt).all() and torch.equal(kl, pl),
+          f"phase {phase}: {MOE_SMOKE_ARCH} smoke kernel and plain tokens "
+          "or logits differ")
+    check(kn["general"] > 0 and kn["skinny"] > 0 and not any(pn.values()),
+          f"phase {phase}: {MOE_SMOKE_ARCH} smoke launches {kn} (kernel), "
+          f"{pn} (plain)")
+    paths[f"{MOE_SMOKE_ARCH}_smoke_serve"] = kn
+    emit({"phase": f"moe_{arch}_paths", "ok": True, "phase_no": phase,
+          "requests": DENSE_QUEUE, "prompt_len": plen,
+          "stop_lengths": list(stops), "slots": slots,
+          "paged_layout": [layout.block_size, layout.n_tbl,
+                           layout.n_blocks], "prefill_chunk": 32,
+          "row3_at": {"G": cfg.q_per_kv, "dh": cfg.head_dim},
+          "pool_equals_lockstep": True, "paged_equal_solo": n_solo,
+          "paged_equal_contiguous": _same_tokens(toks["paged"],
+                                                 toks["contiguous"]),
+          "not_gated_because": "the kernel's float32 P.V can move a bf16 "
+                               "activation by one ulp, and in CIM mode an "
+                               "ADC code with it",
+          "unpacked_serve": {k: v for k, v in unpacked.items()
+                             if k != "toks"},
+          "unpacked_equals_packed_tokens": DENSE_PLAIN_GEN,
+          "queues": recs,
+          "speculative": {
+              "batch": batch, "prompt_len": sp_plen, "gen": sp_gen,
+              "draft_k": k, "verify_m": batch * (k + 1),
+              "verify_row": 1 if batch * (k + 1) <= K.SKINNY_M else 2,
+              "equals_lockstep": True, "launches": spec_launches,
+              **{key: sst[key] for key in (
+                  "n_rounds", "n_drafted", "n_accepted", "acceptance_rate",
+                  "tokens_per_round", "decode_tok_s", "draft_plan")
+                 if key in sst}},
+          "grouped_prefill": {
+              "batch": 1, "tokens": MOE_GROUPED_S,
+              "routed_rows": routed, "dropped_rows": dropped,
+              "dropped_share": dropped / routed,
+              "capacity": L.moe_capacity(MOE_GROUPED_S, cfg),
+              "seconds": grouped_s, "launches": n_grouped},
+          "peaks_bytes": peaks, "card_bytes": card,
+          "arctic_smoke": {
+              "arch": MOE_SMOKE_ARCH, "tokens_equal": True,
+              "logits_equal": True, "launches": kn,
+              "seconds": time.perf_counter() - t0,
+              "tokens_row0": kt[0].tolist()}})
     return paths
 
 
@@ -4948,6 +5269,9 @@ def main() -> int:
         del model
     # -- 44.-46. the dense configs at full width ---------------------------
     rec_paths.update(dense_phases(torch, dev))
+    # -- 47. the moe family: qwen2-moe-a2.7b at full width, arctic smoke ---
+    rec_paths.update(moe_phase(torch, dev))
+    gc_collect(torch)
     for path, n in rec_paths.items():
         by_path[path] = {k_: n[k_] for k_ in ("general", "skinny")}
         raw_paths[path] = n

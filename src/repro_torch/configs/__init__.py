@@ -1,9 +1,10 @@
 """Architecture registry: --arch <id> resolution for launchers/tests.
 
 Every architecture of the reference is listed; the dense family
-(``minicpm-2b``, ``qwen3-14b``, ``starcoder2-7b``, ``gemma2-9b``),
-``mamba2-130m`` (ssm) and ``zamba2-1.2b`` (hybrid) are ported so far,
-and the others raise ``NotImplementedError``.
+(``minicpm-2b``, ``qwen3-14b``, ``starcoder2-7b``, ``gemma2-9b``), the
+moe family (``qwen2-moe-a2.7b``, ``arctic-480b``), ``mamba2-130m``
+(ssm) and ``zamba2-1.2b`` (hybrid) are ported so far, and the others
+raise ``NotImplementedError``.
 """
 from importlib import import_module
 
@@ -13,8 +14,8 @@ _MODULES = {
     "starcoder2-7b": "starcoder2_7b",
     "gemma2-9b": "gemma2_9b",
     "mamba2-130m": "mamba2_130m",
-    "qwen2-moe-a2.7b": None,
-    "arctic-480b": None,
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+    "arctic-480b": "arctic_480b",
     "paligemma-3b": None,
     "zamba2-1.2b": "zamba2_1_2b",
     "musicgen-medium": None,

@@ -5,8 +5,8 @@ returns, with every leaf already a numpy array (bfloat16 leaves converted
 to float32 by the caller: ``torch.from_numpy`` rejects ml_dtypes'
 bfloat16), and returns the port's float params, each leaf in the dtype
 the reference gives it: the config's dtype, but float32 for the Mamba2
-leaves the reference keeps in float32 (``A_log``, ``D_skip``,
-``dt_bias``).  The f32 -> bf16 round trip of a bf16 value is exact.
+and MoE leaves the reference keeps in float32 (``A_log``, ``D_skip``,
+``dt_bias``, ``router``).  The f32 -> bf16 round trip of a bf16 value is exact.
 
 ``packed_from_jax`` maps a reference ``PackedCimWeights`` or
 ``FusedPackedCimWeights`` (numpy leaves, any object with the reference
@@ -37,9 +37,9 @@ from .plan import DeploymentPlan, PlanEntry
 
 
 # leaves the reference's init makes in float32 whatever the model dtype
-# (repro/models/layers.py::mamba2_init): a bf16 A_log would move every
-# decay
-FLOAT32_LEAVES = frozenset({"A_log", "D_skip", "dt_bias"})
+# (repro/models/layers.py::mamba2_init, ::moe_init): a bf16 A_log would
+# move every decay, a bf16 router every routing logit
+FLOAT32_LEAVES = frozenset({"A_log", "D_skip", "dt_bias", "router"})
 
 
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,

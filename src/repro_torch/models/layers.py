@@ -1,6 +1,7 @@
-"""Model-zoo building blocks of the dense and ssm families: RMSNorm,
-RoPE, GQA attention (blocked flash forward and plain), SwiGLU MLP, and
-the Mamba2 (SSD) mixer.
+"""Model-zoo building blocks of the dense, moe and ssm families: RMSNorm,
+RoPE, GQA attention (blocked flash forward and plain), SwiGLU MLP, the
+MoE layer (routed top-k experts with a shared expert) and the Mamba2
+(SSD) mixer.
 
 Counterpart of ``repro/models/layers.py``.  Every projection routes
 through ``_dense`` -> ``core.engine.CimEngine``, so packed weights
@@ -14,6 +15,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import math
+import pathlib
 import zlib
 from typing import Any, Dict, Optional, Tuple
 
@@ -266,14 +268,58 @@ def _window_sum(t: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+# XLA-CPU's float32 rsqrt minus the correctly rounded one, in float32 bit
+# steps, at every (exponent parity, mantissa): ``tools/rsqrt_table.py``
+_RSQRT_TABLE = pathlib.Path(__file__).with_name("rsqrt_xla_cpu.bin")
+
+
+@functools.lru_cache(maxsize=1)
+def avx512f_host() -> bool:
+    """Whether this CPU has AVX-512 (torch's capability, which asks for
+    AVX-512F among others): the host on which XLA-CPU's rsqrt was
+    measured (``xla_rsqrt``)."""
+    probe = getattr(torch.cpu, "_is_avx512_supported", None)
+    return bool(probe is not None and probe())
+
+
+@functools.lru_cache(maxsize=1)
+def _rsqrt_fix() -> torch.Tensor:
+    """(2^24,) int8 corrections of ``_RSQRT_TABLE``: 2 bits an entry
+    (0: none, 1: +1, 2: -1), four a byte, zlib-compressed."""
+    raw = np.frombuffer(zlib.decompress(_RSQRT_TABLE.read_bytes()), np.uint8)
+    code = (raw[:, None] >> np.array([0, 2, 4, 6], np.uint8)) & 3
+    fix = (code == 1).astype(np.int8) - (code == 2).astype(np.int8)
+    return torch.from_numpy(fix.reshape(-1))
+
+
+def xla_rsqrt(v: torch.Tensor) -> torch.Tensor:
+    """rsqrt of float32 ``v`` on the CPU as the reference's compiled code
+    takes it.  XLA-CPU's rsqrt is the processor's estimate and a Newton
+    step: one float32 ulp off the correctly rounded value on 13.05 % of
+    inputs, and invariant under scaling by 4, so a table over (exponent
+    parity, 23 mantissa bits) holds it whole (``tools/rsqrt_table.py``
+    swept all 2^24 inputs of [1, 4)).  On an AVX-512 host, where it was
+    measured, the correctly rounded rsqrt is moved by the table's step at
+    every normal input; elsewhere it stays correctly rounded (no other
+    host's estimate was measured)."""
+    r = (1.0 / torch.sqrt(v.to(torch.float64))).to(torch.float32)
+    if not avx512f_host():
+        return r
+    bits = v.view(torch.int32)
+    idx = ((((bits >> 23) & 1) ^ 1) << 23) | (bits & 0x7FFFFF)
+    normal = (bits >= 0x00800000) & (bits < 0x7F800000)
+    step = torch.where(normal, _rsqrt_fix()[idx.long()], 0)
+    return (r.view(torch.int32) + step).view(torch.float32)
+
+
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     """x * rsqrt(mean(x^2) + eps) * (1 + w) in float32, rounded to x's dtype.
 
     On the CPU the mean reproduces the reference bit for bit: the sum of
     squares in its window order (``_window_sum``), times the float32
-    reciprocal of the width as XLA folds the division, and a correctly
-    rounded rsqrt (XLA's is within one ulp of it; torch's ``rsqrt``
-    differs more often).  On CUDA the sum of squares is ``_tree_sum``'s:
+    reciprocal of the width as XLA folds the division, and XLA-CPU's
+    rsqrt (``xla_rsqrt``; torch's ``rsqrt`` differs more often).  On CUDA
+    the sum of squares is ``_tree_sum``'s:
     torch's fused mean picks its reduction layout by the number of rows,
     and on float32 inputs (the unrounded residual sum) a row's mean then
     depends on how many rows came with it (``tools/row_probe.py``), where
@@ -285,7 +331,7 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     else:
         inv_d = float(np.float32(1.0) / np.float32(x.shape[-1]))
         ms = _window_sum(x * x)[..., None] * inv_d
-        r = torch.rsqrt((ms + eps).to(torch.float64)).to(torch.float32)
+        r = xla_rsqrt(ms + eps)
     x = x * r
     return (x * (1.0 + w.to(torch.float32))).to(dt)
 
@@ -794,8 +840,10 @@ def _silu(x: torch.Tensor) -> torch.Tensor:
     """x * sigmoid(x) with the reference's rounding: sigmoid expands to
     1 / (1 + exp(-x)) and every op rounds to x's dtype (bf16).
     ``F.silu`` rounds once, which flips about a third of the bf16
-    results -- and a flipped activation can flip a macro ADC code."""
-    return x * (1.0 / (1.0 + torch.exp(-x)))
+    results -- and a flipped activation can flip a macro ADC code.  A
+    float32 ``x`` on the CPU takes XLA's exp (``prng.exp``)."""
+    f32_cpu = x.dtype == torch.float32 and not x.is_cuda
+    return x * (1.0 / (1.0 + (prng.exp(-x) if f32_cpu else torch.exp(-x))))
 
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
@@ -824,6 +872,201 @@ def mlp_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
     else:
         h = _gelu(gu["w1"]) * gu["w3"]
     return _dense(h, p["w2"], cfg, f"{path}/w2")
+
+
+# ---------------------------------------------------------------------------
+# MoE: shared expert + routed top-k with capacity (scatter dispatch)
+# ---------------------------------------------------------------------------
+# The routed experts are bf16 matrix products outside the macro (the
+# reference's einsums reach no Pallas kernel); the shared expert is an
+# MLP under the plan path "moe/shared" and runs on the macro.  On the
+# card every operation a token's output passes through is row-local with
+# a result that does not depend on how many tokens come with it: the
+# router's float32 GEMM and the expert GEMMs go through in 64-row tiles
+# of one shape (``matmul``, ``_expert_matmul``), the softmax sums with
+# ``_tree_sum`` and the gate and k sums run in a fixed order.
+
+
+def moe_init(gen: torch.Generator, cfg: ModelConfig, n_layers: int,
+             dtype) -> Params:
+    """Stacked (n_layers, ...) MoE params: the float32 router (D, E), the
+    experts' w1 and w3 (E, D, F) and w2 (E, F, D) in ``dtype`` at the
+    reference's scales (1/sqrt(D), 1/sqrt(F)), and the shared expert (a
+    SwiGLU MLP of ``shared_expert_d_ff``) where the config has one.  Each
+    expert stack is allocated once and drawn a layer at a time: the
+    float32 draw of a whole stack never exists (qwen2-moe-a2.7b's w1
+    stack alone is 16.6 GB in float32)."""
+    E, D, F_ = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
+    p = {"router": _init_dense(gen, (n_layers, D, E), torch.float32)}
+    for name, shape, fan_in in (("w1", (E, D, F_), D), ("w3", (E, D, F_), D),
+                                ("w2", (E, F_, D), F_)):
+        stack = torch.empty((n_layers, *shape), dtype=dtype,
+                            device=gen.device)
+        for i in range(n_layers):
+            stack[i] = _init_dense(gen, shape, dtype, 1.0 / math.sqrt(fan_in))
+        p[name] = stack
+    if cfg.shared_expert_d_ff:
+        p["shared"] = mlp_init(gen, cfg, n_layers, dtype,
+                               cfg.shared_expert_d_ff)
+    return p
+
+
+def _expert_matmul(buf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """buf (..., E, C, K) @ w (E, K, N) -> (..., E, C, N) in buf's dtype,
+    float32 accumulation and one rounding.  On the CPU each expert's
+    product is a float32 GEMM rounded once (as ``matmul``).  On CUDA the
+    rows of every expert go through in ``_ROW_TILE``-row batched GEMMs of
+    one shape, so a token's result does not depend on the buffer's
+    capacity (the number of tokens routed with it)."""
+    lead, (E, C, K) = buf.shape[:-3], buf.shape[-3:]
+    x = buf.reshape(-1, E, C, K).transpose(0, 1).reshape(E, -1, K)
+    if not buf.is_cuda:
+        y = torch.matmul(x.to(torch.float32), w.to(torch.float32)).to(
+            buf.dtype)
+    else:
+        r = x.shape[1]
+        x = F.pad(x, (0, 0, 0, -r % _ROW_TILE))
+        y = torch.cat([torch.bmm(x[:, i:i + _ROW_TILE], w)
+                       for i in range(0, x.shape[1], _ROW_TILE)], dim=1)[:, :r]
+    N = w.shape[-1]
+    return y.reshape(E, -1, C, N).transpose(0, 1).reshape(*lead, E, C, N)
+
+
+def _moe_ffn(p: Params, buf: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Per-expert SwiGLU over a dispatched buffer (..., E, C, D)."""
+    act = _silu if cfg.act == "silu" else _gelu
+    h = act(_expert_matmul(buf, p["w1"])) * _expert_matmul(buf, p["w3"])
+    return _expert_matmul(h, p["w2"])
+
+
+def _gated_sum(yk: torch.Tensor, gates: torch.Tensor) -> torch.Tensor:
+    """(T, K, D) expert outputs, (T, K) float32 gates -> (T, D): the sum
+    over k of each output times its gate, as the reference's compiled
+    code takes it.  In bf16 each product is rounded to bf16 and the
+    products are summed in float32 in order and rounded once; in float32
+    the products and the sum contract into multiply-adds in order (on
+    the CPU rounded once each, ``prng.fma``)."""
+    g = gates.to(yk.dtype)[..., None]
+    if yk.dtype == torch.float32:
+        acc = yk[:, 0] * g[:, 0]
+        for k in range(1, yk.shape[1]):
+            acc = _fma(yk[:, k], g[:, k].expand_as(acc), acc)
+        return acc
+    prod = (yk * g).to(torch.float32)
+    acc = prod[:, 0]
+    for k in range(1, yk.shape[1]):
+        acc = acc + prod[:, k]
+    return acc.to(yk.dtype)
+
+
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """int32 one-hot of ``idx`` over n classes (a comparison: no range
+    check, which on CUDA would read the indices back to the host)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(
+        torch.int32)
+
+
+def _moe_small(p, xf, eidx, gates, cfg):
+    """Exact (no-drop) path for small token counts: capacity T * K."""
+    T, D = xf.shape
+    E, K = cfg.n_experts, cfg.top_k
+    ef = eidx.reshape(T * K)
+    oh = _one_hot(ef, E)
+    myp = (torch.cumsum(oh, dim=0) - oh).gather(1, ef[:, None])[:, 0]
+    buf = xf.new_zeros((E, T * K, D))
+    buf[ef, myp] = xf.repeat_interleave(K, dim=0)
+    out = _moe_ffn(p, buf, cfg)
+    return _gated_sum(out[ef, myp].reshape(T, K, D), gates)
+
+
+def moe_capacity(S: int, cfg: ModelConfig) -> int:
+    """The grouped path's per-group capacity, ceil(S K / E x factor), in
+    Python floats as the reference computes it."""
+    return int(math.ceil(S * cfg.top_k / cfg.n_experts
+                         * cfg.capacity_factor))
+
+
+def _moe_grouped(p, x, eidx, gates, cfg):
+    """Group-local dispatch (prefill scale): each batch row is a group;
+    expert positions come from a stable sort within the group, capacity
+    ``moe_capacity(S)`` per expert, overflow tokens dropped."""
+    B, S, D = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    SK, C = S * K, moe_capacity(S, cfg)
+    dev = x.device
+    ef = eidx.reshape(B, SK)
+    order = torch.argsort(ef, dim=1, stable=True)
+    e_sorted = ef.gather(1, order)
+    counts = _one_hot(ef, E).sum(dim=1)                        # (B, E)
+    starts = torch.cumsum(counts, dim=1) - counts
+    pos_sorted = (torch.arange(SK, device=dev)[None, :]
+                  - starts.gather(1, e_sorted))
+    keep = pos_sorted < C
+    pos_c = torch.clamp_max(pos_sorted, C - 1)
+    x_sorted = x.gather(1, (order // K)[..., None].expand(B, SK, D))
+    bidx = torch.arange(B, device=dev)[:, None].expand(B, SK)
+    # a dropped token's row goes to a spare slot C, which no expert reads
+    buf = x.new_zeros((B, E, C + 1, D))
+    buf[bidx, e_sorted, torch.where(keep, pos_c, C)] = x_sorted
+    out = _moe_ffn(p, buf[:, :, :C], cfg)                      # (B, E, C, D)
+    y_sorted = out[bidx, e_sorted, pos_c] * keep[..., None].to(x.dtype)
+    inv = torch.argsort(order, dim=1)
+    yk = y_sorted.gather(1, inv[..., None].expand(B, SK, D))
+    return _gated_sum(yk.reshape(B * S, K, D), gates.reshape(B * S, K))
+
+
+def _route(router: torch.Tensor, xf: torch.Tensor, K: int):
+    """(probs (T, E), gates (T, K), expert indices (T, K)): float32 router
+    logits, their softmax, the top k by a stable descending sort (the
+    lower index first on ties, as ``jax.lax.top_k``), and the gates
+    normalized by a true float32 division by max(sum, 1e-9)."""
+    x32 = xf.to(torch.float32)
+    if xf.is_cuda:
+        logits = matmul(x32, router)
+        e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+        probs = e / _tree_sum(e)[..., None]
+    else:
+        # the reference's compiled CPU code: its dot's K order, XLA's exp
+        # and its windowed sum
+        logits = _dot(x32, router)
+        e = prng.exp(logits - logits.amax(dim=-1, keepdim=True))
+        probs = e / _window_sum(e)[..., None]
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, eidx = vals[:, :K], idx[:, :K]
+    total = gates[:, 0]
+    for k in range(1, K):
+        total = total + gates[:, k]
+    gates = gates / torch.clamp_min(total, 1e-9)[:, None]
+    return probs, gates, eidx
+
+
+def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
+              path: str = "moe", want_aux: bool = False
+              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """x (B, S, D) -> (y (B, S, D), the Switch-style load-balance aux loss
+    or None).  T * K <= 4096 routed rows take the exact path
+    (``_moe_small``), more the group-local one (``_moe_grouped``), as the
+    reference chooses.  The aux loss is computed only when ``want_aux``
+    (serving does not read it).  ``path`` prefixes the shared expert's
+    plan paths ("moe/shared/w1", ...) and so its noise keys."""
+    B, S, D = x.shape
+    T, E, K = B * S, cfg.n_experts, cfg.top_k
+    xf = x.reshape(T, D)
+    probs, gates, eidx = _route(p["router"], xf, K)
+    if T * K <= 4096:
+        y = _moe_small(p, xf, eidx, gates, cfg)
+    else:
+        y = _moe_grouped(p, x, eidx.reshape(B, S, K), gates.reshape(B, S, K),
+                         cfg)
+    aux = None
+    if want_aux:
+        frac_tokens = _one_hot(eidx[:, 0], E).to(torch.float32).mean(dim=0)
+        aux = (E * torch.sum(frac_tokens * probs.mean(dim=0))
+               * cfg.router_aux_loss)
+    if cfg.shared_expert_d_ff:
+        y = y + mlp_apply(p["shared"], x, cfg,
+                          path=f"{path}/shared").reshape(T, D)
+    return y.reshape(B, S, D), aux
 
 
 # ---------------------------------------------------------------------------

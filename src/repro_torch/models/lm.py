@@ -1,11 +1,13 @@
-"""Decoder LM assembly, dense, SSM and hybrid families: init, packing,
-prefill, decode, and the slot-level cache ops of continuous batching.
+"""Decoder LM assembly, dense, moe, SSM and hybrid families: init,
+packing, prefill, decode, and the slot-level cache ops of continuous
+batching.
 
 Counterpart of ``repro/models/lm.py`` (the dense family, [attn, mlp] x L;
-the ssm family, [mamba2] x L; the hybrid family, groups of
-``shared_attn_period`` mamba2 layers each followed by ONE shared attn +
-mlp block, zamba2; moe, vlm and audio are not ported and raise
-``NotImplementedError``):
+the moe family, [attn, moe] x L, with arctic's dense residual mlp beside
+the moe where ``d_ff`` is set; the ssm family, [mamba2] x L; the hybrid
+family, groups of ``shared_attn_period`` mamba2 layers each followed by
+ONE shared attn + mlp block, zamba2; vlm and audio are not ported and
+raise ``NotImplementedError``):
 
   init(key, cfg, device=None)             -> params
   pack_cim_params(params, cfg, device=None) -> packed params
@@ -49,7 +51,7 @@ def torch_dtype(name: str) -> torch.dtype:
             "float16": torch.float16}[name]
 
 
-PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 RECURRENT_FAMILIES = ("ssm", "hybrid")     # carry SSM and conv state
 
 
@@ -106,8 +108,11 @@ def init(key: Union[int, torch.Generator], cfg: ModelConfig,
             "attn": L.attention_init(gen, cfg, n, dtype),
             "ln1": torch.zeros((n, d), dtype=dtype, device=dev),
             "ln2": torch.zeros((n, d), dtype=dtype, device=dev),
-            "mlp": L.mlp_init(gen, cfg, n, dtype),
         }
+        if cfg.family == "moe":
+            p["layers"]["moe"] = L.moe_init(gen, cfg, n, dtype)
+        if cfg.family != "moe" or cfg.d_ff:   # arctic's dense residual
+            p["layers"]["mlp"] = L.mlp_init(gen, cfg, n, dtype)
     p["ln_f"] = torch.zeros((d,), dtype=dtype, device=dev)
     if not cfg.tie_embeddings:
         p["lm_head"] = L._init_dense(gen, (d, cfg.vocab_size), dtype)
@@ -129,8 +134,8 @@ def _shared_block_init(gen: torch.Generator, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 
-# Projection leaves consumed by layers._dense; embeddings, lm_head,
-# convs and norms stay float.
+# Projection leaves consumed by layers._dense; embeddings, lm_head, the
+# MoE router and expert tensors, convs and norms stay float.
 _CIM_PACKABLE = frozenset({
     "wq", "wk", "wv", "wo",                      # attention
     "w1", "w2", "w3",                            # MLP
@@ -141,6 +146,13 @@ _CIM_PACKABLE = frozenset({
 _FUSE_GROUPS = (("wq", "wk", "wv"),              # attention QKV
                 ("w1", "w3"),                    # SwiGLU gate/up
                 ("w_z", "w_x", "w_bc", "w_dt"))  # mamba2 input projections
+
+
+def _packable(key: str, path: Tuple[str, ...]) -> bool:
+    """Whether leaf ``key`` at tree ``path`` is a ``_dense`` projection:
+    the MoE experts reuse the names w1/w2/w3 directly under "moe" but feed
+    the expert GEMMs (the shared expert under "moe/shared" is packable)."""
+    return key in _CIM_PACKABLE and not (path and path[-1] == "moe")
 
 
 def _walk_packable(tree, visit, path=()):
@@ -155,7 +167,7 @@ def _walk_packable(tree, visit, path=()):
         sub = path if k == "layers" else path + (k,)
         if isinstance(v, dict):
             out[k] = _walk_packable(v, visit, sub)
-        elif k in _CIM_PACKABLE and not (path and path[-1] == "moe"):
+        elif _packable(k, path):
             out[k] = visit("/".join(sub), v)
         else:
             out[k] = v
@@ -213,7 +225,7 @@ def _pack_tree(tree: Params, cfg: ModelConfig, path=(),
         for members in _FUSE_GROUPS:
             present = [m for m in members
                        if isinstance(tree.get(m), torch.Tensor)
-                       and tree[m].dim() in (2, 3) and m in _CIM_PACKABLE]
+                       and tree[m].dim() in (2, 3) and _packable(m, path)]
             if len(present) < 2:
                 continue
             prefix = "/".join(path) + "/" if path else ""
@@ -230,7 +242,7 @@ def _pack_tree(tree: Params, cfg: ModelConfig, path=(),
         sub = path if k == "layers" else path + (k,)
         if isinstance(out[k], dict):
             out[k] = _pack_tree(out[k], cfg, sub, consume)
-        elif k in _CIM_PACKABLE:
+        elif _packable(k, path):
             out[k] = _pack_single("/".join(sub), out[k], cfg)
             if consume:
                 del tree[k]
@@ -306,14 +318,16 @@ def _logits(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 def _attn_block(blk, x, cfg, positions, is_local, kv=None, cache_pos=None,
                 block_table=None, write_mask=None, prefix="",
-                unrounded=False):
+                unrounded=False, aux=None):
     """``prefix`` qualifies the plan paths (and so the plan entries and
     the noise keys) of the block's projections: "" for the stacked
     layers ("attn/wq", ...), "shared/" for the hybrid's shared block.
     ``unrounded`` returns the block's output as the float32 sum x + h:
     where the block is the hybrid's last op, the reference's compiled
     step feeds that sum to the final norm unrounded, as it does inside
-    the block (below)."""
+    the block (below).  A moe block runs the moe on the normed sum, plus
+    arctic's dense mlp on the same input where the block has one; a list
+    ``aux`` receives the moe's aux loss."""
     h, new_kv = L.attention_apply(
         blk["attn"], L.rms_norm(x, blk["ln1"], cfg.norm_eps), cfg, positions,
         is_local, kv_cache=kv, cache_pos=cache_pos, path=prefix + "attn",
@@ -323,9 +337,16 @@ def _attn_block(blk, x, cfg, positions, is_local, kv=None, cache_pos=None,
     # residual stream itself carries the rounded sum; the port does both
     xf = x.to(torch.float32) + h.to(torch.float32)
     x = xf.to(x.dtype)
-    h = L.mlp_apply(blk["mlp"],
-                    L.rms_norm(xf, blk["ln2"], cfg.norm_eps).to(x.dtype),
-                    cfg, path=prefix + "mlp")
+    hn = L.rms_norm(xf, blk["ln2"], cfg.norm_eps).to(x.dtype)
+    if "moe" in blk:
+        h, a = L.moe_apply(blk["moe"], hn, cfg, path=prefix + "moe",
+                           want_aux=aux is not None)
+        if aux is not None:
+            aux.append(a)
+        if "mlp" in blk:   # arctic: the dense residual beside the moe
+            h = h + L.mlp_apply(blk["mlp"], hn, cfg, path=prefix + "mlp")
+    else:
+        h = L.mlp_apply(blk["mlp"], hn, cfg, path=prefix + "mlp")
     if unrounded:
         return x.to(torch.float32) + h.to(torch.float32), new_kv
     return x + h, new_kv
@@ -366,10 +387,13 @@ def n_shared_invocations(cfg: ModelConfig) -> int:
 # ---------------------------------------------------------------------------
 
 
-def _hidden(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+def _hidden(params, cfg: ModelConfig, tokens: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The final hidden states, as ``_logits`` takes them (a hybrid ending
-    in its shared block leaves them float32, unrounded)."""
+    in its shared block leaves them float32, unrounded), and the aux loss:
+    the moe layers' summed in layer order, 0 for the other families."""
     check_family(cfg)
+    auxs: list = []
     x = _embed(params, cfg, tokens)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
@@ -385,21 +409,24 @@ def _hidden(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     else:
         for i in range(cfg.n_layers):
             x, _ = _attn_block(_layer(params["layers"], i), x, cfg,
-                               positions, cfg.layer_is_local(i))
-    return x
+                               positions, cfg.layer_is_local(i), aux=auxs)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for a in auxs:
+        aux = aux + a
+    return x, aux
 
 
 def hidden_states(params, cfg: ModelConfig, tokens: torch.Tensor,
                   frontend_embs: Optional[torch.Tensor] = None,
                   remat: bool = True
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens (B, S) -> final hidden (B, S, D), aux loss (0 for the
-    ported families).  ``frontend_embs`` feeds only the vision and audio
-    families (none is ported), and ``remat`` is a training option that
-    changes nothing in a forward pass; both are kept for the reference's
-    signature."""
-    x = _hidden(params, cfg, tokens).to(torch_dtype(cfg.dtype))
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    """tokens (B, S) -> final hidden (B, S, D), aux loss (the moe layers'
+    load-balance loss, 0 for the other families).  ``frontend_embs``
+    feeds only the vision and audio families (none is ported), and
+    ``remat`` is a training option that changes nothing in a forward
+    pass; both are kept for the reference's signature."""
+    x, aux = _hidden(params, cfg, tokens)
+    return x.to(torch_dtype(cfg.dtype)), aux
 
 
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -408,9 +435,8 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
     """tokens (B, S) -> logits (B, S, V) float32, aux loss: every position
     through the model with no cache (causal attention over the tokens
     themselves), packed or raw weights, under ``cfg``'s plan and noise."""
-    x = _hidden(params, cfg, tokens)
-    return _logits(params, cfg, x), torch.zeros(
-        (), dtype=torch.float32, device=x.device)
+    x, aux = _hidden(params, cfg, tokens)
+    return _logits(params, cfg, x), aux
 
 
 # ---------------------------------------------------------------------------

@@ -861,6 +861,77 @@ def test_verify_step_equals_decode_chain_on_card(dev, width, plan, batch):
         assert torch.equal(vc[key], c[key])
 
 
+def test_moe_expert_path_is_row_invariant(dev):
+    """The moe layer's exact path (T * K <= 4096) gives each token the
+    same bits whatever the number of tokens beside it and however they
+    are batched: the float32 router GEMM in 64-row tiles, the softmax
+    over ``_tree_sum``, the stable top-k, the dispatch at capacity T * K
+    and the expert GEMMs in 64-row tiles of one shape.  At qwen2-moe's
+    full width (60 experts, top 4, D 2048, F 1408; the shared expert's
+    bf16 GEMMs in float mode), one layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    cfg = get_config("qwen2-moe-a2.7b")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(47)
+    p = {k: (v[0] if isinstance(v, torch.Tensor) else
+             {kk: vv[0] for kk, vv in v.items()})
+         for k, v in L.moe_init(gen, cfg, 1, torch.bfloat16).items()}
+    n = max(_ROW_COUNTS)
+    x = torch.randn((1, n, cfg.d_model), generator=gen, device=dev).to(
+        torch.bfloat16)
+    with torch.inference_mode():
+        y, _ = L.moe_apply(p, x, cfg)
+        for m in _ROW_COUNTS:
+            assert torch.equal(L.moe_apply(p, x[:, :m], cfg)[0], y[:, :m]), m
+        # the same tokens as a batch of n one-token rows (a decode step)
+        yb, _ = L.moe_apply(p, x.reshape(n, 1, -1), cfg)
+        assert torch.equal(yb.reshape(1, n, -1), y)
+        # a token routed with 3 others or alone: the decode shapes
+        for i in (0, 17, n - 1):
+            one, _ = L.moe_apply(p, x[:, i:i + 1], cfg)
+            assert torch.equal(one, y[:, i:i + 1]), i
+
+
+@pytest.mark.parametrize("batch", [2, 4])
+def test_moe_verify_step_equals_decode_chain_on_card(dev, batch):
+    """qwen2-moe-a2.7b at smoke size, packed: the verify forward over k+1
+    = 9 positions (M 18 on row 1, M 36 on row 2) gives each position the
+    decode step's logits and KV rows bit for bit; the routed experts'
+    dispatch of 18 or 36 tokens equals that of 2 or 4."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b", smoke=True),
+                              cim_mode=True)
+    S, P = 9, 16
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(batch)
+    with torch.inference_mode():
+        params = lm.pack_cim_params(lm.init(gen, cfg), cfg)
+        prompt = torch.randint(0, cfg.vocab_size, (batch, P), generator=gen,
+                               device=dev)
+        toks = torch.randint(0, cfg.vocab_size, (batch, S), generator=gen,
+                             device=dev)
+        cache = lm.init_cache(cfg, batch, P + 2 * S + 1)
+        _, cache = lm.prefill(params, cfg, prompt, cache)
+        clone = lambda c: {k: v.clone() for k, v in c.items()}
+        c, chain = clone(cache), []
+        for i in range(S):
+            lg, c = lm.decode_step(params, cfg, toks[:, i:i + 1], c)
+            chain.append(lg[:, -1])
+        K.reset_launch_counts()
+        vlg, vc = lm.verify_step(params, cfg, toks, clone(cache))
+        torch.cuda.synchronize()
+    launched = (K.ccim_matmul_prepacked_skinny_cuda.launches
+                if batch * S <= K.SKINNY_M
+                else K.ccim_matmul_prepacked_general_cuda.launches)
+    # fused QKV, wo, the shared expert's gate-up and w2 a layer
+    assert launched == 4 * cfg.n_layers
+    assert torch.equal(vlg, torch.stack(chain, dim=1))
+    for key in ("k", "v"):
+        assert torch.equal(vc[key], c[key])
+
+
 def test_mixed_plan_serve_kernel_equals_plain(dev):
     """Serving under a mixed plan through the kernels and through their
     plain versions: equal tokens and logits, and the kernels carry every

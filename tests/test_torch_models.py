@@ -135,7 +135,7 @@ def test_data_pipeline_matches():
 
 
 PORTED = ("minicpm-2b", "qwen3-14b", "starcoder2-7b", "gemma2-9b",
-          "mamba2-130m", "zamba2-1.2b")
+          "qwen2-moe-a2.7b", "arctic-480b", "mamba2-130m", "zamba2-1.2b")
 
 
 @pytest.mark.parametrize("arch", ARCHS)

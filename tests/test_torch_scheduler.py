@@ -174,15 +174,16 @@ def test_serve_continuous_drivers():
 
 
 @pytest.mark.parametrize("kw", [dict(family="ssm", draft_k=4),
-                                dict(family="moe"),
+                                dict(family="vlm"),
                                 dict(family="hybrid", draft_k=4)])
 def test_unported_options_raise(kw):
     """Options the port does not serve raise: the families not ported
     yet, and speculative rounds over the ssm and hybrid families, which
     the reference refuses too (their recurrent state cannot roll back a
     draft block).  Speculative rounds on the dense family are served
-    (tests/test_torch_spec_scheduler.py), and so are the ssm and hybrid
-    families (tests/test_torch_ssm.py, tests/test_torch_hybrid_scheduler.py),
+    (tests/test_torch_spec_scheduler.py), and so are the moe, ssm and
+    hybrid families (tests/test_torch_moe_serve.py, tests/test_torch_ssm.py,
+    tests/test_torch_hybrid_scheduler.py),
     sampling (tests/test_torch_sampling.py) and telemetry, ``obs``
     (tests/test_torch_obs.py)."""
     kw = dict(kw)

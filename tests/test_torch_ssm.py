@@ -10,12 +10,13 @@ CPU path reproduces that code's float32 arithmetic: XLA's exp and log1p,
 its blocked cumulative sum, its fused multiply-adds, its dots' lane
 order, the bf16 rounding of every conv product and sum, and the
 unrounded y * silu(z) that the gated norm reads (``models/layers.py``).
-One residue is counted (``NORM_RESIDUE``, ROADMAP Queue 3 item 1): the
-gated norm's rsqrt, which XLA's CPU code takes from the processor's
-estimate refined by two Newton steps (within one float32 ulp of the
-correctly rounded value the port takes, equal on ~86 % of inputs), can
-move one norm output by one bf16 step, and out_proj's row with it: one
-of 24,576 outputs at three chunks, none in the other cases.  Those are
+The gated norm takes XLA-CPU's rsqrt (the processor's estimate and a
+Newton step, one float32 ulp off the correctly rounded value on 13 % of
+inputs) from a measured table on an AVX-512 host (``layers.xla_rsqrt``,
+ROADMAP Queue 3 item 1).  On another host it takes the correctly
+rounded rsqrt, and a residue is counted (``NORM_RESIDUE``): one norm
+output moved by one bf16 step, and out_proj's row with it, one of
+24,576 outputs at three chunks, none in the other cases.  Those are
 held to one bf16 step of the call's largest output.
 The reference's own check that the chunked scan equals the step-by-step
 recurrence runs on the port with its tolerance (rtol 2e-3, atol 2e-4:
@@ -118,7 +119,7 @@ def _assert_layer_equal(jout, tout, residue=0):
 
 
 # outputs apart by the gated norm's rsqrt, by prefill case (docstring)
-NORM_RESIDUE = {32: 0, 96: 1, 40: 0, 20: 0}
+NORM_RESIDUE = {32: 0, 96: 0 if tL.avx512f_host() else 1, 40: 0, 20: 0}
 
 
 @pytest.mark.parametrize("S,from_state", [(32, False), (96, False),
@@ -199,7 +200,8 @@ def test_params_from_jax_keeps_float32_leaves(model):
         assert v.dtype == want, name
         assert jp["layers"]["mamba"][name].dtype == (
             jnp.float32 if name in FLOAT32_LEAVES else jnp.bfloat16), name
-    assert FLOAT32_LEAVES == {"A_log", "D_skip", "dt_bias"}
+    # the Mamba2 leaves and the moe's router (tests/test_torch_moe.py)
+    assert FLOAT32_LEAVES == {"A_log", "D_skip", "dt_bias", "router"}
     np.testing.assert_array_equal(m["A_log"].numpy(),
                                   np.asarray(jp["layers"]["mamba"]["A_log"]))
 
@@ -505,11 +507,10 @@ def test_speculative_paths_refuse_ssm(model):
                         cache)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "paligemma-3b",
-                                  "musicgen-medium"])
+@pytest.mark.parametrize("arch", ["paligemma-3b", "musicgen-medium"])
 def test_unported_families_raise(arch):
-    """moe, vlm and audio stay refused: the registry and every entry point
-    of ``lm``."""
+    """vlm and audio stay refused: the registry and every entry point of
+    ``lm`` (moe is served, tests/test_torch_moe.py)."""
     with pytest.raises(NotImplementedError):
         tget(arch)
     cfg = dataclasses.replace(tget(ARCH, smoke=True),
