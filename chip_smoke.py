@@ -6,8 +6,9 @@
 Builds the port's CUDA kernels from ``src/repro_torch`` (all nine
 sources compiled together) and drives its main paths: minicpm-2b at its
 full width and depth (40 layers, packed and fused, prototype macro),
-and the dense family's qwen3-14b, starcoder2-7b and gemma2-9b and the
-moe family's qwen2-moe-a2.7b at theirs (arctic-480b at smoke size),
+and the dense family's qwen3-14b, starcoder2-7b and gemma2-9b, the moe
+family's qwen2-moe-a2.7b (arctic-480b at smoke size), the vlm family's
+paligemma-3b and the audio family's musicgen-medium at theirs,
 served lock-step and with continuous batching over a contiguous and a
 paged KV cache, and on its raw weights through the unpacked macro
 GEMM; the SSM family's mamba2-130m at its full width and depth, served
@@ -53,15 +54,15 @@ failure.  Phases:
      softcap and sliding window, and on long walks that the kernel
      splits (minicpm-2b's shape at 256 table entries, GQA at Dh 128,
      lengths on split boundaries, window 7 leaving later splits idle);
-  9. continuous batching, contiguous KV: 12 mixed-length requests over 8
+  9. continuous batching, contiguous KV: 10 mixed-length requests over 8
      slots; pool tokens must equal the lock-step wave baseline's, and no
      paged-attention kernel may launch;
- 10. the first 8 of those requests with a paged KV cache (block 16,
+ 10. the first 4 of those requests with a paged KV cache (block 16,
      prefill chunks of 32): 40 paged-attention launches per decode step;
      how many requests' tokens equal phase 9's is reported, not gated
      (the kernel's float32 P.V can move a bf16 activation by one ulp,
      and in CIM mode an ADC code with it);
- 11. paged serving of 12 requests, half behind one shared 32-token
+ 11. paged serving of 10 requests, half behind one shared 32-token
      prefix: refcounts must drain, the prefix plan must share blocks, and
      pool tokens must equal solo runs of 2 of the requests;
  12. phase 11 with the plain version of the paged read on the card: token
@@ -149,7 +150,7 @@ failure.  Phases:
      each (the second turn and the profile of one round were cut to make
      room for phases 36-37);
  24. continuous batching with speculative rounds (k 4, adaptive depth):
-     phase 9's first 12 requests over 8 slots, contiguous, pool tokens equal
+     phase 9's first 10 requests over 8 slots, contiguous, pool tokens equal
      phase 9's and the lock-step waves'; then 4 of them paged as in phase
      10, with the paged read launched 40 times a draft step and the token
      agreement with phase 10 reported;
@@ -167,7 +168,7 @@ failure.  Phases:
      kernels equal to the credit;
  27. the scheduler with its step branch captured (one graph for the
      pooled step, one per rung of the speculative ladder) on phase 9's
-     first 4 prompts at half their stop lengths: contiguous, phase 24's
+     first 4 prompts at a quarter of their stop lengths: contiguous, phase 24's
      speculative queue and phase 10's paged queue, against the eager
      scheduler, one turn each: pool tokens, iterations by branch and
      launches equal the eager run's; tok/s, ms per branch and each
@@ -269,7 +270,7 @@ failure.  Phases:
  40. the SSM family: mamba2-130m at full width and depth (24 layers,
      d_model 768, d_inner 1,536, state 128, 24 heads of 64, chunk 128,
      vocab 50,280; random weights from seed 0, packed and fused,
-     prototype macro), lock-step batch 4, prompt 128 (one SSD chunk), 32
+     prototype macro), lock-step batch 4, prompt 128 (one SSD chunk), 16
      generated: through the kernels and their plain versions, captured,
      and on the raw weights through row 6, tokens and last logits equal
      in all four; rows 1 / 2 / 6 launches equal the packed tree's GEMMs
@@ -278,8 +279,8 @@ failure.  Phases:
      step's kernel nodes held to its credit and traced; decode tok/s,
      prefill s, the replayed step's ms beside the bound of one read of
      the macro layers and the lm_head, pack and peak bytes;
- 41. mamba2-130m continuous batching, 12 requests of 128 tokens (stops
-     8-32) over 8 slots (4 refilled: a reused slot's state reset inside
+ 41. mamba2-130m continuous batching, 10 requests of 128 tokens (stops
+     8-32) over 8 slots (2 refilled: a reused slot's state reset inside
      the captured step), captured: contiguous, and paged with prefill
      chunks of 128 (aligned with the SSD chunk; tokens equal the
      contiguous pool's, gated) and of 32 (row 1 at M 32; agreement
@@ -295,12 +296,12 @@ failure.  Phases:
      shared block's QKV, wo, w1+w3 and w2 at each of its 6 invocations);
      the replayed step against the bound of the macro layers, the shared
      block 6 times and the lm_head read once;
- 43. zamba2-1.2b continuous batching, phase 41's 12 requests over 8
+ 43. zamba2-1.2b continuous batching, phase 41's 10 requests over 8
      slots, captured: contiguous and paged with prefill chunks of 128
      (rows 1-2 launches equal 100 GEMMs times each pool's forwards, row 3
      6 launches a paged pooled step, refcounts drained, each pooled
      step's replay held to its nodes), the paged pool equal to solo runs
-     of requests 0-2; reported, not gated: paged tokens equal to the
+     of requests 0-1; reported, not gated: paged tokens equal to the
      contiguous pool's (as phase 10), and agreement with a paged run on
      the plain read over the first 2 requests (as phase 12);
  44. the dense configs at full width and depth: qwen3-14b (40 layers,
@@ -329,8 +330,8 @@ failure.  Phases:
      then phase 9's first 8 requests over 8 slots, captured: contiguous,
      pool tokens equal the lock-step waves' (gated); paged as phase 10
      (blocks of 16, chunks of 32), 42 row-3 launches a pooled step at G
-     2, Dh 256, softcap 50, refcounts drained, the pool equal to solo
-     runs of requests 0-1 (gated), paged == contiguous reported; the
+     2, Dh 256, softcap 50, refcounts drained, the pool equal to a solo
+     run of request 0 (gated), paged == contiguous reported; the
      paged queue served again (the same tokens, gated) with its 10th
      pooled step traced: row 3's device time in a replayed step;
  47. the moe family: qwen2-moe-a2.7b at full width and depth (24 layers,
@@ -341,12 +342,31 @@ failure.  Phases:
      == the packed tokens) and then phase 44's workload and gates (96
      and 1,440 launches; the step's bounds read every expert, and only
      the ~14.2 that 16 draws occupy; one layer's expert GEMMs timed);
-     phase 46's queues (row 3 at G 1, Dh 128; solo runs of requests
-     0-1); a speculative lock-step run at verify M 18 (row 1) == the
+     phase 46's queues (row 3 at G 1, Dh 128; a solo run of request
+     0); a speculative lock-step run at verify M 18 (row 1) == the
      lock-step tokens; one 1 x 1,088 prefill through the grouped
      dispatch (T * K 4,352 > 4,096) and its dropped share; every peak
      within the card; and arctic-480b at smoke size (the dense residual
-     beside the moe), kernel == plain tokens and logits.
+     beside the moe), kernel == plain tokens and logits;
+ 48. the vlm family: paligemma-3b at full width and depth (18 layers,
+     d_model 2,048, 8 query heads padded to 16 over one kv head of 256,
+     GELU, d_ff 16,384, tied embeddings over 257,216 words; random
+     weights from seed 0, packed and fused), first served unpacked on
+     its raw weights (row 6, 4 tokens, == the packed tokens), then phase
+     44's workload and gates with the data pipeline's 256 frontend
+     embeddings ahead of each prompt under the prefix-LM mask: the
+     prefill on row 2 at M 1,152 (72 launches), 72 row-1 launches a
+     step (1,080); the mask live (a prefill without it gives other last
+     logits); a speculative lock-step run at verify M 18 (row 1) == the
+     text-only greedy chain (the speculative driver takes no frontend
+     and the scheduler refuses the vlm, as the reference's);
+ 49. the audio family: musicgen-medium at full width and depth (48
+     layers, d_model 1,536, 24 MHA heads padded to 32 of 64, GELU, d_ff
+     6,144, vocab 2,048), unpacked == packed on row 6, phase 44's
+     workload and gates (192 and 2,880 launches), phase 46's queues
+     without the trace (row 3 at G 1, Dh 64, 48 reads a pooled step;
+     pool == lock-step, paged pool == a solo run of request 0), a
+     speculative lock-step run at verify M 18 == lock-step.
 
 Phase 34 also runs the plan_pareto twin's second arch, mamba2-130m, at
 the reference bench's smoke size and noise seed.
@@ -373,7 +393,14 @@ generates 4 tokens (from 8), phase 43's plain read serves 2 requests
 and 4 paged (from 8), and phases 41 and 43 serve 12 requests (from 16;
 each pool still refills 4 of its 8 slots); to make room for phase 47,
 phases 9 and 11 serve 12 requests (from 16), and phases 11 and 46 hold
-their paged pools to solo runs of 2 requests (from 3).
+their paged pools to solo runs of 2 requests (from 3); to make room for
+phases 48-49, phases 9 and 11 serve 10 requests (from 12), phase 10 the
+first 4 of phase 9's (from 8), phase 24 10 contiguous (from 12; 2 slots
+refilled), phases 41 and 43 10 requests (from 12; 2 slots refilled),
+phases 40 and 42 generate 16 tokens (from 32), phase 27 stops its
+requests at a quarter of phase 9's stop lengths (from half), and phases
+43, 46 and 47 hold their paged pools to solo runs of 2, 1 and 1
+requests (from 3, 2 and 2).
 
 The serving drivers replay captured graphs by default on the card
 (``launch/graphs.py``), so phases 9, 11, 22 and 24 serve captured.  A
@@ -644,11 +671,13 @@ def _serve_record(stats) -> dict:
 # needed the time)
 PLAIN_PAGED_REQUESTS = 1
 # phase 10's queue: the first requests of phase 9's (16 until phases 42-43
-# needed the time; a request's tokens do not depend on its neighbours)
-PAGED_REQUESTS = 8
-# phases 9 and 11's queues (16 until phase 47 needed the time; phase 24
-# compares its 12 with phase 9's first 12) and phase 11's solo runs (3)
-PHASE9_REQUESTS, SHARED_SOLO = 12, 2
+# and 8 until phases 48-49 needed the time; a request's tokens do not
+# depend on its neighbours)
+PAGED_REQUESTS = 4
+# phases 9 and 11's queues (16 until phase 47 and 12 until phases 48-49
+# needed the time; phase 24 compares its requests with phase 9's first
+# ones) and phase 11's solo runs (3)
+PHASE9_REQUESTS, SHARED_SOLO = 10, 2
 
 
 def continuous_phases(torch, dev, params, cfg_full) -> dict:
@@ -2250,9 +2279,9 @@ def continuous_speculative_phase(torch, dev, params, cfg_full,
             "paged_attn": n_p["paged_attn"]}
 
 # phase 24's queues: the first requests of phase 9's, contiguous over 8
-# slots (4 slots refilled; 16 and paged 8 until phases 44-46 needed the
-# time)
-SPEC_REQUESTS, SPEC_PAGED_REQUESTS = 12, 4
+# slots (2 slots refilled; 16 and paged 8 until phases 44-46 and 12 until
+# phases 48-49 needed the time)
+SPEC_REQUESTS, SPEC_PAGED_REQUESTS = 10, 4
 
 # -- phases 25-27: the serving bodies as CUDA graphs -----------------------
 
@@ -2544,8 +2573,9 @@ def captured_scheduler_phase(torch, dev, params, cfg_full,
     from repro_torch.plan import draft_plan_for_model
 
     # phase 9's first 4 prompts (8 until phases 40-41 needed the time),
-    # each request stopping at half its length
-    slots, plen, stops, n_req = 8, 64, (4, 12, 8, 16), 4
+    # each request stopping at a quarter of its length (half until phases
+    # 48-49 needed the time)
+    slots, plen, stops, n_req = 8, 64, (2, 6, 4, 8), 4
     cfg = dataclasses.replace(cfg_full, cim_mode=True)
     reqs = mixed_length_requests(n_req, plen, cfg.vocab_size,
                                  stop_lengths=stops, seed=0)
@@ -3934,14 +3964,16 @@ def resilience_twin_phase() -> dict:
 # (zamba2-1.2b) at full width and depth, on the same serving workloads
 SSM_ARCH = "mamba2-130m"
 HYBRID_ARCH = "zamba2-1.2b"
-SSM_BATCH, SSM_PROMPT, SSM_GEN = 4, 128, 32
-# phases 41 and 43: requests over 8 slots, 4 of them refilled (16
-# requests until phases 44-46 needed the time)
-SSM_SLOTS, SSM_REQUESTS, SSM_STOPS = 8, 12, (8, 16, 24, 32)
-# phase 43: the requests served solo (held to the pool) and through the
-# plain paged read (agreement reported; 4 until phases 44-46 needed the
-# time)
-HYBRID_SOLO, HYBRID_PLAIN_READ = 3, 2
+# phases 40 and 42's lock-step runs generate SSM_GEN tokens (32 until
+# phases 48-49 needed the time)
+SSM_BATCH, SSM_PROMPT, SSM_GEN = 4, 128, 16
+# phases 41 and 43: requests over 8 slots, 2 of them refilled (16
+# requests until phases 44-46 and 12 until phases 48-49 needed the time)
+SSM_SLOTS, SSM_REQUESTS, SSM_STOPS = 8, 10, (8, 16, 24, 32)
+# phase 43: the requests served solo (held to the pool; 3 until phases
+# 48-49 needed the time) and through the plain paged read (agreement
+# reported; 4 until phases 44-46 needed the time)
+HYBRID_SOLO, HYBRID_PLAIN_READ = 2, 2
 RECURRENT_PHASES = {SSM_ARCH: (40, "ssm"), HYBRID_ARCH: (42, "hybrid")}
 
 
@@ -4272,11 +4304,13 @@ def hybrid_continuous_phase(torch, dev, model) -> dict:
 
 
 DENSE_PHASES = {"qwen3-14b": 44, "starcoder2-7b": 45, "gemma2-9b": 46}
+VLM_PHASE, VLM_ARCH, AUDIO_PHASE, AUDIO_ARCH = (48, "paligemma-3b", 49,
+                                                "musicgen-medium")
 DENSE_BATCH, DENSE_PROMPT, DENSE_GEN = 4, 32, 16     # phase 4's workload
 DENSE_PLAIN_GEN = 4          # tokens of the eager and plain comparison runs
 DENSE_ENTRY_BYTES = 2 * 2 ** 30    # allocated at a dense phase's entry
 DENSE_QUEUE = 8              # phase 9's first requests, phase 46's queues
-DENSE_SOLO = 2
+DENSE_SOLO = 1               # 2 until phases 48-49 needed the time
 
 
 def gc_collect(torch) -> None:
@@ -4396,11 +4430,18 @@ def times_dense_layer(torch, dev, cfg, packed) -> dict:
     return rows
 
 
+def served_frontend(cfg) -> int:
+    """Frontend tokens ``serve`` prefills ahead of each prompt: the vlm's
+    (paligemma's 256), none for the other families."""
+    return cfg.n_frontend_tokens if cfg.family == "vlm" else 0
+
+
 def dense_lockstep_phase(torch, dev, arch: str, raw_hook=None) -> tuple:
-    """Phases 44 (qwen3-14b), 45 (starcoder2-7b), 46 (gemma2-9b) and 47
-    (qwen2-moe-a2.7b, with the moe's step record and ``raw_hook`` run on
-    the raw weights): the configs at full width and depth, random
-    weights from seed 0,
+    """Phases 44 (qwen3-14b), 45 (starcoder2-7b), 46 (gemma2-9b), 47
+    (qwen2-moe-a2.7b, with the moe's step record), 48 (paligemma-3b, its
+    256 frontend embeddings ahead of each prompt) and 49
+    (musicgen-medium), ``raw_hook`` run on the raw weights: the configs
+    at full width and depth, random weights from seed 0,
     packed and fused, prototype macro, phase 4's workload (batch 4,
     prompt 32, 16 generated).  One pack (``_dense_model``: entry under
     2 GB, init and pack seconds and peaks, each raw projection released
@@ -4420,7 +4461,7 @@ def dense_lockstep_phase(torch, dev, arch: str, raw_hook=None) -> tuple:
     from repro_torch.launch.serve import decode_body, serve
     from repro_torch.models import lm
 
-    phase = DENSE_PHASES.get(arch, MOE_PHASE)
+    phase = PHASE_OF[arch]
     model = _dense_model(torch, dev, arch, phase, raw_hook)
     cfg, packed, mem = model
     n_fwd = _macro_gemms_per_forward(packed, cfg)
@@ -4475,12 +4516,15 @@ def dense_lockstep_phase(torch, dev, arch: str, raw_hook=None) -> tuple:
     check(not any(p_["launches"].values()),
           f"phase {phase}: the plain run launched kernels")
     # one captured decode step: its kernel nodes, a traced replay, its ms
+    n_fe = served_frontend(cfg)
     with torch.inference_mode():
-        max_seq = DENSE_PROMPT + DENSE_GEN
+        max_seq = DENSE_PROMPT + DENSE_GEN + n_fe
         cache = lm.init_cache(cfg, DENSE_BATCH, max_seq, device=dev)
         prompt = torch.zeros((DENSE_BATCH, DENSE_PROMPT), dtype=torch.int64,
                              device=dev)
-        _, cache = lm.prefill(packed, cfg, prompt, cache)
+        fe = (torch.zeros((DENSE_BATCH, n_fe, cfg.d_model),
+                          dtype=torch.bfloat16, device=dev) if n_fe else None)
+        _, cache = lm.prefill(packed, cfg, prompt, cache, fe)
         tok = prompt[:, :1].clone()
         out = torch.zeros((DENSE_BATCH, max_seq), dtype=torch.int64,
                           device=dev)
@@ -4510,6 +4554,8 @@ def dense_lockstep_phase(torch, dev, arch: str, raw_hook=None) -> tuple:
           "softcaps": [cfg.attn_softcap, cfg.logit_softcap],
           "window": cfg.sliding_window, "tied": cfg.tie_embeddings,
           "batch": DENSE_BATCH, "prompt_len": DENSE_PROMPT, "gen": DENSE_GEN,
+          "frontend_tokens": n_fe, "prefix_lm": cfg.prefix_lm,
+          "prefill_m": DENSE_BATCH * (DENSE_PROMPT + n_fe),
           "macro_gemms_per_forward": n_fwd, "served": served,
           "memory": mem,
           "compared_tokens": DENSE_PLAIN_GEN,
@@ -4552,23 +4598,26 @@ def dense_paged_queue(cfg, packed) -> tuple:
                               stop_lengths=DENSE_STOPS, seed=0))
 
 
-def dense_queue_phase(torch, dev, model) -> dict:
-    """Phase 46 (b): gemma2-9b continuous batching over phase 9's first 8
-    requests (prompts of 64, stops 8-32) in 8 slots, captured, on phase
-    46's pack: contiguous, pool tokens == the lock-step waves' (gated);
-    paged as phase 10 (blocks of 16, chunks of 32): 42 row-3 launches a
-    pooled step (G 2, Dh 256, softcap 50, the 4,096 window on the local
-    layers), refcounts drained, the pool == solo runs of requests 0-1
-    (gated); paged == contiguous reported, not gated (as phase 10); the
-    paged queue served again (the same tokens, gated) with its 10th
-    pooled step traced: row 3's device time in a replayed step
-    (``pooled_step_tracer``).  Returns the launches by path of rows
-    1-3."""
+def dense_queue_phase(torch, dev, model, arch: str = "gemma2-9b",
+                      trace: bool = True) -> dict:
+    """Phase 46 (b) (gemma2-9b) and 49 (b) (musicgen-medium): continuous
+    batching over phase 9's first 8 requests (prompts of 64, stops 8-32)
+    in 8 slots, captured, on the phase's pack: contiguous, pool tokens ==
+    the lock-step waves' (gated); paged as phase 10 (blocks of 16, chunks
+    of 32): a row-3 launch a layer a pooled step (gemma2-9b: G 2, Dh 256,
+    softcap 50, the 4,096 window on the local layers; musicgen-medium: G
+    1, Dh 64), refcounts drained, the pool == solo runs of its first
+    DENSE_SOLO requests (gated); paged == contiguous reported, not gated
+    (as phase 10).  With ``trace`` the paged queue is served again (the
+    same tokens, gated) with its 10th pooled step traced: row 3's device
+    time in a replayed step (``pooled_step_tracer``).  Returns the
+    launches by path of rows 1-3."""
     from repro_torch.launch.scheduler import (ContinuousBatchingScheduler,
                                               mixed_length_requests)
     from repro_torch.launch.serve import serve_continuous
 
     cfg, packed, _ = model
+    phase = PHASE_OF[arch]
     slots, plen, stops = DENSE_SLOTS, DENSE_PLEN, DENSE_STOPS
     layout = dense_paged_layout()
     common = dict(smoke=False, slots=slots, prompt_len=plen,
@@ -4580,7 +4629,7 @@ def dense_queue_phase(torch, dev, model) -> dict:
                                      prefill_chunk=32))):
         _reset_all_launches()
         torch.cuda.reset_peak_memory_stats()
-        toks[label], st = serve_continuous("gemma2-9b", **kw, **common)
+        toks[label], st = serve_continuous(arch, **kw, **common)
         torch.cuda.synchronize()
         launches[label] = dict(_rows_launches(),
                                paged_attn=_all_launches()["paged_attn"])
@@ -4589,16 +4638,17 @@ def dense_queue_phase(torch, dev, model) -> dict:
         n_steps = st["continuous"]["n_steps"]
         if label == "contiguous":
             check(st.get("tokens_match_lockstep") is True,
-                  "phase 46: contiguous pool tokens != lock-step tokens")
+                  f"phase {phase}: contiguous pool tokens != lock-step "
+                  "tokens")
             check(launches[label]["paged_attn"] == 0,
-                  "phase 46: the contiguous pool launched row 3")
+                  f"phase {phase}: the contiguous pool launched row 3")
         else:
             check(launches[label]["paged_attn"] == cfg.n_layers * n_steps,
-                  f"phase 46: {launches[label]['paged_attn']} row-3 "
+                  f"phase {phase}: {launches[label]['paged_attn']} row-3 "
                   f"launches, expected {cfg.n_layers} x {n_steps} pooled "
                   "steps")
             check(st["paged"]["refcounts_drained"],
-                  "phase 46: refcounts did not drain")
+                  f"phase {phase}: refcounts did not drain")
     reqs = mixed_length_requests(DENSE_QUEUE, plen, cfg.vocab_size,
                                  stop_lengths=stops, seed=0)
     rids = [r.rid for r in reqs[:DENSE_SOLO]]
@@ -4608,23 +4658,28 @@ def dense_queue_phase(torch, dev, model) -> dict:
             packed, cfg, slots=1, prompt_len=plen, max_new_cap=max(stops),
             paged=layout, prefill_chunk=32).run([r]).tokens_by_rid())
     n_solo = _same_tokens(toks["paged"], solo, rids)
-    check(n_solo == DENSE_SOLO, f"phase 46: the paged pool's tokens equal "
-          f"solo runs on {n_solo} of requests 0-{DENSE_SOLO - 1}")
-    # row 3's device time in a replayed pooled step: the paged queue
-    # served again in a scheduler of its own (the same tokens, gated),
-    # its 10th pooled step (every slot live) traced; a run apart, so the
-    # paged run's wall holds no profiler
-    sched, reqs_p = dense_paged_queue(cfg, packed)
-    on_branch, traced = pooled_step_tracer(torch)
-    n_again = _same_tokens(sched.run(reqs_p, on_branch=on_branch)
-                           .tokens_by_rid(), toks["paged"])
-    check(n_again == DENSE_QUEUE, f"phase 46: the traced paged run's "
-          f"tokens equal the paged pool's on {n_again} of {DENSE_QUEUE}")
-    trace = traced()
-    check(trace["row3_kernels"] >= cfg.n_layers,
-          f"phase 46: the traced pooled step ran {trace['row3_kernels']} "
-          f"row-3 kernels, fewer than its {cfg.n_layers} reads")
-    emit({"phase": "dense_gemma2-9b_queues", "ok": True, "phase_no": 46,
+    check(n_solo == DENSE_SOLO, f"phase {phase}: the paged pool's tokens "
+          f"equal solo runs on {n_solo} of requests 0-{DENSE_SOLO - 1}")
+    step_trace = None
+    if trace:
+        # row 3's device time in a replayed pooled step: the paged queue
+        # served again in a scheduler of its own (the same tokens,
+        # gated), its 10th pooled step (every slot live) traced; a run
+        # apart, so the paged run's wall holds no profiler
+        sched, reqs_p = dense_paged_queue(cfg, packed)
+        on_branch, traced = pooled_step_tracer(torch)
+        n_again = _same_tokens(sched.run(reqs_p, on_branch=on_branch)
+                               .tokens_by_rid(), toks["paged"])
+        check(n_again == DENSE_QUEUE, f"phase {phase}: the traced paged "
+              f"run's tokens equal the paged pool's on {n_again} of "
+              f"{DENSE_QUEUE}")
+        step_trace = traced()
+        check(step_trace["row3_kernels"] >= cfg.n_layers,
+              f"phase {phase}: the traced pooled step ran "
+              f"{step_trace['row3_kernels']} row-3 kernels, fewer than its "
+              f"{cfg.n_layers} reads")
+    emit({"phase": f"{cfg.family}_{arch}_queues", "ok": True,
+          "phase_no": phase,
           "requests": DENSE_QUEUE, "prompt_len": plen,
           "stop_lengths": list(stops), "slots": slots,
           "paged_layout": [layout.block_size, layout.n_tbl,
@@ -4633,14 +4688,14 @@ def dense_queue_phase(torch, dev, model) -> dict:
                       "softcap": cfg.attn_softcap,
                       "window": cfg.sliding_window},
           "pool_equals_lockstep": True, "paged_equal_solo": n_solo,
-          "paged_pooled_step_trace": trace,
+          "paged_pooled_step_trace": step_trace,
           "paged_equal_contiguous": _same_tokens(toks["paged"],
                                                  toks["contiguous"]),
           "not_gated_because": "the kernel's float32 P.V can move a bf16 "
                                "activation by one ulp, and in CIM mode an "
                                "ADC code with it",
           "runs": recs})
-    return {f"gemma2-9b_scheduler_{k}": v for k, v in launches.items()}
+    return {f"{arch}_scheduler_{k}": v for k, v in launches.items()}
 
 
 def dense_phases(torch, dev) -> dict:
@@ -4662,9 +4717,46 @@ def dense_phases(torch, dev) -> dict:
 # speculative lock-step run at verify M 18 (row 1), one grouped prefill
 # past T * K 4,096; arctic-480b at smoke size
 MOE_PHASE, MOE_ARCH, MOE_SMOKE_ARCH = 47, "qwen2-moe-a2.7b", "arctic-480b"
-MOE_SOLO = 2
+MOE_SOLO = 1                 # 2 until phases 48-49 needed the time
 MOE_SPEC = (2, 32, 12, 8)        # batch, prompt, generated, draft k: M 18
 MOE_GROUPED_S = 1088             # B 1: T * K = 4,352 routed rows
+PHASE_OF = {**DENSE_PHASES, MOE_ARCH: MOE_PHASE, VLM_ARCH: VLM_PHASE,
+            AUDIO_ARCH: AUDIO_PHASE}
+
+
+def unpacked_hook(torch, arch: str, out: dict):
+    """A ``raw_hook`` for ``dense_lockstep_phase``: the raw weights served
+    unpacked (row 6) before they are packed, 4 tokens, eager; ``out``
+    gets the tokens, launches, peak bytes and times."""
+    from repro_torch.launch.serve import serve
+
+    def run(cfg, params):
+        _reset_all_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t, st = serve(arch, smoke=False, batch=DENSE_BATCH,
+                      prompt_len=DENSE_PROMPT, gen=DENSE_PLAIN_GEN, cim=True,
+                      pack=False, params=params, return_stats=True,
+                      graphs=False)
+        torch.cuda.synchronize()
+        out.update(toks=t, launches=_rows_launches(),
+                   peak=torch.cuda.max_memory_allocated(),
+                   **{k: st[k] for k in ("prefill_s", "decode_s",
+                                         "decode_tok_s")})
+    return run
+
+
+def check_unpacked(phase: int, arch: str, unpacked: dict, n_fwd: int,
+                   kernel_toks) -> dict:
+    """The unpacked run (``unpacked_hook``): 4 macro GEMMs a forward on
+    row 6, tokens == the packed kernel run's (the eager run's first
+    DENSE_PLAIN_GEN tokens).  Returns its launches by path."""
+    check(unpacked["launches"] == {"unpacked": n_fwd * DENSE_PLAIN_GEN,
+                                   "general": 0, "skinny": 0},
+          f"phase {phase}: the unpacked run launched "
+          f"{unpacked['launches']}")
+    check((unpacked["toks"] == kernel_toks).all(),
+          f"phase {phase}: unpacked tokens != packed tokens")
+    return {f"{arch}_serve_unpacked": unpacked["launches"]}
 
 
 def moe_step_record(torch, dev, cfg, packed, bound_bytes) -> dict:
@@ -4743,55 +4835,29 @@ def moe_phase(torch, dev) -> dict:
     kernel nodes, the step's two bounds and the expert GEMMs' time.
     (b) Continuous batching over phase 9's first 8 requests in 8 slots,
     captured: contiguous == the lock-step waves (gated), paged through
-    row 3 (G 1, Dh 128) == solo runs of 2 requests (gated), paged ==
-    contiguous reported.  (c) A speculative lock-step run at verify M 18
-    (row 1) == lock-step tokens (gated).  (d) One prefill of 1 x 1,088
+    row 3 (G 1, Dh 128) == solo runs of MOE_SOLO requests (gated),
+    paged == contiguous reported.  (c) A speculative lock-step run at
+    verify M 18 (row 1) == lock-step tokens (gated).  (d) One prefill of 1 x 1,088
     tokens through the grouped path: its dropped share.  (e) Every peak
     of the phase within the card's memory.  (f) arctic-480b at smoke size
     (its dense residual beside the moe): kernel == plain tokens and
     logits.  Returns the launches by path of rows 1-3."""
-    from repro_torch.kernels.ccim_matmul import kernel as K
     from repro_torch.launch.scheduler import (ContinuousBatchingScheduler,
                                               mixed_length_requests)
-    from repro_torch.launch.serve import (serve, serve_continuous,
-                                          serve_speculative)
+    from repro_torch.launch.serve import serve, serve_continuous
     from repro_torch.models import layers as L
     from repro_torch.models import lm
 
     phase, arch = MOE_PHASE, MOE_ARCH
     unpacked = {}
-
-    def raw_run(cfg, params):
-        """The raw weights served unpacked (row 6) before they are packed:
-        4 tokens, eager."""
-        _reset_all_launches()
-        torch.cuda.reset_peak_memory_stats()
-        t, st = serve(arch, smoke=False, batch=DENSE_BATCH,
-                      prompt_len=DENSE_PROMPT, gen=DENSE_PLAIN_GEN, cim=True,
-                      pack=False, params=params, return_stats=True,
-                      graphs=False)
-        torch.cuda.synchronize()
-        unpacked.update(toks=t, launches=_rows_launches(),
-                        peak=torch.cuda.max_memory_allocated(),
-                        **{k: st[k] for k in ("prefill_s", "decode_s",
-                                              "decode_tok_s")})
-
-    model, paths, kernel_toks = dense_lockstep_phase(torch, dev, arch,
-                                                     raw_run)
+    model, paths, kernel_toks = dense_lockstep_phase(
+        torch, dev, arch, unpacked_hook(torch, arch, unpacked))
     cfg, packed, mem = model
     n_fwd = 4 * cfg.n_layers
     card = torch.cuda.get_device_properties(0).total_memory
     peaks = {"init": mem["init_peak_bytes"], "pack": mem["pack_peak_bytes"],
              "unpacked_serve": unpacked["peak"]}
-    # the unpacked run: 4 macro GEMMs a forward on row 6, tokens == the
-    # packed kernel run's (the eager run's first DENSE_PLAIN_GEN tokens)
-    check(unpacked["launches"] == {"unpacked": n_fwd * DENSE_PLAIN_GEN,
-                                   "general": 0, "skinny": 0},
-          f"phase {phase}: the unpacked run launched "
-          f"{unpacked['launches']}")
-    check((unpacked["toks"] == kernel_toks).all(),
-          f"phase {phase}: unpacked tokens != packed tokens")
-    paths[f"{arch}_serve_unpacked"] = unpacked["launches"]
+    paths.update(check_unpacked(phase, arch, unpacked, n_fwd, kernel_toks))
     # (b) the queues
     slots, plen, stops = DENSE_SLOTS, DENSE_PLEN, DENSE_STOPS
     layout = dense_paged_layout()
@@ -4834,20 +4900,9 @@ def moe_phase(torch, dev) -> dict:
     check(n_solo == MOE_SOLO, f"phase {phase}: the paged pool's tokens "
           f"equal solo runs on {n_solo} of {MOE_SOLO}")
     # (c) speculative lock-step at verify M 18 (row 1)
-    batch, sp_plen, sp_gen, k = MOE_SPEC
-    _reset_all_launches()
     torch.cuda.reset_peak_memory_stats()
-    spec, sst = serve_speculative(arch, smoke=False, batch=batch,
-                                  prompt_len=sp_plen, gen=sp_gen, draft_k=k,
-                                  params=packed, return_stats=True)
-    torch.cuda.synchronize()
+    spec = speculative_record(torch, dev, arch, packed, cfg, phase, paths)
     peaks["speculative"] = torch.cuda.max_memory_allocated()
-    check(sst.get("tokens_match_baseline") is True,
-          f"phase {phase}: speculative tokens != lock-step tokens")
-    paths[f"{arch}_serve_speculative_m{batch * (k + 1)}"] = (
-        spec_launches := _rows_launches())
-    check(spec_launches["skinny"] > 0, f"phase {phase}: the speculative run "
-          "launched no row-1 kernel")
     # (d) one prefill past T * K 4,096: the grouped path and its drops
     restore, drops = _moe_drop_tap(L)
     try:
@@ -4912,15 +4967,7 @@ def moe_phase(torch, dev) -> dict:
                              if k != "toks"},
           "unpacked_equals_packed_tokens": DENSE_PLAIN_GEN,
           "queues": recs,
-          "speculative": {
-              "batch": batch, "prompt_len": sp_plen, "gen": sp_gen,
-              "draft_k": k, "verify_m": batch * (k + 1),
-              "verify_row": 1 if batch * (k + 1) <= K.SKINNY_M else 2,
-              "equals_lockstep": True, "launches": spec_launches,
-              **{key: sst[key] for key in (
-                  "n_rounds", "n_drafted", "n_accepted", "acceptance_rate",
-                  "tokens_per_round", "decode_tok_s", "draft_plan")
-                 if key in sst}},
+          "speculative": spec,
           "grouped_prefill": {
               "batch": 1, "tokens": MOE_GROUPED_S,
               "routed_rows": routed, "dropped_rows": dropped,
@@ -4933,6 +4980,158 @@ def moe_phase(torch, dev) -> dict:
               "logits_equal": True, "launches": kn,
               "seconds": time.perf_counter() - t0,
               "tokens_row0": kt[0].tolist()}})
+    return paths
+
+
+def text_lockstep(torch, dev, packed, cfg, batch: int, plen: int,
+                  gen: int):
+    """Greedy lock-step tokens (batch, gen) of ``serve``'s text prompts
+    (seed 0) with no frontend: ``lm.prefill`` then ``lm.decode_step``,
+    eager, a cache of plen + gen rows -- the chain a text-only
+    ``serve_speculative`` of a vlm is held to."""
+    from repro_torch.data import DataConfig, batch_at
+    from repro_torch.models import lm
+
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=plen,
+                    global_batch=batch, seed=0, d_model=cfg.d_model)
+    toks = torch.from_numpy(batch_at(dc, 0)["tokens"]).to(dev, torch.int64)
+    with torch.inference_mode():
+        cache = lm.init_cache(cfg, batch, plen + gen, device=dev)
+        logits, cache = lm.prefill(packed, cfg, toks, cache)
+        out = [torch.argmax(logits[:, -1], dim=-1)[:, None]]
+        for _ in range(gen - 1):
+            logits, cache = lm.decode_step(packed, cfg, out[-1], cache)
+            out.append(torch.argmax(logits[:, -1], dim=-1)[:, None])
+    return torch.cat(out, dim=1).to(torch.int32).cpu().numpy()
+
+
+def speculative_record(torch, dev, arch: str, packed, cfg, phase: int,
+                       paths: dict) -> dict:
+    """A speculative lock-step run (batch 2, prompt 32, 12 tokens, k 8:
+    verify M 18 on row 1) == lock-step tokens (gated): ``serve``'s for a
+    text model (``compare_baseline``), the text-only greedy chain for the
+    vlm (``text_lockstep``: the speculative driver takes no frontend, as
+    the reference's).  Adds its launches to ``paths``."""
+    from repro_torch.kernels.ccim_matmul import kernel as K
+    from repro_torch.launch.serve import serve_speculative
+
+    batch, plen, gen, k = MOE_SPEC
+    vlm = cfg.family == "vlm"
+    _reset_all_launches()
+    spec, sst = serve_speculative(arch, smoke=False, batch=batch,
+                                  prompt_len=plen, gen=gen, draft_k=k,
+                                  params=packed, return_stats=True,
+                                  compare_baseline=not vlm)
+    torch.cuda.synchronize()
+    launches = _rows_launches()
+    if vlm:
+        same = bool((spec == text_lockstep(torch, dev, packed, cfg, batch,
+                                           plen, gen)).all())
+    else:
+        same = sst.get("tokens_match_baseline") is True
+    check(same, f"phase {phase}: speculative tokens != lock-step tokens")
+    check(launches["skinny"] > 0, f"phase {phase}: the speculative run "
+          "launched no row-1 kernel")
+    paths[f"{arch}_serve_speculative_m{batch * (k + 1)}"] = launches
+    return {"batch": batch, "prompt_len": plen, "gen": gen, "draft_k": k,
+            "verify_m": batch * (k + 1),
+            "verify_row": 1 if batch * (k + 1) <= K.SKINNY_M else 2,
+            "equals_lockstep": "text-only greedy chain" if vlm else "serve",
+            "launches": launches,
+            **{key: sst[key] for key in (
+                "n_rounds", "n_drafted", "n_accepted", "acceptance_rate",
+                "tokens_per_round", "decode_tok_s", "draft_plan")
+               if key in sst}}
+
+
+def vlm_phase(torch, dev) -> dict:
+    """Phase 48: paligemma-3b at full width and depth (18 layers, d_model
+    2,048, 8 query heads padded to 16 over one kv head of 256, GELU, d_ff
+    16,384, tied embeddings over 257,216 words), random weights from seed
+    0, packed and fused on the prototype macro.  (a) The raw weights
+    served unpacked (row 6, 4 tokens) == the packed tokens.  (b) The
+    dense phases' lock-step phase with the data pipeline's 256 frontend
+    embeddings ahead of each prompt under the prefix-LM mask: prefill at
+    M 1,152 on row 2 (72 launches), 72 row-1 launches a decode step,
+    captured == eager == plain, a traced replayed step against one read
+    of the packed layers and the tied embedding.  (c) The prefix mask is
+    live: one prefill without it (``prefix_lm=False``) gives other last
+    logits.  (d) A speculative lock-step run at verify M 18 (row 1) ==
+    the text-only greedy chain (the speculative driver takes no
+    frontend, as the reference's; the scheduler refuses the vlm, as the
+    reference's).  Returns the launches by path of rows 1, 2 and 6."""
+    from repro_torch.data import DataConfig, batch_at
+    from repro_torch.models import lm
+
+    phase, arch = VLM_PHASE, VLM_ARCH
+    unpacked = {}
+    model, paths, kernel_toks = dense_lockstep_phase(
+        torch, dev, arch, unpacked_hook(torch, arch, unpacked))
+    cfg, packed, mem = model
+    n_fwd = 4 * cfg.n_layers
+    paths.update(check_unpacked(phase, arch, unpacked, n_fwd, kernel_toks))
+    # (c) the prefix mask: the first request's prefill with and without
+    n_fe = served_frontend(cfg)
+    b = batch_at(DataConfig(vocab_size=cfg.vocab_size, seq_len=DENSE_PROMPT,
+                            global_batch=DENSE_BATCH, seed=0,
+                            n_frontend_tokens=n_fe, d_model=cfg.d_model), 0)
+    toks = torch.from_numpy(b["tokens"][:1]).to(dev, torch.int64)
+    fe = torch.from_numpy(b["frontend_embs"][:1]).to(dev, torch.bfloat16)
+    last = {}
+    with torch.inference_mode():
+        for flag in (True, False):
+            c = dataclasses.replace(cfg, prefix_lm=flag)
+            cache = lm.init_cache(c, 1, DENSE_PROMPT + n_fe, device=dev)
+            logits, _ = lm.prefill(packed, c, toks, cache, fe)
+            last[flag] = logits[0, -1].float()
+        del cache
+    diff = float((last[True] - last[False]).abs().max())
+    check(bool(torch.isfinite(last[True]).all()) and diff > 0,
+          f"phase {phase}: the prefill without the prefix mask gave the "
+          "same last logits")
+    # (d) speculative, text-only
+    spec = speculative_record(torch, dev, arch, packed, cfg, phase, paths)
+    emit({"phase": f"vlm_{arch}_paths", "ok": True, "phase_no": phase,
+          "unpacked_serve": {k: v for k, v in unpacked.items()
+                             if k != "toks"},
+          "unpacked_equals_packed_tokens": DENSE_PLAIN_GEN,
+          "prefix_mask": {"frontend_tokens": n_fe,
+                          "last_logits_max_diff_without": diff,
+                          "argmax_with": int(last[True].argmax()),
+                          "argmax_without": int(last[False].argmax())},
+          "speculative": spec, "memory": mem,
+          "scheduler": "refused for the vlm, as the reference's"})
+    return paths
+
+
+def audio_phase(torch, dev) -> dict:
+    """Phase 49: musicgen-medium at full width and depth (48 layers,
+    d_model 1,536, 24 MHA heads padded to 32 of 64, GELU, d_ff 6,144,
+    vocab 2,048 over EnCodec tokens), random weights from seed 0, packed
+    and fused on the prototype macro.  (a) The raw weights served
+    unpacked (row 6, 4 tokens) == the packed tokens.  (b) The dense
+    phases' lock-step phase: 192 row-2 launches in prefill and 192 row-1
+    launches a decode step, captured == eager == plain.  (c) Phase 46's
+    queues (``dense_queue_phase``, no trace): contiguous == the lock-step
+    waves, paged through row 3 at G 1, Dh 64 (48 reads a pooled step) ==
+    solo runs of its first DENSE_SOLO requests, paged == contiguous
+    reported.  (d) A
+    speculative lock-step run at verify M 18 (row 1) == ``serve``'s
+    tokens.  Returns the launches by path of rows 1-3 and 6."""
+    phase, arch = AUDIO_PHASE, AUDIO_ARCH
+    unpacked = {}
+    model, paths, kernel_toks = dense_lockstep_phase(
+        torch, dev, arch, unpacked_hook(torch, arch, unpacked))
+    cfg, packed, mem = model
+    paths.update(check_unpacked(phase, arch, unpacked, 4 * cfg.n_layers,
+                                kernel_toks))
+    paths.update(dense_queue_phase(torch, dev, model, arch, trace=False))
+    spec = speculative_record(torch, dev, arch, packed, cfg, phase, paths)
+    emit({"phase": f"audio_{arch}_paths", "ok": True, "phase_no": phase,
+          "unpacked_serve": {k: v for k, v in unpacked.items()
+                             if k != "toks"},
+          "unpacked_equals_packed_tokens": DENSE_PLAIN_GEN,
+          "speculative": spec})
     return paths
 
 
@@ -5271,6 +5470,10 @@ def main() -> int:
     rec_paths.update(dense_phases(torch, dev))
     # -- 47. the moe family: qwen2-moe-a2.7b at full width, arctic smoke ---
     rec_paths.update(moe_phase(torch, dev))
+    # -- 48.-49. the vlm and audio families at full width -------------------
+    for family_phase in (vlm_phase, audio_phase):
+        gc_collect(torch)
+        rec_paths.update(family_phase(torch, dev))
     gc_collect(torch)
     for path, n in rec_paths.items():
         by_path[path] = {k_: n[k_] for k_ in ("general", "skinny")}

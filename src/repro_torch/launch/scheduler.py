@@ -377,6 +377,9 @@ class ContinuousBatchingScheduler:
                  obs: Optional[ObsConfig] = None,
                  graphs: Optional[bool] = None):
         lm.check_family(cfg)
+        if cfg.family == "vlm":
+            raise NotImplementedError(
+                "scheduler is text-only for now (no per-request frontends)")
         if draft_k:
             lm.check_speculative(cfg)
         if draft_k < 0 or draft_k > 31:

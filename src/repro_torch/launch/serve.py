@@ -200,7 +200,11 @@ def serve(arch: str, smoke: bool = True, batch: int = 4, prompt_len: int = 32,
     ``graphs`` (default: on a CUDA device) the first step runs eagerly
     and is captured (``launch/graphs.py``), and the later steps replay
     the graph; ``graphs=False`` runs every step eagerly.  Prefill runs
-    once and stays eager.
+    once and stays eager.  A vlm model (paligemma) prefills the data
+    pipeline's frontend embeddings ahead of each prompt under its
+    prefix-LM mask, as the reference's driver does: the cache holds
+    prompt, generated and frontend tokens, and ``prefill_tok_s`` counts
+    the frontend tokens.
 
     ``params`` injects float params (the reference's ``lm.init`` tree,
     e.g. through ``convert.params_from_jax``) instead of a fresh random
@@ -224,15 +228,22 @@ def serve(arch: str, smoke: bool = True, batch: int = 4, prompt_len: int = 32,
                              noise_seed)
     pack = pack and cim
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=prompt_len,
-                      global_batch=batch, seed=seed, d_model=cfg.d_model)
+                      global_batch=batch, seed=seed,
+                      n_frontend_tokens=cfg.n_frontend_tokens
+                      if cfg.family == "vlm" else 0,
+                      d_model=cfg.d_model)
     with torch.inference_mode():
         made = params is None       # params this call owns: packed in place
         if made:
             params = lm.init(seed, cfg, device=dev)
         else:
             params = lm._to_device(params, dev)
-        tokens = torch.from_numpy(batch_at(dcfg, 0)["tokens"]).to(
-            dev, torch.int64)
+        b = batch_at(dcfg, 0)
+        tokens = torch.from_numpy(b["tokens"]).to(dev, torch.int64)
+        # a vlm's frontend embeddings (the stub's), bf16 ahead of the prompt
+        fe = (torch.from_numpy(b["frontend_embs"]).to(dev, torch.bfloat16)
+              if "frontend_embs" in b else None)
+        n_frontend = fe.shape[1] if fe is not None else 0
 
         _sync(dev)
         t0 = time.perf_counter()
@@ -245,13 +256,14 @@ def serve(arch: str, smoke: bool = True, batch: int = 4, prompt_len: int = 32,
 
         with span("serve.compile", arch=arch):
             _build_kernels(dev, cim)
-        cache = lm.init_cache(cfg, batch, prompt_len + gen, device=dev)
+        cache = lm.init_cache(cfg, batch, prompt_len + gen + n_frontend,
+                              device=dev)
         # sampling draws from its own stream, not the params-init one
         key = sampling_key(seed, dev) if temperature > 0 else None
         _sync(dev)
         t0 = time.perf_counter()
         with span("serve.prefill", arch=arch):
-            logits, cache = lm.prefill(params, cfg, tokens, cache)
+            logits, cache = lm.prefill(params, cfg, tokens, cache, fe)
             tok = lockstep_sample(logits[:, -1], key, temperature)
             _sync(dev)
         t_prefill = time.perf_counter() - t0
@@ -287,7 +299,9 @@ def serve(arch: str, smoke: bool = True, batch: int = 4, prompt_len: int = 32,
                  pack_s=t_pack, pack_bytes=pack_bytes,
                  prefill_s=t_prefill, decode_s=t_decode,
                  decode_tok_s=decode_tok_s,
-                 prefill_tok_s=batch * prompt_len / t_prefill,
+                 # the prefill runs the frontend tokens too
+                 prefill_tok_s=batch * (prompt_len + n_frontend) / t_prefill,
+                 n_frontend=n_frontend,
                  graphs=captured, last_logits=logits[:, -1].float().cpu())
     if captured and gen > 2:
         stats.update(capture_s=step.capture_s,
@@ -420,7 +434,9 @@ def serve_speculative(arch: str, smoke: bool = True, batch: int = 2,
     packed weights as the deployed plan.
     Each round (``speculative_round``) drafts ``draft_k`` tokens, verifies
     all k+1 positions in one forward and keeps the longest agreeing
-    prefix plus a correction.  The host reads each round's emitted tokens
+    prefix plus a correction.  Text-only, as the reference's: a vlm gets
+    no frontend embeddings here, so its tokens are not ``serve``'s (which
+    has them) and ``compare_baseline`` is for the text families.  The host reads each round's emitted tokens
     and counts once.  With ``graphs`` (default: on a CUDA device) the
     round is one captured body, the counterpart of the reference's
     compiled round: the first round runs eagerly and is captured, later

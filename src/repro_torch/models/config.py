@@ -3,7 +3,7 @@
 Counterpart of ``repro/models/config.py``, field for field, except that
 ``cim_use_pallas`` is ``cim_use_kernel`` (the CUDA kernels' routing) and
 ``paged_attn_use_kernel`` routes the paged-attention kernel.
-The dense and ssm families serve in this port so far.
+Every family of the reference serves in this port.
 """
 from __future__ import annotations
 

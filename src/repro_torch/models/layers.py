@@ -654,7 +654,9 @@ def decode_order(G: int) -> str:
 # which holds each measured shape to this rule; the order does not
 # depend on G or Sq apart from their product).
 FLASH_BLOCK_DOTS = frozenset({
-    ("s", 24, 32, 32), ("s", 32, 32, 64), ("s", 64, 32, 48),
+    ("s", 24, 32, 32), ("s", 32, 32, 64), ("s", 48, 32, 12),
+    ("s", 64, 32, 18), ("s", 64, 32, 37), ("s", 64, 32, 48),
+    ("s", 80, 32, 24), ("s", 96, 32, 24), ("s", 96, 32, 32),
     ("s", 128, 32, 64), ("s", 160, 32, 64), ("s", 288, 32, 64),
     ("pv", 16, 64, 32), ("pv", 32, 64, 32), ("pv", 128, 64, 32),
     ("pv", 160, 64, 32)})
@@ -670,6 +672,90 @@ def flash_orders(M: int, Dh: int, blk: int) -> Tuple[str, str]:
         return "lanes", "torch"
     pick = lambda dot: "blocks" if dot in FLASH_BLOCK_DOTS else "pairs"
     return pick(("s", M, Dh, blk)), pick(("pv", M, blk, Dh))
+
+
+# XLA-CPU's float32 sum order of the lm_head on an AVX512-BF16 host: the
+# reference's bf16 head dot runs as a float32 dot of the converted
+# operands, rounded once to bf16, and the order of its sums depends on
+# the rows M, the contraction K, the vocabulary N and whether the head is
+# the tied ``embed.T``.  Measured in ``_logits`` by
+# ``tools/lm_head_dot_probe.py`` at every (K, N) listed, M 1 to 256.  Two
+# rows or more run a GEMM: an untied head of up to ``_HALVES_MAX_M`` rows
+# sums each half of K in order and adds the halves, every other head all
+# of K in order.  One row is a loop that LLVM vectorizes over K in 8-lane
+# chunks (chunk j holds k in [8j, 8j + 8)): the untied head's loop (the
+# final norm fused into it) keeps four 8-lane sums, sum i taking chunks
+# i, i + 4, ..., adds them in order and halves the lanes (4 + 4, 2 + 2,
+# 1 + 1); the tied head's loop (a transposed copy of the embedding fused
+# in) is unrolled whole and adds the chunks into one 8-lane sum in
+# ``_GEMV_CHUNKS``' order, then halves the lanes.
+LM_HEAD_SHAPES = frozenset({(128, 512)})
+_HALVES_MAX_M = 50
+_GEMV_CHUNKS = (0, 4, 8, 12, 5, 1, 9, 13, 6, 2, 10, 14, 7, 3, 11, 15)
+
+
+def lm_head_order(M: int, K: int, N: int, tied: bool) -> str:
+    """The lm_head's sum order on the CPU (``head_sums``' names) for M
+    rows: measured at a listed shape on an AVX512-BF16 host, else torch's
+    own GEMM ("torch"; XLA-CPU's choice there was not measured)."""
+    if not bf16_dot_host() or (K, N) not in LM_HEAD_SHAPES:
+        return "torch"
+    if M == 1:
+        return "gemv" if tied else "vec"
+    return "halves" if not tied and M <= _HALVES_MAX_M else "seq"
+
+
+def _halve_lanes(acc: torch.Tensor) -> torch.Tensor:
+    while acc.shape[-1] > 1:
+        acc = acc[..., :acc.shape[-1] // 2] + acc[..., acc.shape[-1] // 2:]
+    return acc[..., 0]
+
+
+def head_sums(xf: torch.Tensor, wf: torch.Tensor, order: str
+              ) -> torch.Tensor:
+    """xf (M, K) @ wf (K, N), both float32 holding bf16 values, with the
+    exact products summed over K in ``order``: "seq" sums k = 0, 1, ...
+    in order; "halves" sums each half of K so and adds the two; "vec"
+    and "gemv" are the one-row loops' orders over 8-lane chunks (see
+    ``LM_HEAD_SHAPES``); "torch" is torch's float32 GEMM."""
+    K = xf.shape[-1]
+    if order == "torch":
+        return xf @ wf
+    if order in ("vec", "gemv"):
+        q = (xf[:, None, :] * wf.T[None]).unflatten(-1, (K // 8, 8))
+        if order == "gemv":
+            acc = q[..., _GEMV_CHUNKS[0], :]
+            for j in _GEMV_CHUNKS[1:]:
+                acc = acc + q[..., j, :]
+            return _halve_lanes(acc)
+        q = q.unflatten(-2, (K // 32, 4))       # (M, N, K/32, 4, 8)
+        acc = q[..., 0, :, :]
+        for i in range(1, K // 32):
+            acc = acc + q[..., i, :, :]
+        lanes = acc[..., 0, :]
+        for j in range(1, 4):
+            lanes = lanes + acc[..., j, :]
+        return _halve_lanes(lanes)
+    blk = K // 2 if order == "halves" else K
+    out = None
+    for lo in range(0, K, blk):
+        acc = xf[:, lo, None] * wf[lo]
+        for k in range(lo + 1, lo + blk):
+            acc = acc + xf[:, k, None] * wf[k]
+        out = acc if out is None else out + acc
+    return out
+
+
+def head_matmul(x: torch.Tensor, w: torch.Tensor, order: str
+                ) -> torch.Tensor:
+    """x (..., K) @ w (K, N) in x's dtype: on the CPU ``head_sums`` in
+    ``order``, rounded once; on CUDA ``matmul``."""
+    if order == "torch" or x.is_cuda:
+        return matmul(x, w)
+    lead, K = x.shape[:-1], x.shape[-1]
+    out = head_sums(x.reshape(-1, K).to(torch.float32), w.to(torch.float32),
+                    order)
+    return out.to(x.dtype).reshape(*lead, w.shape[-1])
 
 
 def plain_attention(q, k, v, q_pos, k_pos, cfg: ModelConfig, is_local,
@@ -732,8 +818,11 @@ def attention_apply(
     path: str = "attn",
     block_table: Optional[torch.Tensor] = None,  # (B, n_tbl) int32: paged
     write_mask: Optional[torch.Tensor] = None,   # (B,) bool: rows that write
+    n_prefix: int = 0,              # keys below it seen by every query
 ):
-    """Returns (out (B, S, D), new_kv or None).
+    """Returns (out (B, S, D), new_kv or None).  Every query sees the keys
+    at positions below ``n_prefix`` (the vlm's prefix-LM mask: its
+    frontend tokens attend to each other both ways); the others causally.
 
     With a contiguous ``kv_cache`` ((B, Smax, Hkv, Dh) each) row b writes
     its S new entries at ``cache_pos[b]`` IN PLACE (the reference returns
@@ -803,11 +892,11 @@ def attention_apply(
         k_full, v_full = k, v
 
     if cfg.attn_impl == "flash" and S > 1:
-        out = flash_attention(cfg, 0, q, k_full, v_full, positions, k_pos,
-                              is_local)
+        out = flash_attention(cfg, n_prefix, q, k_full, v_full, positions,
+                              k_pos, is_local)
     else:
         out = plain_attention(q, k_full, v_full, positions, k_pos, cfg,
-                              is_local)
+                              is_local, n_prefix)
     return _attn_out(p, out, cfg, B, S, path), new_kv
 
 

@@ -1,20 +1,21 @@
-"""Decoder LM assembly, dense, moe, SSM and hybrid families: init,
-packing, prefill, decode, and the slot-level cache ops of continuous
-batching.
+"""Decoder LM assembly for every family of the reference: init, packing,
+prefill, decode, and the slot-level cache ops of continuous batching.
 
-Counterpart of ``repro/models/lm.py`` (the dense family, [attn, mlp] x L;
+Counterpart of ``repro/models/lm.py``: the dense family, [attn, mlp] x L;
 the moe family, [attn, moe] x L, with arctic's dense residual mlp beside
 the moe where ``d_ff`` is set; the ssm family, [mamba2] x L; the hybrid
 family, groups of ``shared_attn_period`` mamba2 layers each followed by
-ONE shared attn + mlp block, zamba2; vlm and audio are not ported and
-raise ``NotImplementedError``):
+ONE shared attn + mlp block, zamba2; the vlm and audio families, the
+dense stack over frontend embeddings (a stub's, given by the caller)
+placed ahead of the token embeddings, which the vlm's prefix-LM mask
+lets attend to each other both ways (paligemma):
 
   init(key, cfg, device=None)             -> params
   pack_cim_params(params, cfg, device=None) -> packed params
   iter_packable_paths(params)             -> plan path -> leaf shape
-  forward(params, cfg, tokens)            -> logits, aux (no cache)
+  forward(params, cfg, tokens, frontend_embs=None) -> logits, aux
   init_cache / init_paged_cache           -> contiguous / paged KV cache
-  prefill(params, cfg, tokens, cache)     -> logits, cache
+  prefill(params, cfg, tokens, cache, frontend_embs=None) -> logits, cache
   decode_step(params, cfg, token, cache, live=None) -> logits, cache
   verify_step(params, cfg, tokens, cache, live=None) -> logits, cache
   prefill_into_slot / prefill_chunk_into_slot / reset_slot
@@ -51,12 +52,12 @@ def torch_dtype(name: str) -> torch.dtype:
             "float16": torch.float16}[name]
 
 
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 RECURRENT_FAMILIES = ("ssm", "hybrid")     # carry SSM and conv state
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """Refuse the families the port does not serve yet."""
+    """Refuse a family the port does not know."""
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ported: "
@@ -302,23 +303,38 @@ def _layer(tree, i: int):
 
 
 
-def _embed(p, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    return p["embed"][tokens]
+def _embed(p, cfg: ModelConfig, tokens: torch.Tensor,
+           frontend_embs: Optional[torch.Tensor] = None
+           ) -> Tuple[torch.Tensor, int]:
+    """(embeddings (B, S, D), n_prefix): the tokens' embeddings, with a
+    vlm or audio model's ``frontend_embs`` (B, F, D) cast to the model
+    dtype ahead of them; ``n_prefix`` is F under the prefix-LM mask
+    (``cfg.prefix_lm``), else 0."""
+    x = p["embed"][tokens]
+    if cfg.family in ("vlm", "audio") and frontend_embs is not None:
+        x = torch.cat([frontend_embs.to(device=x.device, dtype=x.dtype), x],
+                      dim=1)
+    n_prefix = (frontend_embs.shape[1]
+                if cfg.prefix_lm and frontend_embs is not None else 0)
+    return x, n_prefix
 
 
 def _logits(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """logits of the final hidden ``x``: the model's dtype, or the float32
     residual sum a hybrid's last shared block leaves unrounded (see
-    ``_attn_block``)."""
+    ``_attn_block``).  On the CPU the head's float32 sums take XLA-CPU's
+    order for the call's rows (``layers.lm_head_order``)."""
     x = L.rms_norm(x, p["ln_f"], cfg.norm_eps).to(torch_dtype(cfg.dtype))
     head = p["embed"].T if cfg.tie_embeddings else p["lm_head"]
-    logits = L.matmul(x, head.to(x.dtype))
+    M = x.numel() // x.shape[-1]
+    order = L.lm_head_order(M, *head.shape, cfg.tie_embeddings)
+    logits = L.head_matmul(x, head.to(x.dtype), order)
     return L.softcap(logits.to(torch.float32), cfg.logit_softcap)
 
 
 def _attn_block(blk, x, cfg, positions, is_local, kv=None, cache_pos=None,
                 block_table=None, write_mask=None, prefix="",
-                unrounded=False, aux=None):
+                unrounded=False, aux=None, n_prefix=0):
     """``prefix`` qualifies the plan paths (and so the plan entries and
     the noise keys) of the block's projections: "" for the stacked
     layers ("attn/wq", ...), "shared/" for the hybrid's shared block.
@@ -327,11 +343,12 @@ def _attn_block(blk, x, cfg, positions, is_local, kv=None, cache_pos=None,
     step feeds that sum to the final norm unrounded, as it does inside
     the block (below).  A moe block runs the moe on the normed sum, plus
     arctic's dense mlp on the same input where the block has one; a list
-    ``aux`` receives the moe's aux loss."""
+    ``aux`` receives the moe's aux loss.  Keys below ``n_prefix`` are
+    seen by every query (the vlm's prefix-LM mask)."""
     h, new_kv = L.attention_apply(
         blk["attn"], L.rms_norm(x, blk["ln1"], cfg.norm_eps), cfg, positions,
         is_local, kv_cache=kv, cache_pos=cache_pos, path=prefix + "attn",
-        block_table=block_table, write_mask=write_mask)
+        block_table=block_table, write_mask=write_mask, n_prefix=n_prefix)
     # the reference's compiled step normalizes the UNROUNDED float32 sum
     # x + h (XLA fuses the add into the norm's convert), while the
     # residual stream itself carries the rounded sum; the port does both
@@ -387,14 +404,15 @@ def n_shared_invocations(cfg: ModelConfig) -> int:
 # ---------------------------------------------------------------------------
 
 
-def _hidden(params, cfg: ModelConfig, tokens: torch.Tensor
+def _hidden(params, cfg: ModelConfig, tokens: torch.Tensor,
+            frontend_embs: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The final hidden states, as ``_logits`` takes them (a hybrid ending
     in its shared block leaves them float32, unrounded), and the aux loss:
     the moe layers' summed in layer order, 0 for the other families."""
     check_family(cfg)
     auxs: list = []
-    x = _embed(params, cfg, tokens)
+    x, n_prefix = _embed(params, cfg, tokens, frontend_embs)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     if cfg.family in RECURRENT_FAMILIES:
@@ -409,7 +427,8 @@ def _hidden(params, cfg: ModelConfig, tokens: torch.Tensor
     else:
         for i in range(cfg.n_layers):
             x, _ = _attn_block(_layer(params["layers"], i), x, cfg,
-                               positions, cfg.layer_is_local(i), aux=auxs)
+                               positions, cfg.layer_is_local(i), aux=auxs,
+                               n_prefix=n_prefix)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for a in auxs:
         aux = aux + a
@@ -420,22 +439,25 @@ def hidden_states(params, cfg: ModelConfig, tokens: torch.Tensor,
                   frontend_embs: Optional[torch.Tensor] = None,
                   remat: bool = True
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens (B, S) -> final hidden (B, S, D), aux loss (the moe layers'
-    load-balance loss, 0 for the other families).  ``frontend_embs``
-    feeds only the vision and audio families (none is ported), and
+    """tokens (B, S) -> final hidden (B, F + S, D), aux loss (the moe
+    layers' load-balance loss, 0 for the other families).
+    ``frontend_embs`` (B, F, D) goes ahead of the tokens in the vlm and
+    audio families (F = 0 without it; the other families ignore it), and
     ``remat`` is a training option that changes nothing in a forward
-    pass; both are kept for the reference's signature."""
-    x, aux = _hidden(params, cfg, tokens)
+    pass, kept for the reference's signature."""
+    x, aux = _hidden(params, cfg, tokens, frontend_embs)
     return x.to(torch_dtype(cfg.dtype)), aux
 
 
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
             frontend_embs: Optional[torch.Tensor] = None,
             remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens (B, S) -> logits (B, S, V) float32, aux loss: every position
-    through the model with no cache (causal attention over the tokens
-    themselves), packed or raw weights, under ``cfg``'s plan and noise."""
-    x, aux = _hidden(params, cfg, tokens)
+    """tokens (B, S) -> logits (B, F + S, V) float32, aux loss: every
+    position through the model with no cache (causal attention over the
+    sequence itself, the vlm's frontend prefix seen both ways), packed or
+    raw weights, under ``cfg``'s plan and noise; ``frontend_embs`` as in
+    ``hidden_states``."""
+    x, aux = _hidden(params, cfg, tokens, frontend_embs)
     return _logits(params, cfg, x), aux
 
 
@@ -624,23 +646,27 @@ def _ssm_stack(params, cfg, x, positions, cache, decode: bool,
     return x
 
 
-def _stack(params, cfg, x, positions, cache, cache_pos, write_mask=None):
+def _stack(params, cfg, x, positions, cache, cache_pos, write_mask=None,
+           n_prefix=0):
     tbl = cache.get("table")
     for i in range(cfg.n_layers):
         x, _ = _attn_block(_layer(params["layers"], i), x, cfg, positions,
                            cfg.layer_is_local(i),
                            kv=(cache["k"][i], cache["v"][i]),
                            cache_pos=cache_pos, block_table=tbl,
-                           write_mask=write_mask)
+                           write_mask=write_mask, n_prefix=n_prefix)
     return x
 
 
-def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, cache: Dict
+def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, cache: Dict,
+            frontend_embs: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Dict]:
     """Run the prompt, fill the cache, return last-position logits
-    (B, 1, V) float32."""
+    (B, 1, V) float32.  A vlm or audio model's ``frontend_embs`` (B, F, D)
+    go ahead of the prompt (F + S cache rows; the vlm's prefix-LM mask
+    over the first F)."""
     check_family(cfg)
-    x = _embed(params, cfg, tokens)
+    x, n_prefix = _embed(params, cfg, tokens, frontend_embs)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     cache = dict(cache)
@@ -648,7 +674,8 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, cache: Dict
         x = _ssm_stack(params, cfg, x, positions, cache, decode=False)
     else:
         x = _stack(params, cfg, x, positions, cache,
-                   torch.zeros((B,), dtype=torch.int32, device=x.device))
+                   torch.zeros((B,), dtype=torch.int32, device=x.device),
+                   n_prefix=n_prefix)
     cache["pos"] = torch.full((B,), S, dtype=torch.int32, device=x.device)
     # the last position of the rounded hidden: in the reference the slice
     # stands between a hybrid's final sum and the norm, so none is fused
@@ -657,12 +684,16 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, cache: Dict
 
 
 def prefill_into_slot(params, cfg: ModelConfig, tokens: torch.Tensor,
-                      cache: Dict, slot: int) -> Tuple[torch.Tensor, Dict]:
-    """Prefill ONE request (tokens (1, P)) into pool slot ``slot``: the
-    slot is reset, the prompt runs a batch-1 prefill against the slot's
-    views, and its position is written back; other slots are untouched."""
+                      cache: Dict, slot: int,
+                      frontend_embs: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, Dict]:
+    """Prefill ONE request (tokens (1, P), ``frontend_embs`` (1, F, D) as
+    in ``prefill``) into pool slot ``slot``: the slot is reset, the prompt
+    runs a batch-1 prefill against the slot's views, and its position is
+    written back; other slots are untouched."""
     reset_slot(cache, slot)
-    logits, sub = prefill(params, cfg, tokens, slot_slice(cache, slot))
+    logits, sub = prefill(params, cfg, tokens, slot_slice(cache, slot),
+                          frontend_embs)
     return logits, slot_update(cache, sub, slot)
 
 
@@ -685,7 +716,7 @@ def prefill_chunk_into_slot(params, cfg: ModelConfig, tokens: torch.Tensor,
     the recurrent state, where attention's validity horizon masks it)."""
     check_family(cfg)
     sub = dict(slot_slice(cache, slot))
-    x = _embed(params, cfg, tokens)
+    x, _ = _embed(params, cfg, tokens)
     B, S, _ = x.shape
     pos = sub["pos"]
     positions = pos[:, None] + torch.arange(S, device=x.device)[None, :]
@@ -716,7 +747,7 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, cache: Dict,
     (``launch/graphs.py``) needs.  A caller that steps twice from one
     state clones ``pos`` first."""
     check_family(cfg)
-    x = _embed(params, cfg, token)
+    x, _ = _embed(params, cfg, token)
     pos = cache["pos"]
     wmask = live if (live is not None and is_paged(cache)) else None
     if cfg.family in RECURRENT_FAMILIES:
@@ -757,7 +788,7 @@ def verify_step(params, cfg: ModelConfig, tokens: torch.Tensor, cache: Dict,
     check_speculative(cfg)
     if cfg.attn_impl != "plain":
         cfg = dataclasses.replace(cfg, attn_impl="plain")
-    x = _embed(params, cfg, tokens)
+    x, _ = _embed(params, cfg, tokens)
     B, S, _ = x.shape
     pos = cache["pos"]
     positions = pos[:, None] + torch.arange(S, device=x.device)[None, :]

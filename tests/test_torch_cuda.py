@@ -245,6 +245,42 @@ def test_dense_config_shapes_rows_1_2_equal_plain(dev, m, k, n):
     assert got.dtype == torch.int32 and torch.equal(got, want)
 
 
+# paligemma-3b's and musicgen-medium's four full-width layer GEMMs (K,
+# N): the fused QKV (paligemma: 8 query heads padded to 16 of 256 over
+# one kv head; musicgen: 24 MHA heads padded to 32 of 64), wo, w1+w3 and
+# w2 (paligemma's at K 16,384)
+VLM_AUDIO_SHAPES = ((2048, 4608), (4096, 2048), (2048, 32768),
+                    (16384, 2048), (1536, 6144), (2048, 1536),
+                    (1536, 12288), (6144, 1536))
+
+
+@pytest.mark.parametrize("m", [4, 32, 128, 1152])
+@pytest.mark.parametrize("k,n", VLM_AUDIO_SHAPES)
+def test_vlm_audio_shapes_rows_1_2_6_equal_plain(dev, m, k, n):
+    """The vlm and audio configs' GEMMs on a prototype pack: row 1 at M 4
+    (decode) and 32 (a paged chunk), row 2 at M 128 (musicgen's prefill)
+    and 1,152 (paligemma's: 4 x (256 frontend + 32 prompt) tokens), and
+    row 6 on the raw ints at the same M; ints compared with torch.equal,
+    one launch each."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(m + k + n)
+    x, w, planes, meta = _skinny_case(dev, gen, m, k, n, 16, 2, packed=True)
+    row = (K.ccim_matmul_prepacked_skinny_cuda if m <= K.SKINNY_M
+           else K.ccim_matmul_prepacked_general_cuda)
+    K.reset_launch_counts()
+    got = row(x, w, planes, **meta)
+    torch.cuda.synchronize()
+    assert row.launches == 1
+    want = K.ccim_matmul_prepacked_plain(x, w, planes, **meta)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    xi, wi = _ints(gen, (m, k), dev), _ints(gen, (k, n), dev)
+    K.reset_launch_counts()
+    got = KO.ccim_matmul_int(xi, wi)
+    torch.cuda.synchronize()
+    assert K.ccim_matmul_unpacked_cuda.launches == 1
+    assert torch.equal(got, KO.ccim_matmul_int(xi, wi, use_kernel=False))
+
+
 def test_gemma2_smoke_paged_step_row3_equals_plain(dev, monkeypatch):
     """gemma2-9b's smoke model with its heads widened to Dh 256 (row 3
     does not take the smoke config's 32; G 2, softcap 50, window 64 on
@@ -818,18 +854,23 @@ def test_model_ops_are_row_invariant(dev):
                                          False), a)
 
 
-@pytest.mark.parametrize("width", ["smoke", "full"])
+@pytest.mark.parametrize("width", ["smoke", "full", "paligemma"])
 @pytest.mark.parametrize("plan", [None, "mixed"])
 @pytest.mark.parametrize("batch", [2, 4])
 def test_verify_step_equals_decode_chain_on_card(dev, width, plan, batch):
     """The verify forward over k+1 = 9 positions (M 18 on kernel row 1 at
     batch 2, M 36 on row 2 at batch 4) gives each position the logits of
-    the decode step that would produce it, bit for bit."""
+    the decode step that would produce it, bit for bit: minicpm-2b at
+    smoke and full width, and paligemma-3b's smoke model (G 4 over one kv
+    head, its tied head; speculative decoding is text-only)."""
     from repro_torch.configs import get_config
     from repro_torch.models import lm
     cfg = _smoke_cfg()
     if width == "full":
         cfg = dataclasses.replace(get_config("minicpm-2b"), cim_mode=True)
+    if width == "paligemma":
+        cfg = dataclasses.replace(get_config("paligemma-3b", smoke=True),
+                                  cim_mode=True)
     if plan:
         cfg = dataclasses.replace(cfg, cim_plan=_mixed_plan())
     S, P = 9, 16
@@ -990,6 +1031,35 @@ def test_captured_serve_equals_eager(dev, width):
     assert (te == tc).all() and torch.equal(se["last_logits"],
                                             sc["last_logits"])
     assert le == lc and lc["ccim_matmul_prepacked_skinny_cuda"] > 0
+
+
+@pytest.mark.parametrize("arch", ["paligemma-3b", "musicgen-medium"])
+def test_vlm_audio_smoke_serve_kernel_plain_captured(dev, arch):
+    """The vlm and audio smoke models' lock-step serve (paligemma with its
+    8 frontend embeddings under the prefix mask): through the kernels and
+    through their plain versions, tokens and last logits equal; captured
+    equal to eager in tokens, logits and launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import lm
+    params = lm.init(0, get_config(arch, smoke=True))
+    runs = {}
+    for label, kw in (("plain", dict(use_kernel=False, graphs=False)),
+                      ("eager", dict(graphs=False)),
+                      ("captured", dict(graphs=True))):
+        _reset_launches()
+        toks, st = serve(arch, smoke=True, batch=4, prompt_len=32, gen=8,
+                         cim=True, params=params, return_stats=True, **kw)
+        torch.cuda.synchronize()
+        runs[label] = (toks, st["last_logits"], _all_launches())
+        assert st["n_frontend"] == (8 if arch == "paligemma-3b" else 0)
+    (tp, lp, np_), (te, le, ne), (tc, lc, nc) = (
+        runs[k] for k in ("plain", "eager", "captured"))
+    assert (tp == te).all() and torch.equal(lp, le)
+    assert (te == tc).all() and torch.equal(le, lc)
+    assert ne == nc and ne["ccim_matmul_prepacked_skinny_cuda"] > 0
+    assert ne["ccim_matmul_prepacked_general_cuda"] == 8       # 4 a layer
+    assert not any(np_.values())
 
 
 @pytest.mark.parametrize("width", ["smoke", "full"])

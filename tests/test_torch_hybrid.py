@@ -25,14 +25,15 @@ max|ref|), as the dense family's prefill test holds them:
 
 - ``LOGIT_RESIDUE``, ``LIVE_LOGIT_RESIDUE``: the lm_head's float32
   sums (ROADMAP Queue 3 item 5), in ``lm.forward`` and on the frozen row
-  of a paged pooled step.
+  of a paged pooled step: 0 on an AVX512-BF16 host, where the port's
+  head sums in XLA-CPU's order (``layers.lm_head_order``).
 - ``FLOAT_PREFILL_RESIDUE``: in float mode (no CIM) the shared block's
   flash prefill.  XLA-CPU computes the block's bf16 score and P.V dots
   with a pair-wise bf16 dot (odd product first, the VDPBF16PS / AMX
   order) at some shapes and with 2-lane f32 sums at others.  On an
   AVX512-BF16 host the port's CPU flash takes the same order by shape
-  (``layers.flash_orders``) and the caches are ``==``, one logit one
-  step off; elsewhere it sums in its own order, and a score one float32
+  (``layers.flash_orders``) and the caches and logits are ``==`` (the
+  lm_head in XLA-CPU's order too); elsewhere it sums in its own order, and a score one float32
   ulp apart moves a bf16 output now and then (the counts measured with
   that order).  Everything upstream of the first invocation's attention
   is ``==`` (group 0's states, the first invocation's keys and values);
@@ -67,16 +68,19 @@ torch.set_num_threads(1)
 ARCH = "zamba2-1.2b"
 # forward logits more than 0 apart (of 2 x 16 x 512), by (layers, mode):
 # the lm_head's float32 sum order (ROADMAP Queue 3 item 5)
-LOGIT_RESIDUE = {(4, "float"): 1, (4, "prototype"): 2, (5, "float"): 0,
-                 (5, "prototype"): 0}
+LOGIT_RESIDUE = ({(4, "float"): 0, (4, "prototype"): 0, (5, "float"): 0,
+                  (5, "prototype"): 0} if TL.bf16_dot_host() else
+                 {(4, "float"): 1, (4, "prototype"): 2, (5, "float"): 0,
+                  (5, "prototype"): 0})
 # logits of the FROZEN row (discarded by every caller) apart in a paged
 # pooled step, by paged: the lm_head's float32 sum order of the
 # reference's step with the masked state holds (Queue 3 item 5)
-LIVE_LOGIT_RESIDUE = {False: 0, True: 1}
+LIVE_LOGIT_RESIDUE = ({False: 0, True: 0} if TL.bf16_dot_host() else
+                      {False: 0, True: 1})
 # float-mode prefill (2 x 24 tokens, cache 32) values apart downstream of
 # the first shared block (docstring), by entry
 FLOAT_PREFILL_RESIDUE = ({"ssm": 0, "shared_k": 0, "shared_v": 0,
-                          "logits": 1} if TL.bf16_dot_host() else
+                          "logits": 0} if TL.bf16_dot_host() else
                          {"ssm": 4766, "shared_k": 590, "shared_v": 561,
                           "logits": 603})
 

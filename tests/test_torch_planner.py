@@ -9,7 +9,8 @@ the same assignment), assignments, the sequence of moves (site and
 label) and the revert count.  The profiler's forwards are the same
 macro arithmetic as the reference's (``tests/test_torch_unpacked.py``
 holds ``lm.forward``), and the calibration logits are compared with
-``==`` but for the counted lm_head residue of that file (rtol 2^-7).
+``==`` (``LOGIT_RESIDUE``: 0 on an AVX512-BF16 host, where the port's
+lm_head sums in XLA-CPU's order; elsewhere one, rtol 2^-7).
 The RMS values (the table, move scores, measured RMS) are held to rtol
 1e-4: the port sums the squares of the logits in float64, where the
 reference sums float32 squares in XLA's compiled order (the two differ
@@ -33,12 +34,15 @@ from repro_torch.configs import get_config as tget
 from repro_torch.convert import params_from_jax, plan_from_jax
 from repro_torch.core.ccim import DEFAULT_CONFIG
 from repro_torch.launch import plan_pareto
+from repro_torch.models import layers as tL
 
 # the suite runs several workers at once: one torch thread each
 torch.set_num_threads(1)
 
 SITES = ["mlp/w2", "mlp/w3", "attn/wv"]
 RTOL = 1e-4            # the RMS values' bound (module docstring)
+# calibration logits apart (module docstring)
+LOGIT_RESIDUE = 0 if tL.bf16_dot_host() else 1
 
 
 def _jcands():
@@ -93,7 +97,7 @@ def _close(a: float, b: float) -> bool:
 def test_calibration_and_logits_equal_reference(ref, port):
     np.testing.assert_array_equal(port["toks"], ref["toks"])
     got = port["logits"].numpy()
-    assert int((got != ref["logits"]).sum()) <= 1
+    assert int((got != ref["logits"]).sum()) <= LOGIT_RESIDUE
     np.testing.assert_allclose(got, ref["logits"], rtol=2 ** -7, atol=0)
     plan = JP.DeploymentPlan.from_dict({"mlp/w2": JP.prototype_candidate()
                                         .entry}, default=JP.FLOAT_ENTRY)
@@ -101,7 +105,7 @@ def test_calibration_and_logits_equal_reference(ref, port):
                                         ref["toks"], plan))
     got = TP.planned_logits(port["params"], port["cfg"], port["toks"],
                             plan_from_jax(plan)).numpy()
-    assert int((got != want).sum()) <= 1
+    assert int((got != want).sum()) <= LOGIT_RESIDUE
     np.testing.assert_allclose(got, want, rtol=2 ** -7, atol=0)
 
 

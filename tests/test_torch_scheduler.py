@@ -177,10 +177,10 @@ def test_serve_continuous_drivers():
                                 dict(family="vlm"),
                                 dict(family="hybrid", draft_k=4)])
 def test_unported_options_raise(kw):
-    """Options the port does not serve raise: the families not ported
-    yet, and speculative rounds over the ssm and hybrid families, which
-    the reference refuses too (their recurrent state cannot roll back a
-    draft block).  Speculative rounds on the dense family are served
+    """Options the port does not serve raise, as the reference's
+    scheduler does: the vlm family (no per-request frontends), and
+    speculative rounds over the ssm and hybrid families (their recurrent
+    state cannot roll back a draft block).  Speculative rounds on the dense family are served
     (tests/test_torch_spec_scheduler.py), and so are the moe, ssm and
     hybrid families (tests/test_torch_moe_serve.py, tests/test_torch_ssm.py,
     tests/test_torch_hybrid_scheduler.py),

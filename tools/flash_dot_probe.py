@@ -41,10 +41,13 @@ MEASURED = ((4, 32, 8), (4, 32, 16), (4, 32, 20), (4, 32, 24), (8, 32, 8),
             (8, 32, 24), (8, 32, 25), (8, 32, 26), (8, 32, 27), (8, 32, 28),
             (8, 32, 44), (12, 32, 12), (16, 32, 16), (16, 32, 20),
             (16, 32, 22), (16, 32, 23), (16, 32, 24), (16, 32, 26),
-            (16, 32, 40), (16, 32, 48), (16, 32, 57), (16, 32, 64),
-            (20, 32, 20), (24, 32, 32), (32, 32, 26), (32, 32, 40),
-            (32, 32, 42), (32, 32, 44), (32, 32, 48), (32, 32, 64),
-            (64, 32, 48), (128, 32, 64), (160, 32, 64), (288, 32, 64))
+            (16, 32, 25), (16, 32, 28), (16, 32, 37), (16, 32, 40),
+            (16, 32, 48), (16, 32, 57), (16, 32, 64), (20, 32, 20),
+            (20, 32, 24), (24, 32, 24), (24, 32, 32), (32, 32, 26),
+            (32, 32, 40), (32, 32, 42), (32, 32, 44), (32, 32, 48),
+            (32, 32, 64), (48, 32, 12), (64, 32, 18), (64, 32, 37),
+            (64, 32, 48), (80, 32, 24), (96, 32, 24), (96, 32, 32),
+            (128, 32, 64), (160, 32, 64), (288, 32, 64))
 PV_ORDERS = ("torch", "pairs", "blocks", "lanes")
 
 
