@@ -4,7 +4,9 @@
   python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch`` (all nine
-sources compiled together) and drives its main paths: minicpm-2b at its
+sources compiled together) and drives its main paths: QAT training of
+minicpm-2b at full width through kernel row 6, with checkpoints and a
+resume; minicpm-2b at its
 full width and depth (40 layers, packed and fused, prototype macro),
 and the dense family's qwen3-14b, starcoder2-7b and gemma2-9b, the moe
 family's qwen2-moe-a2.7b (arctic-480b at smoke size), the vlm family's
@@ -234,7 +236,7 @@ failure.  Phases:
  36. serving telemetry at full width (minicpm-2b, prototype macro,
      packed and fused, captured): phase 4's serve with ``metrics=True``
      (its tokens, the four spans, the registry); the paged scheduler on
-     the multi-tenant trace (16 requests with Poisson arrivals at 0.5 an
+     the multi-tenant trace (12 requests with Poisson arrivals at 0.5 an
      iteration, 8 slots, context 128, prompts <= 64, blocks of 16,
      chunks of 32), metrics off and on in turns: tokens equal, one flags
      read per iteration, the ring TTFT equal to ``run_instrumented``'s
@@ -327,7 +329,7 @@ failure.  Phases:
      256, local / global layers with a 4,096 window, attention softcap 50,
      logit softcap 30, GELU, tied embeddings, d_ff 14,336, vocab
      256,000), phase 44's workload and gates (168 and 2,520 launches);
-     then phase 9's first 8 requests over 8 slots, captured: contiguous,
+     then phase 9's first 6 requests over 8 slots, captured: contiguous,
      pool tokens equal the lock-step waves' (gated); paged as phase 10
      (blocks of 16, chunks of 32), 42 row-3 launches a pooled step at G
      2, Dh 256, softcap 50, refcounts drained, the pool equal to a solo
@@ -368,6 +370,24 @@ failure.  Phases:
      pool == lock-step, paged pool == a solo run of request 0), a
      speculative lock-step run at verify M 18 == lock-step.
 
+ 50. training at full width and depth (in a child process with
+     deterministic cuBLAS, ``python3 chip_smoke.py --training``):
+     minicpm-2b, raw fused weights from seed 0, ``--cim`` on the
+     prototype macro, 6 steps of ``make_train_step`` (the step
+     ``train()`` takes) at its batch 8 x seq 64 from ``batch_at``, each
+     layer and CE chunk recomputed in the backward: 320 row-6 launches a
+     step at M 512, gated per step; the same steps through row 6's plain
+     version under ``torch.use_deterministic_algorithms(True)``, losses
+     and every updated leaf ``==``; each step's wall time, peak bytes,
+     one further step split into forward, backward and AdamW, and one
+     more traced (device busy, idle, top kernels, row 6 beside its
+     bound);
+ 51. fault tolerance: the reference's resume test through ``train`` with
+     ``--cim`` at mamba2-130m's full width and depth (batch 2 x 32): 6
+     steps straight against 3, a failure at step 4 and a resume from
+     the step-3 checkpoint, losses equal (bit for bit reported); the
+     ``--verify`` CLI 0 on the checkpoint, 1 on a truncated copy.
+
 Phase 34 also runs the plan_pareto twin's second arch, mamba2-130m, at
 the reference bench's smoke size and noise seed.
 
@@ -400,7 +420,9 @@ refilled), phases 41 and 43 10 requests (from 12; 2 slots refilled),
 phases 40 and 42 generate 16 tokens (from 32), phase 27 stops its
 requests at a quarter of phase 9's stop lengths (from half), and phases
 43, 46 and 47 hold their paged pools to solo runs of 2, 1 and 1
-requests (from 3, 2 and 2).
+requests (from 3, 2 and 2); to make room for phases 50-51, phase 36 (b)
+serves 12 multi-tenant requests (from 16) and phases 46, 47 and 49
+queue 6 of phase 9's requests (from 8).
 
 The serving drivers replay captured graphs by default on the card
 (``launch/graphs.py``), so phases 9, 11, 22 and 24 serve captured.  A
@@ -3412,7 +3434,8 @@ def figure_twins_phase(torch, dev) -> dict:
 # -- phases 36-37: serving telemetry and the serve_bench twin ----------------
 
 # phase 36 (b): the multi-tenant trace at full width
-MT_REQUESTS, MT_SLOTS, MT_PROMPT, MT_MAX_PROMPT = 16, 8, 128, 64
+# 16 requests until phases 50-51 needed the time
+MT_REQUESTS, MT_SLOTS, MT_PROMPT, MT_MAX_PROMPT = 12, 8, 128, 64
 MT_BS, MT_CHUNK, MT_CAP, MT_RATE = 16, 32, 12, 0.5
 # phase 36 (d): rows 1 and 2 alone, (K, N) at full width
 CLIP_SHAPES = ((2304, 6912), (2304, 11520), (5760, 2304))
@@ -4309,7 +4332,8 @@ VLM_PHASE, VLM_ARCH, AUDIO_PHASE, AUDIO_ARCH = (48, "paligemma-3b", 49,
 DENSE_BATCH, DENSE_PROMPT, DENSE_GEN = 4, 32, 16     # phase 4's workload
 DENSE_PLAIN_GEN = 4          # tokens of the eager and plain comparison runs
 DENSE_ENTRY_BYTES = 2 * 2 ** 30    # allocated at a dense phase's entry
-DENSE_QUEUE = 8              # phase 9's first requests, phase 46's queues
+DENSE_QUEUE = 6              # phase 9's first requests, phase 46's queues
+                             # (8 until phases 50-51 needed the time)
 DENSE_SOLO = 1               # 2 until phases 48-49 needed the time
 
 
@@ -4601,7 +4625,7 @@ def dense_paged_queue(cfg, packed) -> tuple:
 def dense_queue_phase(torch, dev, model, arch: str = "gemma2-9b",
                       trace: bool = True) -> dict:
     """Phase 46 (b) (gemma2-9b) and 49 (b) (musicgen-medium): continuous
-    batching over phase 9's first 8 requests (prompts of 64, stops 8-32)
+    batching over phase 9's first 6 requests (prompts of 64, stops 8-32)
     in 8 slots, captured, on the phase's pack: contiguous, pool tokens ==
     the lock-step waves' (gated); paged as phase 10 (blocks of 16, chunks
     of 32): a row-3 launch a layer a pooled step (gemma2-9b: G 2, Dh 256,
@@ -4833,7 +4857,7 @@ def moe_phase(torch, dev) -> dict:
     phase (``dense_lockstep_phase``): 96 macro GEMMs a forward, captured
     == eager == plain tokens, a traced replayed decode step with its
     kernel nodes, the step's two bounds and the expert GEMMs' time.
-    (b) Continuous batching over phase 9's first 8 requests in 8 slots,
+    (b) Continuous batching over phase 9's first 6 requests in 8 slots,
     captured: contiguous == the lock-step waves (gated), paged through
     row 3 (G 1, Dh 128) == solo runs of MOE_SOLO requests (gated),
     paged == contiguous reported.  (c) A speculative lock-step run at
@@ -5133,6 +5157,302 @@ def audio_phase(torch, dev) -> dict:
           "unpacked_equals_packed_tokens": DENSE_PLAIN_GEN,
           "speculative": spec})
     return paths
+
+
+# -- phases 50-51: training ---------------------------------------------------
+
+TRAIN_PHASE, TRAIN_ARCH, TRAIN_STEPS = 50, "minicpm-2b", 6
+TRAIN_BATCH, TRAIN_SEQ = 8, 64          # train()'s defaults
+RESUME_PHASE, RESUME_ARCH = 51, "mamba2-130m"
+RESUME_BATCH, RESUME_SEQ = 2, 32        # the reference's resume test
+
+
+def _row6_train_bound(params, cfg, m: int) -> dict:
+    """Row 6's bound over one train step: each layer's four raw
+    projections (QKV, wo, w1+w3 and w2, fused along N; K a multiple of
+    16 at these widths) at M rows, run twice (forward and recompute),
+    each input read once and each output written once, the prototype's
+    6 m n k operations (phase 17's count)."""
+    a, f = params["layers"]["attn"], params["layers"]["mlp"]
+    layer = [(a["wq"].shape[1], sum(a[k].shape[2] for k in ("wq", "wk",
+                                                               "wv"))),
+             (a["wo"].shape[1], a["wo"].shape[2]),
+             (f["w1"].shape[1], f["w1"].shape[2] + f["w3"].shape[2]),
+             (f["w2"].shape[1], f["w2"].shape[2])]
+    runs = 2 * cfg.n_layers
+    return _bound(runs * sum(m * k + k * n + 4 * m * n for k, n in layer),
+                  runs * sum(6 * m * n * k for k, n in layer))
+
+
+def _split_step_ms(torch, params, opt, cfg, ocfg, batch) -> dict:
+    """One train step taken as ``make_train_step``'s step takes it, the
+    device synchronized after the forward, the backward and the update:
+    their wall times."""
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw_update, tree_leaves, tree_unflatten
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    torch.cuda.synchronize()
+    t = [time.perf_counter()]
+    loss = lm.lm_loss(params, cfg, batch["tokens"])
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves, grads)]
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    adamw_update(params, tree_unflatten(params, grads), opt, ocfg)
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    return {"forward_ms": 1e3 * (t[1] - t[0]),
+            "backward_ms": 1e3 * (t[2] - t[1]),
+            "adamw_ms": 1e3 * (t[3] - t[2]), "step_ms": 1e3 * (t[3] - t[0])}
+
+
+def train_phase(torch, dev) -> int:
+    """Phase 50: QAT training of minicpm-2b at full width and depth (40
+    layers, d_model 2,304, 36 heads padded to 48, d_ff 5,760, vocab
+    122,753; raw fused weights from seed 0 on the prototype macro)
+    through ``launch.specs.make_train_step``, the step ``train`` takes,
+    set up as ``train`` sets it up (``lm.init`` from seed 0,
+    ``init_opt_state``, the schedule cut to the run's steps): 6 steps of
+    batch 8 x seq 64 from ``batch_at``, with per-layer and per-CE-chunk
+    recomputation, so row 6 runs every projection at M 512 twice a step
+    (forward and recompute: 320 launches), gated per step.  The same 6
+    steps from the same weights through row 6's plain version
+    (``cim_use_kernel=False``), under
+    ``torch.use_deterministic_algorithms(True)``: every loss and every
+    updated leaf ``==`` (the kernel run's final leaves kept on the card
+    beside the plain run).  Reported: each step's wall time, peak device
+    bytes and losses; then one further step split into forward, backward
+    and AdamW (device synchronized at each), and one more traced (device
+    busy, idle share, top kernels, row 6's device time beside its
+    bound).  Returns row 6's launches of the 6 steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, batch_at
+    from repro_torch.kernels.ccim_matmul import kernel as K
+    from repro_torch.launch.specs import make_train_step, param_count
+    from repro_torch.models import lm
+    from repro_torch.optim import init_opt_state, tree_leaves, tree_unflatten
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), cim_mode=True)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                batch_at(dcfg, s).items()} for s in range(TRAIN_STEPS + 2)]
+    per_step = 2 * 4 * cfg.n_layers          # (QKV, wo, w1+w3, w2) x 2
+    runs, kept = {}, None
+    clock = {"entry": time.time() - T_IMPORT}
+    for label, use_kernel in (("kernel", None), ("plain", False)):
+        gc_collect(torch)
+        torch.cuda.reset_peak_memory_stats()
+        at_entry = torch.cuda.memory_allocated()
+        rcfg = dataclasses.replace(cfg, cim_use_kernel=use_kernel)
+        step_fn, ocfg = make_train_step(rcfg)
+        ocfg = dataclasses.replace(ocfg, total_steps=TRAIN_STEPS,
+                                   warmup=max(1, TRAIN_STEPS // 10))
+        params = lm.init(0, rcfg, device=dev)
+        opt = init_opt_state(params, ocfg)
+        K.reset_launch_counts()
+        losses, step_ms, launches = [], [], []
+        t0 = time.time()
+        for s in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            params, opt, metrics = step_fn(params, opt, batches[s])
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t1))
+            launches.append(K.ccim_matmul_unpacked_cuda.launches)
+        wall = time.time() - t0
+        clock[f"{label}_end"] = time.time() - T_IMPORT
+        want = ([per_step * (i + 1) for i in range(TRAIN_STEPS)]
+                if use_kernel is None else [0] * TRAIN_STEPS)
+        check(launches == want, f"phase {TRAIN_PHASE}: {label} row-6 "
+              f"launches after each step {launches}, expected {want}")
+        check(all(v == v and abs(v) < 1e4 for v in losses),
+              f"phase {TRAIN_PHASE}: non-finite losses {losses}")
+        runs[label] = dict(
+            losses=losses, wall_s=wall, at_entry=at_entry,
+            peak=torch.cuda.max_memory_allocated(), step_ms=step_ms,
+            launches=launches[-1])
+        torch.cuda.reset_peak_memory_stats()
+        if label == "kernel":
+            n_params = param_count(params)
+            bound = _row6_train_bound(params, cfg, TRAIN_BATCH * TRAIN_SEQ)
+            kept = [p.detach() for p in tree_leaves(params)]
+            # two more steps (batches 6 and 7) on a copy: one split into
+            # its parts, one traced
+            params = tree_unflatten(params,
+                                    [p.detach().clone() for p in kept])
+            split = _split_step_ms(torch, params, opt, rcfg, ocfg,
+                                   batches[TRAIN_STEPS])
+            clock["split"] = time.time() - T_IMPORT
+            torch.cuda.synchronize()
+            # device activity only: the step runs ~120,000 host ops, whose
+            # events would take longer to read back than the step itself
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                t1 = time.perf_counter()
+                step_fn(params, opt, batches[TRAIN_STEPS + 1])
+                torch.cuda.synchronize()
+                traced_ms = 1e3 * (time.perf_counter() - t1)
+            clock["traced"] = time.time() - T_IMPORT
+            # row 6 is the raw-fill instance of ``general_kernel``, the
+            # only instance a training step runs
+            trace = dict(step_wall_ms=traced_ms,
+                         peak_beside_kept=torch.cuda.max_memory_allocated(),
+                         **device_breakdown(prof, 1, traced_ms))
+            trace["row6_device_ms"] = trace[
+                "kernels_by_symbol_ms_per_step"]["general_kernel"]
+            trace.update({f"row6_{k}": v for k, v in bound.items()})
+            trace["row6_over_bound"] = (trace["row6_device_ms"]
+                                        / bound["bound_ms"])
+            del prof
+            clock["trace_read"] = time.time() - T_IMPORT
+        else:
+            parted = [i for i, (a, b) in enumerate(
+                zip(kept, tree_leaves(params))) if not torch.equal(a, b)]
+            check(not parted, f"phase {TRAIN_PHASE}: {len(parted)} updated "
+                  "leaves differ between the kernel and the plain run")
+            runs[label]["leaves_equal"] = len(kept)
+        del params, opt
+    got = runs["plain"]["losses"]
+    check(got[0] == runs["kernel"]["losses"][0],
+          f"phase {TRAIN_PHASE}: step 0 loss kernel "
+          f"{runs['kernel']['losses'][0]} != plain {got[0]}")
+    check(got == runs["kernel"]["losses"],
+          f"phase {TRAIN_PHASE}: losses kernel {runs['kernel']['losses']} "
+          f"!= plain {got}")
+    del kept, batches
+    gc_collect(torch)
+    emit({"phase": f"train_{TRAIN_ARCH}", "phase_no": TRAIN_PHASE,
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "heads": [cfg.n_heads, cfg.padded_heads], "d_ff": cfg.d_ff,
+          "vocab": cfg.vocab_size, "params": n_params,
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+          "row6_launches_per_step": per_step, "row6_m": TRAIN_BATCH
+          * TRAIN_SEQ, "deterministic": True,
+          "kernel": runs["kernel"], "plain": runs["plain"],
+          "split_step": split, "traced_step": trace, "losses_equal": True,
+          "clock_s": dict(clock, exit=time.time() - T_IMPORT)})
+    return runs["kernel"]["launches"]
+
+
+def resume_phase(torch, dev) -> int:
+    """Phase 51: fault tolerance on the card, the reference's
+    ``test_resume_is_bitwise_exact`` through the port's ``train`` with
+    ``--cim`` at mamba2-130m's full width and depth (24 layers, d_model
+    768; batch 2 x seq 32 as that test): 6 steps straight against 3, a
+    failure injected at step 4 and a resume from the step-3 checkpoint;
+    the resumed losses equal the straight run's (rtol 1e-5 / atol 1e-6,
+    the reference's; bit for bit reported), then the ``python -m
+    repro_torch.checkpoint --verify`` CLI (its ``main``, in this
+    process) returns 0 on the checkpoint and 1 on a truncated copy.  Row 6 runs 2 x 48 GEMMs a step (13 steps).
+    Returns its launches."""
+    import shutil
+    import tempfile
+    from repro_torch.kernels.ccim_matmul import kernel as K
+    from repro_torch.launch.train import train
+    K.reset_launch_counts()
+    kw = dict(smoke=False, steps=6, batch=RESUME_BATCH, seq=RESUME_SEQ,
+              cim=True, log_every=100, device=dev)
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        d = os.path.join(root, "ck")
+        t0 = time.time()
+        _, _, full = train(RESUME_ARCH, ckpt_dir="", **kw)
+        t_full = time.time() - t0
+        try:
+            train(RESUME_ARCH, ckpt_dir=d, ckpt_every=3, fail_at=4, **kw)
+            fail(f"phase {RESUME_PHASE}: --fail-at 4 did not raise")
+        except RuntimeError as e:
+            check("injected failure" in str(e), f"phase {RESUME_PHASE}: {e}")
+        t1 = time.time()
+        _, _, resumed = train(RESUME_ARCH, ckpt_dir=d, resume=True,
+                              ckpt_every=3, **kw)
+        t_resume = time.time() - t1
+        close = all(abs(a - b) <= 1e-6 + 1e-5 * abs(a)
+                    for a, b in zip(full[3:], resumed))
+        check(len(resumed) == 3 and close,
+              f"phase {RESUME_PHASE}: resumed {resumed} != straight "
+              f"{full[3:]}")
+        from repro_torch.checkpoint.__main__ import main as verify_cli
+        t2 = time.time()
+        ok = verify_cli([d, "--verify"])
+        t_verify = time.time() - t2
+        # a truncated copy of the latest step: meta.json and half the npz
+        step_dir = sorted(x for x in os.listdir(d)
+                          if x.startswith("step_"))[-1]
+        bad = os.path.join(root, "bad")
+        os.makedirs(os.path.join(bad, step_dir))
+        shutil.copy(os.path.join(d, step_dir, "meta.json"),
+                    os.path.join(bad, step_dir, "meta.json"))
+        npz = os.path.join(d, step_dir, "state.npz")
+        with open(npz, "rb") as f:
+            half = f.read(os.path.getsize(npz) // 2)
+        with open(os.path.join(bad, step_dir, "state.npz"), "wb") as f:
+            f.write(half)
+        corrupt = verify_cli([bad, "--verify"])
+        check(ok == 0 and corrupt == 1,
+              f"phase {RESUME_PHASE}: --verify returned {ok} on the "
+              f"checkpoint and {corrupt} on a truncated copy")
+        ckpt_bytes = os.path.getsize(os.path.join(d, step_dir, "state.npz"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    n = K.ccim_matmul_unpacked_cuda.launches
+    check(n == 2 * 2 * 24 * 13, f"phase {RESUME_PHASE}: {n} row-6 "
+          f"launches, expected {2 * 2 * 24 * 13}")
+    emit({"phase": f"train_resume_{RESUME_ARCH}", "phase_no": RESUME_PHASE,
+          "ok": True, "batch": RESUME_BATCH, "seq": RESUME_SEQ,
+          "straight": full, "resumed": resumed,
+          "bitwise_equal": full[3:] == resumed,
+          "straight_s": t_full, "resume_s": t_resume,
+          "checkpoint_bytes": ckpt_bytes, "verify_s": t_verify,
+          "verify_rc": ok, "verify_corrupt_rc": corrupt,
+          "row6_launches": n})
+    return n
+
+
+def training_main() -> int:
+    """Phases 50-51 in a process of their own: deterministic cuBLAS
+    needs ``CUBLAS_WORKSPACE_CONFIG`` before the first cuBLAS call, and
+    the full-width step wants the card to itself.  Prints the phases'
+    records and, last, {"row6": {path: launches}}."""
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, SRC)
+    from repro_torch.kernels import build
+    build.load_all()
+    torch.use_deterministic_algorithms(True)
+    dev = torch.device("cuda")
+    n_train = train_phase(torch, dev)
+    n_resume = resume_phase(torch, dev)
+    print(json.dumps({"row6": {f"train_{TRAIN_ARCH}": n_train,
+                               f"train_resume_{RESUME_ARCH}": n_resume}}),
+          flush=True)
+    return 0
+
+
+def training_phases() -> dict:
+    """Phases 50-51 (``training_main``) in a child process; their records
+    re-emitted here.  Returns row 6's launches by path."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--training"], capture_output=True, text=True,
+                          timeout=900)
+    lines = proc.stdout.strip().splitlines()
+    check(proc.returncode == 0 and lines, "phases 50-51 exited "
+          f"{proc.returncode}: {proc.stderr[-3000:]}")
+    for ln in lines[:-1]:
+        if ln.startswith("{"):
+            rec = json.loads(ln)
+            rec["child_t_s"] = rec.pop("t_s", None)
+            emit(rec)
+    return json.loads(lines[-1])["row6"]
 
 
 def main() -> int:
@@ -5475,6 +5795,8 @@ def main() -> int:
         gc_collect(torch)
         rec_paths.update(family_phase(torch, dev))
     gc_collect(torch)
+    # -- 50.-51. training at full width, checkpoints and resume -----------
+    train_paths = training_phases()
     for path, n in rec_paths.items():
         by_path[path] = {k_: n[k_] for k_ in ("general", "skinny")}
         raw_paths[path] = n
@@ -5541,8 +5863,8 @@ def main() -> int:
              cx_err["complex_general"]),
             ("unpacked", "ccim_matmul_unpacked", src + "ccim_unpacked.cu",
              "src/repro/kernels/ccim_matmul/kernel.py:327",
-             raw_paths["serve_unpacked"]["unpacked"],
-             unpacked["max_abs_err"]),
+             raw_paths["serve_unpacked"]["unpacked"]
+             + sum(train_paths.values()), unpacked["max_abs_err"]),
             ("complex_unpacked", "ccim_complex_unpacked",
              csrc + "ccim_complex_unpacked.cu", ref + "301",
              doa_run["launches"]["complex_unpacked"],
@@ -5562,7 +5884,8 @@ def main() -> int:
         if name == "unpacked":
             table[-1]["launches_by_path"] = {
                 "cim_matmul_raw": unpacked["launches"],
-                **{p: n["unpacked"] for p, n in raw_paths.items()}}
+                **{p: n["unpacked"] for p, n in raw_paths.items()},
+                **train_paths}
     table.append({
         "name": "int8_w8a8", "route": "cuda",
         "source": "src/repro_torch/kernels/int8_matmul/csrc/int8_w8a8.cu",
@@ -5585,4 +5908,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(training_main() if sys.argv[1:] == ["--training"] else main())

@@ -16,7 +16,9 @@ a ``PackedComplexCimWeights``.  ``macro_from_jax`` carries a fabricated
 die (``MacroInstance``) across: the two packages draw their mismatch
 from different generators, so a die is the state two runs must share.
 ``plan_from_jax`` builds the port's ``DeploymentPlan`` from a reference
-plan, entry for entry.  No function here imports the reference.
+plan, entry for entry.  ``opt_state_from_jax`` carries a reference
+AdamW state (step, m, v) across, so one update runs on both sides from
+the same state.  No function here imports the reference.
 """
 from __future__ import annotations
 
@@ -55,6 +57,28 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
         dt = torch.float32 if name in FLOAT32_LEAVES else dtype
         return torch.from_numpy(np.array(v, np.float32)).to(dev, dt)
     return conv(tree)
+
+
+def opt_state_from_jax(state: Dict[str, Any], moment_dtype: str = "float32",
+                       device=None) -> Dict[str, Any]:
+    """Reference ``init_opt_state`` / ``adamw_update`` state (numpy
+    leaves, bfloat16 moments converted to float32 by the caller) -> the
+    port's: ``step`` a 0-d int32, ``m`` and ``v`` in ``moment_dtype``."""
+    dev = resolve_device(device)
+    mdt = torch_dtype(moment_dtype)
+
+    def conv(v):
+        if isinstance(v, dict):
+            return {k: conv(x) for k, x in v.items()}
+        return torch.from_numpy(np.array(v, np.float32)).to(dev, mdt)
+    out = {"step": torch.tensor(int(np.asarray(state["step"])),
+                                dtype=torch.int32, device=dev),
+           "m": conv(state["m"]), "v": conv(state["v"])}
+    if "accum" in state:
+        out["accum"] = conv(state["accum"])
+        out["micro"] = torch.tensor(int(np.asarray(state["micro"])),
+                                    dtype=torch.int32, device=dev)
+    return out
 
 
 def _config(cfg) -> CCIMConfig:

@@ -62,6 +62,11 @@ class PackedCimWeights:
         return self.kernel_w[..., :self.k_dim].transpose(-1, -2).to(
             torch.int32)
 
+    def dequantized(self) -> torch.Tensor:
+        """float32 (..., K, N) dequantized weights, sign * mag * scale
+        (the STE backward's weights through the pack)."""
+        return self.wq().to(torch.float32) * self.scale
+
     @property
     def sign(self) -> torch.Tensor:
         """(..., K, N) int8 in {-1, +1} (the bit-cell sign contents)."""

@@ -46,6 +46,7 @@ the host, so a captured CUDA graph can replay any of them.
 """
 from __future__ import annotations
 
+import functools
 import math
 import struct
 from typing import Sequence, Tuple, Union
@@ -178,6 +179,38 @@ def fma(a: torch.Tensor, b, c) -> torch.Tensor:
     return (a.to(torch.float64) * b + c).to(_F32)
 
 
+class _Analytic(torch.autograd.Function):
+    """An elementwise function whose value is computed operation for
+    operation (bit views, clamps) and whose gradient is the analytic
+    one, ``grad(x, y)`` times the cotangent, as jax's rule gives it."""
+
+    @staticmethod
+    def forward(ctx, x, value, grad):
+        y = value(x)
+        ctx.grad = grad
+        ctx.save_for_backward(x, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        return ctx.grad(g, x, y), None, None
+
+
+def analytic_grad(grad):
+    """Decorator: where autograd records, ``fn(x)`` runs inside
+    ``_Analytic`` with the cotangent rule ``grad(g, x, y)``; elsewhere
+    the plain function runs."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(x):
+            if torch.is_grad_enabled() and x.requires_grad:
+                return _Analytic.apply(x, fn, grad)
+            return fn(x)
+        return call
+    return wrap
+
+
 def _unit(b: torch.Tensor) -> torch.Tensor:
     """Bits -> float32 in [0, 1): the top 23 bits as the mantissa of a
     float in [1, 2), minus 1 (exact)."""
@@ -232,6 +265,7 @@ _LOG1P_NUM = tuple(_f32(h) for h in (
 _LOG1P_SMALL = _f32("3FDA8279A0000000")
 
 
+@analytic_grad(lambda g, x, y: g / x)
 def log(v: torch.Tensor) -> torch.Tensor:
     """XLA's CPU float32 log, operation for operation (its multiply-adds
     fused as the CPU compiler fuses them): v = 2^e * m, m in [sqrt(1/2),
@@ -267,6 +301,7 @@ _EXP_P = tuple(_f32(h) for h in (
     "3FA5553820000000", "3FC5555540000000"))
 
 
+@analytic_grad(lambda g, x, y: g * y)
 def exp(x: torch.Tensor) -> torch.Tensor:
     """XLA's CPU float32 exp, operation for operation (its multiply-adds
     fused as the CPU compiler fuses them): x clamped to [-87.8, 88.8], n =
@@ -302,6 +337,7 @@ _TANH_DEN = tuple(float(np.float32(c)) for c in (
     4.89352518554385e-03))
 
 
+@analytic_grad(lambda g, x, y: (g + g * y) * (1.0 - y))
 def tanh(x: torch.Tensor) -> torch.Tensor:
     """XLA's CPU float32 tanh, operation for operation: x clamped to
     +-7.9988, x * P(x^2) / Q(x^2) with the polynomials' multiply-adds
@@ -319,6 +355,7 @@ def tanh(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() < _TANH_SMALL, x, (xc * num) / den)
 
 
+@analytic_grad(lambda g, x, y: g / (x + 1.0))
 def log1p(x: torch.Tensor) -> torch.Tensor:
     """XLA's CPU float32 log1p: log(1 + x), or for |x| < sqrt(2) - 1
     x - x^2/2 + x^3 * P(x)/Q(x)."""

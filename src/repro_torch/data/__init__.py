@@ -1,1 +1,1 @@
-from .pipeline import DataConfig, batch_at  # noqa: F401
+from .pipeline import DataConfig, Prefetcher, batch_at  # noqa: F401

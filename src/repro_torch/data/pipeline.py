@@ -2,11 +2,14 @@
 
 Counterpart of ``repro/data/pipeline.py``: batch(step) is a pure function
 of (seed, step, shard) through a splitmix-style integer hash, identical
-on every platform, so the port and the reference see the same prompts.
+on every platform, so the port and the reference see the same prompts;
+``Prefetcher`` makes them ahead of the consumer on a host thread.
 """
 from __future__ import annotations
 
 import dataclasses
+import queue
+import threading
 
 import numpy as np
 
@@ -49,3 +52,36 @@ def batch_at(cfg: DataConfig, step: int, shard: int = 0, n_shards: int = 1
         out["frontend_embs"] = (
             (hf % np.uint64(2048)).astype(np.float32) / 1024.0 - 1.0)
     return out
+
+
+class Prefetcher:
+    """Bounded background prefetch of step-indexed batches: ``next()``
+    gives (step, batch) for start_step, start_step + 1, ..."""
+
+    def __init__(self, cfg: DataConfig, start_step: int = 0, depth: int = 2,
+                 shard: int = 0, n_shards: int = 1):
+        self.cfg, self.shard, self.n_shards = cfg, shard, n_shards
+        self._q: "queue.Queue" = queue.Queue(maxsize=depth)
+        self._step = start_step
+        self._stop = threading.Event()
+        self._t = threading.Thread(target=self._run, daemon=True)
+        self._t.start()
+
+    def _run(self):
+        step = self._step
+        while not self._stop.is_set():
+            b = batch_at(self.cfg, step, self.shard, self.n_shards)
+            while not self._stop.is_set():
+                try:
+                    self._q.put((step, b), timeout=0.1)
+                    break
+                except queue.Full:
+                    continue
+            step += 1
+
+    def __next__(self):
+        return self._q.get()
+
+    def close(self):
+        self._stop.set()
+        self._t.join(timeout=2)

@@ -292,6 +292,7 @@ def _rsqrt_fix() -> torch.Tensor:
     return torch.from_numpy(fix.reshape(-1))
 
 
+@prng.analytic_grad(lambda g, x, y: g * (-0.5 * (y / x)))
 def xla_rsqrt(v: torch.Tensor) -> torch.Tensor:
     """rsqrt of float32 ``v`` on the CPU as the reference's compiled code
     takes it.  XLA-CPU's rsqrt is the processor's estimate and a Newton
@@ -301,7 +302,8 @@ def xla_rsqrt(v: torch.Tensor) -> torch.Tensor:
     swept all 2^24 inputs of [1, 4)).  On an AVX-512 host, where it was
     measured, the correctly rounded rsqrt is moved by the table's step at
     every normal input; elsewhere it stays correctly rounded (no other
-    host's estimate was measured)."""
+    host's estimate was measured).  Its gradient is jax's rule for rsqrt,
+    -0.5 * rsqrt(v) / v (the table has no gradient of its own)."""
     r = (1.0 / torch.sqrt(v.to(torch.float64))).to(torch.float32)
     if not avx512f_host():
         return r
@@ -334,6 +336,27 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
         r = xla_rsqrt(ms + eps)
     x = x * r
     return (x * (1.0 + w.to(torch.float32))).to(dt)
+
+
+class _RoundGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dtype):
+        ctx.dtype = dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype).to(g.dtype), None
+
+
+def round_grad(x: torch.Tensor, dtype) -> torch.Tensor:
+    """``x`` unchanged, its cotangent rounded to ``dtype``.  Where the
+    port feeds a float32 value unrounded to keep the reference's compiled
+    forward (XLA fuses a convert away), the reference's graph holds a
+    ``dtype`` value there, and its cotangent is rounded at that point."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _RoundGrad.apply(x, dtype)
+    return x
 
 
 def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
@@ -556,9 +579,82 @@ def _flash_fwd(cfg, n_prefix, q, k, v, q_pos, k_pos, is_local,
     return out, m, l
 
 
+def _flash_bwd(cfg, n_prefix, q, k, v, q_pos, k_pos, is_local, out, m, l,
+               dy):
+    """The reference's block-recomputing flash backward: p is rebuilt
+    block by block from the saved (m, l), so memory stays O(S) in the KV
+    length.  As in the reference, q is scaled in float32 here (the
+    forward scales it in its own dtype) and the scores are recomputed in
+    the forward's sum order (``_lane_scores``); the four dots of a block
+    are float32 einsums."""
+    B, Sq, Hq, Dh = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    blk = min(cfg.flash_block, Sk)
+    s_order, _ = flash_orders(G * Sq, Dh, blk)
+    kb, vb, pb, pad = _flash_blocks(k, v, k_pos, blk)
+    scale = float(np.float32(Dh ** -0.5))
+    qg = q.reshape(B, Sq, Hkv, G, Dh).to(torch.float32) * scale
+    dyg = dy.reshape(B, Sq, Hkv, G, Dh).permute(0, 2, 3, 1, 4).to(
+        torch.float32)                                     # (B,Hkv,G,Sq,Dh)
+    l_safe = torch.clamp_min(l, 1e-30)
+    drow = (dyg * out).sum(dim=-1)                         # (B,Hkv,G,Sq)
+    exp = torch.exp if q.is_cuda else prng.exp
+    dq = torch.zeros((B, Sq, Hkv, G, Dh), dtype=torch.float32,
+                     device=q.device)
+    dks, dvs = [], []
+    for kc, vc, pc in zip(kb, vb, pb):
+        kf, vf = kc.to(torch.float32), vc.to(torch.float32)
+        z = softcap(_lane_scores(qg, kf, s_order), cfg.attn_softcap)
+        msk = _mask(q_pos, pc, is_local, cfg.sliding_window,
+                    n_prefix)[:, None, None]
+        z = torch.where(msk, z, _NEG)
+        p = exp(z - m[..., None]) / l_safe[..., None]      # (B,Hkv,G,Sq,blk)
+        dvs.append(torch.einsum("bhgqk,bhgqd->bkhd", p, dyg))
+        dp = torch.einsum("bhgqd,bkhd->bhgqk", dyg, vf)
+        dz = p * (dp - drow[..., None])
+        if cfg.attn_softcap is not None:
+            # masked BEFORE the tanh' factor: a masked z of -1e30 would
+            # give 0 * inf = NaN
+            factor = 1.0 - (z / cfg.attn_softcap) ** 2
+            dz = dz * torch.where(msk, factor, 0.0)
+        dq = dq + torch.einsum("bhgqk,bkhd->bqhgd", dz, kf)
+        dks.append(torch.einsum("bhgqk,bqhgd->bkhd", dz, qg))
+    dq = (dq * scale).reshape(B, Sq, Hq, Dh).to(q.dtype)
+    dk = torch.cat(dks, dim=1)[:, :Sk].to(k.dtype)
+    dv = torch.cat(dvs, dim=1)[:, :Sk].to(v.dtype)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """``flash_attention`` with the reference's custom VJP: the forward
+    keeps (q, k, v, out, m, l), not the blocks' probabilities."""
+
+    @staticmethod
+    def forward(ctx, cfg, n_prefix, q, k, v, q_pos, k_pos, is_local):
+        out, m, l = _flash_fwd(cfg, n_prefix, q, k, v, q_pos, k_pos,
+                               is_local)
+        ctx.cfg, ctx.n_prefix, ctx.is_local = cfg, n_prefix, is_local
+        ctx.save_for_backward(q, k, v, q_pos, k_pos, out, m, l)
+        B, Sq, Hq, Dh = q.shape
+        return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, Dh).to(q.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        q, k, v, q_pos, k_pos, out, m, l = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(ctx.cfg, ctx.n_prefix, q, k, v, q_pos, k_pos,
+                                ctx.is_local, out, m, l, dy)
+        return None, None, dq, dk, dv, None, None, None
+
+
 def flash_attention(cfg: ModelConfig, n_prefix, q, k, v, q_pos, k_pos,
                     is_local) -> torch.Tensor:
-    """Blocked attention forward, O(S) memory in the KV length."""
+    """Blocked attention, O(S) memory in the KV length, forward and
+    backward (``_FlashAttention`` where autograd records)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(cfg, n_prefix, q, k, v, q_pos, k_pos,
+                                     is_local)
     B, Sq, Hq, Dh = q.shape
     out, _, _ = _flash_fwd(cfg, n_prefix, q, k, v, q_pos, k_pos, is_local)
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, Dh).to(q.dtype)
@@ -931,8 +1027,15 @@ def _silu(x: torch.Tensor) -> torch.Tensor:
     ``F.silu`` rounds once, which flips about a third of the bf16
     results -- and a flipped activation can flip a macro ADC code.  A
     float32 ``x`` on the CPU takes XLA's exp (``prng.exp``)."""
+    return x * _sigmoid(x)
+
+
+@prng.analytic_grad(lambda g, x, y: g * (y * (1.0 - y)))
+def _sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` (``lax.logistic``) as XLA expands it, every op
+    in x's dtype; its gradient is jax's rule g * (y * (1 - y))."""
     f32_cpu = x.dtype == torch.float32 and not x.is_cuda
-    return x * (1.0 / (1.0 + (prng.exp(-x) if f32_cpu else torch.exp(-x))))
+    return 1.0 / (1.0 + (prng.exp(-x) if f32_cpu else torch.exp(-x)))
 
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:

@@ -37,8 +37,10 @@ import dataclasses
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
+from ..core import prng
 from ..core.engine import (CimEngine, FusedPackedCimWeights,
                            PackedCimWeights, pack_cim_layers)
 from . import layers as L
@@ -301,6 +303,28 @@ def _layer(tree, i: int):
     return tree[i]
 
 
+def _unstack(tree, n: int) -> list:
+    """The n layers of a stacked tree as views, through one ``unbind``
+    per leaf: where autograd records, each leaf's gradient is then one
+    stack of the layers' gradients, not n full-size selects."""
+    if isinstance(tree, dict):
+        cols = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: c[i] for k, c in cols.items()} for i in range(n)]
+    if isinstance(tree, (PackedCimWeights, FusedPackedCimWeights)):
+        return [tree.layer(i) for i in range(n)]
+    return list(torch.unbind(tree))
+
+
+def _remat(remat: bool, fn, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` where ``remat`` and
+    autograd records (the reference's ``jax.checkpoint``): its
+    activations are recomputed in the backward, every kernel of it
+    launched a second time."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 
 
 def _embed(p, cfg: ModelConfig, tokens: torch.Tensor,
@@ -354,7 +378,8 @@ def _attn_block(blk, x, cfg, positions, is_local, kv=None, cache_pos=None,
     # residual stream itself carries the rounded sum; the port does both
     xf = x.to(torch.float32) + h.to(torch.float32)
     x = xf.to(x.dtype)
-    hn = L.rms_norm(xf, blk["ln2"], cfg.norm_eps).to(x.dtype)
+    hn = L.rms_norm(L.round_grad(xf, x.dtype), blk["ln2"],
+                    cfg.norm_eps).to(x.dtype)
     if "moe" in blk:
         h, a = L.moe_apply(blk["moe"], hn, cfg, path=prefix + "moe",
                            want_aux=aux is not None)
@@ -405,30 +430,38 @@ def n_shared_invocations(cfg: ModelConfig) -> int:
 
 
 def _hidden(params, cfg: ModelConfig, tokens: torch.Tensor,
-            frontend_embs: Optional[torch.Tensor] = None
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+            frontend_embs: Optional[torch.Tensor] = None,
+            remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """The final hidden states, as ``_logits`` takes them (a hybrid ending
     in its shared block leaves them float32, unrounded), and the aux loss:
-    the moe layers' summed in layer order, 0 for the other families."""
+    the moe layers' summed in layer order, 0 for the other families.
+    ``remat`` recomputes each stacked layer in the backward, as the
+    reference's scanned body is (the hybrid's shared blocks are not)."""
     check_family(cfg)
     auxs: list = []
     x, n_prefix = _embed(params, cfg, tokens, frontend_embs)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    layers = _unstack(params["layers"], cfg.n_layers)
     if cfg.family in RECURRENT_FAMILIES:
         groups = _groups(cfg)
+        mamba = lambda blk, x: _mamba_block(blk, x, cfg)[0]
         for lo, hi, g in groups:
             for i in range(lo, hi):
-                x = _mamba_block(_layer(params["layers"], i), x, cfg)[0]
+                x = _remat(remat, mamba, layers[i], x)
             if g is not None:
                 x, _ = _attn_block(params["shared"], x, cfg, positions,
                                    False, prefix="shared/",
                                    unrounded=hi == groups[-1][1])
     else:
+        def block(i, blk, x):
+            a: list = []
+            x, _ = _attn_block(blk, x, cfg, positions, cfg.layer_is_local(i),
+                               aux=a, n_prefix=n_prefix)
+            return (x, *a)
         for i in range(cfg.n_layers):
-            x, _ = _attn_block(_layer(params["layers"], i), x, cfg,
-                               positions, cfg.layer_is_local(i), aux=auxs,
-                               n_prefix=n_prefix)
+            x, *a = _remat(remat, block, i, layers[i], x)
+            auxs += a
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for a in auxs:
         aux = aux + a
@@ -442,10 +475,10 @@ def hidden_states(params, cfg: ModelConfig, tokens: torch.Tensor,
     """tokens (B, S) -> final hidden (B, F + S, D), aux loss (the moe
     layers' load-balance loss, 0 for the other families).
     ``frontend_embs`` (B, F, D) goes ahead of the tokens in the vlm and
-    audio families (F = 0 without it; the other families ignore it), and
-    ``remat`` is a training option that changes nothing in a forward
-    pass, kept for the reference's signature."""
-    x, aux = _hidden(params, cfg, tokens, frontend_embs)
+    audio families (F = 0 without it; the other families ignore it).
+    ``remat`` (where autograd records) recomputes each stacked layer's
+    forward in the backward; the values are the same either way."""
+    x, aux = _hidden(params, cfg, tokens, frontend_embs, remat)
     return x.to(torch_dtype(cfg.dtype)), aux
 
 
@@ -457,8 +490,71 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
     sequence itself, the vlm's frontend prefix seen both ways), packed or
     raw weights, under ``cfg``'s plan and noise; ``frontend_embs`` as in
     ``hidden_states``."""
-    x, aux = _hidden(params, cfg, tokens, frontend_embs)
+    x, aux = _hidden(params, cfg, tokens, frontend_embs, remat)
     return _logits(params, cfg, x), aux
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+
+CE_TARGET_ELEMS = 2e9  # global fp32 logits elements per CE chunk
+
+
+def _ce_chunk(batch: int, seq: int, vocab: int) -> int:
+    """Vocab/batch-adaptive CE chunk: bound the transient logits tensor to
+    ~CE_TARGET_ELEMS global elements (a power of two, 32 to 1,024, at
+    most ``seq``)."""
+    c = int(CE_TARGET_ELEMS / max(batch * vocab, 1))
+    c = 1 << max(c.bit_length() - 1, 5)  # floor pow2, >= 32
+    return max(32, min(1024, c, seq))
+
+
+def _logsumexp(z: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.logsumexp`` over the last axis, the max held constant; on
+    the CPU with XLA's exp, windowed sum and log."""
+    amax = z.detach().amax(dim=-1, keepdim=True)
+    amax = torch.where(torch.isfinite(amax), amax, 0.0)
+    if z.is_cuda:
+        return torch.log(torch.exp(z - amax).sum(dim=-1)) + amax[..., 0]
+    return prng.log(L._window_sum(prng.exp(z - amax))) + amax[..., 0]
+
+
+def _ce_sum(xc: torch.Tensor, tc: torch.Tensor, head: torch.Tensor,
+            cap: Optional[float]) -> torch.Tensor:
+    """Summed next-token CE of one chunk: xc (B, c, D), targets tc (B, c)
+    with -1 at padded positions."""
+    logits = L.softcap(L.matmul(xc, head).to(torch.float32), cap)
+    sel = torch.gather(logits, -1, tc.clamp_min(0).long()[..., None])[..., 0]
+    valid = (tc >= 0).to(torch.float32)
+    return ((_logsumexp(logits) - sel) * valid).sum()
+
+
+def lm_loss(params, cfg: ModelConfig, tokens: torch.Tensor,
+            frontend_embs: Optional[torch.Tensor] = None,
+            remat: bool = True) -> torch.Tensor:
+    """Next-token CE over the text positions (the frontend prefix
+    excluded), plus the moe's aux loss.  The (B, S, V) logits are never
+    whole: CE runs over sequence chunks of ``_ce_chunk``, each recomputed
+    in the backward under ``remat``, so the transient is (B, c, V)."""
+    x, aux = hidden_states(params, cfg, tokens, frontend_embs, remat)
+    n_front = x.shape[1] - tokens.shape[1]
+    x = L.rms_norm(x[:, n_front:, :], params["ln_f"], cfg.norm_eps)
+    head = (params["embed"].T if cfg.tie_embeddings
+            else params["lm_head"]).to(x.dtype)
+    xs, tgt = x[:, :-1, :], tokens[:, 1:].to(x.device)
+    B, S1, _ = xs.shape
+    c = _ce_chunk(B, S1, cfg.vocab_size)
+    pad = -S1 % c
+    if pad:
+        xs = torch.nn.functional.pad(xs, (0, 0, 0, pad))
+        tgt = torch.nn.functional.pad(tgt, (0, pad), value=-1)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lo in range(0, S1 + pad, c):
+        total = total + _remat(remat, _ce_sum, xs[:, lo:lo + c],
+                               tgt[:, lo:lo + c], head, cfg.logit_softcap)
+    return total / (B * S1) + aux
 
 
 # ---------------------------------------------------------------------------

@@ -75,9 +75,11 @@ def planned_logits(params, cfg: ModelConfig, tokens, plan: DeploymentPlan,
 
 
 def _norm(t: torch.Tensor) -> float:
-    """The 2-norm of every element, summed in float64 (the reference
-    sums float32 squares in its compiled CPU order, which the port does
-    not reproduce: the two agree to float32 rounding)."""
+    """The 2-norm of every element, summed in float64.  The reference
+    sums float32 squares in XLA-CPU's order for a reduction over every
+    axis, which ``tools/rms_order_probe.py`` measured and could not
+    reduce to a rule, so the port does not reproduce it: the two agree
+    to float32 rounding."""
     return float(torch.sqrt((t.to(torch.float64) ** 2).sum()))
 
 

@@ -20,22 +20,38 @@ sampled and noisy serving included; the card's threefry draws and noisy
 GEMM ints to the CPU port's with ``==``.  Rows 1 and 2 count the clipped
 ADC conversions as their plain version does, with ``==``, and the
 telemetry rings a captured step writes equal the eager step's.
+
+Training: a QAT step through row 6 equals the step through its plain
+version with ``==`` under ``torch.use_deterministic_algorithms(True)``,
+which needs cuBLAS's restricted workspace (``CUBLAS_WORKSPACE_CONFIG``
+``:4096:8``, set below before the first cuBLAS call).  It applies to the
+whole process, so every test of this module runs under it.  The card's
+own training branches (the flash backward's exp, the CE's logsumexp, the
+STE's bf16 cuBLAS products, AdamW's sqrt and norm) are held to the CPU
+path, which ``tests/test_torch_train.py`` holds to the reference, at the
+tolerances written beside them.
 """
 import dataclasses
+import os
 
 import pytest
-import torch
 
-from repro_torch.core import ccim, engine
-from repro_torch.core.ccim import CCIMConfig
-from repro_torch.kernels.ccim_complex import kernel as CK
-from repro_torch.kernels.ccim_complex import ops as CO
-from repro_torch.kernels.ccim_matmul import kernel as K
-from repro_torch.kernels.ccim_matmul import ops as KO
-from repro_torch.kernels.int8_matmul import kernel as IK
-from repro_torch.kernels.int8_matmul import ops as IO
-from repro_torch.kernels.paged_attn import kernel as PK
-from repro_torch.kernels.paged_attn import ref as PR
+# deterministic cuBLAS (the training tests' torch.use_deterministic_
+# algorithms) needs this before the process's first cuBLAS call
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import torch  # noqa: E402
+
+from repro_torch.core import ccim, engine  # noqa: E402
+from repro_torch.core.ccim import CCIMConfig  # noqa: E402
+from repro_torch.kernels.ccim_complex import kernel as CK  # noqa: E402
+from repro_torch.kernels.ccim_complex import ops as CO  # noqa: E402
+from repro_torch.kernels.ccim_matmul import kernel as K  # noqa: E402
+from repro_torch.kernels.ccim_matmul import ops as KO  # noqa: E402
+from repro_torch.kernels.int8_matmul import kernel as IK  # noqa: E402
+from repro_torch.kernels.int8_matmul import ops as IO  # noqa: E402
+from repro_torch.kernels.paged_attn import kernel as PK  # noqa: E402
+from repro_torch.kernels.paged_attn import ref as PR  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -1596,3 +1612,169 @@ def test_guarded_server_captures_up_front(dev):
         assert s.watchdog.state == W.RED
     assert logs[0] == logs[1]
     assert logs[0]["final_rung"] == 2
+
+
+@pytest.fixture
+def deterministic():
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _cpu_init(monkeypatch):
+    """``lm.init`` makes its weights on the CPU and copies them to the
+    device asked for, so a card run and a CPU run start from the same
+    weights."""
+    from repro_torch import resolve_device
+    from repro_torch.models import lm
+    from repro_torch.optim import tree_map
+    init = lm.init
+
+    def cpu_init(key, cfg, device=None):
+        dev = resolve_device(device)
+        return tree_map(lambda p: p.to(dev), init(key, cfg, device="cpu"))
+    monkeypatch.setattr(lm, "init", cpu_init)
+
+
+@pytest.mark.parametrize("arch", ["minicpm-2b", "mamba2-130m"])
+def test_train_step_kernel_equals_plain(dev, deterministic, arch,
+                                        monkeypatch):
+    """One QAT train step (forward with per-layer recomputation, STE
+    backward, AdamW) at smoke size through ``train``, on row 6 and on its
+    plain version (``cim_use_kernel=False`` in the config ``train``
+    reads) from the same weights: the loss and every updated leaf and
+    moment ``==``; row 6 launched twice per raw projection (forward and
+    recompute), the plain run none."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as T
+    from repro_torch.optim import tree_leaves
+    out = {}
+    for label, use_kernel in (("kernel", None), ("plain", False)):
+        monkeypatch.setattr(T, "get_config", lambda a, smoke, uk=use_kernel:
+                            dataclasses.replace(get_config(a, smoke=smoke),
+                                                cim_use_kernel=uk))
+        K.reset_launch_counts()
+        params, opt, losses = T.train(arch, smoke=True, steps=1, batch=2,
+                                      seq=32, cim=True, log_every=100,
+                                      device=dev)
+        out[label] = (losses, tree_leaves(params), tree_leaves(opt["m"]),
+                      K.ccim_matmul_unpacked_cuda.launches)
+    (lk, pk, mk, nk), (lp, pp, mp, npl) = out["kernel"], out["plain"]
+    assert lk == lp
+    for a, b in zip(pk + mk, pp + mp):
+        assert torch.equal(a, b)
+    per_layer = 2 if arch == "mamba2-130m" else 4
+    assert nk == 2 * per_layer * get_config(arch, smoke=True).n_layers
+    assert npl == 0
+
+
+# The card against the CPU path (module docstring).  The card sums its
+# products, norms and CE in cuBLAS's and torch's orders where the CPU
+# path takes XLA-CPU's, so bf16 activations part by a step here and
+# there and carry it through the layers.  Measured on an H100 with
+# ``tools/train_parity_probe.py --card``:
+CARD_LOSS_RTOL = 2 ** -12   # lm_loss, relative: at most 1.05e-4
+CARD_GRAD_TOL = 2 ** -5     # of a leaf's largest |g|, the CPU path's
+#                             tolerance against the reference: at most
+#                             1.96e-2
+CARD_ADAM_TOL = 2 ** -20    # float32 AdamW state (the global norm's
+#                             order, the sqrt): at most 1.4e-7
+CARD_TRAIN_ATOL = 2 ** -8   # a loss of the 60-step run, nats: at most
+#                             1.7e-3 (the CPU path against the
+#                             reference over the same steps: 1.7e-3)
+
+
+@pytest.mark.parametrize("arch,cim", [
+    ("minicpm-2b", False), ("minicpm-2b", True),
+    ("gemma2-9b", False),          # softcaps, the tied head, GELU
+    ("mamba2-130m", True),         # the SSD layer under the macro
+    ("qwen2-moe-a2.7b", False),    # the aux loss, the router
+])
+def test_lm_loss_and_grads_on_card_equal_cpu(dev, arch, cim):
+    """``lm.lm_loss`` and every leaf's gradient at smoke size on the card
+    (row 6 under ``--cim``, the flash backward, the chunked CE, the STE's
+    cuBLAS products) against the CPU path from the same weights
+    (``lm.init`` on the CPU, copied) and tokens: the loss within
+    ``CARD_LOSS_RTOL``, each gradient element within ``CARD_GRAD_TOL``
+    of its leaf's largest."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.optim import tree_leaves, tree_map
+    cfg = dataclasses.replace(get_config(arch, smoke=True), cim_mode=cim)
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (2, 32))).long()
+    cpu = lm.init(0, cfg, device="cpu")
+    out = []
+    for params in (cpu, tree_map(lambda p: p.to(dev), cpu)):
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        loss = lm.lm_loss(params, cfg, toks.to(leaves[0].device))
+        grads = torch.autograd.grad(loss, leaves)
+        assert all(g.dtype == p.dtype for g, p in zip(grads, leaves))
+        out.append((float(loss.detach()),
+                    [g.float().cpu() for g in grads]))
+    (want, gw), (got, gc) = out
+    assert abs(got - want) <= CARD_LOSS_RTOL * abs(want), (got, want)
+    for i, (a, b) in enumerate(zip(gc, gw)):
+        atol = CARD_GRAD_TOL * float(b.abs().max())
+        assert float((a - b).abs().max()) <= atol, i
+
+
+@pytest.mark.parametrize("moment_dtype", ["float32", "bfloat16"])
+def test_adamw_on_card_equals_cpu(dev, moment_dtype):
+    """Two AdamW updates (WSD, a first gradient large enough that the
+    global-norm clip acts) from the same parameters and gradients on the
+    card and on the CPU: float32 parameters and moments within
+    ``CARD_ADAM_TOL`` relative or of the leaf's largest, bf16 ones within
+    one bf16 step."""
+    import numpy as np
+    from repro_torch.optim import OptConfig, adamw_update, init_opt_state
+    from repro_torch.optim import tree_leaves
+    rng = np.random.default_rng(6)
+
+    def tree(scale):
+        return {"a": torch.tensor(rng.standard_normal((64, 48)) * scale,
+                                  dtype=torch.bfloat16),
+                "b": {"c": torch.tensor(rng.standard_normal(40) * scale,
+                                        dtype=torch.float32)}}
+    p0, grads = tree(0.1), [tree(3.0), tree(0.05)]
+    cfg = OptConfig(schedule="wsd", warmup=2, total_steps=10,
+                    moment_dtype=moment_dtype)
+    out = []
+    for d in ("cpu", dev):
+        to = lambda t: {"a": t["a"].to(d, copy=True),
+                            "b": {"c": t["b"]["c"].to(d, copy=True)}}
+        p = to(p0)
+        s = init_opt_state(p, cfg)
+        for g in grads:
+            p, s = adamw_update(p, to(g), s, cfg)
+        out.append([t.cpu() for t in tree_leaves(p) + tree_leaves(s["m"])
+                    + tree_leaves(s["v"])])
+    for want, got in zip(*out):
+        assert got.dtype == want.dtype
+        w, g = want.float(), got.float()
+        step = CARD_ADAM_TOL if want.dtype == torch.float32 else 2 ** -7
+        tol = step * torch.maximum(w.abs(), w.abs().max())
+        assert bool(((g - w).abs() <= tol).all()), (want.dtype, w, g)
+
+
+def test_train_loss_decreases_on_card(dev, monkeypatch):
+    """Twin of the reference's ``test_train_loss_decreases``: 60 steps of
+    minicpm-2b at smoke on the card, batch 4 x seq 48, against the same
+    60 steps on the CPU path from the same weights (``lm.init`` on the
+    CPU, copied; ``_cpu_init``).  Each of the card's losses is within
+    ``CARD_TRAIN_ATOL`` of the CPU's, and the reference's criterion holds
+    on the card: the second half's mean loss below the first half's."""
+    from repro_torch.launch.train import train
+    _cpu_init(monkeypatch)
+    kw = dict(smoke=True, steps=60, batch=4, seq=48, log_every=100)
+    _, _, want = train("minicpm-2b", device="cpu", **kw)
+    _, _, got = train("minicpm-2b", device=dev, **kw)
+    got, want = torch.tensor(got), torch.tensor(want)
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= CARD_TRAIN_ATOL, (got, want)
+    assert float(got[30:].mean()) < float(got[:30].mean()), got

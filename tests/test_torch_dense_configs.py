@@ -56,9 +56,11 @@ ARCHS = ("qwen3-14b", "starcoder2-7b", "gemma2-9b")
 # pair-wise bf16 dot or two-lane blocks of 32).  On an AVX512-BF16 host
 # the port takes the same order by shape (``layers.flash_orders``,
 # measured by ``tools/flash_dot_probe.py``; ROADMAP Queue 3 item 8) and
-# one entry remains, one step off (a second, a value of starcoder2-7b's
-# float prefill, was a norm's rsqrt: it goes where the norm takes
-# XLA-CPU's rsqrt, ``layers.xla_rsqrt``, on an AVX-512 host); elsewhere
+# none remains (a value of starcoder2-7b's float prefill was a norm's
+# rsqrt: it goes where the norm takes XLA-CPU's rsqrt,
+# ``layers.xla_rsqrt``, on an AVX-512 host; a logit of its CIM prefill
+# was the lm_head's sum order, ``test_starcoder2_cim_logit_was_the_head_
+# order``); elsewhere
 # the port sums in its
 # own order (8 lanes, torch's), XLA's choice there not measured, and the
 # counts are those measured with that order on an AVX512-BF16 host.  In
@@ -73,7 +75,7 @@ RESIDUE = ({
     ("qwen3-14b", False): {},
     ("qwen3-14b", True): {},
     ("starcoder2-7b", False): {} if tL.avx512f_host() else {"v": 1},
-    ("starcoder2-7b", True): {"logits": 1},
+    ("starcoder2-7b", True): {},
     ("gemma2-9b", False): {},
     ("gemma2-9b", True): {},
 } if tL.bf16_dot_host() else {
@@ -251,6 +253,41 @@ def test_prefill_caches_and_logits_equal_reference(arch, cim):
                      "v": tc["v"].float().numpy(), "logits": tl.numpy()},
                     {"k": _np(jc["k"]), "v": _np(jc["v"]),
                      "logits": np.asarray(jl)})
+
+
+@pytest.mark.skipif(not tL.bf16_dot_host(),
+                    reason="the lm_head's order is the one measured on an "
+                           "AVX512-BF16 host (layers.lm_head_order)")
+def test_starcoder2_cim_logit_was_the_head_order():
+    """The one logit of starcoder2-7b's CIM prefill that stayed one step
+    off (ROADMAP Queue 3 item 8) is the lm_head's float32 sum order, item
+    5's: with the head summed in XLA-CPU's order for its rows
+    (``layers.lm_head_order``: the untied head's halves at M 4) every
+    logit is ``==``; in torch's GEMM order that one logit parts, and the
+    caches and every hidden state before the head are ``==`` either
+    way."""
+    jcfg, tcfg, jp, tp = _model("starcoder2-7b", True)
+    toks = np.random.default_rng(1).integers(0, 512, (4, 80))
+    jl, _ = jax.jit(lambda p, t, c: jlm.prefill(p, jcfg, t, c))(
+        jp, jnp.asarray(toks, jnp.int32), jlm.init_cache(jcfg, 4, 96))
+    want = np.asarray(jl)
+    assert tL.lm_head_order(4, 128, 512, False) == "halves"
+
+    def prefill():
+        with torch.inference_mode():
+            return tlm.prefill(tp, tcfg, torch.tensor(toks),
+                               tlm.init_cache(tcfg, 4, 96, device="cpu"))
+    got, cache = prefill()
+    np.testing.assert_array_equal(got.numpy(), want)
+    orig = tL.lm_head_order
+    try:
+        tL.lm_head_order = lambda *a: "torch"
+        other, cache2 = prefill()
+    finally:
+        tL.lm_head_order = orig
+    assert int((other.numpy() != want).sum()) == 1
+    for k in ("k", "v"):
+        assert torch.equal(cache[k], cache2[k])
 
 
 @pytest.mark.parametrize("cim", [False, True])

@@ -13,9 +13,14 @@ holds ``lm.forward``), and the calibration logits are compared with
 lm_head sums in XLA-CPU's order; elsewhere one, rtol 2^-7).
 The RMS values (the table, move scores, measured RMS) are held to rtol
 1e-4: the port sums the squares of the logits in float64, where the
-reference sums float32 squares in XLA's compiled order (the two differ
-by about 5e-7 relative), and a logit one bf16 step apart in either
-forward moves a site's RMS by up to ~2e-5 relative at this size.
+reference sums float32 squares in XLA-CPU's order for its eager
+``jnp.linalg.norm``.  That order was measured and not reduced to a rule
+(``tools/rms_order_probe.py``: a one-axis sum is XLA's 32-wide windowed
+order on every trial, but the (1, 8, 512) logits' three-axis sum
+matches none of the windowed, sequential or per-axis rules on more than
+2 of 10 trials), so the float64 sum stays (the two differ by about 5e-7
+relative), and a logit one bf16 step apart in either forward moves a
+site's RMS by up to ~2e-5 relative at this size.
 """
 import dataclasses
 
